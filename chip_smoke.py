@@ -12,17 +12,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``nvcc`` per source, all at once) and prints the build seconds and the
    card's ``nvidia-smi`` name and power limit;
 2. parity — each kernel against its plain PyTorch version on the card, at
-   edge-case shapes: exact where the reference is exact, float sums within
-   the stated tolerances, plus bit equality for pad invariance, batched ==
-   per-row and fused == unfused;
+   edge-case shapes: exact where the reference is exact (counts, min, max,
+   top-k values, compacted bytes), float32 sums within 1e-5 of Σ|x| (per
+   row for masked_stats, per bucket for segment_reduce) and m2 within 1e-4
+   relative, plus bit equality for pad invariance, batched == per-row and
+   fused == unfused;
 3. main path — a 10M-row table through a five-cell notebook in a ``cuda``
    session and a ``numpy`` session; answers must agree, every kernel must
    have launched, and no kernel may have failed or fallen back to numpy;
    The notebook then runs once more under torch.profiler, which prints per
    cell the wall time beside the device time in kernels and in copies;
 4. real mode — the first two cells with the background worker running;
-5. timing — each kernel, its plain version and one PyTorch library call at
-   the shapes the main path gave the kernel, beside the card's bound.
+5. main-path shapes — each kernel against its plain version, by the rules
+   of phase 2, at every shape the main path gave it; then the kernel, its
+   plain version and one PyTorch library call timed at the largest of them,
+   beside the card's bound.
 
 The last two lines are a JSON object per kernel and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -64,6 +68,68 @@ def check(cond: bool, msg: str) -> None:
 # --------------------------------------------------------------------------- #
 
 
+def check_stats(torch, got, want, xs, ms, label):
+    """masked_stats rows: count, min, max exact; sum within 1e-5 of the row's
+    Σ|x|; m2 within 1e-4 relative.  Returns max |err| over finite entries."""
+    g, w = got.double(), want.double()
+    scale = torch.where(ms, xs.abs(), 0.0).double().sum(1) + 1e-30
+    check(torch.equal(g[:, [0, 3, 4]], w[:, [0, 3, 4]]), f"masked_stats count/min/max {label}")
+    check(bool(((g[:, 1] - w[:, 1]).abs() <= 1e-5 * scale).all()), f"masked_stats sum {label}")
+    check(bool(((g[:, 2] - w[:, 2]).abs() <= 1e-4 * w[:, 2].abs() + 1e-6).all()),
+          f"masked_stats m2 {label}")
+    fin = torch.isfinite(g) & torch.isfinite(w)
+    return float((g - w)[fin].abs().max()) if bool(fin.any()) else 0.0
+
+
+def check_segment(torch, got, want, keys, vals, valid, nbk, modes, vidx, label):
+    """segment_reduce: counts, min, max exact; each bucket's sum within 1e-5
+    of that bucket's own Σ|x|.  Returns max |err| of the sums."""
+    (gr, gc), (wr, wc) = got, want
+    check(torch.equal(gc, wc), f"segment_reduce counts {label}")
+    err = 0.0
+    for s, mode in enumerate(modes):
+        if mode != "sum":
+            check(torch.equal(gr[s], wr[s]), f"segment_reduce {mode} {label}")
+            continue
+        scale = torch.zeros(nbk, dtype=torch.float64, device=keys.device).index_add_(
+            0, keys.long(), torch.where(valid[vidx[s]], vals[s].abs(), 0.0).double())
+        e = (gr[s].double() - wr[s].double()).abs()
+        check(bool((e <= 1e-5 * scale).all()),
+              f"segment_reduce sum {label}: excess {float((e - 1e-5 * scale).max())}")
+        err = max(err, float(e.max()))
+    return err
+
+
+def check_topk(torch, got, want, label):
+    """topk values exact (== so that +0.0 / -0.0 may trade places)."""
+    check(got.shape == want.shape and bool((got == want).all()), f"topk {label}")
+    return 0.0
+
+
+def check_compact(torch, got, want, label):
+    """filter_compact: the compacted bytes and the counts exact."""
+    (g, gc), (w, wc) = got, want
+    bits = {8: torch.int64, 4: torch.int32, 1: torch.uint8}[g.element_size()]
+    check(torch.equal(g.view(bits), w.view(bits)) and torch.equal(gc, wc),
+          f"filter_compact {label}")
+    return 0.0
+
+
+def kernel_vs_plain(torch, K, name, args, label):
+    """One kernel against its plain version on the same inputs."""
+    mod = K[name]
+    got = getattr(mod, name)(*args)
+    want = getattr(mod, f"{name}_plain")(*args)
+    if name == "masked_stats":
+        return check_stats(torch, got, want, args[0], args[1], label)
+    if name == "segment_reduce":
+        keys, vals, valid, nbk, modes, vidx = args
+        return check_segment(torch, got, want, keys, vals, valid, nbk, modes, vidx, label)
+    if name == "topk":
+        return check_topk(torch, got, want, label)
+    return check_compact(torch, got, want, label)
+
+
 def parity(torch, K, rng, dev):
     """Hold each kernel against its plain version; returns max |err| per kernel."""
     import numpy as np
@@ -74,23 +140,18 @@ def parity(torch, K, rng, dev):
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
-    # -- masked_stats: counts, min, max exact; sum rtol 1e-5 of Σ|x|, m2 rtol 1e-4
+    def note(name, e):
+        errs[name] = max(errs[name], e)
+
+    # -- masked_stats
     for n in (1, 512, 20_000, 16_384 * 3 + 5, 1 << 20):
         x = rng.normal(1e3, 5.0, (4, n)).astype(np.float32)
         x[0, : min(n, 8)] = -0.0
         m = rng.random((4, n)) < 0.8
         m[1] = False  # all-masked row
         xs, ms = t(x), t(m)
+        note("masked_stats", kernel_vs_plain(torch, K, "masked_stats", (xs, ms), f"n={n}"))
         got = ms_k.masked_stats(xs, ms)
-        want = ms_k.masked_stats_plain(xs, ms)
-        scale = np.abs(np.where(m, x, 0)).sum(1) + 1e-30
-        g, w = got.cpu().numpy(), want.cpu().numpy()
-        check(np.array_equal(g[:, [0, 3, 4]], w[:, [0, 3, 4]]), f"masked_stats count/min/max n={n}")
-        check((np.abs(g[:, 1] - w[:, 1]) <= 1e-5 * scale).all(), f"masked_stats sum n={n}")
-        check((np.abs(g[:, 2] - w[:, 2]) <= 1e-4 * np.abs(w[:, 2]) + 1e-6).all(),
-              f"masked_stats m2 n={n}")
-        fin = np.isfinite(g) & np.isfinite(w)
-        errs["masked_stats"] = max(errs["masked_stats"], float(np.abs(g[fin] - w[fin]).max()))
         pad = torch.zeros((4, n), dtype=torch.float32, device=dev)
         padded = ms_k.masked_stats(torch.cat([xs, pad], 1), torch.cat([ms, pad.bool()], 1))
         check(torch.equal(padded, got), f"masked_stats pad invariance n={n}")
@@ -98,27 +159,22 @@ def parity(torch, K, rng, dev):
                           for i in range(4)])
         check(torch.equal(rows, got), f"masked_stats batched == per-row n={n}")
 
-    # -- segment_reduce: counts, min, max exact; sums to tolerance
+    # -- segment_reduce
     for n, nbk in ((1, 1), (2048, 64), (100_003, 1000), (1 << 20, 64)):
         keys = t(rng.integers(0, nbk, n).astype(np.int32))
         vals = t(rng.normal(0.0, 10.0, (3, n)).astype(np.float32))
         valid = t(rng.random((2, n)) < 0.9)
         modes, vidx = ["sum", "min", "max"], [0, 1, 1]
-        gr, gc = sr_k.segment_reduce(keys, vals, valid, nbk, modes, vidx)
-        wr, wc = sr_k.segment_reduce_plain(keys, vals, valid, nbk, modes, vidx)
-        check(torch.equal(gc, wc), f"segment_reduce counts n={n} B={nbk}")
-        check(torch.equal(gr[1:], wr[1:]), f"segment_reduce min/max n={n} B={nbk}")
-        scale = float(vals[0].abs().sum()) + 1e-30
-        e = float((gr[0] - wr[0]).abs().max())
-        check(e <= 1e-5 * scale, f"segment_reduce sum n={n} B={nbk}: {e}")
-        errs["segment_reduce"] = max(errs["segment_reduce"], e)
+        args = (keys, vals, valid, nbk, modes, vidx)
+        note("segment_reduce", kernel_vs_plain(torch, K, "segment_reduce", args, f"n={n} B={nbk}"))
+        gr, gc = sr_k.segment_reduce(*args)
         kp = torch.cat([keys, torch.zeros(n + 5000, dtype=torch.int32, device=dev)])
         vp = torch.cat([vals, torch.ones((3, n + 5000), device=dev)], 1)
         mp = torch.cat([valid, torch.zeros((2, n + 5000), dtype=torch.bool, device=dev)], 1)
         pr, pc = sr_k.segment_reduce(kp, vp, mp, nbk, modes, vidx)
         check(torch.equal(pr, gr) and torch.equal(pc, gc), f"segment_reduce pad invariance n={n}")
 
-    # -- topk: exact values (== so that +0.0 / -0.0 may trade places)
+    # -- topk
     for n, k in ((1, 1), (512, 128), (5000, 20), (1 << 20, 128), (1 << 20, 1)):
         x = rng.normal(0.0, 1.0, (3, n)).astype(np.float32)
         x[0, : min(n, 3)] = [np.inf, -np.inf, -0.0][: min(n, 3)]
@@ -126,30 +182,27 @@ def parity(torch, K, rng, dev):
         xs = t(x)
         for largest in (True, False):
             kk = min(k, n)
+            label = f"n={n} k={kk} largest={largest}"
+            note("topk", kernel_vs_plain(torch, K, "topk", (xs, kk, largest), label))
             got = tk_k.topk(xs, kk, largest)
-            want = tk_k.topk_plain(xs, kk, largest)
-            check(bool((got == want).all()), f"topk n={n} k={kk} largest={largest}")
             sent = float("-inf") if largest else float("inf")
             pad = torch.full((3, n), sent, device=dev)
             check(bool((tk_k.topk(torch.cat([xs, pad], 1), kk, largest) == got).all()),
-                  f"topk pad invariance n={n}")
+                  f"topk pad invariance {label}")
             rows = torch.cat([tk_k.topk(xs[i:i + 1].contiguous(), kk, largest) for i in range(3)])
-            check(bool((rows == got).all()), f"topk batched == per-row n={n}")
+            check(bool((rows == got).all()), f"topk batched == per-row {label}")
 
-    # -- filter_compact: exact bytes for every element width
+    # -- filter_compact: every element width
     for n in (1, 4097, 1 << 20, 4_500_001):  # the last: > 1024 tiles to scan
         for dtype in (torch.float64, torch.int64, torch.int32, torch.float32, torch.bool):
             base = rng.normal(0.0, 1e6, (2, n))
             x = t(base).to(dtype)
+            bits = {8: torch.int64, 4: torch.int32, 1: torch.uint8}[x.element_size()]
             for kind in ("empty", "full", "random"):
                 keep = {"empty": np.zeros(n, bool), "full": np.ones(n, bool),
                         "random": rng.random(n) < 0.5}[kind]
-                kd = t(keep)
-                got, gcnt = fc_k.filter_compact(x, kd, 0)
-                want, wcnt = fc_k.filter_compact_plain(x, kd, 0)
-                bits = {8: torch.int64, 4: torch.int32, 1: torch.uint8}[x.element_size()]
-                check(torch.equal(got.view(bits), want.view(bits)) and torch.equal(gcnt, wcnt),
-                      f"filter_compact {dtype} n={n} keep={kind}")
+                note("filter_compact", kernel_vs_plain(
+                    torch, K, "filter_compact", (x, t(keep), 0), f"{dtype} n={n} keep={kind}"))
                 per = torch.stack([t(rng.random(n) < 0.3) for _ in range(2)])
                 g2, c2 = fc_k.filter_compact(x, per, 0)
                 r0, c0 = fc_k.filter_compact(x[:1].contiguous(), per[0], 0)
@@ -358,22 +411,66 @@ def bound(nbytes, nops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def timings(torch, K, shapes, rng, dev):
+def main_path_inputs(torch, name, shape, rng, dev):
+    """Random inputs of one shape the main path gave a kernel (the shape
+    tuples are those :func:`recorder` keeps)."""
     import numpy as np
 
+    if name == "masked_stats":
+        r, n = shape
+        return (torch.as_tensor(rng.normal(50, 20, (r, n)).astype(np.float32), device=dev),
+                torch.as_tensor(rng.random((r, n)) < 0.9, device=dev))
+    if name == "segment_reduce":
+        n, s, v, nbk, modes, vidx = shape
+        return (torch.as_tensor(rng.integers(0, nbk, n).astype(np.int32), device=dev),
+                torch.as_tensor(rng.normal(0, 1, (s, n)).astype(np.float32), device=dev),
+                torch.as_tensor(rng.random((v, n)) < 0.9, device=dev),
+                nbk, list(modes), list(vidx))
+    if name == "topk":
+        r, n, k, top = shape
+        return (torch.as_tensor(rng.normal(0, 1, (r, n)).astype(np.float32), device=dev), k, top)
+    r, n, esize, shared, fill = shape
+    dt = {1: torch.bool, 4: torch.int32, 8: torch.float64}[esize]
+    return (torch.as_tensor(rng.normal(0, 1, (r, n)), device=dev).to(dt),
+            torch.as_tensor(rng.random(n if shared else (r, n)) < 0.5, device=dev), fill)
+
+
+def main_path_parity(torch, K, shapes, rng, dev):
+    """Each kernel against its plain version at every distinct shape the main
+    path gave it; returns (max |err|, number of shapes) per kernel."""
+    out = {}
+    for name in K:
+        check(shapes[name], f"no main-path shape recorded for {name}")
+        err = 0.0
+        distinct = sorted(set(shapes[name]))
+        for shape in distinct:
+            args = main_path_inputs(torch, name, shape, rng, dev)
+            err = max(err, kernel_vs_plain(torch, K, name, args, f"main-path shape {shape}"))
+        out[name] = (err, len(distinct))
+    return out
+
+
+def timings(torch, K, shapes, rng, dev):
+    """Kernel, plain version and library call at the largest shape the main
+    path gave each kernel (its dominant cost), beside the card's bound."""
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    sizes = {
+        "masked_stats": lambda sh: sh[0] * sh[1],
+        "segment_reduce": lambda sh: (sh[0], sh[1] + sh[2], sh[3]),
+        "topk": lambda sh: (sh[0] * sh[1], sh[2]),
+        "filter_compact": lambda sh: sh[0] * sh[1] * sh[2],
+    }
+    big = {name: max(shapes[name], key=sizes[name]) for name in K}
+    args = {name: main_path_inputs(torch, name, big[name], rng, dev) for name in K}
     out = {}
 
-    def largest(name, size):
-        """The main path's largest call of this kernel (its dominant cost)."""
-        check(shapes[name], f"no main-path shape recorded for {name}")
-        return max(shapes[name], key=size)
+    def run(name, which):
+        fn = getattr(K[name], name if which == "kernel" else f"{name}_plain")
+        return lambda: fn(*args[name])
 
     # masked_stats: (R, n) f32 + bool
-    r, n = largest("masked_stats", lambda sh: sh[0] * sh[1])
-    xs = torch.as_tensor(rng.normal(50, 20, (r, n)).astype(np.float32), device=dev)
-    ms = torch.as_tensor(rng.random((r, n)) < 0.9, device=dev)
-    valid = int(ms.sum())
+    xs, ms = args["masked_stats"]
+    r, n = big["masked_stats"]
 
     def lib_stats():
         for i in range(r):
@@ -383,50 +480,46 @@ def timings(torch, K, shapes, rng, dev):
 
     out["masked_stats"] = dict(
         shape=[r, n],
-        ms=timed(torch, lambda: K["masked_stats"].masked_stats(xs, ms), 20, flush),
-        plain_ms=timed(torch, lambda: K["masked_stats"].masked_stats_plain(xs, ms), 3, flush),
+        ms=timed(torch, run("masked_stats", "kernel"), 20, flush),
+        plain_ms=timed(torch, run("masked_stats", "plain"), 3, flush),
         library_ms=timed(torch, lib_stats, 5, flush),
-        bound=bound(r * n * 5 + r * 20, 8 * valid),
+        bound=bound(r * n * 5 + r * 20, 8 * int(ms.sum())),
     )
 
     # segment_reduce: keys (n,), values (S, n), valids (V, n), B buckets
-    n, s, v, nbk, modes = largest("segment_reduce", lambda sh: (sh[0], sh[1] + sh[2], sh[3]))
-    keys = torch.as_tensor(rng.integers(0, nbk, n).astype(np.int32), device=dev)
-    vals = torch.as_tensor(rng.normal(0, 1, (s, n)).astype(np.float32), device=dev)
-    vm = torch.as_tensor(rng.random((v, n)) < 0.9, device=dev)
-    vidx = [min(i, v - 1) for i in range(s)]
+    keys, vals, vm, nbk, _, _ = args["segment_reduce"]
+    n, s, v = big["segment_reduce"][:3]
 
     def lib_seg():
-        torch.zeros(nbk, device=dev).index_add_(0, keys, torch.where(vm[0], vals[0] if s else vm[0].float(), 0.0))
+        torch.zeros(nbk, device=dev).index_add_(
+            0, keys, torch.where(vm[0], vals[0] if s else vm[0].float(), 0.0))
 
     out["segment_reduce"] = dict(
         shape=[n, s, v, nbk],
-        ms=timed(torch, lambda: K["segment_reduce"].segment_reduce(keys, vals, vm, nbk, list(modes), vidx), 10, flush),
-        plain_ms=timed(torch, lambda: K["segment_reduce"].segment_reduce_plain(keys, vals, vm, nbk, list(modes), vidx), 2, flush),
+        ms=timed(torch, run("segment_reduce", "kernel"), 10, flush),
+        plain_ms=timed(torch, run("segment_reduce", "plain"), 2, flush),
         library_ms=timed(torch, lib_seg, 10, flush),
         bound=bound(n * (4 + 4 * s + v) + (s + v) * nbk * 4, n * (s + v)),
     )
 
     # topk: (R, n) f32, k
-    r, n, k, top = largest("topk", lambda sh: (sh[0] * sh[1], sh[2]))
-    xt = torch.as_tensor(rng.normal(0, 1, (r, n)).astype(np.float32), device=dev)
+    xt, k, top = args["topk"]
+    r, n = big["topk"][:2]
     out["topk"] = dict(
         shape=[r, n, k],
-        ms=timed(torch, lambda: K["topk"].topk(xt, k, top), 20, flush),
-        plain_ms=timed(torch, lambda: K["topk"].topk_plain(xt, k, top), 3, flush),
+        ms=timed(torch, run("topk", "kernel"), 20, flush),
+        plain_ms=timed(torch, run("topk", "plain"), 3, flush),
         library_ms=timed(torch, lambda: torch.topk(xt, k, dim=-1, largest=top), 20, flush),
         bound=bound(r * n * 4 + r * k * 4, r * n),
     )
 
     # filter_compact: (R, n) of one element width, keep (n,) or (R, n)
-    r, n, esize, shared = largest("filter_compact", lambda sh: sh[0] * sh[1] * sh[2])
-    dt = {1: torch.bool, 4: torch.int32, 8: torch.float64}[esize]
-    xf = torch.as_tensor(rng.normal(0, 1, (r, n)), device=dev).to(dt)
-    kf = torch.as_tensor(rng.random(n if shared else (r, n)) < 0.5, device=dev)
+    xf, kf, _ = args["filter_compact"]
+    r, n, esize, shared = big["filter_compact"][:4]
     out["filter_compact"] = dict(
         shape=[r, n, esize],
-        ms=timed(torch, lambda: K["filter_compact"].filter_compact(xf, kf, 0), 20, flush),
-        plain_ms=timed(torch, lambda: K["filter_compact"].filter_compact_plain(xf, kf, 0), 3, flush),
+        ms=timed(torch, run("filter_compact", "kernel"), 20, flush),
+        plain_ms=timed(torch, run("filter_compact", "plain"), 3, flush),
         library_ms=timed(torch, lambda: torch.masked_select(xf, kf), 20, flush),
         bound=bound(r * n * esize * 2 + (1 if shared else r) * n, 0),
     )
@@ -452,7 +545,8 @@ def recorder(K):
 
     def sr(keys, values, valids, nb, modes, vidx):
         shapes["segment_reduce"].append(
-            (keys.shape[0], values.shape[0], valids.shape[0], int(nb), tuple(modes)))
+            (keys.shape[0], values.shape[0], valids.shape[0], int(nb), tuple(modes),
+             tuple(int(i) for i in vidx)))
         return originals["segment_reduce"](keys, values, valids, nb, modes, vidx)
 
     def tk(xs, k, largest=True):
@@ -461,7 +555,7 @@ def recorder(K):
 
     def fc(xs, keep, fill=0):
         shapes["filter_compact"].append(
-            (xs.shape[0], xs.shape[1], xs.element_size(), keep.dim() == 1))
+            (xs.shape[0], xs.shape[1], xs.element_size(), keep.dim() == 1, fill))
         return originals["filter_compact"](xs, keep, fill)
 
     @contextmanager
@@ -531,7 +625,15 @@ def main() -> int:
     # -- phase 4: real mode
     real_mode(torch, ref)
 
-    # -- phase 5: timing at the main path's shapes
+    # -- phase 5: kernel vs plain, then timing, at the main path's shapes
+    t0 = time.perf_counter()
+    mp = main_path_parity(torch, K, shapes, rng, dev)
+    for name in K:
+        errs[name] = max(errs[name], mp[name][0])
+    print(f"[shapes] kernel vs plain passed at every main-path shape in "
+          f"{time.perf_counter() - t0} s: "
+          + json.dumps({name: {"shapes": mp[name][1], "max_abs_err": mp[name][0]} for name in K}),
+          flush=True)
     tm = timings(torch, K, shapes, rng, dev)
     for name in K:
         print(f"[time] {name} shape {tm[name]['shape']}: kernel {tm[name]['ms']} ms, "

@@ -26,8 +26,9 @@ Backend selection is per-call via a policy chain, strongest first:
 5. ``"cuda"``.
 
 ``"numpy"`` is the scalar host path, ``"torch"`` the plain PyTorch versions
-on the device set by :func:`set_torch_device`, and ``"cuda"`` the
-hand-written kernels on the CUDA device.  Every accelerated function falls
+on the caller's ``device`` (the CUDA device unless asked), and ``"cuda"`` the
+hand-written kernels on the CUDA device.  The device is per call: the frame
+runtime passes its session's device to every entry point.  Every accelerated function falls
 back to the numpy implementation for shapes it cannot handle (string sort
 keys, callable aggs, empty partitions, non-dictionary group keys).
 
@@ -63,7 +64,6 @@ ENV_VAR = "REPRO_TORCH_FRAME_BACKEND"
 DEFAULT_BACKEND = "cuda"
 
 _GLOBAL: Optional[str] = None
-_TORCH_DEVICE = torch.device("cuda")
 
 
 def _check(name: str) -> str:
@@ -90,23 +90,22 @@ def use_backend(name: Optional[str]):
         _GLOBAL = prev
 
 
-def set_torch_device(device) -> None:
-    """The device the ``"torch"`` backend runs on (process-wide)."""
-    global _TORCH_DEVICE
-    _TORCH_DEVICE = torch.device(device)
+def device_of(bk: str, device=None) -> torch.device:
+    """The device a dispatch runs on: ``cuda`` on the CUDA device, ``torch``
+    on the caller's device, which is the CUDA device unless asked."""
+    if bk == "cuda" or device is None:
+        return torch.device("cuda")
+    return torch.device(device)
 
 
-def device_of(bk: str) -> torch.device:
-    return torch.device("cuda") if bk == "cuda" else _TORCH_DEVICE
-
-
-def require_device(bk: str, device=None) -> None:
+def require_device(bk: str, device=None) -> torch.device:
     """Entry points run on the card unless the caller asks for the CPU: a
     ``cuda`` backend, or ``torch`` on a CUDA device, raises when no CUDA
-    device is present instead of running on the CPU quietly."""
-    if bk == "numpy":
-        return
+    device is present instead of running on the CPU quietly.  Returns the
+    device the caller's dispatches run on."""
     dev = torch.device(device) if device is not None else torch.device("cuda")
+    if bk == "numpy":
+        return dev
     if bk == "cuda" and dev.type != "cuda":
         raise ValueError(f"kernel_backend='cuda' runs on a CUDA device, not {dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -115,8 +114,7 @@ def require_device(bk: str, device=None) -> None:
             "pass kernel_backend='numpy', or kernel_backend='torch' with "
             "device='cpu', to run on the CPU"
         )
-    if bk == "torch":
-        set_torch_device(dev)
+    return dev
 
 
 @dataclass
@@ -160,12 +158,16 @@ def _kernel(backend: str):
 # runtime fault tolerance: per-(op, backend) circuit breakers                  #
 #                                                                              #
 # The eligibility gates in this module are *ahead-of-time*.  Kernels can also  #
-# fail at RUN time (a refused launch, injected chaos faults).  Every kernel    #
-# call therefore goes through _guarded(): a runtime exception falls back to    #
-# the numpy reference for THAT dispatch, and repeated failures trip a circuit  #
-# breaker so subsequent dispatches skip the broken kernel until a half-open    #
-# probe proves it healthy again.  ``breaker_board().snapshot()`` shows every   #
-# failure and fallback, so a run can prove no kernel hid behind numpy.         #
+# fail at RUN time.  Every kernel call goes through _guarded(): a contained    #
+# failure falls back to the numpy reference for THAT dispatch, and repeated    #
+# failures trip a circuit breaker so subsequent dispatches skip the kernel     #
+# until a half-open probe proves it healthy again.  On a CUDA device only      #
+# injected chaos faults (``core.faults``) are contained: any other error (a    #
+# failed build or launch, out of memory, a wrapper bug) raises to the caller   #
+# and scores no breaker, so nothing runs on the host quietly while its inputs  #
+# are on the card.  On the CPU every runtime error is contained.               #
+# ``breaker_board().snapshot()`` shows every failure and fallback, so a run    #
+# can prove no kernel hid behind numpy.                                        #
 # --------------------------------------------------------------------------- #
 
 
@@ -311,11 +313,19 @@ def _note(bk: str, reason: Optional[str]) -> None:
     _SERVED.reason = reason
 
 
-def _guarded(op: str, bk: str, kernel_fn: Callable[[], Any],
+def _contained(exc: BaseException, dev: torch.device) -> bool:
+    """May this dispatch error fall back to numpy?  On a CUDA device only an
+    injected chaos fault; on the CPU any runtime error."""
+    return isinstance(exc, _faults.InjectedFault) or dev.type != "cuda"
+
+
+def _guarded(op: str, bk: str, dev: torch.device, kernel_fn: Callable[[], Any],
              fallback_fn: Callable[[], Any]) -> Any:
-    """Runtime dispatch guard: breaker gate → fault injection → kernel call;
-    ANY runtime exception is absorbed into a numpy fallback for this dispatch
-    and scored against the (op, backend) breaker."""
+    """Runtime dispatch guard: breaker gate → fault injection → kernel call.
+    A contained exception (see :func:`_contained`) is absorbed into a numpy
+    fallback for this dispatch and scored against the (op, backend) breaker;
+    any other raises.  On the card a breaker opens only on injected faults,
+    so its numpy fallback serves only the chaos feature."""
     if not _BOARD.allow(op, bk):
         _note("numpy", "breaker_open")
         return fallback_fn()
@@ -325,6 +335,8 @@ def _guarded(op: str, bk: str, kernel_fn: Callable[[], Any],
             raise _faults.InjectedFault(f"corrupted kernel output at {op}")
         out = kernel_fn()
     except Exception as exc:
+        if not _contained(exc, dev):
+            raise
         _BOARD.record_failure(op, bk, error=f"{type(exc).__name__}: {exc}")
         _note("numpy", "runtime_error")
         logger.warning(
@@ -339,18 +351,19 @@ def _guarded(op: str, bk: str, kernel_fn: Callable[[], Any],
 
 
 @contextmanager
-def _breaker_watch(op: str, bk: str):
+def _breaker_watch(op: str, bk: str, dev: torch.device):
     """Batched dispatches don't fall back per-call (the whole batch raises to
     the executor, whose fault boundary quarantines the node) — but their
-    failures still score the breaker.  Fires the kernel chaos site on entry,
-    like _guarded."""
-    mode = _faults.fire("kernel", op=op)  # may raise — counted below
+    contained failures (see :func:`_contained`) still score the breaker.
+    Fires the kernel chaos site on entry, like _guarded."""
     try:
+        mode = _faults.fire("kernel", op=op)
         if mode == "corrupt":
             raise _faults.InjectedFault(f"corrupted kernel output at {op}")
         yield
     except Exception as exc:
-        _BOARD.record_failure(op, bk, error=f"{type(exc).__name__}: {exc}")
+        if _contained(exc, dev):
+            _BOARD.record_failure(op, bk, error=f"{type(exc).__name__}: {exc}")
         raise
     else:
         _BOARD.record_success(op, bk)
@@ -468,19 +481,21 @@ def partial_stats(
     part: Partition,
     cols: Optional[Sequence[str]] = None,
     backend: Optional[str] = None,
+    device=None,
 ) -> Dict[str, ColStats]:
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     names = list(cols) if cols is not None else B.numeric_columns(part)
     if bk == "numpy" or not names or part.nrows == 0:
         return B.partial_stats(part, cols)
 
     def _run():
-        xs, ms = _dev_stats_stack(part, names, device_of(bk))
+        xs, ms = _dev_stats_stack(part, names, dev)
         with _kernel(bk):
             raw = _host(ops.masked_stats_batch(xs, ms)).astype(np.float64)
         return _stats_from_raw(names, raw)
 
-    return _guarded("stats", bk, _run, lambda: B.partial_stats(part, cols))
+    return _guarded("stats", bk, dev, _run, lambda: B.partial_stats(part, cols))
 
 
 # --------------------------------------------------------------------------- #
@@ -569,8 +584,10 @@ def partial_groupby(
     aggs: Sequence[Tuple[str, str, Any]],
     topk_keys: Optional[int] = None,
     backend: Optional[str] = None,
+    device=None,
 ) -> dict:
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     if bk == "numpy" or not _groupby_supported(part, by, aggs, topk_keys):
         return B.partial_groupby(part, by, aggs, topk_keys)
     key_col = part.columns[by]
@@ -578,7 +595,7 @@ def partial_groupby(
 
     def _run():
         keys, values, valids, modes, valid_idx, agg_plan = _groupby_plan(
-            part, by, aggs, device_of(bk)
+            part, by, aggs, dev
         )
         with _kernel(bk):
             reds, cnts = ops.segment_reduce_batch(
@@ -587,7 +604,7 @@ def partial_groupby(
         return _groupby_from_raw(key_col.data.dtype, agg_plan, _host(reds), _host(cnts))
 
     return _guarded(
-        "groupby", bk, _run, lambda: B.partial_groupby(part, by, aggs, topk_keys)
+        "groupby", bk, dev, _run, lambda: B.partial_groupby(part, by, aggs, topk_keys)
     )
 
 
@@ -605,15 +622,15 @@ def _vc_from_raw(key_dtype, cnt_row: np.ndarray) -> Tuple[np.ndarray, np.ndarray
 
 
 def partial_value_counts(
-    part: Partition, col: str, backend: Optional[str] = None
+    part: Partition, col: str, backend: Optional[str] = None, device=None
 ) -> Tuple[np.ndarray, np.ndarray]:
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     c = part.columns[col]
     if bk == "numpy" or not _vc_supported(part, col):
         return B.partial_value_counts(part, col)
 
     def _run():
-        dev = device_of(bk)
         with _kernel(bk):
             _, cnts = ops.segment_reduce_batch(
                 _dev_i32(c, dev), [], [_dev_valid(c, dev)], len(c.dictionary), [], []
@@ -621,7 +638,7 @@ def partial_value_counts(
         return _vc_from_raw(c.data.dtype, _host(cnts)[0])
 
     return _guarded(
-        "value_counts", bk, _run, lambda: B.partial_value_counts(part, col)
+        "value_counts", bk, dev, _run, lambda: B.partial_value_counts(part, col)
     )
 
 
@@ -648,14 +665,16 @@ def partial_sort(
     limit: Optional[int],
     n_samples: int = 32,
     backend: Optional[str] = None,
+    device=None,
 ) -> Tuple[Partition, np.ndarray]:
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     key_col = part.columns.get(by)
     if bk == "numpy" or key_col is None or part.nrows == 0:
         return B.partial_sort(part, by, ascending, limit, n_samples)
     if limit is None:
-        return _partial_sort_full(part, key_col, by, ascending, n_samples, bk)
-    return _partial_sort_limit(part, key_col, by, ascending, limit, n_samples, bk)
+        return _partial_sort_full(part, key_col, by, ascending, n_samples, bk, dev)
+    return _partial_sort_limit(part, key_col, by, ascending, limit, n_samples, bk, dev)
 
 
 def _sorted_result(
@@ -679,6 +698,7 @@ def _partial_sort_full(
     ascending: bool,
     n_samples: int,
     bk: str,
+    dev: torch.device,
 ) -> Tuple[Partition, np.ndarray]:
     """Full (non-limit) partition sort: one stable f64 device sort — bit-for-
     bit the numpy stable argsort, including null-last ordering and ties.
@@ -688,13 +708,12 @@ def _partial_sort_full(
         return B.partial_sort(part, by, ascending, None, n_samples)
 
     def _run():
-        dev = device_of(bk)
         with _kernel(bk):
             order = _host(ops.argsort_f64(_upload(keys if ascending else -keys, dev)))
         return _sorted_result(part, keys, order, n_samples)
 
     return _guarded(
-        "sort", bk, _run, lambda: B.partial_sort(part, by, ascending, None, n_samples)
+        "sort", bk, dev, _run, lambda: B.partial_sort(part, by, ascending, None, n_samples)
     )
 
 
@@ -706,6 +725,7 @@ def _partial_sort_limit(
     limit: int,
     n_samples: int,
     bk: str,
+    dev: torch.device,
 ) -> Tuple[Partition, np.ndarray]:
     if not (1 <= limit <= TOPK_MAX_K) or key_col.is_string or part.nrows <= limit:
         return B.partial_sort(part, by, ascending, limit, n_samples)
@@ -717,13 +737,12 @@ def _partial_sort_limit(
     kf32 = keys.astype(np.float32)
 
     def _run():
-        dev = device_of(bk)
         with _kernel(bk):
             winners = _host(ops.topk_padded(_upload(kf32, dev), limit, largest=not ascending))
         return _limit_select(part, keys, kf32, winners, ascending, limit, n_samples)
 
     return _guarded(
-        "topk", bk, _run, lambda: B.partial_sort(part, by, ascending, limit, n_samples)
+        "topk", bk, dev, _run, lambda: B.partial_sort(part, by, ascending, limit, n_samples)
     )
 
 
@@ -753,6 +772,7 @@ def merge_sort(
     ascending: bool,
     limit: Optional[int],
     backend: Optional[str] = None,
+    device=None,
 ) -> "PTable":
     """Combine step of a full sort as a *sample sort* (paper §5.1): pick
     pivots from the partials' key samples, range-split every (already sorted)
@@ -764,6 +784,7 @@ def merge_sort(
     Falls back to the numpy merge for limit-sorts (tiny inputs), ≤1 non-empty
     partial, or NaN keys."""
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     if bk == "numpy" or limit is not None:
         return B.merge_sort(partials, by, ascending, limit)
     parts = [p for p, _ in partials if p.nrows > 0]
@@ -784,7 +805,6 @@ def merge_sort(
     splits = [np.searchsorted(k, pivots, side="left") for k in keys]
 
     def _run():
-        dev = device_of(bk)
         out_parts: List[Partition] = []
         for r in range(nparts):
             slices: List[Partition] = []
@@ -804,7 +824,7 @@ def merge_sort(
         return PTable(out_parts or [parts[0].slice(0, 0)])
 
     return _guarded(
-        "merge_sort", bk, _run, lambda: B.merge_sort(partials, by, ascending, limit)
+        "merge_sort", bk, dev, _run, lambda: B.merge_sort(partials, by, ascending, limit)
     )
 
 
@@ -846,17 +866,18 @@ def _new_column(data_dev, mask_dev, like: Column, count: int, dev) -> Column:
 
 
 def select_rows(
-    part: Partition, keep: np.ndarray, backend: Optional[str] = None
+    part: Partition, keep: np.ndarray, backend: Optional[str] = None,
+    device=None,
 ) -> Partition:
     """Row selection by a boolean mask: every column (data and mask, any
     1/4/8-byte dtype) compacts on the device, bit for bit."""
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     keep = np.asarray(keep, bool)
     if bk == "numpy" or part.nrows == 0:
         return part.select_rows(keep)
 
     def _run():
-        dev = device_of(bk)
         count = int(keep.sum())
         keep_dev = _upload(keep, dev)
         new_cols: Dict[str, Column] = {}
@@ -873,7 +894,7 @@ def select_rows(
                 new_cols[name] = _new_column(data, mask, c, count, dev)
         return Partition(new_cols, list(part.order))
 
-    return _guarded("filter", bk, _run, lambda: part.select_rows(keep))
+    return _guarded("filter", bk, dev, _run, lambda: part.select_rows(keep))
 
 
 # --------------------------------------------------------------------------- #
@@ -904,8 +925,10 @@ def plan_stats_batch(
     parts: Sequence[Partition],
     cols: Optional[Sequence[str]] = None,
     backend: Optional[str] = None,
+    device=None,
 ) -> Optional[BatchPlan]:
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     if bk == "numpy" or not parts or not _same_bucket(parts):
         return None
     if not _BOARD.is_closed("stats", bk):
@@ -920,8 +943,7 @@ def plan_stats_batch(
     C = len(names)
 
     def dispatch():
-        with _breaker_watch("stats", bk):
-            dev = device_of(bk)
+        with _breaker_watch("stats", bk, dev):
             stacks = [_dev_stats_stack(p, names, dev) for p in parts]
             with _kernel(bk):
                 return ops.masked_stats_batch_parts(
@@ -944,8 +966,10 @@ def plan_groupby_batch(
     aggs: Sequence[Tuple[str, str, Any]],
     topk_keys: Optional[int] = None,
     backend: Optional[str] = None,
+    device=None,
 ) -> Optional[BatchPlan]:
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     if bk == "numpy" or not parts or not _same_bucket(parts):
         return None
     if not _BOARD.is_closed("groupby", bk):
@@ -953,7 +977,6 @@ def plan_groupby_batch(
     if any(not _groupby_supported(p, by, aggs, topk_keys) for p in parts):
         return None
     nb = len(parts[0].columns[by].dictionary)
-    dev = device_of(bk)
     plans = [_groupby_plan(p, by, aggs, dev) for p in parts]
     _, _, valids0, modes0, vidx0, aplan0 = plans[0]
     for pl in plans[1:]:
@@ -965,7 +988,7 @@ def plan_groupby_batch(
             return None
 
     def dispatch():
-        with _breaker_watch("groupby", bk):
+        with _breaker_watch("groupby", bk, dev):
             with _kernel(bk):
                 return ops.segment_reduce_batch_parts(
                     [pl[0] for pl in plans],
@@ -987,9 +1010,11 @@ def plan_groupby_batch(
 
 
 def plan_value_counts_batch(
-    parts: Sequence[Partition], col: str, backend: Optional[str] = None
+    parts: Sequence[Partition], col: str, backend: Optional[str] = None,
+    device=None,
 ) -> Optional[BatchPlan]:
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     if bk == "numpy" or not parts or not _same_bucket(parts):
         return None
     if not _BOARD.is_closed("value_counts", bk):
@@ -997,10 +1022,9 @@ def plan_value_counts_batch(
     if any(not _vc_supported(p, col) for p in parts):
         return None
     nb = len(parts[0].columns[col].dictionary)
-    dev = device_of(bk)
 
     def dispatch():
-        with _breaker_watch("value_counts", bk):
+        with _breaker_watch("value_counts", bk, dev):
             with _kernel(bk):
                 return ops.segment_reduce_batch_parts(
                     [_dev_i32(p.columns[col], dev) for p in parts],
@@ -1026,13 +1050,14 @@ def plan_sort_batch(
     limit: Optional[int],
     n_samples: int = 32,
     backend: Optional[str] = None,
+    device=None,
 ) -> Optional[BatchPlan]:
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     if bk == "numpy" or not parts or not _same_bucket(parts):
         return None
     if any(p.columns.get(by) is None or p.nrows == 0 for p in parts):
         return None
-    dev = device_of(bk)
     if limit is None:
         if not _BOARD.is_closed("sort", bk):
             return None
@@ -1041,7 +1066,7 @@ def plan_sort_batch(
             return None
 
         def dispatch():
-            with _breaker_watch("sort", bk):
+            with _breaker_watch("sort", bk, dev):
                 with _kernel(bk):
                     return ops.argsort_f64_parts(
                         [_upload(k if ascending else -k, dev) for k in keys_list]
@@ -1070,7 +1095,7 @@ def plan_sort_batch(
     kf32s = [k.astype(np.float32) for k in keys_list]
 
     def dispatch():
-        with _breaker_watch("topk", bk):
+        with _breaker_watch("topk", bk, dev):
             with _kernel(bk):
                 return ops.topk_padded_parts(
                     [_upload(k, dev) for k in kf32s], limit, largest=not ascending
@@ -1093,6 +1118,7 @@ def plan_select_rows_batch(
     parts: Sequence[Partition],
     keeps_fn,
     backend: Optional[str] = None,
+    device=None,
 ) -> Optional[BatchPlan]:
     """Fused filter compaction over a partition group.  ``keeps_fn()`` is
     called at *dispatch* time and must return one boolean keep mask per
@@ -1100,16 +1126,16 @@ def plan_select_rows_batch(
     one element width (across columns and partitions) compact in one
     dispatch."""
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     if bk == "numpy" or not parts or not _same_bucket(parts):
         return None
     if not _BOARD.is_closed("filter", bk):
         return None
     if any(p.nrows == 0 for p in parts):
         return None
-    dev = device_of(bk)
 
     def dispatch():
-        with _breaker_watch("filter", bk):
+        with _breaker_watch("filter", bk, dev):
             keeps = [np.asarray(k, bool) for k in keeps_fn()]
             groups: Dict[int, list] = {}  # element size -> [(slot, row, keep)]
             for i, (p, keep) in enumerate(zip(parts, keeps)):
@@ -1173,9 +1199,11 @@ def fused_stats_partition(
     keep: np.ndarray,
     cols: Optional[Sequence[str]] = None,
     backend: Optional[str] = None,
+    device=None,
 ) -> Optional[Dict[str, ColStats]]:
     """Fused filter→describe partial: masked stats over the kept rows only."""
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     names = list(cols) if cols is not None else B.numeric_columns(part)
     if bk == "numpy" or not names or part.nrows == 0:
         return None
@@ -1184,13 +1212,12 @@ def fused_stats_partition(
         return None
 
     def _run():
-        dev = device_of(bk)
         xs, ms = _dev_stats_stack(part, names, dev)
         with _kernel(bk):
             raw = _host(ops.filter_then_masked_stats(xs, ms, _upload(keep, dev)))
         return _stats_from_raw(names, raw.astype(np.float64))
 
-    return _guarded("fused_stats", bk, _run, lambda: None)
+    return _guarded("fused_stats", bk, dev, _run, lambda: None)
 
 
 def fused_groupby_partition(
@@ -1200,9 +1227,11 @@ def fused_groupby_partition(
     aggs: Sequence[Tuple[str, str, Any]],
     topk_keys: Optional[int] = None,
     backend: Optional[str] = None,
+    device=None,
 ) -> Optional[dict]:
     """Fused filter→groupby partial: segment reductions over kept rows."""
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     if bk == "numpy" or not _groupby_supported(part, by, aggs, topk_keys):
         return None
     key_col = part.columns[by]
@@ -1212,7 +1241,6 @@ def fused_groupby_partition(
         return None
 
     def _run():
-        dev = device_of(bk)
         keys, values, valids, modes, valid_idx, agg_plan = _groupby_plan(
             part, by, aggs, dev, dedup_by_name=True
         )
@@ -1222,7 +1250,7 @@ def fused_groupby_partition(
             )
         return _groupby_from_raw(key_col.data.dtype, agg_plan, _host(reds), _host(cnts))
 
-    return _guarded("fused_groupby", bk, _run, lambda: None)
+    return _guarded("fused_groupby", bk, dev, _run, lambda: None)
 
 
 def fused_topk_partition(
@@ -1233,11 +1261,13 @@ def fused_topk_partition(
     limit: Optional[int],
     n_samples: int = 32,
     backend: Optional[str] = None,
+    device=None,
 ) -> Optional[Tuple[Partition, np.ndarray]]:
     """Fused filter→topk partial: winners from the masked parent keys, final
     rows gathered straight from the parent partition (identical math to
     ``_limit_select``, expressed in kept-row coordinates)."""
     bk = active_backend(backend)
+    dev = device_of(bk, device)
     key_col = part.columns.get(by)
     if bk == "numpy" or key_col is None or limit is None or part.nrows == 0:
         return None
@@ -1254,7 +1284,6 @@ def fused_topk_partition(
     kf32 = keys.astype(np.float32)
 
     def _run():
-        dev = device_of(bk)
         with _kernel(bk):
             winners = _host(ops.topk_masked_padded(
                 _upload(kf32, dev), _upload(keep, dev), limit, largest=not ascending
@@ -1276,4 +1305,4 @@ def fused_topk_partition(
             ]
         return sorted_part, samples
 
-    return _guarded("fused_topk", bk, _run, lambda: None)
+    return _guarded("fused_topk", bk, dev, _run, lambda: None)

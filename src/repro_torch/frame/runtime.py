@@ -49,8 +49,9 @@ class FrameRuntime:
             engine_default=getattr(engine, "kernel_backend", None)
         )
         # runs on the card unless the caller asked for the CPU: raises here
-        # rather than computing on the CPU quietly
-        BK.require_device(self.backend_policy.resolve(), device)
+        # rather than computing on the CPU quietly.  The device is this
+        # runtime's own and goes with every dispatch.
+        self.device = BK.require_device(self.backend_policy.resolve(), device)
         self.planner = Planner(
             self.cost_model,
             board=BK.breaker_board(),
@@ -83,9 +84,10 @@ class FrameRuntime:
         cost-model calibration under the node's *planning key* — so the
         samples keep refining exactly the estimates the planner consults.
         The sample is labelled with the backend that actually *served* the
-        dispatch — when the runtime guard falls back to numpy (kernel error,
-        open breaker) the time must calibrate the numpy path, or a single
-        kernel failure would permanently skew the kernel's fitted cost."""
+        dispatch — when the runtime guard falls back to numpy (an injected
+        fault, a contained error on the CPU, an open breaker) the time must
+        calibrate the numpy path, or a single kernel failure would
+        permanently skew the kernel's fitted cost."""
         key = planner_key(node)
 
         def run():
@@ -322,7 +324,9 @@ class FrameRuntime:
         def filter_apply(node: Node, part: Partition, extras) -> Partition:
             keep = predicate_mask(filter_expr(node), part, extras)
             return self._timed(
-                node, part.nrows, lambda bk: BK.select_rows(part, keep, backend=bk)
+                node, part.nrows, lambda bk: BK.select_rows(
+                    part, keep, backend=bk, device=self.device
+                )
             )()
 
         def project_apply(node: Node, part: Partition, extras) -> Partition:
@@ -362,7 +366,9 @@ class FrameRuntime:
         def dropna_apply(node: Node, part: Partition, extras) -> Partition:
             keep = dropna_keep(node, part)
             return self._timed(
-                node, part.nrows, lambda bk: BK.select_rows(part, keep, backend=bk)
+                node, part.nrows, lambda bk: BK.select_rows(
+                    part, keep, backend=bk, device=self.device
+                )
             )()
 
         def join_apply(node: Node, part: Partition, extras) -> Partition:
@@ -383,12 +389,13 @@ class FrameRuntime:
                 lambda: [
                     predicate_mask(filter_expr(node), p, extras) for p in group
                 ],
-                backend=bk,
+                backend=bk, device=self.device,
             )
 
         def dropna_batch_planner(node, inputs, group, bk):
             return BK.plan_select_rows_batch(
-                group, lambda: [dropna_keep(node, p) for p in group], backend=bk
+                group, lambda: [dropna_keep(node, p) for p in group], backend=bk,
+                device=self.device
             )
 
         # exposed for the fusion driver (_try_fused): fused chains re-derive
@@ -457,7 +464,9 @@ class FrameRuntime:
             return [
                 Unit(
                     fn=self._timed(
-                        node, p.nrows, lambda bk, p=p: BK.partial_stats(p, backend=bk)
+                        node, p.nrows, lambda bk, p=p: BK.partial_stats(
+                            p, backend=bk, device=self.device
+                        )
                     ),
                     cost_s=c,
                     tag=f"stats[{i}]",
@@ -466,7 +475,9 @@ class FrameRuntime:
             ]
 
         stats_batches = self._batch_maker(
-            lambda node, inputs, group, bk: BK.plan_stats_batch(group, backend=bk),
+            lambda node, inputs, group, bk: BK.plan_stats_batch(
+                group, backend=bk, device=self.device
+            ),
         )
 
         def stats_running(kind):
@@ -526,7 +537,9 @@ class FrameRuntime:
                     fn=self._timed(
                         node,
                         p.nrows,
-                        lambda bk, p=p: BK.partial_value_counts(p, col, backend=bk),
+                        lambda bk, p=p: BK.partial_value_counts(
+                            p, col, backend=bk, device=self.device
+                        ),
                     ),
                     cost_s=c,
                     tag=f"vc[{i}]",
@@ -551,7 +564,7 @@ class FrameRuntime:
                 combine=vc_combine,
                 make_batches=self._batch_maker(
                     lambda node, inputs, group, bk: BK.plan_value_counts_batch(
-                        group, node.kwargs["col"], backend=bk
+                        group, node.kwargs["col"], backend=bk, device=self.device
                     )
                 ),
                 running_combine=vc_running,
@@ -570,7 +583,9 @@ class FrameRuntime:
                     fn=self._timed(
                         node,
                         p.nrows,
-                        lambda bk, p=p: BK.partial_groupby(p, by, aggs, topk, backend=bk),
+                        lambda bk, p=p: BK.partial_groupby(
+                            p, by, aggs, topk, backend=bk, device=self.device
+                        ),
                     ),
                     cost_s=c,
                     tag=f"gb[{i}]",
@@ -608,7 +623,7 @@ class FrameRuntime:
                         node.kwargs["by"],
                         node.kwargs["aggs"],
                         node.kwargs.get("topk"),
-                        backend=bk,
+                        backend=bk, device=self.device,
                     )
                 ),
                 try_fused=self._try_fused,
@@ -628,7 +643,9 @@ class FrameRuntime:
                     fn=self._timed(
                         node,
                         p.nrows,
-                        lambda bk, p=p: BK.partial_sort(p, by, asc, limit, backend=bk),
+                        lambda bk, p=p: BK.partial_sort(
+                            p, by, asc, limit, backend=bk, device=self.device
+                        ),
                     ),
                     cost_s=c,
                     tag=f"sort[{i}]",
@@ -642,7 +659,7 @@ class FrameRuntime:
                 node.kwargs["by"],
                 node.kwargs.get("ascending", True),
                 node.kwargs.get("limit"),
-                backend=self.backend_policy.resolve(),
+                backend=self.backend_policy.resolve(), device=self.device,
             )
 
         eng.register_op(
@@ -657,7 +674,7 @@ class FrameRuntime:
                         node.kwargs["by"],
                         node.kwargs.get("ascending", True),
                         node.kwargs.get("limit"),
-                        backend=bk,
+                        backend=bk, device=self.device,
                     )
                 ),
                 try_fused=self._try_fused,
@@ -719,16 +736,20 @@ class FrameRuntime:
         second stage used as the in-chain fallback."""
         if key == "describe":  # describe / mean / mean_scalar share the unit
             return (
-                lambda p, keep, bk: BK.fused_stats_partition(p, keep, backend=bk),
-                lambda p, bk: BK.partial_stats(p, backend=bk),
+                lambda p, keep, bk: BK.fused_stats_partition(
+                    p, keep, backend=bk, device=self.device
+                ),
+                lambda p, bk: BK.partial_stats(p, backend=bk, device=self.device),
             )
         if key == "groupby_agg" and node.kwargs.get("topk") is None:
             by, aggs = node.kwargs["by"], node.kwargs["aggs"]
             return (
                 lambda p, keep, bk: BK.fused_groupby_partition(
-                    p, keep, by, aggs, backend=bk
+                    p, keep, by, aggs, backend=bk, device=self.device
                 ),
-                lambda p, bk: BK.partial_groupby(p, by, aggs, None, backend=bk),
+                lambda p, bk: BK.partial_groupby(
+                    p, by, aggs, None, backend=bk, device=self.device
+                ),
             )
         if key == "sort_values:topk":
             by = node.kwargs["by"]
@@ -736,9 +757,11 @@ class FrameRuntime:
             limit = node.kwargs.get("limit")
             return (
                 lambda p, keep, bk: BK.fused_topk_partition(
-                    p, keep, by, asc, limit, backend=bk
+                    p, keep, by, asc, limit, backend=bk, device=self.device
                 ),
-                lambda p, bk: BK.partial_sort(p, by, asc, limit, backend=bk),
+                lambda p, bk: BK.partial_sort(
+                    p, by, asc, limit, backend=bk, device=self.device
+                ),
             )
         return None
 
@@ -792,6 +815,7 @@ class FrameRuntime:
                 filtered = BK.select_rows(
                     part, keep,
                     backend=self._planned_backend("filter", part.nrows),
+                    device=self.device,
                 )
                 out = unfused_fn(filtered, bk)
             results.append(out)
@@ -821,7 +845,9 @@ class FrameRuntime:
             aggs = parent.kwargs["aggs"]
             bk = self.backend()
             partials = [
-                BK.partial_groupby(p, by, aggs, topk_keys=k, backend=bk)
+                BK.partial_groupby(
+                    p, by, aggs, topk_keys=k, backend=bk, device=self.device
+                )
                 for p in frame.partitions
             ]
             dictionary = frame.partitions[0].columns[by].dictionary
@@ -840,7 +866,7 @@ class FrameRuntime:
                 asc = not asc
             bk = self.backend()
             partials = [
-                BK.partial_sort(p, by, asc, limit=k, backend=bk)
+                BK.partial_sort(p, by, asc, limit=k, backend=bk, device=self.device)
                 for p in frame.partitions
             ]
             value = B.merge_sort(partials, by, asc, limit=k)

@@ -2,7 +2,7 @@
 
 Each kernel module holds the ctypes wrapper of its ``csrc/*.cu`` kernel, the
 plain PyTorch version of the same function, and a launch counter; ``ref.py``
-holds the untiled oracles; ``ops.py`` the dispatch entry points used by the
+gathers the plain versions, the kernels' contracts; ``ops.py`` the dispatch entry points used by the
 frame layer.  Nothing here compiles or touches a GPU at import time.
 """
 from . import filter_compact, masked_stats, ops, ref, segment_reduce, topk

@@ -1,67 +1,14 @@
-"""Plain PyTorch oracles for the frame kernels (the correctness contracts).
+"""The correctness contracts of the frame kernels: their plain PyTorch
+versions, which the tests hold against the JAX package's Pallas kernels and
+the CUDA kernels are held against on the card.
 
-Each function is the transparent, untiled statement of what its kernel
-computes; the kernels and their tiled plain versions are held against these.
-Only the dataframe subset is here: masked_stats, segment_reduce, topk and
-filter_compact.
+This module keeps the reference's layout (``kernels/ref.py``); the functions
+themselves live beside their kernels.  Only the dataframe subset is here:
+masked_stats, segment_reduce, topk and filter_compact.
 """
-from __future__ import annotations
+from .filter_compact import filter_compact_plain
+from .masked_stats import masked_stats_plain
+from .segment_reduce import segment_reduce_plain
+from .topk import topk_plain
 
-from typing import Tuple
-
-import torch
-
-
-def segment_reduce_ref(
-    keys: torch.Tensor,  # int32[n] in [0, num_buckets)
-    values: torch.Tensor,  # f32[n]
-    valid: torch.Tensor,  # bool[n]
-    num_buckets: int,
-    mode: str = "sum",
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (reduced[num_buckets], counts[num_buckets])."""
-    k = keys.long()[valid]
-    v = values[valid]
-    counts = torch.zeros(num_buckets, dtype=torch.int64, device=keys.device)
-    counts.index_add_(0, k, torch.ones_like(k))
-    if mode == "sum":
-        red = torch.zeros(num_buckets, dtype=values.dtype, device=keys.device)
-        red.index_add_(0, k, v)
-    elif mode in ("min", "max"):
-        init = float("inf") if mode == "min" else float("-inf")
-        red = torch.full((num_buckets,), init, dtype=values.dtype, device=keys.device)
-        red.scatter_reduce_(0, k, v, reduce="amin" if mode == "min" else "amax")
-    else:
-        raise ValueError(mode)
-    return red, counts
-
-
-def masked_stats_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """(count, sum, m2, min, max) over the valid entries — f32[5].  m2 is the
-    centered second moment Σ m·(x − mean)², computed two-pass here."""
-    v = x[mask]
-    n = torch.tensor(float(v.numel()), dtype=x.dtype, device=x.device)
-    s = v.sum()
-    mean = s / torch.clamp(n, min=1.0)
-    d = v - mean
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
-    mn = v.min() if v.numel() else inf
-    mx = v.max() if v.numel() else -inf
-    return torch.stack([n, s, (d * d).sum(), mn, mx])
-
-
-def filter_compact_ref(
-    x: torch.Tensor, keep: torch.Tensor, fill=0.0
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stable compaction: kept values first (original order), padded with
-    ``fill``.  Returns (compacted[n], count)."""
-    kept = x[keep]
-    out = torch.full_like(x, fill)
-    out[: kept.numel()] = kept
-    return out, keep.sum()
-
-
-def topk_ref(x: torch.Tensor, k: int, largest: bool = True) -> torch.Tensor:
-    """Top-k values, sorted (descending if largest)."""
-    s = torch.sort(x).values
-    return s[-k:].flip(0) if largest else s[:k]
+__all__ = ["masked_stats_plain", "segment_reduce_plain", "topk_plain", "filter_compact_plain"]

@@ -78,27 +78,28 @@ def test_table_carries_over_exactly():
 
 
 def test_carried_table_same_answers():
-    TBK.set_torch_device("cpu")
     TBK.reset_breakers()
     ref = _reference_table()
     port = _carry(ref)
     aggs = (("s", "x", "sum"), ("m", "y", "mean"), ("c", "y", "count"), ("mx", "i", "max"))
     dic = ref.partitions[0].columns["k"].dictionary
     r_stats = RB.merge_stats([RBK.partial_stats(p, backend="xla") for p in ref.partitions])
-    t_stats = TB.merge_stats([TBK.partial_stats(p, backend="torch") for p in port.partitions])
+    t_stats = TB.merge_stats([TBK.partial_stats(p, backend="torch", device="cpu")
+                              for p in port.partitions])
     for name in r_stats:
         assert t_stats[name].n == r_stats[name].n
         np.testing.assert_allclose(t_stats[name].mean, r_stats[name].mean, rtol=1e-4)
         np.testing.assert_allclose(t_stats[name].std, r_stats[name].std, rtol=1e-3)
     r_gb = RB.merge_groupby([RBK.partial_groupby(p, "k", aggs, backend="xla")
                              for p in ref.partitions], "k", aggs, dic, None).to_pydict()
-    t_gb = TB.merge_groupby([TBK.partial_groupby(p, "k", aggs, backend="torch")
+    t_gb = TB.merge_groupby([TBK.partial_groupby(p, "k", aggs, backend="torch", device="cpu")
                              for p in port.partitions], "k", aggs, dic, None).to_pydict()
     assert list(t_gb["k"]) == list(r_gb["k"])
     for col in ("s", "m", "c", "mx"):
         np.testing.assert_allclose(t_gb[col], r_gb[col], rtol=2e-3, atol=1e-5)
     r_sel = [RBK.select_rows(p, p.columns["x"].data > 5, backend="xla") for p in ref.partitions]
-    t_sel = [TBK.select_rows(p, p.columns["x"].data > 5, backend="torch") for p in port.partitions]
+    t_sel = [TBK.select_rows(p, p.columns["x"].data > 5, backend="torch", device="cpu")
+             for p in port.partitions]
     assert pydict_equal(T.PTable(t_sel).to_pydict(), R.PTable(r_sel).to_pydict())
     snap = TBK.breaker_board().snapshot()  # the torch path served every call
     assert snap and all(st["failures"] == 0 and st["successes"] > 0 for st in snap.values())

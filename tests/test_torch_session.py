@@ -267,7 +267,6 @@ def test_cpu_only_when_asked(monkeypatch):
 def test_fused_partitions_equal_unfused_bitforbit(keep_kind):
     """The fused filter→{describe, groupby, topk} partials on the unfiltered
     partition equal select_rows followed by the unfused partial, bit for bit."""
-    TBK.set_torch_device("cpu")
     TBK.reset_breakers()
     rng = np.random.default_rng(11)
     n = 6_000
@@ -280,20 +279,84 @@ def test_fused_partitions_equal_unfused_bitforbit(keep_kind):
     for part in table.partitions:
         x = part.columns["x"].data
         keep = {"half": x > 5.0, "sparse": x > 8.0, "all": np.ones(part.nrows, bool)}[keep_kind]
-        filt = TBK.select_rows(part, keep, backend="torch")
-        fs = TBK.fused_stats_partition(part, keep, backend="torch")
-        us = TBK.partial_stats(filt, backend="torch")
+        filt = TBK.select_rows(part, keep, backend="torch", device="cpu")
+        fs = TBK.fused_stats_partition(part, keep, backend="torch", device="cpu")
+        us = TBK.partial_stats(filt, backend="torch", device="cpu")
         assert {k: tuple(vars(v).values()) for k, v in fs.items()} == \
             {k: tuple(vars(v).values()) for k, v in us.items()}
-        fg = TBK.fused_groupby_partition(part, keep, "k", aggs, backend="torch")
-        ug = TBK.partial_groupby(filt, "k", aggs, None, backend="torch")
+        fg = TBK.fused_groupby_partition(part, keep, "k", aggs, backend="torch", device="cpu")
+        ug = TBK.partial_groupby(filt, "k", aggs, None, backend="torch", device="cpu")
         assert np.array_equal(fg["keys"], ug["keys"])
         for name in ug["aggs"]:
             assert repr(fg["aggs"][name]) == repr(ug["aggs"][name]), name
         for asc in (True, False):
-            ft = TBK.fused_topk_partition(part, keep, "y", asc, 16, backend="torch")
-            ut = TBK.partial_sort(filt, "y", asc, 16, backend="torch")
+            ft = TBK.fused_topk_partition(part, keep, "y", asc, 16, backend="torch", device="cpu")
+            ut = TBK.partial_sort(filt, "y", asc, 16, backend="torch", device="cpu")
             assert pydict_equal(T.PTable([ft[0]]).to_pydict(), T.PTable([ut[0]]).to_pydict())
             assert np.array_equal(ft[1], ut[1])
     snap = TBK.breaker_board().snapshot()  # nothing fell back to numpy
     assert snap and all(st["failures"] == 0 and st["fallbacks"] == 0 for st in snap.values())
+
+
+@pytest.mark.parametrize("dev,contained", [("cuda", False), ("cpu", True)])
+def test_dispatch_error_falls_back_only_where_contained(dev, contained):
+    """On a CUDA device a dispatch error that is not an injected fault raises
+    and scores no breaker; on the CPU it falls back to numpy."""
+    TBK.reset_breakers()
+
+    def broken():
+        raise RuntimeError("launch failed")
+
+    if contained:
+        assert TBK._guarded("stats", "torch", torch.device(dev), broken, lambda: "numpy") == "numpy"
+    else:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            TBK._guarded("stats", "cuda", torch.device(dev), broken, lambda: "numpy")
+        with pytest.raises(RuntimeError, match="launch failed"):
+            with TBK._breaker_watch("groupby", "cuda", torch.device(dev)):
+                broken()
+    snap = TBK.breaker_board().snapshot()
+    assert sum(st["failures"] for st in snap.values()) == (1 if contained else 0)
+
+
+def test_injected_fault_on_the_card_falls_back_and_trips_the_breaker():
+    """The chaos feature is kept on the card: injected faults fall back to
+    numpy, score the breaker, and an open breaker serves from numpy."""
+    TBK.reset_breakers()
+    board = TBK.breaker_board()
+    cuda = torch.device("cuda")
+
+    def injected():
+        raise TBK._faults.InjectedFault("chaos")
+
+    for _ in range(board.failure_threshold):
+        assert TBK._guarded("topk", "cuda", cuda, injected, lambda: "numpy") == "numpy"
+    assert not board.is_closed("topk", "cuda")
+    assert TBK._guarded("topk", "cuda", cuda, lambda: "kernel", lambda: "numpy") == "numpy"
+    assert board.snapshot()["topk|cuda"]["fallbacks"] == 1
+    TBK.reset_breakers()
+
+
+def test_device_is_per_session():
+    """A later session on another device leaves an earlier session's
+    dispatches where they were."""
+    s = _port_session()
+    assert s.runtime.device == torch.device("cpu")
+    other = T.Session(catalog=_catalog(T), mode="sim", kernel_backend="torch", device="meta")
+    assert other.runtime.device == torch.device("meta")
+    TBK.reset_breakers()
+    df = s.read_table("small")
+    got = s.show(df.groupby("k").agg({"x": "mean"})).to_pydict()
+    ref = _ref_session()
+    rdf = ref.read_table("small")
+    want = ref.show(rdf.groupby("k").agg({"x": "mean"})).to_pydict()
+    assert list(got["k"]) == list(want["k"])
+    np.testing.assert_allclose(got["x"], want["x"], rtol=2e-3, atol=1e-5)
+    snap = TBK.breaker_board().snapshot()  # served on the CPU, not by numpy
+    assert snap and all(st["failures"] == 0 and st["successes"] > 0 for st in snap.values())
+
+
+def test_device_of_defaults_to_the_card():
+    assert TBK.device_of("cuda", "cpu") == torch.device("cuda")
+    assert TBK.device_of("torch") == torch.device("cuda")
+    assert TBK.device_of("torch", "cpu") == torch.device("cpu")
