@@ -14,7 +14,7 @@ frame partial             kernel
 ``partial_sort`` (full)   ``argsort_f64`` (native f64 stable sort)
 ``merge_sort`` (full)     sample-sort range split + ``argsort_f64``
 ``select_rows``           ``filter_compact`` (every column, any dtype)
-``join_partition``        numpy (``join_probe`` is not ported yet)
+``join_partition``        ``join_probe`` (native numeric keys)
 ========================  =============================================
 
 Backend selection is per-call via a policy chain, strongest first:
@@ -52,7 +52,6 @@ import torch
 
 from ..core import faults as _faults
 from ..kernels import ops
-from ..kernels import segment_reduce as _seg
 from . import blocking as B
 from .blocking import BUILTIN_AGGS, ColStats
 from .table import Column, Partition, PTable
@@ -516,9 +515,7 @@ def _groupby_supported(part: Partition, by: str, aggs, topk_keys) -> bool:
             return False
         if part.columns[col].is_string:
             return False
-    # the kernel keeps (S + V) bucket rows in one block's shared memory; at
-    # most S = len(aggs) value rows and V = len(aggs) + 1 validity rows
-    return _seg.fits(len(aggs), len(aggs) + 1, len(key_col.dictionary))
+    return True
 
 
 def _groupby_plan(part: Partition, by: str, aggs, dev, dedup_by_name: bool = False) -> tuple:
@@ -610,8 +607,7 @@ def partial_groupby(
 
 def _vc_supported(part: Partition, col: str) -> bool:
     c = part.columns[col]
-    return (c.dictionary is not None and part.nrows > 0
-            and _seg.fits(0, 1, len(c.dictionary)))
+    return c.dictionary is not None and part.nrows > 0
 
 
 def _vc_from_raw(key_dtype, cnt_row: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -829,8 +825,61 @@ def merge_sort(
 
 
 # --------------------------------------------------------------------------- #
-# join                                                                         #
+# join — sorted right side built once, device-resident; join_probe kernel      #
 # --------------------------------------------------------------------------- #
+
+_PROBE_TORCH = {
+    np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
+    np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+}
+_U64 = np.dtype(np.uint64)
+
+
+def _probe_dtype(left: np.dtype, right: np.dtype) -> Optional[np.dtype]:
+    """The one key type both sides are compared in: numpy's promotion of the
+    two (what the numpy reference compares in), widened to float32,
+    float64, int32, int64 or uint64; ``None`` for non-numeric keys."""
+    if left.kind not in "biuf" or right.kind not in "biuf":
+        return None
+    dt = np.result_type(left, right)
+    if dt.kind == "f":
+        return np.dtype(np.float32 if dt == np.float32 else np.float64)
+    if dt == _U64:
+        return _U64
+    small = dt.itemsize <= 2 or (dt.kind != "u" and dt.itemsize == 4)
+    return np.dtype(np.int32 if small else np.int64)
+
+
+def _probe_host(keys: np.ndarray, dtype: np.dtype) -> np.ndarray:
+    """Host keys in the kernel's type.  uint64 keys become int64 with the
+    sign bit flipped, a map that keeps their order and equality."""
+    if dtype == _U64:
+        return (keys.astype(_U64) ^ np.uint64(1 << 63)).view(np.int64)
+    return keys.astype(dtype)
+
+
+def _join_build_cached(right: "PTable", on: str, dtype: np.dtype, dev: torch.device):
+    """Build phase, cached on the (immutable) right PTable: merge + sort +
+    uniqueness check once per ``on``, and the sorted keys' device copy once
+    per (``on``, key type, device), resident across every left partition
+    and every think-time re-probe."""
+    cache = right.__dict__.setdefault("_join_build", {})
+    host = cache.get(on)
+    if host is None:
+        host = cache[on] = B.join_build(right, on)
+    key = (on, dtype.str, str(dev))
+    r_dev = cache.get(key)
+    if r_dev is None and len(host[1]):
+        r_dev = cache[key] = _upload(_probe_host(host[1], dtype), dev)
+    return (*host, r_dev)
+
+
+def _dev_probe_keys(col: Column, dtype: np.dtype, dev: torch.device) -> torch.Tensor:
+    if dtype == _U64:
+        make = lambda: _upload(_probe_host(col.data, dtype), dev)  # noqa: E731
+    else:
+        make = lambda: _dev_native(col, dev).to(_PROBE_TORCH[dtype]).contiguous()  # noqa: E731
+    return _cached(col, f"_dev_probe_{dtype.str}@{dev}", make)
 
 
 def join_partition(
@@ -839,10 +888,43 @@ def join_partition(
     on: str,
     how: str = "inner",
     backend: Optional[str] = None,
+    device=None,
 ) -> Partition:
-    """Broadcast join of one left partition.  Runs the numpy reference on
-    every backend: the ``join_probe`` kernel is not ported yet."""
-    return B.join_partition(left, right, on, how)
+    """Broadcast join of one left partition: the ``join_probe`` kernel finds
+    each left key in the right side's sorted keys on the device; only
+    ``pos`` and ``hit`` come back, and the rows are assembled on the host
+    (``blocking.join_assemble``).  String keys, and ``how`` other than inner
+    or left, run the numpy reference."""
+    bk = active_backend(backend)
+    dev = device_of(bk, device)
+    lcol = left.columns.get(on)
+    rcol = right.partitions[0].columns.get(on) if right.partitions else None
+    dtype = (
+        _probe_dtype(lcol.data.dtype, rcol.data.dtype)
+        if lcol is not None and rcol is not None
+        and not lcol.is_string and not rcol.is_string
+        else None
+    )
+    if bk == "numpy" or how not in ("inner", "left") or dtype is None or left.nrows == 0:
+        return B.join_partition(left, right, on, how)
+
+    def _run():
+        rmerged, r_sorted, r_order, r_dev = _join_build_cached(right, on, dtype, dev)
+        if len(r_sorted) == 0:
+            hit = np.zeros(left.nrows, dtype=bool)
+            gather = np.zeros(left.nrows, dtype=np.intp)
+        else:
+            with _kernel(bk):
+                pos, hit_dev = ops.join_probe_padded(r_dev, _dev_probe_keys(lcol, dtype, dev))
+            hit = _host(hit_dev)
+            gather = r_order[_host(pos)]
+        if lcol.mask is not None:
+            hit = hit & np.asarray(lcol.mask)  # null left keys never match
+        return B.join_assemble(left, rmerged, gather, hit, how, on)
+
+    return _guarded(
+        "join", bk, dev, _run, lambda: B.join_partition(left, right, on, how)
+    )
 
 
 # --------------------------------------------------------------------------- #

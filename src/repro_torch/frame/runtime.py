@@ -378,7 +378,7 @@ class FrameRuntime:
                 part.nrows,
                 lambda bk: BK.join_partition(
                     part, right, node.kwargs["on"],
-                    node.kwargs.get("how", "inner"), backend=bk,
+                    node.kwargs.get("how", "inner"), backend=bk, device=self.device,
                 ),
             )()
 

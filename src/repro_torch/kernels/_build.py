@@ -26,7 +26,8 @@ from pathlib import Path
 from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("masked_stats", "segment_reduce", "topk", "filter_compact")
+SOURCES = ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe",
+           "ssd_chunk")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -11,132 +11,160 @@
 // In practice the bucket walk below is bound by issue rate instead: every
 // thread of a block reads every key of its tile from shared memory.
 //
-// Design (deterministic, no float atomics):
-//  * pass 1, one block per TILE rows: the block stages its tile's keys and
-//    validity bytes in shared memory.  Thread `tid` owns the buckets
-//    b = tid, tid + THREADS, ... and walks the tile in row order, updating
-//    the shared accumulators of the buckets it owns, so every bucket sums
-//    its rows in row order with no race.  Counts are integers.  The block
-//    writes its tile's partials: tiles x (S + V) x B.
+// Design (deterministic, no float atomics), for any B < 2^24:
+//  * pass 1, grid (tiles, bucket ranges).  A tile is `tile` rows (chosen by
+//    the wrapper, `segment_reduce.tile_rows`); a bucket range is the widest
+//    run of buckets whose (S + V) accumulators fit one block's shared memory
+//    beside a STAGE-row staging buffer (all B when they fit).  The block
+//    stages its tile STAGE rows at a time (keys and validity bytes) and
+//    thread `tid` owns the buckets r0 + tid, r0 + tid + THREADS, ... of its
+//    range: it walks the staged rows in row order and updates the shared
+//    accumulators of the buckets it owns, skipping keys outside the range.
+//    So every bucket sums its rows in row order with no race.  Counts are
+//    integers.  The block writes its tile's partials of its range.
 //  * pass 2, one thread per (row, bucket): folds the tile partials in tile
 //    order.  Padded rows (valid False) touch nothing, and an extra all-
 //    padding tile contributes exact neutrals (+0.0, +inf, -inf, 0).
-//  * shared memory holds (S + V) * B accumulators; the frame layer routes
-//    plans above SEG_MAX_ACC words to numpy ahead of time
-//    (`frame.backend._groupby_supported`).
+//  * with one range and tile == STAGE (every B whose accumulators fit one
+//    block) this is the single-range kernel bit for bit.
+//
+// Scratch bound: part_f / part_c hold ceil(n / tile) * (S + V) * B * 4
+// bytes.  `tile` is STAGE * 2^k, the least with B * 4 <= 128 * tile, a
+// function of B only, so a value row's fold order does not depend on how
+// many rows share the call (batched == per-row for every B), and every
+// B <= 65,536 keeps tile == STAGE.  The scratch is at most 128 * (S + V)
+// bytes per input row plus one tile's partials ((S + V) * B * 4 bytes): at
+// B = 100,000, S + V = 2 over 2.45M rows, tile = 4,096 and 480 MB.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TILE = 2048;  // == repro_torch.kernels.segment_reduce.SEG_TILE
+constexpr int STAGE = 2048;  // == repro_torch.kernels.segment_reduce.SEG_TILE
 constexpr int THREADS = 256;
+constexpr long long SMEM_MAX = 227 * 1024;  // one H100 block's dynamic smem
 
 enum Mode { kSum = 0, kMin = 1, kMax = 2 };
+
+long long staging_bytes(int V) { return (long long)STAGE * 4 + (long long)V * STAGE; }
+
+// Buckets per range: all B when their accumulators fit beside the staging.
+int range_width(int S, int V, int B) {
+  const long long room = (SMEM_MAX - staging_bytes(V)) / ((long long)(S + V) * 4);
+  return (int)(room < B ? room : B);
+}
 
 __global__ void __launch_bounds__(THREADS)
 segment_tiles(const int* __restrict__ keys, const float* __restrict__ values,
               const uint8_t* __restrict__ valids, const int* __restrict__ plan,
-              int S, int V, int B, long long n, float* __restrict__ part_f,
-              int* __restrict__ part_c) {
+              int S, int V, int B, long long n, int tile, int width,
+              float* __restrict__ part_f, int* __restrict__ part_c) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* acc_f = reinterpret_cast<float*>(smem);          // S * B
-  int* acc_c = reinterpret_cast<int*>(acc_f + (size_t)S * B);  // V * B
-  int* skeys = acc_c + (size_t)V * B;                      // TILE
-  uint8_t* svalid = reinterpret_cast<uint8_t*>(skeys + TILE);  // V * TILE
+  const int r0 = blockIdx.y * width;
+  const int nb = min(width, B - r0);
+  float* acc_f = reinterpret_cast<float*>(smem);               // S * nb
+  int* acc_c = reinterpret_cast<int*>(acc_f + (size_t)S * nb);  // V * nb
+  int* skeys = acc_c + (size_t)V * nb;                          // STAGE
+  uint8_t* svalid = reinterpret_cast<uint8_t*>(skeys + STAGE);  // V * STAGE
 
-  const int t = blockIdx.x;
-  const long long base = (long long)t * TILE;
-  const int len = (int)min((long long)TILE, n - base);
+  const long long t = blockIdx.x;
+  const long long start = t * tile;
+  const long long end = min(start + tile, n);
 
-  for (int i = threadIdx.x; i < S * B; i += THREADS) {
-    const int mode = plan[i / B];
+  for (int i = threadIdx.x; i < S * nb; i += THREADS) {
+    const int mode = plan[i / nb];
     acc_f[i] = mode == kSum ? 0.0f : (mode == kMin ? CUDART_INF_F : -CUDART_INF_F);
   }
-  for (int i = threadIdx.x; i < V * B; i += THREADS) acc_c[i] = 0;
-  for (int r = threadIdx.x; r < len; r += THREADS) skeys[r] = keys[base + r];
-  for (int v = 0; v < V; ++v)
-    for (int r = threadIdx.x; r < len; r += THREADS)
-      svalid[v * TILE + r] = valids[(long long)v * n + base + r];
-  __syncthreads();
+  for (int i = threadIdx.x; i < V * nb; i += THREADS) acc_c[i] = 0;
 
-  for (int r = 0; r < len; ++r) {
-    const int k = skeys[r];
-    if (k < 0 || k >= B || (k % THREADS) != threadIdx.x) continue;
-    for (int v = 0; v < V; ++v) acc_c[v * B + k] += svalid[v * TILE + r] ? 1 : 0;
-    for (int s = 0; s < S; ++s) {
-      if (!svalid[plan[S + s] * TILE + r]) continue;
-      const float x = values[(long long)s * n + base + r];
-      float* a = &acc_f[s * B + k];
-      const int mode = plan[s];
-      *a = mode == kSum ? *a + x : (mode == kMin ? fminf(*a, x) : fmaxf(*a, x));
+  for (long long base = start; base < end; base += STAGE) {
+    const int len = (int)min((long long)STAGE, end - base);
+    __syncthreads();  // the previous stage has been consumed
+    for (int r = threadIdx.x; r < len; r += THREADS) skeys[r] = keys[base + r];
+    for (int v = 0; v < V; ++v)
+      for (int r = threadIdx.x; r < len; r += THREADS)
+        svalid[v * STAGE + r] = valids[(long long)v * n + base + r];
+    __syncthreads();
+
+    for (int r = 0; r < len; ++r) {
+      const int k = skeys[r] - r0;
+      if (k < 0 || k >= nb || (k % THREADS) != threadIdx.x) continue;
+      for (int v = 0; v < V; ++v) acc_c[v * nb + k] += svalid[v * STAGE + r] ? 1 : 0;
+      for (int s = 0; s < S; ++s) {
+        if (!svalid[plan[S + s] * STAGE + r]) continue;
+        const float x = values[(long long)s * n + base + r];
+        float* a = &acc_f[s * nb + k];
+        const int mode = plan[s];
+        *a = mode == kSum ? *a + x : (mode == kMin ? fminf(*a, x) : fmaxf(*a, x));
+      }
     }
   }
   __syncthreads();
 
-  float* pf = part_f + (size_t)t * S * B;
-  int* pc = part_c + (size_t)t * V * B;
-  for (int i = threadIdx.x; i < S * B; i += THREADS) pf[i] = acc_f[i];
-  for (int i = threadIdx.x; i < V * B; i += THREADS) pc[i] = acc_c[i];
+  float* pf = part_f + (size_t)t * S * B + r0;
+  int* pc = part_c + (size_t)t * V * B + r0;
+  for (int i = threadIdx.x; i < S * nb; i += THREADS)
+    pf[(size_t)(i / nb) * B + i % nb] = acc_f[i];
+  for (int i = threadIdx.x; i < V * nb; i += THREADS)
+    pc[(size_t)(i / nb) * B + i % nb] = acc_c[i];
 }
 
 __global__ void segment_merge(const float* __restrict__ part_f,
                               const int* __restrict__ part_c,
                               const int* __restrict__ plan, int S, int V, int B,
-                              int ntiles, float* __restrict__ reds,
+                              long long ntiles, float* __restrict__ reds,
                               int* __restrict__ cnts) {
   const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nf = (long long)S * B, nc = (long long)V * B;
   if (o < nf) {
     const int mode = plan[o / B];
     float a = mode == kSum ? 0.0f : (mode == kMin ? CUDART_INF_F : -CUDART_INF_F);
-    for (int t = 0; t < ntiles; ++t) {
-      const float x = part_f[(long long)t * nf + o];
+    for (long long t = 0; t < ntiles; ++t) {
+      const float x = part_f[t * nf + o];
       a = mode == kSum ? a + x : (mode == kMin ? fminf(a, x) : fmaxf(a, x));
     }
     reds[o] = a;
   } else if (o < nf + nc) {
     const long long c = o - nf;
     int a = 0;
-    for (int t = 0; t < ntiles; ++t) a += part_c[(long long)t * nc + c];
+    for (long long t = 0; t < ntiles; ++t) a += part_c[t * nc + c];
     cnts[c] = a;
   }
 }
 
 }  // namespace
 
-REPRO_EXPORT long long repro_segment_smem_bytes(int S, int V, int B) {
-  return (long long)(S + V) * B * 4 + (long long)TILE * 4 + (long long)V * TILE;
-}
-
 // keys i32[n]; values f32[S, n]; valids bool[V, n]; plan i32[2S] on the
 // device: plan[s] = mode of value row s (0 sum, 1 min, 2 max), plan[S + s] =
-// the validity row value row s reads.  Scratch part_f f32[ntiles, S, B],
-// part_c i32[ntiles, V, B] with ntiles = ceil(n / TILE).  Outputs reds
-// f32[S, B], cnts i32[V, B].
+// the validity row value row s reads.  `tile` rows per tile, a multiple of
+// STAGE.  Scratch part_f f32[ntiles, S, B], part_c i32[ntiles, V, B] with
+// ntiles = ceil(n / tile).  Outputs reds f32[S, B], cnts i32[V, B].
 REPRO_EXPORT int repro_segment_reduce(const void* keys, const void* values,
                                       const void* valids, const void* plan,
-                                      int S, int V, int B, long long n,
+                                      int S, int V, int B, long long n, int tile,
                                       void* part_f, void* part_c, void* reds,
                                       void* cnts, void* stream) {
-  if (n <= 0 || B <= 0 || V <= 0 || S < 0) return (int)cudaErrorInvalidValue;
-  const long long ntiles = (n + TILE - 1) / TILE;
-  const long long smem = repro_segment_smem_bytes(S, V, B);
-  if (ntiles > 0x7fffffffLL || smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || B <= 0 || B >= (1 << 24) || V <= 0 || S < 0 || tile <= 0 ||
+      tile % STAGE != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long ntiles = (n + tile - 1) / tile;
+  const int width = range_width(S, V, B);
+  if (width < 1) return (int)cudaErrorInvalidValue;
+  const long long nranges = (B + width - 1) / width;
+  if (ntiles > 0x7fffffffLL || nranges > 65535) return (int)cudaErrorInvalidValue;
+  const long long smem = (long long)(S + V) * width * 4 + staging_bytes(V);
   cudaError_t e = cudaFuncSetAttribute(
       segment_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  segment_tiles<<<(unsigned)ntiles, THREADS, (size_t)smem, st>>>(
+  segment_tiles<<<dim3((unsigned)ntiles, (unsigned)nranges), THREADS, (size_t)smem, st>>>(
       (const int*)keys, (const float*)values, (const uint8_t*)valids,
-      (const int*)plan, S, V, B, n, (float*)part_f, (int*)part_c);
+      (const int*)plan, S, V, B, n, tile, width, (float*)part_f, (int*)part_c);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long outs = (long long)(S + V) * B;
   const int mt = 256;
   segment_merge<<<(unsigned)((outs + mt - 1) / mt), mt, 0, st>>>(
       (const float*)part_f, (const int*)part_c, (const int*)plan, S, V, B,
-      (int)ntiles, (float*)reds, (int*)cnts);
+      ntiles, (float*)reds, (int*)cnts);
   return (int)cudaGetLastError();
 }
-
-REPRO_EXPORT int repro_segment_tile() { return TILE; }

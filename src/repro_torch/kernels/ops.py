@@ -1,4 +1,5 @@
-"""Dispatch entry points of the frame kernels.
+"""Dispatch entry points of the kernels: the frame operators' and the Mamba-2
+SSD scan (``ssd_scan``).
 
 Backend selection:
   * ``"cuda"``  — the hand-written CUDA kernels (``csrc/*.cu``); on a CPU
@@ -23,8 +24,10 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import filter_compact as _fc
+from . import join_probe as _jp
 from . import masked_stats as _ms
 from . import segment_reduce as _sr
+from . import ssd_chunk as _ssd
 from . import topk as _tk
 
 _TLS = threading.local()  # per-thread override (scoped, race-free)
@@ -34,6 +37,8 @@ KERNELS = {
     "segment_reduce": _sr,
     "topk": _tk,
     "filter_compact": _fc,
+    "join_probe": _jp,
+    "ssd_chunk_scan": _ssd,
 }
 
 
@@ -90,6 +95,31 @@ def _compact(xs, keep, fill=0):
     if backend() == "cuda":
         return _fc.filter_compact(xs, keep, fill)
     return _fc.filter_compact_plain(xs, keep, fill)
+
+
+def _probe(l_keys, r_sorted):
+    if backend() == "cuda":
+        return _jp.join_probe(l_keys, r_sorted)
+    return _jp.join_probe_plain(l_keys, r_sorted)
+
+
+def _ssd_scan(x, log_a, b, c, chunk):
+    if backend() == "cuda":
+        return _ssd.ssd_chunk_scan(x, log_a, b, c, chunk)
+    return _ssd.ssd_chunk_scan_plain(x, log_a, b, c, chunk)
+
+
+def ssd_scan(x, log_a, bmat, cmat, chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba-2 SSD over a batch: x (B, S, H, P), log_a (B, S, H),
+    bmat / cmat (B, S, N) → (y (B, S, H, P) in x's type, h_final f32
+    (B, H, N, P)), starting from the empty state.  The batch is a grid
+    dimension of the kernel (the reference vmaps its per-sequence call);
+    ``chunk`` is cut to S and must then divide it, as in the reference."""
+    chunk = min(int(chunk), x.shape[1])
+    if x.shape[1] % chunk:
+        raise ValueError(f"ssd_scan: S={x.shape[1]} is not a multiple of chunk={chunk}")
+    return _ssd_scan(x.contiguous(), log_a.to(torch.float32).contiguous(),
+                     bmat.to(x.dtype).contiguous(), cmat.to(x.dtype).contiguous(), chunk)
 
 
 # --------------------------------------------------------------------------- #
@@ -155,6 +185,23 @@ def argsort_f64(keys) -> torch.Tensor:
     NaN out).  Native float64 on the device: the card has f64, so the
     reference's 3×f32 split is not needed."""
     return torch.sort(keys.to(torch.float64), stable=True).indices
+
+
+def join_probe_padded(r_sorted, l_keys) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Probe each left key against the ascending, unique right keys: returns
+    ``(pos, hit)`` with ``pos`` clipped to ``[0, m-1]``, ready to gather
+    right rows, and ``hit`` marking exact matches.  Both sides must share one
+    key type (float32, float64, int32 or int64), compared natively.  NaN left
+    keys probe as misses.  The kernel takes any length, so the left keys are
+    not padded to a shape bucket as the reference pads them for its jit."""
+    m = int(r_sorted.shape[0])
+    if m == 0:
+        raise ValueError("join_probe_padded: empty right side (caller gates)")
+    if r_sorted.dtype != l_keys.dtype:
+        raise TypeError(f"join_probe_padded: key types differ ({l_keys.dtype} vs "
+                        f"{r_sorted.dtype}); the caller picks one")
+    pos, hit = _probe(l_keys.contiguous(), r_sorted.contiguous())
+    return pos.clamp(0, m - 1), hit
 
 
 def segment_reduce_batch(

@@ -1,0 +1,131 @@
+"""Mamba-2 SSD by chunks (state-space duality, arXiv:2405.21060).
+
+``ssd_chunk_scan(x, log_a, b, c, chunk)`` runs the recurrence
+``h_t = a_t h_{t-1} + b_t x_tᵀ, y_t = c_t h_t`` from h = 0 over x (batch, S,
+H, P), log_a (batch, S, H) float32 and b, c (batch, S, N) (shared by the
+heads), and returns ``(y (batch, S, H, P) in x's type, h_final f32 (batch,
+H, N, P))``.  It is two steps, as in the reference
+(src/repro/kernels/ssd_chunk.py):
+
+1. per (batch, chunk, head) cell of chunk length L, the intra-chunk pass::
+
+       cum     = cumsum(log_a over the chunk)                       (L,)
+       M[i,j]  = (C Bᵀ)[i,j] * exp(cum_i - cum_j) for j <= i, else 0
+       y_intra = M X                             (L, P), rounded to x's type
+       state   = (B * exp(cum_{L-1} - cum))ᵀ X    (N, P), float32
+
+   For CUDA tensors this is the kernel ``csrc/ssd_chunk.cu`` (one launch per
+   call); for CPU tensors, and in :func:`ssd_chunk_scan_plain`, torch ops.
+2. the inter-chunk state scan and the inbound-state correction
+   ``y = y_intra + exp(cum) C h_in``, in torch ops on either device.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import torch
+
+from . import _build
+from ._launch import I32, P, LaunchCounter, bind, check_launch, require, stream_ptr
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = LaunchCounter("ssd_chunk_scan")
+
+
+def ssd_chunk_intra_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 1 in torch ops → (y_intra (batch, S, H, P) in x's type, chunk
+    states f32 (batch, S/L, H, N, P))."""
+    bt, S, H, Pd = x.shape
+    N, L = b.shape[-1], int(chunk)
+    nc = S // L
+    xf = x.float().reshape(bt, nc, L, H, Pd)
+    la = log_a.float().reshape(bt, nc, L, H)
+    bf = b.float().reshape(bt, nc, L, N)
+    cf = c.float().reshape(bt, nc, L, N)
+    cum = la.cumsum(2)  # (bt, nc, L, H)
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()[..., None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (bt, nc, i, j, H)
+    lmask = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)), 0.0)
+    cb = torch.einsum("bnik,bnjk->bnij", cf, bf)
+    m = cb[..., None] * lmask  # (bt, nc, i, j, H)
+    y = torch.einsum("bnijh,bnjhp->bnihp", m, xf)
+    decay_end = torch.exp(cum[:, :, -1:, :] - cum)  # (bt, nc, L, H)
+    bw = bf[:, :, :, None, :] * decay_end[..., None]  # (bt, nc, L, H, N)
+    state = torch.einsum("bnlhk,bnlhp->bnhkp", bw, xf)
+    return y.reshape(bt, S, H, Pd).to(x.dtype), state
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    return bind(_build.load("ssd_chunk"), "repro_ssd_chunk",
+                [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, P, P, P])
+
+
+def _inter_chunk(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Tensor,
+                 c: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 2: h_k = exp(Σ log_a over chunk k) h_{k-1} + state_k from h = 0,
+    then y = y_intra + exp(cum) C h_in, cast to ``dtype``."""
+    bt, S, H, Pd = y_intra.shape
+    nc, N = state.shape[1], state.shape[3]
+    L = S // nc
+    la = log_a.float().reshape(bt, nc, L, H)
+    chunk_decay = torch.exp(la.sum(2))  # (bt, nc, H)
+    h = torch.zeros((bt, H, N, Pd), dtype=torch.float32, device=y_intra.device)
+    h_in = []
+    for k in range(nc):
+        h_in.append(h)
+        h = chunk_decay[:, k, :, None, None] * h + state[:, k]
+    ch = torch.einsum("bnlk,bnhkp->bnlhp", c.float().reshape(bt, nc, L, N),
+                      torch.stack(h_in, 1))
+    cum = la.cumsum(2)
+    y = y_intra.float().reshape(bt, nc, L, H, Pd) + torch.exp(cum)[..., None] * ch
+    return y.reshape(bt, S, H, Pd).to(dtype), h
+
+
+def ssd_chunk_scan_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
+                         c: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (y (batch, S, H, P) in x's type, h_final f32 (batch, H, N, P)),
+    all in torch ops."""
+    y_intra, state = ssd_chunk_intra_plain(x, log_a, b, c, chunk)
+    return _inter_chunk(y_intra, state, log_a, c, x.dtype)
+
+
+def ssd_chunk_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                   chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (y, h_final) as :func:`ssd_chunk_scan_plain`.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel for step 1 (or raise)."""
+    if x.device.type == "cpu":
+        return ssd_chunk_scan_plain(x, log_a, b, c, chunk)
+    y_intra, state = ssd_chunk_intra(x, log_a, b, c, chunk)
+    return _inter_chunk(y_intra, state, log_a, c, x.dtype)
+
+
+def ssd_chunk_intra(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 1 on CUDA tensors: one launch of the kernel → (y_intra, chunk
+    states) as :func:`ssd_chunk_intra_plain`."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_scan: unsupported device {x.device}")
+    dev = x.device
+    if x.dtype not in DTYPES:
+        raise TypeError(f"ssd_chunk_scan: unsupported type {x.dtype}")
+    require(x, "x", None, 4)
+    require(log_a, "log_a", torch.float32, 3, dev)
+    require(b, "b", x.dtype, 3, dev)
+    require(c, "c", x.dtype, 3, dev)
+    bt, S, H, Pd = x.shape
+    N, L = b.shape[-1], int(chunk)
+    if (log_a.shape != (bt, S, H) or b.shape != (bt, S, N) or c.shape != b.shape
+            or L <= 0 or S % L):
+        raise ValueError(f"ssd_chunk_scan: unsupported shapes x {tuple(x.shape)}, "
+                         f"b {tuple(b.shape)}, chunk {L}")
+    y = torch.empty_like(x)
+    state = torch.empty((bt, S // L, H, N, Pd), dtype=torch.float32, device=dev)
+    err = _fn()(x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), bt, S, H,
+                Pd, N, L, DTYPES[x.dtype], y.data_ptr(), state.data_ptr(), stream_ptr(dev))
+    check_launch("ssd_chunk_scan", err)
+    launches.add()
+    return y, state

@@ -1,0 +1,109 @@
+"""Parameter declaration: one source of truth for shapes and initialisation.
+
+``model_spec`` builds a tree of :class:`ParamSpec` (shape, init rule, and
+whether the reference casts the parameter to the compute type where it is
+used); :func:`init_params` materialises tensors from it with a seeded
+``torch.Generator``.  The port runs on one device, so the reference's
+sharding annotations reduce to :class:`ShardCtx` with ``tp = 1``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class ShardCtx:
+    """Mesh-shape context of the reference; the port is single-device, so
+    only the tensor-parallel degree (which pads the vocab) is left."""
+
+    tp: int = 1
+
+
+SINGLE = ShardCtx()
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"  # "normal:<scale>" | "zeros" | "ones"
+    # the reference casts it to the compute type where it is used
+    # (``.astype(dt)``), so the port stores it in that type
+    at_use: bool = False
+
+    def dtype(self, compute: torch.dtype) -> torch.dtype:
+        return compute if self.at_use else torch.float32
+
+    def materialise(self, gen: torch.Generator, compute: torch.dtype,
+                    device) -> torch.Tensor:
+        dt = self.dtype(compute)
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dt, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dt, device=device)
+        scale = float(self.init.split(":", 1)[1]) if ":" in self.init else 0.02
+        out = torch.randn(self.shape, generator=gen, dtype=torch.float32, device=device)
+        return (out * scale).to(dt)
+
+
+def matrix_spec(ctx: ShardCtx, shape: Tuple[int, ...], init: str = "normal") -> ParamSpec:
+    """A weight matrix (the reference shards it; it casts it at use)."""
+    return ParamSpec(shape=tuple(shape), init=init, at_use=True)
+
+
+def replicated_spec(shape: Tuple[int, ...], init: str = "ones") -> ParamSpec:
+    """A small replicated parameter, used in float32."""
+    return ParamSpec(shape=tuple(shape), init=init)
+
+
+# ------------------------------------------------------------------ trees --
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def init_params(tree, seed: int, compute: torch.dtype, device) -> Dict[str, Any]:
+    """Materialise a ParamSpec tree, leaf by leaf in tree order, from one
+    ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return tree_map(lambda s: s.materialise(gen, compute, device), tree)
+
+
+def stack_tree(tree, n: int):
+    """Prepend a layer-stack dimension of ``n`` to every spec."""
+    return tree_map(lambda s: replace(s, shape=(n,) + s.shape), tree)
+
+
+def tree_index(tree, i: int):
+    """Layer ``i`` of a stacked tree."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def param_count(tree) -> int:
+    return int(sum(np.prod(s.shape) for s in tree_leaves(tree)))
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a model entry point runs on: the card unless the caller
+    asks for another; asking for the card where there is none raises."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the model runs on a CUDA device and none is available; "
+                           "pass device='cpu' to run on the CPU")
+    return dev

@@ -1,0 +1,166 @@
+"""The decoder LM: embeds → the block-pattern groups → final norm → head.
+
+Parameters keep the reference's tree (``embed``, ``final_norm``,
+``groups/p<i>_<type>`` stacked along a leading ``n_groups`` dim, ``extra``
+for remainder layers), held by the :class:`LM` module.  The reference scans
+over the groups; here the layers are a loop over them.  Caches are stacked
+the same way.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .base import SINGLE, ShardCtx, init_params, resolve_device, stack_tree, tree_map
+from .blocks import Block, ParamTree, block_spec, init_block_cache
+from .layers import apply_norm, compute_dtype, embed_spec, embed_tokens, lm_logits, norm_spec
+from .ssd import SSDCache
+
+# ------------------------------------------------------------------ params --
+
+
+def model_spec(cfg: ModelConfig, ctx: ShardCtx = SINGLE) -> Dict[str, Any]:
+    n_groups, n_extra = cfg.pattern_groups
+    pattern = cfg.block_pattern
+    spec: Dict[str, Any] = {"embed": embed_spec(cfg, ctx), "final_norm": norm_spec(cfg)}
+    if n_groups > 0:
+        spec["groups"] = {
+            f"p{i}_{btype}": stack_tree(block_spec(btype, cfg, ctx), n_groups)
+            for i, btype in enumerate(pattern)
+        }
+    if n_extra:
+        spec["extra"] = {
+            f"x{i}_{pattern[i % len(pattern)]}": block_spec(pattern[i % len(pattern)], cfg, ctx)
+            for i in range(n_extra)
+        }
+    return spec
+
+
+class LM(nn.Module):
+    """The model's parameters as modules; ``forward`` runs :func:`forward`."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any], ctx: ShardCtx = SINGLE):
+        super().__init__()
+        self.cfg, self.ctx = cfg, ctx
+        pattern = cfg.block_pattern
+        self.embed = ParamTree(tree["embed"])
+        self.final_norm = ParamTree(tree["final_norm"])
+        self.groups = nn.ModuleDict({
+            key: Block(pattern[i], cfg, sub, stacked=True)
+            for i, (key, sub) in enumerate(tree.get("groups", {}).items())
+        })
+        self.extra = nn.ModuleDict({
+            key: Block(pattern[i % len(pattern)], cfg, sub, stacked=False)
+            for i, (key, sub) in enumerate(tree.get("extra", {}).items())
+        })
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.tok.device
+
+    def forward(self, tokens, cache=None, start_pos=None):
+        return forward(self, self.cfg, tokens, self.ctx, cache=cache, start_pos=start_pos)
+
+
+def init_model(cfg: ModelConfig, ctx: ShardCtx = SINGLE, seed: int = 0, device=None) -> LM:
+    """Random weights from a ``torch.Generator`` seeded with ``seed``, made
+    on ``device`` (the card unless asked), each in the type it is used in."""
+    dev = resolve_device(device)
+    return LM(cfg, init_params(model_spec(cfg, ctx), seed, compute_dtype(cfg), dev), ctx)
+
+
+# ------------------------------------------------------------------- cache --
+
+
+def _stack(caches):
+    first = caches[0]
+    if isinstance(first, SSDCache):
+        return SSDCache(*(torch.stack(ts) for ts in zip(*(c.tensors() for c in caches))))
+    raise TypeError(f"no stacking rule for {type(first).__name__}")
+
+
+def _index(cache, i: int):
+    if isinstance(cache, SSDCache):
+        return SSDCache(*(t[i] for t in cache.tensors()))
+    raise TypeError(f"no indexing rule for {type(cache).__name__}")
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None):
+    """Per-layer caches, stacked like the parameters."""
+    dev = resolve_device(device)
+    n_groups, n_extra = cfg.pattern_groups
+    pattern = cfg.block_pattern
+    cache: Dict[str, Any] = {}
+    if n_groups > 0:
+        cache["groups"] = {
+            f"p{i}_{btype}": _stack([init_block_cache(btype, cfg, batch, capacity, dev)] * n_groups)
+            for i, btype in enumerate(pattern)
+        }
+    if n_extra:
+        cache["extra"] = {
+            f"x{i}_{pattern[i % len(pattern)]}": init_block_cache(
+                pattern[i % len(pattern)], cfg, batch, capacity, dev)
+            for i in range(n_extra)
+        }
+    return cache
+
+
+def cache_tensors(cache):
+    """Every tensor of a stacked cache tree."""
+    out = []
+    tree_map(lambda c: out.extend(c.tensors()), cache)
+    return out
+
+
+# ----------------------------------------------------------------- forward --
+
+
+def forward(
+    params: LM,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # (B, S) or (B, K, S) for multi-codebook
+    ctx: ShardCtx = SINGLE,
+    cache=None,
+    start_pos: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
+    """Returns (logits, new_cache, aux_losses)."""
+    dt = compute_dtype(cfg)
+    x = embed_tokens(params.embed.tree(), cfg, tokens).to(dt)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    if start_pos is not None:
+        positions = start_pos + positions
+
+    n_groups, n_extra = cfg.pattern_groups
+    new_cache: Optional[Dict[str, Any]] = None if cache is None else {}
+    aux_total: Dict[str, torch.Tensor] = {}
+    if n_groups > 0:
+        outs: Dict[str, list] = {key: [] for key in params.groups}
+        for g in range(n_groups):
+            for key, block in params.groups.items():
+                c_in = None if cache is None else _index(cache["groups"][key], g)
+                x, c_out, aux = block(x, positions, ctx, layer=g, cache=c_in)
+                for k, v in aux.items():
+                    aux_total[k] = aux_total.get(k, 0.0) + v
+                if c_out is not None:
+                    outs[key].append(c_out)
+        if new_cache is not None:
+            new_cache["groups"] = {key: _stack(cs) for key, cs in outs.items()}
+    if n_extra:
+        extra: Dict[str, Any] = {}
+        for key, block in params.extra.items():
+            c_in = None if cache is None else cache["extra"][key]
+            x, c_out, aux = block(x, positions, ctx, cache=c_in)
+            for k, v in aux.items():
+                aux_total[k] = aux_total.get(k, 0.0) + v
+            if c_out is not None:
+                extra[key] = c_out
+        if new_cache is not None:
+            new_cache["extra"] = extra
+
+    x = apply_norm(params.final_norm.tree(), cfg, x)
+    logits = lm_logits(params.embed.tree(), cfg, x, ctx.tp)
+    return logits, new_cache, aux_total

@@ -1,6 +1,6 @@
 """The port's frame kernels against the JAX package's, on the CPU.
 
-For each of the four kernels the same numpy inputs (made from a seed) go
+For each of the four frame kernels the same numpy inputs (made from a seed) go
 through the JAX Pallas kernel in interpret mode, the JAX ``ops`` entry on the
 ``xla`` backend, and the port's plain PyTorch version (what a kernel wrapper
 runs on a CPU tensor).  Tolerances: counts, min, max, top-k values and
@@ -125,7 +125,69 @@ def test_segment_reduce_ref_and_shared_memory_gate():
                                        8, ["sum"], [0])
     assert red[0].tolist() == [3, 0, 0, 0, 0, 3, 0, 0]
     assert cnt[0].tolist() == [2, 0, 0, 0, 0, 1, 0, 0]
-    assert SR.fits(3, 4, 1000) and not SR.fits(3, 4, 50_000)
+    # no shared-memory gate any more: the tile grows with the buckets alone,
+    # and stays SEG_TILE for every B whose accumulators fit one block
+    assert SR.tile_rows(1000) == SR.SEG_TILE
+    assert SR.tile_rows(55_552) == SR.SEG_TILE
+    assert SR.tile_rows(65_536) == SR.SEG_TILE
+    assert SR.tile_rows(100_000) == 2 * SR.SEG_TILE
+    assert SR.tile_rows((1 << 24) - 1) == 256 * SR.SEG_TILE
+
+
+@pytest.mark.parametrize("mode", ["sum", "min", "max"])
+def test_segment_reduce_high_cardinality_vs_xla(mode):
+    """B = 100,000: beyond one block's shared memory, now one kernel call
+    with wider tiles.  Plain version and the ops entry against the JAX xla
+    path: counts exact, min / max exact, sums within 1e-5 of each bucket's
+    Σ|x|."""
+    rng = _rng("srhc", mode)
+    n, nb = 30_000, 100_000
+    keys = rng.integers(0, nb, n).astype(np.int32)
+    keys[:500] = 7  # one heavy bucket
+    vals = rng.normal(size=n).astype(np.float32)
+    valid = rng.random(n) < 0.8
+    with jops.local_backend("xla"):
+        jr, jc = jops.segment_reduce(jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(valid),
+                                     nb, mode)
+    jr, jc = np.asarray(jr), np.asarray(jc).astype(np.int64)
+    red, cnt = SR.segment_reduce_plain(_t(keys), _t(vals)[None], _t(valid)[None], nb, [mode], [0])
+    with tops.local_backend("torch"):
+        ored, ocnt = tops.segment_reduce_batch(_t(keys), [_t(vals)], [_t(valid)], nb, [mode], [0])
+    for r, c in ((red, cnt), (ored, ocnt)):
+        np.testing.assert_array_equal(c[0].numpy(), jc)
+        if mode == "sum":
+            _sums_close(r[0].numpy(), jr, keys, vals, valid, nb)
+        else:
+            np.testing.assert_array_equal(r[0].numpy(), jr)
+
+
+def test_high_cardinality_groupby_and_value_counts_take_the_kernel_route():
+    """No shared-memory gate: a 100,000-category groupby and value_counts
+    run segment_reduce (the torch backend here), not numpy, and agree with
+    the numpy partials."""
+    from repro_torch.frame import backend as TBK
+    from repro_torch.frame import blocking as TB
+    from repro_torch.frame.table import Column, Partition
+
+    rng = _rng("route")
+    n, nb = 20_000, 100_000
+    part = Partition({
+        "g": Column(data=rng.integers(0, nb, n).astype(np.int32),
+                    dictionary=np.array([f"g{i}" for i in range(nb)], dtype=object)),
+        "x": Column(data=rng.normal(size=n), mask=rng.random(n) < 0.9),
+    })
+    aggs = [("x", "x", "mean"), ("n", "x", "count")]
+    TBK.reset_breakers()
+    got = TBK.partial_groupby(part, "g", aggs, backend="torch", device="cpu")
+    want = TB.partial_groupby(part, "g", aggs)
+    np.testing.assert_array_equal(got["keys"], want["keys"])
+    vals, cnts = TBK.partial_value_counts(part, "g", backend="torch", device="cpu")
+    wv, wc = TB.partial_value_counts(part, "g")
+    np.testing.assert_array_equal(vals, wv)
+    np.testing.assert_array_equal(cnts, wc)
+    snap = TBK.breaker_board().snapshot()
+    for op in ("groupby", "value_counts"):
+        assert snap[f"{op}|torch"]["successes"] == 1 and snap[f"{op}|torch"]["failures"] == 0
 
 
 # ------------------------------------------------------------------------ topk --
@@ -265,4 +327,5 @@ def test_cuda_backend_on_cpu_tensors_runs_plain_version_without_launch():
         assert tops.topk_padded(x, 3).tolist() == [599.0, 598.0, 597.0]
         tops.masked_stats_batch(x[None], torch.ones((1, 600), dtype=torch.bool))
     assert tops.launch_counts() == {
-        "masked_stats": 0, "segment_reduce": 0, "topk": 0, "filter_compact": 0}
+        "masked_stats": 0, "segment_reduce": 0, "topk": 0, "filter_compact": 0,
+        "join_probe": 0, "ssd_chunk_scan": 0}
