@@ -16,7 +16,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    top-k values, compacted bytes), float32 sums within 1e-5 of Σ|x| (per
    row for masked_stats, per bucket for segment_reduce) and m2 within 1e-4
    relative, plus bit equality for pad invariance, batched == per-row and
-   fused == unfused;
+   fused == unfused; then the flash_attention forward and its two backward
+   kernels against the plain attention (output and all three gradients) at
+   edge shapes (GQA groups 1, 3, 8; D 64, 120, 128; bf16 and f32; causal or
+   not; windows 32 and 4,096; q_offset > 0 with Sq < Skv; one tile; B 1 to
+   4), two backward runs equal bit for bit, and two faulty plain attentions
+   (no alpha rescale; a dK/dV that drops a head) over the limits;
 3. main path — a 10M-row table and a 900,000-row dimension table through a
    seven-cell notebook (describe, filter + groupby, value_counts, sort +
    head, head, a left join + head, and an inner join + a groupby over
@@ -37,10 +42,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    the chunk states, one rounding its intermediates to bf16) must fail.  The 1,000- and
    1,024-token prefills are timed alone, and a profiled prefill and decode
    split the time by kernel;
+4c. training — ``smollm_360m`` at full width (random weights from seed 12,
+   float32 master weights) trained by ``train_loop`` for 4 steps of 8 x
+   4,096 tokens (microbatch 4, remat full, a checkpoint every 2 steps):
+   finite losses and gradient norms, 128 forward and 64 + 64 backward
+   attention launches a step, one profiled step split by kernel; the same
+   step twice from the same state equal bit for bit; one microbatch's loss,
+   gradient norm and gradients against the plain attention's (and a faulty
+   plain attention over the limit); a run killed by ``fail_at_step=3``
+   resumes and ends bit for bit where the uninterrupted run ended;
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2, at every shape the main path (or the serving phase) gave it;
    then the kernel, its plain version and one PyTorch library call timed at
-   the largest of them, beside the card's bound.
+   the largest of them, beside the card's bound (attention: at the training
+   shape, against ``scaled_dot_product_attention``).
 
 The last two lines are a JSON object per kernel and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -48,6 +63,7 @@ The last two lines are a JSON object per kernel and the result line
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -68,10 +84,19 @@ REPLACES = {
     "filter_compact": "src/repro/kernels/filter_compact.py:67",
     "join_probe": "src/repro/kernels/join_probe.py:89",
     "ssd_chunk_scan": "src/repro/kernels/ssd_chunk.py:103",
+    "flash_attention": "src/repro/kernels/flash_attention.py:133",
+    # no TPU counterpart: the reference's Pallas call has no backward
+    "flash_attention_bwd_dq": "none (no TPU kernel: the reference differentiates "
+                              "ref.attention_xla_chunked with XLA)",
+    "flash_attention_bwd_dkdv": "none (no TPU kernel: the reference differentiates "
+                                "ref.attention_xla_chunked with XLA)",
 }
-SOURCES = {name: name for name in REPLACES} | {"ssd_chunk_scan": "ssd_chunk"}
+SOURCES = {name: name for name in REPLACES} | {
+    "ssd_chunk_scan": "ssd_chunk", "flash_attention_bwd_dq": "flash_attention",
+    "flash_attention_bwd_dkdv": "flash_attention"}
 DATAFRAME = ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe")
 SERVING = ("ssd_chunk_scan",)
+TRAINING = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 BF16_ULP = 2.0 ** -7  # one bfloat16 ulp, relative
 
 
@@ -323,6 +348,168 @@ def fused_parity(torch, ops, rng, dev):
         ur, uc = ops.segment_reduce_batch(kc, [xc[0], xc[1]], [mc[0], mc[1]], 64,
                                           ["sum", "max"], [0, 1])
         check(torch.equal(fr, ur) and torch.equal(fc, uc), "fused filter→groupby == unfused")
+
+
+# --------------------------------------------------------------------------- #
+# phase 2b: attention, forward and backward, kernel vs plain                   #
+# --------------------------------------------------------------------------- #
+
+# (B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, q_offset): GQA groups 1, 3
+# and 8; D 64, 120 and 128; both types; causal and not; windows 32 and 4,096;
+# q_offset > 0 with Sq < Skv (alone and with a window, so that a row's first
+# kv tiles are all hidden); one 64-row tile; a 96-row sequence (ragged tiles);
+# B from 1 to 4; and the training shape's heads.
+ATTN_SHAPES = (
+    (1, 2, 2, 128, 128, 64, "bfloat16", True, None, 0),
+    (2, 6, 2, 256, 256, 64, "float32", True, None, 0),
+    (4, 8, 1, 128, 128, 128, "bfloat16", True, None, 0),
+    (1, 8, 1, 256, 256, 128, "float32", False, None, 0),
+    (2, 3, 1, 256, 256, 64, "bfloat16", True, 32, 0),
+    (1, 15, 5, 512, 512, 64, "bfloat16", True, 4096, 0),
+    (2, 4, 2, 128, 384, 64, "float32", True, None, 256),
+    (1, 4, 2, 128, 384, 64, "bfloat16", True, 32, 256),
+    (3, 3, 3, 64, 64, 64, "float32", True, None, 0),
+    (1, 6, 2, 96, 96, 120, "bfloat16", False, 32, 0),
+    (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0),
+)
+# Limits, relative to the largest |value| of the plain version's tensor: the
+# kernel and the plain version sum in float32 in another order and round to
+# the inputs' type once, so a bf16 value may differ by one bf16 ulp of
+# itself, and a float32 value by float32 rounding over S-long sums.
+ATTN_TOL = {"bfloat16": 2 * BF16_ULP, "float32": 1e-5}
+
+
+def attn_inputs(torch, rng, dev, B, Hq, Hkv, Sq, Skv, D, dtype):
+    """q, k, v and an output cotangent, N(0, 1) (q and k scaled so that the
+    logits spread over several units, as in a trained model)."""
+    dt = getattr(torch, dtype)
+
+    def t(shape, sd=1.0):
+        return torch.as_tensor(rng.normal(0, sd, shape), device=dev).to(dt).contiguous()
+
+    return (t((B, Hq, Sq, D), 1.5), t((B, Hkv, Skv, D), 1.5), t((B, Hkv, Skv, D)),
+            t((B, Hq, Sq, D)))
+
+
+def attn_grads(torch, fn, q, k, v, g, mask):
+    """→ (o, dq, dk, dv) of ``fn`` with the cotangent ``g``."""
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o = fn(q, k, v, *mask)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+    return o.detach(), dq, dk, dv
+
+
+def attn_controls(torch, fa):
+    """Faulty plain attentions that the limits must catch, by name, with the
+    tensor each must spoil."""
+    plain = fa.flash_attention_plain
+
+    def no_alpha(q, k, v, causal, window, scale, q_offset):
+        # online softmax over 64-key blocks that never rescales what it has
+        # summed when the running max grows
+        B, Hq, Sq, D = q.shape
+        group = Hq // k.shape[1]
+        scale = scale if scale is not None else D ** -0.5
+        kf = k.float().repeat_interleave(group, 1)
+        vf = v.float().repeat_interleave(group, 1)
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, kf)
+        s = s.masked_fill(~fa._mask(Sq, k.shape[2], causal, window, q_offset, q.device),
+                          float("-inf"))
+        m = torch.full(s.shape[:3] + (1,), float("-inf"), device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(q.shape, device=q.device)
+        for j in range(0, s.shape[-1], 64):
+            blk = s[..., j:j + 64]
+            m = torch.maximum(m, blk.amax(-1, keepdim=True))
+            p = torch.exp(blk - m).nan_to_num(0.0)
+            l = l + p.sum(-1, keepdim=True)
+            acc = acc + p @ vf[:, :, j:j + 64]
+        return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+    def dkdv_skips_a_head(q, k, v, causal, window, scale, q_offset):
+        # the plain attention with the kv gradient of each group's last
+        # q-head dropped
+        group = q.shape[1] // k.shape[1]
+        return _SkipHead.apply(q, k, v, (causal, window, scale, q_offset), group)
+
+    class _SkipHead(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, mask, group):
+            ctx.save_for_backward(q, k, v)
+            ctx.mask, ctx.group = mask, group
+            return plain(q, k, v, *mask)
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v = ctx.saved_tensors
+            with torch.enable_grad():
+                qq = q.detach().requires_grad_(True)
+                kr = k.detach().repeat_interleave(ctx.group, 1).requires_grad_(True)
+                vr = v.detach().repeat_interleave(ctx.group, 1).requires_grad_(True)
+                o = plain(qq, kr, vr, *ctx.mask)
+                dq, dkr, dvr = torch.autograd.grad(o, (qq, kr, vr), g)
+            B, Hq, Skv, D = dkr.shape
+            shape = (B, Hq // ctx.group, ctx.group, Skv, D)
+            keep = torch.ones(ctx.group, device=q.device)
+            keep[-1] = 0.0
+            dk = (dkr.float().reshape(shape) * keep[:, None, None]).sum(2).to(k.dtype)
+            dv = (dvr.float().reshape(shape) * keep[:, None, None]).sum(2).to(v.dtype)
+            return dq, dk, dv, None, None
+
+    return {"forward without the alpha rescale": (no_alpha, "o"),
+            "dK/dV that skips one head of each group": (dkdv_skips_a_head, "dk")}
+
+
+def attn_errs(got, want):
+    """max |err| and the plain tensor's max |value|, for o, dq, dk, dv."""
+    return {name: (float((g.float() - w.float()).abs().max()), float(w.float().abs().max()))
+            for name, g, w in zip(("o", "dq", "dk", "dv"), got, want)}
+
+
+def attention_parity(torch, rng, dev, shapes=ATTN_SHAPES, label="edge"):
+    """The kernels (through their autograd Function) against the plain
+    version at ``shapes``: the output and the three gradients within
+    ATTN_TOL, two backward runs equal bit for bit, and each faulty control
+    over the limit at one shape at least.  Returns the max |err| per
+    kernel."""
+    from repro_torch.kernels import flash_attention as fa
+
+    errs = {"flash_attention": 0.0, "flash_attention_bwd_dq": 0.0,
+            "flash_attention_bwd_dkdv": 0.0}
+    rows = {"o": "flash_attention", "dq": "flash_attention_bwd_dq",
+            "dk": "flash_attention_bwd_dkdv", "dv": "flash_attention_bwd_dkdv"}
+    controls = attn_controls(torch, fa)
+    caught = {label: 0.0 for label in controls}
+    worst = {}
+    for B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off in shapes:
+        where = f"{(B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off)}"
+        q, k, v, g = attn_inputs(torch, rng, dev, B, Hq, Hkv, Sq, Skv, D, dtype)
+        mask = (causal, window, None, off)
+        got = attn_grads(torch, fa.flash_attention, q, k, v, g, mask)
+        again = attn_grads(torch, fa.flash_attention, q, k, v, g, mask)
+        want = attn_grads(torch, fa.flash_attention_plain, q, k, v, g, mask)
+        for name, a, b in zip(("o", "dq", "dk", "dv"), got, again):
+            check(torch.equal(a, b), f"attention {name} differs between two runs {where}")
+        tol = ATTN_TOL[dtype]
+        for name, (e, scale) in attn_errs(got, want).items():
+            check(got[0].dtype == q.dtype, f"attention output type {where}")
+            check(e <= tol * scale and e == e,
+                  f"attention {name} {where}: max |err| {e} over the limit {tol * scale}")
+            errs[rows[name]] = max(errs[rows[name]], e)
+            key = f"{name} {dtype}"
+            worst[key] = max(worst.get(key, 0.0), e / max(scale, 1e-30))
+        for clabel, (faulty, name) in controls.items():
+            bad = attn_grads(torch, faulty, q, k, v, g, mask)
+            e = attn_errs(got, bad)[name][0]
+            caught[clabel] = max(caught[clabel], e / (tol * attn_errs(got, want)[name][1]))
+    for clabel, ratio in caught.items():
+        check(ratio > 1.0, f"attention control, {clabel}: max |err| is {ratio} of the limit at "
+              "every shape, which cannot see it")
+    print(f"[parity] attention: kernel vs plain at {len(shapes)} {label} shapes; worst "
+          "|err| / max |plain| per tensor and type (limits " + json.dumps(ATTN_TOL) + "): "
+          + json.dumps(worst) + "; two backward runs equal "
+          "bit for bit; controls, worst |err| over the limit: " + json.dumps(caught), flush=True)
+    return errs
 
 
 # --------------------------------------------------------------------------- #
@@ -700,6 +887,99 @@ def timings(torch, K, shapes, rng, dev):
     return out
 
 
+# the attention shape of one training microbatch of smollm_360m at 4,096
+# tokens: B 4 x Hq 15 (Hkv 5) x 4,096 x 64, bf16, causal
+TRAIN_ATTN = (4, 15, 5, 4096, 4096, 64, "bfloat16", True, None, 0)
+
+
+def visible_pairs(Sq, Skv, causal, window, q_offset):
+    """The (query, key) pairs the mask lets through, per (batch, q-head)."""
+    import numpy as np
+
+    p = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(p, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, p - window + 1) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_work(shape):
+    """(bytes, flops) of the three kernels at ``shape``, each input read
+    once and each output written once; flops over the visible pairs only:
+    forward S and P V (4 D a pair), dQ S, dP and dS K (6 D), dK/dV S, dP,
+    Pᵀ dO and dSᵀ Q (8 D)."""
+    B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off = shape
+    e = 2 if dtype == "bfloat16" else 4
+    qn, kn, rows = B * Hq * Sq * D, B * Hkv * Skv * D, B * Hq * Sq
+    pairs = B * Hq * visible_pairs(Sq, Skv, causal, window, off)
+    return {
+        "flash_attention": (e * (2 * qn + 2 * kn) + 4 * rows, 4 * D * pairs),
+        "flash_attention_bwd_dq": (e * (3 * qn + 2 * kn) + 4 * qn + 8 * rows, 6 * D * pairs),
+        "flash_attention_bwd_dkdv": (e * (2 * qn + 4 * kn) + 8 * rows, 8 * D * pairs),
+    }
+
+
+def attention_timings(torch, rng, dev):
+    """The three kernels, the plain version and SDPA at the training shape:
+    mean of cold-L2 calls; backward times run one backward of a graph kept
+    from one forward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off = TRAIN_ATTN
+    q, k, v, g = attn_inputs(torch, rng, dev, B, Hq, Hkv, Sq, Skv, D, dtype)
+    mask = (causal, window, None, off)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    _, o32, lse = fa.flash_forward(q, k, v, *mask, keep_f32=True)
+    _, delta = fa.backward_dq(q, k, v, o32, lse, g, *mask)
+
+    def backward_of(fn):
+        qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = fn(qq, kk, vv)
+        return lambda: torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True)
+
+    def fwd_bwd(fn):
+        def run():
+            qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+            return torch.autograd.grad(fn(qq, kk, vv), (qq, kk, vv), g)
+        return run
+
+    def sdpa(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
+
+    plain = lambda qq, kk, vv: fa.flash_attention_plain(qq, kk, vv, *mask)
+    ms = {
+        "kernel fwd": timed(torch, lambda: fa.flash_forward(q, k, v, *mask), 5, flush),
+        "kernel dq": timed(torch, lambda: fa.backward_dq(q, k, v, o32, lse, g, *mask), 3, flush),
+        "kernel dkdv": timed(torch, lambda: fa.backward_dkdv(q, k, v, lse, delta, g, *mask),
+                             3, flush),
+        "plain fwd": timed(torch, lambda: plain(q, k, v), 3, flush),
+        "plain bwd": timed(torch, backward_of(plain), 3, flush),
+        "sdpa fwd": timed(torch, lambda: sdpa(q, k, v), 10, flush),
+        "sdpa bwd": timed(torch, backward_of(sdpa), 10, flush),
+    }
+    ms["kernel fwd+bwd"] = timed(torch, fwd_bwd(
+        lambda qq, kk, vv: fa.flash_attention(qq, kk, vv, *mask)), 2, flush)
+    ms["sdpa fwd+bwd"] = timed(torch, fwd_bwd(sdpa), 10, flush)
+    work = attention_work(TRAIN_ATTN)
+    print("[time] attention at the training shape " + json.dumps(TRAIN_ATTN) + ", ms: "
+          + json.dumps(ms), flush=True)
+    shape = [B, Hq, Hkv, Sq, Skv, D, dtype, "causal"]
+    return {
+        "flash_attention": dict(shape=shape, ms=ms["kernel fwd"], plain_ms=ms["plain fwd"],
+                                library_ms=ms["sdpa fwd"],
+                                bound=bound(*work["flash_attention"], BF16_OPS_PER_S)),
+        "flash_attention_bwd_dq": dict(shape=shape, ms=ms["kernel dq"], plain_ms=ms["plain bwd"],
+                                       library_ms=ms["sdpa bwd"],
+                                       bound=bound(*work["flash_attention_bwd_dq"],
+                                                   BF16_OPS_PER_S)),
+        "flash_attention_bwd_dkdv": dict(shape=shape, ms=ms["kernel dkdv"],
+                                         plain_ms=ms["plain bwd"], library_ms=ms["sdpa bwd"],
+                                         bound=bound(*work["flash_attention_bwd_dkdv"],
+                                                     BF16_OPS_PER_S)),
+    }
+
+
 def recorder(K):
     """Context manager that records the shapes each kernel wrapper is given
     (calls pass straight through, so launch counts are the wrappers' own)."""
@@ -930,6 +1210,218 @@ def serving(torch, ops, cfg, dev, record):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 4c: training smollm_360m at full width                                 #
+# --------------------------------------------------------------------------- #
+
+TRAIN_SEED = 12
+TRAIN_STEPS = 4
+TRAIN_BATCH, TRAIN_MICRO = 8, 4  # the train_4k shape's global batch 256, cut to one card
+CKPT_ROOT = ROOT / ".smoke_ckpt"  # checkpoints of this phase, removed at its end
+# predicted launches per step: 32 layers x 2 microbatches x 2 forwards (remat)
+# of the forward, 32 x 2 of each backward kernel
+PER_STEP = {"flash_attention": 128, "flash_attention_bwd_dq": 64,
+            "flash_attention_bwd_dkdv": 64}
+# The step with the kernels against the same step with the plain attention
+# (one microbatch of 2 x 1,024 tokens, remat off, the seed-12 weights): the
+# attention outputs differ by up to a bf16 ulp and each layer moves the next
+# one's input.  Sound readings on an H100 (seed 12): loss 3.8e-5 and
+# gradient norm 3.9e-5 relative, worst leaf gradient 0.0203 of its largest
+# |g|; the limits are 2e-4, 5e-4 and 2^-4.  A plain attention whose backward
+# drops one head of each group's dK / dV read 0.93 and must fail the leaf
+# limit.
+STEP_LOSS_TOL, STEP_GNORM_TOL, STEP_GRAD_TOL = 2e-4, 5e-4, 2.0 ** -4
+
+
+def leaf_errs(torch, got, want):
+    """{leaf: (max |err|, max |want|)} over two gradient trees."""
+    from repro_torch.models.base import keystr, tree_flatten
+
+    return {keystr(p): (float((g - w).abs().max()), float(w.abs().max()))
+            for (p, g), (_, w) in zip(tree_flatten(got), tree_flatten(want))}
+
+
+def step_vs_plain(torch, ops, cfg, model, dev):
+    """Check 2: one microbatch's loss, gradient norm and gradients with the
+    kernels against the plain attention, and the faulty control."""
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import SINGLE
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.trainstep import value_and_grad
+
+    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=1024, batch=2, seed=0), 0),
+                      dev)
+
+    def run(backend):
+        with ops.local_backend(backend):
+            loss, _, grads = value_and_grad(model, cfg, batch, SINGLE, remat=False)
+        return float(loss), float(global_norm(grads)), grads
+
+    kl, kn, kg = run("cuda")
+    pl, pn, pg = run("torch")
+    errs = leaf_errs(torch, kg, pg)
+    worst = max(e / max(w, 1e-30) for e, w in errs.values())
+    print(f"[train] check 2, 2 x 1,024 tokens, kernels vs plain attention: loss {kl} vs {pl}, "
+          f"grad norm {kn} vs {pn}, worst leaf |err| / max |g| {worst}: "
+          + json.dumps({k: e / max(w, 1e-30) for k, (e, w) in errs.items()}), flush=True)
+    check(math.isfinite(kl) and abs(kl - pl) <= STEP_LOSS_TOL * abs(pl),
+          f"training step loss {kl} vs plain {pl}")
+    check(math.isfinite(kn) and abs(kn - pn) <= STEP_GNORM_TOL * pn,
+          f"training step grad norm {kn} vs plain {pn}")
+    check(worst <= STEP_GRAD_TOL, f"training step gradients vs plain: worst {worst}")
+    del kg
+    controls = attn_controls(torch, fa)
+    faulty, _ = controls["dK/dV that skips one head of each group"]
+    plain = fa.flash_attention_plain
+    fa.flash_attention_plain = faulty
+    try:
+        _, _, cg = run("torch")
+    finally:
+        fa.flash_attention_plain = plain
+    cworst = max(e / max(w, 1e-30) for e, w in leaf_errs(torch, cg, pg).values())
+    check(cworst > STEP_GRAD_TOL, f"control, dK/dV without a head: worst leaf {cworst} is "
+          f"within the limit {STEP_GRAD_TOL}, which cannot see it")
+    print(f"[train] control, plain attention whose dK/dV drops a head: worst leaf |err| / "
+          f"max |g| {cworst}, above the limit {STEP_GRAD_TOL}", flush=True)
+
+
+def tree_bytes_equal(torch, a, b) -> bool:
+    from repro_torch.models.base import tree_flatten
+
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_flatten(a), tree_flatten(b)))
+
+
+def training(torch, ops, dev):
+    """``smollm_360m`` at full width trained by ``train_loop`` on the card;
+    returns the attention kernels' launch counts over the 4-step run."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import RunConfig, get_config, get_shape
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.train import train_loop
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    cfg = get_config("smollm_360m")
+    base = get_shape("train_4k")
+    shape = ShapeConfig(base.name, base.kind, base.seq_len, TRAIN_BATCH)
+    run = RunConfig(model=cfg, shape=shape, dp=1, tp=1, remat="full", microbatch=TRAIN_MICRO)
+    data = SynthSpec(vocab=cfg.vocab, seq_len=shape.seq_len, batch=TRAIN_BATCH, seed=0)
+    tokens = shape.seq_len * TRAIN_BATCH
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    CKPT_ROOT.mkdir()
+    free = shutil.disk_usage(CKPT_ROOT).free
+    print(f"[train] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}; {TRAIN_STEPS} steps of {TRAIN_BATCH} x {shape.seq_len} tokens "
+          f"(microbatch {TRAIN_MICRO}, remat full), seed {TRAIN_SEED}; {free} bytes free for "
+          "checkpoints", flush=True)
+    logs = []
+    try:
+        # the main path: 4 steps, a checkpoint every 2
+        ops.reset_launch_counts()  # counts start at 0 just before the training path
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole = train_loop(cfg, run, data, TRAIN_STEPS, ckpt_dir=str(CKPT_ROOT / "whole"),
+                           ckpt_every=2, seed=TRAIN_SEED, log_every=1, log_fn=logs.append,
+                           device=dev)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[train] {TRAIN_STEPS} steps in {wall} s (checkpoints included): step ms "
+              + json.dumps([t * 1e3 for t in whole.step_times]) + ", tokens/s "
+              + json.dumps([tokens / t for t in whole.step_times]) + ", losses "
+              + json.dumps(whole.losses) + ", grad norms " + json.dumps(whole.grad_norms)
+              + f", peak device memory {peak} bytes", flush=True)
+        check(whole.steps == TRAIN_STEPS and all(math.isfinite(x) for x in
+                                                 whole.losses + whole.grad_norms),
+              "training: a loss or gradient norm is not finite")
+        print("[train] launches in the run: " + json.dumps(
+            {k: launches[k] for k in PER_STEP}) + "; per step "
+            + json.dumps({k: launches[k] / TRAIN_STEPS for k in PER_STEP}), flush=True)
+        for name, n in PER_STEP.items():
+            check(launches[name] == n * TRAIN_STEPS,
+                  f"{name} launched {launches[name]} times in {TRAIN_STEPS} steps, not "
+                  f"{n * TRAIN_STEPS}")
+
+        # check 3: the same step twice from the same state, bit for bit; the
+        # second run is profiled
+        step_fn, _ = make_train_step(cfg, run)
+        batch = to_device(batch_at(data, 0), dev)
+        states = []
+        for i in range(2):
+            model, opt_state = init_train_state(cfg, run, seed=TRAIN_SEED, device=dev)
+            if i == 0:
+                model, opt_state, _ = step_fn(model, opt_state, batch)
+            else:
+                out = {}
+
+                def one_step():
+                    out["state"] = step_fn(model, opt_state, batch)
+
+                pwall, busy, copy, kern = profiled(torch, one_step)
+                model, opt_state, _ = out["state"]
+            states.append(({"params": model.tree(), "opt": opt_state}))
+            del model, opt_state
+        check(tree_bytes_equal(torch, states[0], states[1]),
+              "the same step from the same state gave other params or optimizer state")
+        del states
+        torch.cuda.empty_cache()
+        attn = sum(t for t, k in kern if "attn_" in k)
+        gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
+                                                                       "cutlass")))
+        print("[train] check 3: a step repeated from the same state gave params and optimizer "
+              "state equal bit for bit", flush=True)
+        print(f"[train-trace] one step, profiled: wall {pwall} ms, device kernels {busy} ms "
+              f"(attention kernels {attn} ms, GEMMs {gemm} ms, other {busy - attn - gemm} ms), "
+              f"device copies {copy} ms, device idle {100 * (1 - (busy + copy) / pwall)}%; top: "
+              + ", ".join(f"{k[:50]} {t}" for t, k in kern[:6]), flush=True)
+
+        # check 2: kernels against the plain attention on one microbatch
+        model, _ = init_train_state(cfg, run, seed=TRAIN_SEED, device=dev)
+        step_vs_plain(torch, ops, cfg, model, dev)
+        del model
+        torch.cuda.empty_cache()
+
+        # check 4: a run killed at step 3 resumes and ends where the
+        # uninterrupted run ended
+        cut = str(CKPT_ROOT / "cut")
+        try:
+            train_loop(cfg, run, data, TRAIN_STEPS, ckpt_dir=cut, ckpt_every=2,
+                       seed=TRAIN_SEED, fail_at_step=3, log_fn=logs.append, device=dev)
+            fail("fail_at_step=3 did not stop the run")
+        except RuntimeError as exc:
+            if str(exc) != "injected node failure at step 3":
+                raise
+        latest = CheckpointManager(cut).latest_step()
+        resumed = train_loop(cfg, run, data, TRAIN_STEPS, ckpt_dir=cut, ckpt_every=2,
+                             seed=TRAIN_SEED, log_fn=logs.append, device=dev)
+        check(resumed.resumed_from == latest and resumed.steps == TRAIN_STEPS - latest,
+              f"the run resumed from {resumed.resumed_from}, not from its newest "
+              f"checkpoint {latest}")
+        a, b = (CKPT_ROOT / n / f"step_{TRAIN_STEPS:08d}" for n in ("whole", "cut"))
+        manifest = json.loads((a / "manifest.json").read_text())
+        check(manifest == json.loads((b / "manifest.json").read_text()), "manifests differ")
+        for entry in manifest["leaves"]:
+            check(np.load(a / entry["file"]).tobytes() == np.load(b / entry["file"]).tobytes(),
+                  f"resumed run differs from the uninterrupted one at {entry['key']}")
+        print(f"[train] check 4: the injected failure at step 3 raised; the rerun resumed from "
+              f"step {latest} and its step-{TRAIN_STEPS} checkpoint ({len(manifest['leaves'])} "
+              "leaves: params and optimizer state) equals the uninterrupted run's bit for bit; "
+              f"losses {resumed.losses} against {whole.losses[latest:]}", flush=True)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print("[train] loop log: " + " | ".join(logs), flush=True)
+    return {k: launches[k] for k in PER_STEP}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -948,7 +1440,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: IEEE f32 products
     torch.backends.cudnn.allow_tf32 = False
-    K = dict(ops.KERNELS)
+    K = {name: mod for name, mod in ops.KERNELS.items() if name not in TRAINING}
 
     # -- phase 1: build
     t0 = time.perf_counter()
@@ -967,8 +1459,9 @@ def main() -> int:
     t0 = time.perf_counter()
     errs = parity(torch, K, rng, dev)
     fused_parity(torch, ops, rng, dev)
+    errs.update(attention_parity(torch, rng, dev))
     torch.cuda.synchronize()
-    print(f"[parity] kernel vs plain passed for all {len(K)} kernels in "
+    print(f"[parity] kernel vs plain passed for all {len(errs)} kernels in "
           f"{time.perf_counter() - t0} s; max |err|: " + json.dumps(errs), flush=True)
 
     # -- phase 3: main path
@@ -990,16 +1483,25 @@ def main() -> int:
     launches.update({name: served[name] for name in SERVING})
     print(f"[serve] phase took {time.perf_counter() - t0} s", flush=True)
 
+    # -- phase 4c: training
+    t0 = time.perf_counter()
+    launches.update(training(torch, ops, dev))
+    print(f"[train] phase took {time.perf_counter() - t0} s", flush=True)
+
     # -- phase 5: kernel vs plain, then timing, at the main path's shapes
     t0 = time.perf_counter()
     mp = main_path_parity(torch, K, shapes, rng, dev)
     for name in K:
         errs[name] = max(errs[name], mp[name][0])
+    train_shapes = (TRAIN_ATTN, (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0))
+    for name, e in attention_parity(torch, rng, dev, train_shapes, "training").items():
+        errs[name] = max(errs[name], e)
     print(f"[shapes] kernel vs plain passed at every main-path shape in "
           f"{time.perf_counter() - t0} s: "
           + json.dumps({name: {"shapes": mp[name][1], "max_abs_err": mp[name][0]} for name in K}),
           flush=True)
     tm = timings(torch, K, shapes, rng, dev)
+    tm.update(attention_timings(torch, rng, dev))
     for name, t in tm.items():
         print(f"[time] {name} shape {t['shape']}: kernel {t['ms']} ms, "
               f"plain {t['plain_ms']} ms, library {t['library_ms']} ms, "
@@ -1018,7 +1520,7 @@ def main() -> int:
             "bound_by": tm[name]["bound"][1],
             "library_ms": tm[name]["library_ms"],
         }
-        for name in K
+        for name in list(K) + list(TRAINING)
     ]
     print(f"{smi}")
     print(json.dumps({"kernels": rows}))

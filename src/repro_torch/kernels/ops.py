@@ -1,5 +1,5 @@
-"""Dispatch entry points of the kernels: the frame operators' and the Mamba-2
-SSD scan (``ssd_scan``).
+"""Dispatch entry points of the kernels: the frame operators', the Mamba-2
+SSD scan (``ssd_scan``) and attention (``attention``).
 
 Backend selection:
   * ``"cuda"``  — the hand-written CUDA kernels (``csrc/*.cu``); on a CPU
@@ -24,6 +24,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import filter_compact as _fc
+from . import flash_attention as _fa
 from . import join_probe as _jp
 from . import masked_stats as _ms
 from . import segment_reduce as _sr
@@ -39,7 +40,12 @@ KERNELS = {
     "filter_compact": _fc,
     "join_probe": _jp,
     "ssd_chunk_scan": _ssd,
+    "flash_attention": _fa,
 }
+# launch counters by kernel: one per module, and attention's two backward kernels
+COUNTERS = {name: mod.launches for name, mod in KERNELS.items()}
+COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
+                 "flash_attention_bwd_dkdv": _fa.launches_dkdv})
 
 
 @contextmanager
@@ -62,12 +68,12 @@ def backend() -> str:
 
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
-    return {name: mod.launches.value for name, mod in KERNELS.items()}
+    return {name: c.value for name, c in COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches.reset()
+    for c in COUNTERS.values():
+        c.reset()
 
 
 # -- one call per primitive: the kernel wrapper or the plain version ---------
@@ -120,6 +126,17 @@ def ssd_scan(x, log_a, bmat, cmat, chunk: int = 128) -> Tuple[torch.Tensor, torc
         raise ValueError(f"ssd_scan: S={x.shape[1]} is not a multiple of chunk={chunk}")
     return _ssd_scan(x.contiguous(), log_a.to(torch.float32).contiguous(),
                      bmat.to(x.dtype).contiguous(), cmat.to(x.dtype).contiguous(), chunk)
+
+
+def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+              scale: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
+    """GQA attention over q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D) → (B, Hq,
+    Sq, D) in q's type.  ``"cuda"``: the flash_attention wrapper (the kernels
+    and their backward on CUDA tensors, the plain version on CPU tensors);
+    ``"torch"``: the plain version on any device."""
+    if backend() == "cuda":
+        return _fa.flash_attention(q, k, v, causal, window, scale, q_offset)
+    return _fa.flash_attention_plain(q, k, v, causal, window, scale, q_offset)
 
 
 # --------------------------------------------------------------------------- #

@@ -3,7 +3,10 @@
 ``model_spec`` builds a tree of :class:`ParamSpec` (shape, init rule, and
 whether the reference casts the parameter to the compute type where it is
 used); :func:`init_params` materialises tensors from it with a seeded
-``torch.Generator``.  The port runs on one device, so the reference's
+``torch.Generator``.  Serving stores a cast-at-use parameter in the compute
+type; training (``master=True``) stores every leaf in float32, as the
+reference does, and casts at use, so AdamW's small updates are not lost to
+bf16 rounding.  The port runs on one device, so the reference's
 sharding annotations reduce to :class:`ShardCtx` with ``tp = 1``.
 """
 from __future__ import annotations
@@ -34,12 +37,12 @@ class ParamSpec:
     # (``.astype(dt)``), so the port stores it in that type
     at_use: bool = False
 
-    def dtype(self, compute: torch.dtype) -> torch.dtype:
-        return compute if self.at_use else torch.float32
+    def dtype(self, compute: torch.dtype, master: bool = False) -> torch.dtype:
+        return compute if self.at_use and not master else torch.float32
 
     def materialise(self, gen: torch.Generator, compute: torch.dtype,
-                    device) -> torch.Tensor:
-        dt = self.dtype(compute)
+                    device, master: bool = False) -> torch.Tensor:
+        dt = self.dtype(compute, master)
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=dt, device=device)
         if self.init == "ones":
@@ -77,17 +80,46 @@ def tree_leaves(tree):
         yield tree
 
 
-def init_params(tree, seed: int, compute: torch.dtype, device) -> Dict[str, Any]:
+def init_params(tree, seed: int, compute: torch.dtype, device,
+                master: bool = False) -> Dict[str, Any]:
     """Materialise a ParamSpec tree, leaf by leaf in tree order, from one
-    ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    ``torch.Generator`` seeded with ``seed`` on ``device``; ``master``:
+    every leaf in float32."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return tree_map(lambda s: s.materialise(gen, compute, device), tree)
+    return tree_map(lambda s: s.materialise(gen, compute, device, master), tree)
 
 
 def stack_tree(tree, n: int):
     """Prepend a layer-stack dimension of ``n`` to every spec."""
     return tree_map(lambda s: replace(s, shape=(n,) + s.shape), tree)
+
+
+def tree_flatten(tree, prefix: Tuple[str, ...] = ()):
+    """[(path, leaf)] with dict keys in sorted order at every level, the
+    order in which JAX flattens a dict."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(tree_flatten(tree[k], prefix + (k,)))
+        return out
+    return [(prefix, tree)]
+
+
+def keystr(path: Tuple[str, ...]) -> str:
+    """A path as ``jax.tree_util.keystr`` writes it: ``['a']['b']``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def tree_unflatten(paths, leaves):
+    """The nested dict of ``leaves`` at ``paths``."""
+    out: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
 
 
 def tree_index(tree, i: int):

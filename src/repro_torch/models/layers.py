@@ -1,12 +1,11 @@
-"""Shared model layers an SSD model uses: norms, embeddings and the LM head.
-
-RoPE, the MLPs and qk-norm come with the attention slice of the port.
-"""
+"""Shared model layers: norms, qk-norm, RoPE, MLPs, embeddings and the LM
+head."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .base import ShardCtx, matrix_spec, replicated_spec
@@ -39,6 +38,66 @@ def apply_norm(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         ms = (xf * xf).mean(-1, keepdim=True)
         out = xf * torch.rsqrt(ms + 1e-6) * params["scale"]
     return out.to(x.dtype)
+
+
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """qk-norm: RMS over the head dim (Qwen3 style)."""
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + 1e-6) * scale).to(x.dtype)
+
+
+# ------------------------------------------------------------------ RoPE ----
+
+
+def rope_freqs(cfg: ModelConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) → (cos, sin) of shape (..., S, head_dim / 2), f32."""
+    half = cfg.head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    inv = 1.0 / (cfg.rope_theta ** exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (B, H, S, D); cos / sin (B, S, D / 2): the rotate-half convention."""
+    d = x.shape[-1]
+    half = d // 2
+    x1, x2 = x[..., :half], x[..., half:2 * half]
+    c, s = cos[:, None], sin[:, None]
+    r1 = x1 * c - x2 * s
+    r2 = x2 * c + x1 * s
+    if 2 * half == d:
+        return torch.cat([r1, r2], -1).to(x.dtype)
+    return torch.cat([r1, r2, x[..., 2 * half:].float()], -1).to(x.dtype)
+
+
+# ------------------------------------------------------------------- MLP ----
+
+
+def mlp_spec(cfg: ModelConfig, ctx: ShardCtx):
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {"w_gate": matrix_spec(ctx, (d, f)), "w_up": matrix_spec(ctx, (d, f)),
+                "w_down": matrix_spec(ctx, (f, d))}
+    return {"w_up": matrix_spec(ctx, (d, f)), "w_down": matrix_spec(ctx, (f, d))}
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def apply_mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        act = F.silu if cfg.mlp_type == "swiglu" else _gelu
+        g = x @ params["w_gate"].to(dt)
+        u = x @ params["w_up"].to(dt)
+        h = act(g.float()).to(dt) * u
+    else:
+        u = x @ params["w_up"].to(dt)
+        h = _gelu(u.float()).to(dt)
+    return h @ params["w_down"].to(dt)
 
 
 # ------------------------------------------------------------- embeddings ----

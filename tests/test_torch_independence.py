@@ -44,6 +44,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.frame, repro_torch.kernels.ops, repro_torch.frame.convert\n"
         "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
         "import repro_torch.models.convert\n"
+        "import repro_torch.train, repro_torch.ckpt, repro_torch.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -57,13 +58,14 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
 
 def test_layout_mirrors_reference():
     """Every ported module keeps its reference module's path and name."""
-    for sub in ("core", "frame", "kernels", "models", "serve", "configs"):
+    for sub in ("core", "frame", "kernels", "models", "serve", "configs", "train", "ckpt",
+                "data"):
         for p in (PORT / sub).glob("*.py"):
             if p.name in ("convert.py", "_build.py", "_launch.py"):
                 continue  # port-only modules
             assert (REF / sub / p.name).exists(), f"{sub}/{p.name} has no counterpart"
     for name in ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe",
-                 "ssd_chunk"):
+                 "ssd_chunk", "flash_attention"):
         assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()
 
 

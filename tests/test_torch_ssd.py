@@ -111,7 +111,9 @@ def test_param_tree_and_count_match_reference():
     assert param_count(spec) == 2_831_296_000
     assert cfg.param_count() == 2_830_704_640  # the config's own estimate
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block_spec("attn", get_smoke_config("qwen3_8b"), SINGLE)
+        block_spec("rglru", get_smoke_config("recurrentgemma_9b"), SINGLE)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6.2"):
+        block_spec("attn", get_smoke_config("qwen3_moe_30b_a3b"), SINGLE)
 
 
 def _prefill_and_decode(dtype, S=40):
