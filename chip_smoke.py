@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    top-k values, compacted bytes), float32 sums within 1e-5 of Σ|x| (per
    row for masked_stats, per bucket for segment_reduce) and m2 within 1e-4
    relative, plus bit equality for pad invariance, batched == per-row and
-   fused == unfused; then the flash_attention forward and its two backward
+   fused == unfused (segment_reduce also: two calls equal, and bucket
+   independence, at shapes that include one bucket of 2^21 rows, Zipf keys
+   at cell 7's size, no valid row, keys out of range and B = 2^24 - 1); then the flash_attention forward and its two backward
    kernels against the plain attention (output and all three gradients) at
    edge shapes (GQA groups 1, 3, 8; D 64, 120, 128; bf16 and f32; causal or
    not; windows 32 and 4,096; q_offset > 0 with Sq < Skv; one tile; B 1 to
@@ -52,10 +54,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain attention over the limit); a run killed by ``fail_at_step=3``
    resumes and ends bit for bit where the uninterrupted run ended;
 5. main-path shapes — each kernel against its plain version, by the rules
-   of phase 2, at every shape the main path (or the serving phase) gave it;
+   of phase 2 (segment_reduce with all its contracts), at every shape the
+   main path (or the serving phase) gave it;
    then the kernel, its plain version and one PyTorch library call timed at
    the largest of them, beside the card's bound (attention: at the training
-   shape, against ``scaled_dot_product_attention``).
+   shape, against ``scaled_dot_product_attention``; segment_reduce also at
+   B = 100,000 and at B = 1,000 with one sum row).
 
 The last two lines are a JSON object per kernel and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -133,12 +137,13 @@ def check_segment(torch, got, want, keys, vals, valid, nbk, modes, vidx, label):
     (gr, gc), (wr, wc) = got, want
     check(torch.equal(gc, wc), f"segment_reduce counts {label}")
     err = 0.0
+    live = (keys >= 0) & (keys < nbk)
     for s, mode in enumerate(modes):
         if mode != "sum":
             check(torch.equal(gr[s], wr[s]), f"segment_reduce {mode} {label}")
             continue
         scale = torch.zeros(nbk, dtype=torch.float64, device=keys.device).index_add_(
-            0, keys.long(), torch.where(valid[vidx[s]], vals[s].abs(), 0.0).double())
+            0, keys[live].long(), torch.where(valid[vidx[s]], vals[s].abs(), 0.0)[live].double())
         e = (gr[s].double() - wr[s].double()).abs()
         check(bool((e <= 1e-5 * scale).all()),
               f"segment_reduce sum {label}: excess {float((e - 1e-5 * scale).max())}")
@@ -208,7 +213,7 @@ def parity(torch, K, rng, dev):
     import numpy as np
 
     errs = {name: 0.0 for name in K}
-    ms_k, sr_k, tk_k, fc_k = K["masked_stats"], K["segment_reduce"], K["topk"], K["filter_compact"]
+    ms_k, tk_k, fc_k = K["masked_stats"], K["topk"], K["filter_compact"]
 
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
@@ -232,25 +237,8 @@ def parity(torch, K, rng, dev):
                           for i in range(4)])
         check(torch.equal(rows, got), f"masked_stats batched == per-row n={n}")
 
-    # -- segment_reduce (the last two: beyond one block's shared memory)
-    for n, nbk in ((1, 1), (2048, 64), (100_003, 1000), (1 << 20, 64), (300_001, 100_000),
-                   (5000, (1 << 24) - 1)):
-        keys = t(rng.integers(0, nbk, n).astype(np.int32))
-        vals = t(rng.normal(0.0, 10.0, (3, n)).astype(np.float32))
-        valid = t(rng.random((2, n)) < 0.9)
-        modes, vidx = ["sum", "min", "max"], [0, 1, 1]
-        args = (keys, vals, valid, nbk, modes, vidx)
-        note("segment_reduce", kernel_vs_plain(torch, K, "segment_reduce", args, f"n={n} B={nbk}"))
-        gr, gc = sr_k.segment_reduce(*args)
-        for s, (mode, v) in enumerate(zip(modes, vidx)):
-            rr, rc = sr_k.segment_reduce(keys, vals[s:s + 1], valid[v:v + 1], nbk, [mode], [0])
-            check(torch.equal(rr[0], gr[s]) and torch.equal(rc[0], gc[v]),
-                  f"segment_reduce batched == per-row n={n} B={nbk} row {s}")
-        kp = torch.cat([keys, torch.zeros(n + 5000, dtype=torch.int32, device=dev)])
-        vp = torch.cat([vals, torch.ones((3, n + 5000), device=dev)], 1)
-        mp = torch.cat([valid, torch.zeros((2, n + 5000), dtype=torch.bool, device=dev)], 1)
-        pr, pc = sr_k.segment_reduce(kp, vp, mp, nbk, modes, vidx)
-        check(torch.equal(pr, gr) and torch.equal(pc, gc), f"segment_reduce pad invariance n={n}")
+    # -- segment_reduce
+    segment_parity(torch, K, rng, dev, note)
 
     # -- topk
     for n, k in ((1, 1), (512, 128), (5000, 20), (1 << 20, 128), (1 << 20, 1)):
@@ -311,6 +299,99 @@ def parity(torch, K, rng, dev):
                                                ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, dtype)
                                                + (L,), f"{(bt, S, H, Pd, N, L, dtype)}"))
     return errs
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Equal bit for bit (so +0.0 and -0.0 differ, and NaN equals itself)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def zipf_keys(rng, n, nbk, a=1.1):
+    """n keys over nbk buckets with Zipf(a) frequencies, the heavy buckets
+    scattered over the key range."""
+    import numpy as np
+
+    p = 1.0 / np.arange(1, nbk + 1, dtype=np.float64) ** a
+    return rng.permutation(nbk).astype(np.int32)[rng.choice(nbk, n, p=p / p.sum())]
+
+
+def segment_contracts(torch, K, rng, dev, args, label):
+    """segment_reduce against its plain version, then its bit-for-bit
+    contracts: batched == per-row, pad invariance (key 0, valid False),
+    two calls equal, and bucket independence (rows of other keys, in range
+    and out of it, inserted between the rows change no other bucket).
+    Returns max |err| of the sums."""
+    import numpy as np
+
+    sr = K["segment_reduce"]
+    keys, vals, valid, nbk, modes, vidx = args
+    n, S, V = keys.shape[0], vals.shape[0], valid.shape[0]
+    err = kernel_vs_plain(torch, K, "segment_reduce", args, label)
+    gr, gc = sr.segment_reduce(*args)
+    again = sr.segment_reduce(*args)
+    check(bits_equal(torch, again[0], gr) and bits_equal(torch, again[1], gc),
+          f"segment_reduce two calls differ {label}")
+    for s, (mode, v) in enumerate(zip(modes, vidx)):
+        rr, rc = sr.segment_reduce(keys, vals[s:s + 1], valid[v:v + 1], nbk, [mode], [0])
+        check(bits_equal(torch, rr[0], gr[s]) and bits_equal(torch, rc[0], gc[v]),
+              f"segment_reduce batched == per-row {label} row {s}")
+    pad = n + 5000
+    kp = torch.cat([keys, torch.zeros(pad, dtype=torch.int32, device=dev)])
+    vp = torch.cat([vals, torch.ones((S, pad), device=dev)], 1)
+    mp = torch.cat([valid, torch.zeros((V, pad), dtype=torch.bool, device=dev)], 1)
+    pr, pc = sr.segment_reduce(kp, vp, mp, nbk, modes, vidx)
+    check(bits_equal(torch, pr, gr) and bits_equal(torch, pc, gc),
+          f"segment_reduce pad invariance {label}")
+    # bucket independence: extra rows of three in-range keys and of keys out
+    # of range, at random places among the rows
+    extra = max(1, n // 4)
+    others = rng.choice(nbk, min(3, nbk - 1), replace=False).astype(np.int64)
+    pool = np.concatenate([others, [-1, nbk, 2 ** 31 - 1]]).astype(np.int64)
+    ek = pool[rng.integers(0, len(pool), extra)]
+    at = np.sort(rng.integers(0, n + 1, extra))
+    order = np.argsort(np.concatenate([np.arange(n) * 2 + 1, at * 2]), kind="stable")
+    idx = torch.as_tensor(order, device=dev)
+    ki = torch.cat([keys, torch.as_tensor(ek.astype(np.int32), device=dev)])[idx].contiguous()
+    vi = torch.cat([vals, torch.as_tensor(rng.normal(0, 1e3, (S, extra)).astype(np.float32),
+                                          device=dev)], 1)[:, idx].contiguous()
+    mi = torch.cat([valid, torch.as_tensor(rng.random((V, extra)) < 0.9, device=dev)],
+                   1)[:, idx].contiguous()
+    ir, ic = sr.segment_reduce(ki, vi, mi, nbk, modes, vidx)
+    keep = torch.ones(nbk, dtype=torch.bool, device=dev)
+    keep[torch.as_tensor(others, device=dev)] = False
+    check(bits_equal(torch, ir[:, keep], gr[:, keep]) and bits_equal(torch, ic[:, keep], gc[:, keep]),
+          f"segment_reduce bucket independence {label}")
+    return err
+
+
+# segment_reduce's edge shapes, (n, B, kind): uniform keys at every width of
+# the old tiling (the last two beyond one block's shared memory), then one
+# bucket holding every row (the longest run, the deepest fold), Zipf keys at
+# cell 7's size, a call with no valid row, keys out of range mixed in, and
+# the widest B at the widest main-path row count.
+SEGMENT_SHAPES = ((1, 1, "uniform"), (2048, 64, "uniform"), (100_003, 1000, "uniform"),
+                  (1 << 20, 64, "uniform"), (300_001, 100_000, "uniform"),
+                  (5000, (1 << 24) - 1, "uniform"), (1 << 21, 1, "uniform"),
+                  (2_204_249, 100_000, "zipf"), (100_003, 1000, "none valid"),
+                  (100_003, 1000, "out of range"), (300_001, (1 << 24) - 1, "uniform"))
+
+
+def segment_parity(torch, K, rng, dev, note):
+    import numpy as np
+
+    for n, nbk, kind in SEGMENT_SHAPES:
+        keys = zipf_keys(rng, n, nbk) if kind == "zipf" else rng.integers(0, nbk, n).astype(np.int32)
+        if kind == "out of range":
+            bad = rng.random(n) < 0.1
+            keys[bad] = rng.choice(np.array([-1, nbk, 2 ** 31 - 1], np.int32), int(bad.sum()))
+        valid = rng.random((2, n)) < (0.0 if kind == "none valid" else 0.9)
+        args = (torch.as_tensor(keys, device=dev),
+                torch.as_tensor(rng.normal(0.0, 10.0, (3, n)).astype(np.float32), device=dev),
+                torch.as_tensor(valid, device=dev), nbk, ["sum", "min", "max"], [0, 1, 1])
+        note("segment_reduce", segment_contracts(torch, K, rng, dev, args,
+                                                 f"n={n} B={nbk} {kind}"))
 
 
 def ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, dtype):
@@ -632,6 +713,12 @@ def main_path(torch, ops, BK, K, record):
     return ref, launches, lat
 
 
+# the device functions of csrc/segment_reduce.cu, for the trace's split
+SEGMENT_KERNELS = ("count_shared", "count_global", "fill_neutral", "sort_hist",
+                   "sort_scan_tiles", "sort_scan_digits", "sort_scatter", "fold_first",
+                   "fold_level")
+
+
 def trace_notebook(torch):
     """The cuda notebook once more, each cell under torch.profiler: wall ms,
     device ms in kernels and in copies, and the top kernels by device time.
@@ -653,8 +740,10 @@ def trace_notebook(torch):
         kern = sorted(((e.self_device_time_total / 1e3, e.key) for e in dev
                        if not e.key.startswith("Mem")), reverse=True)
         busy = sum(t for t, _ in kern)
-        print(f"[trace] cell{i + 1}: wall {wall} ms, device kernels {busy} ms, "
-              f"device copies {copy} ms, device idle {100 * (1 - (busy + copy) / wall)}%; "
+        seg = sum(t for t, k in kern if any(f in k for f in SEGMENT_KERNELS))
+        print(f"[trace] cell{i + 1}: wall {wall} ms, device kernels {busy} ms "
+              f"(segment_reduce {seg} ms), device copies {copy} ms, device idle "
+              f"{100 * (1 - (busy + copy) / wall)}%; "
               "top: " + ", ".join(f"{k[:60]} {t}" for t, k in kern[:3]))
         if i < len(CELLS) - 1:
             s.think(THINK_S)
@@ -756,7 +845,9 @@ def main_path_parity(torch, K, shapes, rng, dev):
         distinct = sorted(set(shapes[name]))
         for shape in distinct:
             args = main_path_inputs(torch, name, shape, rng, dev)
-            err = max(err, kernel_vs_plain(torch, K, name, args, f"main-path shape {shape}"))
+            label = f"main-path shape {shape}"
+            err = max(err, segment_contracts(torch, K, rng, dev, args, label)
+                      if name == "segment_reduce" else kernel_vs_plain(torch, K, name, args, label))
         out[name] = (err, len(distinct))
     return out
 
@@ -835,6 +926,13 @@ def timings(torch, K, shapes, rng, dev):
     wide = max(wide, key=sizes["segment_reduce"])
     out["segment_reduce B=100000"] = seg_row(
         wide, main_path_inputs(torch, "segment_reduce", wide, rng, dev))
+    # the sort path at small B: the largest B = 1,000 main-path row count with
+    # one sum row (value_counts itself has none)
+    narrow = [sh for sh in shapes["segment_reduce"] if sh[3] == 1000]
+    check(narrow, "no segment_reduce launch at B = 1,000 on the main path")
+    narrow = (max(narrow, key=sizes["segment_reduce"])[0], 1, 1, 1000, ("sum",), (0,))
+    out["segment_reduce B=1000 S=1"] = seg_row(
+        narrow, main_path_inputs(torch, "segment_reduce", narrow, rng, dev))
 
     # topk: (R, n) f32, k
     xt, k, top = args["topk"]

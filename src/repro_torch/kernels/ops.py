@@ -143,13 +143,14 @@ def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
 # Padded / batched entry points for the frame layer                            #
 #                                                                              #
 # Row counts round up to power-of-two buckets (``pad_len``): partitions of one #
-# bucket batch into one dispatch.  Every reduction tiles its rows with a       #
-# FIXED tile length (``_TILE`` for stats, the segment kernel's ``SEG_TILE``),  #
-# so padding a row further only adds all-masked tiles, which are exact no-ops. #
-# That makes every result independent of how far its input was padded — the   #
-# property the fused filter→reduce composites rely on for bit-for-bit parity  #
-# with the unfused sequence (their reduce runs at the parent partition's      #
-# length, the unfused one at the filtered length).                             #
+# bucket batch into one dispatch.  Padding is an exact no-op in every          #
+# reduction: masked_stats tiles its rows with a FIXED tile length (``_TILE``), #
+# so padding only adds all-masked tiles; segment_reduce drops rows that are    #
+# not valid before it sorts, and folds each bucket's run in an order fixed by  #
+# the run's length alone.  That makes every result independent of how far      #
+# its input was padded — the property the fused filter→reduce composites       #
+# rely on for bit-for-bit parity with the unfused sequence (their reduce runs  #
+# at the parent partition's length, the unfused one at the filtered length).   #
 # --------------------------------------------------------------------------- #
 
 PAD_MIN = 512  # smallest padded length (also amortises tiny partitions)

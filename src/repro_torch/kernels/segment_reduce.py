@@ -7,41 +7,82 @@ and counts the valid rows of each of the V validity rows per bucket, for
 any bucket count below 2^24.  CUDA tensors launch
 ``csrc/segment_reduce.cu``; CPU tensors run :func:`segment_reduce_plain`.
 
-The kernel cuts the rows into tiles of :func:`tile_rows` rows (a function
-of B only, never of the row count or of how many rows share the call), sums
-each bucket's rows of a tile in row order and folds the tiles in tile
-order, so padding adds only exact neutrals and a batched call gives each
-value row the bits it gets alone.  The plain version sums each bucket's
-rows in row order.  Keys outside ``[0, B)`` and invalid rows touch
-nothing.  Counts are integers in both versions.
+The kernel is a sort-and-fold.  Counts are integer histograms.  For the
+value rows, the rows that are live (key in ``[0, B)`` and valid) are
+stably sorted by key, so each bucket's valid rows form one run in row
+order, and each run is folded in chunks of :data:`FOLD_CHUNK` rows counted
+from its first row, then chunks of partials, level by level.  That
+association is a function of the run's length alone: padding, rows of other
+keys and the other rows of a batched call change no bucket's bits.  The
+plain version sums each bucket's rows in row order, left to right.  Keys
+outside ``[0, B)`` and invalid rows touch nothing.  :func:`sort_plan` gives
+the sort's passes and the kernel's scratch, which grows with the row count
+and not with B.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from . import _build
 from ._launch import I32, I64, P, LaunchCounter, bind, check_launch, require, stream_ptr
 
-SEG_TILE = 2048  # == STAGE in csrc/segment_reduce.cu: the least tile
-SCRATCH_BYTES_PER_ROW = 128  # bound on one value / validity row's partials per input row
+TILE_ROWS = 4096  # == TILE in csrc/segment_reduce.cu: rows a block sorts or folds
+MAX_DIGIT_BITS = 11  # == MAX_DIGIT_BITS: at most 2,048 bins a sort pass
+FOLD_CHUNK = 32  # == CHUNK: rows (then partials) one thread folds in order
 MAX_BUCKETS = 1 << 24
 MODES = {"sum": 0, "min": 1, "max": 2}
 
 launches = LaunchCounter("segment_reduce")
 
 
-def tile_rows(num_buckets: int) -> int:
-    """Rows per tile: ``SEG_TILE * 2**k``, the least whose partials of one
-    value or validity row (B * 4 bytes) are at most
-    ``SCRATCH_BYTES_PER_ROW`` per row.  Every B up to 65,536, so every B
-    whose accumulators fit one block's shared memory, gets ``SEG_TILE``."""
-    t = SEG_TILE
-    while num_buckets * 4 > SCRATCH_BYTES_PER_ROW * t:
-        t *= 2
-    return t
+class SortPlan(NamedTuple):
+    """How the kernel sorts and folds n rows into B buckets, and the int32
+    scratch it needs (element counts; all 0 when S == 0: counts alone need
+    none)."""
+
+    key_bits: int  # bits of the largest key, B - 1
+    passes: int  # LSD radix passes; one 0-bit pass (a stable compaction) for B = 1
+    digit_bits: int  # bits a pass
+    tiles: int  # row tiles of TILE_ROWS
+    fold_levels: int  # least L with FOLD_CHUNK ** L >= n
+    sort_keys: int  # two key buffers of n
+    sort_ids: int  # two row-id buffers of n
+    hist: int  # per-tile digit counts, bins * tiles
+    aux: int  # digit totals, digit bases, live rows, longest run
+
+    @property
+    def bins(self) -> int:
+        return 1 << self.digit_bits
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * (self.sort_keys + self.sort_ids + self.hist + self.aux)
+
+
+def sort_plan(n: int, num_buckets: int, num_values: int) -> SortPlan:
+    """The sort-and-fold plan for ``n`` rows, ``num_buckets`` buckets and
+    ``num_values`` value rows.  The digit width comes from B alone: the
+    fewest passes of at most :data:`MAX_DIGIT_BITS` bits (three at most for
+    B < 2^24), split evenly."""
+    n, B = int(n), int(num_buckets)
+    if not 0 < B < MAX_BUCKETS:
+        raise ValueError(f"segment_reduce: B out of range ({B})")
+    bits = (B - 1).bit_length()
+    passes = max(1, -(-bits // MAX_DIGIT_BITS))
+    digit_bits = -(-bits // passes)
+    tiles = -(-n // TILE_ROWS)
+    levels = 1
+    while FOLD_CHUNK ** levels < n:
+        levels += 1
+    if num_values == 0:
+        return SortPlan(bits, passes, digit_bits, tiles, levels, 0, 0, 0, 0)
+    bins = 1 << digit_bits
+    return SortPlan(bits, passes, digit_bits, tiles, levels, 2 * n, 2 * n, bins * tiles,
+                    2 * bins + 2)
 
 
 def segment_reduce_plain(
@@ -82,22 +123,7 @@ def segment_reduce_plain(
 @functools.lru_cache(maxsize=None)
 def _fn():
     return bind(_build.load("segment_reduce"), "repro_segment_reduce",
-                [P, P, P, P, I32, I32, I32, I64, I32, P, P, P, P, P])
-
-
-_PLANS: Dict[tuple, torch.Tensor] = {}
-
-
-def _plan(modes: Sequence[str], valid_idx: Sequence[int], dev: torch.device) -> torch.Tensor:
-    """The kernel's device-side plan (modes, then validity rows), cached so a
-    repeated groupby uploads nothing."""
-    key = (tuple(modes), tuple(int(i) for i in valid_idx), str(dev))
-    plan = _PLANS.get(key)
-    if plan is None:
-        host = [MODES[m] for m in modes] + [int(i) for i in valid_idx]
-        plan = torch.tensor(host or [0], dtype=torch.int32, device=dev)
-        _PLANS[key] = plan
-    return plan
+                [P, P, P, P, I32, I32, I32, I64, I32, I32, I32, P, P, P, P, P, P, P])
 
 
 def segment_reduce(
@@ -126,16 +152,17 @@ def segment_reduce(
         raise ValueError("segment_reduce: plan does not match the value rows")
     if n == 0 or V == 0 or not 0 < B < MAX_BUCKETS:
         raise ValueError(f"segment_reduce: empty input or B out of range (n={n}, V={V}, B={B})")
-    tile = tile_rows(B)
-    nt = -(-n // tile)
-    part_f = torch.empty(max(nt * S * B, 1), dtype=torch.float32, device=dev)
-    part_c = torch.empty(nt * V * B, dtype=torch.int32, device=dev)
+    plan = sort_plan(n, B, S)
+    scratch = [torch.empty(size, dtype=torch.int32, device=dev) if size else None
+               for size in (plan.sort_keys, plan.sort_ids, plan.hist, plan.aux)]
     reds = torch.empty((S, B), dtype=torch.float32, device=dev)
     cnts = torch.empty((V, B), dtype=torch.int32, device=dev)
-    err = _fn()(keys.data_ptr(), values.data_ptr(), valids.data_ptr(),
-                _plan(modes, valid_idx, dev).data_ptr(), S, V, B, n, tile,
-                part_f.data_ptr(), part_c.data_ptr(), reds.data_ptr(),
-                cnts.data_ptr(), stream_ptr(dev))
+    host = (ctypes.c_int * max(2 * S, 1))(*[MODES[m] for m in modes],
+                                          *[int(i) for i in valid_idx])
+    err = _fn()(keys.data_ptr(), values.data_ptr(), valids.data_ptr(), ctypes.addressof(host),
+                S, V, B, n, plan.passes, plan.digit_bits, plan.fold_levels,
+                *[t.data_ptr() if t is not None else None for t in scratch],
+                reds.data_ptr(), cnts.data_ptr(), stream_ptr(dev))
     check_launch("segment_reduce", err)
     launches.add()
     return reds, cnts

@@ -125,13 +125,19 @@ def test_segment_reduce_ref_and_shared_memory_gate():
                                        8, ["sum"], [0])
     assert red[0].tolist() == [3, 0, 0, 0, 0, 3, 0, 0]
     assert cnt[0].tolist() == [2, 0, 0, 0, 0, 1, 0, 0]
-    # no shared-memory gate any more: the tile grows with the buckets alone,
-    # and stays SEG_TILE for every B whose accumulators fit one block
-    assert SR.tile_rows(1000) == SR.SEG_TILE
-    assert SR.tile_rows(55_552) == SR.SEG_TILE
-    assert SR.tile_rows(65_536) == SR.SEG_TILE
-    assert SR.tile_rows(100_000) == 2 * SR.SEG_TILE
-    assert SR.tile_rows((1 << 24) - 1) == 256 * SR.SEG_TILE
+    # no shared-memory gate: the sort's passes come from B alone (one 0-bit
+    # pass, a stable compaction, for B = 1; at most three below 2^24), and
+    # the scratch grows with the rows, not with B
+    assert [SR.sort_plan(1000, b, 1).passes for b in (1, 1000, 100_000, (1 << 24) - 1)] == \
+        [1, 1, 2, 3]
+    assert [SR.sort_plan(1000, b, 1).digit_bits for b in (1, 1000, 100_000, (1 << 24) - 1)] == \
+        [0, 10, 9, 8]
+    n = 2_204_249
+    plan = SR.sort_plan(n, 100_000, 1)
+    assert plan.scratch_bytes <= 24 * n
+    assert SR.FOLD_CHUNK ** plan.fold_levels >= n > SR.FOLD_CHUNK ** (plan.fold_levels - 1)
+    assert SR.sort_plan(n, (1 << 24) - 1, 3).scratch_bytes <= 24 * n
+    assert SR.sort_plan(n, 1000, 0).scratch_bytes == 0  # counts alone: no sort
 
 
 @pytest.mark.parametrize("mode", ["sum", "min", "max"])
@@ -159,6 +165,48 @@ def test_segment_reduce_high_cardinality_vs_xla(mode):
             _sums_close(r[0].numpy(), jr, keys, vals, valid, nb)
         else:
             np.testing.assert_array_equal(r[0].numpy(), jr)
+
+
+def _skewed_keys(kind, n):
+    """Keys that pile up: every row in one bucket, or Zipf(1.1) frequencies
+    over 100,000 buckets with the heavy ones scattered."""
+    rng = _rng("skew", kind, n)
+    if kind == "one bucket of 1":
+        return np.zeros(n, np.int32), 1
+    if kind == "one bucket of 64":
+        return np.full(n, 17, np.int32), 64
+    nb = 100_000
+    p = 1.0 / np.arange(1, nb + 1, dtype=np.float64) ** 1.1
+    return rng.permutation(nb).astype(np.int32)[rng.choice(nb, n, p=p / p.sum())], nb
+
+
+@pytest.mark.parametrize("kind", ["one bucket of 1", "one bucket of 64", "zipf over 100,000"])
+@pytest.mark.parametrize("route", ["plain", "ops batch"])
+def test_segment_reduce_skewed_keys_vs_xla(kind, route):
+    """Skewed keys (the longest runs of the kernel's fold) through the plain
+    version and the torch ops entry, against the JAX xla path: counts, min
+    and max exact, sums within 1e-5 of each bucket's Σ|x|."""
+    n = 40_000
+    keys, nb = _skewed_keys(kind, n)
+    rng = _rng("skewv", kind)
+    vals = [rng.normal(0, 10, n).astype(np.float32) for _ in range(3)]
+    valids = [rng.random(n) < 0.9, rng.random(n) < 0.6]
+    modes, vidx = ["sum", "min", "max"], [0, 1, 1]
+    with jops.local_backend("xla"):
+        jr, jc = jops.segment_reduce_batch(
+            jnp.asarray(keys), [jnp.asarray(v) for v in vals],
+            [jnp.asarray(m) for m in valids], nb, modes, vidx)
+    jr, jc = np.asarray(jr), np.asarray(jc).astype(np.int64)
+    if route == "plain":
+        tr, tc = SR.segment_reduce_plain(_t(keys), _t(np.stack(vals)), _t(np.stack(valids)),
+                                         nb, modes, vidx)
+    else:
+        with tops.local_backend("torch"):
+            tr, tc = tops.segment_reduce_batch(
+                _t(keys), [_t(v) for v in vals], [_t(m) for m in valids], nb, modes, vidx)
+    np.testing.assert_array_equal(tc.numpy(), jc)
+    np.testing.assert_array_equal(tr[1:].numpy(), jr[1:])
+    _sums_close(tr[0].numpy(), jr[0], keys, vals[0], valids[0], nb)
 
 
 def test_high_cardinality_groupby_and_value_counts_take_the_kernel_route():
