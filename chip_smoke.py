@@ -18,12 +18,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    relative, plus bit equality for pad invariance, batched == per-row and
    fused == unfused (segment_reduce also: two calls equal, and bucket
    independence, at shapes that include one bucket of 2^21 rows, Zipf keys
-   at cell 7's size, no valid row, keys out of range and B = 2^24 - 1); then the flash_attention forward and its two backward
+   at cell 7's size, no valid row, keys out of range and B = 2^24 - 1); then
+   the flash_attention forward (bf16 on the tensor-core kernel
+   ``attn_fwd_wgmma``, float32 on the FMA kernel ``attn_fwd``; each launch
+   must take the kernel ``forward_route`` names) and its two backward
    kernels against the plain attention (output and all three gradients) at
-   edge shapes (GQA groups 1, 3, 8; D 64, 120, 128; bf16 and f32; causal or
-   not; windows 32 and 4,096; q_offset > 0 with Sq < Skv; one tile; B 1 to
-   4), two backward runs equal bit for bit, and two faulty plain attentions
-   (no alpha rescale; a dK/dV that drops a head) over the limits;
+   edge shapes (GQA groups 1, 3, 4, 8; D 64, 120, 128; bf16 and f32; causal
+   or not; windows 32 and 4,096; q_offset > 0 with Sq < Skv, down to one
+   128-row q tile with only 64 rows live; one tile; danube's heads over
+   4,096 keys; B 1 to 4), two backward runs equal bit for bit, and two
+   faulty plain attentions (no alpha rescale; a dK/dV that drops a head)
+   over the limits;
 3. main path — a 10M-row table and a 900,000-row dimension table through a
    seven-cell notebook (describe, filter + groupby, value_counts, sort +
    head, head, a left join + head, and an inner join + a groupby over
@@ -47,8 +52,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 4c. training — ``smollm_360m`` at full width (random weights from seed 12,
    float32 master weights) trained by ``train_loop`` for 4 steps of 8 x
    4,096 tokens (microbatch 4, remat full, a checkpoint every 2 steps):
-   finite losses and gradient norms, 128 forward and 64 + 64 backward
-   attention launches a step, one profiled step split by kernel; the same
+   finite losses and gradient norms, 128 forward launches a step, every one
+   of them on ``attn_fwd_wgmma``, and 64 + 64 backward attention launches,
+   one profiled step split by kernel; the same
    step twice from the same state equal bit for bit; one microbatch's loss,
    gradient norm and gradients against the plain attention's (and a faulty
    plain attention over the limit); a run killed by ``fail_at_step=3``
@@ -58,8 +64,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    main path (or the serving phase) gave it;
    then the kernel, its plain version and one PyTorch library call timed at
    the largest of them, beside the card's bound (attention: at the training
-   shape, against ``scaled_dot_product_attention``; segment_reduce also at
-   B = 100,000 and at B = 1,000 with one sum row).
+   shape, against ``scaled_dot_product_attention``, and the forward also at
+   qwen3_8b's heads, D 128; segment_reduce also at B = 100,000 and at B =
+   1,000 with one sum row).
 
 The last two lines are a JSON object per kernel and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -89,6 +96,8 @@ REPLACES = {
     "join_probe": "src/repro/kernels/join_probe.py:89",
     "ssd_chunk_scan": "src/repro/kernels/ssd_chunk.py:103",
     "flash_attention": "src/repro/kernels/flash_attention.py:133",
+    # the bf16 route of the same forward, on the tensor cores
+    "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:133",
     # no TPU counterpart: the reference's Pallas call has no backward
     "flash_attention_bwd_dq": "none (no TPU kernel: the reference differentiates "
                               "ref.attention_xla_chunked with XLA)",
@@ -97,10 +106,11 @@ REPLACES = {
 }
 SOURCES = {name: name for name in REPLACES} | {
     "ssd_chunk_scan": "ssd_chunk", "flash_attention_bwd_dq": "flash_attention",
-    "flash_attention_bwd_dkdv": "flash_attention"}
+    "flash_attention_bwd_dkdv": "flash_attention", "flash_attention_wgmma": "flash_attention"}
 DATAFRAME = ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe")
 SERVING = ("ssd_chunk_scan",)
-TRAINING = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+TRAINING = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkdv")
 BF16_ULP = 2.0 ** -7  # one bfloat16 ulp, relative
 
 
@@ -439,7 +449,12 @@ def fused_parity(torch, ops, rng, dev):
 # and 8; D 64, 120 and 128; both types; causal and not; windows 32 and 4,096;
 # q_offset > 0 with Sq < Skv (alone and with a window, so that a row's first
 # kv tiles are all hidden); one 64-row tile; a 96-row sequence (ragged tiles);
-# B from 1 to 4; and the training shape's heads.
+# B from 1 to 4; and the training shape's heads.  The last three rows reach
+# the tensor-core kernel's edges: D 128 without a mask in groups of 4; D 120
+# (two swizzle atoms, the second zero-filled past column 120) with danube's
+# heads over 4,096 keys and a window of 4,096; and one 128-row q tile with
+# only 64 live rows (Sq 64 < Skv 384, q_offset 320), whose rows past Sq read
+# zeros and are never written.
 ATTN_SHAPES = (
     (1, 2, 2, 128, 128, 64, "bfloat16", True, None, 0),
     (2, 6, 2, 256, 256, 64, "float32", True, None, 0),
@@ -452,11 +467,16 @@ ATTN_SHAPES = (
     (3, 3, 3, 64, 64, 64, "float32", True, None, 0),
     (1, 6, 2, 96, 96, 120, "bfloat16", False, 32, 0),
     (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0),
+    (2, 8, 2, 256, 256, 128, "bfloat16", False, None, 0),
+    (1, 32, 8, 4096, 4096, 120, "bfloat16", True, 4096, 0),
+    (1, 4, 2, 64, 384, 64, "bfloat16", True, None, 320),
 )
 # Limits, relative to the largest |value| of the plain version's tensor: the
 # kernel and the plain version sum in float32 in another order and round to
 # the inputs' type once, so a bf16 value may differ by one bf16 ulp of
-# itself, and a float32 value by float32 rounding over S-long sums.
+# itself, and a float32 value by float32 rounding over S-long sums.  The
+# tensor-core forward also rounds P to bf16 before P·V; a CPU emulation of
+# that rounding stays within the bf16 limit (tests/test_torch_attention.py).
 ATTN_TOL = {"bfloat16": 2 * BF16_ULP, "float32": 1e-5}
 
 
@@ -549,14 +569,13 @@ def attn_errs(got, want):
 
 def attention_parity(torch, rng, dev, shapes=ATTN_SHAPES, label="edge"):
     """The kernels (through their autograd Function) against the plain
-    version at ``shapes``: the output and the three gradients within
-    ATTN_TOL, two backward runs equal bit for bit, and each faulty control
-    over the limit at one shape at least.  Returns the max |err| per
-    kernel."""
+    version at ``shapes``: each forward on the kernel ``forward_route``
+    names, the output and the three gradients within ATTN_TOL, two backward
+    runs equal bit for bit, and each faulty control over the limit at one
+    shape at least.  Returns the max |err| per kernel."""
     from repro_torch.kernels import flash_attention as fa
 
-    errs = {"flash_attention": 0.0, "flash_attention_bwd_dq": 0.0,
-            "flash_attention_bwd_dkdv": 0.0}
+    errs = {name: 0.0 for name in TRAINING}
     rows = {"o": "flash_attention", "dq": "flash_attention_bwd_dq",
             "dk": "flash_attention_bwd_dkdv", "dv": "flash_attention_bwd_dkdv"}
     controls = attn_controls(torch, fa)
@@ -566,8 +585,12 @@ def attention_parity(torch, rng, dev, shapes=ATTN_SHAPES, label="edge"):
         where = f"{(B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off)}"
         q, k, v, g = attn_inputs(torch, rng, dev, B, Hq, Hkv, Sq, Skv, D, dtype)
         mask = (causal, window, None, off)
+        route = fa.forward_route(q.dtype, D)
+        before = fa.launches_wgmma.value
         got = attn_grads(torch, fa.flash_attention, q, k, v, g, mask)
         again = attn_grads(torch, fa.flash_attention, q, k, v, g, mask)
+        check(fa.launches_wgmma.value - before == (2 if route == "wgmma" else 0),
+              f"attention forward {where} did not take the {route} kernel")
         want = attn_grads(torch, fa.flash_attention_plain, q, k, v, g, mask)
         for name, a, b in zip(("o", "dq", "dk", "dv"), got, again):
             check(torch.equal(a, b), f"attention {name} differs between two runs {where}")
@@ -577,6 +600,8 @@ def attention_parity(torch, rng, dev, shapes=ATTN_SHAPES, label="edge"):
             check(e <= tol * scale and e == e,
                   f"attention {name} {where}: max |err| {e} over the limit {tol * scale}")
             errs[rows[name]] = max(errs[rows[name]], e)
+            if name == "o" and route == "wgmma":
+                errs["flash_attention_wgmma"] = max(errs["flash_attention_wgmma"], e)
             key = f"{name} {dtype}"
             worst[key] = max(worst.get(key, 0.0), e / max(scale, 1e-30))
         for clabel, (faulty, name) in controls.items():
@@ -988,6 +1013,8 @@ def timings(torch, K, shapes, rng, dev):
 # the attention shape of one training microbatch of smollm_360m at 4,096
 # tokens: B 4 x Hq 15 (Hkv 5) x 4,096 x 64, bf16, causal
 TRAIN_ATTN = (4, 15, 5, 4096, 4096, 64, "bfloat16", True, None, 0)
+# the forward also at qwen3_8b's heads (32 / 8 x 128), one sequence of 4,096
+WIDE_ATTN = (1, 32, 8, 4096, 4096, 128, "bfloat16", True, None, 0)
 
 
 def visible_pairs(Sq, Skv, causal, window, q_offset):
@@ -1016,10 +1043,32 @@ def attention_work(shape):
     }
 
 
+def forward_timing(torch, rng, dev, shape, flush):
+    """The forward (through ``flash_forward``, on the kernel its route
+    names), the plain forward and SDPA's forward at ``shape``, in ms, and
+    the forward's bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off = shape
+    q, k, v, _ = attn_inputs(torch, rng, dev, B, Hq, Hkv, Sq, Skv, D, dtype)
+    mask = (causal, window, None, off)
+    return dict(
+        shape=[B, Hq, Hkv, Sq, Skv, D, dtype, "causal" if causal else "full"],
+        ms=timed(torch, lambda: fa.flash_forward(q, k, v, *mask), 10, flush),
+        plain_ms=timed(torch, lambda: fa.flash_attention_plain(q, k, v, *mask), 3, flush),
+        library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), 10, flush),
+        bound=bound(*attention_work(shape)["flash_attention"], BF16_OPS_PER_S))
+
+
 def attention_timings(torch, rng, dev):
     """The three kernels, the plain version and SDPA at the training shape:
     mean of cold-L2 calls; backward times run one backward of a graph kept
-    from one forward."""
+    from one forward.  The forward row serves both ``flash_attention`` and
+    ``flash_attention_wgmma`` (a bf16 forward is the tensor-core kernel);
+    the forward alone also at WIDE_ATTN."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1046,8 +1095,9 @@ def attention_timings(torch, rng, dev):
         return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
 
     plain = lambda qq, kk, vv: fa.flash_attention_plain(qq, kk, vv, *mask)
+    check(fa.forward_route(q.dtype, D) == "wgmma", "the training shape is not on the wgmma route")
     ms = {
-        "kernel fwd": timed(torch, lambda: fa.flash_forward(q, k, v, *mask), 5, flush),
+        "kernel fwd": timed(torch, lambda: fa.flash_forward(q, k, v, *mask), 10, flush),
         "kernel dq": timed(torch, lambda: fa.backward_dq(q, k, v, o32, lse, g, *mask), 3, flush),
         "kernel dkdv": timed(torch, lambda: fa.backward_dkdv(q, k, v, lse, delta, g, *mask),
                              3, flush),
@@ -1063,10 +1113,12 @@ def attention_timings(torch, rng, dev):
     print("[time] attention at the training shape " + json.dumps(TRAIN_ATTN) + ", ms: "
           + json.dumps(ms), flush=True)
     shape = [B, Hq, Hkv, Sq, Skv, D, dtype, "causal"]
+    fwd = dict(shape=shape, ms=ms["kernel fwd"], plain_ms=ms["plain fwd"],
+               library_ms=ms["sdpa fwd"], bound=bound(*work["flash_attention"], BF16_OPS_PER_S))
     return {
-        "flash_attention": dict(shape=shape, ms=ms["kernel fwd"], plain_ms=ms["plain fwd"],
-                                library_ms=ms["sdpa fwd"],
-                                bound=bound(*work["flash_attention"], BF16_OPS_PER_S)),
+        "flash_attention": fwd,
+        "flash_attention_wgmma": fwd,
+        "flash_attention D=128": forward_timing(torch, rng, dev, WIDE_ATTN, flush),
         "flash_attention_bwd_dq": dict(shape=shape, ms=ms["kernel dq"], plain_ms=ms["plain bwd"],
                                        library_ms=ms["sdpa bwd"],
                                        bound=bound(*work["flash_attention_bwd_dq"],
@@ -1317,9 +1369,10 @@ TRAIN_STEPS = 4
 TRAIN_BATCH, TRAIN_MICRO = 8, 4  # the train_4k shape's global batch 256, cut to one card
 CKPT_ROOT = ROOT / ".smoke_ckpt"  # checkpoints of this phase, removed at its end
 # predicted launches per step: 32 layers x 2 microbatches x 2 forwards (remat)
-# of the forward, 32 x 2 of each backward kernel
-PER_STEP = {"flash_attention": 128, "flash_attention_bwd_dq": 64,
-            "flash_attention_bwd_dkdv": 64}
+# of the forward, every one bf16 on the tensor-core kernel, and 32 x 2 of
+# each backward kernel
+PER_STEP = {"flash_attention": 128, "flash_attention_wgmma": 128,
+            "flash_attention_bwd_dq": 64, "flash_attention_bwd_dkdv": 64}
 # The step with the kernels against the same step with the plain attention
 # (one microbatch of 2 x 1,024 tokens, remat off, the seed-12 weights): the
 # attention outputs differ by up to a bf16 ulp and each layer moves the next

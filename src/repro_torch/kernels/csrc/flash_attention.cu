@@ -2,8 +2,9 @@
 // causal and sliding-window masks and a query offset, and its backward.
 //
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), all of one type T (float32 or
-// bfloat16); q-head h reads kv-head h / (Hq / Hkv).  q is cast to float32
-// and multiplied by `scale` before the product; logits, the running max and
+// bfloat16); q-head h reads kv-head h / (Hq / Hkv).  The FMA kernels cast q
+// to float32 and multiply it by `scale` before the product, the wgmma
+// forward scales the float32 product; logits, the running max and
 // denominator and the accumulator are float32.  Key j is visible from query
 // row i (position p = i + q_offset) when j < Skv, j <= p if causal, and
 // j > p - window if a window is given.
@@ -14,14 +15,32 @@
 // differentiated); the two backward kernels here compute the gradient of the
 // same function, as XLA's autodiff of `ref.attention_xla_chunked` does.
 //
-// Three kernels, all in IEEE float32 FMA on the CUDA cores (no TF32, no
-// tensor cores), with no atomics, so every result has one summation order
-// and a training step is reproducible bit for bit:
+// Four kernels, with no atomics, so every result has one summation order and
+// a training step is reproducible bit for bit:
 //
-//   forward  one block per (b, q-head, 64-row q block) walks the visible kv
-//            blocks in order: S = Qs Kᵀ, online softmax, O += P V.  Writes
-//            O (type T), optionally O in float32, and the per-row
-//            log-sum-exp L = m + log l.
+//   attn_fwd_wgmma  the bf16 forward (D <= 128, D % 8 == 0) on the tensor
+//            cores.  One block per (b, q-head, 128-row q tile), launched
+//            longest-first under the causal mask: two consumer warpgroups
+//            of 64 rows and one producer warp.  The producer's lane 0 loads
+//            Q once and then the visible K and V tiles of 64 keys, in
+//            order, through a ring of 3-4 shared-memory slots with TMA
+//            (3-D tensor maps, completion on mbarriers), so tile j + 1 is
+//            in flight while tile j is multiplied.  S = Q Kᵀ is
+//            wgmma m64n64k16 with both operands read from shared memory;
+//            the scale is applied to the float32 S; the online softmax runs
+//            on the accumulator fragments (a row's 64 values sit in the
+//            four threads of a quad: two shuffles each for max and sum);
+//            P is rounded to bf16 in registers and is the register A
+//            operand of O += P V (wgmma m64nDk16, V read through the
+//            transpose bit since it is stored keys x D); O accumulates in
+//            float32 registers.  Writes what attn_fwd writes.  D <= 64
+//            runs two blocks an SM.
+//   attn_fwd  the forward for float32 (IEEE FMA on the CUDA cores, never
+//            TF32) and for bf16 widths TMA cannot take: one block per
+//            (b, q-head, 64-row q block) walks the visible kv blocks in
+//            order: S = Qs Kᵀ, online softmax, O += P V.  Writes O (type
+//            T), optionally O in float32, and the per-row log-sum-exp
+//            L = m + log l (+inf for a row that sees no key).
 //   dQ       one block per (b, q-head, q block): Δ = rowsum(dO ∘ O) from
 //            the float32 O (written out for the dK/dV kernel), then over
 //            the kv blocks P = exp(S − L), dS = P ∘ (dO Vᵀ − Δ),
@@ -42,18 +61,46 @@
 // Bound on an H100 SXM at the training shape (B 4, Hq 15, Hkv 5, S 4,096,
 // D 64, bf16, causal): the forward's 128.9 GFLOP over the causal triangle
 // take 0.130 ms at the bf16 tensor-core rate (989 TFLOP/s); its bytes
-// (about 85 MB) 0.025 ms.  So the function is bound by operations.  This
-// first kernel computes them in float32 FMA (67 TFLOP/s peak), with a 4 x 4
-// register tile per thread fed from shared memory (two FMAs per shared
-// load), so its own floor is about 15x the bound; moving the products to
-// wgmma in bf16 is the redesign's work.
+// (about 85 MB) 0.025 ms.  So the function is bound by operations.  The
+// FMA forward, which attn_fwd_wgmma replaces for bf16, computes them at the
+// float32 rate (67 TFLOP/s peak) from a 4 x 4 register tile fed by shared
+// loads, with synchronous staging: its floor was about 15x the bound.  The
+// wgmma kernel moves both products to the tensor cores and overlaps the
+// loads with them.  What limits it then is the softmax on the CUDA cores,
+// so a tile that every row sees in full takes no mask work (the mask is a
+// compile-time branch), and each p is one FFMA and one ex2.approx.  Not
+// done yet: overlapping one tile's softmax with the next tile's products
+// inside a warpgroup (issuing P·V behind the next S = Q Kᵀ, with this
+// loop, ran slower), and more than two warpgroups of rows a block.
 //
-// Layout: 256 threads as 16 x 16; thread (ty, tx) owns tile rows ty + 16a
-// and columns tx + 16c (a, c < 4) of a 64 x 64 logit tile, and columns
+// What the tensor-core design had to get right:
+// - The 128-byte swizzle is the same in the TMA maps and the wgmma
+//   descriptors (layout type 1, 8-row groups 1,024 bytes apart, tiles on
+//   1,024-byte boundaries); a mismatch would give wrong numbers silently.
+//   A K-major k16 step moves the descriptor 32 bytes into its atom.
+// - A box is 64 bf16 columns, one swizzle atom: D = 128 takes two atoms
+//   (the N-major V descriptor steps between them by its leading offset),
+//   and D = 120 relies on TMA's zero fill past column 120 to pad the
+//   product's depth to 128.  D % 8 == 0 keeps each row stride a multiple of
+//   16 bytes, as TMA requires.
+// - The maps are 3-D (b·h, S, D), so a ragged last tile (96 rows; a
+//   128-row q tile over 64 rows) reads zeros, not the next head's rows;
+//   rows past Sq are never written.
+// - cuTensorMapEncodeTiled is a driver call and the library is built
+//   without -lcuda: it is reached through cudaGetDriverEntryPoint, and the
+//   maps are encoded on the host for each call and passed as
+//   __grid_constant__ parameters.
+// - The ring's slots hold up to 128 KB, over the 48 KB default, so the
+//   launch raises the limit first (prepare) and checks cudaGetLastError().
+//
+// Layout of the FMA kernels: 256 threads as 16 x 16; thread (ty, tx) owns
+// tile rows ty + 16a and columns tx + 16c (a, c < 4) of a 64 x 64 logit
+// tile, and columns
 // tx + 16c (c < DC = ceil(D / 16)) of a D-wide output row.  Tiles of q, k, v
 // and dO are staged in shared memory as float32 with rows padded to D + 1
 // floats, so the 16 threads of a half-warp reading 16 rows at one column hit
 // 16 banks.  D ≤ 128: the dK/dV kernel's six tiles take 166 KB there.
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -233,6 +280,367 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
       if (o32 != nullptr) o32[row * D + d] = val;
     }
     if (tx == 0) lse[row] = l[a] > 0.0f ? m[a] + logf(l[a]) : CUDART_INF_F;
+  }
+}
+
+// ------------------------------------------------------------------------ //
+// The bf16 forward on Hopper's tensor cores: TMA loads, wgmma products.      //
+// ------------------------------------------------------------------------ //
+
+constexpr int WQ = 128;                   // q rows a block: two consumer warpgroups of 64
+constexpr int WTHREADS = 288;             // 8 consumer warps + 1 producer warp
+constexpr int ATOM_ROW = 128;             // bytes of one swizzled row: 64 bf16
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 3-D tensor map (innermost coordinate first) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a tile in the 128-byte swizzle that
+// TMA writes: rows of 128 bytes, 8-row groups of 1,024 bytes (sbo), and for
+// an N-major operand the next 64-column atom `lbo` bytes on.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 2^x on the special-function unit (relative error about 2^-22; results
+// below 2^-126 flush to 0, far under a bf16 ulp of any p that counts)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// keeps the compiler from moving accesses of an accumulator across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A B over one k16 step: A (64 x 16) and B (n x 16) K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d += A B over one k16 step: A (64 x 16) in registers, B (16 x n) N-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B over one k16 step: A (64 x 16) in registers, B (16 x n) N-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// can any row of q rows [q_first, q_first + n) see any key of the kv tile at k0?
+__device__ __forceinline__ bool span_needed(const Mask& mk, int q_first, int n, int k0) {
+  if (q_first >= mk.Sq) return false;
+  const int first_q = q_first + mk.q_offset, last_q = min(q_first + n, mk.Sq) - 1 + mk.q_offset;
+  const int last_k = min(k0 + BK, mk.Skv) - 1;
+  if (mk.causal && k0 > last_q) return false;
+  if (mk.window > 0 && last_k <= first_q - mk.window) return false;
+  return true;
+}
+
+// does every row of [q_first, q_first + n) below Sq see every key of the tile?
+__device__ __forceinline__ bool span_full(const Mask& mk, int q_first, int n, int k0) {
+  if (k0 + BK > mk.Skv) return false;
+  const int first_q = q_first + mk.q_offset, last_q = min(q_first + n, mk.Sq) - 1 + mk.q_offset;
+  if (mk.causal && k0 + BK - 1 > first_q) return false;
+  if (mk.window > 0 && k0 <= last_q - mk.window) return false;
+  return true;
+}
+
+// The online-softmax step of one 64-key tile for this thread's two rows.
+// `sv` holds the raw products q·k: register i is row r0 + 8 ((i >> 1) & 1),
+// key k0 + 8 (i >> 2) + 2 t + (i & 1).  MASKED tiles (a row of the
+// warpgroup sees only part of them) set hidden logits to −inf first.  m is
+// the running max of the raw products (scale > 0, so it is the max of the
+// scaled ones), l this thread's part of the denominator.  P leaves as bf16
+// pairs, the A operand of P·V; alpha rescales the accumulator.
+template <bool MASKED>
+__device__ __forceinline__ void softmax_tile(float (&sv)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], uint32_t (&pa)[16], float sc2,
+                                             const Mask& mk, int r0, int k0, int t) {
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (MASKED && !mk.visible(r0 + 8 * ((i >> 1) & 1), k0 + 8 * (i >> 2) + 2 * t + (i & 1)))
+      sv[i] = -CUDART_INF_F;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sv[i]);
+  }
+  float mb[2];  // the new max in base-2 logit units
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mnew = fmaxf(m[r], mx[r]);
+    // a row that has seen no key keeps alpha 1 and p = 0; once it has,
+    // alpha = 2^((m − mnew) sc2), which is 0 while m is still −inf
+    alpha[r] = mnew == -CUDART_INF_F ? 1.0f : ex2((m[r] - mnew) * sc2);
+    mb[r] = mnew == -CUDART_INF_F ? 0.0f : mnew * sc2;
+    m[r] = mnew;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int r = j & 1;  // registers 2j, 2j + 1 share row r0 + 8 (j & 1)
+    const float p0 = ex2(fmaf(sv[2 * j], sc2, -mb[r]));  // hidden: 2^−inf = 0
+    const float p1 = ex2(fmaf(sv[2 * j + 1], sc2, -mb[r]));
+    l[r] += p0 + p1;
+    pa[j] = pack_bf16(p0, p1);
+  }
+}
+
+template <int DP>
+struct WgmmaShape {
+  static constexpr int ATOMS = DP / 64;                    // 128-byte swizzle atoms per row
+  static constexpr int STAGES = DP == 64 ? 4 : 3;          // K/V ring depth
+  static constexpr int Q_ATOM = WQ * ATOM_ROW;             // bytes of one atom column of Q
+  static constexpr int KV_ATOM = BK * ATOM_ROW;            // ... of K or V
+  static constexpr int Q_BYTES = ATOMS * Q_ATOM;
+  static constexpr int KV_BYTES = ATOMS * KV_ATOM;         // one K (or V) tile
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;  // + alignment slack
+};
+
+// One block: 128 query rows of one (b, q-head).  Warps 0-7 are two consumer
+// warpgroups of 64 rows; warp 8 is the producer, one lane of which issues
+// every TMA load: Q once, then the needed K and V tiles in order through a
+// ring of STAGES slots (`full` completes on the bytes, `empty` on the eight
+// consumer warps).  D is the head width, DP = 64 or 128 its padded width:
+// TMA fills the columns past D (and rows past Sq or Skv) with zeros.
+// D <= 64 keeps few enough registers for two blocks an SM (their slots take
+// 81 KB of shared memory each).
+template <int DP>
+__global__ void __launch_bounds__(WTHREADS, DP == 64 ? 2 : 1)
+attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, int Hq, int Hkv, int D, float scale,
+               Mask mk, __nv_bfloat16* __restrict__ o, float* __restrict__ o32,
+               float* __restrict__ lse) {
+  using W = WgmmaShape<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, kv_full[W::STAGES], kv_empty[W::STAGES];
+  uint8_t* base = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  uint8_t* qs = base;
+  uint8_t* ks = qs + W::Q_BYTES;
+  uint8_t* vs = ks + W::STAGES * W::KV_BYTES;
+
+  const int bh = blockIdx.x, b = bh / Hq, h = bh - b * Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const int nq = gridDim.y;
+  const int qt = mk.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;  // longest first
+  const int q0 = qt * WQ, Sq = mk.Sq;
+  const int nk = (mk.Skv + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(&q_full, W::Q_BYTES);
+      for (int a = 0; a < W::ATOMS; ++a) tma_load(qs + a * W::Q_ATOM, &tm_q, &q_full, 64 * a, q0, bh);
+      int it = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        const int k0 = kb * BK;
+        if (!span_needed(mk, q0, WQ, k0)) continue;
+        const int s = it % W::STAGES;
+        mbar_wait(&kv_empty[s], ((it / W::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&kv_full[s], 2 * W::KV_BYTES);
+        for (int a = 0; a < W::ATOMS; ++a) {
+          tma_load(ks + s * W::KV_BYTES + a * W::KV_ATOM, &tm_k, &kv_full[s], 64 * a, k0, bkv);
+          tma_load(vs + s * W::KV_BYTES + a * W::KV_ATOM, &tm_v, &kv_full[s], 64 * a, k0, bkv);
+        }
+        ++it;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg + [0, 64); this thread rows
+  // r0 and r0 + 8 of them, and of each 8-column block the two columns 2 t, 2 t + 1
+  const int wg = warp >> 2, t = lane & 3;
+  const int qw = q0 + 64 * wg;
+  const int r0 = qw + 16 * (warp & 3) + (lane >> 2);
+  const float sc2 = scale * LOG2E;  // scaled logits in base 2
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};  // l: this thread's part
+  const uint8_t* qw_smem = qs + 64 * wg * ATOM_ROW;
+
+  mbar_wait(&q_full, 0);
+  int it = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    const int k0 = kb * BK;
+    if (!span_needed(mk, q0, WQ, k0)) continue;
+    const int s = it % W::STAGES;
+    mbar_wait(&kv_full[s], (it / W::STAGES) & 1);
+    if (span_needed(mk, qw, 64, k0)) {
+      const uint8_t* kt = ks + s * W::KV_BYTES;
+      const uint8_t* vt = vs + s * W::KV_BYTES;
+      // S = Q Kᵀ over DP / 16 steps of 16 columns
+      float sv[32];
+      fence_regs(sv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk & 3) * 32;  // 16 columns are 32 bytes into the atom
+        wgmma_ss_n64(sv, sw128_desc(qw_smem + (kk >> 2) * W::Q_ATOM + off, 16, 1024),
+                     sw128_desc(kt + (kk >> 2) * W::KV_ATOM + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sv);
+
+      float alpha[2];
+      uint32_t pa[16];
+      if (span_full(mk, qw, 64, k0))
+        softmax_tile<false>(sv, m, l, alpha, pa, sc2, mk, r0, k0, t);
+      else
+        softmax_tile<true>(sv, m, l, alpha, pa, sc2, mk, r0, k0, t);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V over 4 steps of 16 keys; V is read N-major (transposed)
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+        const uint64_t db = sw128_desc(vt + kk * 16 * ATOM_ROW, W::KV_ATOM, 1024);
+        if constexpr (DP == 64) wgmma_rs_n64(acc, a, db);
+        else wgmma_rs_n128(acc, a, db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    if (lane == 0) mbar_arrive(&kv_empty[s]);
+    ++it;
+  }
+
+  // epilogue: the quad's partial denominators, then O = acc / l and L = m + log l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + 8 * r;
+    if (row >= Sq) continue;
+    const long long g = (long long)bh * Sq + row;
+    const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int nb = 0; nb < DP / 8; ++nb) {
+      const int col = 8 * nb + 2 * t;
+      if (col >= D) continue;
+      const float v0 = acc[4 * nb + 2 * r] / den, v1 = acc[4 * nb + 2 * r + 1] / den;
+      *reinterpret_cast<__nv_bfloat162*>(o + g * D + col) = __floats2bfloat162_rn(v0, v1);
+      if (o32 != nullptr) *reinterpret_cast<float2*>(o32 + g * D + col) = make_float2(v0, v1);
+    }
+    if (t == 0) lse[g] = l[r] > 0.0f ? m[r] * scale + logf(l[r]) : CUDART_INF_F;
   }
 }
 
@@ -517,6 +925,69 @@ Mask make_mask(int Sq, int Skv, int causal, int window, int q_offset) {
   return m;
 }
 
+// ---------------------------------------------------------------- wgmma host --
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled through the runtime (no -lcuda)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    return q == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// a (heads, S, D) bf16 tensor as a 3-D map with boxes of 64 columns x `rows`
+// rows of one head, in the 128-byte swizzle; out of range reads give zeros
+int encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DP>
+int run_wgmma(const Args& a) {
+  using W = WgmmaShape<DP>;
+  const int Sq = a.mk.Sq, Skv = a.mk.Skv;
+  CUtensorMap tq, tk, tv;
+  int e;
+  if ((e = encode_map(&tq, a.q, a.B * a.Hq, Sq, a.D, WQ)) != 0) return e;
+  if ((e = encode_map(&tk, a.k, a.B * a.Hkv, Skv, a.D, BK)) != 0) return e;
+  if ((e = encode_map(&tv, a.v, a.B * a.Hkv, Skv, a.D, BK)) != 0) return e;
+  if ((e = prepare(attn_fwd_wgmma<DP>, W::SMEM)) != 0) return e;
+  // all of the SM's unified memory as shared memory, so two blocks fit at D <= 64
+  if ((e = (int)cudaFuncSetAttribute(attn_fwd_wgmma<DP>,
+                                     cudaFuncAttributePreferredSharedMemoryCarveout, 100)) != 0)
+    return e;
+  const dim3 grid((unsigned)(a.B * a.Hq), (unsigned)((Sq + WQ - 1) / WQ));
+  attn_fwd_wgmma<DP><<<grid, WTHREADS, (size_t)W::SMEM, a.st>>>(
+      tq, tk, tv, a.Hq, a.Hkv, a.D, a.scale, a.mk, (__nv_bfloat16*)a.o, (float*)a.o32_out,
+      (float*)a.lse_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Types by `dtype`: 0 float32, 1 bfloat16 (q, k, v, o, dout, dq, dk, dv);
@@ -533,6 +1004,24 @@ REPRO_EXPORT int repro_flash_fwd(const void* q, const void* k, const void* v, in
   a.o = o; a.o32_out = o32; a.lse_out = lse;
   a.st = (cudaStream_t)stream;
   return dispatch(0, dtype, a);
+}
+
+// The bf16 forward on the tensor cores (attn_fwd_wgmma): the arguments of
+// repro_flash_fwd, for bfloat16 (dtype 1) with D <= 128 and D % 8 == 0 only.
+REPRO_EXPORT int repro_flash_fwd_wgmma(const void* q, const void* k, const void* v, int B,
+                                       int Hq, int Hkv, int Sq, int Skv, int D, float scale,
+                                       int causal, int window, int q_offset, int dtype, void* o,
+                                       void* o32, void* lse, void* stream) {
+  if (dtype != 1 || D <= 0 || D > 128 || D % 8 != 0 || B <= 0 || Hq <= 0 || Hkv <= 0 ||
+      Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || (Sq + WQ - 1) / WQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.q = q; a.k = k; a.v = v;
+  a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.scale = scale;
+  a.mk = make_mask(Sq, Skv, causal, window, q_offset);
+  a.o = o; a.o32_out = o32; a.lse_out = lse;
+  a.st = (cudaStream_t)stream;
+  return D <= 64 ? run_wgmma<64>(a) : run_wgmma<128>(a);
 }
 
 // Writes delta (B, Hq, Sq) float32 and dq; run it before repro_flash_bwd_dkdv,

@@ -11,13 +11,20 @@ The reference's tiling contract holds: ``Sq % min(128, Sq) == 0`` and
 ``Skv % min(128, Skv) == 0``, else ValueError.
 
 For CUDA tensors the wrapper is a :class:`torch.autograd.Function` over the
-three kernels of ``csrc/flash_attention.cu``: the forward (one launch per
-call; it also writes the per-row log-sum-exp and, for bf16 inputs that need
-a gradient, O in float32), and a backward of two launches, dQ (which also
+kernels of ``csrc/flash_attention.cu``: the forward (one launch per call; it
+also writes the per-row log-sum-exp and, for bf16 inputs that need a
+gradient, O in float32), and a backward of two launches, dQ (which also
 computes Δ = rowsum(dO ∘ O) from the float32 O) then dK/dV (which sums each
 GQA group inside one block).  The backward is deterministic: no atomics, one
 summation order.  For CPU tensors the wrapper runs
 :func:`flash_attention_plain`, whose gradient is PyTorch's autograd.
+
+The forward has two kernels, chosen by :func:`forward_route` from the type
+and the head width alone: bf16 with D % 8 == 0 takes ``attn_fwd_wgmma``
+(TMA loads, bf16 products on the tensor cores, P rounded to bf16 before
+P·V, float32 accumulators); float32, and bf16 of another width, take
+``attn_fwd`` (IEEE float32 FMA, never TF32).  ``launches`` counts every
+forward launch, ``launches_wgmma`` those of the tensor-core kernel.
 
 The plain versions mirror the reference's two oracles: :func:`attention_ref`
 (``ref.attention_ref``: −inf mask fill, one softmax) and
@@ -41,6 +48,7 @@ MAX_D = 128
 NEG_FILL = -1e30
 
 launches = LaunchCounter("flash_attention")
+launches_wgmma = LaunchCounter("flash_attention_wgmma")
 launches_dq = LaunchCounter("flash_attention_bwd_dq")
 launches_dkdv = LaunchCounter("flash_attention_bwd_dkdv")
 
@@ -123,7 +131,19 @@ def _fns():
     mask = [I32, I32, I32, I32, I32, I32, F32, I32, I32, I32, I32]  # B..D, scale, masks, dtype
     return (bind(lib, "repro_flash_fwd", [P, P, P, *mask, P, P, P, P]),
             bind(lib, "repro_flash_bwd_dq", [P, P, P, P, P, P, *mask, P, P, P]),
-            bind(lib, "repro_flash_bwd_dkdv", [P, P, P, P, P, P, *mask, P, P, P]))
+            bind(lib, "repro_flash_bwd_dkdv", [P, P, P, P, P, P, *mask, P, P, P]),
+            bind(lib, "repro_flash_fwd_wgmma", [P, P, P, *mask, P, P, P, P]))
+
+
+def forward_route(dtype: torch.dtype, D: int) -> str:
+    """The forward kernel for a type and head width: ``"wgmma"`` for bf16
+    with D % 8 == 0 (TMA needs 16-byte row strides), ``"fma"`` for float32
+    and any other bf16 width; raises for D > 128 or another type."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention: unsupported type {dtype}")
+    if not 0 < D <= MAX_D:
+        raise ValueError(f"flash_attention: head dim {D} not in 1..{MAX_D}")
+    return "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 else "fma"
 
 
 def _check_inputs(q, k, v):
@@ -148,19 +168,23 @@ def _mask_args(q, k, causal, window, scale, q_offset):
 def flash_forward(q, k, v, causal=True, window=None, scale=None, q_offset=0,
                   keep_f32: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                                     torch.Tensor]:
-    """One forward launch on CUDA tensors → (o in q's type, o in float32 if
+    """One forward launch on CUDA tensors, on the kernel
+    :func:`forward_route` picks → (o in q's type, o in float32 if
     ``keep_f32`` and q is bf16 else None, log-sum-exp f32 (B, Hq, Sq))."""
     _check_inputs(q, k, v)
+    wgmma = forward_route(q.dtype, q.shape[3]) == "wgmma"
     o = torch.empty_like(q)
     o32 = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
            if keep_f32 and q.dtype != torch.float32 else None)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    err = _fns()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    *_mask_args(q, k, causal, window, scale, q_offset), o.data_ptr(),
-                    0 if o32 is None else o32.data_ptr(), lse.data_ptr(),
-                    stream_ptr(q.device))
-    check_launch("flash_attention", err)
+    err = _fns()[3 if wgmma else 0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    *_mask_args(q, k, causal, window, scale, q_offset),
+                                    o.data_ptr(), 0 if o32 is None else o32.data_ptr(),
+                                    lse.data_ptr(), stream_ptr(q.device))
+    check_launch("flash_attention_wgmma" if wgmma else "flash_attention", err)
     launches.add()
+    if wgmma:
+        launches_wgmma.add()
     return o, o32, lse
 
 

@@ -42,10 +42,12 @@ KERNELS = {
     "ssd_chunk_scan": _ssd,
     "flash_attention": _fa,
 }
-# launch counters by kernel: one per module, and attention's two backward kernels
+# launch counters by kernel: one per module, attention's two backward kernels,
+# and the forward launches that took the tensor-core kernel
 COUNTERS = {name: mod.launches for name, mod in KERNELS.items()}
 COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
-                 "flash_attention_bwd_dkdv": _fa.launches_dkdv})
+                 "flash_attention_bwd_dkdv": _fa.launches_dkdv,
+                 "flash_attention_wgmma": _fa.launches_wgmma})
 
 
 @contextmanager

@@ -79,9 +79,10 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.tok.device
 
-    def forward(self, tokens, cache=None, start_pos=None, remat: bool = False):
+    def forward(self, tokens, cache=None, start_pos=None, remat: bool = False,
+                vis_embeds=None):
         return forward(self, self.cfg, tokens, self.ctx, cache=cache, start_pos=start_pos,
-                       remat=remat)
+                       remat=remat, vis_embeds=vis_embeds)
 
 
 def init_model(cfg: ModelConfig, ctx: ShardCtx = SINGLE, seed: int = 0, device=None,
@@ -149,12 +150,19 @@ def forward(
     cache=None,
     start_pos: Optional[torch.Tensor] = None,
     remat: bool = False,
+    vis_embeds: Optional[torch.Tensor] = None,  # (B, n_vis, d) VLM stub input
 ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
     """Returns (logits, new_cache, aux_losses).  ``remat`` (without a cache)
     recomputes each group's activations in the backward
-    (``torch.utils.checkpoint``, non-reentrant)."""
+    (``torch.utils.checkpoint``, non-reentrant).  A VLM config
+    (``cfg.n_vis_tokens``) given ``vis_embeds`` prepends them to the token
+    embeddings; positions run over the whole sequence and the logits cover
+    the text positions only, as in the reference."""
     dt = compute_dtype(cfg)
     x = embed_tokens(params.embed.tree(), cfg, tokens).to(dt)
+    vis = cfg.n_vis_tokens and vis_embeds is not None
+    if vis:
+        x = torch.cat([vis_embeds.to(device=x.device, dtype=dt), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     if start_pos is not None:
@@ -211,6 +219,8 @@ def forward(
             new_cache["extra"] = extra
 
     x = apply_norm(params.final_norm.tree(), cfg, x)
+    if vis:
+        x = x[:, vis_embeds.shape[1]:]  # logits over text positions only
     logits = lm_logits(params.embed.tree(), cfg, x, ctx.tp)
     return logits, new_cache, aux_total
 

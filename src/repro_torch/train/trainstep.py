@@ -31,7 +31,8 @@ def make_shard_ctx(run: RunConfig) -> ShardCtx:
 
 def loss_fn(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: bool
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, _, aux = forward(model, cfg, batch["tokens"], ctx, remat=remat)
+    logits, _, aux = forward(model, cfg, batch["tokens"], ctx, remat=remat,
+                             vis_embeds=batch.get("vis_embeds"))
     loss = lm_loss(logits, batch["labels"], cfg.vocab)
     total = loss + sum(aux.values(), 0.0)
     return total, {"loss": loss, **aux}

@@ -151,6 +151,82 @@ def test_tiling_contract_raises_for_ragged_lengths(Sq, Skv):
                             torch.zeros(1, 2, 64, 16), window=0)
 
 
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 120, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 64, "fma"), (torch.float32, 120, "fma"), (torch.float32, 128, "fma"),
+    (torch.bfloat16, 100, "fma"),
+])
+def test_forward_route_by_type_and_head_width(dtype, D, route):
+    """bf16 with D % 8 == 0 takes the tensor-core kernel; float32 (never
+    TF32) and other bf16 widths the FMA kernel."""
+    assert tfa.forward_route(dtype, D) == route
+
+
+@pytest.mark.parametrize("dtype,D,exc", [(torch.bfloat16, 136, ValueError),
+                                         (torch.float32, 136, ValueError),
+                                         (torch.float16, 64, TypeError)])
+def test_forward_route_raises_beyond_the_kernels(dtype, D, exc):
+    with pytest.raises(exc):
+        tfa.forward_route(dtype, D)
+
+
+def _wgmma_rounding_model(q, k, v, causal, window, q_offset):
+    """The tensor-core forward's arithmetic on the CPU: float32 logits of
+    bf16 q and k, scaled after the product, in base 2; online softmax over
+    64-key tiles with the denominator summed from float32 p; P rounded to
+    bf16 before P·V; a float32 accumulator; O rounded to bf16."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    sc2 = np.float32(D ** -0.5) * np.float32(np.log2(np.e))
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * sc2
+    s = s.masked_fill(~tfa._mask(Sq, Skv, causal, window, q_offset, q.device), float("-inf"))
+    m = torch.full((B, Hq, Sq, 1), float("-inf"))
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, D))
+    for j in range(0, Skv, 64):
+        blk = s[..., j:j + 64]
+        mnew = torch.maximum(m, blk.amax(-1, keepdim=True))
+        seen = mnew > float("-inf")
+        alpha = torch.where(seen, torch.exp2(m - mnew), 1.0)
+        p = torch.where(seen, torch.exp2(blk - torch.where(seen, mnew, 0.0)), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, j:j + 64]
+        m = mnew
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+# the bf16 shapes of chip_smoke.py's ATTN_SHAPES that fit the CPU
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,window,q_offset", [
+    (1, 2, 2, 128, 128, 64, True, None, 0),
+    (4, 8, 1, 128, 128, 128, True, None, 0),
+    (2, 3, 1, 256, 256, 64, True, 32, 0),
+    (1, 15, 5, 512, 512, 64, True, 4096, 0),
+    (1, 4, 2, 128, 384, 64, True, 32, 256),
+    (1, 6, 2, 96, 96, 120, False, 32, 0),
+    (2, 15, 5, 1024, 1024, 64, True, None, 0),
+    (2, 8, 2, 256, 256, 128, False, None, 0),
+    (1, 4, 2, 64, 384, 64, True, None, 320),
+])
+def test_wgmma_rounding_model_within_the_card_limit(B, Hq, Hkv, Sq, Skv, D, causal, window,
+                                                     q_offset):
+    """The design's rounding, emulated here, against the JAX oracle on the
+    same bf16 inputs (made as chip_smoke.py makes them): within the limit
+    the card holds the kernel to, 2 bf16 ulps of max |o|."""
+    rng = _rng("wgmma", B, Hq, Sq, Skv, D)
+    q = rng.normal(0, 1.5, (B, Hq, Sq, D))
+    k = rng.normal(0, 1.5, (B, Hkv, Skv, D))
+    v = rng.normal(0, 1.0, (B, Hkv, Skv, D))
+    tq, tk, tv = (_t(a, torch.bfloat16) for a in (q, k, v))
+    got = _wgmma_rounding_model(tq, tk, tv, causal, window, q_offset).float().numpy()
+    jq, jk, jv = (_j(a.float().numpy(), jnp.bfloat16) for a in (tq, tk, tv))
+    want = np.asarray(jref.attention_ref(jq, jk, jv, causal=causal, window=window,
+                                         q_offset=q_offset), np.float32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2 * 2.0 ** -7 * np.abs(want).max())
+
+
 def test_wrapper_without_card_raises_instead_of_falling_back():
     """A non-CPU tensor never takes the plain version: here there is no
     card, so the kernel path raises."""
@@ -253,13 +329,15 @@ def _models(arch, dtype):
 
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_8b", "h2o_danube_3_4b",
-                                  "starcoder2_7b"])
+                                  "starcoder2_7b", "internvl2_76b", "musicgen_large"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_smoke_model_forward_vs_reference(arch, dtype):
     """A cache-free forward (attention through the wrapper) on the JAX
-    parameters: logits within 1e-5 (f32) or 2^-5 (bf16) of the largest."""
+    parameters: logits within 1e-5 (f32) or 2^-5 (bf16) of the largest.
+    Multi-codebook configs take tokens (B, K, S)."""
     cfg, tcfg, jparams, model = _models(arch, dtype)
-    tokens = _rng("fwd", arch).integers(0, cfg.vocab, (2, 64)).astype(np.int32)
+    shape = (2, 64) if cfg.n_codebooks == 1 else (2, cfg.n_codebooks, 64)
+    tokens = _rng("fwd", arch).integers(0, cfg.vocab, shape).astype(np.int32)
     with jops.local_backend("xla"):
         jl, _, _ = j_forward(jparams, cfg, jnp.asarray(tokens), JShardCtx())
     tl, _, _ = t_forward(model, tcfg, torch.from_numpy(tokens), SINGLE)
