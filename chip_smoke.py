@@ -21,14 +21,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    at cell 7's size, no valid row, keys out of range and B = 2^24 - 1); then
    the flash_attention forward (bf16 on the tensor-core kernel
    ``attn_fwd_wgmma``, float32 on the FMA kernel ``attn_fwd``; each launch
-   must take the kernel ``forward_route`` names) and its two backward
-   kernels against the plain attention (output and all three gradients) at
+   must take the kernel ``forward_route`` names) and its backward (bf16 on
+   ``attn_bwd_dq_wgmma`` and ``attn_bwd_dkdv_wgmma``, float32 on the FMA
+   kernels; each launch must take the kernels ``backward_route`` names)
+   against the plain attention (output and all three gradients) at
    edge shapes (GQA groups 1, 3, 4, 8; D 64, 120, 128; bf16 and f32; causal
    or not; windows 32 and 4,096; q_offset > 0 with Sq < Skv, down to one
    128-row q tile with only 64 rows live; one tile; danube's heads over
    4,096 keys; B 1 to 4), two backward runs equal bit for bit, and two
    faulty plain attentions (no alpha rescale; a dK/dV that drops a head)
-   over the limits;
+   over the limits; a forward and backward in a new thread equal the same
+   call in the main one;
 3. main path — a 10M-row table and a 900,000-row dimension table through a
    seven-cell notebook (describe, filter + groupby, value_counts, sort +
    head, head, a left join + head, and an inner join + a groupby over
@@ -54,6 +57,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    4,096 tokens (microbatch 4, remat full, a checkpoint every 2 steps):
    finite losses and gradient norms, 128 forward launches a step, every one
    of them on ``attn_fwd_wgmma``, and 64 + 64 backward attention launches,
+   every one of them on ``attn_bwd_dq_wgmma`` and ``attn_bwd_dkdv_wgmma``,
    one profiled step split by kernel; the same
    step twice from the same state equal bit for bit; one microbatch's loss,
    gradient norm and gradients against the plain attention's (and a faulty
@@ -64,9 +68,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    main path (or the serving phase) gave it;
    then the kernel, its plain version and one PyTorch library call timed at
    the largest of them, beside the card's bound (attention: at the training
-   shape, against ``scaled_dot_product_attention``, and the forward also at
-   qwen3_8b's heads, D 128; segment_reduce also at B = 100,000 and at B =
-   1,000 with one sum row).
+   shape, against ``scaled_dot_product_attention`` and its backward, with
+   the FMA backward kernels on the same bf16 inputs beside the tensor-core
+   ones, and the forward and backward also at qwen3_8b's heads, D 128;
+   segment_reduce also at B = 100,000 and at B = 1,000 with one sum row).
 
 The last two lines are a JSON object per kernel and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -103,14 +108,19 @@ REPLACES = {
                               "ref.attention_xla_chunked with XLA)",
     "flash_attention_bwd_dkdv": "none (no TPU kernel: the reference differentiates "
                                 "ref.attention_xla_chunked with XLA)",
+    # the bf16 route of the same backward, on the tensor cores
+    "flash_attention_bwd_dq_wgmma": "none (no TPU kernel: the reference differentiates "
+                                    "ref.attention_xla_chunked with XLA)",
+    "flash_attention_bwd_dkdv_wgmma": "none (no TPU kernel: the reference differentiates "
+                                      "ref.attention_xla_chunked with XLA)",
 }
-SOURCES = {name: name for name in REPLACES} | {
-    "ssd_chunk_scan": "ssd_chunk", "flash_attention_bwd_dq": "flash_attention",
-    "flash_attention_bwd_dkdv": "flash_attention", "flash_attention_wgmma": "flash_attention"}
+SOURCES = {name: name for name in REPLACES} | {"ssd_chunk_scan": "ssd_chunk"} | {
+    name: "flash_attention" for name in REPLACES if name.startswith("flash_attention")}
 DATAFRAME = ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe")
 SERVING = ("ssd_chunk_scan",)
 TRAINING = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd_dq",
-            "flash_attention_bwd_dkdv")
+            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq_wgmma",
+            "flash_attention_bwd_dkdv_wgmma")
 BF16_ULP = 2.0 ** -7  # one bfloat16 ulp, relative
 
 
@@ -570,7 +580,8 @@ def attn_errs(got, want):
 def attention_parity(torch, rng, dev, shapes=ATTN_SHAPES, label="edge"):
     """The kernels (through their autograd Function) against the plain
     version at ``shapes``: each forward on the kernel ``forward_route``
-    names, the output and the three gradients within ATTN_TOL, two backward
+    names and each backward on those ``backward_route`` names, the output
+    and the three gradients within ATTN_TOL, two backward
     runs equal bit for bit, and each faulty control over the limit at one
     shape at least.  Returns the max |err| per kernel."""
     from repro_torch.kernels import flash_attention as fa
@@ -578,6 +589,8 @@ def attention_parity(torch, rng, dev, shapes=ATTN_SHAPES, label="edge"):
     errs = {name: 0.0 for name in TRAINING}
     rows = {"o": "flash_attention", "dq": "flash_attention_bwd_dq",
             "dk": "flash_attention_bwd_dkdv", "dv": "flash_attention_bwd_dkdv"}
+    tc_rows = {"o": "flash_attention_wgmma", "dq": "flash_attention_bwd_dq_wgmma",
+               "dk": "flash_attention_bwd_dkdv_wgmma", "dv": "flash_attention_bwd_dkdv_wgmma"}
     controls = attn_controls(torch, fa)
     caught = {label: 0.0 for label in controls}
     worst = {}
@@ -585,12 +598,16 @@ def attention_parity(torch, rng, dev, shapes=ATTN_SHAPES, label="edge"):
         where = f"{(B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off)}"
         q, k, v, g = attn_inputs(torch, rng, dev, B, Hq, Hkv, Sq, Skv, D, dtype)
         mask = (causal, window, None, off)
-        route = fa.forward_route(q.dtype, D)
-        before = fa.launches_wgmma.value
+        route = {"o": fa.forward_route(q.dtype, D)}
+        route["dq"] = route["dk"] = route["dv"] = fa.backward_route(q.dtype, D)
+        counters = {"o": fa.launches_wgmma, "dq": fa.launches_dq_wgmma,
+                    "dk": fa.launches_dkdv_wgmma}
+        before = {name: c.value for name, c in counters.items()}
         got = attn_grads(torch, fa.flash_attention, q, k, v, g, mask)
         again = attn_grads(torch, fa.flash_attention, q, k, v, g, mask)
-        check(fa.launches_wgmma.value - before == (2 if route == "wgmma" else 0),
-              f"attention forward {where} did not take the {route} kernel")
+        for name, c in counters.items():
+            check(c.value - before[name] == (2 if route[name] == "wgmma" else 0),
+                  f"attention {name} {where} did not take the {route[name]} kernel")
         want = attn_grads(torch, fa.flash_attention_plain, q, k, v, g, mask)
         for name, a, b in zip(("o", "dq", "dk", "dv"), got, again):
             check(torch.equal(a, b), f"attention {name} differs between two runs {where}")
@@ -600,8 +617,8 @@ def attention_parity(torch, rng, dev, shapes=ATTN_SHAPES, label="edge"):
             check(e <= tol * scale and e == e,
                   f"attention {name} {where}: max |err| {e} over the limit {tol * scale}")
             errs[rows[name]] = max(errs[rows[name]], e)
-            if name == "o" and route == "wgmma":
-                errs["flash_attention_wgmma"] = max(errs["flash_attention_wgmma"], e)
+            if route[name] == "wgmma":
+                errs[tc_rows[name]] = max(errs[tc_rows[name]], e)
             key = f"{name} {dtype}"
             worst[key] = max(worst.get(key, 0.0), e / max(scale, 1e-30))
         for clabel, (faulty, name) in controls.items():
@@ -616,6 +633,36 @@ def attention_parity(torch, rng, dev, shapes=ATTN_SHAPES, label="edge"):
           + json.dumps(worst) + "; two backward runs equal "
           "bit for bit; controls, worst |err| over the limit: " + json.dumps(caught), flush=True)
     return errs
+
+
+def attention_in_new_thread(torch, rng, dev):
+    """A forward and backward started in a thread that has made no CUDA call
+    yet, as autograd's backward thread may not have: the tensor-core
+    kernels' map encoder needs the device's context bound in the calling
+    thread.  Equal bit for bit to the same call in this thread."""
+    import threading
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, g = attn_inputs(torch, rng, dev, 1, 2, 2, 128, 128, 64, "bfloat16")
+    mask = (True, None, None, 0)
+    out = {}
+
+    def run():
+        try:
+            out["got"] = attn_grads(torch, fa.flash_attention, q, k, v, g, mask)
+        except Exception as exc:  # reported below, in this thread
+            out["err"] = exc
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    check("err" not in out, f"attention in a new thread raised: {out.get('err')}")
+    here = attn_grads(torch, fa.flash_attention, q, k, v, g, mask)
+    check(all(torch.equal(a, b) for a, b in zip(out["got"], here)),
+          "attention in a new thread differs from the same call in this one")
+    print("[parity] attention: a forward and backward in a new thread equal the same call "
+          "here bit for bit", flush=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -1063,12 +1110,71 @@ def forward_timing(torch, rng, dev, shape, flush):
         bound=bound(*attention_work(shape)["flash_attention"], BF16_OPS_PER_S))
 
 
+def backward_timing(torch, rng, dev, shape, flush, fma=False):
+    """dQ and dK/dV (through ``backward_dq`` and ``backward_dkdv``, on the
+    kernels their route names), the plain backward and SDPA's backward (all
+    three gradients, one backward of a graph kept from one forward) at
+    ``shape``, in ms, with each kernel's bound; ``fma`` also times the FMA
+    kernels on the same bf16 inputs through their C entry points (the
+    wrappers send bf16 at these widths to the tensor cores).  Returns (rows
+    by kernel name, the ms printed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off = shape
+    q, k, v, g = attn_inputs(torch, rng, dev, B, Hq, Hkv, Sq, Skv, D, dtype)
+    mask = (causal, window, None, off)
+    _, o32, lse = fa.flash_forward(q, k, v, *mask, keep_f32=True)
+    _, delta = fa.backward_dq(q, k, v, o32, lse, g, *mask)
+
+    def backward_of(fn):
+        qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = fn(qq, kk, vv)
+        return lambda: torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True)
+
+    ms = {
+        "kernel dq": timed(torch, lambda: fa.backward_dq(q, k, v, o32, lse, g, *mask), 10, flush),
+        "kernel dkdv": timed(torch, lambda: fa.backward_dkdv(q, k, v, lse, delta, g, *mask),
+                             10, flush),
+        "plain bwd": timed(torch, backward_of(
+            lambda qq, kk, vv: fa.flash_attention_plain(qq, kk, vv, *mask)), 3, flush),
+        "sdpa bwd": timed(torch, backward_of(lambda qq, kk, vv: F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=causal, enable_gqa=True)), 10, flush),
+    }
+    if fma:
+        args = fa._mask_args(q, k, causal, window, None, off)
+        out = [torch.empty_like(t) for t in (delta, q, k, v)]
+        st = torch.cuda.current_stream().cuda_stream
+
+        def fma_dq():
+            err = fa._fns()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),
+                               g.data_ptr(), lse.data_ptr(), *args, out[0].data_ptr(),
+                               out[1].data_ptr(), st)
+            check(err == 0, f"the FMA dQ kernel failed with cudaError_t {err}")
+
+        def fma_dkdv():
+            err = fa._fns()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                               lse.data_ptr(), delta.data_ptr(), *args, out[2].data_ptr(),
+                               out[3].data_ptr(), st)
+            check(err == 0, f"the FMA dK/dV kernel failed with cudaError_t {err}")
+
+        ms["fma dq"] = timed(torch, fma_dq, 3, flush)
+        ms["fma dkdv"] = timed(torch, fma_dkdv, 3, flush)
+    work = attention_work(shape)
+    row = dict(shape=[B, Hq, Hkv, Sq, Skv, D, dtype, "causal" if causal else "full"],
+               plain_ms=ms["plain bwd"], library_ms=ms["sdpa bwd"])
+    return {name: dict(row, ms=ms[f"kernel {which}"], bound=bound(*work[name], BF16_OPS_PER_S))
+            for name, which in (("flash_attention_bwd_dq", "dq"),
+                                ("flash_attention_bwd_dkdv", "dkdv"))}, ms
+
+
 def attention_timings(torch, rng, dev):
-    """The three kernels, the plain version and SDPA at the training shape:
-    mean of cold-L2 calls; backward times run one backward of a graph kept
-    from one forward.  The forward row serves both ``flash_attention`` and
-    ``flash_attention_wgmma`` (a bf16 forward is the tensor-core kernel);
-    the forward alone also at WIDE_ATTN."""
+    """The kernels, the plain version and SDPA at the training shape: mean
+    of cold-L2 calls.  The forward row serves both ``flash_attention`` and
+    ``flash_attention_wgmma``, each backward row its FMA and its tensor-core
+    name (bf16 takes the tensor-core kernels); forward and backward also at
+    WIDE_ATTN."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1077,13 +1183,6 @@ def attention_timings(torch, rng, dev):
     q, k, v, g = attn_inputs(torch, rng, dev, B, Hq, Hkv, Sq, Skv, D, dtype)
     mask = (causal, window, None, off)
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
-    _, o32, lse = fa.flash_forward(q, k, v, *mask, keep_f32=True)
-    _, delta = fa.backward_dq(q, k, v, o32, lse, g, *mask)
-
-    def backward_of(fn):
-        qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
-        out = fn(qq, kk, vv)
-        return lambda: torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True)
 
     def fwd_bwd(fn):
         def run():
@@ -1094,40 +1193,26 @@ def attention_timings(torch, rng, dev):
     def sdpa(qq, kk, vv):
         return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
 
-    plain = lambda qq, kk, vv: fa.flash_attention_plain(qq, kk, vv, *mask)
-    check(fa.forward_route(q.dtype, D) == "wgmma", "the training shape is not on the wgmma route")
-    ms = {
-        "kernel fwd": timed(torch, lambda: fa.flash_forward(q, k, v, *mask), 10, flush),
-        "kernel dq": timed(torch, lambda: fa.backward_dq(q, k, v, o32, lse, g, *mask), 3, flush),
-        "kernel dkdv": timed(torch, lambda: fa.backward_dkdv(q, k, v, lse, delta, g, *mask),
-                             3, flush),
-        "plain fwd": timed(torch, lambda: plain(q, k, v), 3, flush),
-        "plain bwd": timed(torch, backward_of(plain), 3, flush),
-        "sdpa fwd": timed(torch, lambda: sdpa(q, k, v), 10, flush),
-        "sdpa bwd": timed(torch, backward_of(sdpa), 10, flush),
-    }
+    check(fa.forward_route(q.dtype, D) == "wgmma" and fa.backward_route(q.dtype, D) == "wgmma",
+          "the training shape is not on the wgmma route")
+    fwd = forward_timing(torch, rng, dev, TRAIN_ATTN, flush)
+    bwd, ms = backward_timing(torch, rng, dev, TRAIN_ATTN, flush, fma=True)
+    ms["kernel fwd"], ms["plain fwd"], ms["sdpa fwd"] = (
+        fwd["ms"], fwd["plain_ms"], fwd["library_ms"])
     ms["kernel fwd+bwd"] = timed(torch, fwd_bwd(
-        lambda qq, kk, vv: fa.flash_attention(qq, kk, vv, *mask)), 2, flush)
+        lambda qq, kk, vv: fa.flash_attention(qq, kk, vv, *mask)), 5, flush)
     ms["sdpa fwd+bwd"] = timed(torch, fwd_bwd(sdpa), 10, flush)
-    work = attention_work(TRAIN_ATTN)
     print("[time] attention at the training shape " + json.dumps(TRAIN_ATTN) + ", ms: "
           + json.dumps(ms), flush=True)
-    shape = [B, Hq, Hkv, Sq, Skv, D, dtype, "causal"]
-    fwd = dict(shape=shape, ms=ms["kernel fwd"], plain_ms=ms["plain fwd"],
-               library_ms=ms["sdpa fwd"], bound=bound(*work["flash_attention"], BF16_OPS_PER_S))
-    return {
-        "flash_attention": fwd,
-        "flash_attention_wgmma": fwd,
-        "flash_attention D=128": forward_timing(torch, rng, dev, WIDE_ATTN, flush),
-        "flash_attention_bwd_dq": dict(shape=shape, ms=ms["kernel dq"], plain_ms=ms["plain bwd"],
-                                       library_ms=ms["sdpa bwd"],
-                                       bound=bound(*work["flash_attention_bwd_dq"],
-                                                   BF16_OPS_PER_S)),
-        "flash_attention_bwd_dkdv": dict(shape=shape, ms=ms["kernel dkdv"],
-                                         plain_ms=ms["plain bwd"], library_ms=ms["sdpa bwd"],
-                                         bound=bound(*work["flash_attention_bwd_dkdv"],
-                                                     BF16_OPS_PER_S)),
-    }
+    wide, wide_ms = backward_timing(torch, rng, dev, WIDE_ATTN, flush)
+    print("[time] attention backward at " + json.dumps(WIDE_ATTN) + ", ms: "
+          + json.dumps(wide_ms), flush=True)
+    out = {"flash_attention": fwd, "flash_attention_wgmma": fwd,
+           "flash_attention D=128": forward_timing(torch, rng, dev, WIDE_ATTN, flush)}
+    for name in bwd:
+        out[name] = out[name + "_wgmma"] = bwd[name]
+        out[name + " D=128"] = wide[name]
+    return out
 
 
 def recorder(K):
@@ -1369,10 +1454,11 @@ TRAIN_STEPS = 4
 TRAIN_BATCH, TRAIN_MICRO = 8, 4  # the train_4k shape's global batch 256, cut to one card
 CKPT_ROOT = ROOT / ".smoke_ckpt"  # checkpoints of this phase, removed at its end
 # predicted launches per step: 32 layers x 2 microbatches x 2 forwards (remat)
-# of the forward, every one bf16 on the tensor-core kernel, and 32 x 2 of
-# each backward kernel
+# of the forward, and 32 x 2 of each backward kernel, every one of them bf16
+# on the tensor-core kernels
 PER_STEP = {"flash_attention": 128, "flash_attention_wgmma": 128,
-            "flash_attention_bwd_dq": 64, "flash_attention_bwd_dkdv": 64}
+            "flash_attention_bwd_dq": 64, "flash_attention_bwd_dkdv": 64,
+            "flash_attention_bwd_dq_wgmma": 64, "flash_attention_bwd_dkdv_wgmma": 64}
 # The step with the kernels against the same step with the plain attention
 # (one microbatch of 2 x 1,024 tokens, remat off, the seed-12 weights): the
 # attention outputs differ by up to a bf16 ulp and each layer moves the next
@@ -1611,6 +1697,7 @@ def main() -> int:
     errs = parity(torch, K, rng, dev)
     fused_parity(torch, ops, rng, dev)
     errs.update(attention_parity(torch, rng, dev))
+    attention_in_new_thread(torch, rng, dev)
     torch.cuda.synchronize()
     print(f"[parity] kernel vs plain passed for all {len(errs)} kernels in "
           f"{time.perf_counter() - t0} s; max |err|: " + json.dumps(errs), flush=True)

@@ -15,7 +15,7 @@
 // differentiated); the two backward kernels here compute the gradient of the
 // same function, as XLA's autodiff of `ref.attention_xla_chunked` does.
 //
-// Four kernels, with no atomics, so every result has one summation order and
+// Six kernels, with no atomics, so every result has one summation order and
 // a training step is reproducible bit for bit:
 //
 //   attn_fwd_wgmma  the bf16 forward (D <= 128, D % 8 == 0) on the tensor
@@ -41,6 +41,27 @@
 //            order: S = Qs Kᵀ, online softmax, O += P V.  Writes O (type
 //            T), optionally O in float32, and the per-row log-sum-exp
 //            L = m + log l (+inf for a row that sees no key).
+//   attn_bwd_dq_wgmma, attn_bwd_dkdv_wgmma  the bf16 backward (the same
+//            widths) on the tensor cores, with the forward's TMA ring, block
+//            shape (two consumer warpgroups, one producer warp) and swizzle.
+//            dQ: one block per (b, q-head, 128-row q tile), longest first;
+//            Q and dO loaded once, K and V streamed; Δ from the float32 O
+//            first (each thread its columns in order, then the quad's four
+//            parts by two shuffles), written out for dK/dV; per kv tile S =
+//            Q Kᵀ and dP = dO Vᵀ (shared x shared), P = 2^(S·scale·log2 e −
+//            L·log2 e) and dS = P ∘ (dP − Δ) on the fragments, dS rounded to
+//            bf16 as the register A operand of dQ += dS K (K read N-major).
+//            dK/dV: one block per (b, kv-head, 128-key tile), the tile the
+//            most q tiles see first; K and V loaded once, then for each
+//            q-head of the group in order, each q tile of 64 rows that sees
+//            the kv tile, in order: Q, dO and the tile's L and Δ (1-D maps
+//            over the flat rows) through the ring.  Sᵀ = K Qᵀ and dPᵀ =
+//            V dOᵀ (shared x shared), so each thread's accumulator columns
+//            are queries and it reads 16 L and Δ values a tile from shared
+//            memory; Pᵀ and dSᵀ rounded to bf16 are the register A operands
+//            of dV += Pᵀ dO and dK += dSᵀ Q (dO and Q read N-major); scale
+//            goes on dK in float32 at the end.  The group's sum stays in
+//            registers: no atomics, no split over q.
 //   dQ       one block per (b, q-head, q block): Δ = rowsum(dO ∘ O) from
 //            the float32 O (written out for the dK/dV kernel), then over
 //            the kv blocks P = exp(S − L), dS = P ∘ (dO Vᵀ − Δ),
@@ -49,6 +70,9 @@
 //            group in order and, for each, the q blocks that see it:
 //            dV += Pᵀ dO, dK += dSᵀ Qs (Qs = scale · q).  Summing the group
 //            inside the block is what makes it atomic-free.
+//
+// The FMA dQ and dK/dV kernels take float32 (IEEE, never TF32) and bf16
+// widths TMA cannot take.
 //
 // Masking: a hidden entry has p = 0 exactly (its logit is −inf, never
 // exponentiated against a −inf max), and a 64 x 64 tile that no row can see
@@ -72,6 +96,19 @@
 // done yet: overlapping one tile's softmax with the next tile's products
 // inside a warpgroup (issuing P·V behind the next S = Q Kᵀ, with this
 // loop, ran slower), and more than two warpgroups of rows a block.
+//
+// The backward at the same shape: dQ's 193.3 GFLOP (S, dP, dS K) take
+// 0.195 ms at the bf16 rate, dK/dV's 257.8 GFLOP (S, dP, Pᵀ dO, dSᵀ Q)
+// 0.261 ms; both are bound by operations.  The FMA backward kernels ran at
+// about 57x those bounds on the CUDA cores.  The wgmma kernels put every
+// product on the tensor cores; what is left on the CUDA cores is one ex2,
+// two FFMAs and a multiply an entry, plus the mask on partial tiles.  Rows
+// past Sq are hidden by the mask in dK/dV (a tile with such rows is never
+// taken as full), since their Q and dO read zeros and their L and Δ another
+// head's values.  dQ holds 32 + 32 + DP / 2 float32 a thread, dK/dV 64 +
+// DP (192 at DP 128, over the 168 registers 384 threads leave each), so its
+// producer warpgroup hands its registers to the consumers (setmaxnreg): one
+// block an SM.
 //
 // What the tensor-core design had to get right:
 // - The 128-byte swizzle is the same in the TMA maps and the wgmma
@@ -428,11 +465,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// can any row of q rows [q_first, q_first + n) see any key of the kv tile at k0?
-__device__ __forceinline__ bool span_needed(const Mask& mk, int q_first, int n, int k0) {
-  if (q_first >= mk.Sq) return false;
+// can any row of q rows [q_first, q_first + n) see any key of [k0, k0 + nk)?
+__device__ __forceinline__ bool span_needed(const Mask& mk, int q_first, int n, int k0,
+                                            int nk = BK) {
+  if (q_first >= mk.Sq || k0 >= mk.Skv) return false;
   const int first_q = q_first + mk.q_offset, last_q = min(q_first + n, mk.Sq) - 1 + mk.q_offset;
-  const int last_k = min(k0 + BK, mk.Skv) - 1;
+  const int last_k = min(k0 + nk, mk.Skv) - 1;
   if (mk.causal && k0 > last_q) return false;
   if (mk.window > 0 && last_k <= first_q - mk.window) return false;
   return true;
@@ -445,6 +483,43 @@ __device__ __forceinline__ bool span_full(const Mask& mk, int q_first, int n, in
   if (mk.causal && k0 + BK - 1 > first_q) return false;
   if (mk.window > 0 && k0 <= last_q - mk.window) return false;
   return true;
+}
+
+// one box of a 1-D tensor map into shared memory
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// d = A Bᵀ over DP / 16 steps, A (64 rows) and B (64 rows) K-major, the
+// 128-byte swizzle; a_atom and b_atom are the bytes of one atom column
+template <int DP>
+__device__ __forceinline__ void product_ss(float (&d)[32], const uint8_t* a, int a_atom,
+                                           const uint8_t* b, int b_atom) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int off = (kk & 3) * 32;  // 16 columns are 32 bytes into the atom
+    wgmma_ss_n64(d, sw128_desc(a + (kk >> 2) * a_atom + off, 16, 1024),
+                 sw128_desc(b + (kk >> 2) * b_atom + off, 16, 1024), kk > 0);
+  }
+}
+
+// d += A B over 64 rows of depth: A (64 x 64) bf16 pairs in registers, B a
+// 64-row tile read N-major (its DP columns are the product's n)
+template <int DP>
+__device__ __forceinline__ void product_rs(float (&d)[DP / 2], const uint32_t (&a)[16],
+                                           const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+    const uint64_t db = sw128_desc(b + kk * 16 * ATOM_ROW, BK * ATOM_ROW, 1024);
+    if constexpr (DP == 64) wgmma_rs_n64(d, ak, db);
+    else wgmma_rs_n128(d, ak, db);
+  }
 }
 
 // The online-softmax step of one 64-key tile for this thread's two rows.
@@ -497,6 +572,12 @@ struct WgmmaShape {
   static constexpr int Q_BYTES = ATOMS * Q_ATOM;
   static constexpr int KV_BYTES = ATOMS * KV_ATOM;         // one K (or V) tile
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;  // + alignment slack
+  // the backward: dQ holds Q and dO of 128 rows and rings K and V of 64;
+  // dK/dV holds K and V of 128 keys and rings Q and dO of 64 rows with their
+  // L and Δ (64 float32 each)
+  static constexpr int ROW_BYTES = 64 * 4;
+  static constexpr int DQ_SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+  static constexpr int DKDV_SMEM = 2 * Q_BYTES + STAGES * (2 * KV_BYTES + 2 * ROW_BYTES) + 1024;
 };
 
 // One block: 128 query rows of one (b, q-head).  Warps 0-7 are two consumer
@@ -582,16 +663,10 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     if (span_needed(mk, qw, 64, k0)) {
       const uint8_t* kt = ks + s * W::KV_BYTES;
       const uint8_t* vt = vs + s * W::KV_BYTES;
-      // S = Q Kᵀ over DP / 16 steps of 16 columns
-      float sv[32];
+      float sv[32];  // S = Q Kᵀ
       fence_regs(sv);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const int off = (kk & 3) * 32;  // 16 columns are 32 bytes into the atom
-        wgmma_ss_n64(sv, sw128_desc(qw_smem + (kk >> 2) * W::Q_ATOM + off, 16, 1024),
-                     sw128_desc(kt + (kk >> 2) * W::KV_ATOM + off, 16, 1024), kk > 0);
-      }
+      product_ss<DP>(sv, qw_smem, W::Q_ATOM, kt, W::KV_ATOM);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sv);
@@ -608,13 +683,7 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
       // O += P V over 4 steps of 16 keys; V is read N-major (transposed)
       fence_regs(acc);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
-        const uint64_t db = sw128_desc(vt + kk * 16 * ATOM_ROW, W::KV_ATOM, 1024);
-        if constexpr (DP == 64) wgmma_rs_n64(acc, a, db);
-        else wgmma_rs_n128(acc, a, db);
-      }
+      product_rs<DP>(acc, pa, vt);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -641,6 +710,375 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
       if (o32 != nullptr) *reinterpret_cast<float2*>(o32 + g * D + col) = make_float2(v0, v1);
     }
     if (t == 0) lse[g] = l[r] > 0.0f ? m[r] * scale + logf(l[r]) : CUDART_INF_F;
+  }
+}
+
+// ------------------------------------------------------------------------ //
+// The bf16 backward on Hopper's tensor cores.                                //
+// ------------------------------------------------------------------------ //
+
+constexpr int BKV = 128;  // keys a dK/dV block: two consumer warpgroups of 64
+// dK/dV: 8 consumer warps and a producer warpgroup, which keeps 40 registers
+// a thread and gives the rest to the consumers (232: dK and dV take DP
+// float32 a thread, Sᵀ and dPᵀ 64 more)
+constexpr int BTHREADS = 384, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
+// dQ's P and dS of one 64-key tile for this thread's two rows: register i of
+// `sv` (S) and `dp` (dP) is row r0 + 8 ((i >> 1) & 1), key k0 + 8 (i >> 2) +
+// 2 t + (i & 1).  lb is the row's L in base 2 (+inf for a row that sees no
+// key or lies past Sq, so p = 0), dl its Δ.  dS leaves as bf16 pairs, the A
+// operand of dS K.
+template <bool MASKED>
+__device__ __forceinline__ void dscores(const float (&sv)[32], const float (&dp)[32],
+                                        uint32_t (&da)[16], const float (&lb)[2],
+                                        const float (&dl)[2], float sc2, const Mask& mk, int r0,
+                                        int k0, int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int r = j & 1;  // registers 2j, 2j + 1 share row r0 + 8 (j & 1)
+    float ds[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float p = ex2(fmaf(sv[2 * j + e], sc2, -lb[r]));
+      if (MASKED && !mk.visible(r0 + 8 * r, k0 + 8 * (j >> 1) + 2 * t + e)) p = 0.0f;
+      ds[e] = p * (dp[2 * j + e] - dl[r]);
+    }
+    da[j] = pack_bf16(ds[0], ds[1]);
+  }
+}
+
+// dK/dV's Pᵀ and dSᵀ of one (kv tile, q tile) pair: register i of `st` (Sᵀ)
+// and `dpt` (dPᵀ) is key kr + 8 ((i >> 1) & 1), query q0 + 8 (i >> 2) + 2 t +
+// (i & 1).  The tile's L and Δ are 64 float32 in shared memory, by query; a
+// query past Sq is hidden by the mask (its tile is never taken as full).
+template <bool MASKED>
+__device__ __forceinline__ void probs_t(const float (&st)[32], const float (&dpt)[32],
+                                        uint32_t (&pa)[16], uint32_t (&da)[16], const float* lt,
+                                        const float* dt, float sc2, const Mask& mk, int q0,
+                                        int kr, int t) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int col = 8 * c + 2 * t;
+    const float2 lv = *reinterpret_cast<const float2*>(lt + col);
+    const float2 dv = *reinterpret_cast<const float2*>(dt + col);
+    const float lb[2] = {lv.x * LOG2E, lv.y * LOG2E}, dd[2] = {dv.x, dv.y};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // registers 4c + 2r + e: key kr + 8r, query col + e
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * c + 2 * r + e;
+        p[e] = ex2(fmaf(st[i], sc2, -lb[e]));
+        if (MASKED && !mk.visible(q0 + col + e, kr + 8 * r)) p[e] = 0.0f;
+        ds[e] = p[e] * (dpt[i] - dd[e]);
+      }
+      pa[2 * c + r] = pack_bf16(p[0], p[1]);
+      da[2 * c + r] = pack_bf16(ds[0], ds[1]);
+    }
+  }
+}
+
+// dQ: one block per (b, q-head, 128-row q tile), launched longest-first
+// under the causal mask; warps 0-7 are two consumer warpgroups of 64 rows,
+// warp 8 the producer, which loads Q and dO once and then the visible K and V
+// tiles in order through the ring, as the forward does.  Each consumer
+// thread first computes Δ of its two rows from the float32 O (its columns in
+// order, then the quad's four parts by two shuffles) and writes it out for
+// dK/dV.  Per tile: S = Q Kᵀ and dP = dO Vᵀ (shared x shared), P and dS in
+// registers, dQ += dS K (dS as the register A operand, K read N-major).
+template <int DP>
+__global__ void __launch_bounds__(WTHREADS, 1)
+attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ o32,
+                  const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse, int Hq,
+                  int Hkv, int D, float scale, Mask mk, float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq) {
+  using W = WgmmaShape<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, kv_full[W::STAGES], kv_empty[W::STAGES];
+  uint8_t* base = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  uint8_t* qs = base;
+  uint8_t* dos = qs + W::Q_BYTES;
+  uint8_t* ks = dos + W::Q_BYTES;
+  uint8_t* vs = ks + W::STAGES * W::KV_BYTES;
+
+  const int bh = blockIdx.x, b = bh / Hq, h = bh - b * Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const int nq = gridDim.y;
+  const int qt = mk.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;  // longest first
+  const int q0 = qt * WQ, Sq = mk.Sq;
+  const int nk = (mk.Skv + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(&q_full, 2 * W::Q_BYTES);
+      for (int a = 0; a < W::ATOMS; ++a) {
+        tma_load(qs + a * W::Q_ATOM, &tm_q, &q_full, 64 * a, q0, bh);
+        tma_load(dos + a * W::Q_ATOM, &tm_do, &q_full, 64 * a, q0, bh);
+      }
+      int it = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        const int k0 = kb * BK;
+        if (!span_needed(mk, q0, WQ, k0)) continue;
+        const int s = it % W::STAGES;
+        mbar_wait(&kv_empty[s], ((it / W::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&kv_full[s], 2 * W::KV_BYTES);
+        for (int a = 0; a < W::ATOMS; ++a) {
+          tma_load(ks + s * W::KV_BYTES + a * W::KV_ATOM, &tm_k, &kv_full[s], 64 * a, k0, bkv);
+          tma_load(vs + s * W::KV_BYTES + a * W::KV_ATOM, &tm_v, &kv_full[s], 64 * a, k0, bkv);
+        }
+        ++it;
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, t = lane & 3;
+  const int qw = q0 + 64 * wg;
+  const int r0 = qw + 16 * (warp & 3) + (lane >> 2);
+  const float sc2 = scale * LOG2E;
+  float lb[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // Δ and L of rows r0 and r0 + 8
+    const int row = r0 + 8 * r;
+    const long long g = (long long)bh * Sq + row;
+    float acc = 0.0f;
+    if (row < Sq) {
+#pragma unroll
+      for (int nb = 0; nb < DP / 8; ++nb) {
+        const int col = 8 * nb + 2 * t;
+        if (col >= D) continue;
+        const float2 o = *reinterpret_cast<const float2*>(o32 + g * D + col);
+        const float2 d = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dout + g * D + col));
+        acc = fmaf(d.x, o.x, acc);
+        acc = fmaf(d.y, o.y, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dl[r] = acc;
+    lb[r] = row < Sq ? lse[g] * LOG2E : CUDART_INF_F;
+    if (row < Sq && t == 0) delta[g] = acc;
+  }
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  const uint8_t* qw_smem = qs + 64 * wg * ATOM_ROW;
+  const uint8_t* dow_smem = dos + 64 * wg * ATOM_ROW;
+
+  mbar_wait(&q_full, 0);
+  int it = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    const int k0 = kb * BK;
+    if (!span_needed(mk, q0, WQ, k0)) continue;
+    const int s = it % W::STAGES;
+    mbar_wait(&kv_full[s], (it / W::STAGES) & 1);
+    if (span_needed(mk, qw, 64, k0)) {
+      const uint8_t* kt = ks + s * W::KV_BYTES;
+      const uint8_t* vt = vs + s * W::KV_BYTES;
+      float sv[32], dp[32];
+      fence_regs(sv);
+      fence_regs(dp);
+      wgmma_fence();
+      product_ss<DP>(sv, qw_smem, W::Q_ATOM, kt, W::KV_ATOM);   // S = Q Kᵀ
+      product_ss<DP>(dp, dow_smem, W::Q_ATOM, vt, W::KV_ATOM);  // dP = dO Vᵀ
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sv);
+      fence_regs(dp);
+
+      uint32_t da[16];
+      if (span_full(mk, qw, 64, k0))
+        dscores<false>(sv, dp, da, lb, dl, sc2, mk, r0, k0, t);
+      else
+        dscores<true>(sv, dp, da, lb, dl, sc2, mk, r0, k0, t);
+
+      fence_regs(acc);
+      wgmma_fence();
+      product_rs<DP>(acc, da, kt);  // dQ += dS K
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    if (lane == 0) mbar_arrive(&kv_empty[s]);
+    ++it;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= Sq) continue;
+    const long long g = (long long)bh * Sq + row;
+#pragma unroll
+    for (int nb = 0; nb < DP / 8; ++nb) {
+      const int col = 8 * nb + 2 * t;
+      if (col >= D) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dq + g * D + col) =
+          __floats2bfloat162_rn(scale * acc[4 * nb + 2 * r], scale * acc[4 * nb + 2 * r + 1]);
+    }
+  }
+}
+
+// dK/dV: one block per (b, kv-head, 128-key tile), the tile that the most q
+// tiles see first under the causal mask; warps 0-7 are two consumer
+// warpgroups of 64 keys, warps 8-11 the producer warpgroup.  It loads K and V once, then
+// walks the q-heads of the group in order and, for each, the q tiles of 64
+// rows that see the kv tile, in order: Q, dO and their L and Δ rows through
+// the ring (the rows by 1-D maps over the flat (b, h, row) arrays).  Per q
+// tile: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (shared x shared), Pᵀ and dSᵀ in registers,
+// dV += Pᵀ dO and dK += dSᵀ Q (register A operands, dO and Q read N-major).
+// The group's sum stays in the block's registers: no atomics.
+template <int DP>
+__global__ void __launch_bounds__(BTHREADS, 1)
+attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_l,
+                    const __grid_constant__ CUtensorMap tm_d, int Hq, int Hkv, int D,
+                    float scale, Mask mk, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv) {
+  using W = WgmmaShape<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full, full[W::STAGES], empty[W::STAGES];
+  uint8_t* base = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  uint8_t* ks = base;  // K and V: 128-row tiles
+  uint8_t* vs = ks + W::Q_BYTES;
+  uint8_t* qs = vs + W::Q_BYTES;  // the ring of Q and dO: 64-row tiles
+  uint8_t* dos = qs + W::STAGES * W::KV_BYTES;
+  float* ls = reinterpret_cast<float*>(dos + W::STAGES * W::KV_BYTES);  // L, 64 a slot
+  float* dls = ls + W::STAGES * 64;                                      // Δ, 64 a slot
+
+  const int bkv = blockIdx.x, b = bkv / Hkv, hk = bkv - b * Hkv, group = Hq / Hkv;
+  const int k0 = (int)blockIdx.y * BKV, Sq = mk.Sq, Skv = mk.Skv;
+  const int nq = (Sq + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&kv_full, 1);
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup; one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(&kv_full, 2 * W::Q_BYTES);
+      for (int a = 0; a < W::ATOMS; ++a) {
+        tma_load(ks + a * W::Q_ATOM, &tm_k, &kv_full, 64 * a, k0, bkv);
+        tma_load(vs + a * W::Q_ATOM, &tm_v, &kv_full, 64 * a, k0, bkv);
+      }
+      int it = 0;
+      for (int g = 0; g < group; ++g) {
+        const int bh = b * Hq + hk * group + g;
+        for (int qb = 0; qb < nq; ++qb) {
+          const int q0 = qb * BK;
+          if (!span_needed(mk, q0, BK, k0, BKV)) continue;
+          const int s = it % W::STAGES;
+          mbar_wait(&empty[s], ((it / W::STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * W::KV_BYTES + 2 * W::ROW_BYTES);
+          for (int a = 0; a < W::ATOMS; ++a) {
+            tma_load(qs + s * W::KV_BYTES + a * W::KV_ATOM, &tm_q, &full[s], 64 * a, q0, bh);
+            tma_load(dos + s * W::KV_BYTES + a * W::KV_ATOM, &tm_do, &full[s], 64 * a, q0, bh);
+          }
+          tma_load_1d(ls + s * 64, &tm_l, &full[s], bh * Sq + q0);
+          tma_load_1d(dls + s * 64, &tm_d, &full[s], bh * Sq + q0);
+          ++it;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys kw + [0, 64); this thread keys kr and
+  // kr + 8, and of each 8-query block the two queries 2 t, 2 t + 1
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wg = warp >> 2, t = lane & 3;
+  const int kw = k0 + 64 * wg;
+  const int kr = kw + 16 * (warp & 3) + (lane >> 2);
+  const float sc2 = scale * LOG2E;
+  float gk[DP / 2], gv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) gk[i] = gv[i] = 0.0f;
+  const uint8_t* kw_smem = ks + 64 * wg * ATOM_ROW;
+  const uint8_t* vw_smem = vs + 64 * wg * ATOM_ROW;
+
+  mbar_wait(&kv_full, 0);
+  int it = 0;
+  for (int g = 0; g < group; ++g) {
+    for (int qb = 0; qb < nq; ++qb) {
+      const int q0 = qb * BK;
+      if (!span_needed(mk, q0, BK, k0, BKV)) continue;
+      const int s = it % W::STAGES;
+      mbar_wait(&full[s], (it / W::STAGES) & 1);
+      if (span_needed(mk, q0, BK, kw, 64)) {
+        const uint8_t* qt = qs + s * W::KV_BYTES;
+        const uint8_t* dot = dos + s * W::KV_BYTES;
+        float st[32], dpt[32];
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
+        product_ss<DP>(st, kw_smem, W::Q_ATOM, qt, W::KV_ATOM);    // Sᵀ = K Qᵀ
+        product_ss<DP>(dpt, vw_smem, W::Q_ATOM, dot, W::KV_ATOM);  // dPᵀ = V dOᵀ
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        uint32_t pa[16], da[16];
+        if (q0 + BK <= Sq && span_full(mk, q0, BK, kw))
+          probs_t<false>(st, dpt, pa, da, ls + s * 64, dls + s * 64, sc2, mk, q0, kr, t);
+        else
+          probs_t<true>(st, dpt, pa, da, ls + s * 64, dls + s * 64, sc2, mk, q0, kr, t);
+
+        fence_regs(gv);
+        fence_regs(gk);
+        wgmma_fence();
+        product_rs<DP>(gv, pa, dot);  // dV += Pᵀ dO
+        product_rs<DP>(gk, da, qt);   // dK += dSᵀ Q
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(gv);
+        fence_regs(gk);
+      }
+      if (lane == 0) mbar_arrive(&empty[s]);
+      ++it;
+    }
+  }
+
+  // epilogue: dK = scale · Σ dSᵀ Q in float32, then both in bf16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kr + 8 * r;
+    if (row >= Skv) continue;
+    const long long g = (long long)bkv * Skv + row;
+#pragma unroll
+    for (int nb = 0; nb < DP / 8; ++nb) {
+      const int col = 8 * nb + 2 * t;
+      if (col >= D) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dk + g * D + col) =
+          __floats2bfloat162_rn(scale * gk[4 * nb + 2 * r], scale * gk[4 * nb + 2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + g * D + col) =
+          __floats2bfloat162_rn(gv[4 * nb + 2 * r], gv[4 * nb + 2 * r + 1]);
+    }
   }
 }
 
@@ -952,7 +1390,11 @@ EncodeTiled encoder() {
 }
 
 // a (heads, S, D) bf16 tensor as a 3-D map with boxes of 64 columns x `rows`
-// rows of one head, in the 128-byte swizzle; out of range reads give zeros
+// rows of one head, in the 128-byte swizzle; out of range reads give zeros.
+// The encoder needs the device's context current in the calling thread, and
+// a thread that has made no runtime call yet (autograd's backward thread, or
+// any new one) has none: the launchers call prepare() first, whose
+// cudaFuncSetAttribute binds it.
 int encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D, int rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
@@ -967,16 +1409,40 @@ int encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D, int r
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// n float32 (the flat (b, h, row) L or Δ) as a 1-D map with boxes of 64;
+// reads past n give zeros
+int encode_rows(CUtensorMap* map, const void* ptr, long long n) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};  // a 1-D map has no stride
+  const cuuint32_t box[1] = {64};
+  const cuuint32_t unit[1] = {1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// what the tensor-core kernels take: bf16, D <= 128 with D % 8 == 0 (TMA
+// needs 16-byte row strides), grids and flat row indices within range
+bool wgmma_shape_ok(int dtype, int B, int Hq, int Hkv, int Sq, int Skv, int D) {
+  return dtype == 1 && D > 0 && D <= 128 && D % 8 == 0 && B > 0 && Hq > 0 && Hkv > 0 &&
+         Hq % Hkv == 0 && Sq > 0 && Skv > 0 && (Sq + WQ - 1) / WQ <= 65535 &&
+         (Skv + BKV - 1) / BKV <= 65535 && (long long)B * Hq * Sq < (1LL << 31);
+}
+
 template <int DP>
 int run_wgmma(const Args& a) {
   using W = WgmmaShape<DP>;
   const int Sq = a.mk.Sq, Skv = a.mk.Skv;
   CUtensorMap tq, tk, tv;
   int e;
+  if ((e = prepare(attn_fwd_wgmma<DP>, W::SMEM)) != 0) return e;  // before the maps
   if ((e = encode_map(&tq, a.q, a.B * a.Hq, Sq, a.D, WQ)) != 0) return e;
   if ((e = encode_map(&tk, a.k, a.B * a.Hkv, Skv, a.D, BK)) != 0) return e;
   if ((e = encode_map(&tv, a.v, a.B * a.Hkv, Skv, a.D, BK)) != 0) return e;
-  if ((e = prepare(attn_fwd_wgmma<DP>, W::SMEM)) != 0) return e;
   // all of the SM's unified memory as shared memory, so two blocks fit at D <= 64
   if ((e = (int)cudaFuncSetAttribute(attn_fwd_wgmma<DP>,
                                      cudaFuncAttributePreferredSharedMemoryCarveout, 100)) != 0)
@@ -985,6 +1451,44 @@ int run_wgmma(const Args& a) {
   attn_fwd_wgmma<DP><<<grid, WTHREADS, (size_t)W::SMEM, a.st>>>(
       tq, tk, tv, a.Hq, a.Hkv, a.D, a.scale, a.mk, (__nv_bfloat16*)a.o, (float*)a.o32_out,
       (float*)a.lse_out);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int run_bwd_dq_wgmma(const Args& a) {
+  using W = WgmmaShape<DP>;
+  const int Sq = a.mk.Sq, Skv = a.mk.Skv;
+  CUtensorMap tq, tdo, tk, tv;
+  int e;
+  if ((e = prepare(attn_bwd_dq_wgmma<DP>, W::DQ_SMEM)) != 0) return e;  // before the maps
+  if ((e = encode_map(&tq, a.q, a.B * a.Hq, Sq, a.D, WQ)) != 0) return e;
+  if ((e = encode_map(&tdo, a.dout, a.B * a.Hq, Sq, a.D, WQ)) != 0) return e;
+  if ((e = encode_map(&tk, a.k, a.B * a.Hkv, Skv, a.D, BK)) != 0) return e;
+  if ((e = encode_map(&tv, a.v, a.B * a.Hkv, Skv, a.D, BK)) != 0) return e;
+  const dim3 grid((unsigned)(a.B * a.Hq), (unsigned)((Sq + WQ - 1) / WQ));
+  attn_bwd_dq_wgmma<DP><<<grid, WTHREADS, (size_t)W::DQ_SMEM, a.st>>>(
+      tq, tdo, tk, tv, (const float*)a.o32, (const __nv_bfloat16*)a.dout, (const float*)a.lse,
+      a.Hq, a.Hkv, a.D, a.scale, a.mk, (float*)a.delta, (__nv_bfloat16*)a.dq);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int run_bwd_dkdv_wgmma(const Args& a) {
+  using W = WgmmaShape<DP>;
+  const int Sq = a.mk.Sq, Skv = a.mk.Skv;
+  CUtensorMap tq, tdo, tk, tv, tl, td;
+  int e;
+  if ((e = prepare(attn_bwd_dkdv_wgmma<DP>, W::DKDV_SMEM)) != 0) return e;  // before the maps
+  if ((e = encode_map(&tq, a.q, a.B * a.Hq, Sq, a.D, BK)) != 0) return e;
+  if ((e = encode_map(&tdo, a.dout, a.B * a.Hq, Sq, a.D, BK)) != 0) return e;
+  if ((e = encode_map(&tk, a.k, a.B * a.Hkv, Skv, a.D, BKV)) != 0) return e;
+  if ((e = encode_map(&tv, a.v, a.B * a.Hkv, Skv, a.D, BKV)) != 0) return e;
+  if ((e = encode_rows(&tl, a.lse, (long long)a.B * a.Hq * Sq)) != 0) return e;
+  if ((e = encode_rows(&td, a.delta, (long long)a.B * a.Hq * Sq)) != 0) return e;
+  const dim3 grid((unsigned)(a.B * a.Hkv), (unsigned)((Skv + BKV - 1) / BKV));
+  attn_bwd_dkdv_wgmma<DP><<<grid, BTHREADS, (size_t)W::DKDV_SMEM, a.st>>>(
+      tq, tdo, tk, tv, tl, td, a.Hq, a.Hkv, a.D, a.scale, a.mk, (__nv_bfloat16*)a.dk,
+      (__nv_bfloat16*)a.dv);
   return (int)cudaGetLastError();
 }
 
@@ -1012,9 +1516,7 @@ REPRO_EXPORT int repro_flash_fwd_wgmma(const void* q, const void* k, const void*
                                        int Hq, int Hkv, int Sq, int Skv, int D, float scale,
                                        int causal, int window, int q_offset, int dtype, void* o,
                                        void* o32, void* lse, void* stream) {
-  if (dtype != 1 || D <= 0 || D > 128 || D % 8 != 0 || B <= 0 || Hq <= 0 || Hkv <= 0 ||
-      Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || (Sq + WQ - 1) / WQ > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!wgmma_shape_ok(dtype, B, Hq, Hkv, Sq, Skv, D)) return (int)cudaErrorInvalidValue;
   Args a{};
   a.q = q; a.k = k; a.v = v;
   a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.scale = scale;
@@ -1052,4 +1554,39 @@ REPRO_EXPORT int repro_flash_bwd_dkdv(const void* q, const void* k, const void* 
   a.delta = const_cast<void*>(delta); a.dk = dk; a.dv = dv;
   a.st = (cudaStream_t)stream;
   return dispatch(2, dtype, a);
+}
+
+// The bf16 backward on the tensor cores (attn_bwd_dq_wgmma, then
+// attn_bwd_dkdv_wgmma): the arguments of repro_flash_bwd_dq and
+// repro_flash_bwd_dkdv, for bfloat16 (dtype 1) with D <= 128 and D % 8 == 0
+// only.  lse and delta must be 16-byte aligned (TMA reads them).
+REPRO_EXPORT int repro_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                                          const void* o32, const void* dout, const void* lse,
+                                          int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                                          float scale, int causal, int window, int q_offset,
+                                          int dtype, void* delta, void* dq, void* stream) {
+  if (!wgmma_shape_ok(dtype, B, Hq, Hkv, Sq, Skv, D)) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.o32 = o32; a.dout = dout; a.lse = lse;
+  a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.scale = scale;
+  a.mk = make_mask(Sq, Skv, causal, window, q_offset);
+  a.delta = delta; a.dq = dq;
+  a.st = (cudaStream_t)stream;
+  return D <= 64 ? run_bwd_dq_wgmma<64>(a) : run_bwd_dq_wgmma<128>(a);
+}
+
+REPRO_EXPORT int repro_flash_bwd_dkdv_wgmma(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lse,
+                                            const void* delta, int B, int Hq, int Hkv, int Sq,
+                                            int Skv, int D, float scale, int causal, int window,
+                                            int q_offset, int dtype, void* dk, void* dv,
+                                            void* stream) {
+  if (!wgmma_shape_ok(dtype, B, Hq, Hkv, Sq, Skv, D)) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse;
+  a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.scale = scale;
+  a.mk = make_mask(Sq, Skv, causal, window, q_offset);
+  a.delta = const_cast<void*>(delta); a.dk = dk; a.dv = dv;
+  a.st = (cudaStream_t)stream;
+  return D <= 64 ? run_bwd_dkdv_wgmma<64>(a) : run_bwd_dkdv_wgmma<128>(a);
 }

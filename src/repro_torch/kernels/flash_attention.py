@@ -24,7 +24,12 @@ and the head width alone: bf16 with D % 8 == 0 takes ``attn_fwd_wgmma``
 (TMA loads, bf16 products on the tensor cores, P rounded to bf16 before
 P·V, float32 accumulators); float32, and bf16 of another width, take
 ``attn_fwd`` (IEEE float32 FMA, never TF32).  ``launches`` counts every
-forward launch, ``launches_wgmma`` those of the tensor-core kernel.
+forward launch, ``launches_wgmma`` those of the tensor-core kernel.  The
+backward follows the same rule (:func:`backward_route`): bf16 with D % 8 ==
+0 takes ``attn_bwd_dq_wgmma`` and ``attn_bwd_dkdv_wgmma`` (P and dS rounded
+to bf16 before their products, float32 accumulators), the rest the FMA
+kernels; ``launches_dq`` and ``launches_dkdv`` count every backward launch,
+``launches_dq_wgmma`` and ``launches_dkdv_wgmma`` the tensor-core ones.
 
 The plain versions mirror the reference's two oracles: :func:`attention_ref`
 (``ref.attention_ref``: −inf mask fill, one softmax) and
@@ -51,6 +56,8 @@ launches = LaunchCounter("flash_attention")
 launches_wgmma = LaunchCounter("flash_attention_wgmma")
 launches_dq = LaunchCounter("flash_attention_bwd_dq")
 launches_dkdv = LaunchCounter("flash_attention_bwd_dkdv")
+launches_dq_wgmma = LaunchCounter("flash_attention_bwd_dq_wgmma")
+launches_dkdv_wgmma = LaunchCounter("flash_attention_bwd_dkdv_wgmma")
 
 
 def _dims(q: torch.Tensor, k: torch.Tensor, scale: Optional[float]):
@@ -132,7 +139,9 @@ def _fns():
     return (bind(lib, "repro_flash_fwd", [P, P, P, *mask, P, P, P, P]),
             bind(lib, "repro_flash_bwd_dq", [P, P, P, P, P, P, *mask, P, P, P]),
             bind(lib, "repro_flash_bwd_dkdv", [P, P, P, P, P, P, *mask, P, P, P]),
-            bind(lib, "repro_flash_fwd_wgmma", [P, P, P, *mask, P, P, P, P]))
+            bind(lib, "repro_flash_fwd_wgmma", [P, P, P, *mask, P, P, P, P]),
+            bind(lib, "repro_flash_bwd_dq_wgmma", [P, P, P, P, P, P, *mask, P, P, P]),
+            bind(lib, "repro_flash_bwd_dkdv_wgmma", [P, P, P, P, P, P, *mask, P, P, P]))
 
 
 def forward_route(dtype: torch.dtype, D: int) -> str:
@@ -144,6 +153,13 @@ def forward_route(dtype: torch.dtype, D: int) -> str:
     if not 0 < D <= MAX_D:
         raise ValueError(f"flash_attention: head dim {D} not in 1..{MAX_D}")
     return "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 else "fma"
+
+
+def backward_route(dtype: torch.dtype, D: int) -> str:
+    """The backward kernels (dQ and dK/dV) for a type and head width, by the
+    rule of :func:`forward_route`: ``"wgmma"`` for bf16 with D % 8 == 0,
+    ``"fma"`` for float32 (IEEE, never TF32) and other bf16 widths."""
+    return forward_route(dtype, D)
 
 
 def _check_inputs(q, k, v):
@@ -190,40 +206,50 @@ def flash_forward(q, k, v, causal=True, window=None, scale=None, q_offset=0,
 
 def backward_dq(q, k, v, o32, lse, do, causal=True, window=None, scale=None, q_offset=0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dQ launch on CUDA tensors → (dq in q's type, Δ = rowsum(dO ∘ O)
-    float32 (B, Hq, Sq)); ``o32`` is the forward's output in float32."""
+    """The dQ launch on CUDA tensors, on the kernel :func:`backward_route`
+    picks → (dq in q's type, Δ = rowsum(dO ∘ O) float32 (B, Hq, Sq));
+    ``o32`` is the forward's output in float32."""
     _check_inputs(q, k, v)
     require(o32, "o", torch.float32, 4, q.device)
     require(lse, "lse", torch.float32, 3, q.device)
     require(do, "do", q.dtype, 4, q.device)
     if o32.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError("flash_attention backward: o, do and lse must match q")
+    wgmma = backward_route(q.dtype, q.shape[3]) == "wgmma"
     delta = torch.empty_like(lse)
     dq = torch.empty_like(q)
-    err = _fns()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), *_mask_args(q, k, causal, window, scale, q_offset),
-                    delta.data_ptr(), dq.data_ptr(), stream_ptr(q.device))
-    check_launch("flash_attention_bwd_dq", err)
+    err = _fns()[4 if wgmma else 1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),
+                                    do.data_ptr(), lse.data_ptr(),
+                                    *_mask_args(q, k, causal, window, scale, q_offset),
+                                    delta.data_ptr(), dq.data_ptr(), stream_ptr(q.device))
+    check_launch("flash_attention_bwd_dq_wgmma" if wgmma else "flash_attention_bwd_dq", err)
     launches_dq.add()
+    if wgmma:
+        launches_dq_wgmma.add()
     return dq, delta
 
 
 def backward_dkdv(q, k, v, lse, delta, do, causal=True, window=None, scale=None, q_offset=0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dK/dV launch on CUDA tensors → (dk, dv) in k's type; ``delta``
-    from :func:`backward_dq`."""
+    """The dK/dV launch on CUDA tensors, on the kernel :func:`backward_route`
+    picks → (dk, dv) in k's type; ``delta`` from :func:`backward_dq`."""
     _check_inputs(q, k, v)
     require(lse, "lse", torch.float32, 3, q.device)
     require(delta, "delta", torch.float32, 3, q.device)
     require(do, "do", q.dtype, 4, q.device)
     if do.shape != q.shape or lse.shape != q.shape[:3] or delta.shape != lse.shape:
         raise ValueError("flash_attention backward: do, lse and delta must match q")
+    wgmma = backward_route(q.dtype, q.shape[3]) == "wgmma"
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _fns()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), *_mask_args(q, k, causal, window, scale, q_offset),
-                    dk.data_ptr(), dv.data_ptr(), stream_ptr(q.device))
-    check_launch("flash_attention_bwd_dkdv", err)
+    err = _fns()[5 if wgmma else 2](q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                    lse.data_ptr(), delta.data_ptr(),
+                                    *_mask_args(q, k, causal, window, scale, q_offset),
+                                    dk.data_ptr(), dv.data_ptr(), stream_ptr(q.device))
+    check_launch("flash_attention_bwd_dkdv_wgmma" if wgmma else "flash_attention_bwd_dkdv",
+                 err)
     launches_dkdv.add()
+    if wgmma:
+        launches_dkdv_wgmma.add()
     return dk, dv
 
 

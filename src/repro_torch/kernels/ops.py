@@ -43,11 +43,13 @@ KERNELS = {
     "flash_attention": _fa,
 }
 # launch counters by kernel: one per module, attention's two backward kernels,
-# and the forward launches that took the tensor-core kernel
+# and the attention launches that took the tensor-core kernels
 COUNTERS = {name: mod.launches for name, mod in KERNELS.items()}
 COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
                  "flash_attention_bwd_dkdv": _fa.launches_dkdv,
-                 "flash_attention_wgmma": _fa.launches_wgmma})
+                 "flash_attention_wgmma": _fa.launches_wgmma,
+                 "flash_attention_bwd_dq_wgmma": _fa.launches_dq_wgmma,
+                 "flash_attention_bwd_dkdv_wgmma": _fa.launches_dkdv_wgmma})
 
 
 @contextmanager

@@ -170,11 +170,33 @@ def test_forward_route_raises_beyond_the_kernels(dtype, D, exc):
         tfa.forward_route(dtype, D)
 
 
-def _wgmma_rounding_model(q, k, v, causal, window, q_offset):
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 120, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 64, "fma"), (torch.float32, 120, "fma"), (torch.float32, 128, "fma"),
+    (torch.bfloat16, 100, "fma"),
+])
+def test_backward_route_by_type_and_head_width(dtype, D, route):
+    """The backward follows the forward's rule: bf16 with D % 8 == 0 takes
+    the tensor-core kernels; float32 (never TF32) and other bf16 widths the
+    FMA kernels."""
+    assert tfa.backward_route(dtype, D) == route == tfa.forward_route(dtype, D)
+
+
+@pytest.mark.parametrize("dtype,D,exc", [(torch.bfloat16, 136, ValueError),
+                                         (torch.float32, 136, ValueError),
+                                         (torch.bfloat16, 0, ValueError),
+                                         (torch.float16, 64, TypeError)])
+def test_backward_route_raises_beyond_the_kernels(dtype, D, exc):
+    with pytest.raises(exc):
+        tfa.backward_route(dtype, D)
+
+
+def _wgmma_forward_model(q, k, v, causal, window, q_offset):
     """The tensor-core forward's arithmetic on the CPU: float32 logits of
     bf16 q and k, scaled after the product, in base 2; online softmax over
     64-key tiles with the denominator summed from float32 p; P rounded to
-    bf16 before P·V; a float32 accumulator; O rounded to bf16."""
+    bf16 before P·V; a float32 accumulator → (O in float32, the log-sum-exp
+    L of the scaled logits, +inf for a row that sees no key)."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -195,7 +217,45 @@ def _wgmma_rounding_model(q, k, v, causal, window, q_offset):
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + p.bfloat16().float() @ vf[:, :, j:j + 64]
         m = mnew
-    return (acc / l.clamp_min(1e-30)).bfloat16()
+    lse = torch.where(l > 0, m * np.float32(np.log(2.0)) + torch.log(l), float("inf"))
+    return acc / l.clamp_min(1e-30), lse
+
+
+def _wgmma_rounding_model(q, k, v, causal, window, q_offset):
+    """The tensor-core forward's O, rounded to bf16."""
+    return _wgmma_forward_model(q, k, v, causal, window, q_offset)[0].bfloat16()
+
+
+def _wgmma_backward_model(q, k, v, do, causal, window, q_offset):
+    """The tensor-core backward's arithmetic on the CPU: float32 S of bf16 q
+    and k, scaled after the product; P = 2^(S·log2 e − L·log2 e) from the
+    forward model's L, hidden entries 0; Δ = rowsum(dO ∘ O) from its float32
+    O; dS = P ∘ (dO Vᵀ − Δ); P and dS rounded to bf16 before dV = Pᵀ dO,
+    dK = scale · dSᵀ Q and dQ = scale · dS K, float32 sums (each GQA group
+    summed in float32), each gradient rounded to bf16 once."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = np.float32(D ** -0.5)
+    log2e = np.float32(np.log2(np.e))
+    o32, lse = _wgmma_forward_model(q, k, v, causal, window, q_offset)
+    delta = (do.float() * o32).sum(-1, keepdim=True)
+    mask = tfa._mask(Sq, Skv, causal, window, q_offset, q.device)
+    dq = torch.zeros((B, Hq, Sq, D))
+    dk = torch.zeros((B, Hkv, Skv, D))
+    dv = torch.zeros((B, Hkv, Skv, D))
+    for b in range(B):
+        for h in range(Hq):
+            hk = h // group
+            qf, kf, vf, dof = q[b, h].float(), k[b, hk].float(), v[b, hk].float(), do[b, h].float()
+            s = qf @ kf.T
+            p = torch.where(mask, torch.exp2(s * (scale * log2e) - lse[b, h] * log2e), 0.0)
+            ds = p * (dof @ vf.T - delta[b, h])
+            pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+            dq[b, h] = dsb @ kf
+            dk[b, hk] += dsb.T @ qf
+            dv[b, hk] += pb.T @ dof
+    return (scale * dq).bfloat16(), (scale * dk).bfloat16(), dv.bfloat16()
 
 
 # the bf16 shapes of chip_smoke.py's ATTN_SHAPES that fit the CPU
@@ -225,6 +285,43 @@ def test_wgmma_rounding_model_within_the_card_limit(B, Hq, Hkv, Sq, Skv, D, caus
     want = np.asarray(jref.attention_ref(jq, jk, jv, causal=causal, window=window,
                                          q_offset=q_offset), np.float32)
     np.testing.assert_allclose(got, want, rtol=0, atol=2 * 2.0 ** -7 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,window,q_offset", [
+    (1, 2, 2, 128, 128, 64, True, None, 0),
+    (4, 8, 1, 128, 128, 128, True, None, 0),
+    (2, 3, 1, 256, 256, 64, True, 32, 0),
+    (1, 15, 5, 512, 512, 64, True, 4096, 0),
+    (1, 4, 2, 128, 384, 64, True, 32, 256),
+    (1, 6, 2, 96, 96, 120, False, 32, 0),
+    (2, 15, 5, 1024, 1024, 64, True, None, 0),
+    (2, 8, 2, 256, 256, 128, False, None, 0),
+    (1, 4, 2, 64, 384, 64, True, None, 320),
+])
+def test_wgmma_backward_rounding_model_within_the_card_limit(B, Hq, Hkv, Sq, Skv, D, causal,
+                                                              window, q_offset):
+    """The tensor-core backward's rounding, emulated here, against jax.grad
+    of the JAX oracle (``attention_ref`` up to 512 rows,
+    ``attention_xla_chunked`` beyond) on the same bf16 inputs and cotangent
+    (made as chip_smoke.py makes them): dQ, dK and dV each within the limit
+    the card holds the kernels to, 2 bf16 ulps of the largest |grad|."""
+    rng = _rng("wgmma-bwd", B, Hq, Sq, Skv, D)
+    q = rng.normal(0, 1.5, (B, Hq, Sq, D))
+    k = rng.normal(0, 1.5, (B, Hkv, Skv, D))
+    v = rng.normal(0, 1.0, (B, Hkv, Skv, D))
+    g = rng.normal(0, 1.0, (B, Hq, Sq, D))
+    tq, tk, tv, tg = (_t(a, torch.bfloat16) for a in (q, k, v, g))
+    got = _wgmma_backward_model(tq, tk, tv, tg, causal, window, q_offset)
+    jq, jk, jv, jg = (_j(a.float().numpy(), jnp.bfloat16) for a in (tq, tk, tv, tg))
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    oracle = jref.attention_ref if Sq <= 512 else jref.attention_xla_chunked
+    want = jax.grad(lambda a, b, c: jnp.sum(oracle(a, b, c, **mask).astype(jnp.float32)
+                                            * jg.astype(jnp.float32)),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    for name, tgrad, jgrad in zip("qkv", got, want):
+        jgrad = np.asarray(jgrad, np.float32)
+        np.testing.assert_allclose(tgrad.float().numpy(), jgrad, rtol=0,
+                                   atol=2 * 2.0 ** -7 * np.abs(jgrad).max(), err_msg=f"d{name}")
 
 
 def test_wrapper_without_card_raises_instead_of_falling_back():
