@@ -17,25 +17,66 @@
 // masked to 0) and the chunk state in full: 2 (T N + T P + N L P) flops,
 // 5.27 MFLOP at L = N = 128, P = 64.  For 1,024 bf16 tokens x 80 heads that
 // is 3.4 GFLOP, 3.4 µs at the bf16 tensor-core rate (989 TFLOP/s), while
-// the bytes (about 43 MB) take 12.8 µs at 3.35 TB/s.  In float32 FMA on the
-// CUDA cores (67 TFLOP/s), as this kernel computes, the same flops take
-// 50 µs: the kernel's own arithmetic, not the card, sets its floor.
-// This first kernel does not use the tensor cores and computes the masked
-// upper half of C Bᵀ's diagonal blocks too.  B and C are shared by all heads
-// of a chunk, yet every head's cell recomputes C Bᵀ, as the reference does:
-// the first thing for a later redesign is to compute it once per chunk.
+// the bytes (about 43 MB) take 12.8 µs at 3.35 TB/s.
 //
-// Design: one block of 256 threads per cell.  C, B (rows padded to N + 1
-// floats against bank conflicts) and X are staged in shared memory as
-// float32; M is built there (the masked half never exponentiates, since
-// exp(cum_i - cum_j) overflows for j > i).  Each product runs over 64 x 64
-// output blocks, each thread holding a 4 x 4 register tile (rows ty + 16a,
-// columns tx + 16b), so one shared load feeds four FMAs.  Sums run over the
-// contraction index in order; y_intra is rounded to X's type once, as the
-// reference rounds it before its float32 correction.
+// Two kernels, chosen by the wrapper from type and sizes alone
+// (`ssd_chunk.ssd_route`):
+//
+//   ssd_wgmma  bf16 with L in {64, 128}, N in {64, 128}, P <= 128 and
+//            P % 8 == 0 (TMA needs 16-byte row strides), on the tensor
+//            cores.  One block per (batch, chunk, group of G heads), G
+//            chosen by the wrapper so that the grid fills the SMs (5 at the
+//            serving shape: 8 chunks x 16 groups = 128 blocks).  Two
+//            consumer warpgroups and one producer warpgroup (it hands its
+//            registers to the consumers with setmaxnreg).  The producer's lane
+//            0 loads C and B of the chunk once (TMA, 128-byte swizzle), then
+//            each head's X through a ring of two slots, while the warp loads
+//            the head's log_a and runs the cumsum into the slot in the plain
+//            version's sequential order (each lane adds its L / 32 values to
+//            the running sum handed on by the lane before), with w =
+//            exp(cum_{L-1} - cum).  C Bᵀ is computed once per block (wgmma,
+//            both operands K-major, as attention's Q Kᵀ) and stays in the
+//            consumers' registers for every head: warpgroup wg holds rows
+//            64 wg .. 64 wg + 63 over the column tiles j < 64 (wg + 1); the
+//            tile above the diagonal is never computed.  Per head:
+//            - M = C Bᵀ ⊙ exp(cum_i - cum_j) on the accumulator fragments,
+//              hidden entries (j > i) set to 0 without being exponentiated;
+//              M is float32, so it is written as three bf16 register A
+//              operands (hi + mid + lo), and y_intra = Σ M_t X accumulates
+//              in float32 (X read N-major from shared memory, as attention's
+//              P V); y is rounded to bf16 once.
+//            - state = Bᵀ (w ⊙ X): computed transposed, stateᵀ = (w ⊙ X)ᵀ B,
+//              so that w ⊙ X is the register A operand: X is read with
+//              ldmatrix.trans from its slot, scaled by w in float32 and
+//              written as three bf16 terms, each a product with B read
+//              N-major; the sum is float32.
+//            No float32 operand is rounded to one bf16 term, and nothing
+//            runs in TF32.  Why three terms, and the plain version's own
+//            cumsum order and expf, where two terms of each already meet
+//            check_ssd's limits (tests/test_torch_ssd.py): each layer's y
+//            of the served model then differs from the plain version's in
+//            about 0.01% of its entries, by one bf16 ulp, the floor that
+//            summing in the tensor cores' order leaves (chip_smoke.py phase
+//            4b prints it).
+//   ssd_cells  float32, L = 1 (the one-token-chunk prompt) and any other
+//            shape: one block of 256 threads per (batch, chunk, head) cell,
+//            float32 FMA on the CUDA cores, as follows.  Reachable through
+//            its own entry point, so that the tensor-core kernel can be
+//            timed against it on the same inputs.
+//
+// ssd_cells stages C, B (rows padded to N + 1 floats against bank
+// conflicts) and X in shared memory as float32; M is built there (the
+// masked half never exponentiates, since exp(cum_i - cum_j) overflows for
+// j > i).  Each product runs over 64 x 64 output blocks, each thread holding
+// a 4 x 4 register tile (rows ty + 16a, columns tx + 16b), so one shared load
+// feeds four FMAs.  Sums run over the contraction index in order; y_intra is
+// rounded to X's type once, as the reference rounds it before its float32
+// correction.  Its floor is its own arithmetic: 50 µs in float32 FMA at the
+// serving shape, against 12.8 µs of bytes.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -197,6 +238,312 @@ int launch(const void* x, const void* log_a, const void* b, const void* c, int b
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------ //
+// The bf16 pass on Hopper's tensor cores: TMA loads, wgmma products.         //
+// ------------------------------------------------------------------------ //
+
+// two consumer warpgroups and a producer warpgroup, which keeps 40 registers
+// a thread and gives the rest to the consumers (C Bᵀ takes 64 float32 of
+// the second warpgroup's threads across the whole head loop)
+constexpr int STHREADS = 384, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int STAGES = 2;                   // X slots in the ring
+constexpr int TILE_BYTES = BK * ATOM_ROW;   // 64 rows x 64 bf16, one swizzle atom
+
+template <int L, int N, int DP>
+struct SsdShape {
+  static constexpr int NT = L / 64;                  // 64-row tiles of the chunk
+  static constexpr int PT = DP / 64;                 // 64-column atoms of X
+  static constexpr int CB_BYTES = N / 64 * L * ATOM_ROW;  // C or B: N / 64 atoms of L rows
+  static constexpr int X_BYTES = NT * PT * TILE_BYTES;    // one head's X: [row tile][atom]
+  static constexpr int SMEM = 2 * CB_BYTES + STAGES * X_BYTES + 1024;  // + alignment slack
+};
+
+// v (two float32) as three bf16 pairs whose sum is v to about 2^-27
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& a, uint32_t& b,
+                                       uint32_t& c) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = v0 - hf.x, r1 = v1 - hf.y;
+  const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(mid);
+  a = *reinterpret_cast<const uint32_t*>(&h);
+  b = *reinterpret_cast<const uint32_t*>(&mid);
+  c = pack_bf16(r0 - mf.x, r1 - mf.y);
+}
+
+// M's register A operands for one 64 x 64 tile of C Bᵀ: register 2k + e of
+// `cb` is row i0 + 8 (k & 1), column j0 + 8 (k >> 1) + 2 t + e.  M = C Bᵀ ⊙
+// exp(cum_i - cum_j) with the plain version's expf, written as three bf16
+// terms.  On the diagonal tile a hidden entry (j > i) is 0 and is not
+// exponentiated.
+template <bool DIAG>
+__device__ __forceinline__ void decay_split(const float (&cb)[32], const float* cum, int j0,
+                                            int i0, const float (&ci)[2], int t,
+                                            uint32_t (&m)[3][16]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int r = k & 1, col = j0 + 8 * (k >> 1) + 2 * t;
+    const float2 cj = *reinterpret_cast<const float2*>(cum + col);
+    float d0 = ci[r] - cj.x, d1 = ci[r] - cj.y;
+    if (DIAG) {  // exp(-inf) = 0: the hidden exponent is never taken
+      const int i = i0 + 8 * r;
+      if (col > i) d0 = -CUDART_INF_F;
+      if (col + 1 > i) d1 = -CUDART_INF_F;
+    }
+    split3(cb[2 * k] * expf(d0), cb[2 * k + 1] * expf(d1), m[0][k], m[1][k], m[2][k]);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr));
+}
+
+// One block: the chunk `chunk` of sequence `bt`, heads h0 .. h0 + G - 1.
+// Warps 0-7 are two consumer warpgroups, warps 8-11 the producer
+// warpgroup, of which warp 8 works.  X of head g
+// sits in slot g % STAGES as [64-row tile][64-column atom][64][128 bytes],
+// C and B as [atom][L][128 bytes], all in the 128-byte swizzle that TMA
+// writes; the slot's cum and w arrays come from the producer warp.
+template <int L, int N, int DP>
+__global__ void __launch_bounds__(STHREADS, 1)
+ssd_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
+          const __grid_constant__ CUtensorMap tm_c, const float* __restrict__ log_a, int S,
+          int H, int P, int G, __nv_bfloat16* __restrict__ y, float* __restrict__ state) {
+  using W = SsdShape<L, N, DP>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bc_full, full[STAGES], empty[STAGES];
+  __shared__ __align__(16) float cums[STAGES][L], ws[STAGES][L];
+  uint8_t* base = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  uint8_t* cs = base;
+  uint8_t* bs = cs + W::CB_BYTES;
+  uint8_t* xs = bs + W::CB_BYTES;
+
+  const int chunk = blockIdx.y, bt = blockIdx.z, nc = gridDim.y;
+  const int h0 = blockIdx.x * G, heads = min(G, H - h0);
+  const int row0 = bt * S + chunk * L;  // the chunk's first (b, t) row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bc_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA bytes, then every producer lane's cumsum
+      mbar_init(&empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup; warp 8 loads and scans
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp > 8) return;
+    if (lane == 0) {
+      mbar_expect_tx(&bc_full, 2 * W::CB_BYTES);
+      for (int a = 0; a < N / 64; ++a) {
+        tma_load(cs + a * L * ATOM_ROW, &tm_c, &bc_full, 64 * a, chunk * L, bt);
+        tma_load(bs + a * L * ATOM_ROW, &tm_b, &bc_full, 64 * a, chunk * L, bt);
+      }
+    }
+    constexpr int PER = L / 32;  // cumsum values a lane
+    for (int g = 0; g < heads; ++g) {
+      const int s = g % STAGES, h = h0 + g;
+      mbar_wait(&empty[s], ((g / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], W::X_BYTES);
+        for (int rt = 0; rt < W::NT; ++rt)
+          for (int a = 0; a < W::PT; ++a)
+            tma_load(xs + s * W::X_BYTES + (rt * W::PT + a) * TILE_BYTES, &tm_x, &full[s],
+                     64 * a, h, row0 + 64 * rt);
+      }
+      // the cumsum in the plain version's order, c_t = c_{t-1} + a_t from 0:
+      // each lane loads its PER values, then the running sum passes lane to lane
+      float v[PER];
+      const float* la = log_a + (long long)(row0 + lane * PER) * H + h;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) v[k] = la[(long long)k * H];
+      float run = 0.0f;
+      for (int l = 0; l < 32; ++l) {
+        if (lane == l) {
+#pragma unroll
+          for (int k = 0; k < PER; ++k) v[k] = run = run + v[k];
+        }
+        run = __shfl_sync(0xffffffffu, run, l);
+      }
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        cums[s][lane * PER + k] = v[k];
+        ws[s][lane * PER + k] = expf(run - v[k]);
+      }
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // consumers: warp w4 of warpgroup wg; this thread's accumulator rows are
+  // lq and lq + 8 of the warp's 16, its columns 2 t, 2 t + 1 of every 8
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wg = warp >> 2, w4 = warp & 3, t = lane & 3, lq = lane >> 2;
+  const bool has_rows = 64 * wg < L;
+  const int i0 = 64 * wg + 16 * w4 + lq;  // rows i0 and i0 + 8 of y and C Bᵀ
+  float cb[W::NT][32];
+  mbar_wait(&bc_full, 0);
+  if (has_rows) {
+#pragma unroll
+    for (int jt = 0; jt < W::NT; ++jt) {
+      if (jt > wg) continue;
+      fence_regs(cb[jt]);
+      wgmma_fence();
+      product_ss<N>(cb[jt], cs + 64 * wg * ATOM_ROW, L * ATOM_ROW, bs + 64 * jt * ATOM_ROW,
+                    L * ATOM_ROW);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(cb[jt]);
+    }
+  }
+
+  constexpr int ITEMS = W::PT * (N / 64);  // 64 x 64 tiles of stateᵀ (p rows, n columns)
+  for (int g = 0; g < heads; ++g) {
+    const int s = g % STAGES, h = h0 + g;
+    mbar_wait(&full[s], (g / STAGES) & 1);
+    const uint8_t* xt = xs + s * W::X_BYTES;
+    const float* cum = cums[s];
+    const float* wv = ws[s];
+
+    // y_intra = (M_hi + M_mid + M_lo) X over the visible column tiles
+    if (has_rows) {
+      const float ci[2] = {cum[i0], cum[i0 + 8]};
+      float yacc[DP / 2];
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) yacc[i] = 0.0f;
+#pragma unroll
+      for (int jt = 0; jt < W::NT; ++jt) {
+        if (jt > wg) continue;
+        uint32_t mt[3][16];
+        if (jt == wg) decay_split<true>(cb[jt], cum, 64 * jt, i0, ci, t, mt);
+        else decay_split<false>(cb[jt], cum, 64 * jt, i0, ci, t, mt);
+        const uint8_t* xj = xt + jt * W::PT * TILE_BYTES;
+        fence_regs(yacc);
+        wgmma_fence();
+#pragma unroll
+        for (int term = 0; term < 3; ++term) product_rs<DP>(yacc, mt[term], xj);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(yacc);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        __nv_bfloat16* yr = y + ((long long)(row0 + i0 + 8 * r) * H + h) * P;
+#pragma unroll
+        for (int nb = 0; nb < DP / 8; ++nb) {
+          const int p = 8 * nb + 2 * t;
+          if (p < P)
+            *reinterpret_cast<__nv_bfloat162*>(yr + p) =
+                __floats2bfloat162_rn(yacc[4 * nb + 2 * r], yacc[4 * nb + 2 * r + 1]);
+        }
+      }
+    }
+
+    // stateᵀ = (w ⊙ X)ᵀ B, tile by tile: p rows pt * 64 .., n columns nt * 64 ..
+    for (int item = wg; item < ITEMS; item += 2) {
+      const int pt = item / (N / 64), nt = item % (N / 64);
+      float sacc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sacc[i] = 0.0f;
+#pragma unroll
+      for (int rt = 0; rt < W::NT; ++rt) {  // 64 rows of depth (j) at a time
+        uint32_t fr[4][3][4];
+        const uint8_t* xa = xt + (rt * W::PT + pt) * TILE_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // lanes 8 m .. 8 m + 7 address matrix m: rows j (+ 8 for m >= 2) and
+          // columns p (+ 8 for odd m) of this warp's 16 p rows
+          const int m = lane >> 3, jr = 16 * kk + (lane & 7) + 8 * (m >> 1);
+          const int chunk16 = 2 * w4 + (m & 1);
+          uint32_t d[4];
+          ldmatrix_x4_trans(d, smem_u32(xa + jr * ATOM_ROW + ((chunk16 ^ (jr & 7)) << 4)));
+          const int j = 64 * rt + 16 * kk + 2 * t;
+          const float2 wa = *reinterpret_cast<const float2*>(wv + j);
+          const float2 wb = *reinterpret_cast<const float2*>(wv + j + 8);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&d[q]));
+            const float2 wq = q < 2 ? wa : wb;  // d0, d1: depth 2 t, 2 t + 1; d2, d3: + 8
+            split3(xv.x * wq.x, xv.y * wq.y, fr[kk][0][q], fr[kk][1][q], fr[kk][2][q]);
+          }
+        }
+        fence_regs(sacc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db = sw128_desc(bs + nt * L * ATOM_ROW + (64 * rt + 16 * kk) * ATOM_ROW,
+                                         L * ATOM_ROW, 1024);
+#pragma unroll
+          for (int term = 0; term < 3; ++term) wgmma_rs_n64(sacc, fr[kk][term], db);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sacc);
+      }
+      float* out = state + (((long long)bt * nc + chunk) * H + h) * (long long)N * P;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int p = pt * 64 + 16 * w4 + lq + 8 * ((i >> 1) & 1);
+        const int n = nt * 64 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (p < P) out[(long long)n * P + p] = sacc[i];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+}
+
+// a bf16 tensor of up to three dimensions (innermost first, strides in
+// bytes) as a tensor map with boxes `box`, in the 128-byte swizzle; reads
+// out of range give zeros
+int encode_bf16(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[3],
+                const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int L, int N, int DP>
+int run_wgmma(const void* x, const void* log_a, const void* b, const void* c, int batch, int S,
+              int H, int P, int G, void* y, void* state, cudaStream_t st) {
+  using W = SsdShape<L, N, DP>;
+  auto kernel = ssd_wgmma<L, N, DP>;
+  // a runtime call first: the encoder needs the context current in this thread
+  int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
+  if (e != 0) return e;
+  CUtensorMap tx, tb, tc;
+  const cuuint64_t xdims[3] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)batch * S};
+  const cuuint64_t xstrides[2] = {(cuuint64_t)P * 2, (cuuint64_t)H * P * 2};
+  const cuuint32_t xbox[3] = {64, 1, 64};
+  const cuuint64_t bdims[3] = {(cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)batch};
+  const cuuint64_t bstrides[2] = {(cuuint64_t)N * 2, (cuuint64_t)S * N * 2};
+  const cuuint32_t bbox[3] = {64, (cuuint32_t)L, 1};
+  if ((e = encode_bf16(&tx, x, xdims, xstrides, xbox)) != 0) return e;
+  if ((e = encode_bf16(&tb, b, bdims, bstrides, bbox)) != 0) return e;
+  if ((e = encode_bf16(&tc, c, bdims, bstrides, bbox)) != 0) return e;
+  const dim3 grid((unsigned)((H + G - 1) / G), (unsigned)(S / L), (unsigned)batch);
+  kernel<<<grid, STHREADS, (size_t)W::SMEM, st>>>(tx, tb, tc, (const float*)log_a, S, H, P, G,
+                                                  (__nv_bfloat16*)y, (float*)state);
+  return (int)cudaGetLastError();
+}
+
+template <int L, int N>
+int by_width(const void* x, const void* log_a, const void* b, const void* c, int batch, int S,
+             int H, int P, int G, void* y, void* state, cudaStream_t st) {
+  if (P <= 64) return run_wgmma<L, N, 64>(x, log_a, b, c, batch, S, H, P, G, y, state, st);
+  return run_wgmma<L, N, 128>(x, log_a, b, c, batch, S, H, P, G, y, state, st);
+}
+
 }  // namespace
 
 // x T[batch, S, H, P]; log_a f32[batch, S, H]; b, c T[batch, S, N]; T by
@@ -213,4 +560,23 @@ REPRO_EXPORT int repro_ssd_chunk(const void* x, const void* log_a, const void* b
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, log_a, b, c, batch, S, H, P, N, L, y, state, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 pass on the tensor cores (ssd_wgmma): the arguments of
+// repro_ssd_chunk for bfloat16, L in {64, 128}, N in {64, 128}, P <= 128
+// with P % 8 == 0, and x, b, c 16-byte aligned (TMA reads them); G heads a
+// block, 1 <= G <= H.
+REPRO_EXPORT int repro_ssd_chunk_wgmma(const void* x, const void* log_a, const void* b,
+                                       const void* c, int batch, int S, int H, int P, int N,
+                                       int L, int G, void* y, void* state, void* stream) {
+  const bool aligned = (((uintptr_t)x | (uintptr_t)b | (uintptr_t)c) & 15) == 0;
+  if (batch <= 0 || batch > 65535 || S <= 0 || H <= 0 || P <= 0 || P > 128 || P % 8 != 0 ||
+      (L != 64 && L != 128) || (N != 64 && N != 128) || S % L != 0 || S / L > 65535 ||
+      G <= 0 || G > H || (H + G - 1) / G > 65535 || !aligned)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (L == 64 && N == 64) return by_width<64, 64>(x, log_a, b, c, batch, S, H, P, G, y, state, st);
+  if (L == 64) return by_width<64, 128>(x, log_a, b, c, batch, S, H, P, G, y, state, st);
+  if (N == 64) return by_width<128, 64>(x, log_a, b, c, batch, S, H, P, G, y, state, st);
+  return by_width<128, 128>(x, log_a, b, c, batch, S, H, P, G, y, state, st);
 }

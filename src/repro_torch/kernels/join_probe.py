@@ -3,7 +3,9 @@
 ``join_probe(l_keys, r_sorted)`` returns, for each left key, ``pos`` = its
 searchsorted-left position in the ascending, unique right keys and ``hit``
 = whether an exact match exists.  CUDA tensors launch ``csrc/join_probe.cu``
-(one binary search per left key); CPU tensors run :func:`join_probe_plain`.
+(a lower-bound search whose top levels run over a sample of the right keys
+in shared memory, :func:`sample_log2` sizing the sample); CPU tensors run
+:func:`join_probe_plain`.
 
 Both give the counting formulation's answers (``pos = #{r < l}``): a NaN
 left key has pos 0 and no hit, NaN right keys (sorted last) never count or
@@ -25,6 +27,22 @@ DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3}
 
 launches = LaunchCounter("join_probe")
 
+STAGE_MAX = 227 * 1024  # a right side this small is staged whole in shared memory
+SAMPLE_MAX = 64 * 1024  # else the sample of every 2^k-th key takes at most this
+
+
+def sample_log2(m: int, itemsize: int) -> int:
+    """log2 of the sample step s for m right keys of ``itemsize`` bytes: 0
+    (the whole right side in shared memory) when it fits 227 KB, else the
+    least k with 2^k >= 32 / itemsize (the device levels end on one 32-byte
+    sector) whose sample, ceil(m / 2^k) keys, fits 64 KB."""
+    if m * itemsize <= STAGE_MAX:
+        return 0
+    k = (32 // itemsize).bit_length() - 1
+    while -(-m >> k) * itemsize > SAMPLE_MAX:
+        k += 1
+    return k
+
 
 def join_probe_plain(l_keys: torch.Tensor, r_sorted: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -43,9 +61,9 @@ def join_probe_plain(l_keys: torch.Tensor, r_sorted: torch.Tensor
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    return bind(_build.load("join_probe"), "repro_join_probe",
-                [P, I64, P, I64, I32, P, P, P])
+def _fns():
+    lib = _build.load("join_probe")
+    return bind(lib, "repro_join_probe", [P, I64, P, I64, I32, I32, P, I64, P, P, P])
 
 
 def join_probe(l_keys: torch.Tensor, r_sorted: torch.Tensor
@@ -64,10 +82,14 @@ def join_probe(l_keys: torch.Tensor, r_sorted: torch.Tensor
     n, m = l_keys.shape[0], r_sorted.shape[0]
     if n == 0 or not 0 < m < 2**31:
         raise ValueError(f"join_probe: unsupported sizes n={n}, m={m}")
+    size = l_keys.element_size()
+    k = sample_log2(m, size)
+    scratch = torch.empty(0 if k == 0 else -(-m >> k) * size, dtype=torch.uint8, device=dev)
     pos = torch.empty(n, dtype=torch.int32, device=dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
-    err = _fn()(l_keys.data_ptr(), n, r_sorted.data_ptr(), m, DTYPES[l_keys.dtype],
-                pos.data_ptr(), hit.data_ptr(), stream_ptr(dev))
+    err = _fns()(l_keys.data_ptr(), n, r_sorted.data_ptr(), m, DTYPES[l_keys.dtype], k,
+                    scratch.data_ptr(), scratch.numel(), pos.data_ptr(), hit.data_ptr(),
+                    stream_ptr(dev))
     check_launch("join_probe", err)
     launches.add()
     return pos, hit

@@ -43,13 +43,16 @@ KERNELS = {
     "flash_attention": _fa,
 }
 # launch counters by kernel: one per module, attention's two backward kernels,
-# and the attention launches that took the tensor-core kernels
+# the attention and SSD launches that took the tensor-core kernels, and the
+# SSD launches that took the FMA kernel
 COUNTERS = {name: mod.launches for name, mod in KERNELS.items()}
 COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
                  "flash_attention_bwd_dkdv": _fa.launches_dkdv,
                  "flash_attention_wgmma": _fa.launches_wgmma,
                  "flash_attention_bwd_dq_wgmma": _fa.launches_dq_wgmma,
-                 "flash_attention_bwd_dkdv_wgmma": _fa.launches_dkdv_wgmma})
+                 "flash_attention_bwd_dkdv_wgmma": _fa.launches_dkdv_wgmma,
+                 "ssd_chunk_scan_wgmma": _ssd.launches_wgmma,
+                 "ssd_chunk_scan_cells": _ssd.launches_cells})
 
 
 @contextmanager

@@ -14,8 +14,13 @@ H, N, P))``.  It is two steps, as in the reference
        y_intra = M X                             (L, P), rounded to x's type
        state   = (B * exp(cum_{L-1} - cum))ᵀ X    (N, P), float32
 
-   For CUDA tensors this is the kernel ``csrc/ssd_chunk.cu`` (one launch per
-   call); for CPU tensors, and in :func:`ssd_chunk_scan_plain`, torch ops.
+   For CUDA tensors this is one launch of a kernel of ``csrc/ssd_chunk.cu``,
+   the one :func:`ssd_route` names: ``ssd_wgmma`` (bf16 on the tensor cores,
+   C Bᵀ once per block of :func:`heads_per_block` heads, float32 operands
+   as sums of bf16 terms) or ``ssd_cells`` (float32 FMA, any shape); for
+   CPU tensors, and in :func:`ssd_chunk_scan_plain`, torch ops.
+   ``launches`` counts every launch, ``launches_wgmma`` those of
+   ``ssd_wgmma`` and ``launches_cells`` those of ``ssd_cells``.
 2. the inter-chunk state scan and the inbound-state correction
    ``y = y_intra + exp(cum) C h_in``, in torch ops on either device.
 """
@@ -32,6 +37,34 @@ from ._launch import I32, P, LaunchCounter, bind, check_launch, require, stream_
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter("ssd_chunk_scan")
+launches_wgmma = LaunchCounter("ssd_chunk_scan_wgmma")
+launches_cells = LaunchCounter("ssd_chunk_scan_cells")
+
+
+def ssd_route(dtype: torch.dtype, L: int, N: int, P: int) -> str:
+    """The kernel for a type and chunk, state and head sizes: ``"wgmma"``
+    for bf16 with L in {64, 128}, N in {64, 128}, P <= 128 and P % 8 == 0
+    (TMA needs 16-byte rows), ``"cells"`` for float32, L = 1 (the
+    one-token-chunk prompt) and every other shape."""
+    if dtype not in DTYPES:
+        raise TypeError(f"ssd_chunk_scan: unsupported type {dtype}")
+    if (dtype == torch.bfloat16 and L in (64, 128) and N in (64, 128) and 0 < P <= 128
+            and P % 8 == 0):
+        return "wgmma"
+    return "cells"
+
+
+def heads_per_block(batch: int, n_chunks: int, H: int, sms: int) -> int:
+    """Heads a block of ``ssd_wgmma`` walks: as few as fill the ``sms``
+    SMs with one block each (C Bᵀ is computed once a block, so a block
+    takes as many heads as that allows).  The last group may be smaller."""
+    groups = min(H, max(1, sms // (batch * n_chunks)))
+    return -(-H // groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ssd_chunk_intra_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
@@ -59,9 +92,14 @@ def ssd_chunk_intra_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    return bind(_build.load("ssd_chunk"), "repro_ssd_chunk",
-                [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, P, P, P])
+def _fns():
+    """→ {route: C entry point}: ``repro_ssd_chunk`` (ssd_cells, given the
+    type code) and ``repro_ssd_chunk_wgmma`` (ssd_wgmma, given the heads a
+    block walks)."""
+    lib = _build.load("ssd_chunk")
+    args = [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, P, P, P]
+    return {"cells": bind(lib, "repro_ssd_chunk", args),
+            "wgmma": bind(lib, "repro_ssd_chunk_wgmma", args)}
 
 
 def _inter_chunk(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Tensor,
@@ -105,8 +143,8 @@ def ssd_chunk_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: tor
 
 def ssd_chunk_intra(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                     chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Step 1 on CUDA tensors: one launch of the kernel → (y_intra, chunk
-    states) as :func:`ssd_chunk_intra_plain`."""
+    """Step 1 on CUDA tensors: one launch of the kernel :func:`ssd_route`
+    names → (y_intra, chunk states) as :func:`ssd_chunk_intra_plain`."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_scan: unsupported device {x.device}")
     dev = x.device
@@ -124,8 +162,16 @@ def ssd_chunk_intra(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: to
                          f"b {tuple(b.shape)}, chunk {L}")
     y = torch.empty_like(x)
     state = torch.empty((bt, S // L, H, N, Pd), dtype=torch.float32, device=dev)
-    err = _fn()(x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), bt, S, H,
-                Pd, N, L, DTYPES[x.dtype], y.data_ptr(), state.data_ptr(), stream_ptr(dev))
-    check_launch("ssd_chunk_scan", err)
+    ptrs = (x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr())
+    out = (y.data_ptr(), state.data_ptr(), stream_ptr(dev))
+    if ssd_route(x.dtype, L, N, Pd) == "wgmma":
+        # its TMA maps need x, b and c on 16-byte boundaries, or the launch fails
+        G = heads_per_block(bt, S // L, H, _sm_count(dev.index))
+        check_launch("ssd_chunk_scan_wgmma", _fns()["wgmma"](*ptrs, bt, S, H, Pd, N, L, G, *out))
+        launches_wgmma.add()
+    else:
+        check_launch("ssd_chunk_scan",
+                     _fns()["cells"](*ptrs, bt, S, H, Pd, N, L, DTYPES[x.dtype], *out))
+        launches_cells.add()
     launches.add()
     return y, state

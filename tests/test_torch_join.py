@@ -6,7 +6,10 @@ kernel in interpret mode and the JAX ``ops`` entry, on float32 and int32
 keys within 2^24 and on the edge cases of the counting formulation (NaN on
 either side, ±inf, -0.0 against +0.0, duplicate left keys).  Native float64
 and int64 keys beyond 2^24, which the reference cannot compare exactly,
-are held against ``np.searchsorted``.  Join programs with misses, null keys
+are held against ``np.searchsorted``.  The card's two-level search
+(a sample of the right keys, then the segment between two sample points
+down to one sector), emulated in torch ops, is held bit for bit against the
+Pallas kernel at the sample's edges.  Join programs with misses, null keys
 and ``how="left"`` run through both packages' sessions; joins move rows, so
 their answers must be equal.
 """
@@ -97,6 +100,103 @@ def test_join_probe_native_wide_keys(dtype):
     with tops.local_backend("torch"):
         cpos, _ = tops.join_probe_padded(_t(r), _t(lk))
     np.testing.assert_array_equal(cpos.numpy(), np.clip(want, 0, len(r) - 1))
+
+
+# ------------------------------------------- the card's search, emulated ----
+def _two_level(lk, r, log_s):
+    """``csrc/join_probe.cu:probe_sampled`` step by step in torch ops: the
+    branch-free lower bound over the sample (every 2^log_s-th right key, or
+    the whole side at log_s = 0), then the binary levels inside the segment
+    down to one 32-byte sector, which is counted whole; ``hv`` is the value
+    at the segment's right end for the hit test."""
+    m, W = r.shape[0], 32 // r.element_size()
+    sample = r[:: 1 << log_s]
+    ns = sample.shape[0]
+    base, ln = torch.zeros(lk.shape, dtype=torch.long), ns
+    while ln > 1:
+        half = ln >> 1
+        base = torch.where(sample[base + half] < lk, base + half, base)
+        ln -= half
+    c = base + (sample[base] < lk).long()
+    at_c = sample[c.clamp(max=ns - 1)]
+    if log_s == 0:
+        return c.int(), (c < ns) & (at_c == lk)
+    idx, hv = torch.where(c > 0, (c - 1) << log_s, 0), at_c
+    step = (1 << log_s) >> 1
+    while step >= W:
+        j = idx + step
+        ok = (c > 0) & (j < m)
+        v = r[j.clamp(max=m - 1)]
+        less = ok & (v < lk)
+        idx, hv = torch.where(less, j, idx), torch.where(ok & ~less, v, hv)
+        step >>= 1
+    jj = idx[:, None] + torch.arange(W)
+    sec = r[jj.clamp(max=m - 1)]
+    cnt = ((jj < m) & (sec < lk[:, None])).sum(1)
+    at = torch.where(cnt < W, sec.gather(1, cnt.clamp(max=W - 1)[:, None])[:, 0], hv)
+    p = idx + cnt
+    pos = torch.where(c == 0, 0, p)
+    hit = torch.where(c == 0, sample[0] == lk, (p < m) & (at == lk))
+    return pos.int(), hit
+
+
+# (m, log_s, kind): the sample's edges at the sizes the chip check forces
+# them (chip_smoke.JOIN_SAMPLE_EDGES), and a side staged whole
+SAMPLE_EDGES = [(3, 3, "m < s"), (1001, 4, "m % s != 0"), (100, 4, "NaN tail"),
+                (4099, 5, "keys at sample points"), (700, 0, "staged whole"),
+                (2000, 8, "deep device levels")]
+
+
+@pytest.mark.parametrize("m,log_s,kind", SAMPLE_EDGES)
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_two_level_search_vs_pallas(m, log_s, kind, dtype):
+    """The card's two-level search, emulated, bit for bit against the Pallas
+    kernel in interpret mode, at the step given and the next one."""
+    rng = _rng("two-level", m, log_s, np.dtype(dtype).name)
+    r = _right(rng, m, 4 * m)
+    s = 1 << log_s
+    if kind == "NaN tail" and dtype == np.float32:
+        r[s * 3 + s // 2:] = np.nan  # from mid-step 3 past sample point 4
+    live = r[~np.isnan(r)]
+    lk = np.concatenate([r[::s], r[::s] + 1, r[::s] - 1, live[-1:] + 1, live[:1] - 1,
+                         rng.integers(-2 * m, 4 * m, 500).astype(np.float64)])
+    if dtype == np.float32:
+        lk[:4] = [np.nan, np.inf, -np.inf, -0.0]
+    jpos, jhit = j_join_probe(jnp.asarray(lk, jnp.float32), jnp.asarray(r, jnp.float32),
+                              interpret=True)
+    for k in ((0,) if log_s == 0 else (log_s, log_s + 1)):
+        pos, hit = _two_level(_t(lk.astype(dtype)), _t(r.astype(dtype)), k)
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
+        np.testing.assert_array_equal(hit.numpy(), np.asarray(jhit))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.int64])
+def test_two_level_search_native_wide_keys(dtype):
+    """Keys beyond 2^24 through the emulated search at the wrapper's own
+    step for a 900,000-key side scaled down (the step the rule gives a
+    30,000-key side), against np.searchsorted."""
+    rng = _rng("two-level wide", np.dtype(dtype).name)
+    m = 30_000
+    r = (2.0**40 + np.sort(rng.choice(4 * m, m, replace=False))).astype(dtype)
+    lk = np.concatenate([r[::7], 2.0**40 + rng.integers(-10, 4 * m + 10, 5000)]).astype(dtype)
+    k = JP.sample_log2(m, 8)
+    assert k == 2  # 30,000 x 8 bytes: beyond 227 KB; 7,500 sampled keys fit 64 KB
+    pos, hit = _two_level(_t(lk), _t(r), k)
+    want = np.searchsorted(r, lk, side="left")
+    np.testing.assert_array_equal(pos.numpy(), want)
+    np.testing.assert_array_equal(hit.numpy(), r[np.clip(want, 0, m - 1)] == lk)
+
+
+@pytest.mark.parametrize("m,itemsize,log_s", [
+    (1, 8, 0), (29_056, 8, 0), (29_057, 8, 2), (58_112, 4, 0), (58_113, 4, 3),
+    (900_000, 8, 7), (900_000, 4, 6), (2**31 - 1, 8, 18), (2**31 - 1, 4, 17)])
+def test_sample_rule(m, itemsize, log_s):
+    """Staged whole up to 227 KB; else the least step of at least one
+    32-byte sector whose sample fits 64 KB."""
+    assert JP.sample_log2(m, itemsize) == log_s
+    if log_s:
+        assert (1 << log_s) * itemsize >= 32
+        assert -(-m >> log_s) * itemsize <= JP.SAMPLE_MAX
 
 
 def test_join_probe_padded_rejects_mixed_types_and_empty_right():

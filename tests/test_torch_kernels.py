@@ -379,4 +379,5 @@ def test_cuda_backend_on_cpu_tensors_runs_plain_version_without_launch():
         "join_probe": 0, "ssd_chunk_scan": 0, "flash_attention": 0,
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
         "flash_attention_wgmma": 0, "flash_attention_bwd_dq_wgmma": 0,
-        "flash_attention_bwd_dkdv_wgmma": 0}
+        "flash_attention_bwd_dkdv_wgmma": 0, "ssd_chunk_scan_wgmma": 0,
+        "ssd_chunk_scan_cells": 0}

@@ -3,9 +3,14 @@
 ``ssd_chunk_scan_plain`` (what the ``ssd_chunk_scan`` wrapper runs on a CPU
 tensor) is held against the JAX Pallas ``ssd_chunk_scan`` in interpret mode,
 per sequence of the batch, and ``ops.ssd_scan`` against the JAX ``ops``
-entry.  Then the smoke ``mamba2_2p7b`` with the JAX parameters carried over
-by ``params_from_numpy`` is held against the JAX prefill and decode, the
-Pallas kernel again in interpret mode.
+entry.  The tensor-core pass's arithmetic (C Bᵀ from exact bf16 products,
+M and w ⊙ X as sums of bf16 terms) is emulated in
+torch ops and held to chip_smoke's limits against the Pallas kernel, with a
+one-term control that must fail the state limit; ``ssd_route`` and
+``heads_per_block`` are checked by shape class.  Then the smoke
+``mamba2_2p7b`` with the JAX parameters carried over by
+``params_from_numpy`` is held against the JAX prefill and decode, the Pallas
+kernel again in interpret mode.
 
 Tolerances: in float32 the outputs agree to 1e-5 of the largest |y| (sums
 in another order); in bfloat16 both sides round y_intra and y to bf16 at
@@ -99,6 +104,106 @@ def test_ssd_scan_rejects_a_chunk_that_does_not_divide():
     x, la, b, c = (torch.from_numpy(a) for a in _inputs(_rng("bad"), 1, 40))
     with pytest.raises(ValueError):
         tops.ssd_scan(x, la, b, c, chunk=32)
+
+
+# ------------------------------------------- the tensor-core pass, emulated ----
+def _bf16_terms(v, terms):
+    """v (float32) as ``terms`` bf16 tensors whose sum approaches it."""
+    out = []
+    for _ in range(terms):
+        out.append(v.to(torch.bfloat16))
+        v = v - out[-1].float()
+    return out
+
+
+def _wgmma_emulated(x, la, b, c, L, m_terms=3, wx_terms=3):
+    """``csrc/ssd_chunk.cu:ssd_wgmma``'s arithmetic in torch ops: the cumsum
+    in sequential order; products of exact bf16 operands summed in float32;
+    M = C Bᵀ ⊙ exp(cum_i - cum_j) as ``m_terms`` bf16 terms against X; the
+    state as (w ⊙ X) in ``wx_terms`` bf16 terms against B.  → (y, h_final)
+    through the port's inter-chunk scan."""
+    bt, S, H, P = x.shape
+    N, nc = b.shape[-1], S // L
+    xf = x.float().reshape(bt, nc, L, H, P)
+    bf, cf = b.float().reshape(bt, nc, L, N), c.float().reshape(bt, nc, L, N)
+    cum = la.reshape(bt, nc, L, H).transpose(2, 3).cumsum(-1)  # (bt, nc, H, L)
+    cb = cf @ bf.transpose(-1, -2)  # (bt, nc, i, j)
+    d = cum[..., :, None] - cum[..., None, :]  # (bt, nc, H, i, j)
+    d = torch.where(torch.ones(L, L, dtype=torch.bool).tril(), d, -torch.inf)
+    m = cb[:, :, None] * torch.exp(d)
+    y = sum(t.float() @ xf.transpose(2, 3) for t in _bf16_terms(m, m_terms))  # (bt,nc,H,L,P)
+    w = torch.exp(cum[..., -1:] - cum)  # (bt, nc, H, L)
+    wx = xf.transpose(2, 3) * w[..., None]  # (bt, nc, H, L, P)
+    state = sum(bf[:, :, None].transpose(-1, -2) @ t.float() for t in _bf16_terms(wx, wx_terms))
+    y = y.transpose(2, 3).reshape(bt, S, H, P).to(x.dtype)
+    return SC._inter_chunk(y, state, la, c, x.dtype)
+
+
+def _pallas_per_sequence(x, la, b, c, L):
+    ys, hs = [], []
+    for i in range(x.shape[0]):
+        jy, jh = j_ssd(jnp.asarray(x[i], _BF16), jnp.asarray(la[i]), jnp.asarray(b[i], _BF16),
+                       jnp.asarray(c[i], _BF16), chunk=L, interpret=True)
+        ys.append(np.asarray(jy.astype(jnp.float32)))
+        hs.append(np.asarray(jh))
+    return np.stack(ys), np.stack(hs)
+
+
+def _errs(x, la, b, c, L, **terms):
+    """(y err / max |y|, h err / max |h|) of the emulation against Pallas."""
+    jy, jh = _pallas_per_sequence(x, la, b, c, L)
+    ty, th = _wgmma_emulated(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(la),
+                             torch.from_numpy(b).to(torch.bfloat16),
+                             torch.from_numpy(c).to(torch.bfloat16), L, **terms)
+    return (float(np.abs(ty.float().numpy() - jy).max() / np.abs(jy).max()),
+            float(np.abs(th.numpy() - jh).max() / np.abs(jh).max()))
+
+
+def _ssd_case(key, batch=2, S=192, H=3, P=16, N=64):
+    x, la, b, c = _inputs(_rng("wgmma", key), batch, S, H, P, N)
+    return x.astype(_BF16).astype(np.float32), la, b, c
+
+
+@pytest.mark.parametrize("m_terms,wx_terms", [(3, 3), (2, 2), (1, 2)])
+def test_wgmma_split_products_within_the_card_limits(m_terms, wx_terms):
+    """L 64, N 64, P 16, bf16: M and w ⊙ X as bf16 terms (the kernel takes
+    three of each) give y within chip_smoke's two bf16 ulps of max |y| and
+    the final state within 1e-5 of max |h| of the Pallas kernel in
+    interpret mode.  At this size two terms of w ⊙ X, and even one of M,
+    meet these limits; the third terms are for the serving check (see
+    csrc/ssd_chunk.cu)."""
+    ey, eh = _errs(*_ssd_case("split"), 64, m_terms=m_terms, wx_terms=wx_terms)
+    assert ey <= 2.0**-6 and eh <= 1e-5, (ey, eh)
+
+
+def test_one_bf16_term_of_w_x_breaks_the_state_limit():
+    """The control: w ⊙ X rounded to one bf16 term moves the final state
+    far past 1e-5 of max |h|, so the limit sees the split."""
+    ey, eh = _errs(*_ssd_case("split"), 64, m_terms=3, wx_terms=1)
+    assert ey <= 2.0**-6 and eh > 1e-4, (ey, eh)
+
+
+@pytest.mark.parametrize("dtype,L,N,P,route", [
+    (torch.bfloat16, 128, 128, 64, "wgmma"), (torch.bfloat16, 64, 64, 16, "wgmma"),
+    (torch.bfloat16, 64, 128, 128, "wgmma"), (torch.bfloat16, 1, 128, 64, "cells"),
+    (torch.bfloat16, 32, 16, 16, "cells"), (torch.bfloat16, 128, 256, 64, "cells"),
+    (torch.bfloat16, 128, 128, 136, "cells"), (torch.bfloat16, 128, 128, 60, "cells"),
+    (torch.float32, 128, 128, 64, "cells")])
+def test_ssd_route_by_type_and_sizes(dtype, L, N, P, route):
+    assert SC.ssd_route(dtype, L, N, P) == route
+
+
+def test_ssd_route_rejects_other_types():
+    with pytest.raises(TypeError):
+        SC.ssd_route(torch.float16, 128, 128, 64)
+
+
+@pytest.mark.parametrize("batch,chunks,H,G", [
+    (1, 8, 80, 5), (2, 13, 7, 2), (1, 1, 80, 1), (64, 8, 80, 80), (1, 2, 3, 1)])
+def test_heads_per_block_fills_132_sms(batch, chunks, H, G):
+    """One block per SM where the heads allow it: 8 chunks x 16 groups of 5
+    heads at the serving shape; the last group may be smaller."""
+    assert SC.heads_per_block(batch, chunks, H, 132) == G
 
 
 # ------------------------------------------------------------------- model ----
