@@ -23,9 +23,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    sampled, and at the sample's edges with the step forced (fewer keys than
    a step, a count no multiple of it, a NaN tail over a sample point, keys
    at sample points); ssd_chunk_scan at its shapes (full width, f32, one-
-   token chunks, and the tensor-core route's edges: L 64, P 128, N 64,
-   batch 2, P 16, a head count its group size does not divide), each launch
-   on the kernel ``ssd_route`` names; then
+   token chunks, the tensor-core route's edges: L 64, P 128, N 64, batch
+   2, P 16, a head count its group size does not divide; and the short
+   route's: f32 at L 1, L 2 and 16 (its threshold), P 24 and 40, N 17 with
+   P 7, batch 2, a head count its group does not divide, L 17 past it),
+   each launch
+   on the kernel ``ssd_route`` names, the one-token chunk states equal to
+   the plain version's bit for bit; then
    the flash_attention forward (bf16 on the tensor-core kernel
    ``attn_fwd_wgmma``, float32 on the FMA kernel ``attn_fwd``; each launch
    must take the kernel ``forward_route`` names) and its backward (bf16 on
@@ -54,18 +58,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    resubmission (a cache hit), and a 1,000-token request (the one-token-
    chunk rule).  Every prefill must launch ``ssd_chunk_scan`` once per
    layer, the two 1,024-token ones on the tensor-core kernel ``ssd_wgmma``
-   and the 1,000-token one on ``ssd_cells``; the warm answer must equal a
-   cold recompute.  At both prompt lengths every layer's SSD, on the
-   model's own inputs (those of the plain prefill), must pass check_ssd's
-   limits against the plain SSD, which two faulty plain SSDs (one dropping
-   the chunk states, one rounding its intermediates to bf16) must fail at
-   every layer; the logits at every position of the model cut to one layer
+   and the 1,000-token one on ``ssd_short``, none on ``ssd_cells``; the
+   warm answer must equal a cold recompute.  At both prompt lengths every
+   layer's SSD, on the model's own inputs (those of the plain prefill),
+   must pass check_ssd's limits against the plain SSD, which two faulty
+   plain SSDs (one dropping the chunk states, one rounding its
+   intermediates to bf16) must fail at every layer; the logits at every position of the model cut to one layer
    must lie within two bf16 ulps of the plain SSD's and within a distance
    that two plain SSDs differing in rounding alone (float64; the time axis
    summed in reverse) must keep and both faulty ones must cross (see
    LOGITS_LINE); at 1,024 tokens and full depth the top token must agree.
-   The 1,000- and 1,024-token prefills are timed alone, and a profiled
-   prefill and decode split the time by kernel;
+   The 1,000- and 1,024-token prefills are timed alone, the 1,000-token
+   one also with ``ssd_cells`` forced, in turns with its own route; profiled
+   prefills of both lengths and a decode split the time by kernel, with
+   the inter-chunk scan's host and device time as a profiler range;
 4c. training — ``smollm_360m`` at full width (random weights from seed 12,
    float32 master weights) trained by ``train_loop`` for 4 steps of 8 x
    4,096 tokens (microbatch 4, remat full, a checkpoint every 2 steps):
@@ -87,9 +93,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    ones, and the forward and backward also at qwen3_8b's heads, D 128;
    segment_reduce also at B = 100,000 and at B = 1,000 with one sum row;
    join_probe's wrapper beside its bare C entry point, against
-   ``torch.searchsorted``;
-   ssd_chunk_scan's ``ssd_wgmma`` beside ``ssd_cells`` on the same inputs,
-   and ``ssd_cells`` at the one-token-chunk prompt's shape).
+   ``torch.searchsorted``; filter_compact's wrapper beside its bare C entry
+   point, with each of its kernels' device time from torch.profiler;
+   ssd_chunk_scan's ``ssd_wgmma`` at the 1,024-token prefill's shape and
+   ``ssd_short`` at the one-token-chunk prompt's, each beside ``ssd_cells``
+   on the same inputs).
 
 The last two lines are a JSON object per kernel and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -118,9 +126,10 @@ REPLACES = {
     "topk": "src/repro/kernels/topk.py:56",
     "filter_compact": "src/repro/kernels/filter_compact.py:67",
     "join_probe": "src/repro/kernels/join_probe.py:89",
-    # the two routes of one pass: ssd_cells (float32 FMA) and ssd_wgmma (bf16
-    # on the tensor cores)
+    # the three routes of one pass: ssd_cells (float32 FMA), ssd_short (short
+    # chunks, float32 FMA) and ssd_wgmma (bf16 on the tensor cores)
     "ssd_chunk_scan_cells": "src/repro/kernels/ssd_chunk.py:103",
+    "ssd_chunk_scan_short": "src/repro/kernels/ssd_chunk.py:103",
     "ssd_chunk_scan_wgmma": "src/repro/kernels/ssd_chunk.py:103",
     "flash_attention": "src/repro/kernels/flash_attention.py:133",
     # the bf16 route of the same forward, on the tensor cores
@@ -137,10 +146,10 @@ REPLACES = {
                                       "ref.attention_xla_chunked with XLA)",
 }
 SOURCES = {name: name for name in REPLACES} | {
-    "ssd_chunk_scan_cells": "ssd_chunk", "ssd_chunk_scan_wgmma": "ssd_chunk"} | {
+    name: "ssd_chunk" for name in REPLACES if name.startswith("ssd_chunk_scan")} | {
     name: "flash_attention" for name in REPLACES if name.startswith("flash_attention")}
 DATAFRAME = ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe")
-SERVING = ("ssd_chunk_scan_cells", "ssd_chunk_scan_wgmma")
+SERVING = ("ssd_chunk_scan_cells", "ssd_chunk_scan_short", "ssd_chunk_scan_wgmma")
 TRAINING = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkdv", "flash_attention_bwd_dq_wgmma",
             "flash_attention_bwd_dkdv_wgmma")
@@ -311,8 +320,15 @@ def parity(torch, K, rng, dev):
             rows = torch.cat([tk_k.topk(xs[i:i + 1].contiguous(), kk, largest) for i in range(3)])
             check(bool((rows == got).all()), f"topk batched == per-row {label}")
 
-    # -- filter_compact: every element width
-    for n in (1, 4097, 1 << 20, 4_500_001):  # the last: > 1024 tiles to scan
+    # -- filter_compact: every element width, shared and per-row masks, at
+    # each tile edge (odd n: the second per-row mask starts off a 16-byte
+    # boundary, so its counts take single bytes) and past 2,048 tiles
+    from repro_torch.kernels import _build
+
+    ft = fc_k.FC_TILE
+    check(_build.load("filter_compact").repro_filter_compact_tile() == ft,
+          "filter_compact: FC_TILE is not the kernel's tile")
+    for n in (1, ft - 1, ft, ft + 1, 4097, 1 << 20, 4_500_001):
         for dtype in (torch.float64, torch.int64, torch.int32, torch.float32, torch.bool):
             base = rng.normal(0.0, 1e6, (2, n))
             x = t(base).to(dtype)
@@ -322,11 +338,15 @@ def parity(torch, K, rng, dev):
                         "random": rng.random(n) < 0.5}[kind]
                 note("filter_compact", kernel_vs_plain(
                     torch, K, "filter_compact", (x, t(keep), 0), f"{dtype} n={n} keep={kind}"))
-                per = torch.stack([t(rng.random(n) < 0.3) for _ in range(2)])
-                g2, c2 = fc_k.filter_compact(x, per, 0)
-                r0, c0 = fc_k.filter_compact(x[:1].contiguous(), per[0], 0)
+                per = {"empty": np.zeros((2, n), bool), "full": np.ones((2, n), bool),
+                       "random": rng.random((2, n)) < 0.3}[kind]
+                note("filter_compact", kernel_vs_plain(
+                    torch, K, "filter_compact", (x, t(per), 0),
+                    f"{dtype} n={n} per-row keep={kind}"))
+                g2, c2 = fc_k.filter_compact(x, t(per), 0)
+                r0, c0 = fc_k.filter_compact(x[:1].contiguous(), t(per[0]), 0)
                 check(torch.equal(g2[:1].view(bits), r0.view(bits)) and int(c2[0]) == int(c0[0]),
-                      f"filter_compact batched == per-row {dtype} n={n}")
+                      f"filter_compact batched == per-row {dtype} n={n} keep={kind}")
 
     # -- join_probe
     join_parity(torch, K, rng, dev, note)
@@ -494,30 +514,46 @@ def join_parity(torch, K, rng, dev, note):
 # one-token chunks; the smoke width; odd dims; then the edges of the
 # tensor-core route: L 64 in batches of 2, P 128, N 64, all three at once,
 # P 16 (columns zero-filled past P), and 7 heads in blocks of 2 (the last
-# block of one head: 26 chunks on 132 SMs give heads_per_block 2).
+# block of one head: 26 chunks on 132 SMs give heads_per_block 2); then the
+# edges of the short route: f32 at L 1; L 2 and 16 (the threshold, in f32
+# and bf16); P 24 and 40; N 17 with P 7 (N P and P no multiple of 4: state
+# rows cross float4s); batches of 2; 10 heads in groups of 3 (700 chunks:
+# short_heads 3, the last group of one head); and L 17, just past the
+# threshold, on ssd_cells.
 SSD_SHAPES = ((1, 256, 80, 64, 128, 128, "bfloat16"), (2, 256, 8, 64, 128, 128, "float32"),
               (1, 37, 4, 16, 16, 1, "bfloat16"), (2, 96, 8, 16, 16, 32, "bfloat16"),
               (1, 128, 3, 24, 40, 64, "float32"), (2, 256, 8, 64, 128, 64, "bfloat16"),
               (1, 256, 6, 128, 128, 128, "bfloat16"), (1, 256, 8, 64, 64, 128, "bfloat16"),
               (2, 128, 5, 128, 64, 64, "bfloat16"), (1, 128, 4, 16, 64, 64, "bfloat16"),
-              (2, 1664, 7, 64, 128, 128, "bfloat16"))
+              (2, 1664, 7, 64, 128, 128, "bfloat16"),
+              (1, 37, 4, 16, 16, 1, "float32"), (2, 64, 5, 24, 128, 2, "bfloat16"),
+              (1, 256, 6, 40, 64, 16, "float32"), (1, 96, 3, 40, 128, 16, "bfloat16"),
+              (2, 50, 3, 7, 17, 1, "float32"), (1, 64, 5, 7, 17, 16, "bfloat16"),
+              (2, 350, 10, 24, 64, 1, "bfloat16"), (1, 68, 4, 64, 128, 17, "float32"))
 
 
 def ssd_parity(torch, K, rng, dev, note, shapes=SSD_SHAPES):
     """ssd_chunk_scan against its plain version (check_ssd) at ``shapes``;
     each launch must take the kernel ``ssd_route`` names, and its error is
-    noted under that kernel's name."""
+    noted under that kernel's name.  At one-token chunks the chunk states
+    must equal the plain version's bit for bit (each is the one rounding of
+    b_n x_p)."""
     sc = K["ssd_chunk_scan"]
-    counters = {"cells": sc.launches_cells, "wgmma": sc.launches_wgmma}
+    counters = {"cells": sc.launches_cells, "short": sc.launches_short,
+                "wgmma": sc.launches_wgmma}
     for bt, S, H, Pd, N, L, dtype in shapes:
         label = f"{(bt, S, H, Pd, N, L, dtype)}"
         dt = getattr(torch, dtype)
         route = sc.ssd_route(dt, L, N, Pd)
+        args = ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, dt) + (L,)
         before = {r: c.value for r, c in counters.items()}
-        err = kernel_vs_plain(torch, K, "ssd_chunk_scan",
-                              ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, dt) + (L,), label)
+        err = kernel_vs_plain(torch, K, "ssd_chunk_scan", args, label)
         check(all(c.value - before[r] == (r == route) for r, c in counters.items()),
               f"ssd_chunk_scan {label} did not take the {route} kernel")
+        if L == 1:
+            check(torch.equal(sc.ssd_chunk_intra(*args)[1], sc.ssd_chunk_intra_plain(*args)[1]),
+                  f"ssd_chunk_scan {label}: one-token chunk states differ from the plain "
+                  f"version's")
         note(f"ssd_chunk_scan_{route}", err)
 
 
@@ -1131,43 +1167,40 @@ def timings(torch, K, shapes, rng, dev):
         bound=bound(r * n * 4 + r * k * 4, r * n),
     )
 
-    # filter_compact: (R, n) of one element width, keep (n,) or (R, n)
-    xf, kf, _ = args["filter_compact"]
-    r, n, esize, shared = big["filter_compact"][:4]
-    out["filter_compact"] = dict(
-        shape=[r, n, esize],
-        ms=timed(torch, run("filter_compact", "kernel"), 20, flush),
-        plain_ms=timed(torch, run("filter_compact", "plain"), 3, flush),
-        library_ms=timed(torch, lambda: torch.masked_select(xf, kf), 20, flush),
-        bound=bound(r * n * esize * 2 + (1 if shared else r) * n, 0),
-    )
+    out["filter_compact"] = compact_timing(torch, K["filter_compact"], args["filter_compact"],
+                                           flush)
 
     out["join_probe"] = join_timing(torch, K["join_probe"], args["join_probe"], flush)
 
     # ssd_chunk_scan: the intra-chunk launch alone (the inter-chunk scan is
     # torch ops outside it, as outside the pallas_call); no library call.
-    # Each kernel at the largest shape the serving path gave it: ssd_wgmma at
-    # the 1,024-token prefill's (beside ssd_cells on the same inputs),
-    # ssd_cells at the one-token-chunk prompt's
+    # Each kernel the serving path runs at the largest shape it gave it,
+    # beside ssd_cells on the same inputs: ssd_wgmma at the 1,024-token
+    # prefill's, ssd_short at the one-token-chunk prompt's.  The serving
+    # path launches ssd_cells no time: its row is its time at the
+    # one-token-chunk shape
     sc = K["ssd_chunk_scan"]
-    for route in ("wgmma", "cells"):
+    for route in ("wgmma", "short"):
         mine = [sh for sh in shapes["ssd_chunk_scan"]
                 if sc.ssd_route(getattr(torch, sh[6]), sh[5], sh[4], sh[3]) == route]
         check(mine, f"no ssd_chunk_scan launch on the {route} kernel on the serving path")
         sh = max(mine, key=sizes["ssd_chunk_scan"])
         out[f"ssd_chunk_scan_{route}"] = ssd_timing(
             torch, sc, sh, main_path_inputs(torch, "ssd_chunk_scan", sh, rng, dev), flush)
+    short = out["ssd_chunk_scan_short"]
+    out["ssd_chunk_scan_cells"] = dict(short, route="cells", ms=short["earlier_ms"])
     return out
 
 
 def ssd_timing(torch, mod, shape, args, flush):
     """The intra-chunk launch at ``shape``: the wrapper (on the kernel
-    ``ssd_route`` names), ``ssd_cells`` through its C entry point on the
-    same inputs (the earlier kernel, where the wrapper takes ssd_wgmma), the
-    plain version and the bound."""
+    ``ssd_route`` names, ssd_wgmma or ssd_short), ``ssd_cells`` through its
+    C entry point on the same inputs (the earlier kernel), the plain version
+    and the bound."""
     x, la, b, c, L = args
     bt, S, H, Pd, N = shape[:5]
     route = mod.ssd_route(x.dtype, L, N, Pd)
+    check(route != "cells", f"ssd_timing: {shape} is on ssd_cells itself")
     row = dict(
         shape=[bt, S, H, Pd, N, L, str(x.dtype)], route=route,
         ms=timed(torch, lambda: mod.ssd_chunk_intra(x, la, b, c, L), 20, flush),
@@ -1176,23 +1209,76 @@ def ssd_timing(torch, mod, shape, args, flush):
         bound=bound(*ssd_work(bt, S, H, Pd, N, L, x.element_size()),
                     BF16_OPS_PER_S if x.dtype == torch.bfloat16 else F32_OPS_PER_S),
     )
-    if route == "wgmma":
-        y, st = torch.empty_like(x), torch.empty((bt, S // L, H, N, Pd), device=x.device)
-        stream = torch.cuda.current_stream().cuda_stream
+    y, st = torch.empty_like(x), torch.empty((bt, S // L, H, N, Pd), device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
 
-        def cells():
-            err = mod._fns()["cells"](x.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                      bt, S, H, Pd, N, L, mod.DTYPES[x.dtype], y.data_ptr(),
-                                      st.data_ptr(), stream)
-            check(err == 0, f"ssd_cells failed with cudaError_t {err}")
+    def cells():
+        err = mod._fns()["cells"](x.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                  bt, S, H, Pd, N, L, mod.DTYPES[x.dtype], y.data_ptr(),
+                                  st.data_ptr(), stream)
+        check(err == 0, f"ssd_cells failed with cudaError_t {err}")
 
-        cells()
-        check_ssd(torch, (y, st), mod.ssd_chunk_intra_plain(x, la, b, c, L),
-                  "ssd_cells at the timing shape")
-        row["earlier_ms"] = timed(torch, cells, 20, flush)
+    cells()
+    check_ssd(torch, (y, st), mod.ssd_chunk_intra_plain(x, la, b, c, L),
+              "ssd_cells at the timing shape")
+    row["earlier_ms"] = timed(torch, cells, 20, flush)
     print(f"[time] ssd_chunk_scan detail at {row['shape']} ({route}): kernel {row['ms']} ms, "
-          f"ssd_cells on the same inputs {row.get('earlier_ms', row['ms'])} ms, plain "
+          f"ssd_cells on the same inputs {row['earlier_ms']} ms, plain "
           f"{row['plain_ms']} ms, bound {row['bound'][0]} ms", flush=True)
+    return row
+
+
+# the device functions of csrc/filter_compact.cu, for the profiler's split
+COMPACT_KERNELS = ("tile_counts", "scatter_tiles")
+
+
+def kernel_split(torch, fn, names, iters, flush):
+    """Device ms a call of ``fn`` spends in each kernel named in ``names``
+    (torch.profiler over ``iters`` calls, each after an L2 flush)."""
+    def calls():
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+
+    kern = profiled(torch, calls)[3]
+    return {name: sum(t for t, k in kern if name in k) / iters for name in names}
+
+
+def compact_timing(torch, fc, args, flush):
+    """filter_compact at the largest main-path shape: the wrapper, its bare C
+    entry point on preallocated outputs and scratch (the wrapper's host work
+    left out), each of its kernels' device time a call, the plain version,
+    ``torch.masked_select`` and the bound (data read and written once, the
+    mask read once)."""
+    xs, keep, fill = args
+    r, n = xs.shape
+    size = xs.element_size()
+    keep_rows = 1 if keep.dim() == 1 else r
+    out = torch.empty_like(xs)
+    scratch = torch.empty(fc.scratch_size(keep_rows, n), dtype=torch.int64, device=xs.device)
+    totals = scratch[:keep_rows]
+    stream = torch.cuda.current_stream().cuda_stream
+    bits = fc._fill_bits(fill, xs.dtype, size)
+
+    def c_entry():
+        check(fc._fn()(xs.data_ptr(), out.data_ptr(), keep.data_ptr(), keep_rows, r, n, size,
+                       bits, scratch.data_ptr(), stream) == 0, "filter_compact C entry point")
+
+    c_entry()
+    check_compact(torch, (out, totals.expand(r) if keep_rows == 1 else totals),
+                  fc.filter_compact_plain(xs, keep, fill), "C entry point, timing inputs")
+    row = dict(
+        shape=[r, n, size],
+        ms=timed(torch, lambda: fc.filter_compact(xs, keep, fill), 20, flush),
+        bare_ms=timed(torch, c_entry, 20, flush),
+        split=kernel_split(torch, c_entry, COMPACT_KERNELS, 20, flush),
+        plain_ms=timed(torch, lambda: fc.filter_compact_plain(xs, keep, fill), 3, flush),
+        library_ms=timed(torch, lambda: torch.masked_select(xs, keep), 20, flush),
+        bound=bound(r * n * size * 2 + keep_rows * n, 0),
+    )
+    print(f"[time] filter_compact detail at {row['shape']}: wrapper {row['ms']} ms, C entry "
+          f"alone {row['bare_ms']} ms, device ms a call by kernel {json.dumps(row['split'])}, "
+          f"torch.masked_select {row['library_ms']} ms", flush=True)
     return row
 
 
@@ -1482,9 +1568,11 @@ def rel_dist(torch, a, b) -> float:
                  / torch.linalg.vector_norm(b, dtype=torch.float64))
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, ranges=()):
     """Run ``fn`` under torch.profiler → (wall ms, device kernel ms, device
-    copy ms, [(device ms, kernel name)] by time)."""
+    copy ms, [(device ms, kernel name)] by time, {range: (host ms, device
+    ms of the work launched in it)} for the ``record_function`` ranges
+    named in ``ranges``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1493,11 +1581,16 @@ def profiled(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    avg = prof.key_averages()
+    dev = [e for e in avg if e.device_type == DeviceType.CUDA]
     copy = sum(e.self_device_time_total for e in dev if e.key.startswith("Mem")) / 1e3
     kern = sorted(((e.self_device_time_total / 1e3, e.key) for e in dev
-                   if not e.key.startswith("Mem")), reverse=True)
-    return wall, sum(t for t, _ in kern), copy, kern
+                   if not e.key.startswith("Mem") and e.key not in ranges), reverse=True)
+    spans = {e.key: (e.cpu_time_total / 1e3, e.device_time_total / 1e3) for e in avg
+             if e.key in ranges and e.device_type == DeviceType.CPU}
+    check(set(spans) == set(ranges), f"profiled: ranges {sorted(set(ranges) - set(spans))} "
+          "not in the trace")
+    return wall, sum(t for t, _ in kern), copy, kern, spans
 
 
 def scan_variants(torch, mod):
@@ -1587,13 +1680,15 @@ def serving(torch, ops, cfg, dev, record):
           f"3 prefills launched ssd_chunk_scan {launches['ssd_chunk_scan']} times, "
           f"not {3 * cfg.n_layers}")
     # the two 1,024-token prefills (chunks of 128) on ssd_wgmma, the
-    # 1,000-token one (one-token chunks) on ssd_cells
+    # 1,000-token one (one-token chunks) on ssd_short, none on ssd_cells
     check(launches["ssd_chunk_scan_wgmma"] == 2 * cfg.n_layers,
           f"the 1,024-token prefills launched ssd_wgmma {launches['ssd_chunk_scan_wgmma']} "
           f"times, not {2 * cfg.n_layers}")
-    check(launches["ssd_chunk_scan_cells"] == cfg.n_layers,
-          f"the 1,000-token prefill launched ssd_cells {launches['ssd_chunk_scan_cells']} "
+    check(launches["ssd_chunk_scan_short"] == cfg.n_layers,
+          f"the 1,000-token prefill launched ssd_short {launches['ssd_chunk_scan_short']} "
           f"times, not {cfg.n_layers}")
+    check(launches["ssd_chunk_scan_cells"] == 0,
+          f"the prefills launched ssd_cells {launches['ssd_chunk_scan_cells']} times, not 0")
     check(warm[1].latency_s < cold[1].latency_s, "the warm request was not faster (sim)")
     check(again[1].ops_executed == 0 and again[1].latency_s == 0.0,
           "the resubmission was not a cache hit")
@@ -1683,7 +1778,7 @@ def serving(torch, ops, cfg, dev, record):
                   + json.dumps(dist), flush=True)
         return lk[-1], lp[-1]
 
-    for prompt_t, label in ((odd_t, "1,000-token prefill (ssd_cells)"),
+    for prompt_t, label in ((odd_t, "1,000-token prefill (ssd_short)"),
                             (cold_t, "1,024-token prefill (ssd_wgmma)")):
         hold_layers(prompt_t, label)
         lk, lp = hold_logits(prompt_t, label)
@@ -1700,19 +1795,50 @@ def serving(torch, ops, cfg, dev, record):
     print(f"[serve] prefill wall: 1,024 tokens (chunks of 128) {walls['1024']} ms, 1,000 tokens "
           f"(one-token chunks) {walls['1000']} ms, factor {walls['1000'] / walls['1024']}",
           flush=True)
+    # the short kernel's share of it: the 1,000-token prefill on its route
+    # and with ssd_route made to answer "cells", in turns (the host's pace
+    # drifts between calls far more than 64 launches change it)
+    route, odd = mod.ssd_route, {"short": [], "cells": []}
+    for kind in ("short", "cells", "cells", "short", "short", "cells"):
+        mod.ssd_route = route if kind == "short" else (lambda *args: "cells")
+        try:
+            t0 = time.perf_counter()
+            pre(model, odd_t)
+            torch.cuda.synchronize()
+        finally:
+            mod.ssd_route = route
+        odd[kind].append((time.perf_counter() - t0) * 1e3)
+    print(f"[serve] 1,000-token prefill wall in turns, ms: on ssd_short {odd['short']}, with "
+          f"ssd_cells forced {odd['cells']}", flush=True)
 
-    # where a request's time goes: a 1,024-token prefill, then decode steps
-    for label, fn in (("prefill 1024 tokens", lambda: pre(model, cold_t)),
-                      (f"prefill 1024 + {N_TOKENS} decode steps",
-                       lambda: greedy_generate(cfg, model, pre, dec, cold_t, N_TOKENS))):
-        wall, busy, copy, kern = profiled(torch, fn)
-        ssd = sum(t for t, k in kern if "ssd_cells" in k or "ssd_wgmma" in k)
-        gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
-                                                                      "cutlass")))
-        print(f"[serve-trace] {label}: wall {wall} ms, device kernels {busy} ms "
-              f"(ssd_chunk_scan {ssd} ms, GEMMs {gemm} ms, other {busy - ssd - gemm} ms), "
-              f"device copies {copy} ms, device idle {100 * (1 - (busy + copy) / wall)}%; top: "
-              + ", ".join(f"{k[:50]} {t}" for t, k in kern[:4]), flush=True)
+    # where a request's time goes: a 1,024- and a 1,000-token prefill, then
+    # decode steps; the inter-chunk scan (torch ops, a Python loop over the
+    # chunks) is a profiler range, read for its host and device time
+    inter = mod._inter_chunk
+
+    def traced_inter(*args):
+        with torch.profiler.record_function("ssd_inter_chunk"):
+            return inter(*args)
+
+    mod._inter_chunk = traced_inter
+    try:
+        for label, fn in (("prefill 1024 tokens", lambda: pre(model, cold_t)),
+                          ("prefill 1000 tokens", lambda: pre(model, odd_t)),
+                          (f"prefill 1024 + {N_TOKENS} decode steps",
+                           lambda: greedy_generate(cfg, model, pre, dec, cold_t, N_TOKENS))):
+            wall, busy, copy, kern, ranges = profiled(torch, fn, ("ssd_inter_chunk",))
+            ssd = sum(t for t, k in kern if any(f"ssd_{r}" in k for r in ("cells", "short",
+                                                                          "wgmma")))
+            gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
+                                                                          "cutlass")))
+            host, device = ranges["ssd_inter_chunk"]
+            print(f"[serve-trace] {label}: wall {wall} ms, device kernels {busy} ms "
+                  f"(ssd_chunk_scan {ssd} ms, GEMMs {gemm} ms, other {busy - ssd - gemm} ms), "
+                  f"device copies {copy} ms, device idle {100 * (1 - (busy + copy) / wall)}%; "
+                  f"inter-chunk scan: host {host} ms, its device work {device} ms; top: "
+                  + ", ".join(f"{k[:50]} {t}" for t, k in kern[:4]), flush=True)
+    finally:
+        mod._inter_chunk = inter
     del srv, model
     torch.cuda.empty_cache()
     return launches
@@ -1875,7 +2001,7 @@ def training(torch, ops, dev):
                 def one_step():
                     out["state"] = step_fn(model, opt_state, batch)
 
-                pwall, busy, copy, kern = profiled(torch, one_step)
+                pwall, busy, copy, kern, _ = profiled(torch, one_step)
                 model, opt_state, _ = out["state"]
             states.append(({"params": model.tree(), "opt": opt_state}))
             del model, opt_state

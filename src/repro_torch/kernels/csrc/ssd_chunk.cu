@@ -19,7 +19,7 @@
 // is 3.4 GFLOP, 3.4 µs at the bf16 tensor-core rate (989 TFLOP/s), while
 // the bytes (about 43 MB) take 12.8 µs at 3.35 TB/s.
 //
-// Two kernels, chosen by the wrapper from type and sizes alone
+// Three kernels, chosen by the wrapper from type and sizes alone
 // (`ssd_chunk.ssd_route`):
 //
 //   ssd_wgmma  bf16 with L in {64, 128}, N in {64, 128}, P <= 128 and
@@ -58,10 +58,30 @@
 //            about 0.01% of its entries, by one bf16 ulp, the floor that
 //            summing in the tensor cores' order leaves (chip_smoke.py phase
 //            4b prints it).
-//   ssd_cells  float32, L = 1 (the one-token-chunk prompt) and any other
-//            shape: one block of 256 threads per (batch, chunk, head) cell,
-//            float32 FMA on the CUDA cores, as follows.  Reachable through
-//            its own entry point, so that the tensor-core kernel can be
+//   ssd_short  float32 and bf16 with L <= 16 (SHORT_MAX_L), any N and P (as
+//            far as one head's staging fits in shared memory): the
+//            one-token-chunk prompt.  At L = 1 the pass is y = (c·b) x and
+//            state = b xᵀ, one N x P float32 outer product a (token, head):
+//            32 KB at N 128, P 64, 2.6 GB a launch at the serving shape, so
+//            the launch is bound by its writes.  One block of 256 threads
+//            per (batch, chunk, group of G heads), G chosen by the wrapper
+//            (`short_heads`: about 16 blocks an SM, 27 heads at the serving
+//            shape).  The block stages the chunk's B and C once, and X,
+//            the cumsum (sequential, in the plain version's order) and w
+//            for its heads; C Bᵀ once (one warp a visible entry, n in a
+//            fixed order: each lane its n = lane + 32 k, then the shuffle
+//            tree), M per head.  Its heads' states are one contiguous run
+//            of G N P floats, written in whole 16-byte vectors with
+//            streaming stores (`__stcs`), so a warp writes 512 contiguous
+//            bytes; rows whose P is no multiple of 4, or a base off a
+//            16-byte boundary, take single floats at the run's ends and
+//            vectors assembled across rows in between.  Float32 FMA; at L
+//            = 1, w = exp(0) = 1, so each state entry is the one rounding
+//            of b_n x_p, the plain version's bit for bit.
+//   ssd_cells  float32 with L > 16 and bf16 shapes outside both other
+//            routes: one block of 256 threads per (batch, chunk, head)
+//            cell, float32 FMA on the CUDA cores, as follows.  Reachable
+//            through its own entry point, so that the other kernels can be
 //            timed against it on the same inputs.
 //
 // ssd_cells stages C, B (rows padded to N + 1 floats against bank
@@ -235,6 +255,188 @@ int launch(const void* x, const void* log_a, const void* b, const void* c, int b
   ssd_cells<T><<<grid, THREADS, (size_t)smem, st>>>(
       (const T*)x, (const float*)log_a, (const T*)b, (const T*)c, S, H, P, N, L,
       (T*)y, (float*)state);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------ //
+// Short chunks (L <= SHORT_MAX_L), float32 FMA: the one-token-chunk prompt.   //
+// ------------------------------------------------------------------------ //
+
+// the longest chunk ssd_short takes: on an H100 it is 2.2x under ssd_cells at
+// L 16 and 1.3x over it at L 32 (PERF.md)
+constexpr int SHORT_MAX_L = 16;  // == SHORT_MAX_L in ssd_chunk.py
+constexpr int WARPS = THREADS / 32;
+
+// floats of shared memory a block of ssd_short takes for G heads
+// (== the formula of short_heads in ssd_chunk.py)
+long long short_floats(int L, int N, int P, int G) {
+  return (long long)G * L * (P + L + 2) + (long long)L * (2LL * N + L);
+}
+
+// a flat index of a block's state region as (head g, row n, column p)
+struct Cursor {
+  int g, n, p;
+};
+
+__device__ __forceinline__ Cursor locate(long long f, long long NP, int P) {
+  const long long r = f % NP;
+  return {(int)(f / NP), (int)(r / P), (int)(r % P)};
+}
+
+// moves a cursor on by the flat step `at` stands for (see `locate`):
+// at.n < N and at.p < P, so each carry is at most one
+__device__ __forceinline__ void advance(Cursor& c, Cursor at, int N, int P) {
+  c.p += at.p;
+  c.n += at.n;
+  if (c.p >= P) {
+    c.p -= P;
+    ++c.n;
+  }
+  c.g += at.g;
+  if (c.n >= N) {
+    c.n -= N;
+    ++c.g;
+  }
+}
+
+// state[n, p] of head g: Σ_j (b_j[n] w_j) x_j[p] over j in order, b_j[n] w_j
+// rounded first, as the plain version forms B ⊙ w before its product
+__device__ __forceinline__ float state_at(const float* bs, const float* w, const float* xs,
+                                          int L, int N, int P, Cursor c) {
+  float s = 0.0f;
+  for (int j = 0; j < L; ++j)
+    s = fmaf(bs[j * N + c.n] * w[c.g * L + j], xs[(c.g * L + j) * P + c.p], s);
+  return s;
+}
+
+// One block: the chunk `blockIdx.x` of sequence `blockIdx.z`, heads
+// blockIdx.y * G .. + G - 1 (the last group may be smaller).  ROW4: P % 4 ==
+// 0 and `state` 16-byte aligned, so every float4 of the state lies in one row.
+template <typename T, bool ROW4>
+__global__ void __launch_bounds__(THREADS)
+ssd_short(const T* __restrict__ x, const float* __restrict__ log_a, const T* __restrict__ b,
+          const T* __restrict__ c, int S, int H, int P, int N, int L, int G,
+          T* __restrict__ y, float* __restrict__ state) {
+  extern __shared__ __align__(16) float sm[];
+  const int chunk = blockIdx.x, h0 = blockIdx.y * G, bt = blockIdx.z, nc = gridDim.x;
+  const int heads = min(G, H - h0), GP = heads * P;
+  const long long row0 = (long long)bt * S + (long long)chunk * L;  // (b, t) row
+  float* xs = sm;                        // X of the block's heads  [g][j][p]
+  float* bs = xs + (size_t)G * L * P;    // B  [j][n]
+  float* cs = bs + (size_t)L * N;        // C  [i][n]
+  float* cb = cs + (size_t)L * N;        // C Bᵀ  [i][j], j <= i
+  float* cum = cb + (size_t)L * L;       // [g][i]
+  float* w = cum + (size_t)G * L;        // exp(cum_{L-1} - cum_j)  [g][j]
+  float* ms = w + (size_t)G * L;         // M  [g][i][j], j <= i
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int e = tid; e < L * N; e += THREADS) {
+    bs[e] = to_f(b[row0 * N + e]);
+    cs[e] = to_f(c[row0 * N + e]);
+  }
+  for (int e = tid; e < L * GP; e += THREADS) {  // per token j the heads' X lie together
+    const int j = e / GP, q = e - j * GP, g = q / P, p = q - g * P;
+    xs[(g * L + j) * P + p] = to_f(x[((row0 + j) * H + h0) * P + q]);
+  }
+  for (int e = tid; e < L * heads; e += THREADS) {  // log_a, cumulated below
+    const int i = e / heads, g = e - i * heads;
+    cum[g * L + i] = log_a[(row0 + i) * H + h0 + g];
+  }
+  __syncthreads();
+
+  for (int g = tid; g < heads; g += THREADS) {  // the cumsum in the plain version's order
+    float acc = 0.0f;
+    for (int i = 0; i < L; ++i) cum[g * L + i] = acc += cum[g * L + i];
+    for (int j = 0; j < L; ++j) w[g * L + j] = expf(acc - cum[g * L + j]);
+  }
+  // C Bᵀ once for every head: one warp a visible entry, n in a fixed order
+  // (each lane its n = lane + 32 k in turn, then the shuffle tree)
+  for (int e = warp; e < L * L; e += WARPS) {
+    const int i = e / L, j = e - i * L;
+    if (j > i) continue;
+    float s = 0.0f;
+#pragma unroll 4
+    for (int n = lane; n < N; n += 32) s = fmaf(cs[i * N + n], bs[j * N + n], s);
+    s = repro::warp_reduce<repro::SumF>(s);
+    if (lane == 0) cb[e] = s;
+  }
+  __syncthreads();
+  for (int e = tid; e < heads * L * L; e += THREADS) {  // hidden entries never exponentiated
+    const int g = e / (L * L), r = e - g * L * L, i = r / L, j = r - i * L;
+    if (j <= i) ms[e] = cb[r] * expf(cum[g * L + i] - cum[g * L + j]);
+  }
+  __syncthreads();
+
+  // y_intra = M X, rounded to T once
+  for (int e = tid; e < L * GP; e += THREADS) {
+    const int i = e / GP, q = e - i * GP, g = q / P, p = q - g * P;
+    float acc = 0.0f;
+    for (int j = 0; j <= i; ++j) acc = fmaf(ms[(g * L + i) * L + j], xs[(g * L + j) * P + p], acc);
+    y[((row0 + i) * H + h0) * P + q] = from_f<T>(acc);
+  }
+
+  // the heads' states lie together: one run of heads * N * P floats, written
+  // in whole 16-byte vectors with streaming stores, a warp 512 bytes at a time
+  const long long NP = (long long)N * P, total = heads * NP;
+  float* out = state + (((long long)bt * nc + chunk) * H + h0) * NP;
+  const Cursor stride = locate(4LL * THREADS, NP, P);
+  if constexpr (ROW4) {
+    Cursor at = locate(4LL * tid, NP, P);
+    for (long long f = 4LL * tid; f < total; f += 4 * THREADS) {
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+      for (int j = 0; j < L; ++j) {
+        const float bw = bs[j * N + at.n] * w[at.g * L + j];
+        const float4 xv = *reinterpret_cast<const float4*>(xs + (at.g * L + j) * P + at.p);
+        s.x = fmaf(bw, xv.x, s.x);
+        s.y = fmaf(bw, xv.y, s.y);
+        s.z = fmaf(bw, xv.z, s.z);
+        s.w = fmaf(bw, xv.w, s.w);
+      }
+      __stcs(reinterpret_cast<float4*>(out + f), s);
+      advance(at, stride, N, P);
+    }
+  } else {
+    // any P or alignment: single floats before the first 16-byte boundary
+    // and after the last whole vector, vectors in between
+    const long long lead = min(total, (long long)(((16 - ((uintptr_t)out & 15)) & 15) >> 2));
+    const long long body_end = lead + ((total - lead) & ~3LL);
+    const int loose = (int)(lead + total - body_end);
+    for (int k = tid; k < loose; k += THREADS) {
+      const long long f = k < lead ? k : body_end + (k - lead);
+      __stcs(out + f, state_at(bs, w, xs, L, N, P, locate(f, NP, P)));
+    }
+    const Cursor one = locate(1, NP, P);
+    Cursor at = locate(lead + 4LL * tid, NP, P);
+    for (long long f = lead + 4LL * tid; f < body_end; f += 4 * THREADS) {
+      Cursor e = at;
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[k] = state_at(bs, w, xs, L, N, P, e);
+        advance(e, one, N, P);
+      }
+      __stcs(reinterpret_cast<float4*>(out + f), make_float4(v[0], v[1], v[2], v[3]));
+      advance(at, stride, N, P);
+    }
+  }
+}
+
+template <typename T>
+int launch_short(const void* x, const void* log_a, const void* b, const void* c, int batch,
+                 int S, int H, int P, int N, int L, int G, void* y, void* state,
+                 cudaStream_t st) {
+  const long long smem = 4 * short_floats(L, N, P, G);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const bool row4 = P % 4 == 0 && ((uintptr_t)state & 15) == 0;
+  auto kernel = row4 ? ssd_short<T, true> : ssd_short<T, false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)(S / L), (unsigned)((H + G - 1) / G), (unsigned)batch);
+  kernel<<<grid, THREADS, (size_t)smem, st>>>((const T*)x, (const float*)log_a, (const T*)b,
+                                               (const T*)c, S, H, P, N, L, G, (T*)y,
+                                               (float*)state);
   return (int)cudaGetLastError();
 }
 
@@ -559,6 +761,22 @@ REPRO_EXPORT int repro_ssd_chunk(const void* x, const void* log_a, const void* b
   if (dtype == 0) return launch<float>(x, log_a, b, c, batch, S, H, P, N, L, y, state, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, log_a, b, c, batch, S, H, P, N, L, y, state, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Short chunks (ssd_short): the arguments of repro_ssd_chunk for L <=
+// SHORT_MAX_L, and G heads a block, 1 <= G <= H.
+REPRO_EXPORT int repro_ssd_chunk_short(const void* x, const void* log_a, const void* b,
+                                       const void* c, int batch, int S, int H, int P, int N,
+                                       int L, int dtype, int G, void* y, void* state,
+                                       void* stream) {
+  if (batch <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || L <= 0 || L > SHORT_MAX_L ||
+      S % L != 0 || batch > 65535 || G <= 0 || G > H || (H + G - 1) / G > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_short<float>(x, log_a, b, c, batch, S, H, P, N, L, G, y, state, st);
+  if (dtype == 1)
+    return launch_short<__nv_bfloat16>(x, log_a, b, c, batch, S, H, P, N, L, G, y, state, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,8 +7,9 @@
 bytes, so every column of a partition compacts losslessly.  ``keep`` is one
 mask per row, or one 1-D mask shared by every row.
 
-CUDA tensors launch ``csrc/filter_compact.cu``; CPU tensors run
-:func:`filter_compact_plain` (a cumulative-sum scatter).
+CUDA tensors launch ``csrc/filter_compact.cu`` (two kernels: tile counts,
+then a scatter whose blocks sum the counts of the tiles before their own);
+CPU tensors run :func:`filter_compact_plain` (a cumulative-sum scatter).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from . import _build
 from ._launch import I32, I64, P, U64, LaunchCounter, bind, check_launch, require, stream_ptr
 
-FC_TILE = 4096  # == TILE in csrc/filter_compact.cu
+FC_TILE = 2048  # == TILE in csrc/filter_compact.cu
 _BITS = {1: torch.uint8, 4: torch.int32, 8: torch.int64}
 
 launches = LaunchCounter("filter_compact")
@@ -42,12 +43,29 @@ def filter_compact_plain(xs: torch.Tensor, keep: torch.Tensor, fill=0) -> Tuple[
 @functools.lru_cache(maxsize=None)
 def _fn():
     return bind(_build.load("filter_compact"), "repro_filter_compact",
-                [P, P, P, I64, I64, I64, I32, U64, P, P, P, P])
+                [P, P, P, I64, I64, I64, I32, U64, P, P])
 
 
 def _fill_bits(fill, dtype: torch.dtype, size: int) -> int:
+    """The fill element's bytes as an integer, low-order first, computed once
+    per dtype and value: a float is keyed by its exact value, so -0.0 keeps
+    its sign."""
+    if isinstance(fill, float):
+        return _bits_of(dtype, size, float, fill.hex())
+    return _bits_of(dtype, size, type(fill), fill)
+
+
+@functools.lru_cache(maxsize=64)
+def _bits_of(dtype: torch.dtype, size: int, kind: type, value) -> int:
+    fill = float.fromhex(value) if kind is float else value
     t = torch.tensor([fill], dtype=dtype).view(_BITS[size])
     return int(t.item()) & ((1 << (8 * size)) - 1)
+
+
+def scratch_size(keep_rows: int, n: int) -> int:
+    """int64 entries of the kernel's scratch: the totals (the counts this
+    returns), then the int32 tile counts."""
+    return keep_rows + -(-keep_rows * -(-n // FC_TILE) // 2)
 
 
 def filter_compact(xs: torch.Tensor, keep: torch.Tensor, fill=0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,14 +89,11 @@ def filter_compact(xs: torch.Tensor, keep: torch.Tensor, fill=0) -> Tuple[torch.
             f"filter_compact: keep {tuple(keep.shape)} does not fit xs {tuple(xs.shape)}")
     if r == 0 or n == 0:
         raise ValueError(f"filter_compact: empty input {tuple(xs.shape)}")
-    nt = -(-n // FC_TILE)
-    counts = torch.empty(keep_rows * nt, dtype=torch.int32, device=dev)
-    offsets = torch.empty(keep_rows * nt, dtype=torch.int64, device=dev)
-    totals = torch.empty(keep_rows, dtype=torch.int64, device=dev)
+    scratch = torch.empty(scratch_size(keep_rows, n), dtype=torch.int64, device=dev)
     out = torch.empty_like(xs)
     err = _fn()(xs.data_ptr(), out.data_ptr(), keep.data_ptr(), keep_rows, r, n,
-                size, _fill_bits(fill, xs.dtype, size), counts.data_ptr(),
-                offsets.data_ptr(), totals.data_ptr(), stream_ptr(dev))
+                size, _fill_bits(fill, xs.dtype, size), scratch.data_ptr(), stream_ptr(dev))
     check_launch("filter_compact", err)
     launches.add()
+    totals = scratch[:keep_rows]
     return out, totals.expand(r) if keep_rows == 1 else totals

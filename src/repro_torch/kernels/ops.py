@@ -44,7 +44,7 @@ KERNELS = {
 }
 # launch counters by kernel: one per module, attention's two backward kernels,
 # the attention and SSD launches that took the tensor-core kernels, and the
-# SSD launches that took the FMA kernel
+# SSD launches that took each FMA kernel
 COUNTERS = {name: mod.launches for name, mod in KERNELS.items()}
 COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
                  "flash_attention_bwd_dkdv": _fa.launches_dkdv,
@@ -52,6 +52,7 @@ COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
                  "flash_attention_bwd_dq_wgmma": _fa.launches_dq_wgmma,
                  "flash_attention_bwd_dkdv_wgmma": _fa.launches_dkdv_wgmma,
                  "ssd_chunk_scan_wgmma": _ssd.launches_wgmma,
+                 "ssd_chunk_scan_short": _ssd.launches_short,
                  "ssd_chunk_scan_cells": _ssd.launches_cells})
 
 

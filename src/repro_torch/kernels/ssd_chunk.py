@@ -17,10 +17,13 @@ H, N, P))``.  It is two steps, as in the reference
    For CUDA tensors this is one launch of a kernel of ``csrc/ssd_chunk.cu``,
    the one :func:`ssd_route` names: ``ssd_wgmma`` (bf16 on the tensor cores,
    C Bᵀ once per block of :func:`heads_per_block` heads, float32 operands
-   as sums of bf16 terms) or ``ssd_cells`` (float32 FMA, any shape); for
-   CPU tensors, and in :func:`ssd_chunk_scan_plain`, torch ops.
-   ``launches`` counts every launch, ``launches_wgmma`` those of
-   ``ssd_wgmma`` and ``launches_cells`` those of ``ssd_cells``.
+   as sums of bf16 terms), ``ssd_short`` (chunks of at most
+   ``SHORT_MAX_L`` tokens, float32 FMA, C Bᵀ once per block of
+   :func:`short_heads` heads, the states written in streaming 16-byte
+   vectors) or ``ssd_cells`` (float32 FMA, any other shape); for CPU
+   tensors, and in :func:`ssd_chunk_scan_plain`, torch ops.  ``launches``
+   counts every launch, ``launches_wgmma``, ``launches_short`` and
+   ``launches_cells`` those of each kernel.
 2. the inter-chunk state scan and the inbound-state correction
    ``y = y_intra + exp(cum) C h_in``, in torch ops on either device.
 """
@@ -38,19 +41,27 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter("ssd_chunk_scan")
 launches_wgmma = LaunchCounter("ssd_chunk_scan_wgmma")
+launches_short = LaunchCounter("ssd_chunk_scan_short")
 launches_cells = LaunchCounter("ssd_chunk_scan_cells")
+
+SHORT_MAX_L = 16  # == SHORT_MAX_L in csrc/ssd_chunk.cu: past it ssd_cells is faster
+SHORT_SMEM = 48 * 1024  # shared memory a block of ssd_short aims at: several blocks an SM
+SHORT_BLOCKS_PER_SM = 16  # so that the last wave's tail is short
 
 
 def ssd_route(dtype: torch.dtype, L: int, N: int, P: int) -> str:
     """The kernel for a type and chunk, state and head sizes: ``"wgmma"``
     for bf16 with L in {64, 128}, N in {64, 128}, P <= 128 and P % 8 == 0
-    (TMA needs 16-byte rows), ``"cells"`` for float32, L = 1 (the
-    one-token-chunk prompt) and every other shape."""
+    (TMA needs 16-byte rows), ``"short"`` for either type with L <=
+    ``SHORT_MAX_L`` (L = 1 is the one-token-chunk prompt), ``"cells"`` for
+    every other shape."""
     if dtype not in DTYPES:
         raise TypeError(f"ssd_chunk_scan: unsupported type {dtype}")
     if (dtype == torch.bfloat16 and L in (64, 128) and N in (64, 128) and 0 < P <= 128
             and P % 8 == 0):
         return "wgmma"
+    if L <= SHORT_MAX_L:
+        return "short"
     return "cells"
 
 
@@ -60,6 +71,17 @@ def heads_per_block(batch: int, n_chunks: int, H: int, sms: int) -> int:
     takes as many heads as that allows).  The last group may be smaller."""
     groups = min(H, max(1, sms // (batch * n_chunks)))
     return -(-H // groups)
+
+
+def short_heads(batch: int, n_chunks: int, H: int, L: int, N: int, P: int, sms: int) -> int:
+    """Heads a block of ``ssd_short`` stages and walks: as many as leave
+    ``SHORT_BLOCKS_PER_SM`` blocks for each of the ``sms`` SMs, and no more
+    than fit in ``SHORT_SMEM`` bytes beside the chunk's B, C and C Bᵀ (each
+    head takes its X, cumsum, w and M: 4 L (P + L + 2) bytes); at least
+    one.  The last group may be smaller."""
+    groups = min(H, max(1, -(-SHORT_BLOCKS_PER_SM * sms // (batch * n_chunks))))
+    fit = (SHORT_SMEM - 4 * L * (2 * N + L)) // (4 * L * (P + L + 2))
+    return max(1, min(-(-H // groups), fit))
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,12 +116,13 @@ def ssd_chunk_intra_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _fns():
     """→ {route: C entry point}: ``repro_ssd_chunk`` (ssd_cells, given the
-    type code) and ``repro_ssd_chunk_wgmma`` (ssd_wgmma, given the heads a
-    block walks)."""
+    type code), ``repro_ssd_chunk_wgmma`` (ssd_wgmma, given the heads a
+    block walks) and ``repro_ssd_chunk_short`` (ssd_short, given both)."""
     lib = _build.load("ssd_chunk")
     args = [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, P, P, P]
     return {"cells": bind(lib, "repro_ssd_chunk", args),
-            "wgmma": bind(lib, "repro_ssd_chunk_wgmma", args)}
+            "wgmma": bind(lib, "repro_ssd_chunk_wgmma", args),
+            "short": bind(lib, "repro_ssd_chunk_short", args[:11] + [I32] + args[11:])}
 
 
 def _inter_chunk(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Tensor,
@@ -164,11 +187,17 @@ def ssd_chunk_intra(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: to
     state = torch.empty((bt, S // L, H, N, Pd), dtype=torch.float32, device=dev)
     ptrs = (x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr())
     out = (y.data_ptr(), state.data_ptr(), stream_ptr(dev))
-    if ssd_route(x.dtype, L, N, Pd) == "wgmma":
+    route = ssd_route(x.dtype, L, N, Pd)
+    if route == "wgmma":
         # its TMA maps need x, b and c on 16-byte boundaries, or the launch fails
         G = heads_per_block(bt, S // L, H, _sm_count(dev.index))
         check_launch("ssd_chunk_scan_wgmma", _fns()["wgmma"](*ptrs, bt, S, H, Pd, N, L, G, *out))
         launches_wgmma.add()
+    elif route == "short":
+        G = short_heads(bt, S // L, H, L, N, Pd, _sm_count(dev.index))
+        check_launch("ssd_chunk_scan_short",
+                     _fns()["short"](*ptrs, bt, S, H, Pd, N, L, DTYPES[x.dtype], G, *out))
+        launches_short.add()
     else:
         check_launch("ssd_chunk_scan",
                      _fns()["cells"](*ptrs, bt, S, H, Pd, N, L, DTYPES[x.dtype], *out))

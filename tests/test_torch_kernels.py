@@ -3,7 +3,10 @@
 For each of the four frame kernels the same numpy inputs (made from a seed) go
 through the JAX Pallas kernel in interpret mode, the JAX ``ops`` entry on the
 ``xla`` backend, and the port's plain PyTorch version (what a kernel wrapper
-runs on a CPU tensor).  Tolerances: counts, min, max, top-k values and
+runs on a CPU tensor).  filter_compact's two-pass scheme on the card (tile
+counts, each tile's offset summed from the tiles before it, in-tile ranks by
+ballot in (item, warp) order) is emulated in numpy and held bit for bit
+against the Pallas kernel and the plain version at the tile edges.  Tolerances: counts, min, max, top-k values and
 compacted bytes exact; float32 sums within 1e-5 of Σ|x| (per bucket for
 segment sums) and m2 within 1e-4 relative, since the sums are taken in
 another order.
@@ -289,6 +292,94 @@ def test_filter_compact_moves_every_width_exactly(dtype):
         assert not out[r, int(cnt[r]):].numpy().any()
 
 
+# ------------------------------------------- the card's compaction, emulated ----
+_ITEMS = 8  # == ITEMS in csrc/filter_compact.cu: elements a thread of the scatter loads
+
+
+def _compact_emulated(x, keep, fill):
+    """``csrc/filter_compact.cu``'s scheme in numpy → (out, counts): pass 1
+    counts each (keep row, tile of FC_TILE elements); pass 2 gives a tile
+    the sum of the counts of the tiles before it as its offset and the sum
+    of all as the row's total, and ranks its elements as the block does:
+    element base + q THREADS + 32 w + lane is item q of lane ``lane`` in
+    warp w; the (item, warp) kept counts are scanned in that order, and a
+    lane's rank in its warp is the kept lanes below it in the ballot."""
+    tile = FC.FC_TILE
+    warps = tile // _ITEMS // 32
+    r, n = x.shape
+    k2 = keep if keep.ndim == 2 else keep[None]
+    nt = -(-n // tile)
+    kpad = np.zeros((k2.shape[0], nt * tile), bool)
+    kpad[:, :n] = k2
+    counts = kpad.reshape(-1, nt, tile).sum(-1)  # pass 1
+    out = np.empty_like(x)
+    for row in range(r):
+        kr = 0 if k2.shape[0] == 1 else row
+        before = np.array([counts[kr, :t].sum() for t in range(nt)])
+        total = counts[kr].sum()
+        kt = kpad[kr].reshape(nt, _ITEMS, warps, 32)
+        wc = kt.sum(-1).reshape(nt, -1)  # (tile, item-major (item, warp))
+        slots = before[:, None] + np.cumsum(wc, 1) - wc
+        dest = slots.reshape(nt, _ITEMS, warps, 1) + np.cumsum(kt, -1) - kt
+        xpad = np.zeros(nt * tile, x.dtype)
+        xpad[:n] = x[row]
+        o = np.full(n + nt * tile, np.array(fill, x.dtype))
+        o[dest[kt]] = xpad.reshape(nt, _ITEMS, warps, 32)[kt]
+        o[total:] = np.array(fill, x.dtype)
+        out[row] = o[:n]
+    return out, counts.sum(-1) if k2.shape[0] > 1 else np.repeat(counts.sum(-1), r)
+
+
+def _tile_edges():
+    t = FC.FC_TILE
+    return [1, t - 1, t, t + 1, 3 * t + 5]
+
+
+@pytest.mark.parametrize("n", _tile_edges())
+@pytest.mark.parametrize("kind", ["random", "all", "none"])
+def test_compact_scheme_vs_pallas(n, kind):
+    """The card's scheme, float32, bit for bit against the Pallas kernel in
+    interpret mode at the tile edges, keeping some, all and none."""
+    rng = _rng("fc-scheme", n, kind)
+    x = rng.normal(size=n).astype(np.float32)
+    keep = {"random": rng.random(n) < 0.5, "all": np.ones(n, bool),
+            "none": np.zeros(n, bool)}[kind]
+    out, cnt = _compact_emulated(x[None], keep, 0.0)
+    jout, jcnt = j_filter_compact(jnp.asarray(x), jnp.asarray(keep), interpret=True)
+    assert int(cnt[0]) == int(jcnt)
+    np.testing.assert_array_equal(out[0].view(np.int32), np.asarray(jout).view(np.int32))
+
+
+@pytest.mark.parametrize("n", _tile_edges())
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("dtype", [np.float64, np.int64, np.int32, np.float32, np.bool_])
+def test_compact_scheme_every_width_vs_plain(n, shared, dtype):
+    """The card's scheme, bit for bit against ``filter_compact_plain`` for
+    every element width, with one mask shared by the rows and one a row,
+    at the tile edges."""
+    rng = _rng("fc-scheme-w", n, shared, np.dtype(dtype).name)
+    x = rng.normal(0, 1e6, (3, n)).astype(dtype)
+    keep = rng.random(n if shared else (3, n)) < 0.4
+    out, cnt = _compact_emulated(x, keep, 0)
+    pout, pcnt = FC.filter_compact_plain(_t(x), _t(keep), 0)
+    bits = {8: np.int64, 4: np.int32, 1: np.uint8}[x.itemsize]
+    np.testing.assert_array_equal(out.view(bits), pout.numpy().view(bits))
+    np.testing.assert_array_equal(cnt, pcnt.numpy())
+
+
+@pytest.mark.parametrize("fill,dtype,bits", [
+    (0.0, torch.float64, 0), (-0.0, torch.float64, 1 << 63), (1.5, torch.float32, 0x3FC00000),
+    (-0.0, torch.float32, 1 << 31), (0, torch.int32, 0), (-1, torch.int32, 0xFFFFFFFF),
+    (-1, torch.int64, (1 << 64) - 1), (False, torch.bool, 0), (True, torch.bool, 1)])
+def test_fill_bits_cached_per_dtype_and_exact_value(fill, dtype, bits):
+    """The fill element's bytes the kernel writes, cached by dtype and value:
+    0.0 and -0.0 (equal as keys of a plain cache) keep their own bits."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    for _ in range(2):  # computed, then cached
+        assert FC._fill_bits(fill, dtype, size) == bits
+    assert FC._fill_bits(0.0, torch.float64, 8) == 0
+
+
 # -------------------------------------------------------------------- argsort --
 def test_argsort_f64_matches_numpy_stable():
     rng = _rng("sort")
@@ -380,4 +471,4 @@ def test_cuda_backend_on_cpu_tensors_runs_plain_version_without_launch():
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
         "flash_attention_wgmma": 0, "flash_attention_bwd_dq_wgmma": 0,
         "flash_attention_bwd_dkdv_wgmma": 0, "ssd_chunk_scan_wgmma": 0,
-        "ssd_chunk_scan_cells": 0}
+        "ssd_chunk_scan_short": 0, "ssd_chunk_scan_cells": 0}

@@ -6,8 +6,11 @@ per sequence of the batch, and ``ops.ssd_scan`` against the JAX ``ops``
 entry.  The tensor-core pass's arithmetic (C Bᵀ from exact bf16 products,
 M and w ⊙ X as sums of bf16 terms) is emulated in
 torch ops and held to chip_smoke's limits against the Pallas kernel, with a
-one-term control that must fail the state limit; ``ssd_route`` and
-``heads_per_block`` are checked by shape class.  Then the smoke
+one-term control that must fail the state limit; so is the short-chunk
+pass's (C Bᵀ reduced in the kernel's order, float32 FMA), whose chunk
+states at one-token chunks equal the plain version's bit for bit;
+``ssd_route``, ``heads_per_block`` and ``short_heads`` are checked by
+shape class.  Then the smoke
 ``mamba2_2p7b`` with the JAX parameters carried over by
 ``params_from_numpy`` is held against the JAX prefill and decode, the Pallas
 kernel again in interpret mode.
@@ -183,12 +186,101 @@ def test_one_bf16_term_of_w_x_breaks_the_state_limit():
     assert ey <= 2.0**-6 and eh > 1e-4, (ey, eh)
 
 
+# ------------------------------------------- the short-chunk pass, emulated ----
+def _fma(a, b, acc):
+    """fmaf in float64: the product of two float32 values is exact there,
+    so one rounding to float32 remains, as on the card (only a float64
+    rounding that lands on a float32 tie could differ)."""
+    return (a.double() * b.double() + acc.double()).float()
+
+
+def _short_emulated(x, la, b, c, L):
+    """``csrc/ssd_chunk.cu:ssd_short``'s arithmetic in torch ops → (y_intra,
+    chunk states): C Bᵀ with lane l summing n = l, l + 32, … in turn, then
+    the shuffle tree (offsets 16, 8, 4, 2, 1); the cumsum in sequential
+    order; M = C Bᵀ ⊙ exp(cum_i - cum_j); y and the state summed over j in
+    order with fmaf, b_j w_j rounded before its product, as in the kernel."""
+    bt, S, H, P = x.shape
+    N, nc = b.shape[-1], S // L
+    xf = x.float().reshape(bt, nc, L, H, P)
+    bf, cf = b.float().reshape(bt, nc, L, N), c.float().reshape(bt, nc, L, N)
+    lanes = torch.zeros(bt, nc, L, L, 32)
+    for n in range(N):
+        lanes[..., n % 32] = _fma(cf[:, :, :, None, n], bf[:, :, None, :, n], lanes[..., n % 32])
+    while lanes.shape[-1] > 1:
+        half = lanes.shape[-1] // 2
+        lanes = lanes[..., :half] + lanes[..., half:]
+    cb = lanes[..., 0]  # (bt, nc, i, j)
+    la4, acc = la.reshape(bt, nc, L, H), torch.zeros(bt, nc, H)
+    cum = torch.zeros(bt, nc, L, H)
+    for i in range(L):
+        acc = acc + la4[:, :, i]
+        cum[:, :, i] = acc
+    w = torch.exp(cum[:, :, -1:] - cum)  # (bt, nc, L, H)
+    causal = torch.ones(L, L, dtype=torch.bool).tril()[..., None]
+    d = torch.where(causal, cum[:, :, :, None] - cum[:, :, None], 0.0)  # (bt, nc, i, j, H)
+    m = torch.where(causal, cb[..., None] * torch.exp(d), 0.0)
+    y = torch.zeros(bt, nc, L, H, P)
+    state = torch.zeros(bt, nc, H, N, P)
+    for j in range(L):  # a hidden entry adds 0 · x, which leaves the sum as it is
+        y = _fma(m[:, :, :, j, :, None], xf[:, :, None, j], y)
+        bw = bf[:, :, j, None, :] * w[:, :, j, :, None]  # (bt, nc, H, N)
+        state = _fma(bw[..., None], xf[:, :, j, :, None, :], state)
+    return y.reshape(bt, S, H, P).to(x.dtype), state
+
+
+def _short_case(key, dtype, S, N, P, H=3, batch=2):
+    x, la, b, c = _inputs(_rng("short", key, dtype, S, N, P), batch, S, H, P, N)
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    return (torch.from_numpy(x).to(tdt), torch.from_numpy(la), torch.from_numpy(b).to(tdt),
+            torch.from_numpy(c).to(tdt))
+
+
+@pytest.mark.parametrize("L,S", [(1, 32), (2, 64), (8, 64), (16, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_short_chunk_pass_vs_pallas(L, S, dtype):
+    """The short-chunk kernel's arithmetic at odd N 17 and P 7, through the
+    port's inter-chunk scan, within chip_smoke's check_ssd limits of the
+    Pallas kernel in interpret mode: y within two ulps of its type (bf16
+    2^-6, float32 1e-5) of max |y|, the final state within 1e-5 of max
+    |h|."""
+    x, la, b, c = _short_case("pallas", dtype, S, 17, 7)
+    ty, th = SC._inter_chunk(*_short_emulated(x, la, b, c, L), la, c, x.dtype)
+    jdt = jnp.float32 if dtype == "float32" else _BF16
+    for i in range(x.shape[0]):
+        jy, jh = j_ssd(jnp.asarray(x[i].float().numpy(), jdt), jnp.asarray(la[i].numpy()),
+                       jnp.asarray(b[i].float().numpy(), jdt),
+                       jnp.asarray(c[i].float().numpy(), jdt), chunk=L, interpret=True)
+        jy, jh = np.asarray(jy.astype(jnp.float32)), np.asarray(jh)
+        rel = 1e-5 if dtype == "float32" else 2.0**-6
+        assert np.abs(ty[i].float().numpy() - jy).max() <= rel * np.abs(jy).max()
+        assert np.abs(th[i].numpy() - jh).max() <= 1e-5 * np.abs(jh).max()
+
+
+@pytest.mark.parametrize("N,P", [(17, 7), (128, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_short_chunk_states_at_one_token_equal_the_plain_version(N, P, dtype):
+    """At L = 1, w = exp(0) = 1 and each state entry is the one rounding of
+    b_n x_p: the emulated kernel's chunk states equal the plain version's
+    bit for bit; y differs at most by the order of c·b's sum."""
+    x, la, b, c = _short_case("one", dtype, 24, N, P)
+    ey, es = _short_emulated(x, la, b, c, 1)
+    py, ps = SC.ssd_chunk_intra_plain(x, la, b, c, 1)
+    assert torch.equal(es, ps)
+    rel = 1e-5 if dtype == "float32" else 2.0**-7
+    assert float((ey.float() - py.float()).abs().max()) <= rel * float(py.float().abs().max())
+
+
 @pytest.mark.parametrize("dtype,L,N,P,route", [
     (torch.bfloat16, 128, 128, 64, "wgmma"), (torch.bfloat16, 64, 64, 16, "wgmma"),
-    (torch.bfloat16, 64, 128, 128, "wgmma"), (torch.bfloat16, 1, 128, 64, "cells"),
-    (torch.bfloat16, 32, 16, 16, "cells"), (torch.bfloat16, 128, 256, 64, "cells"),
+    (torch.bfloat16, 64, 128, 128, "wgmma"), (torch.bfloat16, 1, 128, 64, "short"),
+    (torch.bfloat16, 16, 16, 16, "short"), (torch.bfloat16, 128, 256, 64, "cells"),
     (torch.bfloat16, 128, 128, 136, "cells"), (torch.bfloat16, 128, 128, 60, "cells"),
-    (torch.float32, 128, 128, 64, "cells")])
+    (torch.float32, 128, 128, 64, "cells"), (torch.float32, 1, 128, 64, "short"),
+    (torch.float32, 16, 17, 7, "short"), (torch.float32, 2, 128, 64, "short"),
+    (torch.float32, 17, 128, 64, "cells"), (torch.bfloat16, 17, 128, 64, "cells"),
+    (torch.bfloat16, 32, 16, 16, "cells"), (torch.float32, 32, 128, 64, "cells"),
+    (torch.float32, 64, 64, 64, "cells")])
 def test_ssd_route_by_type_and_sizes(dtype, L, N, P, route):
     assert SC.ssd_route(dtype, L, N, P) == route
 
@@ -204,6 +296,16 @@ def test_heads_per_block_fills_132_sms(batch, chunks, H, G):
     """One block per SM where the heads allow it: 8 chunks x 16 groups of 5
     heads at the serving shape; the last group may be smaller."""
     assert SC.heads_per_block(batch, chunks, H, 132) == G
+
+
+@pytest.mark.parametrize("batch,chunks,H,L,N,P,G", [
+    (1, 1000, 80, 1, 128, 64, 27), (2, 350, 10, 1, 64, 24, 3), (64, 1000, 80, 1, 128, 64, 80),
+    (1, 64, 80, 16, 384, 64, 1), (1, 64, 80, 16, 128, 64, 3), (1, 16, 7, 1, 17, 7, 1)])
+def test_short_heads_leave_16_blocks_an_sm_within_48kb(batch, chunks, H, L, N, P, G):
+    """At the one-token-chunk serving shape 1,000 chunks x 3 groups of 27
+    heads (the last of 26); at L 16 and N 384 one head's staging already
+    passes 48 KB, so a block takes one head."""
+    assert SC.short_heads(batch, chunks, H, L, N, P, 132) == G
 
 
 # ------------------------------------------------------------------- model ----
