@@ -16,7 +16,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    top-k values, compacted bytes), float32 sums within 1e-5 of Σ|x| (per
    row for masked_stats, per bucket for segment_reduce) and m2 within 1e-4
    relative, plus bit equality for pad invariance, batched == per-row and
-   fused == unfused (segment_reduce also: two calls equal, and bucket
+   fused == unfused (masked_stats also: batched == per-row copies at other
+   alignments, at n = 3, five rows of 16,385 (each starting at another
+   16-byte offset), one live value in the last tile, ±inf and NaN in
+   masked lanes, and slices 4 bytes past a boundary, alone and through
+   ``masked_stats_batch_parts``; topk also: sorted rows both ways at k 20
+   and 128, one value repeated, fewer than k finite values, k 128 at n 129,
+   three rows of 4,097 and an unaligned slice; every call must launch its
+   kernel; segment_reduce also: two calls equal, and bucket
    independence, at shapes that include one bucket of 2^21 rows, Zipf keys
    at cell 7's size, no valid row, keys out of range and B = 2^24 - 1);
    join_probe exact for every key type with right sides staged whole and
@@ -93,8 +100,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ones, and the forward and backward also at qwen3_8b's heads, D 128;
    segment_reduce also at B = 100,000 and at B = 1,000 with one sum row;
    join_probe's wrapper beside its bare C entry point, against
-   ``torch.searchsorted``; filter_compact's wrapper beside its bare C entry
-   point, with each of its kernels' device time from torch.profiler;
+   ``torch.searchsorted``; masked_stats, topk and filter_compact each
+   beside its bare C entry point, with each of its kernels' device time
+   from torch.profiler; topk also on its rows sorted ascending, beside
+   ``torch.topk`` on them;
    ssd_chunk_scan's ``ssd_wgmma`` at the 1,024-token prefill's shape and
    ``ssd_short`` at the one-token-chunk prompt's, each beside ``ssd_cells``
    on the same inputs).
@@ -274,6 +283,8 @@ def parity(torch, K, rng, dev):
     """Hold each kernel against its plain version; returns max |err| per kernel."""
     import numpy as np
 
+    from repro_torch.kernels import ops
+
     errs = {name: 0.0 for name in DATAFRAME + SERVING}
     ms_k, tk_k, fc_k = K["masked_stats"], K["topk"], K["filter_compact"]
 
@@ -283,42 +294,113 @@ def parity(torch, K, rng, dev):
     def note(name, e):
         errs[name] = max(errs[name], e)
 
-    # -- masked_stats
-    for n in (1, 512, 20_000, 16_384 * 3 + 5, 1 << 20):
+    # -- masked_stats: each case against the plain version, padded, row by
+    # row at the batch's own addresses, and row by row from fresh copies
+    # (other alignments), all bit for bit
+    def stats_case(x, m, label):
+        xs, ms = t(x), t(m)
+        before = ms_k.launches.value
+        note("masked_stats", kernel_vs_plain(torch, K, "masked_stats", (xs, ms), label))
+        got = ms_k.masked_stats(xs, ms)
+        r, n = xs.shape
+        pad = torch.zeros((r, n), dtype=torch.float32, device=dev)
+        padded = ms_k.masked_stats(torch.cat([xs, pad], 1), torch.cat([ms, pad.bool()], 1))
+        check(bits_equal(torch, padded, got), f"masked_stats pad invariance {label}")
+        rows = torch.cat([ms_k.masked_stats(xs[i:i + 1], ms[i:i + 1]) for i in range(r)])
+        check(bits_equal(torch, rows, got), f"masked_stats batched == per-row {label}")
+        copies = torch.cat([ms_k.masked_stats(xs[i:i + 1].clone(), ms[i:i + 1].clone())
+                            for i in range(r)])
+        check(bits_equal(torch, copies, got), f"masked_stats batched == per-row copy {label}")
+        check(ms_k.launches.value - before == 3 + 2 * r,
+              f"masked_stats {label}: the wrapper did not launch its kernel every call")
+        return got
+
+    for n in (1, 3, 512, 20_000, 16_384 * 3 + 5, 1 << 20):
         x = rng.normal(1e3, 5.0, (4, n)).astype(np.float32)
         x[0, : min(n, 8)] = -0.0
         m = rng.random((4, n)) < 0.8
         m[1] = False  # all-masked row
-        xs, ms = t(x), t(m)
-        note("masked_stats", kernel_vs_plain(torch, K, "masked_stats", (xs, ms), f"n={n}"))
-        got = ms_k.masked_stats(xs, ms)
-        pad = torch.zeros((4, n), dtype=torch.float32, device=dev)
-        padded = ms_k.masked_stats(torch.cat([xs, pad], 1), torch.cat([ms, pad.bool()], 1))
-        check(torch.equal(padded, got), f"masked_stats pad invariance n={n}")
-        rows = torch.cat([ms_k.masked_stats(xs[i:i + 1].contiguous(), ms[i:i + 1].contiguous())
-                          for i in range(4)])
-        check(torch.equal(rows, got), f"masked_stats batched == per-row n={n}")
+        stats_case(x, m, f"n={n}")
+    # five rows of 16,385: each row's values start at another 16-byte offset
+    n = 16_384 + 1
+    stats_case(rng.normal(-3.0, 2.0, (5, n)).astype(np.float32), rng.random((5, n)) < 0.5,
+               "5 rows of n=16385")
+    # one live value a row, in the last tile: at its end, at its start
+    n = 16_384 * 3 + 100
+    x = rng.normal(7.0, 1.0, (2, n)).astype(np.float32)
+    m = np.zeros((2, n), bool)
+    m[0, n - 1] = m[1, 16_384 * 3] = True
+    got = stats_case(x, m, "one live value in the last tile")
+    check(got[:, 0].tolist() == [1.0, 1.0] and got[:, 2].tolist() == [0.0, 0.0],
+          "masked_stats: one live value must give count 1 and m2 0")
+    # ROADMAP C2: +inf, -inf and NaN in masked lanes contribute nothing
+    n = 40_000
+    x = rng.normal(0.0, 3.0, (3, n)).astype(np.float32)
+    m = rng.random((3, n)) < 0.6
+    junk = np.where(rng.random((3, n)) < 0.5, np.inf, -np.inf).astype(np.float32)
+    junk[rng.random((3, n)) < 0.3] = np.nan
+    x = np.where(m, x, junk)
+    got = stats_case(x, m, "inf and NaN in masked lanes")
+    check(bool(torch.isfinite(got).all()), "masked_stats: a masked inf or NaN reached the result")
+    # a row slice whose pointers are not 16-byte aligned (values 4 bytes and
+    # mask 1 byte past an allocation), alone and through the parts batch
+    n = 16_384 * 2 + 7
+    flat = t(rng.normal(5.0, 2.0, 2 * n + 1).astype(np.float32))
+    mflat = t(rng.random(2 * n + 1) < 0.7)
+    xs, ms = flat[1:].view(2, n), mflat[1:].view(2, n)
+    check(xs.data_ptr() % 16 != 0, "masked_stats: the slice is aligned")
+    got = ms_k.masked_stats(xs, ms)
+    note("masked_stats", check_stats(torch, got, ms_k.masked_stats_plain(xs, ms), xs, ms,
+                                     "unaligned slice"))
+    check(bits_equal(torch, got, ms_k.masked_stats(xs.clone(), ms.clone())),
+          "masked_stats: unaligned slice != its aligned copy")
+    parts = ops.masked_stats_batch_parts([xs[:1], flat[:n].view(1, n), xs[1:]],
+                                         [ms[:1], mflat[:n].view(1, n), ms[1:]])
+    check(bits_equal(torch, parts[[0, 2]], got),
+          "masked_stats_batch_parts of unaligned slices != the slices alone")
 
     # -- segment_reduce
     segment_parity(torch, K, rng, dev, note)
 
-    # -- topk
+    # -- topk: each case for largest and smallest, against the plain version,
+    # padded with the losing sentinel, and row by row
+    def topk_case(xs, k, label):
+        for largest in (True, False):
+            lab = f"{label} k={k} largest={largest}"
+            before = tk_k.launches.value
+            note("topk", kernel_vs_plain(torch, K, "topk", (xs, k, largest), lab))
+            got = tk_k.topk(xs, k, largest)
+            r, n = xs.shape
+            sent = float("-inf") if largest else float("inf")
+            pad = torch.full((r, n), sent, device=dev)
+            check(bool((tk_k.topk(torch.cat([xs, pad], 1), k, largest) == got).all()),
+                  f"topk pad invariance {lab}")
+            rows = torch.cat([tk_k.topk(xs[i:i + 1], k, largest) for i in range(r)])
+            check(bool((rows == got).all()), f"topk batched == per-row {lab}")
+            check(tk_k.launches.value - before == 3 + r,
+                  f"topk {lab}: the wrapper did not launch its kernel every call")
+
     for n, k in ((1, 1), (512, 128), (5000, 20), (1 << 20, 128), (1 << 20, 1)):
         x = rng.normal(0.0, 1.0, (3, n)).astype(np.float32)
         x[0, : min(n, 3)] = [np.inf, -np.inf, -0.0][: min(n, 3)]
         x[1, : min(n, 2)] = 0.0
-        xs = t(x)
-        for largest in (True, False):
-            kk = min(k, n)
-            label = f"n={n} k={kk} largest={largest}"
-            note("topk", kernel_vs_plain(torch, K, "topk", (xs, kk, largest), label))
-            got = tk_k.topk(xs, kk, largest)
-            sent = float("-inf") if largest else float("inf")
-            pad = torch.full((3, n), sent, device=dev)
-            check(bool((tk_k.topk(torch.cat([xs, pad], 1), kk, largest) == got).all()),
-                  f"topk pad invariance {label}")
-            rows = torch.cat([tk_k.topk(xs[i:i + 1].contiguous(), kk, largest) for i in range(3)])
-            check(bool((rows == got).all()), f"topk batched == per-row {label}")
+        topk_case(t(x), min(k, n), f"n={n}")
+    n = 300_001  # sorted rows: the running threshold's worst case, and its best
+    x = np.sort(rng.normal(0.0, 1.0, (2, n)).astype(np.float32), axis=1)
+    x[1] = x[1, ::-1].copy()
+    for k in (20, 128):
+        topk_case(t(x), k, "ascending and descending rows")
+    topk_case(torch.full((1, 100_000), 2.5, device=dev), 20, "one value repeated")
+    x = np.full((2, 50_000), -np.inf, np.float32)  # 7 finite values a row
+    x[:, rng.choice(50_000, 7, replace=False)] = rng.normal(0.0, 1.0, (2, 7))
+    topk_case(t(x), 20, "fewer than k finite values")
+    topk_case(t(rng.normal(0.0, 1.0, (2, 129)).astype(np.float32)), 128, "n=129")
+    topk_case(t(rng.normal(0.0, 1.0, (3, 4097)).astype(np.float32)), 20, "3 rows of n=4097")
+    n = 70_001  # rows that start 4 bytes past a 16-byte boundary
+    flat = t(rng.normal(0.0, 1.0, 2 * n + 1).astype(np.float32))
+    xs = flat[1:].view(2, n)
+    check(xs.data_ptr() % 16 != 0, "topk: the slice is aligned")
+    topk_case(xs, 20, "unaligned slice")
 
     # -- filter_compact: every element width, shared and per-row masks, at
     # each tile edge (odd n: the second per-row mask starts off a 16-byte
@@ -1101,28 +1183,7 @@ def timings(torch, K, shapes, rng, dev):
     big = {name: max(shapes[name], key=sizes[name]) for name in DATAFRAME}
     args = {name: main_path_inputs(torch, name, big[name], rng, dev) for name in DATAFRAME}
     out = {}
-
-    def run(name, which):
-        fn = getattr(K[name], name if which == "kernel" else f"{name}_plain")
-        return lambda: fn(*args[name])
-
-    # masked_stats: (R, n) f32 + bool
-    xs, ms = args["masked_stats"]
-    r, n = big["masked_stats"]
-
-    def lib_stats():
-        for i in range(r):
-            v = xs[i][ms[i]]
-            torch.var_mean(v)
-            torch.aminmax(v)
-
-    out["masked_stats"] = dict(
-        shape=[r, n],
-        ms=timed(torch, run("masked_stats", "kernel"), 20, flush),
-        plain_ms=timed(torch, run("masked_stats", "plain"), 3, flush),
-        library_ms=timed(torch, lib_stats, 5, flush),
-        bound=bound(r * n * 5 + r * 20, 8 * int(ms.sum())),
-    )
+    out["masked_stats"] = stats_timing(torch, K["masked_stats"], args["masked_stats"], flush)
 
     # segment_reduce: keys (n,), values (S, n), valids (V, n), B buckets; at
     # the largest shape, and at the largest with B = 100,000 (cell 7)
@@ -1156,16 +1217,7 @@ def timings(torch, K, shapes, rng, dev):
     out["segment_reduce B=1000 S=1"] = seg_row(
         narrow, main_path_inputs(torch, "segment_reduce", narrow, rng, dev))
 
-    # topk: (R, n) f32, k
-    xt, k, top = args["topk"]
-    r, n = big["topk"][:2]
-    out["topk"] = dict(
-        shape=[r, n, k],
-        ms=timed(torch, run("topk", "kernel"), 20, flush),
-        plain_ms=timed(torch, run("topk", "plain"), 3, flush),
-        library_ms=timed(torch, lambda: torch.topk(xt, k, dim=-1, largest=top), 20, flush),
-        bound=bound(r * n * 4 + r * k * 4, r * n),
-    )
+    out["topk"] = topk_timing(torch, K["topk"], args["topk"], flush)
 
     out["filter_compact"] = compact_timing(torch, K["filter_compact"], args["filter_compact"],
                                            flush)
@@ -1228,20 +1280,34 @@ def ssd_timing(torch, mod, shape, args, flush):
     return row
 
 
-# the device functions of csrc/filter_compact.cu, for the profiler's split
+# the device functions of csrc/filter_compact.cu, csrc/masked_stats.cu and
+# csrc/topk.cu, for the profiler's split
 COMPACT_KERNELS = ("tile_counts", "scatter_tiles")
+STATS_KERNELS = ("stats_tiles", "stats_merge")
+TOPK_KERNELS = ("topk_spans", "topk_merge")
 
 
 def kernel_split(torch, fn, names, iters, flush):
-    """Device ms a call of ``fn`` spends in each kernel named in ``names``
-    (torch.profiler over ``iters`` calls, each after an L2 flush)."""
-    def calls():
+    """Device ms a launch of each kernel named in ``names`` takes: the mean
+    over the launches torch.profiler recorded in ``iters`` calls of ``fn``,
+    each after an L2 flush.  Dividing by the launches recorded, not by
+    ``iters``, keeps a trace that drops events from reading short."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             flush.zero_()
             fn()
-
-    kern = profiled(torch, calls)[3]
-    return {name: sum(t for t, k in kern if name in k) / iters for name in names}
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for name in names:
+        mine = [e for e in dev if name in e.key]
+        count = sum(e.count for e in mine)
+        check(count > 0, f"kernel_split: no launch of {name} in the trace")
+        out[name] = sum(e.self_device_time_total for e in mine) / 1e3 / count
+    return out
 
 
 def compact_timing(torch, fc, args, flush):
@@ -1279,6 +1345,91 @@ def compact_timing(torch, fc, args, flush):
     print(f"[time] filter_compact detail at {row['shape']}: wrapper {row['ms']} ms, C entry "
           f"alone {row['bare_ms']} ms, device ms a call by kernel {json.dumps(row['split'])}, "
           f"torch.masked_select {row['library_ms']} ms", flush=True)
+    return row
+
+
+def stats_timing(torch, mod, args, flush):
+    """masked_stats at the largest main-path shape: the wrapper, its bare C
+    entry point on a preallocated buffer (the wrapper's host work left out),
+    each of its kernels' device time a call, the plain version, ``var_mean``
+    + ``aminmax`` over each row's valid values, and the bound (values and
+    mask read once, the rows of five written once)."""
+    xs, ms = args
+    r, n = xs.shape
+    size, head = mod.buffer_rows(r, n)
+    buf = torch.empty((size, 5), dtype=torch.float32, device=xs.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def c_entry():
+        check(mod._fn()(xs.data_ptr(), ms.data_ptr(), r, n, buf.data_ptr() + 20 * head,
+                        buf.data_ptr(), stream) == 0, "masked_stats C entry point")
+
+    def lib_stats():
+        for i in range(r):
+            v = xs[i][ms[i]]
+            torch.var_mean(v)
+            torch.aminmax(v)
+
+    c_entry()
+    check_stats(torch, buf[:r], mod.masked_stats_plain(xs, ms), xs, ms,
+                "C entry point, timing inputs")
+    row = dict(
+        shape=[r, n],
+        ms=timed(torch, lambda: mod.masked_stats(xs, ms), 20, flush),
+        bare_ms=timed(torch, c_entry, 20, flush),
+        split=kernel_split(torch, c_entry, STATS_KERNELS, 20, flush),
+        plain_ms=timed(torch, lambda: mod.masked_stats_plain(xs, ms), 3, flush),
+        library_ms=timed(torch, lib_stats, 5, flush),
+        bound=bound(r * n * 5 + r * 20, 8 * int(ms.sum())),
+    )
+    print(f"[time] masked_stats detail at {row['shape']}: wrapper {row['ms']} ms, C entry "
+          f"alone {row['bare_ms']} ms, device ms a call by kernel {json.dumps(row['split'])}, "
+          f"var_mean + aminmax {row['library_ms']} ms", flush=True)
+    return row
+
+
+def topk_timing(torch, mod, args, flush):
+    """topk at the largest main-path shape: the wrapper, its bare C entry
+    point on a preallocated buffer, each of its kernels' device time a call,
+    the plain version, ``torch.topk`` and the bound (the rows read once, k
+    values a row written once); then the wrapper and ``torch.topk`` on the
+    same rows sorted the worst way for a running threshold (ascending when
+    the largest are kept)."""
+    xs, k, largest = args
+    r, n = xs.shape
+    blocks, size = mod.buffer_rows(r, n)
+    buf = torch.empty((size, k), dtype=torch.float32, device=xs.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    sign = 1.0 if largest else -1.0
+
+    def c_entry():
+        check(mod._fn()(xs.data_ptr(), r, n, k, blocks, sign, buf.data_ptr() + 4 * r * k,
+                        buf.data_ptr(), stream) == 0, "topk C entry point")
+
+    c_entry()
+    check_topk(torch, buf[:r], mod.topk_plain(xs, k, largest),
+               "C entry point, timing inputs")
+    row = dict(
+        shape=[r, n, k],
+        ms=timed(torch, lambda: mod.topk(xs, k, largest), 20, flush),
+        bare_ms=timed(torch, c_entry, 20, flush),
+        split=kernel_split(torch, c_entry, TOPK_KERNELS, 20, flush),
+        plain_ms=timed(torch, lambda: mod.topk_plain(xs, k, largest), 3, flush),
+        library_ms=timed(torch, lambda: torch.topk(xs, k, dim=-1, largest=largest), 20, flush),
+        bound=bound(r * n * 4 + r * k * 4, r * n),
+    )
+    asc = torch.sort(xs, dim=-1, descending=not largest).values
+    check_topk(torch, mod.topk(asc, k, largest), mod.topk_plain(asc, k, largest),
+               "sorted row, timing shape")
+    row["sorted_ms"] = timed(torch, lambda: mod.topk(asc, k, largest), 20, flush)
+    row["sorted_library_ms"] = timed(
+        torch, lambda: torch.topk(asc, k, dim=-1, largest=largest), 20, flush)
+    print(f"[time] topk detail at {row['shape']} ({blocks} blocks a row): wrapper {row['ms']} "
+          f"ms, C entry alone {row['bare_ms']} ms, device ms a call by kernel "
+          f"{json.dumps(row['split'])}, torch.topk {row['library_ms']} ms", flush=True)
+    print(f"[time] topk on a row sorted the worst way (ascending when the largest are kept) "
+          f"at {row['shape']}: wrapper {row['sorted_ms']} ms, torch.topk "
+          f"{row['sorted_library_ms']} ms", flush=True)
     return row
 
 

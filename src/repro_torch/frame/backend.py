@@ -642,7 +642,7 @@ def partial_value_counts(
 # sort — full: native f64 stable sort; limit: topk threshold + residual sort  #
 # --------------------------------------------------------------------------- #
 
-TOPK_MAX_K = 128  # the topk kernel keeps k ≤ 128 winners per tile
+TOPK_MAX_K = 128  # the topk kernel keeps at most 128 winners a row
 
 
 def _sort_keys(key_col: Column, ascending: bool) -> np.ndarray:

@@ -50,7 +50,12 @@ def check_launch(name: str, err: int) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream's ``cudaStream_t`` on ``device``, as an integer.
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream object
+    to read it, several microseconds of host time a launch; this reads the
+    handle alone (the call PyTorch's own generated kernels make)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require(t: torch.Tensor, name: str, dtype=None, ndim=None, device=None) -> None:

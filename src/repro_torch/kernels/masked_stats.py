@@ -1,11 +1,13 @@
 """Masked per-row statistics: (count, sum, m2, min, max) over valid entries.
 
-``masked_stats(xs, ms)`` launches the CUDA kernel of ``csrc/masked_stats.cu``
-for CUDA tensors and runs :func:`masked_stats_plain` for CPU tensors.  The
-plain version repeats the kernel's arithmetic in PyTorch: fixed ``TILE``
-tiles whose partials (count, sum, m2 about the tile mean, min, max) merge in
-tile order with the live-gated Chan update, so an all-masked tile is an
-exact no-op and the result does not depend on how far a row was padded.
+``masked_stats(xs, ms)`` launches the CUDA kernels of ``csrc/masked_stats.cu``
+for CUDA tensors (one block a tile reads the tile once, then one block a row
+merges the tiles' partials) and runs :func:`masked_stats_plain` for CPU
+tensors.  The plain version repeats the kernel's arithmetic in PyTorch:
+fixed ``TILE`` tiles whose partials (count, sum, m2 about the tile mean,
+min, max) merge in tile order with the live-gated Chan update, so an
+all-masked tile is an exact no-op and the result does not depend on how far
+a row was padded.
 """
 from __future__ import annotations
 
@@ -65,7 +67,16 @@ def masked_stats_plain(xs: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _fn():
     return bind(_build.load("masked_stats"), "repro_masked_stats",
-                [P, P, I64, I64, P, P, P, P])
+                [P, P, I64, I64, P, P, P])
+
+
+def buffer_rows(rows: int, n: int):
+    """(rows of five float32 in the one allocation a call makes, the row its
+    scratch starts at): the (rows, 5) result first, padded to a multiple of
+    four rows so that the scratch starts on 16 bytes, then one row of five
+    (20 bytes) a tile for the tiles' partials (``repro_masked_stats``)."""
+    head = -(-rows // 4) * 4
+    return head + rows * -(-n // TILE), head
 
 
 def masked_stats(xs: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
@@ -82,13 +93,11 @@ def masked_stats(xs: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
     r, n = xs.shape
     if r == 0 or n == 0:
         raise ValueError(f"masked_stats: empty input {tuple(xs.shape)}")
-    nt = -(-n // TILE)
     dev = xs.device
-    part_f = torch.empty(r * nt * 4, dtype=torch.float32, device=dev)
-    part_c = torch.empty(r * nt, dtype=torch.int32, device=dev)
-    out = torch.empty((r, 5), dtype=torch.float32, device=dev)
-    err = _fn()(xs.data_ptr(), ms.data_ptr(), r, n, part_f.data_ptr(),
-                part_c.data_ptr(), out.data_ptr(), stream_ptr(dev))
+    size, head = buffer_rows(r, n)
+    buf = torch.empty((size, 5), dtype=torch.float32, device=dev)
+    ptr = buf.data_ptr()
+    err = _fn()(xs.data_ptr(), ms.data_ptr(), r, n, ptr + 20 * head, ptr, stream_ptr(dev))
     check_launch("masked_stats", err)
     launches.add()
-    return out
+    return buf[:r]

@@ -6,8 +6,12 @@ through the JAX Pallas kernel in interpret mode, the JAX ``ops`` entry on the
 runs on a CPU tensor).  filter_compact's two-pass scheme on the card (tile
 counts, each tile's offset summed from the tiles before it, in-tile ranks by
 ballot in (item, warp) order) is emulated in numpy and held bit for bit
-against the Pallas kernel and the plain version at the tile edges.  Tolerances: counts, min, max, top-k values and
-compacted bytes exact; float32 sums within 1e-5 of Σ|x| (per bucket for
+against the Pallas kernel and the plain version at the tile edges; so is
+topk's threshold-filtered select (warp lists, ballot-ranked queues, bitonic
+networks, the block's tree and the second launch) against the Pallas
+kernel's values, and masked_stats' merge (the chains without the live
+gate) against the plain version's fold.  Tolerances: counts, min, max, top-k
+values and compacted bytes exact; float32 sums within 1e-5 of Σ|x| (per bucket for
 segment sums) and m2 within 1e-4 relative, since the sums are taken in
 another order.
 
@@ -58,7 +62,7 @@ def _sums_close(got, want, keys, vals, valid, nb):
 
 
 # ---------------------------------------------------------------- masked_stats --
-@pytest.mark.parametrize("n", [10, 1000, 5001, 20_000])
+@pytest.mark.parametrize("n", [3, 10, 1000, 5001, 16_385, 20_000])
 @pytest.mark.parametrize("null_frac", [0.0, 0.3])
 def test_masked_stats_vs_pallas(n, null_frac):
     rng = _rng("ms", n, null_frac)
@@ -67,6 +71,98 @@ def test_masked_stats_vs_pallas(n, null_frac):
     jp = np.asarray(j_masked_stats(jnp.asarray(x), jnp.asarray(m), interpret=True))
     got = MS.masked_stats_plain(_t(x)[None], _t(m)[None])[0].numpy()
     _stats_close(got, jp, x, m)
+
+
+@pytest.mark.parametrize("kind", ["one live value in the last tile", "inf and NaN in masked lanes"])
+def test_masked_stats_edge_rows_vs_pallas(kind):
+    """A row whose one live value sits in its last tile, and a row whose
+    masked lanes hold ±inf and NaN.  The plain version drops masked lanes
+    (ROADMAP C2), so it gives the answer of the same row with finite values
+    there, bit for bit; that row is the one held against the reference,
+    which multiplies by the mask and so turns a masked inf into NaN."""
+    rng = _rng("ms edge", kind)
+    n = 16_384 * 2 + 100
+    x = rng.normal(-4.0, 2.0, n).astype(np.float32)
+    if kind.startswith("one"):
+        m = np.zeros(n, bool)
+        m[n - 1] = True
+        clean = x
+    else:
+        m = rng.random(n) < 0.6
+        clean = np.where(m, x, 0.0).astype(np.float32)
+        x = np.where(m, x, np.where(rng.random(n) < 0.5, np.inf, -np.inf)).astype(np.float32)
+        x[~m & (rng.random(n) < 0.3)] = np.nan
+    got = MS.masked_stats_plain(_t(x)[None], _t(m)[None])[0]
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, MS.masked_stats_plain(_t(clean)[None], _t(m)[None])[0])
+    jp = np.asarray(j_masked_stats(jnp.asarray(clean), jnp.asarray(m), interpret=True))
+    _stats_close(got.numpy(), jp, clean, m)
+    if kind.startswith("one"):
+        assert got.tolist() == [1.0, float(x[-1]), 0.0, float(x[-1]), float(x[-1])]
+
+
+def _merge_like_the_kernel(tcnt, tsum, tm2):
+    """stats_merge's fold in float32: the count before each tile by an
+    integer scan, the sum and m2 chains with the live gate taken off (an
+    all-masked tile adds -0.0), the cross terms from the sums before."""
+    f = np.float32
+    live = tcnt > 0
+    fc = np.concatenate([[0], np.cumsum(tcnt)[:-1]]).astype(np.float32)
+    s, s_before = f(0.0), np.empty(len(tsum), np.float32)
+    for i, x in enumerate(np.where(live, tsum, f(-0.0))):
+        s_before[i] = s
+        s = f(s + x)
+    ftc = tcnt.astype(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        delta = tsum / np.maximum(ftc, f(1)) - s_before / np.maximum(fc, f(1))
+        cross = delta * delta * fc * ftc / np.maximum(fc + ftc, f(1))
+    m2 = f(0.0)
+    for y, z in zip(np.where(live, tm2, f(-0.0)), np.where(live, cross, f(-0.0))):
+        m2 = f(f(m2 + y) + z)
+    return np.float32(tcnt.sum()), s, m2
+
+
+@pytest.mark.parametrize("kind", ["random", "signed zeros", "dead tiles"])
+def test_masked_stats_merge_chains_equal_the_plain_fold_bit_for_bit(kind):
+    """The kernel's merge (an integer scan, chains without the live gate,
+    cross terms apart) gives the plain version's fold bit for bit on the
+    same tile partials."""
+    rng = _rng("ms merge", kind)
+    n = MS.TILE * 40 + 17
+    x = rng.normal(3.0, 2.0, (1, n)).astype(np.float32)
+    m = rng.random((1, n)) < 0.5
+    if kind == "signed zeros":
+        x[:] = -0.0
+    if kind != "random":
+        m[:, MS.TILE * 3: MS.TILE * 20] = False  # whole tiles masked
+    want = MS.masked_stats_plain(_t(x), _t(m))[0].numpy()
+    nt = -(-n // MS.TILE)
+    xs = _t(np.pad(x, ((0, 0), (0, nt * MS.TILE - n)))).reshape(nt, MS.TILE)
+    ms = _t(np.pad(m, ((0, 0), (0, nt * MS.TILE - n)))).reshape(nt, MS.TILE)
+    zero = torch.zeros(())
+    tcnt = ms.sum(-1)
+    tsum = torch.where(ms, xs, zero).sum(-1)
+    tmean = tsum / tcnt.float().clamp(min=1.0)
+    d = torch.where(ms, xs - tmean[:, None], zero)
+    got = _merge_like_the_kernel(tcnt.numpy(), tsum.numpy(), (d * d).sum(-1).numpy())
+    assert np.array(got, np.float32).tobytes() == want[:3].tobytes()
+
+
+def test_kernel_buffers_put_the_scratch_where_the_kernels_need_it():
+    """masked_stats and topk make one allocation a call, the result's rows
+    first: masked_stats' partials start on 16 bytes, one row of five a
+    tile; topk's winners follow the result, blocks * k a row."""
+    for rows, n in ((1, 1), (3, 16_385), (4, 4_194_304), (7, 100)):
+        size, head = MS.buffer_rows(rows, n)
+        assert head * 20 % 16 == 0 and head >= rows
+        assert size - head == rows * -(-n // MS.TILE)
+    for rows, n in ((1, 4_194_304), (3, 4097), (2, 129), (1, 1), (8, 600_000)):
+        blocks, size = TK.buffer_rows(rows, n)
+        assert blocks == TK.topk_blocks(rows, n) >= 1
+        assert size == rows * (1 + blocks if blocks > 1 else 1)
+    assert TK.topk_blocks(1, 4_194_304) == TK.GRID
+    assert TK.topk_blocks(8, 600_000) == -(-TK.GRID // 8)
+    assert TK.topk_blocks(1, TK.SPAN) == 1
 
 
 def test_masked_stats_batch_vs_xla_and_all_masked_row():
@@ -242,15 +338,215 @@ def test_high_cardinality_groupby_and_value_counts_take_the_kernel_route():
 
 
 # ------------------------------------------------------------------------ topk --
-@pytest.mark.parametrize("n,k", [(100, 1), (4000, 7), (4000, 64), (999, 10), (9000, 128)])
+def _topk_row(kind, n):
+    """One row of the kind named: random, sorted either way, one value
+    repeated, or 7 finite values among -inf."""
+    rng = _rng("tk", kind, n)
+    x = rng.normal(size=n).astype(np.float32)
+    if kind == "ascending":
+        x = np.sort(x)
+    elif kind == "descending":
+        x = np.sort(x)[::-1].copy()
+    elif kind == "repeated":
+        x = np.full(n, 2.5, np.float32)
+    elif kind == "few finite":
+        x = np.full(n, -np.inf, np.float32)
+        x[rng.choice(n, 7, replace=False)] = rng.normal(size=7)
+    return x
+
+
+_TOPK_CASES = [("random", 100, 1), ("random", 4000, 7), ("random", 4000, 64),
+               ("random", 999, 10), ("random", 9000, 128), ("random", 129, 128),
+               ("ascending", 3000, 20), ("descending", 3000, 20), ("repeated", 2000, 20),
+               ("few finite", 3000, 20)]
+
+
+@pytest.mark.parametrize("kind,n,k", _TOPK_CASES)
 @pytest.mark.parametrize("largest", [True, False])
-def test_topk_vs_pallas(n, k, largest):
-    x = _rng("tk", n, k).normal(size=n).astype(np.float32)
+def test_topk_vs_pallas(kind, n, k, largest):
+    if kind == "random":
+        x = _rng("tk", n, k).normal(size=n).astype(np.float32)
+    else:
+        x = _topk_row(kind, n)
     jp = np.asarray(j_topk(jnp.asarray(x), k, largest=largest, interpret=True))
     got = TK.topk_plain(_t(x)[None], k, largest)[0].numpy()
     assert (got == jp).all()
     with tops.local_backend("torch"):
         assert (tops.topk_padded(_t(x), k, largest).numpy() == jp).all()
+
+
+# The kernel's select (csrc/topk.cu), emulated in numpy: element e = r * 32
+# + lane of a warp's list is register r of lane `lane`; the same bitonic
+# networks, ballot-ranked queue, flushes and block fold, the same spans and
+# 16-byte head / tail split for a row that starts `off` floats past a
+# 16-byte boundary.
+_THREADS, _WARPS, _UNROLL, _BATCH = 256, 8, 8, 32
+
+
+def _sort_asc(v):
+    R = v.shape[0]
+    e = np.arange(32 * R).reshape(R, 32)
+    lane = np.arange(32)
+    size = 2
+    while size <= 32 * R:
+        j = size // 2
+        while j:
+            up = (e & size) == 0
+            if j < 32:
+                o = v[:, lane ^ j]
+                keep_min = ((e & j) == 0) == up
+                v = np.where(keep_min, np.minimum(v, o), np.maximum(v, o))
+            else:
+                v = v.copy()
+                for r in range(R):
+                    if r & (j >> 5) == 0:
+                        p = r | (j >> 5)
+                        a, b = v[r].copy(), v[p].copy()
+                        lo, hi = np.minimum(a, b), np.maximum(a, b)
+                        v[r], v[p] = np.where(up[r], lo, hi), np.where(up[r], hi, lo)
+            j //= 2
+        size *= 2
+    return v
+
+
+def _merge_desc(v):
+    R = v.shape[0]
+    e = np.arange(32 * R).reshape(R, 32)
+    lane = np.arange(32)
+    j = 16 * R
+    while j:
+        if j < 32:
+            o = v[:, lane ^ j]
+            v = np.where((e & j) == 0, np.maximum(v, o), np.minimum(v, o))
+        else:
+            v = v.copy()
+            for r in range(R):
+                if r & (j >> 5) == 0:
+                    p = r | (j >> 5)
+                    a, b = v[r].copy(), v[p].copy()
+                    v[r], v[p] = np.maximum(a, b), np.minimum(a, b)
+        j //= 2
+    return v
+
+
+class _Warp:
+    def __init__(self, k):
+        self.R = 1 if k <= 32 else 2 if k <= 64 else 4
+        self.K = 32 * self.R
+        self.k = k
+        self.lst = np.full((self.R, 32), -np.inf, np.float32)
+        self.th = np.float32(-np.inf)
+        self.q = np.empty(self.K + 32 * _BATCH, np.float32)
+        self.qn = 0
+
+    def fold_ascending(self, c):
+        self.lst = _merge_desc(np.maximum(self.lst, c))
+        self.th = self.lst.reshape(-1)[self.k - 1]
+
+    def fold_queue(self, start):
+        c = np.full(self.K, -np.inf, np.float32)
+        live = self.q[start: min(self.qn, start + self.K)]
+        c[: live.size] = live
+        self.fold_ascending(_sort_asc(c.reshape(self.R, 32)))
+
+    def seed(self, c):
+        """c: (STEP, 32), each lane's loaded values; takes out each lane's R
+        largest (the first of equal ones) and folds them into the list."""
+        top = np.full((self.R, 32), -np.inf, np.float32)
+        for r in range(self.R):
+            for lane in range(32):
+                best, at = np.float32(-np.inf), -1
+                for i in range(c.shape[0]):
+                    if c[i, lane] > best:
+                        best, at = c[i, lane], i
+                if at >= 0:
+                    c[at, lane] = np.nan
+                top[r, lane] = best
+        self.fold_ascending(_sort_asc(top))
+
+    def push(self, v):
+        p = v > self.th
+        cnt = int(p.sum())
+        self.q[self.qn: self.qn + cnt] = v[p]  # ballot rank: lane order
+        self.qn += cnt
+
+    def drain(self):
+        while self.qn >= self.K:
+            self.fold_queue(self.qn - self.K)
+            self.qn -= self.K
+
+    def finish(self):
+        if self.qn:
+            self.fold_queue(0)
+        self.qn = 0
+
+
+def _select_emulated(x, k, blocks, off):
+    """topk_spans / topk_merge over one row: (blocks, k) winners, each
+    descending."""
+    n = x.shape[0]
+    span = (-(-n // blocks) + 3) & ~3
+    out = np.empty((blocks, k), np.float32)
+    nan = np.float32(np.nan)
+    lane = np.arange(32)
+    for blk in range(blocks):
+        s0 = min(n, blk * span)
+        s1 = min(n, s0 + span)
+        head = min(s1 - s0, (4 - (off + s0) % 4) & 3)
+        a = s0 + head
+        nvec = (s1 - a) >> 2
+        b = a + 4 * nvec
+        warps = [_Warp(k) for _ in range(_WARPS)]
+        i = np.where(lane < 3, s0 + lane, b + lane - 3)
+        inside = np.where(lane < 3, i < a, (lane < 6) & (i < s1))
+        warps[0].push(np.where(inside, x[np.clip(i, 0, n - 1)], nan))
+
+        def load(v0, w):
+            vec = v0 + np.arange(_UNROLL)[:, None] * _THREADS + w * 32 + lane  # (u, lane)
+            idx = a + 4 * vec[:, None, :] + np.arange(4)[None, :, None]  # (u, c, lane)
+            vals = np.where(vec[:, None, :] < nvec, x[np.clip(idx, 0, n - 1)], nan)
+            return vals.reshape(4 * _UNROLL, 32)
+
+        for w, warp in enumerate(warps):
+            if nvec > 0:
+                warp.seed(first := load(0, w))
+            for v0 in range(0, nvec, _THREADS * _UNROLL):
+                c = first if v0 == 0 else load(v0, w)
+                for b in range(0, len(c), _BATCH):
+                    for v in c[b: b + _BATCH]:
+                        warp.push(v)
+                    warp.drain()
+            warp.finish()
+        h = 1
+        while h < _WARPS:
+            for w in range(0, _WARPS, 2 * h):
+                other = warps[w + h].lst.reshape(-1)[::-1].reshape(warps[w].R, 32)
+                warps[w].fold_ascending(other)
+            h *= 2
+        out[blk] = warps[0].lst.reshape(-1)[:k]
+    return out
+
+
+@pytest.mark.parametrize("kind,n,k", [("random", 5001, 20), ("ascending", 3001, 20),
+                                      ("descending", 3001, 20), ("repeated", 2000, 20),
+                                      ("few finite", 3000, 20), ("random", 129, 128),
+                                      ("random", 4097, 64)])
+@pytest.mark.parametrize("largest", [True, False])
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_topk_select_scheme_vs_pallas(kind, n, k, largest, blocks):
+    """The kernel's two launches, emulated, equal the Pallas kernel's
+    values: the spans' winners, then one block over them (the first row of
+    the winners starts on a 16-byte boundary)."""
+    x = _topk_row(kind, n)
+    jp = np.asarray(j_topk(jnp.asarray(x), k, largest=largest, interpret=True))
+    sign = np.float32(1.0 if largest else -1.0)
+    off = zlib.crc32(repr((kind, n, k)).encode()) % 4
+    win = _select_emulated(sign * x, k, blocks, off)
+    if blocks > 1:
+        win = _select_emulated(win.reshape(-1), k, 1, 0)
+    got = sign * win[0]
+    assert (got == jp).all()
+    assert (got == TK.topk_plain(_t(x)[None], k, largest)[0].numpy()).all()
 
 
 def test_topk_infinities_and_signed_zero():
