@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    masked lanes, and slices 4 bytes past a boundary, alone and through
    ``masked_stats_batch_parts``; topk also: sorted rows both ways at k 20
    and 128, one value repeated, fewer than k finite values, k 128 at n 129,
-   three rows of 4,097 and an unaligned slice; every call must launch its
+   three rows of 4,097, an unaligned slice, and rows with NaN (NaN equal
+   to NaN: [1, NaN, 3, 2, -1] at k 2, one NaN, k + 1 NaNs, NaNs beside
+   +inf and -inf, on one launch and on two); every call must launch its
    kernel; segment_reduce also: two calls equal, and bucket
    independence, at shapes that include one bucket of 2^21 rows, Zipf keys
    at cell 7's size, no valid row, keys out of range and B = 2^24 - 1);
@@ -34,9 +36,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    2, P 16, a head count its group size does not divide; and the short
    route's: f32 at L 1, L 2 and 16 (its threshold), P 24 and 40, N 17 with
    P 7, batch 2, a head count its group does not divide, L 17 past it),
-   each launch
-   on the kernel ``ssd_route`` names, the one-token chunk states equal to
-   the plain version's bit for bit; then
+   each launch on the kernel ``ssd_route`` names and on the inter-chunk
+   scan kernel ``ssd_scan`` once, the one-token chunk states equal to the
+   plain version's bit for bit, and at each shape ``ssd_scan`` alone
+   against the plain inter-chunk pass on the same intra-chunk outputs:
+   h_final bit for bit, y by check_ssd; then
    the flash_attention forward (bf16 on the tensor-core kernel
    ``attn_fwd_wgmma``, float32 on the FMA kernel ``attn_fwd``; each launch
    must take the kernel ``forward_route`` names) and its backward (bf16 on
@@ -65,7 +69,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    resubmission (a cache hit), and a 1,000-token request (the one-token-
    chunk rule).  Every prefill must launch ``ssd_chunk_scan`` once per
    layer, the two 1,024-token ones on the tensor-core kernel ``ssd_wgmma``
-   and the 1,000-token one on ``ssd_short``, none on ``ssd_cells``; the
+   and the 1,000-token one on ``ssd_short``, none on ``ssd_cells``, and the
+   inter-chunk scan kernel ``ssd_scan`` once per layer, the plain
+   inter-chunk pass (a loop over the chunks) never; the
    warm answer must equal a cold recompute.  At both prompt lengths every
    layer's SSD, on the model's own inputs (those of the plain prefill),
    must pass check_ssd's limits against the plain SSD, which two faulty
@@ -78,7 +84,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    The 1,000- and 1,024-token prefills are timed alone, the 1,000-token
    one also with ``ssd_cells`` forced, in turns with its own route; profiled
    prefills of both lengths and a decode split the time by kernel, with
-   the inter-chunk scan's host and device time as a profiler range;
+   the inter-chunk scan's wrapper as a profiler range (its host and device
+   time);
 4c. training — ``smollm_360m`` at full width (random weights from seed 12,
    float32 master weights) trained by ``train_loop`` for 4 steps of 8 x
    4,096 tokens (microbatch 4, remat full, a checkpoint every 2 steps):
@@ -106,7 +113,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``torch.topk`` on them;
    ssd_chunk_scan's ``ssd_wgmma`` at the 1,024-token prefill's shape and
    ``ssd_short`` at the one-token-chunk prompt's, each beside ``ssd_cells``
-   on the same inputs).
+   on the same inputs; the inter-chunk scan ``ssd_scan`` at both prompts'
+   shapes, its wrapper beside its bare C entry, the plain loop and its
+   bound).
 
 The last two lines are a JSON object per kernel and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -140,6 +149,8 @@ REPLACES = {
     "ssd_chunk_scan_cells": "src/repro/kernels/ssd_chunk.py:103",
     "ssd_chunk_scan_short": "src/repro/kernels/ssd_chunk.py:103",
     "ssd_chunk_scan_wgmma": "src/repro/kernels/ssd_chunk.py:103",
+    # the inter-chunk scan and correction after that pallas_call (ssd_scan)
+    "ssd_chunk_scan_inter": "src/repro/kernels/ssd_chunk.py:128-150",
     "flash_attention": "src/repro/kernels/flash_attention.py:133",
     # the bf16 route of the same forward, on the tensor cores
     "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:133",
@@ -158,7 +169,8 @@ SOURCES = {name: name for name in REPLACES} | {
     name: "ssd_chunk" for name in REPLACES if name.startswith("ssd_chunk_scan")} | {
     name: "flash_attention" for name in REPLACES if name.startswith("flash_attention")}
 DATAFRAME = ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe")
-SERVING = ("ssd_chunk_scan_cells", "ssd_chunk_scan_short", "ssd_chunk_scan_wgmma")
+SERVING = ("ssd_chunk_scan_cells", "ssd_chunk_scan_short", "ssd_chunk_scan_wgmma",
+           "ssd_chunk_scan_inter")
 TRAINING = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkdv", "flash_attention_bwd_dq_wgmma",
             "flash_attention_bwd_dkdv_wgmma")
@@ -212,9 +224,15 @@ def check_segment(torch, got, want, keys, vals, valid, nbk, modes, vidx, label):
     return err
 
 
+def same_values(torch, a, b) -> bool:
+    """Equal shapes and values, NaN equal to NaN (== otherwise, so that +0.0
+    and -0.0 may trade places)."""
+    return a.shape == b.shape and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
 def check_topk(torch, got, want, label):
-    """topk values exact (== so that +0.0 / -0.0 may trade places)."""
-    check(got.shape == want.shape and bool((got == want).all()), f"topk {label}")
+    """topk values exact (NaN equal to NaN; +0.0 / -0.0 may trade places)."""
+    check(same_values(torch, got, want), f"topk {label}")
     return 0.0
 
 
@@ -373,10 +391,10 @@ def parity(torch, K, rng, dev):
             r, n = xs.shape
             sent = float("-inf") if largest else float("inf")
             pad = torch.full((r, n), sent, device=dev)
-            check(bool((tk_k.topk(torch.cat([xs, pad], 1), k, largest) == got).all()),
+            check(same_values(torch, tk_k.topk(torch.cat([xs, pad], 1), k, largest), got),
                   f"topk pad invariance {lab}")
             rows = torch.cat([tk_k.topk(xs[i:i + 1], k, largest) for i in range(r)])
-            check(bool((rows == got).all()), f"topk batched == per-row {lab}")
+            check(same_values(torch, rows, got), f"topk batched == per-row {lab}")
             check(tk_k.launches.value - before == 3 + r,
                   f"topk {lab}: the wrapper did not launch its kernel every call")
 
@@ -401,6 +419,16 @@ def parity(torch, K, rng, dev):
     xs = flat[1:].view(2, n)
     check(xs.data_ptr() % 16 != 0, "topk: the slice is aligned")
     topk_case(xs, 20, "unaligned slice")
+    # NaN ranks above every value, for largest either way (the reference's
+    # rounds of max / argmax): the smallest row, then one NaN, more NaNs than
+    # k, and NaNs beside +inf and -inf, on one launch and on two
+    topk_case(t(np.array([[1.0, np.nan, 3.0, 2.0, -1.0]], np.float32)), 2, "NaN, smallest row")
+    for n, k in ((5000, 20), (300_001, 20), (1 << 20, 128), (129, 128)):
+        x = rng.normal(0.0, 1.0, (3, n)).astype(np.float32)
+        x[0, rng.integers(n)] = np.nan
+        x[1, rng.choice(n, k + 1, replace=False)] = np.nan
+        x[2, rng.choice(n, 6, replace=False)] = [np.nan, np.inf, -np.inf, np.nan, np.inf, -np.inf]
+        topk_case(t(x), k, f"NaN rows n={n}")
 
     # -- filter_compact: every element width, shared and per-row masks, at
     # each tile edge (odd n: the second per-row mask starts off a 16-byte
@@ -616,13 +644,16 @@ SSD_SHAPES = ((1, 256, 80, 64, 128, 128, "bfloat16"), (2, 256, 8, 64, 128, 128, 
 
 def ssd_parity(torch, K, rng, dev, note, shapes=SSD_SHAPES):
     """ssd_chunk_scan against its plain version (check_ssd) at ``shapes``;
-    each launch must take the kernel ``ssd_route`` names, and its error is
-    noted under that kernel's name.  At one-token chunks the chunk states
-    must equal the plain version's bit for bit (each is the one rounding of
-    b_n x_p)."""
+    each launch must take the kernel ``ssd_route`` names and the scan kernel
+    once, and its error is noted under that kernel's name.  At one-token
+    chunks the chunk states must equal the plain version's bit for bit (each
+    is the one rounding of b_n x_p).  Then the inter-chunk scan kernel alone
+    (``ssd_chunk_inter``, one launch) against its plain version on the same
+    intra-chunk outputs: h_final bit for bit, y within check_ssd's
+    limits."""
     sc = K["ssd_chunk_scan"]
     counters = {"cells": sc.launches_cells, "short": sc.launches_short,
-                "wgmma": sc.launches_wgmma}
+                "wgmma": sc.launches_wgmma, "scan": sc.launches_scan}
     for bt, S, H, Pd, N, L, dtype in shapes:
         label = f"{(bt, S, H, Pd, N, L, dtype)}"
         dt = getattr(torch, dtype)
@@ -630,13 +661,24 @@ def ssd_parity(torch, K, rng, dev, note, shapes=SSD_SHAPES):
         args = ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, dt) + (L,)
         before = {r: c.value for r, c in counters.items()}
         err = kernel_vs_plain(torch, K, "ssd_chunk_scan", args, label)
-        check(all(c.value - before[r] == (r == route) for r, c in counters.items()),
-              f"ssd_chunk_scan {label} did not take the {route} kernel")
+        check(all(c.value - before[r] == (r in (route, "scan")) for r, c in counters.items()),
+              f"ssd_chunk_scan {label} did not take the {route} kernel and the scan kernel "
+              f"once each")
+        y_intra, state = sc.ssd_chunk_intra(*args)
         if L == 1:
-            check(torch.equal(sc.ssd_chunk_intra(*args)[1], sc.ssd_chunk_intra_plain(*args)[1]),
+            check(torch.equal(state, sc.ssd_chunk_intra_plain(*args)[1]),
                   f"ssd_chunk_scan {label}: one-token chunk states differ from the plain "
                   f"version's")
         note(f"ssd_chunk_scan_{route}", err)
+        _, log_a, _, c, _ = args
+        scans = sc.launches_scan.value
+        got = sc.ssd_chunk_inter(y_intra, state, log_a, c)
+        check(sc.launches_scan.value - scans == 1,
+              f"ssd_chunk_inter {label}: the wrapper did not launch its kernel once")
+        want = sc.ssd_chunk_inter_plain(y_intra, state, log_a, c)
+        check(torch.equal(got[1], want[1]),
+              f"ssd_chunk_inter {label}: h_final differs from the plain version's bit for bit")
+        note("ssd_chunk_scan_inter", check_ssd(torch, got, want, f"inter-chunk scan {label}"))
 
 
 def ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, dtype):
@@ -1225,7 +1267,7 @@ def timings(torch, K, shapes, rng, dev):
     out["join_probe"] = join_timing(torch, K["join_probe"], args["join_probe"], flush)
 
     # ssd_chunk_scan: the intra-chunk launch alone (the inter-chunk scan is
-    # torch ops outside it, as outside the pallas_call); no library call.
+    # its own kernel, timed below); no library call.
     # Each kernel the serving path runs at the largest shape it gave it,
     # beside ssd_cells on the same inputs: ssd_wgmma at the 1,024-token
     # prefill's, ssd_short at the one-token-chunk prompt's.  The serving
@@ -1241,7 +1283,66 @@ def timings(torch, K, shapes, rng, dev):
             torch, sc, sh, main_path_inputs(torch, "ssd_chunk_scan", sh, rng, dev), flush)
     short = out["ssd_chunk_scan_short"]
     out["ssd_chunk_scan_cells"] = dict(short, route="cells", ms=short["earlier_ms"])
+    out["ssd_chunk_scan_inter"] = scan_timing(torch, sc, shapes["ssd_chunk_scan"], rng, dev,
+                                              flush)
     return out
+
+
+def scan_work(bt, S, H, Pd, N, L, esize):
+    """(bytes, flops) of the inter-chunk pass: y_intra, the chunk states,
+    log_a and c read once, y and h_final written once; C h_in (2 S H N P),
+    the recurrence (2 nc H N P) and the correction (2 S H P)."""
+    nc = S // L
+    nbytes = bt * (esize * (2 * S * H * Pd + S * N) + 4 * (nc * H * N * Pd + S * H + H * N * Pd))
+    return nbytes, bt * 2 * H * Pd * (S * N + nc * N + S)
+
+
+def scan_timing(torch, mod, shapes, rng, dev, flush):
+    """The inter-chunk scan at the serving path's two prompt shapes (the
+    one-token-chunk prompt's and the 1,024-token prompt's chunks of 128):
+    the wrapper (the decays' torch ops, then one ssd_scan launch), its bare
+    C entry on precomputed decays, the plain version (a loop over the
+    chunks) and the bound.  → the row of the one-token-chunk shape (the
+    larger), with the other under ``chunk128``."""
+    rows = {}
+    for key, want_l in (("L1", 1), ("chunk128", 128)):
+        mine = [sh for sh in shapes if sh[5] == want_l]
+        check(mine, f"no ssd_chunk_scan launch at chunk {want_l} on the serving path")
+        bt, S, H, Pd, N, L, dtype = max(mine, key=lambda sh: sh[0] * sh[1])
+        x, la, b, c = ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, getattr(torch, dtype))
+        y_intra, state = mod.ssd_chunk_intra(x, la, b, c, L)
+        ecum = mod.chunk_decays(la, S // L)
+        cf = c.float()
+        y = torch.empty_like(y_intra)
+        hf = torch.empty((bt, H, N, Pd), device=dev)
+        tin = mod.DTYPES[x.dtype]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def c_entry():
+            check(mod._fns()["scan"](y_intra.data_ptr(), state.data_ptr(), ecum.data_ptr(),
+                                     cf.data_ptr(), bt, S, H, Pd, N, L, tin, tin, y.data_ptr(),
+                                     hf.data_ptr(), stream) == 0,
+                  "ssd_scan C entry point")
+
+        c_entry()
+        want = mod.ssd_chunk_inter_plain(y_intra, state, la, c)
+        check(torch.equal(hf, want[1]), f"ssd_scan C entry at {[bt, S, H, Pd, N, L]}: h_final "
+              "differs from the plain version's")
+        check_ssd(torch, (y, hf), want, "ssd_scan C entry at the timing shape")
+        rows[key] = dict(
+            shape=[bt, S, H, Pd, N, L, dtype],
+            ms=timed(torch, lambda: mod.ssd_chunk_inter(y_intra, state, la, c), 10, flush),
+            c_entry_ms=timed(torch, c_entry, 10, flush),
+            plain_ms=timed(torch, lambda: mod.ssd_chunk_inter_plain(y_intra, state, la, c), 2,
+                           flush),
+            library_ms=None,
+            bound=bound(*scan_work(bt, S, H, Pd, N, L, x.element_size())),
+        )
+        r = rows[key]
+        print(f"[time] inter-chunk scan at {r['shape']}: wrapper {r['ms']} ms, C entry alone "
+              f"{r['c_entry_ms']} ms, plain {r['plain_ms']} ms, bound {r['bound'][0]} ms "
+              f"({r['bound'][1]})", flush=True)
+    return dict(rows["L1"], chunk128=rows["chunk128"])
 
 
 def ssd_timing(torch, mod, shape, args, flush):
@@ -1769,11 +1870,11 @@ def scan_variants(torch, mod):
              else torch.einsum("bnijh,bnjhp->bnihp", m, xf))
         bw = bf[:, :, :, None, :] * torch.exp(cum[:, :, -1:, :] - cum)[..., None]
         state = rnd(torch.einsum("bnlhk,bnlhp->bnhkp", bw, xf)).float()
-        return mod._inter_chunk(y.reshape(bt, S, H, Pd).to(x.dtype), state, log_a, c, x.dtype)
+        return mod.ssd_chunk_inter_plain(y.reshape(bt, S, H, Pd).to(x.dtype), state, log_a, c)
 
     def no_chunk_state(x, log_a, b, c, chunk):
         y, state = mod.ssd_chunk_intra_plain(x, log_a, b, c, chunk)
-        return mod._inter_chunk(y, torch.zeros_like(state), log_a, c, x.dtype)
+        return mod.ssd_chunk_inter_plain(y, torch.zeros_like(state), log_a, c)
 
     return {"bf16 intermediates": (lambda *a: intra(*a, rnd=bf16), True),
             "no chunk state": (no_chunk_state, True),
@@ -1813,20 +1914,35 @@ def serving(torch, ops, cfg, dev, record):
               f"sim latency {rec.latency_s * 1e3} ms, ops executed {rec.ops_executed}", flush=True)
         return out, rec
 
+    mod = ops.KERNELS["ssd_chunk_scan"]
+    plain_inter, plain_runs = mod.ssd_chunk_inter_plain, []
+
+    def watched_inter(*args):  # the plain step 2's loop over chunks, on the card
+        plain_runs.append(args[0].device.type)
+        return plain_inter(*args)
+
     ops.reset_launch_counts()  # counts start at 0 just before the serving path
-    with record():
-        cold = request("cold request", cold_p)
-        srv.anticipate(warm_p)
-        t0 = time.perf_counter()
-        srv.think(10.0)
-        torch.cuda.synchronize()
-        print(f"[serve] think(10): anticipated 1024-token prefill, wall "
-              f"{(time.perf_counter() - t0) * 1e3} ms", flush=True)
-        warm = request("warm request", warm_p)
-        again = request("resubmission", warm_p)
-        odd = request("one-token-chunk request", odd_p)
+    mod.ssd_chunk_inter_plain = watched_inter
+    try:
+        with record():
+            cold = request("cold request", cold_p)
+            srv.anticipate(warm_p)
+            t0 = time.perf_counter()
+            srv.think(10.0)
+            torch.cuda.synchronize()
+            print(f"[serve] think(10): anticipated 1024-token prefill, wall "
+                  f"{(time.perf_counter() - t0) * 1e3} ms", flush=True)
+            warm = request("warm request", warm_p)
+            again = request("resubmission", warm_p)
+            odd = request("one-token-chunk request", odd_p)
+    finally:
+        mod.ssd_chunk_inter_plain = plain_inter
     launches = ops.launch_counts()
     print("[serve] launches: " + json.dumps(launches))
+    check(not plain_runs, f"the served prefills ran the plain inter-chunk scan {plain_runs}")
+    check(launches["ssd_chunk_scan_inter"] == 3 * cfg.n_layers,
+          f"3 prefills launched the inter-chunk scan kernel {launches['ssd_chunk_scan_inter']} "
+          f"times, not {3 * cfg.n_layers}")
     check(launches["ssd_chunk_scan"] == 3 * cfg.n_layers,
           f"3 prefills launched ssd_chunk_scan {launches['ssd_chunk_scan']} times, "
           f"not {3 * cfg.n_layers}")
@@ -1852,7 +1968,6 @@ def serving(torch, ops, cfg, dev, record):
     check(np.array_equal(recomputed, warm[0].tokens), "warm tokens != a cold recompute")
 
     cold_t, odd_t = torch.tensor([cold_p], device=dev), torch.tensor([odd_p], device=dev)
-    mod = ops.KERNELS["ssd_chunk_scan"]
     plain = mod.ssd_chunk_scan_plain
     variants = scan_variants(torch, mod)
 
@@ -1938,11 +2053,18 @@ def serving(torch, ops, cfg, dev, record):
 
     # the one-token-chunk rule's cost: both prefills alone, synchronized
     walls = {}
-    for label, prompt_t in (("1024", cold_t), ("1000", odd_t)):
-        t0 = time.perf_counter()
-        pre(model, prompt_t)
-        torch.cuda.synchronize()
-        walls[label] = (time.perf_counter() - t0) * 1e3
+    scans = mod.launches_scan.value
+    mod.ssd_chunk_inter_plain = watched_inter
+    try:
+        for label, prompt_t in (("1024", cold_t), ("1000", odd_t)):
+            t0 = time.perf_counter()
+            pre(model, prompt_t)
+            torch.cuda.synchronize()
+            walls[label] = (time.perf_counter() - t0) * 1e3
+    finally:
+        mod.ssd_chunk_inter_plain = plain_inter
+    check(not plain_runs and mod.launches_scan.value - scans == 2 * cfg.n_layers,
+          "the timed prefills did not run the inter-chunk scan kernel once a layer")
     print(f"[serve] prefill wall: 1,024 tokens (chunks of 128) {walls['1024']} ms, 1,000 tokens "
           f"(one-token chunks) {walls['1000']} ms, factor {walls['1000'] / walls['1024']}",
           flush=True)
@@ -1963,15 +2085,16 @@ def serving(torch, ops, cfg, dev, record):
           f"ssd_cells forced {odd['cells']}", flush=True)
 
     # where a request's time goes: a 1,024- and a 1,000-token prefill, then
-    # decode steps; the inter-chunk scan (torch ops, a Python loop over the
-    # chunks) is a profiler range, read for its host and device time
-    inter = mod._inter_chunk
+    # decode steps; the inter-chunk scan (its wrapper: the decays' torch ops,
+    # then one ssd_scan launch) is a profiler range, read for its host and
+    # device time
+    inter = mod.ssd_chunk_inter
 
     def traced_inter(*args):
         with torch.profiler.record_function("ssd_inter_chunk"):
             return inter(*args)
 
-    mod._inter_chunk = traced_inter
+    mod.ssd_chunk_inter = traced_inter
     try:
         for label, fn in (("prefill 1024 tokens", lambda: pre(model, cold_t)),
                           ("prefill 1000 tokens", lambda: pre(model, odd_t)),
@@ -1980,16 +2103,18 @@ def serving(torch, ops, cfg, dev, record):
             wall, busy, copy, kern, ranges = profiled(torch, fn, ("ssd_inter_chunk",))
             ssd = sum(t for t, k in kern if any(f"ssd_{r}" in k for r in ("cells", "short",
                                                                           "wgmma")))
+            scan = sum(t for t, k in kern if "ssd_scan" in k)
             gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
                                                                           "cutlass")))
             host, device = ranges["ssd_inter_chunk"]
             print(f"[serve-trace] {label}: wall {wall} ms, device kernels {busy} ms "
-                  f"(ssd_chunk_scan {ssd} ms, GEMMs {gemm} ms, other {busy - ssd - gemm} ms), "
-                  f"device copies {copy} ms, device idle {100 * (1 - (busy + copy) / wall)}%; "
-                  f"inter-chunk scan: host {host} ms, its device work {device} ms; top: "
+                  f"(ssd_chunk_scan {ssd} ms, ssd_scan {scan} ms, GEMMs {gemm} ms, other "
+                  f"{busy - ssd - scan - gemm} ms), device copies {copy} ms, device idle "
+                  f"{100 * (1 - (busy + copy) / wall)}%; inter-chunk scan range: host {host} "
+                  f"ms, its device work {device} ms; top: "
                   + ", ".join(f"{k[:50]} {t}" for t, k in kern[:4]), flush=True)
     finally:
-        mod._inter_chunk = inter
+        mod.ssd_chunk_inter = inter
     del srv, model
     torch.cuda.empty_cache()
     return launches

@@ -8,9 +8,11 @@
 //
 // Replaces the Pallas kernel `_ssd_kernel` in src/repro/kernels/ssd_chunk.py
 // (pallas_call at line 103).  The reference always calls it with zero
-// inbound states, so the `h_in` terms are exactly 0 and are not computed;
-// the inter-chunk scan and the inbound-state correction stay in the wrapper
-// (`kernels.ops.ssd_scan`), as they lie outside the pallas_call there too.
+// inbound states, so the `h_in` terms are exactly 0 and are not computed.
+// The inter-chunk scan and the inbound-state correction, which the
+// reference runs after its pallas_call (lines 128-150, a lax.scan and an
+// einsum), are a fourth kernel here, `ssd_scan`, described below the
+// other three's entry points (repro_ssd_scan).
 //
 // Bound on an H100 SXM: bytes.  The function needs, per cell, C Bᵀ and M X
 // over the causal triangle only (T = L (L + 1) / 2 entries, the rest is
@@ -746,6 +748,299 @@ int by_width(const void* x, const void* log_a, const void* b, const void* c, int
   return run_wgmma<L, N, 128>(x, log_a, b, c, batch, S, H, P, G, y, state, st);
 }
 
+
+// --------------------------------------------------------------------------- //
+// The inter-chunk scan (ssd_scan): h_k = D_k h_{k-1} + S_k from h = 0, and   //
+// y = y_intra + exp(cum) C h_in, one launch.                                  //
+// --------------------------------------------------------------------------- //
+
+constexpr int SCAN_THREADS = 512;
+constexpr int SCAN_WARPS = SCAN_THREADS / 32;
+constexpr int SCAN_PS = 64;  // P columns a block: four a lane, sixteen lanes
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// One stage of the ring holds one unit (RT rows of one chunk): the rows' C
+// (float32, each row's even n first, then its odd n, zero past N), their
+// y_intra slab and exp(cum) and, for a chunk's last unit, its decay and its
+// state slab (each thread's own 4-column pieces, [NJ / 2][threads] float4).
+template <int NJ, int RT, typename TI>
+struct ScanLayout {
+  static constexpr int CW = SCAN_WARPS * NJ;  // a staged C row: the n the warps hold
+  static constexpr int S_BYTES = NJ / 2 * SCAN_THREADS * 16;
+  static constexpr int C_BYTES = RT * CW * 4;
+  static constexpr int Y_BYTES = RT * SCAN_PS * (int)sizeof(TI);
+  static constexpr int E_BYTES = ((RT + 1) * 4 + 15) / 16 * 16;
+  static constexpr int STAGE = S_BYTES + C_BYTES + Y_BYTES + E_BYTES;
+  static constexpr int PART_BYTES = SCAN_WARPS * RT * SCAN_PS * 4;
+  static constexpr int CPT = (RT * CW + SCAN_THREADS - 1) / SCAN_THREADS;  // C copies a thread
+  static constexpr int YPT = (RT * SCAN_PS + SCAN_THREADS - 1) / SCAN_THREADS;  // y_intra copies
+};
+
+// One block: sequence bt, head h, columns p0 .. p0 + 63.  Lane l of warp g
+// holds h[n, p] in registers for the whole walk, for the four columns p =
+// p0 + 4 (l % 16) + i and the rows n = g NJ + l / 16 + 2 jj (jj < NJ / 2;
+// NJ = 8 for N <= 128, 16 for N <= 256), so one 16-byte copy a row brings
+// its state values and a warp's copy reads two whole 256-byte rows.  The
+// sequence's rows are walked in units of RT rows; a unit's data arrives by
+// cp.async DEPTH - 1 units ahead.  Per unit and row: each lane sums C[l, n]
+// h[n, p] over its rows in order (fmaf; one 16-byte load of C feeds 16),
+// the two half-warps' sums are added (the warp's n block: even rows + odd
+// rows), the warps' sums are added in warp order through shared memory (the
+// N sum's order depends on N alone), and y = y_intra + exp(cum) * sum (a
+// multiply, then an add).  After a chunk's last unit: h = D * h + S,
+// __fmul_rn then __fadd_rn.  FULL (N = 16 NJ, P a multiple of 64, the
+// states 16-byte aligned: the serving shape) drops every bounds test.
+template <int NJ, int RT, int DEPTH, bool FULL, typename TI, typename TO>
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+ssd_scan(const TI* __restrict__ y_intra, const float* __restrict__ state,
+         const float* __restrict__ ecum, const float* __restrict__ c, int S, int H, int P,
+         int N, int L, TO* __restrict__ y, float* __restrict__ h_final) {
+  using Lay = ScanLayout<NJ, RT, TI>;
+  constexpr int JJ = NJ / 2, CW = Lay::CW, CPT = Lay::CPT, YPT = Lay::YPT;
+  constexpr int EPW = 4 / (int)sizeof(TI);  // values a 4-byte copy moves
+  extern __shared__ __align__(16) uint8_t scan_smem[];
+  float* part = reinterpret_cast<float*>(scan_smem + DEPTH * Lay::STAGE);  // [warp][RT][64]
+
+  const int p0 = blockIdx.x * SCAN_PS, h = blockIdx.y, bt = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, g = tid >> 5, half = lane >> 4;
+  const int pc = p0 + 4 * (lane & 15);  // this lane's first column
+  const int nc = S / L, nt = (L + RT - 1) / RT, units = nc * nt;
+  const int groups = FULL ? SCAN_WARPS : (N + NJ - 1) / NJ;  // warps that hold some n
+  const int pw = min(SCAN_PS, P - p0);                         // live columns of the slab
+  const int ywords = pw / EPW;
+  const long long row0 = (long long)bt * S, hp = (long long)H * P;
+  // whole 16-byte state pieces: P a multiple of 4 and the states aligned
+  const bool vec = FULL || (P % 4 == 0 && ((uintptr_t)state & 15) == 0);
+  // this thread's state pieces of chunk 0 (row g NJ + half), and a chunk's stride
+  const float* s_mine =
+      state + ((long long)bt * nc * H + h) * (long long)N * P + (long long)(g * NJ + half) * P + pc;
+  const long long s_chunk = (long long)H * N * P;
+
+  // the copies this thread makes of a unit's C rows and y_intra slab: row
+  // (RT: none), then source and destination offsets
+  int c_row[CPT], c_src[CPT], c_dst[CPT], y_row[YPT], y_col[YPT];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int e = tid + i * SCAN_THREADS, l = e / N, n = e - l * N;
+    c_row[i] = e < RT * N ? l : RT;
+    c_src[i] = e;
+    c_dst[i] = l * CW + (n & 1) * (CW / 2) + (n >> 1);
+  }
+#pragma unroll
+  for (int i = 0; i < YPT; ++i) {
+    const int e = tid + i * SCAN_THREADS, l = e / ywords;
+    y_row[i] = e < RT * ywords ? l : RT;
+    y_col[i] = (e - l * ywords) * EPW;
+  }
+
+  if (!FULL) {  // zero every stage's C rows once: the copies fill n < N
+    for (int i = tid; i < DEPTH * RT * CW; i += SCAN_THREADS)
+      reinterpret_cast<float*>(scan_smem + (i / (RT * CW)) * Lay::STAGE + Lay::S_BYTES)
+          [i % (RT * CW)] = 0.0f;
+    __syncthreads();
+  }
+
+  auto fetch = [&](int k, int r, int st) {
+    uint8_t* base = scan_smem + st * Lay::STAGE;
+    float4* ss = reinterpret_cast<float4*>(base);
+    float* cs = reinterpret_cast<float*>(base + Lay::S_BYTES);
+    TI* ys = reinterpret_cast<TI*>(base + Lay::S_BYTES + Lay::C_BYTES);
+    float* es = reinterpret_cast<float*>(base + Lay::S_BYTES + Lay::C_BYTES + Lay::Y_BYTES);
+    const int t0 = k * L + r * RT, rows = min(RT, L - r * RT);
+    const float* cr = c + (row0 + t0) * N;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+      if (c_row[i] < rows) cp_async4(cs + c_dst[i], cr + c_src[i]);
+    const TI* yr = y_intra + (row0 + t0) * hp + (long long)h * P + p0;
+#pragma unroll
+    for (int i = 0; i < YPT; ++i)
+      if (y_row[i] < rows) cp_async4(ys + y_row[i] * SCAN_PS + y_col[i], yr + y_row[i] * hp + y_col[i]);
+    if (tid < rows) cp_async4(es + tid, ecum + (row0 + t0 + tid) * H + h);
+    if (r == nt - 1) {  // the chunk's decay (its last exp(cum)) and states
+      if (tid == 0) cp_async4(es + RT, ecum + (row0 + k * L + L - 1) * H + h);
+      const float* sk = s_mine + k * s_chunk;
+#pragma unroll
+      for (int jj = 0; jj < JJ; ++jj) {
+        float4* dst = ss + jj * SCAN_THREADS + tid;
+        const float* src = sk + (long long)(2 * jj) * P;
+        if (FULL) {
+          cp_async16(dst, src);
+        } else if (g * NJ + half + 2 * jj < N && pc < P) {
+          if (vec) {
+            cp_async16(dst, src);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (pc + i < P) cp_async4(reinterpret_cast<float*>(dst) + i, src + i);
+          }
+        }
+      }
+    }
+  };
+
+  float hr[JJ][4];
+#pragma unroll
+  for (int jj = 0; jj < JJ; ++jj)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hr[jj][i] = 0.0f;
+
+  int ki = 0, ri = 0, si = 0;  // the next unit to copy: its chunk, unit in chunk, stage
+  auto next = [&](int& k_, int& r_, int& s_) {
+    if (++r_ == nt) r_ = 0, ++k_;
+    if (++s_ == DEPTH) s_ = 0;
+  };
+#pragma unroll
+  for (int i = 0; i < DEPTH - 1; ++i) {
+    if (i < units) fetch(ki, ri, si), next(ki, ri, si);
+    cp_async_commit();
+  }
+
+  int k = 0, r = 0, s = 0;  // the unit walked
+  for (int u = 0; u < units; ++u, next(k, r, s)) {
+    cp_async_wait<DEPTH - 2>();  // this thread's copies of unit u have landed
+    __syncthreads();             // everyone's have, and unit u - 1's stage is free
+    if (u + DEPTH - 1 < units) fetch(ki, ri, si), next(ki, ri, si);
+    cp_async_commit();
+
+    const uint8_t* base = scan_smem + s * Lay::STAGE;
+    const float4* ss = reinterpret_cast<const float4*>(base);
+    const float* cs = reinterpret_cast<const float*>(base + Lay::S_BYTES);
+    const TI* ys = reinterpret_cast<const TI*>(base + Lay::S_BYTES + Lay::C_BYTES);
+    const float* es =
+        reinterpret_cast<const float*>(base + Lay::S_BYTES + Lay::C_BYTES + Lay::Y_BYTES);
+    const int t0 = k * L + r * RT, rows = min(RT, L - r * RT);
+
+    // this lane's part of C h_in for each row: its rows in order
+    float acc[RT][4];
+#pragma unroll
+    for (int l = 0; l < RT; ++l)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[l][i] = 0.0f;
+#pragma unroll
+    for (int l = 0; l < RT; ++l) {
+      const float* cl = cs + l * CW + half * (CW / 2) + g * JJ;
+#pragma unroll
+      for (int jb = 0; jb < JJ; jb += 4) {
+        const float4 cv = *reinterpret_cast<const float4*>(cl + jb);
+        const float cj[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[l][i] = fmaf(cj[j], hr[jb + j][i], acc[l][i]);
+      }
+    }
+    // the warp's sum: the two half-warps' (IEEE addition commutes, so both
+    // halves hold the same bits); then to shared memory
+#pragma unroll
+    for (int l = 0; l < RT; ++l) {
+      float4 v;
+      v.x = acc[l][0] + __shfl_xor_sync(0xffffffffu, acc[l][0], 16);
+      v.y = acc[l][1] + __shfl_xor_sync(0xffffffffu, acc[l][1], 16);
+      v.z = acc[l][2] + __shfl_xor_sync(0xffffffffu, acc[l][2], 16);
+      v.w = acc[l][3] + __shfl_xor_sync(0xffffffffu, acc[l][3], 16);
+      if (half == 0)
+        *reinterpret_cast<float4*>(part + (g * RT + l) * SCAN_PS + 4 * (lane & 15)) = v;
+    }
+    __syncthreads();
+
+    // the warps' sums in warp order, then y
+    for (int e = tid; e < rows * SCAN_PS; e += SCAN_THREADS) {
+      const int l = e / SCAN_PS, pp = e % SCAN_PS;
+      if (FULL || pp < pw) {
+        float sum = part[l * SCAN_PS + pp];
+#pragma unroll
+        for (int w = 1; w < SCAN_WARPS; ++w)
+          if (w < groups) sum += part[(w * RT + l) * SCAN_PS + pp];
+        const float out = __fadd_rn(to_f(ys[l * SCAN_PS + pp]), __fmul_rn(es[l], sum));
+        y[(row0 + t0 + l) * hp + (long long)h * P + p0 + pp] = from_f<TO>(out);
+      }
+    }
+
+    if (r == nt - 1) {  // the chunk's end: h = D h + S, no contraction
+      const float d = es[RT];
+#pragma unroll
+      for (int jj = 0; jj < JJ; ++jj) {
+        if (FULL || (g * NJ + half + 2 * jj < N && pc < P)) {
+          const float4 sv = ss[jj * SCAN_THREADS + tid];
+          const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (FULL || pc + i < P) hr[jj][i] = __fadd_rn(__fmul_rn(d, hr[jj][i]), sa[i]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* hf = h_final + ((long long)bt * H + h) * (long long)N * P + (long long)(g * NJ + half) * P + pc;
+#pragma unroll
+  for (int jj = 0; jj < JJ; ++jj) {
+    float* row = hf + (long long)(2 * jj) * P;
+    if (FULL) {
+      *reinterpret_cast<float4*>(row) = make_float4(hr[jj][0], hr[jj][1], hr[jj][2], hr[jj][3]);
+    } else if (g * NJ + half + 2 * jj < N) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (pc + i < P) row[i] = hr[jj][i];
+    }
+  }
+}
+
+template <int NJ, int RT, int DEPTH, bool FULL, typename TI, typename TO>
+int run_scan(const void* y_intra, const void* state, const void* ecum, const void* c,
+             int batch, int S, int H, int P, int N, int L, void* y, void* h_final,
+             cudaStream_t st) {
+  using Lay = ScanLayout<NJ, RT, TI>;
+  constexpr int smem = DEPTH * Lay::STAGE + Lay::PART_BYTES;
+  static_assert(smem <= SMEM_MAX, "ssd_scan: the ring does not fit in shared memory");
+  auto kernel = ssd_scan<NJ, RT, DEPTH, FULL, TI, TO>;
+  int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != 0) return e;
+  const dim3 grid((unsigned)((P + SCAN_PS - 1) / SCAN_PS), (unsigned)H, (unsigned)batch);
+  kernel<<<grid, SCAN_THREADS, smem, st>>>((const TI*)y_intra, (const float*)state,
+                                           (const float*)ecum, (const float*)c, S, H, P, N,
+                                           L, (TO*)y, (float*)h_final);
+  return (int)cudaGetLastError();
+}
+
+// The ring by unit size (as many units ahead as fit) and state size (NJ);
+// chunks of 8 rows or more take 8 rows a unit, shorter ones one.
+template <typename TI, typename TO>
+int scan_by_size(const void* y_intra, const void* state, const void* ecum, const void* c,
+                 int batch, int S, int H, int P, int N, int L, void* y, void* h_final,
+                 cudaStream_t st) {
+#define REPRO_SCAN(NJ, RT, DEPTH, FULL)                                                   \
+  return run_scan<NJ, RT, DEPTH, FULL, TI, TO>(y_intra, state, ecum, c, batch, S, H, P, N, \
+                                               L, y, h_final, st)
+  const bool full = N == SCAN_WARPS * 8 && P % SCAN_PS == 0 && ((uintptr_t)state & 15) == 0;
+  if (full) {
+    if (L >= 8) REPRO_SCAN(8, 8, 4, true);
+    REPRO_SCAN(8, 1, 6, true);
+  }
+  if (N <= SCAN_WARPS * 8) {
+    if (L >= 8) REPRO_SCAN(8, 8, 4, false);
+    REPRO_SCAN(8, 1, 6, false);
+  }
+  if (L >= 8) REPRO_SCAN(16, 8, 2, false);
+  REPRO_SCAN(16, 1, 3, false);
+#undef REPRO_SCAN
+}
+
 }  // namespace
 
 // x T[batch, S, H, P]; log_a f32[batch, S, H]; b, c T[batch, S, N]; T by
@@ -797,4 +1092,60 @@ REPRO_EXPORT int repro_ssd_chunk_wgmma(const void* x, const void* log_a, const v
   if (L == 64) return by_width<64, 128>(x, log_a, b, c, batch, S, H, P, G, y, state, st);
   if (N == 64) return by_width<128, 64>(x, log_a, b, c, batch, S, H, P, G, y, state, st);
   return by_width<128, 128>(x, log_a, b, c, batch, S, H, P, G, y, state, st);
+}
+
+// The inter-chunk scan (ssd_scan), after the intra-chunk pass: y_intra
+// TI[batch, S, H, P] and the chunk states f32[batch, S / L, H, N, P] from
+// it, ecum f32[batch, S, H] (exp of the inclusive cumsum of log_a within
+// each chunk; a chunk's last row is its decay D) and c f32[batch, S, N];
+// TI by `tin`, y by `tout` (0 float32, 1 bfloat16; a bfloat16 y_intra needs
+// a bfloat16 y, an even P and a 4-byte aligned start).  N <= 256.  Outputs
+// y TO[batch, S, H, P] and h_final f32[batch, H, N, P].
+//
+// Replaces the code after the pallas_call of `ssd_chunk_scan` in
+// src/repro/kernels/ssd_chunk.py (lines 128-150): the lax.scan h_k = D_k
+// h_{k-1} + S_k (line 140) and the correction einsum.  Bound on an H100
+// SXM: at one-token chunks, bytes (the states, 2.62 GB a layer at 1,000
+// tokens x 80 heads x N 128 x P 64, read once: 0.78 ms); at chunks of 128,
+// float32 operations (2 S H N P for C h_in, 1.34 GFLOP at 1,024 tokens:
+// 20 µs at 67 TFLOP/s).
+//
+// Design.  One block of 512 threads per (sequence, head, 64-column slab of
+// P); the block holds its h slab in registers and walks the chunks in
+// order, so h_in is never stored and each state is read once.  The walk is
+// serial, but the loads of later chunks do not depend on h: each unit's C
+// rows, y_intra slab, exp(cum) and (at a chunk's end) decay and state slab
+// go into a ring of shared-memory stages by cp.async, DEPTH - 1 units ahead.
+// The state slab comes in 16-byte pieces (4-byte ones where P is no
+// multiple of 4), each copied by the thread that will use it.  A walk step
+// costs a fixed number of instructions a thread whatever the chunk holds,
+// and at one-token chunks (a step a token) that count, not the memory, set
+// the pace of the first designs: the index work is carried from step to
+// step, C is staged as float32 with even and odd n apart (one 16-byte load
+// feeds 16 FMAs), and the serving shape drops every bounds test (FULL;
+// PERF.md).  h matches the plain version bit for bit on the card: exp(cum)
+// comes in from the same torch ops, and the update is a rounded multiply,
+// then a rounded add.  The sum over N runs in an order fixed by N
+// alone (each warp's n block, even rows then odd rows, each in order with
+// fmaf; then the warps in order), never by batch or grid, and no float
+// atomics are used.
+REPRO_EXPORT int repro_ssd_scan(const void* y_intra, const void* state, const void* ecum,
+                                const void* c, int batch, int S, int H, int P, int N, int L,
+                                int tin, int tout, void* y, void* h_final, void* stream) {
+  if (batch <= 0 || batch > 65535 || S <= 0 || H <= 0 || H > 65535 || P <= 0 || N <= 0 ||
+      N > 2 * SCAN_WARPS * 8 || L <= 0 || S % L != 0 || (tin != 0 && tin != 1) ||
+      (tout != 0 && tout != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tin == 1) {
+    if (tout != 1 || P % 2 != 0 || ((uintptr_t)y_intra & 3) != 0)
+      return (int)cudaErrorInvalidValue;
+    return scan_by_size<__nv_bfloat16, __nv_bfloat16>(y_intra, state, ecum, c, batch, S, H, P,
+                                                      N, L, y, h_final, st);
+  }
+  if (tout == 1)
+    return scan_by_size<float, __nv_bfloat16>(y_intra, state, ecum, c, batch, S, H, P, N, L, y,
+                                              h_final, st);
+  return scan_by_size<float, float>(y_intra, state, ecum, c, batch, S, H, P, N, L, y, h_final,
+                                    st);
 }

@@ -37,9 +37,17 @@
 //     waits for launch 1 with griddepcontrol.wait), applies the output
 //     sign.  A row short enough for one block takes topk_merge alone.
 // Pads and missing values are -inf, which never beats the threshold; a row
-// with fewer than k values above -inf returns -inf for the rest.  A NaN is
-// never selected: it compares false with the threshold, so it is skipped
-// as if it were absent (the frame path sends rows with NaN to numpy).  The
+// with fewer than k values above -inf returns -inf for the rest.  NaN ranks
+// above every value, as in the reference (its rounds of max and argmax put
+// NaN first) and in the plain version (a descending sort): a NaN compares
+// false with the threshold, so it never enters a queue or a network, and
+// each lane counts the NaNs among the values it loads instead.  The batch
+// vote costs no more for it (one compare a value, "above the threshold or
+// unordered"); only a batch that holds a NaN, or a value that beats the
+// threshold, counts them.  A block sums its warps' counts and emits min(count,
+// k) NaNs first, then the k - min(count, k) largest values; the merge counts
+// the NaNs among the spans' winners the same way, so a row with c NaNs gives
+// min(c, k) of them, for `largest` either way (a negated NaN is a NaN).  The
 // result is exact (values only; +0.0 and -0.0 compare equal and may trade
 // places): which lane or block sees a value depends on the row's start
 // address and length, but the k largest values, sorted, do not, so
@@ -62,8 +70,8 @@ constexpr unsigned FULL = 0xffffffffu;
 // lane `lane`.  A compare-exchange is one shuffle and one fminf or fmaxf:
 // written as compares and selects, a sort and merge of 32 values took
 // several times as many cycles on an H100 (PERF.md).  No NaN reaches the
-// networks (only values that beat the threshold enter a queue), so the
-// pair keeps its two values.
+// networks (only values that beat the threshold enter a queue; NaNs are
+// counted apart), so the pair keeps its two values.
 
 // Sort ascending (a full bitonic network).
 template <int R>
@@ -166,8 +174,8 @@ struct WarpTopK {
   }
 
   // Before the warp's first step: each lane's R largest loaded values go
-  // straight into the list (and are taken out of `c`), so the threshold
-  // starts high instead of at -inf.
+  // straight into the list (and are replaced by -inf in `c`), so the
+  // threshold starts high instead of at -inf.
   __device__ __forceinline__ void seed(float (&c)[STEP]) {
     float top[R];
 #pragma unroll
@@ -181,7 +189,7 @@ struct WarpTopK {
         at = better ? i : at;
       }
 #pragma unroll
-      for (int i = 0; i < STEP; ++i) c[i] = i == at ? CUDART_NAN_F : c[i];
+      for (int i = 0; i < STEP; ++i) c[i] = i == at ? -CUDART_INF_F : c[i];
       top[r] = best;
     }
     sort_asc<R>(top, lane);
@@ -212,7 +220,8 @@ struct WarpTopK {
 };
 
 // Rows of n values, `blocks` blocks a row; out[row, blk, :k] = sign_out *
-// the k largest of sign_in * x over the block's span, descending.
+// the k largest of sign_in * x over the block's span, descending, NaN
+// ranking above every value.
 template <int R>
 __device__ __forceinline__ void select_rows(const float* __restrict__ x, long long n,
                                             int blocks, int k, float sign_in, float sign_out,
@@ -226,10 +235,12 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ x, long lo
   const long long s0 = min(n, blk * span), s1 = min(n, s0 + span);
   const float* xr = x + row * n;
 
+  __shared__ unsigned nans[WARPS];
   W w;
   w.init(queue[warp], k, lane);
+  unsigned nan = 0;  // NaNs among the values this lane loaded
 
-  // NaN marks an absent value: it never beats the threshold
+  // -inf marks an absent value: it never beats the threshold
   const int off = (int)(((uintptr_t)(xr + s0) & 15) >> 2);  // floats past a 16-byte boundary
   const long long head = min(s1 - s0, (long long)((4 - off) & 3));
   const long long a = s0 + head;
@@ -238,17 +249,18 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ x, long lo
   if (warp == 0) {  // at most three single values before the vectors, three after
     const long long i = lane < 3 ? s0 + lane : b + lane - 3;
     const bool in = lane < 3 ? i < a : (lane < 6 && i < s1);
-    w.push(in ? sign_in * xr[i] : CUDART_NAN_F);
+    const float v = in ? sign_in * xr[i] : -CUDART_INF_F;
+    nan += v != v;
+    w.push(v);
   }
   const float4* xv = reinterpret_cast<const float4*>(xr + a);
+  const float gone = -CUDART_INF_F * sign_in;  // an absent value, -inf once signed
   // a step: UNROLL vectors a lane
   auto load = [&](long long v0, float (&c)[STEP]) {
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const long long i = v0 + u * THREADS + tid;
-      const float4 q = i < nvec ? __ldcs(xv + i)
-                                : make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F,
-                                              CUDART_NAN_F);
+      const float4 q = i < nvec ? __ldcs(xv + i) : make_float4(gone, gone, gone, gone);
       c[4 * u + 0] = sign_in * q.x;
       c[4 * u + 1] = sign_in * q.y;
       c[4 * u + 2] = sign_in * q.z;
@@ -256,7 +268,7 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ x, long lo
     }
   };
   // the next step's loads go out before this step is offered; past the
-  // span a load is all NaN and reads no memory.  (Putting the second
+  // span a load is all -inf and reads no memory.  (Putting the second
   // step's loads before the seed measured slower on an H100; PERF.md.)
   float c[STEP], nxt[STEP];
   if (nvec > 0) {
@@ -267,12 +279,17 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ x, long lo
     load(v0 + THREADS * UNROLL, nxt);
 #pragma unroll
     for (int i0 = 0; i0 < STEP; i0 += BATCH) {
+      // one compare a value: above the threshold, or unordered (a NaN: the
+      // threshold never is one)
       bool any = false;
 #pragma unroll
-      for (int i = i0; i < i0 + BATCH; ++i) any |= c[i] > w.th;
+      for (int i = i0; i < i0 + BATCH; ++i) any |= !(c[i] <= w.th);
       if (__any_sync(FULL, any)) {
 #pragma unroll
-        for (int i = i0; i < i0 + BATCH; ++i) w.push(c[i]);
+        for (int i = i0; i < i0 + BATCH; ++i) {
+          nan += c[i] != c[i];
+          w.push(c[i]);
+        }
         w.drain();
       }
     }
@@ -280,6 +297,8 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ x, long lo
     for (int i = 0; i < STEP; ++i) c[i] = nxt[i];
   }
   w.finish();
+  nan = __reduce_add_sync(FULL, nan);
+  if (lane == 0) nans[warp] = nan;
 
   // the warps' lists fold pairwise in a tree, each read back ascending
   float* mine = queue[warp];
@@ -299,12 +318,14 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ x, long lo
     __syncthreads();
   }
   if (warp != 0) return;
-  float* dst = out + (row * blocks + blk) * (long long)k;
+  // min(count, k) NaNs first (the warps' counts summed in a fixed order),
+  // then the largest values; warp 0's list is in queue[0] after the tree
+  long long total = 0;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int e = r * 32 + lane;
-    if (e < k) dst[e] = sign_out * w.lst[r];
-  }
+  for (int i = 0; i < WARPS; ++i) total += nans[i];
+  const int m = (int)min(total, (long long)k);
+  float* dst = out + (row * blocks + blk) * (long long)k;
+  for (int e = lane; e < k; e += 32) dst[e] = e < m ? CUDART_NAN_F : sign_out * mine[e - m];
 }
 
 // launch 1: the spans of each row

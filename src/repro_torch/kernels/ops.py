@@ -53,7 +53,8 @@ COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
                  "flash_attention_bwd_dkdv_wgmma": _fa.launches_dkdv_wgmma,
                  "ssd_chunk_scan_wgmma": _ssd.launches_wgmma,
                  "ssd_chunk_scan_short": _ssd.launches_short,
-                 "ssd_chunk_scan_cells": _ssd.launches_cells})
+                 "ssd_chunk_scan_cells": _ssd.launches_cells,
+                 "ssd_chunk_scan_inter": _ssd.launches_scan})
 
 
 @contextmanager

@@ -24,8 +24,17 @@ H, N, P))``.  It is two steps, as in the reference
    tensors, and in :func:`ssd_chunk_scan_plain`, torch ops.  ``launches``
    counts every launch, ``launches_wgmma``, ``launches_short`` and
    ``launches_cells`` those of each kernel.
-2. the inter-chunk state scan and the inbound-state correction
-   ``y = y_intra + exp(cum) C h_in``, in torch ops on either device.
+2. the inter-chunk state scan h_k = D_k h_{k-1} + S_k from h = 0 (D_k =
+   exp(Σ log_a over chunk k), the last row of exp(cum)) and the
+   inbound-state correction ``y = y_intra + exp(cum) C h_in``.  For CUDA
+   tensors this is one launch of ``ssd_scan`` in ``csrc/ssd_chunk.cu``
+   (:func:`ssd_chunk_inter`, counted by ``launches_scan``): one block per
+   (sequence, head, 64 columns of P) holds h in registers and walks the
+   chunks in order, so h_in is never stored; exp(cum), and D_k with it,
+   comes from the same torch ops as in the plain version, so h_final equals
+   the plain version's bit for bit.  For CPU tensors, and in
+   :func:`ssd_chunk_inter_plain`, torch ops (a loop over the chunks, then
+   one einsum).
 """
 from __future__ import annotations
 
@@ -43,10 +52,12 @@ launches = LaunchCounter("ssd_chunk_scan")
 launches_wgmma = LaunchCounter("ssd_chunk_scan_wgmma")
 launches_short = LaunchCounter("ssd_chunk_scan_short")
 launches_cells = LaunchCounter("ssd_chunk_scan_cells")
+launches_scan = LaunchCounter("ssd_chunk_scan_inter")
 
 SHORT_MAX_L = 16  # == SHORT_MAX_L in csrc/ssd_chunk.cu: past it ssd_cells is faster
 SHORT_SMEM = 48 * 1024  # shared memory a block of ssd_short aims at: several blocks an SM
 SHORT_BLOCKS_PER_SM = 16  # so that the last wave's tail is short
+SCAN_MAX_N = 256  # the largest state size ssd_scan holds in registers
 
 
 def ssd_route(dtype: torch.dtype, L: int, N: int, P: int) -> str:
@@ -117,23 +128,34 @@ def ssd_chunk_intra_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
 def _fns():
     """→ {route: C entry point}: ``repro_ssd_chunk`` (ssd_cells, given the
     type code), ``repro_ssd_chunk_wgmma`` (ssd_wgmma, given the heads a
-    block walks) and ``repro_ssd_chunk_short`` (ssd_short, given both)."""
+    block walks), ``repro_ssd_chunk_short`` (ssd_short, given both) and
+    ``repro_ssd_scan`` (the inter-chunk scan, ssd_scan)."""
     lib = _build.load("ssd_chunk")
     args = [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, P, P, P]
     return {"cells": bind(lib, "repro_ssd_chunk", args),
             "wgmma": bind(lib, "repro_ssd_chunk_wgmma", args),
-            "short": bind(lib, "repro_ssd_chunk_short", args[:11] + [I32] + args[11:])}
+            "short": bind(lib, "repro_ssd_chunk_short", args[:11] + [I32] + args[11:]),
+            "scan": bind(lib, "repro_ssd_scan", [P] * 4 + [I32] * 8 + [P] * 3)}
 
 
-def _inter_chunk(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Tensor,
-                 c: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Step 2: h_k = exp(Σ log_a over chunk k) h_{k-1} + state_k from h = 0,
-    then y = y_intra + exp(cum) C h_in, cast to ``dtype``."""
+def chunk_decays(log_a: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """exp(cum) (batch, nc, L, H) float32: exp of the inclusive cumsum of
+    log_a within each chunk; its last row is the chunk's decay D_k = exp(Σ
+    log_a over chunk k).  Both versions of step 2 take them from here, so
+    their h agree bit for bit."""
+    bt, S, H = log_a.shape
+    return torch.exp(log_a.float().reshape(bt, n_chunks, S // n_chunks, H).cumsum(2))
+
+
+def ssd_chunk_inter_plain(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Tensor,
+                          c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 2 in torch ops: h_k = D_k h_{k-1} + state_k from h = 0, then y =
+    y_intra + exp(cum) C h_in → (y in y_intra's type, h_final f32)."""
     bt, S, H, Pd = y_intra.shape
     nc, N = state.shape[1], state.shape[3]
     L = S // nc
-    la = log_a.float().reshape(bt, nc, L, H)
-    chunk_decay = torch.exp(la.sum(2))  # (bt, nc, H)
+    ecum = chunk_decays(log_a, nc)
+    chunk_decay = ecum[:, :, -1]  # (bt, nc, H)
     h = torch.zeros((bt, H, N, Pd), dtype=torch.float32, device=y_intra.device)
     h_in = []
     for k in range(nc):
@@ -141,9 +163,49 @@ def _inter_chunk(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Tensor
         h = chunk_decay[:, k, :, None, None] * h + state[:, k]
     ch = torch.einsum("bnlk,bnhkp->bnlhp", c.float().reshape(bt, nc, L, N),
                       torch.stack(h_in, 1))
-    cum = la.cumsum(2)
-    y = y_intra.float().reshape(bt, nc, L, H, Pd) + torch.exp(cum)[..., None] * ch
-    return y.reshape(bt, S, H, Pd).to(dtype), h
+    y = y_intra.float().reshape(bt, nc, L, H, Pd) + ecum[..., None] * ch
+    return y.reshape(bt, S, H, Pd).to(y_intra.dtype), h
+
+
+def ssd_chunk_inter(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Tensor,
+                    c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 2 on CUDA tensors: one launch of ``ssd_scan`` → (y, h_final) as
+    :func:`ssd_chunk_inter_plain`.  The kernel takes C in float32 (its rows
+    are staged as float32 either way); a bf16 y_intra with an odd P, or off
+    a 4-byte boundary, goes to it as float32 too (its 4-byte copies move bf16
+    values in pairs)."""
+    if y_intra.dim() != 4 or state.dim() != 5 or log_a.dim() != 3 or c.dim() != 3:
+        raise ValueError(f"ssd_chunk_inter: unsupported ranks y_intra {tuple(y_intra.shape)}, "
+                         f"state {tuple(state.shape)}, log_a {tuple(log_a.shape)}, "
+                         f"c {tuple(c.shape)}")
+    bt, S, H, Pd = y_intra.shape
+    nc, N = state.shape[1], state.shape[3]
+    if (nc <= 0 or S % nc or state.shape != (bt, nc, H, N, Pd) or log_a.shape != (bt, S, H)
+            or c.shape != (bt, S, N) or not 0 < N <= SCAN_MAX_N):
+        raise ValueError(f"ssd_chunk_inter: unsupported shapes y_intra {tuple(y_intra.shape)}, "
+                         f"state {tuple(state.shape)}, log_a {tuple(log_a.shape)}, "
+                         f"c {tuple(c.shape)}")
+    if y_intra.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_inter: unsupported device {y_intra.device}")
+    dev, dt = y_intra.device, y_intra.dtype
+    if dt not in DTYPES:
+        raise TypeError(f"ssd_chunk_inter: unsupported type {dt}")
+    require(y_intra, "y_intra", None, 4)
+    require(state, "state", torch.float32, 5, dev)
+    require(log_a, "log_a", torch.float32, 3, dev)
+    require(c, "c", dt, 3, dev)
+    ecum = chunk_decays(log_a, nc)
+    c = c.float()
+    tin = DTYPES[dt]
+    if tin and (Pd % 2 or y_intra.data_ptr() % 4):
+        y_intra, tin = y_intra.float(), 0
+    y = torch.empty((bt, S, H, Pd), dtype=dt, device=dev)
+    h = torch.empty((bt, H, N, Pd), dtype=torch.float32, device=dev)
+    check_launch("ssd_chunk_inter", _fns()["scan"](
+        y_intra.data_ptr(), state.data_ptr(), ecum.data_ptr(), c.data_ptr(),
+        bt, S, H, Pd, N, S // nc, tin, DTYPES[dt], y.data_ptr(), h.data_ptr(), stream_ptr(dev)))
+    launches_scan.add()
+    return y, h
 
 
 def ssd_chunk_scan_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
@@ -151,17 +213,18 @@ def ssd_chunk_scan_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     """→ (y (batch, S, H, P) in x's type, h_final f32 (batch, H, N, P)),
     all in torch ops."""
     y_intra, state = ssd_chunk_intra_plain(x, log_a, b, c, chunk)
-    return _inter_chunk(y_intra, state, log_a, c, x.dtype)
+    return ssd_chunk_inter_plain(y_intra, state, log_a, c)
 
 
 def ssd_chunk_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                    chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (y, h_final) as :func:`ssd_chunk_scan_plain`.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel for step 1 (or raise)."""
+    plain version; CUDA tensors launch one kernel for each step (or
+    raise)."""
     if x.device.type == "cpu":
         return ssd_chunk_scan_plain(x, log_a, b, c, chunk)
     y_intra, state = ssd_chunk_intra(x, log_a, b, c, chunk)
-    return _inter_chunk(y_intra, state, log_a, c, x.dtype)
+    return ssd_chunk_inter(y_intra, state, log_a, c)
 
 
 def ssd_chunk_intra(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -4,9 +4,11 @@
 :func:`topk_plain` for CPU tensors.  The kernel is a threshold-filtered
 select: ``topk_blocks`` blocks a row each keep their span's k largest
 values, then one block a row merges those winners.  ``largest=False``
-negates on the way in and out, as the reference kernel does.  Values only,
-so the result is exact whatever the order of selection; +0.0 and -0.0
-compare equal and may trade places.
+negates on the way in and out, as the reference kernel does.  NaN ranks
+above every value, for ``largest`` either way, as in the reference and in
+:func:`topk_plain`: the kernel counts a row's NaNs and emits min(count, k)
+of them first.  Values only, so the result is exact whatever the order of
+selection; +0.0 and -0.0 compare equal and may trade places.
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ launches = LaunchCounter("topk")
 
 
 def topk_plain(xs: torch.Tensor, k: int, largest: bool = True) -> torch.Tensor:
-    """(R, n) f32 → (R, k) f32, descending (ascending if not ``largest``);
-    a row of fewer than k values is padded with the losing infinity."""
+    """(R, n) f32 → (R, k) f32, descending (ascending if not ``largest``),
+    NaN first either way; a row of fewer than k values is padded with the
+    losing infinity."""
     cur = xs if largest else -xs
     if cur.shape[1] < k:
         cur = torch.nn.functional.pad(cur, (0, k - cur.shape[1]), value=float("-inf"))

@@ -1,9 +1,10 @@
 """Mamba-2 block (SSD — state-space duality, arXiv:2405.21060).
 
-Prefill runs the chunked SSD algorithm (``kernels.ops.ssd_scan``: the
-``ssd_chunk_scan`` kernel for the intra-chunk part, then the cheap
-inter-chunk state scan); decode is the O(1) recurrent update
-``h ← a·h + B xᵀ, y = C h`` in plain torch ops, as in the reference.
+Prefill runs the chunked SSD algorithm (``kernels.ops.ssd_scan``: on the
+card one kernel launch for the intra-chunk part, then one for the
+inter-chunk state scan and its correction); decode is the O(1) recurrent
+update ``h ← a·h + B xᵀ, y = C h`` in plain torch ops, as in the
+reference.
 
 Block structure (Mamba-2): in_proj → (z gate, x, B, C, dt) → causal conv1d on
 (x, B, C) → SSD → gated RMSNorm → out_proj.

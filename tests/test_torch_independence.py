@@ -43,6 +43,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import sys\n"
         "import repro_torch.frame, repro_torch.kernels.ops, repro_torch.frame.convert\n"
         "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
+        "import repro_torch.serve.multitenant\n"
         "import repro_torch.models.convert\n"
         "import repro_torch.train, repro_torch.ckpt, repro_torch.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

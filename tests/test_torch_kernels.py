@@ -8,8 +8,8 @@ counts, each tile's offset summed from the tiles before it, in-tile ranks by
 ballot in (item, warp) order) is emulated in numpy and held bit for bit
 against the Pallas kernel and the plain version at the tile edges; so is
 topk's threshold-filtered select (warp lists, ballot-ranked queues, bitonic
-networks, the block's tree and the second launch) against the Pallas
-kernel's values, and masked_stats' merge (the chains without the live
+networks, the block's tree and the second launch; NaNs counted and put
+first) against the Pallas kernel's values, NaN rows included, and masked_stats' merge (the chains without the live
 gate) against the plain version's fold.  Tolerances: counts, min, max, top-k
 values and compacted bytes exact; float32 sums within 1e-5 of Σ|x| (per bucket for
 segment sums) and m2 within 1e-4 relative, since the sums are taken in
@@ -340,10 +340,21 @@ def test_high_cardinality_groupby_and_value_counts_take_the_kernel_route():
 # ------------------------------------------------------------------------ topk --
 def _topk_row(kind, n):
     """One row of the kind named: random, sorted either way, one value
-    repeated, or 7 finite values among -inf."""
+    repeated, 7 finite values among -inf, or NaN rows: the smallest one
+    ([1, NaN, 3, 2, -1]), one NaN, 30 NaNs (more than k), and NaNs beside
+    +inf and -inf."""
     rng = _rng("tk", kind, n)
     x = rng.normal(size=n).astype(np.float32)
-    if kind == "ascending":
+    if kind == "nan smallest":
+        x = np.array([1.0, np.nan, 3.0, 2.0, -1.0], np.float32)
+    elif kind == "one nan":
+        x[rng.integers(n)] = np.nan
+    elif kind == "many nan":
+        x[rng.choice(n, 30, replace=False)] = np.nan
+    elif kind == "nan inf":
+        at = rng.choice(n, 6, replace=False)
+        x[at] = [np.nan, np.inf, -np.inf, np.nan, np.inf, -np.inf]
+    elif kind == "ascending":
         x = np.sort(x)
     elif kind == "descending":
         x = np.sort(x)[::-1].copy()
@@ -358,7 +369,13 @@ def _topk_row(kind, n):
 _TOPK_CASES = [("random", 100, 1), ("random", 4000, 7), ("random", 4000, 64),
                ("random", 999, 10), ("random", 9000, 128), ("random", 129, 128),
                ("ascending", 3000, 20), ("descending", 3000, 20), ("repeated", 2000, 20),
-               ("few finite", 3000, 20)]
+               ("few finite", 3000, 20), ("nan smallest", 5, 2), ("one nan", 4000, 20),
+               ("many nan", 4000, 20), ("many nan", 999, 128), ("nan inf", 3000, 20)]
+
+
+def _same(got, want):
+    """Equal values, NaN equal to NaN (and +0.0 to -0.0)."""
+    return got.shape == want.shape and np.array_equal(got, want, equal_nan=True)
 
 
 @pytest.mark.parametrize("kind,n,k", _TOPK_CASES)
@@ -370,9 +387,11 @@ def test_topk_vs_pallas(kind, n, k, largest):
         x = _topk_row(kind, n)
     jp = np.asarray(j_topk(jnp.asarray(x), k, largest=largest, interpret=True))
     got = TK.topk_plain(_t(x)[None], k, largest)[0].numpy()
-    assert (got == jp).all()
+    assert _same(got, jp)
+    if kind == "nan smallest":  # NaN ranks first, for largest either way
+        assert _same(jp, np.array([np.nan, 3.0 if largest else -1.0], np.float32))
     with tops.local_backend("torch"):
-        assert (tops.topk_padded(_t(x), k, largest).numpy() == jp).all()
+        assert _same(tops.topk_padded(_t(x), k, largest).numpy(), jp)
 
 
 # The kernel's select (csrc/topk.cu), emulated in numpy: element e = r * 32
@@ -460,7 +479,7 @@ class _Warp:
                     if c[i, lane] > best:
                         best, at = c[i, lane], i
                 if at >= 0:
-                    c[at, lane] = np.nan
+                    c[at, lane] = -np.inf
                 top[r, lane] = best
         self.fold_ascending(_sort_asc(top))
 
@@ -483,11 +502,12 @@ class _Warp:
 
 def _select_emulated(x, k, blocks, off):
     """topk_spans / topk_merge over one row: (blocks, k) winners, each
-    descending."""
+    descending, min(NaNs loaded, k) NaNs first (absent values are -inf, and
+    a NaN never enters a warp's queue)."""
     n = x.shape[0]
     span = (-(-n // blocks) + 3) & ~3
     out = np.empty((blocks, k), np.float32)
-    nan = np.float32(np.nan)
+    absent = np.float32(-np.inf)
     lane = np.arange(32)
     for blk in range(blocks):
         s0 = min(n, blk * span)
@@ -499,12 +519,15 @@ def _select_emulated(x, k, blocks, off):
         warps = [_Warp(k) for _ in range(_WARPS)]
         i = np.where(lane < 3, s0 + lane, b + lane - 3)
         inside = np.where(lane < 3, i < a, (lane < 6) & (i < s1))
-        warps[0].push(np.where(inside, x[np.clip(i, 0, n - 1)], nan))
+        single = np.where(inside, x[np.clip(i, 0, n - 1)], absent)
+        nans = [int(np.isnan(single).sum())]
+        warps[0].push(single)
 
         def load(v0, w):
             vec = v0 + np.arange(_UNROLL)[:, None] * _THREADS + w * 32 + lane  # (u, lane)
             idx = a + 4 * vec[:, None, :] + np.arange(4)[None, :, None]  # (u, c, lane)
-            vals = np.where(vec[:, None, :] < nvec, x[np.clip(idx, 0, n - 1)], nan)
+            vals = np.where(vec[:, None, :] < nvec, x[np.clip(idx, 0, n - 1)], absent)
+            nans.append(int(np.isnan(vals).sum()))
             return vals.reshape(4 * _UNROLL, 32)
 
         for w, warp in enumerate(warps):
@@ -523,14 +546,18 @@ def _select_emulated(x, k, blocks, off):
                 other = warps[w + h].lst.reshape(-1)[::-1].reshape(warps[w].R, 32)
                 warps[w].fold_ascending(other)
             h *= 2
-        out[blk] = warps[0].lst.reshape(-1)[:k]
+        m = min(sum(nans), k)
+        out[blk, :m] = np.nan
+        out[blk, m:] = warps[0].lst.reshape(-1)[: k - m]
     return out
 
 
 @pytest.mark.parametrize("kind,n,k", [("random", 5001, 20), ("ascending", 3001, 20),
                                       ("descending", 3001, 20), ("repeated", 2000, 20),
                                       ("few finite", 3000, 20), ("random", 129, 128),
-                                      ("random", 4097, 64)])
+                                      ("random", 4097, 64), ("nan smallest", 5, 2),
+                                      ("one nan", 5001, 20), ("many nan", 3001, 20),
+                                      ("nan inf", 3001, 20)])
 @pytest.mark.parametrize("largest", [True, False])
 @pytest.mark.parametrize("blocks", [1, 3])
 def test_topk_select_scheme_vs_pallas(kind, n, k, largest, blocks):
@@ -545,8 +572,8 @@ def test_topk_select_scheme_vs_pallas(kind, n, k, largest, blocks):
     if blocks > 1:
         win = _select_emulated(win.reshape(-1), k, 1, 0)
     got = sign * win[0]
-    assert (got == jp).all()
-    assert (got == TK.topk_plain(_t(x)[None], k, largest)[0].numpy()).all()
+    assert _same(got, jp)
+    assert _same(got, TK.topk_plain(_t(x)[None], k, largest)[0].numpy())
 
 
 def test_topk_infinities_and_signed_zero():
@@ -767,4 +794,4 @@ def test_cuda_backend_on_cpu_tensors_runs_plain_version_without_launch():
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
         "flash_attention_wgmma": 0, "flash_attention_bwd_dq_wgmma": 0,
         "flash_attention_bwd_dkdv_wgmma": 0, "ssd_chunk_scan_wgmma": 0,
-        "ssd_chunk_scan_short": 0, "ssd_chunk_scan_cells": 0}
+        "ssd_chunk_scan_short": 0, "ssd_chunk_scan_cells": 0, "ssd_chunk_scan_inter": 0}

@@ -8,7 +8,10 @@ M and w ⊙ X as sums of bf16 terms) is emulated in
 torch ops and held to chip_smoke's limits against the Pallas kernel, with a
 one-term control that must fail the state limit; so is the short-chunk
 pass's (C Bᵀ reduced in the kernel's order, float32 FMA), whose chunk
-states at one-token chunks equal the plain version's bit for bit;
+states at one-token chunks equal the plain version's bit for bit; so is
+the inter-chunk scan kernel's (the chunks in order, the sum over N in its
+warps' order, a multiply then an add), whose final state equals the plain
+loop's bit for bit and whose y is held against the Pallas kernel;
 ``ssd_route``, ``heads_per_block`` and ``short_heads`` are checked by
 shape class.  Then the smoke
 ``mamba2_2p7b`` with the JAX parameters carried over by
@@ -139,7 +142,7 @@ def _wgmma_emulated(x, la, b, c, L, m_terms=3, wx_terms=3):
     wx = xf.transpose(2, 3) * w[..., None]  # (bt, nc, H, L, P)
     state = sum(bf[:, :, None].transpose(-1, -2) @ t.float() for t in _bf16_terms(wx, wx_terms))
     y = y.transpose(2, 3).reshape(bt, S, H, P).to(x.dtype)
-    return SC._inter_chunk(y, state, la, c, x.dtype)
+    return SC.ssd_chunk_inter_plain(y, state, la, c)
 
 
 def _pallas_per_sequence(x, la, b, c, L):
@@ -245,7 +248,7 @@ def test_short_chunk_pass_vs_pallas(L, S, dtype):
     2^-6, float32 1e-5) of max |y|, the final state within 1e-5 of max
     |h|."""
     x, la, b, c = _short_case("pallas", dtype, S, 17, 7)
-    ty, th = SC._inter_chunk(*_short_emulated(x, la, b, c, L), la, c, x.dtype)
+    ty, th = SC.ssd_chunk_inter_plain(*_short_emulated(x, la, b, c, L), la, c)
     jdt = jnp.float32 if dtype == "float32" else _BF16
     for i in range(x.shape[0]):
         jy, jh = j_ssd(jnp.asarray(x[i].float().numpy(), jdt), jnp.asarray(la[i].numpy()),
@@ -269,6 +272,117 @@ def test_short_chunk_states_at_one_token_equal_the_plain_version(N, P, dtype):
     assert torch.equal(es, ps)
     rel = 1e-5 if dtype == "float32" else 2.0**-7
     assert float((ey.float() - py.float()).abs().max()) <= rel * float(py.float().abs().max())
+
+
+# ------------------------------------------- the inter-chunk scan, emulated ----
+def _scan_emulated(y_intra, state, la, c):
+    """``csrc/ssd_chunk.cu:ssd_scan``'s arithmetic in torch ops → (y,
+    h_final): the chunks in order; C h_in summed over N as the kernel does
+    (warp g's block n = g nj .. g nj + nj - 1, nj = 8 for N <= 128, else
+    16: its even rows in order with fmaf, its odd rows likewise, the two
+    sums added; then the warps' sums in warp order); y = y_intra +
+    exp(cum) * sum, then h = D h + S, a rounded multiply and then a rounded
+    add, with exp(cum) from ``chunk_decays`` and D its last row."""
+    bt, S, H, P = y_intra.shape
+    nc, N = state.shape[1], state.shape[3]
+    L = S // nc
+    nj = 8 if N <= 128 else 16
+    ecum = SC.chunk_decays(la, nc)
+    decay = ecum[:, :, -1]
+    h = torch.zeros(bt, H, N, P)
+    y = torch.empty(bt, S, H, P)
+    for k in range(nc):
+        cf = c[:, k * L:(k + 1) * L].float()  # (bt, L, N)
+        total = None
+        for g in range(-(-N // nj)):
+            halves = []
+            for first in (g * nj, g * nj + 1):
+                acc = torch.zeros(bt, L, H, P)
+                for n in range(first, min(N, (g + 1) * nj), 2):
+                    acc = _fma(cf[:, :, n, None, None], h[:, None, :, n], acc)
+                halves.append(acc)
+            warp = halves[0] + halves[1]
+            total = warp if total is None else total + warp
+        y[:, k * L:(k + 1) * L] = (y_intra[:, k * L:(k + 1) * L].float()
+                                   + ecum[:, k, :, :, None] * total)
+        h = decay[:, k, :, None, None] * h + state[:, k]
+    return y.to(y_intra.dtype), h
+
+
+_SCAN_CASES = [(1, 32), (128, 256)]  # (chunk, S): one-token chunks, and chunks of 128
+
+
+@pytest.mark.parametrize("L,S", _SCAN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_inter_chunk_scan_state_equals_the_plain_version(L, S, dtype):
+    """The scan kernel's h_final, emulated at N 17 and P 7, equals the plain
+    version's bit for bit: the same decays, then a multiply and an add,
+    each rounded, chunk by chunk; y differs only by the order of C h_in's
+    sum, within one ulp of its type of max |y|."""
+    x, la, b, c = _short_case("scan", dtype, S, 17, 7)
+    y_intra, state = SC.ssd_chunk_intra_plain(x, la, b, c, L)
+    ey, eh = _scan_emulated(y_intra, state, la, c)
+    py, ph = SC.ssd_chunk_inter_plain(y_intra, state, la, c)
+    assert torch.equal(eh, ph)
+    assert ey.dtype == py.dtype == x.dtype
+    rel = 1e-5 if dtype == "float32" else 2.0**-7
+    assert float((ey.float() - py.float()).abs().max()) <= rel * float(py.float().abs().max())
+
+
+@pytest.mark.parametrize("L,S", _SCAN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_inter_chunk_scan_vs_pallas(L, S, dtype):
+    """The scan kernel's arithmetic, emulated over the plain intra-chunk
+    pass at N 17 and P 7, against the Pallas ``ssd_chunk_scan`` in interpret
+    mode, with the tolerances of ``test_ssd_chunk_scan_plain_vs_pallas``."""
+    x, la, b, c = _short_case("scan pallas", dtype, S, 17, 7)
+    ty, th = _scan_emulated(*SC.ssd_chunk_intra_plain(x, la, b, c, L), la, c)
+    jdt = jnp.float32 if dtype == "float32" else _BF16
+    for i in range(x.shape[0]):
+        jy, jh = j_ssd(jnp.asarray(x[i].float().numpy(), jdt), jnp.asarray(la[i].numpy()),
+                       jnp.asarray(b[i].float().numpy(), jdt),
+                       jnp.asarray(c[i].float().numpy(), jdt), chunk=L, interpret=True)
+        jy, jh = np.asarray(jy.astype(jnp.float32)), np.asarray(jh)
+        rel = 1e-5 if dtype == "float32" else 2.0**-7
+        np.testing.assert_allclose(ty[i].float().numpy(), jy, rtol=0,
+                                   atol=rel * np.abs(jy).max())
+        np.testing.assert_allclose(th[i].numpy(), jh, rtol=0, atol=1e-5 * np.abs(jh).max())
+
+
+def test_inter_chunk_scan_wrapper_rejects_cpu_and_bad_shapes():
+    """The kernel wrapper takes CUDA tensors only, and checks shapes first."""
+    x, la, b, c = _short_case("scan reject", "float32", 32, 16, 8)
+    y_intra, state = SC.ssd_chunk_intra_plain(x, la, b, c, 4)
+    with pytest.raises(ValueError, match="device"):
+        SC.ssd_chunk_inter(y_intra, state, la, c)
+    bad = [(y_intra[:, :-4], state, la, c),  # S no longer matches log_a and c
+           (y_intra, state[:, :, :2], la, c),  # heads
+           (y_intra, state, la[:, :-1], c),
+           (y_intra, state, la, c[..., :-1]),  # N
+           (y_intra[..., :-1], state, la, c),  # P
+           (y_intra, state[:, :3], la, c),  # chunks that do not divide S
+           (y_intra[0], state, la, c)]  # rank
+    for args in bad:
+        with pytest.raises(ValueError, match="unsupported"):
+            SC.ssd_chunk_inter(*args)
+    wide = torch.zeros(2, 8, 3, 257, 8)  # N past SCAN_MAX_N
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        SC.ssd_chunk_inter(y_intra, wide, la, torch.zeros(2, 32, 257))
+
+
+def test_ssd_chunk_scan_on_cpu_runs_the_plain_inter_chunk_pass(monkeypatch):
+    """A CPU tensor never reaches the kernel wrappers."""
+    def refuse(*args):
+        raise AssertionError("kernel wrapper called for a CPU tensor")
+
+    monkeypatch.setattr(SC, "ssd_chunk_inter", refuse)
+    monkeypatch.setattr(SC, "ssd_chunk_intra", refuse)
+    x, la, b, c = _short_case("scan cpu", "float32", 32, 16, 8)
+    before = SC.launches_scan.value
+    y, h = SC.ssd_chunk_scan(x, la, b, c, 8)
+    want = SC.ssd_chunk_scan_plain(x, la, b, c, 8)
+    assert torch.equal(y, want[0]) and torch.equal(h, want[1])
+    assert SC.launches_scan.value == before
 
 
 @pytest.mark.parametrize("dtype,L,N,P,route", [
