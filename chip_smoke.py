@@ -35,12 +35,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    token chunks, the tensor-core route's edges: L 64, P 128, N 64, batch
    2, P 16, a head count its group size does not divide; and the short
    route's: f32 at L 1, L 2 and 16 (its threshold), P 24 and 40, N 17 with
-   P 7, batch 2, a head count its group does not divide, L 17 past it),
-   each launch on the kernel ``ssd_route`` names and on the inter-chunk
-   scan kernel ``ssd_scan`` once, the one-token chunk states equal to the
-   plain version's bit for bit, and at each shape ``ssd_scan`` alone
-   against the plain inter-chunk pass on the same intra-chunk outputs:
-   h_final bit for bit, y by check_ssd; then
+   P 7, batch 2, a head count its group does not divide, L 17 past it; at
+   one-token chunks also N 256 (``ssd_recur``'s limit), N 17 with P 7 in
+   batches of 2 over 3 heads, and S = 1): each call at one-token chunks on
+   ``ssd_recur`` once and no other kernel, h_final bit for bit, each other
+   call on the kernel ``ssd_route`` names and on the inter-chunk scan kernel
+   ``ssd_scan`` once; then at each shape the intra-chunk kernel alone
+   (``ssd_short`` at L 1-16, its one-token chunk states equal to the plain
+   version's bit for bit) and ``ssd_scan`` alone on its outputs against the
+   plain inter-chunk pass: h_final bit for bit, y by check_ssd; then
    the flash_attention forward (bf16 on the tensor-core kernel
    ``attn_fwd_wgmma``, float32 on the FMA kernel ``attn_fwd``; each launch
    must take the kernel ``forward_route`` names) and its backward (bf16 on
@@ -68,10 +71,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    anticipated prompt prefilled in think time and then requested, its
    resubmission (a cache hit), and a 1,000-token request (the one-token-
    chunk rule).  Every prefill must launch ``ssd_chunk_scan`` once per
-   layer, the two 1,024-token ones on the tensor-core kernel ``ssd_wgmma``
-   and the 1,000-token one on ``ssd_short``, none on ``ssd_cells``, and the
-   inter-chunk scan kernel ``ssd_scan`` once per layer, the plain
-   inter-chunk pass (a loop over the chunks) never; the
+   layer: the two 1,024-token ones on the tensor-core kernel ``ssd_wgmma``
+   and the inter-chunk scan kernel ``ssd_scan``, the 1,000-token one on
+   ``ssd_recur`` alone; none on ``ssd_short`` or ``ssd_cells``, and the
+   plain inter-chunk pass (a loop over the chunks) never; the
    warm answer must equal a cold recompute.  At both prompt lengths every
    layer's SSD, on the model's own inputs (those of the plain prefill),
    must pass check_ssd's limits against the plain SSD, which two faulty
@@ -82,7 +85,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    summed in reverse) must keep and both faulty ones must cross (see
    LOGITS_LINE); at 1,024 tokens and full depth the top token must agree.
    The 1,000- and 1,024-token prefills are timed alone, the 1,000-token
-   one also with ``ssd_cells`` forced, in turns with its own route; profiled
+   one also with the pair ``ssd_short`` + ``ssd_scan`` forced, in turns
+   with ``ssd_recur``; profiled
    prefills of both lengths and a decode split the time by kernel, with
    the inter-chunk scan's wrapper as a profiler range (its host and device
    time);
@@ -115,7 +119,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``ssd_short`` at the one-token-chunk prompt's, each beside ``ssd_cells``
    on the same inputs; the inter-chunk scan ``ssd_scan`` at both prompts'
    shapes, its wrapper beside its bare C entry, the plain loop and its
-   bound).
+   bound; ``ssd_recur`` at the one-token-chunk prompt's shape, its wrapper
+   beside its bare C entry, the pair ``ssd_short`` + ``ssd_scan`` on the
+   same inputs, the plain version and its bound).
 
 The last two lines are a JSON object per kernel and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -151,6 +157,9 @@ REPLACES = {
     "ssd_chunk_scan_wgmma": "src/repro/kernels/ssd_chunk.py:103",
     # the inter-chunk scan and correction after that pallas_call (ssd_scan)
     "ssd_chunk_scan_inter": "src/repro/kernels/ssd_chunk.py:128-150",
+    # the whole function at one-token chunks: the pallas_call and the scan
+    # after it (ssd_recur)
+    "ssd_chunk_scan_recur": "src/repro/kernels/ssd_chunk.py:103-150 (at one-token chunks)",
     "flash_attention": "src/repro/kernels/flash_attention.py:133",
     # the bf16 route of the same forward, on the tensor cores
     "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:133",
@@ -170,7 +179,7 @@ SOURCES = {name: name for name in REPLACES} | {
     name: "flash_attention" for name in REPLACES if name.startswith("flash_attention")}
 DATAFRAME = ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe")
 SERVING = ("ssd_chunk_scan_cells", "ssd_chunk_scan_short", "ssd_chunk_scan_wgmma",
-           "ssd_chunk_scan_inter")
+           "ssd_chunk_scan_inter", "ssd_chunk_scan_recur")
 TRAINING = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkdv", "flash_attention_bwd_dq_wgmma",
             "flash_attention_bwd_dkdv_wgmma")
@@ -628,8 +637,10 @@ def join_parity(torch, K, rng, dev, note):
 # edges of the short route: f32 at L 1; L 2 and 16 (the threshold, in f32
 # and bf16); P 24 and 40; N 17 with P 7 (N P and P no multiple of 4: state
 # rows cross float4s); batches of 2; 10 heads in groups of 3 (700 chunks:
-# short_heads 3, the last group of one head); and L 17, just past the
-# threshold, on ssd_cells.
+# short_heads 3, the last group of one head); L 17, just past the
+# threshold, on ssd_cells; and at one-token chunks (ssd_recur) N 256, its
+# register limit, N 17 with P 7 in bf16 in batches of 2 over 3 heads, and
+# one token.
 SSD_SHAPES = ((1, 256, 80, 64, 128, 128, "bfloat16"), (2, 256, 8, 64, 128, 128, "float32"),
               (1, 37, 4, 16, 16, 1, "bfloat16"), (2, 96, 8, 16, 16, 32, "bfloat16"),
               (1, 128, 3, 24, 40, 64, "float32"), (2, 256, 8, 64, 128, 64, "bfloat16"),
@@ -639,46 +650,64 @@ SSD_SHAPES = ((1, 256, 80, 64, 128, 128, "bfloat16"), (2, 256, 8, 64, 128, 128, 
               (1, 37, 4, 16, 16, 1, "float32"), (2, 64, 5, 24, 128, 2, "bfloat16"),
               (1, 256, 6, 40, 64, 16, "float32"), (1, 96, 3, 40, 128, 16, "bfloat16"),
               (2, 50, 3, 7, 17, 1, "float32"), (1, 64, 5, 7, 17, 16, "bfloat16"),
-              (2, 350, 10, 24, 64, 1, "bfloat16"), (1, 68, 4, 64, 128, 17, "float32"))
+              (2, 350, 10, 24, 64, 1, "bfloat16"), (1, 68, 4, 64, 128, 17, "float32"),
+              (1, 40, 3, 64, 256, 1, "bfloat16"), (2, 30, 3, 7, 17, 1, "bfloat16"),
+              (1, 1, 3, 64, 128, 1, "float32"))
 
 
 def ssd_parity(torch, K, rng, dev, note, shapes=SSD_SHAPES):
-    """ssd_chunk_scan against its plain version (check_ssd) at ``shapes``;
-    each launch must take the kernel ``ssd_route`` names and the scan kernel
-    once, and its error is noted under that kernel's name.  At one-token
-    chunks the chunk states must equal the plain version's bit for bit (each
-    is the one rounding of b_n x_p).  Then the inter-chunk scan kernel alone
-    (``ssd_chunk_inter``, one launch) against its plain version on the same
-    intra-chunk outputs: h_final bit for bit, y within check_ssd's
-    limits."""
+    """ssd_chunk_scan against its plain version (check_ssd) at ``shapes``: a
+    call that ``scan_route`` sends to ``ssd_recur`` must launch it once and
+    no other kernel, with h_final bit for bit; any other must launch the
+    kernel ``ssd_route`` names and the scan kernel once each.  Its error is
+    noted under the kernel's name.  Then the intra-chunk kernel alone
+    (``ssd_chunk_intra``; at one-token chunks its states must equal the
+    plain version's bit for bit, each being the one rounding of b_n x_p) and
+    the inter-chunk scan kernel alone on its outputs (``ssd_chunk_inter``,
+    one launch) against the plain inter-chunk pass: h_final bit for bit, y
+    within check_ssd's limits; at one-token chunks the pair's y and h also
+    against the plain function, noted under the intra-chunk kernel."""
     sc = K["ssd_chunk_scan"]
     counters = {"cells": sc.launches_cells, "short": sc.launches_short,
-                "wgmma": sc.launches_wgmma, "scan": sc.launches_scan}
+                "wgmma": sc.launches_wgmma, "scan": sc.launches_scan,
+                "recur": sc.launches_recur}
     for bt, S, H, Pd, N, L, dtype in shapes:
         label = f"{(bt, S, H, Pd, N, L, dtype)}"
         dt = getattr(torch, dtype)
-        route = sc.ssd_route(dt, L, N, Pd)
+        intra = sc.ssd_route(dt, L, N, Pd)
+        recur = sc.scan_route(L, N) == "recur"
         args = ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, dt) + (L,)
+        want = sc.ssd_chunk_scan_plain(*args)
         before = {r: c.value for r, c in counters.items()}
-        err = kernel_vs_plain(torch, K, "ssd_chunk_scan", args, label)
-        check(all(c.value - before[r] == (r in (route, "scan")) for r, c in counters.items()),
-              f"ssd_chunk_scan {label} did not take the {route} kernel and the scan kernel "
-              f"once each")
+        got = sc.ssd_chunk_scan(*args)
+        took = {r: c.value - before[r] for r, c in counters.items()}
+        check(took == {r: int(r in (("recur",) if recur else (intra, "scan"))) for r in counters},
+              f"ssd_chunk_scan {label} launched {took}, not "
+              f"{'ssd_recur once' if recur else f'the {intra} kernel and the scan kernel once each'}")
+        err = check_ssd(torch, got, want, label)
+        if recur:
+            check(torch.equal(got[1], want[1]),
+                  f"ssd_recur {label}: h_final differs from the plain version's bit for bit")
+        note(f"ssd_chunk_scan_{'recur' if recur else intra}", err)
+        before = {r: c.value for r, c in counters.items()}
         y_intra, state = sc.ssd_chunk_intra(*args)
         if L == 1:
             check(torch.equal(state, sc.ssd_chunk_intra_plain(*args)[1]),
                   f"ssd_chunk_scan {label}: one-token chunk states differ from the plain "
                   f"version's")
-        note(f"ssd_chunk_scan_{route}", err)
-        _, log_a, _, c, _ = args
-        scans = sc.launches_scan.value
-        got = sc.ssd_chunk_inter(y_intra, state, log_a, c)
-        check(sc.launches_scan.value - scans == 1,
-              f"ssd_chunk_inter {label}: the wrapper did not launch its kernel once")
-        want = sc.ssd_chunk_inter_plain(y_intra, state, log_a, c)
-        check(torch.equal(got[1], want[1]),
+        _, log_a, _, cm, _ = args
+        pair = sc.ssd_chunk_inter(y_intra, state, log_a, cm)
+        took = {r: c.value - before[r] for r, c in counters.items()}
+        check(took == {r: int(r in (intra, "scan")) for r in counters},
+              f"ssd_chunk_intra + ssd_chunk_inter {label} launched {took}, not the {intra} "
+              f"kernel and the scan kernel once each")
+        inter = sc.ssd_chunk_inter_plain(y_intra, state, log_a, cm)
+        check(torch.equal(pair[1], inter[1]),
               f"ssd_chunk_inter {label}: h_final differs from the plain version's bit for bit")
-        note("ssd_chunk_scan_inter", check_ssd(torch, got, want, f"inter-chunk scan {label}"))
+        note("ssd_chunk_scan_inter", check_ssd(torch, pair, inter, f"inter-chunk scan {label}"))
+        if recur:
+            note(f"ssd_chunk_scan_{intra}",
+                 check_ssd(torch, pair, want, f"{intra} + inter-chunk scan {label}"))
 
 
 def ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, dtype):
@@ -1266,13 +1295,14 @@ def timings(torch, K, shapes, rng, dev):
 
     out["join_probe"] = join_timing(torch, K["join_probe"], args["join_probe"], flush)
 
-    # ssd_chunk_scan: the intra-chunk launch alone (the inter-chunk scan is
-    # its own kernel, timed below); no library call.
-    # Each kernel the serving path runs at the largest shape it gave it,
-    # beside ssd_cells on the same inputs: ssd_wgmma at the 1,024-token
-    # prefill's, ssd_short at the one-token-chunk prompt's.  The serving
-    # path launches ssd_cells no time: its row is its time at the
-    # one-token-chunk shape
+    # ssd_chunk_scan: the intra-chunk launch alone (the inter-chunk scan and
+    # ssd_recur are kernels of their own, timed below); no library call.
+    # Each intra-chunk kernel at the largest shape of its route on the
+    # serving path, beside ssd_cells on the same inputs: ssd_wgmma at the
+    # 1,024-token prefill's, ssd_short at the one-token-chunk prompt's (which
+    # ssd_recur now serves).  The serving path launches ssd_short and
+    # ssd_cells no time: the cells row is its time at the one-token-chunk
+    # shape
     sc = K["ssd_chunk_scan"]
     for route in ("wgmma", "short"):
         mine = [sh for sh in shapes["ssd_chunk_scan"]
@@ -1285,6 +1315,8 @@ def timings(torch, K, shapes, rng, dev):
     out["ssd_chunk_scan_cells"] = dict(short, route="cells", ms=short["earlier_ms"])
     out["ssd_chunk_scan_inter"] = scan_timing(torch, sc, shapes["ssd_chunk_scan"], rng, dev,
                                               flush)
+    out["ssd_chunk_scan_recur"] = recur_timing(torch, sc, shapes["ssd_chunk_scan"], rng, dev,
+                                               flush)
     return out
 
 
@@ -1299,11 +1331,11 @@ def scan_work(bt, S, H, Pd, N, L, esize):
 
 def scan_timing(torch, mod, shapes, rng, dev, flush):
     """The inter-chunk scan at the serving path's two prompt shapes (the
-    one-token-chunk prompt's and the 1,024-token prompt's chunks of 128):
-    the wrapper (the decays' torch ops, then one ssd_scan launch), its bare
-    C entry on precomputed decays, the plain version (a loop over the
-    chunks) and the bound.  → the row of the one-token-chunk shape (the
-    larger), with the other under ``chunk128``."""
+    1,024-token prompt's chunks of 128, and the one-token-chunk prompt's,
+    which ssd_recur now takes): the wrapper (the decays' torch ops, then one
+    ssd_scan launch), its bare C entry on precomputed decays, the plain
+    version (a loop over the chunks) and the bound.  → the row of the
+    chunks of 128, with the other under ``L1``."""
     rows = {}
     for key, want_l in (("L1", 1), ("chunk128", 128)):
         mine = [sh for sh in shapes if sh[5] == want_l]
@@ -1312,15 +1344,17 @@ def scan_timing(torch, mod, shapes, rng, dev, flush):
         x, la, b, c = ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, getattr(torch, dtype))
         y_intra, state = mod.ssd_chunk_intra(x, la, b, c, L)
         ecum = mod.chunk_decays(la, S // L)
-        cf = c.float()
         y = torch.empty_like(y_intra)
         hf = torch.empty((bt, H, N, Pd), device=dev)
         tin = mod.DTYPES[x.dtype]
         stream = torch.cuda.current_stream().cuda_stream
 
+        cpb = mod.scan_chunks(bt, S // L, H, Pd, L, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+
         def c_entry():
             check(mod._fns()["scan"](y_intra.data_ptr(), state.data_ptr(), ecum.data_ptr(),
-                                     cf.data_ptr(), bt, S, H, Pd, N, L, tin, tin, y.data_ptr(),
+                                     c.data_ptr(), bt, S, H, Pd, N, L, cpb, tin, y.data_ptr(),
                                      hf.data_ptr(), stream) == 0,
                   "ssd_scan C entry point")
 
@@ -1342,7 +1376,77 @@ def scan_timing(torch, mod, shapes, rng, dev, flush):
         print(f"[time] inter-chunk scan at {r['shape']}: wrapper {r['ms']} ms, C entry alone "
               f"{r['c_entry_ms']} ms, plain {r['plain_ms']} ms, bound {r['bound'][0]} ms "
               f"({r['bound'][1]})", flush=True)
-    return dict(rows["L1"], chunk128=rows["chunk128"])
+    return dict(rows["chunk128"], L1=rows["L1"])
+
+
+def recur_work(bt, S, H, Pd, N, esize):
+    """(bytes, flops) of the whole function at one-token chunks: x, log_a,
+    b and c read once, y and h_final written once; c·h (2 S H N P), the
+    update d h + b xᵀ (3 S H N P), c·b (2 S N) and y's three operations a
+    value (3 S H P)."""
+    nbytes = bt * (esize * (2 * S * H * Pd + 2 * S * N) + 4 * (S * H + H * N * Pd))
+    return nbytes, bt * (5 * S * H * N * Pd + 2 * S * N + 3 * S * H * Pd)
+
+
+def recur_timing(torch, mod, shapes, rng, dev, flush):
+    """ssd_recur at the serving path's one-token-chunk shape: the wrapper
+    (the decays' torch ops, then one launch), its bare C entry on
+    precomputed decays, the plain version (chunk 1), the bound, and the
+    pair ssd_short + ssd_scan on the same inputs (wrappers, and C entries
+    alone), the route these prompts took before ssd_recur."""
+    mine = [sh for sh in shapes if mod.scan_route(sh[5], sh[4]) == "recur"]
+    check(mine, "no ssd_chunk_scan launch on ssd_recur on the serving path")
+    bt, S, H, Pd, N, L, dtype = max(mine, key=lambda sh: sh[0] * sh[1])
+    x, la, b, c = ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, getattr(torch, dtype))
+    ecum = mod.chunk_decays(la, S)
+    y = torch.empty_like(x)
+    hf = torch.empty((bt, H, N, Pd), device=dev)
+    y_intra = torch.empty_like(x)
+    state = torch.empty((bt, S, H, N, Pd), device=dev)
+    yp, hp = torch.empty_like(x), torch.empty_like(hf)
+    tin = mod.DTYPES[x.dtype]
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fns = mod._fns()
+
+    def c_entry():
+        check(fns["recur"](x.data_ptr(), ecum.data_ptr(), b.data_ptr(), c.data_ptr(), bt, S, H,
+                           Pd, N, tin, y.data_ptr(), hf.data_ptr(), stream) == 0,
+              "ssd_recur C entry point")
+
+    def pair_entries():
+        check(fns["short"](x.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(), bt, S, H, Pd,
+                           N, 1, tin, mod.short_heads(bt, S, H, 1, N, Pd, sms),
+                           y_intra.data_ptr(), state.data_ptr(), stream) == 0,
+              "ssd_short C entry point")
+        check(fns["scan"](y_intra.data_ptr(), state.data_ptr(), ecum.data_ptr(), c.data_ptr(),
+                          bt, S, H, Pd, N, 1, mod.scan_chunks(bt, S, H, Pd, 1, sms), tin,
+                          yp.data_ptr(), hp.data_ptr(), stream) == 0,
+              "ssd_scan C entry point")
+
+    c_entry()
+    pair_entries()
+    want = mod.ssd_chunk_scan_plain(x, la, b, c, 1)
+    for got, label in (((y, hf), "ssd_recur C entry"), ((yp, hp), "ssd_short + ssd_scan")):
+        check(torch.equal(got[1], want[1]), f"{label} at {[bt, S, H, Pd, N]}: h_final differs "
+              "from the plain version's")
+        check_ssd(torch, got, want, f"{label} at the timing shape")
+    row = dict(
+        shape=[bt, S, H, Pd, N, L, dtype],
+        ms=timed(torch, lambda: mod.ssd_chunk_recur(x, la, b, c), 20, flush),
+        c_entry_ms=timed(torch, c_entry, 20, flush),
+        pair_ms=timed(torch, lambda: mod.ssd_chunk_inter(
+            *mod.ssd_chunk_intra(x, la, b, c, 1), la, c), 10, flush),
+        pair_c_entries_ms=timed(torch, pair_entries, 10, flush),
+        plain_ms=timed(torch, lambda: mod.ssd_chunk_scan_plain(x, la, b, c, 1), 2, flush),
+        library_ms=None,
+        bound=bound(*recur_work(bt, S, H, Pd, N, x.element_size())),
+    )
+    print(f"[time] ssd_recur at {row['shape']}: wrapper {row['ms']} ms, C entry alone "
+          f"{row['c_entry_ms']} ms; ssd_short + ssd_scan on the same inputs: wrappers "
+          f"{row['pair_ms']} ms, C entries alone {row['pair_c_entries_ms']} ms; plain "
+          f"{row['plain_ms']} ms, bound {row['bound'][0]} ms ({row['bound'][1]})", flush=True)
+    return row
 
 
 def ssd_timing(torch, mod, shape, args, flush):
@@ -1392,23 +1496,28 @@ def kernel_split(torch, fn, names, iters, flush):
     """Device ms a launch of each kernel named in ``names`` takes: the mean
     over the launches torch.profiler recorded in ``iters`` calls of ``fn``,
     each after an L2 flush.  Dividing by the launches recorded, not by
-    ``iters``, keeps a trace that drops events from reading short."""
+    ``iters``, keeps a trace that drops events from reading short; a trace
+    that recorded no launch of a named kernel (one in four runs of
+    topk's, on an H100) is taken again, three traces at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    out = {}
-    for name in names:
-        mine = [e for e in dev if name in e.key]
-        count = sum(e.count for e in mine)
-        check(count > 0, f"kernel_split: no launch of {name} in the trace")
-        out[name] = sum(e.self_device_time_total for e in mine) / 1e3 / count
-    return out
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        mine = {name: [e for e in dev if name in e.key] for name in names}
+        missing = [name for name in names if not sum(e.count for e in mine[name])]
+        if not missing:
+            break
+        print(f"[time] kernel_split: trace {attempt + 1} recorded no launch of {missing}",
+              flush=True)
+    check(not missing, f"kernel_split: no launch of {missing} in three traces")
+    return {name: sum(e.self_device_time_total for e in es) / 1e3 / sum(e.count for e in es)
+            for name, es in mine.items()}
 
 
 def compact_timing(torch, fc, args, flush):
@@ -1940,22 +2049,16 @@ def serving(torch, ops, cfg, dev, record):
     launches = ops.launch_counts()
     print("[serve] launches: " + json.dumps(launches))
     check(not plain_runs, f"the served prefills ran the plain inter-chunk scan {plain_runs}")
-    check(launches["ssd_chunk_scan_inter"] == 3 * cfg.n_layers,
-          f"3 prefills launched the inter-chunk scan kernel {launches['ssd_chunk_scan_inter']} "
-          f"times, not {3 * cfg.n_layers}")
     check(launches["ssd_chunk_scan"] == 3 * cfg.n_layers,
           f"3 prefills launched ssd_chunk_scan {launches['ssd_chunk_scan']} times, "
           f"not {3 * cfg.n_layers}")
-    # the two 1,024-token prefills (chunks of 128) on ssd_wgmma, the
-    # 1,000-token one (one-token chunks) on ssd_short, none on ssd_cells
-    check(launches["ssd_chunk_scan_wgmma"] == 2 * cfg.n_layers,
-          f"the 1,024-token prefills launched ssd_wgmma {launches['ssd_chunk_scan_wgmma']} "
-          f"times, not {2 * cfg.n_layers}")
-    check(launches["ssd_chunk_scan_short"] == cfg.n_layers,
-          f"the 1,000-token prefill launched ssd_short {launches['ssd_chunk_scan_short']} "
-          f"times, not {cfg.n_layers}")
-    check(launches["ssd_chunk_scan_cells"] == 0,
-          f"the prefills launched ssd_cells {launches['ssd_chunk_scan_cells']} times, not 0")
+    # the two 1,024-token prefills (chunks of 128) on ssd_wgmma and ssd_scan,
+    # the 1,000-token one (one-token chunks) on ssd_recur alone, none on
+    # ssd_short or ssd_cells
+    for name, want in (("wgmma", 2), ("inter", 2), ("recur", 1), ("short", 0), ("cells", 0)):
+        got = launches[f"ssd_chunk_scan_{name}"]
+        check(got == want * cfg.n_layers, f"3 prefills launched ssd_chunk_scan_{name} {got} "
+              f"times, not {want * cfg.n_layers}")
     check(warm[1].latency_s < cold[1].latency_s, "the warm request was not faster (sim)")
     check(again[1].ops_executed == 0 and again[1].latency_s == 0.0,
           "the resubmission was not a cache hit")
@@ -2044,7 +2147,7 @@ def serving(torch, ops, cfg, dev, record):
                   + json.dumps(dist), flush=True)
         return lk[-1], lp[-1]
 
-    for prompt_t, label in ((odd_t, "1,000-token prefill (ssd_short)"),
+    for prompt_t, label in ((odd_t, "1,000-token prefill (ssd_recur)"),
                             (cold_t, "1,024-token prefill (ssd_wgmma)")):
         hold_layers(prompt_t, label)
         lk, lp = hold_logits(prompt_t, label)
@@ -2063,58 +2166,66 @@ def serving(torch, ops, cfg, dev, record):
             walls[label] = (time.perf_counter() - t0) * 1e3
     finally:
         mod.ssd_chunk_inter_plain = plain_inter
-    check(not plain_runs and mod.launches_scan.value - scans == 2 * cfg.n_layers,
-          "the timed prefills did not run the inter-chunk scan kernel once a layer")
+    check(not plain_runs and mod.launches_scan.value - scans == cfg.n_layers,
+          "the timed 1,024-token prefill did not run the inter-chunk scan kernel once a layer")
     print(f"[serve] prefill wall: 1,024 tokens (chunks of 128) {walls['1024']} ms, 1,000 tokens "
           f"(one-token chunks) {walls['1000']} ms, factor {walls['1000'] / walls['1024']}",
           flush=True)
-    # the short kernel's share of it: the 1,000-token prefill on its route
-    # and with ssd_route made to answer "cells", in turns (the host's pace
-    # drifts between calls far more than 64 launches change it)
-    route, odd = mod.ssd_route, {"short": [], "cells": []}
-    for kind in ("short", "cells", "cells", "short", "short", "cells"):
-        mod.ssd_route = route if kind == "short" else (lambda *args: "cells")
+    # ssd_recur's share of it: the 1,000-token prefill on its route and with
+    # scan_route made to answer "pair" (ssd_short, then ssd_scan), in turns
+    # (the host's pace drifts between calls far more than 64 launches
+    # change it)
+    route, odd = mod.scan_route, {"recur": [], "pair": []}
+    for kind in ("recur", "pair", "pair", "recur", "recur", "pair"):
+        mod.scan_route = route if kind == "recur" else (lambda *args: "pair")
         try:
             t0 = time.perf_counter()
             pre(model, odd_t)
             torch.cuda.synchronize()
         finally:
-            mod.ssd_route = route
+            mod.scan_route = route
         odd[kind].append((time.perf_counter() - t0) * 1e3)
-    print(f"[serve] 1,000-token prefill wall in turns, ms: on ssd_short {odd['short']}, with "
-          f"ssd_cells forced {odd['cells']}", flush=True)
+    print(f"[serve] 1,000-token prefill wall in turns, ms: on ssd_recur {odd['recur']}, with "
+          f"ssd_short + ssd_scan forced {odd['pair']}", flush=True)
 
     # where a request's time goes: a 1,024- and a 1,000-token prefill, then
-    # decode steps; the inter-chunk scan (its wrapper: the decays' torch ops,
-    # then one ssd_scan launch) is a profiler range, read for its host and
-    # device time
-    inter = mod.ssd_chunk_inter
+    # decode steps; the inter-chunk scan's wrapper (the decays' torch ops,
+    # then one ssd_scan launch) and ssd_recur's (the same, then one
+    # ssd_recur launch) are profiler ranges, read for their host and device
+    # time
+    inter, recur_fn = mod.ssd_chunk_inter, mod.ssd_chunk_recur
 
-    def traced_inter(*args):
-        with torch.profiler.record_function("ssd_inter_chunk"):
-            return inter(*args)
+    def traced(name, fn):
+        def run(*args):
+            with torch.profiler.record_function(name):
+                return fn(*args)
+        return run
 
-    mod.ssd_chunk_inter = traced_inter
+    mod.ssd_chunk_inter = traced("ssd_inter_chunk", inter)
+    mod.ssd_chunk_recur = traced("ssd_recur_call", recur_fn)
     try:
-        for label, fn in (("prefill 1024 tokens", lambda: pre(model, cold_t)),
-                          ("prefill 1000 tokens", lambda: pre(model, odd_t)),
-                          (f"prefill 1024 + {N_TOKENS} decode steps",
-                           lambda: greedy_generate(cfg, model, pre, dec, cold_t, N_TOKENS))):
-            wall, busy, copy, kern, ranges = profiled(torch, fn, ("ssd_inter_chunk",))
+        for label, fn, span in (
+                ("prefill 1024 tokens", lambda: pre(model, cold_t), "ssd_inter_chunk"),
+                ("prefill 1000 tokens", lambda: pre(model, odd_t), "ssd_recur_call"),
+                (f"prefill 1024 + {N_TOKENS} decode steps",
+                 lambda: greedy_generate(cfg, model, pre, dec, cold_t, N_TOKENS),
+                 "ssd_inter_chunk")):
+            wall, busy, copy, kern, ranges = profiled(torch, fn, (span,))
             ssd = sum(t for t, k in kern if any(f"ssd_{r}" in k for r in ("cells", "short",
                                                                           "wgmma")))
             scan = sum(t for t, k in kern if "ssd_scan" in k)
+            recur = sum(t for t, k in kern if "ssd_recur" in k)
             gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
                                                                           "cutlass")))
-            host, device = ranges["ssd_inter_chunk"]
+            host, device = ranges[span]
             print(f"[serve-trace] {label}: wall {wall} ms, device kernels {busy} ms "
-                  f"(ssd_chunk_scan {ssd} ms, ssd_scan {scan} ms, GEMMs {gemm} ms, other "
-                  f"{busy - ssd - scan - gemm} ms), device copies {copy} ms, device idle "
-                  f"{100 * (1 - (busy + copy) / wall)}%; inter-chunk scan range: host {host} "
-                  f"ms, its device work {device} ms; top: "
+                  f"(intra-chunk SSD {ssd} ms, ssd_scan {scan} ms, ssd_recur {recur} ms, GEMMs "
+                  f"{gemm} ms, other {busy - ssd - scan - recur - gemm} ms), device copies "
+                  f"{copy} ms, device idle {100 * (1 - (busy + copy) / wall)}%; {span} range: "
+                  f"host {host} ms, its device work {device} ms; top: "
                   + ", ".join(f"{k[:50]} {t}" for t, k in kern[:4]), flush=True)
     finally:
-        mod.ssd_chunk_inter = inter
+        mod.ssd_chunk_inter, mod.ssd_chunk_recur = inter, recur_fn
     del srv, model
     torch.cuda.empty_cache()
     return launches

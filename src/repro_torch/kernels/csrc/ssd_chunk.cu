@@ -1,5 +1,5 @@
-// ssd_chunk: the Mamba-2 SSD intra-chunk pass.  Per (batch, chunk, head)
-// cell, with chunk length L, state size N and head size P:
+// ssd_chunk: the Mamba-2 SSD by chunks.  The intra-chunk pass, per (batch,
+// chunk, head) cell, with chunk length L, state size N and head size P:
 //
 //   cum      = inclusive cumsum of log_a over the chunk           (L,)
 //   M[i, j]  = (C Bᵀ)[i, j] * exp(cum_i - cum_j)  for j <= i, else 0
@@ -11,8 +11,10 @@
 // inbound states, so the `h_in` terms are exactly 0 and are not computed.
 // The inter-chunk scan and the inbound-state correction, which the
 // reference runs after its pallas_call (lines 128-150, a lax.scan and an
-// einsum), are a fourth kernel here, `ssd_scan`, described below the
-// other three's entry points (repro_ssd_scan).
+// einsum), are a fourth kernel here, `ssd_scan`; at one-token chunks a
+// fifth, `ssd_recur`, runs the whole function in one launch and no chunk
+// state reaches device memory.  Both are described below the other three's
+// entry points (repro_ssd_scan, repro_ssd_recur).
 //
 // Bound on an H100 SXM: bytes.  The function needs, per cell, C Bᵀ and M X
 // over the causal triangle only (T = L (L + 1) / 2 entries, the rest is
@@ -61,11 +63,12 @@
 //            summing in the tensor cores' order leaves (chip_smoke.py phase
 //            4b prints it).
 //   ssd_short  float32 and bf16 with L <= 16 (SHORT_MAX_L), any N and P (as
-//            far as one head's staging fits in shared memory): the
-//            one-token-chunk prompt.  At L = 1 the pass is y = (c·b) x and
-//            state = b xᵀ, one N x P float32 outer product a (token, head):
-//            32 KB at N 128, P 64, 2.6 GB a launch at the serving shape, so
-//            the launch is bound by its writes.  One block of 256 threads
+//            far as one head's staging fits in shared memory): chunks of
+//            2-16 tokens, and one-token chunks when the pass runs alone
+//            (ssd_chunk_scan takes ssd_recur there).  At L = 1 the pass is
+//            y = (c·b) x and state = b xᵀ, one N x P float32 outer product
+//            a (token, head): 32 KB at N 128, P 64, 2.6 GB a launch at the
+//            1,000-token shape, so the launch is bound by its writes.  One block of 256 threads
 //            per (batch, chunk, group of G heads), G chosen by the wrapper
 //            (`short_heads`: about 16 blocks an SM, 27 heads at the serving
 //            shape).  The block stages the chunk's B and C once, and X,
@@ -261,7 +264,7 @@ int launch(const void* x, const void* log_a, const void* b, const void* c, int b
 }
 
 // ------------------------------------------------------------------------ //
-// Short chunks (L <= SHORT_MAX_L), float32 FMA: the one-token-chunk prompt.   //
+// Short chunks (L <= SHORT_MAX_L), float32 FMA.                              //
 // ------------------------------------------------------------------------ //
 
 // the longest chunk ssd_short takes: on an H100 it is 2.2x under ssd_cells at
@@ -750,13 +753,10 @@ int by_width(const void* x, const void* log_a, const void* b, const void* c, int
 
 
 // --------------------------------------------------------------------------- //
-// The inter-chunk scan (ssd_scan): h_k = D_k h_{k-1} + S_k from h = 0, and   //
-// y = y_intra + exp(cum) C h_in, one launch.                                  //
+// The inter-chunk stage: ssd_scan (h_k = D_k h_{k-1} + S_k from h = 0 and     //
+// y = y_intra + exp(cum) C h_in, chunk-parallel) and ssd_recur (the whole    //
+// function at one-token chunks, no chunk state).                              //
 // --------------------------------------------------------------------------- //
-
-constexpr int SCAN_THREADS = 512;
-constexpr int SCAN_WARPS = SCAN_THREADS / 32;
-constexpr int SCAN_PS = 64;  // P columns a block: four a lane, sixteen lanes
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
@@ -774,271 +774,538 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// One stage of the ring holds one unit (RT rows of one chunk): the rows' C
-// (float32, each row's even n first, then its odd n, zero past N), their
-// y_intra slab and exp(cum) and, for a chunk's last unit, its decay and its
-// state slab (each thread's own 4-column pieces, [NJ / 2][threads] float4).
-template <int NJ, int RT, typename TI>
-struct ScanLayout {
-  static constexpr int CW = SCAN_WARPS * NJ;  // a staged C row: the n the warps hold
-  static constexpr int S_BYTES = NJ / 2 * SCAN_THREADS * 16;
-  static constexpr int C_BYTES = RT * CW * 4;
-  static constexpr int Y_BYTES = RT * SCAN_PS * (int)sizeof(TI);
-  static constexpr int E_BYTES = ((RT + 1) * 4 + 15) / 16 * 16;
-  static constexpr int STAGE = S_BYTES + C_BYTES + Y_BYTES + E_BYTES;
-  static constexpr int PART_BYTES = SCAN_WARPS * RT * SCAN_PS * 4;
-  static constexpr int CPT = (RT * CW + SCAN_THREADS - 1) / SCAN_THREADS;  // C copies a thread
-  static constexpr int YPT = (RT * SCAN_PS + SCAN_THREADS - 1) / SCAN_THREADS;  // y_intra copies
+constexpr int SCAN_THREADS = 256;
+constexpr int SCAN_PS = 64;  // P columns a block: four a thread, sixteen threads a row
+
+// The product on the tensor cores: mma.sync m16n8k16, bf16 operands, float32
+// sums.  ldsm4 loads the four 8 x 8 bf16 matrices whose rows lanes 8 m ..
+// 8 m + 7 point at (A fragments of a 16 x 16 tile); ldsm4t the same
+// transposed (B fragments of two 16 x 8 tiles from a [k][n] array).
+__device__ __forceinline__ void ldsm4(uint32_t (&d)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&d)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v as three bf16 terms whose sum is v to about 2^-24 of |v|
+__device__ __forceinline__ void split_terms(float v, __nv_bfloat16 (&t)[3]) {
+  t[0] = __float2bfloat16(v);
+  const float r = v - __bfloat162float(t[0]);
+  t[1] = __float2bfloat16(r);
+  t[2] = __float2bfloat16(r - __bfloat162float(t[1]));
+}
+__device__ __forceinline__ uint32_t bits2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+// two neighbouring values of y_intra or y
+__device__ __forceinline__ void load_pair(const float* p, float (&v)[2]) {
+  const float2 f = *reinterpret_cast<const float2*>(p);
+  v[0] = f.x, v[1] = f.y;
+}
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, __nv_bfloat16 (&v)[2]) {
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p);
+  v[0] = b.x, v[1] = b.y;
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The shape of a block's product: C tiles of LT rows as CT bf16 terms (one:
+// bf16 values are exact; three for float32), h_in as three.  Warps (WR x
+// WC of the eight) take 16 rows and NT n-tiles of 8 columns each.
+template <int NJ, int LT, int CT>
+struct ScanShape {
+  static constexpr int WR = LT / 16, WC = LT == 16 ? 4 : 8 / WR, NT = 8 / WC;
+  static constexpr int HK = 16 * NJ;           // h rows (n) a block holds: N <= HK
+  static constexpr int HS = SCAN_PS + 8;       // an h_in term's row: 144 bytes, rows 4 banks apart
+  static constexpr int CS = HK + 8;            // a C term's row: HK + 8 bf16
+  static constexpr int H_ELEMS = 3 * HK * HS;  // h_in: [term][n][p]
+  static constexpr int C_ELEMS = CT * LT * CS; // C: [term][row][n]
+  // + y_intra [LT][HS] in its type, then exp(cum) [LT] in float32
+  static constexpr int SMEM = 2 * (H_ELEMS + C_ELEMS) + (CT == 1 ? 2 : 4) * LT * HS + 4 * LT;
 };
 
-// One block: sequence bt, head h, columns p0 .. p0 + 63.  Lane l of warp g
-// holds h[n, p] in registers for the whole walk, for the four columns p =
-// p0 + 4 (l % 16) + i and the rows n = g NJ + l / 16 + 2 jj (jj < NJ / 2;
-// NJ = 8 for N <= 128, 16 for N <= 256), so one 16-byte copy a row brings
-// its state values and a warp's copy reads two whole 256-byte rows.  The
-// sequence's rows are walked in units of RT rows; a unit's data arrives by
-// cp.async DEPTH - 1 units ahead.  Per unit and row: each lane sums C[l, n]
-// h[n, p] over its rows in order (fmaf; one 16-byte load of C feeds 16),
-// the two half-warps' sums are added (the warp's n block: even rows + odd
-// rows), the warps' sums are added in warp order through shared memory (the
-// N sum's order depends on N alone), and y = y_intra + exp(cum) * sum (a
-// multiply, then an add).  After a chunk's last unit: h = D * h + S,
-// __fmul_rn then __fadd_rn.  FULL (N = 16 NJ, P a multiple of 64, the
-// states 16-byte aligned: the serving shape) drops every bounds test.
-template <int NJ, int RT, int DEPTH, bool FULL, typename TI, typename TO>
-__global__ void __launch_bounds__(SCAN_THREADS, 1)
-ssd_scan(const TI* __restrict__ y_intra, const float* __restrict__ state,
-         const float* __restrict__ ecum, const float* __restrict__ c, int S, int H, int P,
-         int N, int L, TO* __restrict__ y, float* __restrict__ h_final) {
-  using Lay = ScanLayout<NJ, RT, TI>;
-  constexpr int JJ = NJ / 2, CW = Lay::CW, CPT = Lay::CPT, YPT = Lay::YPT;
-  constexpr int EPW = 4 / (int)sizeof(TI);  // values a 4-byte copy moves
-  extern __shared__ __align__(16) uint8_t scan_smem[];
-  float* part = reinterpret_cast<float*>(scan_smem + DEPTH * Lay::STAGE);  // [warp][RT][64]
+// One block: sequence bt, head h, columns p0 .. p0 + 63 (slab blockIdx.x %
+// slabs) and chunks k0 .. k1 - 1 (segment blockIdx.x / slabs, cpb chunks a
+// segment).  Thread (ty, tx) = (tid / 16, tid % 16) owns h[n, p] for n = ty
+// + 16 jj (jj < NJ) and p = p0 + 4 tx + i (i < 4), in registers.  The
+// first tile of C rows, y_intra and exp(cum) is copied (cp.async in
+// 16-byte pieces where rows allow; otherwise loaded, and C split) while the
+// thread walks chunks 0 .. k0 - 1, h = D_k h + S_k (__fmul_rn, then
+// __fadd_rn), its state slab of each in registers.
+// Per chunk k of the segment it writes h_in to hs as three bf16 terms and
+// takes the chunk in tiles of LT rows, each staged as the first: Σ_n
+// C[l, n] h_in[n, p] as the sum of the term products whose orders add up
+// to at most 2 (bf16: C h_hi + C h_mid + C h_lo), each an mma.sync chain
+// over n in steps of 16, and y = y_intra + exp(cum) * sum, a multiply,
+// then an add.  Then h = D_k h + S_k, unless nothing needs it (a segment's
+// last chunk before the sequence's end).  Places past N or P hold 0.
+template <int NJ, int LT, typename T>
+__global__ void __launch_bounds__(SCAN_THREADS, 2)
+ssd_scan(const T* __restrict__ y_intra, const float* __restrict__ state,
+         const float* __restrict__ ecum, const T* __restrict__ c, int S, int H, int P, int N,
+         int L, int cpb, T* __restrict__ y, float* __restrict__ h_final) {
+  constexpr int CT = sizeof(T) == 2 ? 1 : 3;
+  using W = ScanShape<NJ, LT, CT>;
+  constexpr int NT = W::NT, HS = W::HS, CS = W::CS;
+  extern __shared__ __align__(16) __nv_bfloat16 scan_sm[];
+  __nv_bfloat16* hs = scan_sm;               // h_in terms [3][HK][HS]
+  __nv_bfloat16* cs = hs + W::H_ELEMS;       // C terms [CT][LT][CS], zero past N
+  T* ys = reinterpret_cast<T*>(cs + W::C_ELEMS);       // y_intra [LT][HS]
+  float* es = reinterpret_cast<float*>(ys + LT * HS);  // exp(cum) [LT]
 
-  const int p0 = blockIdx.x * SCAN_PS, h = blockIdx.y, bt = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, g = tid >> 5, half = lane >> 4;
-  const int pc = p0 + 4 * (lane & 15);  // this lane's first column
-  const int nc = S / L, nt = (L + RT - 1) / RT, units = nc * nt;
-  const int groups = FULL ? SCAN_WARPS : (N + NJ - 1) / NJ;  // warps that hold some n
-  const int pw = min(SCAN_PS, P - p0);                         // live columns of the slab
-  const int ywords = pw / EPW;
-  const long long row0 = (long long)bt * S, hp = (long long)H * P;
-  // whole 16-byte state pieces: P a multiple of 4 and the states aligned
-  const bool vec = FULL || (P % 4 == 0 && ((uintptr_t)state & 15) == 0);
-  // this thread's state pieces of chunk 0 (row g NJ + half), and a chunk's stride
-  const float* s_mine =
-      state + ((long long)bt * nc * H + h) * (long long)N * P + (long long)(g * NJ + half) * P + pc;
-  const long long s_chunk = (long long)H * N * P;
+  const int slabs = (P + SCAN_PS - 1) / SCAN_PS;
+  const int p0 = (blockIdx.x % slabs) * SCAN_PS, seg = blockIdx.x / slabs;
+  const int h = blockIdx.y, bt = blockIdx.z;
+  const int nc = S / L, k0 = seg * cpb, k1 = min(nc, k0 + cpb);
+  const int N16 = (N + 15) & ~15;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, pc = p0 + 4 * tx;
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int wr = warp % W::WR, wc = warp / W::WR;  // this warp's 16 rows and NT n-tiles
+  const bool mma_warp = warp < W::WR * W::WC;
+  const long long row0 = (long long)bt * S, hp = (long long)H * P, NP = (long long)N * P;
+  const bool svec = P % 4 == 0 && ((uintptr_t)state & 15) == 0;  // whole 16-byte state pieces
+  const bool cvec = CT == 1 && N % 8 == 0 && ((uintptr_t)c & 15) == 0;  // C rows by cp.async
+  constexpr int YV = 16 / sizeof(T);  // y_intra values a 16-byte piece holds
+  const int pw = min(SCAN_PS, P - p0);  // live columns of the slab
+  const bool yvec = P % YV == 0 && ((uintptr_t)y_intra & 15) == 0;  // y_intra by cp.async
+  const bool ypair = P % 2 == 0 && ((uintptr_t)y % (2 * sizeof(T))) == 0;
+  const float* s_mine = state + ((long long)bt * nc * H + h) * NP + (long long)ty * P + pc;
 
-  // the copies this thread makes of a unit's C rows and y_intra slab: row
-  // (RT: none), then source and destination offsets
-  int c_row[CPT], c_src[CPT], c_dst[CPT], y_row[YPT], y_col[YPT];
+  // rows r0 .. r0 + rows - 1 of chunk k, one cp.async group: C into cs (bf16
+  // rows by cp.async, else loaded and split into CT terms), the slab's
+  // y_intra into ys, exp(cum) into es
+  auto stage_c = [&](int k, int r0) {
+    const int rows = min(LT, L - r0);
+    const long long t0 = row0 + (long long)k * L + r0;
+    const T* cr = c + t0 * N;
+    const T* yr = y_intra + t0 * hp + (long long)h * P + p0;
+    if (yvec) {
+      const int q = pw / YV;
+      for (int e = tid; e < rows * q; e += SCAN_THREADS) {
+        const int l = e / q, v = e - l * q;
+        cp_async16(ys + l * HS + YV * v, yr + l * hp + YV * v);
+      }
+    } else {
+      for (int e = tid; e < rows * pw; e += SCAN_THREADS) {
+        const int l = e / pw, p = e - l * pw;
+        ys[l * HS + p] = yr[l * hp + p];
+      }
+    }
+    if (tid < rows) cp_async4(es + tid, ecum + (t0 + tid) * H + h);
+    if (cvec) {
+      const int q8 = N / 8;
+      for (int e = tid; e < rows * q8; e += SCAN_THREADS) {
+        const int l = e / q8, q = e - l * q8;
+        cp_async16(cs + l * CS + 8 * q, cr + (long long)l * N + 8 * q);
+      }
+    } else {
+      for (int e = tid; e < rows * N; e += SCAN_THREADS) {
+        const int l = e / N, n = e - l * N;
+        __nv_bfloat16 tt[3];
+        split_terms(to_f(cr[(long long)l * N + n]), tt);
 #pragma unroll
-  for (int i = 0; i < CPT; ++i) {
-    const int e = tid + i * SCAN_THREADS, l = e / N, n = e - l * N;
-    c_row[i] = e < RT * N ? l : RT;
-    c_src[i] = e;
-    c_dst[i] = l * CW + (n & 1) * (CW / 2) + (n >> 1);
+        for (int q = 0; q < CT; ++q) cs[(q * LT + l) * CS + n] = tt[q];
+      }
+    }
+    cp_async_commit();
+  };
+  for (int e = tid; e < CT * LT * (N16 - N); e += SCAN_THREADS) {  // no copy writes these
+    const int r = e / (N16 - N);
+    cs[r * CS + N + e % (N16 - N)] = __float2bfloat16(0.0f);
   }
+  stage_c(k0, 0);
+
+  // this thread's places of S_k
+  auto load_slab = [&](int k, float4 (&v)[NJ]) {
+    const float* sk = s_mine + (long long)k * H * NP;
 #pragma unroll
-  for (int i = 0; i < YPT; ++i) {
-    const int e = tid + i * SCAN_THREADS, l = e / ywords;
-    y_row[i] = e < RT * ywords ? l : RT;
-    y_col[i] = (e - l * ywords) * EPW;
+    for (int jj = 0; jj < NJ; ++jj) {
+      v[jj] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float* src = sk + (long long)(16 * jj) * P;
+      if (ty + 16 * jj < N && pc < P) {
+        if (svec) {
+          v[jj] = *reinterpret_cast<const float4*>(src);
+        } else {
+          v[jj].x = src[0];
+          if (pc + 1 < P) v[jj].y = src[1];
+          if (pc + 2 < P) v[jj].z = src[2];
+          if (pc + 3 < P) v[jj].w = src[3];
+        }
+      }
+    }
+  };
+  float hr[NJ][4];
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hr[jj][i] = 0.0f;
+  // h = D_k h + S_k: no contraction
+  auto update = [&](int k, const float4 (&v)[NJ]) {
+    const float d = ecum[(row0 + (long long)k * L + L - 1) * H + h];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const float sa[4] = {v[jj].x, v[jj].y, v[jj].z, v[jj].w};
+      if (ty + 16 * jj < N) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (pc + i < P) hr[jj][i] = __fadd_rn(__fmul_rn(d, hr[jj][i]), sa[i]);
+      }
+    }
+  };
+
+  // the walk to the segment's first chunk
+  for (int k = 0; k < k0; ++k) {
+    float4 sv[NJ];
+    load_slab(k, sv);
+    update(k, sv);
   }
 
-  if (!FULL) {  // zero every stage's C rows once: the copies fill n < N
-    for (int i = tid; i < DEPTH * RT * CW; i += SCAN_THREADS)
-      reinterpret_cast<float*>(scan_smem + (i / (RT * CW)) * Lay::STAGE + Lay::S_BYTES)
-          [i % (RT * CW)] = 0.0f;
-    __syncthreads();
-  }
-
-  auto fetch = [&](int k, int r, int st) {
-    uint8_t* base = scan_smem + st * Lay::STAGE;
-    float4* ss = reinterpret_cast<float4*>(base);
-    float* cs = reinterpret_cast<float*>(base + Lay::S_BYTES);
-    TI* ys = reinterpret_cast<TI*>(base + Lay::S_BYTES + Lay::C_BYTES);
-    float* es = reinterpret_cast<float*>(base + Lay::S_BYTES + Lay::C_BYTES + Lay::Y_BYTES);
-    const int t0 = k * L + r * RT, rows = min(RT, L - r * RT);
-    const float* cr = c + (row0 + t0) * N;
+  bool first = true;
+  for (int k = k0; k < k1; ++k) {
+    for (int r0 = 0; r0 < L; r0 += LT) {
+      const int rows = min(LT, L - r0);
+      const long long t0 = row0 + (long long)k * L + r0;
+      if (!first) {
+        __syncthreads();  // cs (and hs) free: every product before has ended
+        stage_c(k, r0);
+      }
+      first = false;
+      if (r0 == 0) {  // h_in as three bf16 terms, this thread's places
 #pragma unroll
-    for (int i = 0; i < CPT; ++i)
-      if (c_row[i] < rows) cp_async4(cs + c_dst[i], cr + c_src[i]);
-    const TI* yr = y_intra + (row0 + t0) * hp + (long long)h * P + p0;
+        for (int jj = 0; jj < NJ; ++jj) {
+          __nv_bfloat16 tt[4][3];
 #pragma unroll
-    for (int i = 0; i < YPT; ++i)
-      if (y_row[i] < rows) cp_async4(ys + y_row[i] * SCAN_PS + y_col[i], yr + y_row[i] * hp + y_col[i]);
-    if (tid < rows) cp_async4(es + tid, ecum + (row0 + t0 + tid) * H + h);
-    if (r == nt - 1) {  // the chunk's decay (its last exp(cum)) and states
-      if (tid == 0) cp_async4(es + RT, ecum + (row0 + k * L + L - 1) * H + h);
-      const float* sk = s_mine + k * s_chunk;
+          for (int i = 0; i < 4; ++i) split_terms(hr[jj][i], tt[i]);
 #pragma unroll
-      for (int jj = 0; jj < JJ; ++jj) {
-        float4* dst = ss + jj * SCAN_THREADS + tid;
-        const float* src = sk + (long long)(2 * jj) * P;
-        if (FULL) {
-          cp_async16(dst, src);
-        } else if (g * NJ + half + 2 * jj < N && pc < P) {
-          if (vec) {
-            cp_async16(dst, src);
-          } else {
+          for (int q = 0; q < 3; ++q) {
+            __nv_bfloat16* row = hs + (q * W::HK + ty + 16 * jj) * HS + 4 * tx;
+            *reinterpret_cast<uint2*>(row) =
+                make_uint2(bits2(tt[0][q], tt[1][q]), bits2(tt[2][q], tt[3][q]));
+          }
+        }
+      }
+      cp_async_wait<0>();  // this thread's copies of the tile have landed
+      __syncthreads();     // everyone's, and h_in
+      if (mma_warp && 16 * wr < rows) {
+        float acc[NT][4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if (pc + i < P) cp_async4(reinterpret_cast<float*>(dst) + i, src + i);
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+        // ldmatrix rows: A (C) rows 16 wr + (lane & 15), columns + 8 (lane >> 4);
+        // B (h_in) rows k + (lane & 15), columns 8 (lane >> 4) of each n-tile pair
+        const __nv_bfloat16* arow = cs + (16 * wr + (lane & 15)) * CS + 8 * (lane >> 4);
+        const __nv_bfloat16* brow =
+            hs + (lane & 15) * HS + (SCAN_PS / W::WC) * wc + 8 * (lane >> 4);
+        for (int k16 = 0; k16 < N16; k16 += 16) {
+          uint32_t a[CT][4];
+#pragma unroll
+          for (int q = 0; q < CT; ++q) ldsm4(a[q], arow + q * LT * CS + k16);
+#pragma unroll
+          for (int jp = 0; jp < NT / 2; ++jp) {
+#pragma unroll
+            for (int qh = 0; qh < 3; ++qh) {
+              uint32_t bfr[4];  // b0, b1 of n-tile 2 jp, then of 2 jp + 1
+              ldsm4t(bfr, brow + (qh * W::HK + k16) * HS + 16 * jp);
+#pragma unroll
+              for (int qc = 0; qc < CT && qc + qh <= 2; ++qc) {
+                mma16816(acc[2 * jp], a[qc], bfr[0], bfr[1]);
+                mma16816(acc[2 * jp + 1], a[qc], bfr[2], bfr[3]);
+              }
+            }
+          }
+        }
+        // this lane's rows 16 wr + g (+ 8) and columns 64 / WC wc + 8 j + 2 t4 (+ 1)
+        const int ra = 16 * wr + g, cl = (SCAN_PS / W::WC) * wc + 2 * t4;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int l = ra + 8 * rr;
+          if (l < rows) {
+            const long long at = (t0 + l) * hp + (long long)h * P + p0;
+            const float e = es[l];
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              const int p = cl + 8 * j;
+              T yi[2];
+              load_pair(ys + l * HS + p, yi);
+              const float o0 = __fadd_rn(to_f(yi[0]), __fmul_rn(e, acc[j][2 * rr]));
+              const float o1 = __fadd_rn(to_f(yi[1]), __fmul_rn(e, acc[j][2 * rr + 1]));
+              if (ypair && p < pw) {
+                store_pair(y + at + p, o0, o1);
+              } else {
+                if (p < pw) y[at + p] = from_f<T>(o0);
+                if (p + 1 < pw) y[at + p + 1] = from_f<T>(o1);
+              }
+            }
           }
         }
       }
     }
-  };
-
-  float hr[JJ][4];
-#pragma unroll
-  for (int jj = 0; jj < JJ; ++jj)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) hr[jj][i] = 0.0f;
-
-  int ki = 0, ri = 0, si = 0;  // the next unit to copy: its chunk, unit in chunk, stage
-  auto next = [&](int& k_, int& r_, int& s_) {
-    if (++r_ == nt) r_ = 0, ++k_;
-    if (++s_ == DEPTH) s_ = 0;
-  };
-#pragma unroll
-  for (int i = 0; i < DEPTH - 1; ++i) {
-    if (i < units) fetch(ki, ri, si), next(ki, ri, si);
-    cp_async_commit();
-  }
-
-  int k = 0, r = 0, s = 0;  // the unit walked
-  for (int u = 0; u < units; ++u, next(k, r, s)) {
-    cp_async_wait<DEPTH - 2>();  // this thread's copies of unit u have landed
-    __syncthreads();             // everyone's have, and unit u - 1's stage is free
-    if (u + DEPTH - 1 < units) fetch(ki, ri, si), next(ki, ri, si);
-    cp_async_commit();
-
-    const uint8_t* base = scan_smem + s * Lay::STAGE;
-    const float4* ss = reinterpret_cast<const float4*>(base);
-    const float* cs = reinterpret_cast<const float*>(base + Lay::S_BYTES);
-    const TI* ys = reinterpret_cast<const TI*>(base + Lay::S_BYTES + Lay::C_BYTES);
-    const float* es =
-        reinterpret_cast<const float*>(base + Lay::S_BYTES + Lay::C_BYTES + Lay::Y_BYTES);
-    const int t0 = k * L + r * RT, rows = min(RT, L - r * RT);
-
-    // this lane's part of C h_in for each row: its rows in order
-    float acc[RT][4];
-#pragma unroll
-    for (int l = 0; l < RT; ++l)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[l][i] = 0.0f;
-#pragma unroll
-    for (int l = 0; l < RT; ++l) {
-      const float* cl = cs + l * CW + half * (CW / 2) + g * JJ;
-#pragma unroll
-      for (int jb = 0; jb < JJ; jb += 4) {
-        const float4 cv = *reinterpret_cast<const float4*>(cl + jb);
-        const float cj[4] = {cv.x, cv.y, cv.z, cv.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[l][i] = fmaf(cj[j], hr[jb + j][i], acc[l][i]);
-      }
-    }
-    // the warp's sum: the two half-warps' (IEEE addition commutes, so both
-    // halves hold the same bits); then to shared memory
-#pragma unroll
-    for (int l = 0; l < RT; ++l) {
-      float4 v;
-      v.x = acc[l][0] + __shfl_xor_sync(0xffffffffu, acc[l][0], 16);
-      v.y = acc[l][1] + __shfl_xor_sync(0xffffffffu, acc[l][1], 16);
-      v.z = acc[l][2] + __shfl_xor_sync(0xffffffffu, acc[l][2], 16);
-      v.w = acc[l][3] + __shfl_xor_sync(0xffffffffu, acc[l][3], 16);
-      if (half == 0)
-        *reinterpret_cast<float4*>(part + (g * RT + l) * SCAN_PS + 4 * (lane & 15)) = v;
-    }
-    __syncthreads();
-
-    // the warps' sums in warp order, then y
-    for (int e = tid; e < rows * SCAN_PS; e += SCAN_THREADS) {
-      const int l = e / SCAN_PS, pp = e % SCAN_PS;
-      if (FULL || pp < pw) {
-        float sum = part[l * SCAN_PS + pp];
-#pragma unroll
-        for (int w = 1; w < SCAN_WARPS; ++w)
-          if (w < groups) sum += part[(w * RT + l) * SCAN_PS + pp];
-        const float out = __fadd_rn(to_f(ys[l * SCAN_PS + pp]), __fmul_rn(es[l], sum));
-        y[(row0 + t0 + l) * hp + (long long)h * P + p0 + pp] = from_f<TO>(out);
-      }
-    }
-
-    if (r == nt - 1) {  // the chunk's end: h = D h + S, no contraction
-      const float d = es[RT];
-#pragma unroll
-      for (int jj = 0; jj < JJ; ++jj) {
-        if (FULL || (g * NJ + half + 2 * jj < N && pc < P)) {
-          const float4 sv = ss[jj * SCAN_THREADS + tid];
-          const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (FULL || pc + i < P) hr[jj][i] = __fadd_rn(__fmul_rn(d, hr[jj][i]), sa[i]);
-        }
-      }
+    if (k + 1 < k1 || k1 == nc) {  // h_in of the next chunk, or h_final
+      float4 sv[NJ];
+      load_slab(k, sv);
+      update(k, sv);
     }
   }
-  cp_async_wait<0>();
 
-  float* hf = h_final + ((long long)bt * H + h) * (long long)N * P + (long long)(g * NJ + half) * P + pc;
+  if (k1 == nc) {
+    float* hf = h_final + ((long long)bt * H + h) * NP + (long long)ty * P + pc;
 #pragma unroll
-  for (int jj = 0; jj < JJ; ++jj) {
-    float* row = hf + (long long)(2 * jj) * P;
-    if (FULL) {
-      *reinterpret_cast<float4*>(row) = make_float4(hr[jj][0], hr[jj][1], hr[jj][2], hr[jj][3]);
-    } else if (g * NJ + half + 2 * jj < N) {
+    for (int jj = 0; jj < NJ; ++jj)
+      if (ty + 16 * jj < N) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (pc + i < P) row[i] = hr[jj][i];
-    }
+        for (int i = 0; i < 4; ++i)
+          if (pc + i < P) hf[(long long)(16 * jj) * P + i] = hr[jj][i];
+      }
   }
 }
 
-template <int NJ, int RT, int DEPTH, bool FULL, typename TI, typename TO>
-int run_scan(const void* y_intra, const void* state, const void* ecum, const void* c,
-             int batch, int S, int H, int P, int N, int L, void* y, void* h_final,
+template <int NJ, int LT, typename T>
+int run_scan(const void* y_intra, const void* state, const void* ecum, const void* c, int batch,
+             int S, int H, int P, int N, int L, int cpb, void* y, void* h_final,
              cudaStream_t st) {
-  using Lay = ScanLayout<NJ, RT, TI>;
-  constexpr int smem = DEPTH * Lay::STAGE + Lay::PART_BYTES;
-  static_assert(smem <= SMEM_MAX, "ssd_scan: the ring does not fit in shared memory");
-  auto kernel = ssd_scan<NJ, RT, DEPTH, FULL, TI, TO>;
+  constexpr int smem = ScanShape<NJ, LT, sizeof(T) == 2 ? 1 : 3>::SMEM;
+  static_assert(smem <= SMEM_MAX, "ssd_scan: the tiles do not fit in shared memory");
+  auto kernel = ssd_scan<NJ, LT, T>;
   int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != 0) return e;
-  const dim3 grid((unsigned)((P + SCAN_PS - 1) / SCAN_PS), (unsigned)H, (unsigned)batch);
-  kernel<<<grid, SCAN_THREADS, smem, st>>>((const TI*)y_intra, (const float*)state,
-                                           (const float*)ecum, (const float*)c, S, H, P, N,
-                                           L, (TO*)y, (float*)h_final);
+  const int slabs = (P + SCAN_PS - 1) / SCAN_PS, segs = (S / L + cpb - 1) / cpb;
+  const dim3 grid((unsigned)(slabs * segs), (unsigned)H, (unsigned)batch);
+  kernel<<<grid, SCAN_THREADS, smem, st>>>((const T*)y_intra, (const float*)state,
+                                           (const float*)ecum, (const T*)c, S, H, P, N, L, cpb,
+                                           (T*)y, (float*)h_final);
   return (int)cudaGetLastError();
 }
 
-// The ring by unit size (as many units ahead as fit) and state size (NJ);
-// chunks of 8 rows or more take 8 rows a unit, shorter ones one.
-template <typename TI, typename TO>
+// By state size (NJ: 8 for N <= 128, 16 for N <= 256) and chunk (tiles of
+// 16 rows for chunks of at most 16, else 64: on an H100 128-row tiles were
+// no faster at chunks of 128, PERF.md).
+template <typename T>
 int scan_by_size(const void* y_intra, const void* state, const void* ecum, const void* c,
-                 int batch, int S, int H, int P, int N, int L, void* y, void* h_final,
+                 int batch, int S, int H, int P, int N, int L, int cpb, void* y, void* h_final,
                  cudaStream_t st) {
-#define REPRO_SCAN(NJ, RT, DEPTH, FULL)                                                   \
-  return run_scan<NJ, RT, DEPTH, FULL, TI, TO>(y_intra, state, ecum, c, batch, S, H, P, N, \
-                                               L, y, h_final, st)
-  const bool full = N == SCAN_WARPS * 8 && P % SCAN_PS == 0 && ((uintptr_t)state & 15) == 0;
-  if (full) {
-    if (L >= 8) REPRO_SCAN(8, 8, 4, true);
-    REPRO_SCAN(8, 1, 6, true);
+#define REPRO_SCAN(NJ, LT) \
+  return run_scan<NJ, LT, T>(y_intra, state, ecum, c, batch, S, H, P, N, L, cpb, y, h_final, st)
+  if (N <= 128) {
+    if (L <= 16) REPRO_SCAN(8, 16);
+    REPRO_SCAN(8, 64);
   }
-  if (N <= SCAN_WARPS * 8) {
-    if (L >= 8) REPRO_SCAN(8, 8, 4, false);
-    REPRO_SCAN(8, 1, 6, false);
-  }
-  if (L >= 8) REPRO_SCAN(16, 8, 2, false);
-  REPRO_SCAN(16, 1, 3, false);
+  if (L <= 16) REPRO_SCAN(16, 16);
+  REPRO_SCAN(16, 64);
 #undef REPRO_SCAN
+}
+
+// ------------------------------------------------------------------------- //
+// ssd_recur: the whole ssd_chunk_scan at one-token chunks, one launch.       //
+// ------------------------------------------------------------------------- //
+
+constexpr int RECUR_THREADS = 128;
+constexpr int RECUR_PB = 16;  // P columns a block: four a warp (== RECUR_PB in ssd_chunk.py)
+
+// K: n places a lane holds a column, in fours (N <= 32 K).  A tile is T
+// tokens, staged as float32: c and b ([T][32 K] each, zero past N), x
+// ([T][16]), exp(log_a) ([T]) and c·b ([T]).  A thread loads PF values of c
+// and b and XF of x for the next tile.
+template <int K>
+struct Recur {
+  static constexpr int NS = 32 * K;
+  static constexpr int T = 64 / K;
+  static constexpr int PF = T * NS / RECUR_THREADS;
+  static constexpr int XF = T * RECUR_PB / RECUR_THREADS;
+  static constexpr int BUF = T * (2 * NS + RECUR_PB + 2);
+};
+
+// One block: sequence bt, head h, columns col0 .. col0 + 15.  Lane (j, q) =
+// (lane / 4, lane % 4) of warp w owns column p = col0 + 4 w + q and holds
+// h[n, p] in registers for n = 4 j + 32 k + i (k < K, i < 4), from h = 0 over
+// the tokens in order:
+//   s_j  = Σ_{k, i} c_t[n] h[n, p], in that order with fmaf (h = h_{t-1})
+//   h    = __fadd_rn(__fmul_rn(d_t, h), __fmul_rn(b_t[n], x_t[p]))
+// Each lane keeps its partial sums of 8 tokens; then three shuffle stages
+// (lane offsets 16, 8, 4) add the eight groups' sums in the fixed tree
+// ((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7)) and leave token g + j's
+// sum in group j, which writes y = round(round(c·b x) + e * sum).  Tiles of
+// T tokens go through two shared-memory buffers, loaded into registers a
+// tile ahead and stored after the walk: two barriers a tile, none a token.
+// FULL: N == 32 K, no place is past N.
+template <int K, bool FULL, typename T>
+__global__ void __launch_bounds__(RECUR_THREADS)
+ssd_recur(const T* __restrict__ x, const float* __restrict__ ecum, const T* __restrict__ b,
+          const T* __restrict__ c, int S, int H, int P, int N, T* __restrict__ y,
+          float* __restrict__ h_final) {
+  using R = Recur<K>;
+  constexpr int NS = R::NS, TT = R::T, PF = R::PF, XF = R::XF, PB = RECUR_PB;
+  constexpr int WARPS_R = RECUR_THREADS / 32;
+  extern __shared__ __align__(16) float rec_sm[];
+  const int col0 = blockIdx.x * PB, h = blockIdx.y, bt = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = lane >> 2, wc = warp * 4 + (lane & 3), p = col0 + wc;
+  const long long row0 = (long long)bt * S, hp = (long long)H * P;
+  const int tiles = (S + TT - 1) / TT;
+
+  // the next tile's inputs, loaded before the walk and stored after it
+  T cv[PF], bv[PF], xv[XF];
+  float ev = 1.0f;
+  auto load = [&](int tile) {
+    const int t0 = tile * TT;
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const int s = tid + RECUR_THREADS * i, t = t0 + s / NS, n = s % NS;
+      cv[i] = bv[i] = from_f<T>(0.0f);
+      if (t < S && (FULL || n < N)) {
+        const long long at = (row0 + t) * N + n;
+        cv[i] = c[at];
+        bv[i] = b[at];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < XF; ++i) {
+      const int s = tid + RECUR_THREADS * i, t = t0 + s / PB, col = col0 + s % PB;
+      xv[i] = from_f<T>(0.0f);
+      if (t < S && col < P) xv[i] = x[(row0 + t) * hp + (long long)h * P + col];
+    }
+    if (tid < TT && t0 + tid < S) ev = ecum[(row0 + t0 + tid) * H + h];
+  };
+  auto stage = [&](int buf) {
+    float* F = rec_sm + buf * R::BUF;
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      F[tid + RECUR_THREADS * i] = to_f(cv[i]);
+      F[TT * NS + tid + RECUR_THREADS * i] = to_f(bv[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < XF; ++i) F[2 * TT * NS + tid + RECUR_THREADS * i] = to_f(xv[i]);
+    if (tid < TT) F[2 * TT * NS + TT * PB + tid] = ev;
+  };
+
+  float hr[K][4];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hr[k][i] = 0.0f;
+
+  load(0);
+  stage(0);
+  for (int tile = 0; tile < tiles; ++tile) {
+    float* F = rec_sm + (tile & 1) * R::BUF;
+    const float* cs = F;
+    const float* bs = F + TT * NS;
+    const float* xs = F + 2 * TT * NS;
+    const float* es = xs + TT * PB;
+    float* cbs = F + 2 * TT * NS + TT * PB + TT;
+    __syncthreads();  // this tile's buffer is complete, the other one free
+    // c·b, a warp a token: lane l sums n = l + 32 k in order, then the shuffle tree
+    for (int t = warp; t < TT; t += WARPS_R) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) s = fmaf(cs[t * NS + lane + 32 * k], bs[t * NS + lane + 32 * k], s);
+      s = repro::warp_reduce<repro::SumF>(s);
+      if (lane == 0) cbs[t] = s;
+    }
+    if (tile + 1 < tiles) load(tile + 1);
+    __syncthreads();  // c·b visible
+
+    const int live = min(TT, S - tile * TT);
+    for (int g = 0; g < live; g += 8) {
+      float part[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int t = g + u;
+        part[u] = 0.0f;
+        if (t < live) {
+          const float d = es[t], xp = xs[t * PB + wc];
+          float s = 0.0f;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float4 c4 = *reinterpret_cast<const float4*>(cs + t * NS + 32 * k + 4 * j);
+            const float4 b4 = *reinterpret_cast<const float4*>(bs + t * NS + 32 * k + 4 * j);
+            const float cc[4] = {c4.x, c4.y, c4.z, c4.w}, bb[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              s = fmaf(cc[i], hr[k][i], s);
+              const float nh = __fadd_rn(__fmul_rn(d, hr[k][i]), __fmul_rn(bb[i], xp));
+              hr[k][i] = (FULL || 32 * k + 4 * j + i < N) ? nh : 0.0f;
+            }
+          }
+          part[u] = s;
+        }
+      }
+      // the groups' sums: each stage keeps the half of the tokens whose bit
+      // matches the lane's, adding its partner's sums of them
+      const bool b2 = j & 4, b1 = j & 2, b0 = j & 1;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float send = b2 ? part[u] : part[u + 4], keep = b2 ? part[u + 4] : part[u];
+        part[u] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float send = b1 ? part[u] : part[u + 2], keep = b1 ? part[u + 2] : part[u];
+        part[u] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+      }
+      const float send = b0 ? part[0] : part[1], keep = b0 ? part[1] : part[0];
+      const float sum = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+      const int t = g + j;
+      if (t < live && p < P) {
+        const float yi = to_f(from_f<T>(__fmul_rn(cbs[t], xs[t * PB + wc])));
+        y[(row0 + (long long)tile * TT + t) * hp + (long long)h * P + p] =
+            from_f<T>(__fadd_rn(yi, __fmul_rn(es[t], sum)));
+      }
+    }
+    if (tile + 1 < tiles) stage((tile + 1) & 1);
+  }
+
+  if (p < P) {
+    float* hf = h_final + ((long long)bt * H + h) * N * P + p;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = 32 * k + 4 * j + i;
+        if (FULL || n < N) hf[(long long)n * P] = hr[k][i];
+      }
+  }
+}
+
+template <int K, bool FULL, typename T>
+int run_recur(const void* x, const void* ecum, const void* b, const void* c, int batch, int S,
+              int H, int P, int N, void* y, void* h_final, cudaStream_t st) {
+  const int smem = 2 * Recur<K>::BUF * 4;  // under 48 KB at every K
+  const dim3 grid((unsigned)((P + RECUR_PB - 1) / RECUR_PB), (unsigned)H, (unsigned)batch);
+  ssd_recur<K, FULL, T><<<grid, RECUR_THREADS, (size_t)smem, st>>>(
+      (const T*)x, (const float*)ecum, (const T*)b, (const T*)c, S, H, P, N, (T*)y,
+      (float*)h_final);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int recur_by_size(const void* x, const void* ecum, const void* b, const void* c, int batch,
+                  int S, int H, int P, int N, void* y, void* h_final, cudaStream_t st) {
+#define REPRO_RECUR(K)                                                                         \
+  return N == 32 * K ? run_recur<K, true, T>(x, ecum, b, c, batch, S, H, P, N, y, h_final, st) \
+                     : run_recur<K, false, T>(x, ecum, b, c, batch, S, H, P, N, y, h_final, st)
+  if (N <= 32) REPRO_RECUR(1);
+  if (N <= 64) REPRO_RECUR(2);
+  if (N <= 128) REPRO_RECUR(4);
+  REPRO_RECUR(8);
+#undef REPRO_RECUR
 }
 
 }  // namespace
@@ -1095,57 +1362,92 @@ REPRO_EXPORT int repro_ssd_chunk_wgmma(const void* x, const void* log_a, const v
 }
 
 // The inter-chunk scan (ssd_scan), after the intra-chunk pass: y_intra
-// TI[batch, S, H, P] and the chunk states f32[batch, S / L, H, N, P] from
-// it, ecum f32[batch, S, H] (exp of the inclusive cumsum of log_a within
-// each chunk; a chunk's last row is its decay D) and c f32[batch, S, N];
-// TI by `tin`, y by `tout` (0 float32, 1 bfloat16; a bfloat16 y_intra needs
-// a bfloat16 y, an even P and a 4-byte aligned start).  N <= 256.  Outputs
-// y TO[batch, S, H, P] and h_final f32[batch, H, N, P].
+// T[batch, S, H, P] and the chunk states f32[batch, S / L, H, N, P] from it,
+// ecum f32[batch, S, H] (exp of the inclusive cumsum of log_a within each
+// chunk; a chunk's last row is its decay D) and c T[batch, S, N]; T by
+// `dtype` (0 float32, 1 bfloat16).  N <= 256; a block takes `cpb` chunks of
+// one sequence, head and 64 columns.  Outputs y T[batch, S, H, P] and
+// h_final f32[batch, H, N, P].
 //
 // Replaces the code after the pallas_call of `ssd_chunk_scan` in
 // src/repro/kernels/ssd_chunk.py (lines 128-150): the lax.scan h_k = D_k
-// h_{k-1} + S_k (line 140) and the correction einsum.  Bound on an H100
-// SXM: at one-token chunks, bytes (the states, 2.62 GB a layer at 1,000
-// tokens x 80 heads x N 128 x P 64, read once: 0.78 ms); at chunks of 128,
-// float32 operations (2 S H N P for C h_in, 1.34 GFLOP at 1,024 tokens:
-// 20 µs at 67 TFLOP/s).
+// h_{k-1} + S_k (line 140) and the correction einsum.  Bound on an H100 SXM
+// at chunks of 128: float32 operations (2 S H N P for C h_in, 1.34 GFLOP at
+// 1,024 tokens x 80 heads x N 128 x P 64: 20 µs at 67 TFLOP/s).
 //
-// Design.  One block of 512 threads per (sequence, head, 64-column slab of
-// P); the block holds its h slab in registers and walks the chunks in
-// order, so h_in is never stored and each state is read once.  The walk is
-// serial, but the loads of later chunks do not depend on h: each unit's C
-// rows, y_intra slab, exp(cum) and (at a chunk's end) decay and state slab
-// go into a ring of shared-memory stages by cp.async, DEPTH - 1 units ahead.
-// The state slab comes in 16-byte pieces (4-byte ones where P is no
-// multiple of 4), each copied by the thread that will use it.  A walk step
-// costs a fixed number of instructions a thread whatever the chunk holds,
-// and at one-token chunks (a step a token) that count, not the memory, set
-// the pace of the first designs: the index work is carried from step to
-// step, C is staged as float32 with even and odd n apart (one 16-byte load
-// feeds 16 FMAs), and the serving shape drops every bounds test (FULL;
-// PERF.md).  h matches the plain version bit for bit on the card: exp(cum)
-// comes in from the same torch ops, and the update is a rounded multiply,
-// then a rounded add.  The sum over N runs in an order fixed by N
-// alone (each warp's n block, even rows then odd rows, each in order with
-// fmaf; then the warps in order), never by batch or grid, and no float
-// atomics are used.
+// Design.  Once h_in of a chunk is known, its y is an independent (L x N)
+// (N x P) product, so the chunks run in parallel: one block of 256 threads
+// per (sequence, head, 64 columns of P, segment of cpb chunks).  A block
+// first walks the chunks before its segment, h = D_k h + S_k over its
+// slab, while its first tile of C arrives (the walk is nc elementwise
+// steps, and every block repeats it in the same order, so every h_in has
+// the same bits); then, per chunk of the segment, it writes h_in to shared
+// memory as three bf16 terms and runs the product on the tensor cores
+// (mma.sync m16n8k16, float32 sums), as ssd_wgmma does with its float32
+// operands: C is exact in bf16 for bf16 inputs (three terms for float32),
+// and only term products of orders up to 2 are taken, so the product is
+// that of h_in to about 2^-24; nothing is rounded to one bf16 term, and
+// nothing runs in TF32.  `ssd_chunk.scan_chunks` picks cpb: one chunk a
+// block for chunks of 64 rows or more (640 blocks at the serving shape),
+// else the fewest segments that give each SM a block.  h matches the
+// plain version bit for bit on the card: exp(cum) comes in from the same
+// torch ops, and each step is a rounded multiply, then a rounded add,
+// chunk by chunk from h = 0.  The sum over N runs in 16-row steps in order,
+// each the tensor core's fixed sum, so its order depends on N alone, never
+// on batch or grid; no float atomics.
 REPRO_EXPORT int repro_ssd_scan(const void* y_intra, const void* state, const void* ecum,
                                 const void* c, int batch, int S, int H, int P, int N, int L,
-                                int tin, int tout, void* y, void* h_final, void* stream) {
+                                int cpb, int dtype, void* y, void* h_final, void* stream) {
   if (batch <= 0 || batch > 65535 || S <= 0 || H <= 0 || H > 65535 || P <= 0 || N <= 0 ||
-      N > 2 * SCAN_WARPS * 8 || L <= 0 || S % L != 0 || (tin != 0 && tin != 1) ||
-      (tout != 0 && tout != 1))
+      N > 256 || L <= 0 || S % L != 0 || cpb <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (tin == 1) {
-    if (tout != 1 || P % 2 != 0 || ((uintptr_t)y_intra & 3) != 0)
-      return (int)cudaErrorInvalidValue;
-    return scan_by_size<__nv_bfloat16, __nv_bfloat16>(y_intra, state, ecum, c, batch, S, H, P,
-                                                      N, L, y, h_final, st);
-  }
-  if (tout == 1)
-    return scan_by_size<float, __nv_bfloat16>(y_intra, state, ecum, c, batch, S, H, P, N, L, y,
-                                              h_final, st);
-  return scan_by_size<float, float>(y_intra, state, ecum, c, batch, S, H, P, N, L, y, h_final,
-                                    st);
+  if (dtype == 0)
+    return scan_by_size<float>(y_intra, state, ecum, c, batch, S, H, P, N, L, cpb, y, h_final,
+                               st);
+  if (dtype == 1)
+    return scan_by_size<__nv_bfloat16>(y_intra, state, ecum, c, batch, S, H, P, N, L, cpb, y,
+                                       h_final, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The whole ssd_chunk_scan at one-token chunks (ssd_recur): x T[batch, S,
+// H, P], ecum f32[batch, S, H] (exp(log_a), as chunk_decays gives it at L =
+// 1), b, c T[batch, S, N]; T by `dtype` (0 float32, 1 bfloat16); N <= 256.
+// Outputs y T[batch, S, H, P] and h_final f32[batch, H, N, P].
+//
+// Replaces, at one-token chunks, the whole of `ssd_chunk_scan` in
+// src/repro/kernels/ssd_chunk.py: the pallas_call (line 103) and the scan
+// after it (lines 128-150).  At L = 1 the chunk state is b xᵀ and the pair
+// ssd_short + ssd_scan wrote and read it back (2.62 GB a layer at 1,000
+// tokens x 80 heads x N 128 x P 64); the function itself reads x, log_a, b
+// and c and writes y and h_final (about 24 MB), and does 5 S H N P float32
+// operations (c·h, the update and b xᵀ): 3.3 GFLOP, 0.049 ms at 67 TFLOP/s.
+// Bound: operations.
+//
+// Design.  For each (head, column p) the recurrence h_t[n] = d_t h_{t-1}[n]
+// + b_t[n] x_t[p] is independent, and only y's sum c_t·h_{t-1} couples the
+// n of one column; so a warp owns four columns of one head, eight lanes a
+// column, each lane 4 K values of n in registers, and the sum over n is a
+// lane's fmaf chain, then a fixed shuffle tree over the eight lanes, taken
+// for eight tokens at once (stages of 4, 2 and 1 shuffles).  No barrier a
+// token: a block of four warps (16 columns: 320 blocks at the serving
+// shape, over all 132 SMs) stages tiles of T tokens of c, b, x and
+// exp(log_a) as float32 through two buffers, loaded a tile ahead, with c·b
+// of each token reduced once a block.  y rounds where the plain version
+// rounds: y_intra = round((c·b) x) to x's type, then y = round(y_intra + e
+// (c·h)).  h_final equals the plain version's bit for bit: each step is
+// the plain loop's round(round(d h) + round(b x)), d from the same torch
+// expression.  No float atomics; the sums' orders depend on N alone.
+REPRO_EXPORT int repro_ssd_recur(const void* x, const void* ecum, const void* b, const void* c,
+                                 int batch, int S, int H, int P, int N, int dtype, void* y,
+                                 void* h_final, void* stream) {
+  if (batch <= 0 || batch > 65535 || S <= 0 || H <= 0 || H > 65535 || P <= 0 || N <= 0 ||
+      N > 256)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return recur_by_size<float>(x, ecum, b, c, batch, S, H, P, N, y, h_final, st);
+  if (dtype == 1)
+    return recur_by_size<__nv_bfloat16>(x, ecum, b, c, batch, S, H, P, N, y, h_final, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -54,7 +54,8 @@ COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
                  "ssd_chunk_scan_wgmma": _ssd.launches_wgmma,
                  "ssd_chunk_scan_short": _ssd.launches_short,
                  "ssd_chunk_scan_cells": _ssd.launches_cells,
-                 "ssd_chunk_scan_inter": _ssd.launches_scan})
+                 "ssd_chunk_scan_inter": _ssd.launches_scan,
+                 "ssd_chunk_scan_recur": _ssd.launches_recur})
 
 
 @contextmanager

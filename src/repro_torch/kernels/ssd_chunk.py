@@ -28,13 +28,24 @@ H, N, P))``.  It is two steps, as in the reference
    exp(Σ log_a over chunk k), the last row of exp(cum)) and the
    inbound-state correction ``y = y_intra + exp(cum) C h_in``.  For CUDA
    tensors this is one launch of ``ssd_scan`` in ``csrc/ssd_chunk.cu``
-   (:func:`ssd_chunk_inter`, counted by ``launches_scan``): one block per
-   (sequence, head, 64 columns of P) holds h in registers and walks the
-   chunks in order, so h_in is never stored; exp(cum), and D_k with it,
-   comes from the same torch ops as in the plain version, so h_final equals
-   the plain version's bit for bit.  For CPU tensors, and in
-   :func:`ssd_chunk_inter_plain`, torch ops (a loop over the chunks, then
-   one einsum).
+   (:func:`ssd_chunk_inter`, counted by ``launches_scan``), chunk-parallel:
+   one block per (sequence, head, 64 columns of P, segment of
+   :func:`scan_chunks` chunks) repeats the elementwise walk to its
+   segment's h_in, then computes each chunk's rows as an (L x N)·(N x P)
+   product on the tensor cores (``mma.sync``, float32 sums; h_in as three
+   bf16 terms, C exact in bf16, or three terms for float32); exp(cum), and
+   D_k with it, comes from the same torch ops as in the plain version, so
+   h_final equals the plain version's bit for bit.  For CPU tensors, and
+   in :func:`ssd_chunk_inter_plain`, torch ops (a loop over the chunks,
+   then one einsum).
+
+At one-token chunks (L = 1, N <= ``RECUR_MAX_N``; :func:`scan_route`)
+``ssd_chunk_scan`` runs neither step: one launch of ``ssd_recur``
+(:func:`ssd_chunk_recur`, counted by ``launches_recur`` and ``launches``)
+walks the tokens from h = 0 with h in registers, so no chunk state reaches
+device memory; its h_final equals :func:`ssd_chunk_scan_plain`'s at chunk 1
+bit for bit.  ``ssd_short`` stays reachable at L = 1 through
+:func:`ssd_chunk_intra`.
 """
 from __future__ import annotations
 
@@ -53,11 +64,15 @@ launches_wgmma = LaunchCounter("ssd_chunk_scan_wgmma")
 launches_short = LaunchCounter("ssd_chunk_scan_short")
 launches_cells = LaunchCounter("ssd_chunk_scan_cells")
 launches_scan = LaunchCounter("ssd_chunk_scan_inter")
+launches_recur = LaunchCounter("ssd_chunk_scan_recur")
 
 SHORT_MAX_L = 16  # == SHORT_MAX_L in csrc/ssd_chunk.cu: past it ssd_cells is faster
 SHORT_SMEM = 48 * 1024  # shared memory a block of ssd_short aims at: several blocks an SM
 SHORT_BLOCKS_PER_SM = 16  # so that the last wave's tail is short
 SCAN_MAX_N = 256  # the largest state size ssd_scan holds in registers
+SCAN_PS = 64  # == SCAN_PS in csrc/ssd_chunk.cu: P columns a block of ssd_scan
+RECUR_MAX_N = 256  # the largest state size ssd_recur holds in registers
+RECUR_PB = 16  # == RECUR_PB in csrc/ssd_chunk.cu: P columns a block of ssd_recur
 
 
 def ssd_route(dtype: torch.dtype, L: int, N: int, P: int) -> str:
@@ -74,6 +89,34 @@ def ssd_route(dtype: torch.dtype, L: int, N: int, P: int) -> str:
     if L <= SHORT_MAX_L:
         return "short"
     return "cells"
+
+
+def scan_route(L: int, N: int) -> str:
+    """How :func:`ssd_chunk_scan` runs on CUDA tensors: ``"recur"`` (one
+    launch of ``ssd_recur``) at one-token chunks with N <= ``RECUR_MAX_N``,
+    else ``"pair"`` (the kernel :func:`ssd_route` names, then ``ssd_scan``)."""
+    return "recur" if L == 1 and 0 < N <= RECUR_MAX_N else "pair"
+
+
+def recur_grid(batch: int, H: int, P: int) -> Tuple[int, int, int]:
+    """``ssd_recur``'s grid: one block of four warps per (16 columns of P,
+    head, sequence); 4 x 80 = 320 blocks at the serving shape."""
+    return -(-P // RECUR_PB), H, batch
+
+
+def scan_chunks(batch: int, n_chunks: int, H: int, P: int, L: int, sms: int) -> int:
+    """Chunks a block of ``ssd_scan`` takes.  Chunks of 64 rows or more: one
+    (each chunk's product, 2 L N P operations, outweighs repeating the
+    walk to it, one N x P read a chunk).  Shorter ones: as many as leave
+    the fewest segments that still give each of the ``sms`` SMs a block,
+    since every segment repeats the walk over the chunks before it (on an
+    H100 this was the fastest choice at chunks of 1, 2, 16 and 32;
+    ``PERF.md``)."""
+    if L >= 64:
+        return 1
+    cells = batch * H * -(-P // SCAN_PS)
+    segments = min(n_chunks, -(-sms // cells))
+    return -(-n_chunks // segments)
 
 
 def heads_per_block(batch: int, n_chunks: int, H: int, sms: int) -> int:
@@ -128,14 +171,16 @@ def ssd_chunk_intra_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
 def _fns():
     """→ {route: C entry point}: ``repro_ssd_chunk`` (ssd_cells, given the
     type code), ``repro_ssd_chunk_wgmma`` (ssd_wgmma, given the heads a
-    block walks), ``repro_ssd_chunk_short`` (ssd_short, given both) and
-    ``repro_ssd_scan`` (the inter-chunk scan, ssd_scan)."""
+    block walks), ``repro_ssd_chunk_short`` (ssd_short, given both),
+    ``repro_ssd_scan`` (the inter-chunk scan, ssd_scan, given the chunks a
+    block takes) and ``repro_ssd_recur`` (ssd_recur)."""
     lib = _build.load("ssd_chunk")
     args = [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, P, P, P]
     return {"cells": bind(lib, "repro_ssd_chunk", args),
             "wgmma": bind(lib, "repro_ssd_chunk_wgmma", args),
             "short": bind(lib, "repro_ssd_chunk_short", args[:11] + [I32] + args[11:]),
-            "scan": bind(lib, "repro_ssd_scan", [P] * 4 + [I32] * 8 + [P] * 3)}
+            "scan": bind(lib, "repro_ssd_scan", [P] * 4 + [I32] * 8 + [P] * 3),
+            "recur": bind(lib, "repro_ssd_recur", [P] * 4 + [I32] * 6 + [P] * 3)}
 
 
 def chunk_decays(log_a: torch.Tensor, n_chunks: int) -> torch.Tensor:
@@ -170,10 +215,7 @@ def ssd_chunk_inter_plain(y_intra: torch.Tensor, state: torch.Tensor, log_a: tor
 def ssd_chunk_inter(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Tensor,
                     c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Step 2 on CUDA tensors: one launch of ``ssd_scan`` → (y, h_final) as
-    :func:`ssd_chunk_inter_plain`.  The kernel takes C in float32 (its rows
-    are staged as float32 either way); a bf16 y_intra with an odd P, or off
-    a 4-byte boundary, goes to it as float32 too (its 4-byte copies move bf16
-    values in pairs)."""
+    :func:`ssd_chunk_inter_plain`."""
     if y_intra.dim() != 4 or state.dim() != 5 or log_a.dim() != 3 or c.dim() != 3:
         raise ValueError(f"ssd_chunk_inter: unsupported ranks y_intra {tuple(y_intra.shape)}, "
                          f"state {tuple(state.shape)}, log_a {tuple(log_a.shape)}, "
@@ -195,16 +237,48 @@ def ssd_chunk_inter(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Ten
     require(log_a, "log_a", torch.float32, 3, dev)
     require(c, "c", dt, 3, dev)
     ecum = chunk_decays(log_a, nc)
-    c = c.float()
-    tin = DTYPES[dt]
-    if tin and (Pd % 2 or y_intra.data_ptr() % 4):
-        y_intra, tin = y_intra.float(), 0
     y = torch.empty((bt, S, H, Pd), dtype=dt, device=dev)
     h = torch.empty((bt, H, N, Pd), dtype=torch.float32, device=dev)
+    cpb = scan_chunks(bt, nc, H, Pd, S // nc, _sm_count(dev.index))
     check_launch("ssd_chunk_inter", _fns()["scan"](
         y_intra.data_ptr(), state.data_ptr(), ecum.data_ptr(), c.data_ptr(),
-        bt, S, H, Pd, N, S // nc, tin, DTYPES[dt], y.data_ptr(), h.data_ptr(), stream_ptr(dev)))
+        bt, S, H, Pd, N, S // nc, cpb, DTYPES[dt], y.data_ptr(), h.data_ptr(), stream_ptr(dev)))
     launches_scan.add()
+    return y, h
+
+
+def ssd_chunk_recur(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole function at one-token chunks on CUDA tensors: one launch of
+    ``ssd_recur`` → (y, h_final) as :func:`ssd_chunk_scan_plain` at chunk 1
+    (h_final bit for bit).  The decays exp(log_a) come from
+    :func:`chunk_decays`, the plain version's expression."""
+    if x.dim() != 4 or log_a.dim() != 3 or b.dim() != 3 or c.dim() != 3:
+        raise ValueError(f"ssd_chunk_recur: unsupported ranks x {tuple(x.shape)}, "
+                         f"b {tuple(b.shape)}")
+    bt, S, H, Pd = x.shape
+    N = b.shape[-1]
+    if (log_a.shape != (bt, S, H) or b.shape != (bt, S, N) or c.shape != b.shape
+            or not 0 < N <= RECUR_MAX_N):
+        raise ValueError(f"ssd_chunk_recur: unsupported shapes x {tuple(x.shape)}, "
+                         f"b {tuple(b.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_recur: unsupported device {x.device}")
+    dev = x.device
+    if x.dtype not in DTYPES:
+        raise TypeError(f"ssd_chunk_recur: unsupported type {x.dtype}")
+    require(x, "x", None, 4)
+    require(log_a, "log_a", torch.float32, 3, dev)
+    require(b, "b", x.dtype, 3, dev)
+    require(c, "c", x.dtype, 3, dev)
+    ecum = chunk_decays(log_a, S)
+    y = torch.empty_like(x)
+    h = torch.empty((bt, H, N, Pd), dtype=torch.float32, device=dev)
+    check_launch("ssd_chunk_recur", _fns()["recur"](
+        x.data_ptr(), ecum.data_ptr(), b.data_ptr(), c.data_ptr(), bt, S, H, Pd, N,
+        DTYPES[x.dtype], y.data_ptr(), h.data_ptr(), stream_ptr(dev)))
+    launches_recur.add()
+    launches.add()
     return y, h
 
 
@@ -219,10 +293,13 @@ def ssd_chunk_scan_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
 def ssd_chunk_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                    chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (y, h_final) as :func:`ssd_chunk_scan_plain`.  CPU tensors take the
-    plain version; CUDA tensors launch one kernel for each step (or
+    plain version; CUDA tensors launch ``ssd_recur`` once where
+    :func:`scan_route` says ``"recur"``, else one kernel for each step (or
     raise)."""
     if x.device.type == "cpu":
         return ssd_chunk_scan_plain(x, log_a, b, c, chunk)
+    if scan_route(int(chunk), b.shape[-1]) == "recur":
+        return ssd_chunk_recur(x, log_a, b, c)
     y_intra, state = ssd_chunk_intra(x, log_a, b, c, chunk)
     return ssd_chunk_inter(y_intra, state, log_a, c)
 

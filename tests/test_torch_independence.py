@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: ``repro_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, keep the reference's module layout,
-and the smoke script refuses to run without the package or a CUDA card."""
+"""The PyTorch port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``tools/ssd_scan_variants.py`` import neither JAX nor the JAX package,
+``repro_torch`` keeps the reference's module layout, and the smoke script
+refuses to run without the package or a CUDA card."""
 import ast
 import os
 import subprocess
@@ -31,7 +32,8 @@ def _forbidden(name: str) -> bool:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
+    + ["chip_smoke.py", "tools/ssd_scan_variants.py"],
 )
 def test_no_jax_or_reference_import(path):
     bad = [m for m in _absolute_imports(ROOT / path) if _forbidden(m)]

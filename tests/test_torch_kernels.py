@@ -794,4 +794,5 @@ def test_cuda_backend_on_cpu_tensors_runs_plain_version_without_launch():
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
         "flash_attention_wgmma": 0, "flash_attention_bwd_dq_wgmma": 0,
         "flash_attention_bwd_dkdv_wgmma": 0, "ssd_chunk_scan_wgmma": 0,
-        "ssd_chunk_scan_short": 0, "ssd_chunk_scan_cells": 0, "ssd_chunk_scan_inter": 0}
+        "ssd_chunk_scan_short": 0, "ssd_chunk_scan_cells": 0, "ssd_chunk_scan_inter": 0,
+        "ssd_chunk_scan_recur": 0}

@@ -9,11 +9,15 @@ torch ops and held to chip_smoke's limits against the Pallas kernel, with a
 one-term control that must fail the state limit; so is the short-chunk
 pass's (C Bᵀ reduced in the kernel's order, float32 FMA), whose chunk
 states at one-token chunks equal the plain version's bit for bit; so is
-the inter-chunk scan kernel's (the chunks in order, the sum over N in its
-warps' order, a multiply then an add), whose final state equals the plain
-loop's bit for bit and whose y is held against the Pallas kernel;
-``ssd_route``, ``heads_per_block`` and ``short_heads`` are checked by
-shape class.  Then the smoke
+the inter-chunk scan kernel's (the chunks in order, C h_in from h_in's
+three bf16 terms in steps of 16 as on the tensor cores, a multiply then an
+add), whose final state equals the plain loop's bit for bit and whose y
+is held against the Pallas kernel; so is the one-token-chunk kernel's (token by token from x, log_a,
+b and c, the sum over N in its lanes' order, then a fixed tree over eight
+lane groups), whose final state equals the plain version's bit for bit;
+``ssd_route``, ``scan_route``, ``heads_per_block``, ``short_heads``,
+``recur_grid`` and ``scan_chunks`` are checked by shape class.  Then the
+smoke
 ``mamba2_2p7b`` with the JAX parameters carried over by
 ``params_from_numpy`` is held against the JAX prefill and decode, the Pallas
 kernel again in interpret mode.
@@ -277,32 +281,32 @@ def test_short_chunk_states_at_one_token_equal_the_plain_version(N, P, dtype):
 # ------------------------------------------- the inter-chunk scan, emulated ----
 def _scan_emulated(y_intra, state, la, c):
     """``csrc/ssd_chunk.cu:ssd_scan``'s arithmetic in torch ops → (y,
-    h_final): the chunks in order; C h_in summed over N as the kernel does
-    (warp g's block n = g nj .. g nj + nj - 1, nj = 8 for N <= 128, else
-    16: its even rows in order with fmaf, its odd rows likewise, the two
-    sums added; then the warps' sums in warp order); y = y_intra +
-    exp(cum) * sum, then h = D h + S, a rounded multiply and then a rounded
-    add, with exp(cum) from ``chunk_decays`` and D its last row."""
+    h_final): the chunks in order; C h_in as the tensor cores take it, h_in
+    as three bf16 terms and C as one (bf16 values are exact) or three
+    (float32), the term products whose orders add up to at most 2, summed
+    over n in steps of 16 (each step's exact products summed in float64,
+    then rounded into the float32 sum, steps in order, then the h terms,
+    then the C terms); y = y_intra + exp(cum) * sum, then h = D h + S, a
+    rounded multiply and then a rounded add, with exp(cum) from
+    ``chunk_decays`` and D its last row."""
     bt, S, H, P = y_intra.shape
     nc, N = state.shape[1], state.shape[3]
     L = S // nc
-    nj = 8 if N <= 128 else 16
+    c_terms = 1 if c.dtype == torch.bfloat16 else 3
     ecum = SC.chunk_decays(la, nc)
     decay = ecum[:, :, -1]
     h = torch.zeros(bt, H, N, P)
     y = torch.empty(bt, S, H, P)
     for k in range(nc):
-        cf = c[:, k * L:(k + 1) * L].float()  # (bt, L, N)
-        total = None
-        for g in range(-(-N // nj)):
-            halves = []
-            for first in (g * nj, g * nj + 1):
-                acc = torch.zeros(bt, L, H, P)
-                for n in range(first, min(N, (g + 1) * nj), 2):
-                    acc = _fma(cf[:, :, n, None, None], h[:, None, :, n], acc)
-                halves.append(acc)
-            warp = halves[0] + halves[1]
-            total = warp if total is None else total + warp
+        cs = _bf16_terms(c[:, k * L:(k + 1) * L].float(), c_terms)  # (bt, L, N) each
+        hs = _bf16_terms(h, 3)  # (bt, H, N, P) each
+        total = torch.zeros(bt, L, H, P)
+        for n in range(0, N, 16):
+            for qh in range(3):
+                for qc in range(min(c_terms, 3 - qh)):
+                    step = torch.einsum("bln,bhnp->blhp", cs[qc][..., n:n + 16].double(),
+                                        hs[qh][:, :, n:n + 16].double())
+                    total = (total.double() + step).float()
         y[:, k * L:(k + 1) * L] = (y_intra[:, k * L:(k + 1) * L].float()
                                    + ecum[:, k, :, :, None] * total)
         h = decay[:, k, :, None, None] * h + state[:, k]
@@ -377,12 +381,143 @@ def test_ssd_chunk_scan_on_cpu_runs_the_plain_inter_chunk_pass(monkeypatch):
 
     monkeypatch.setattr(SC, "ssd_chunk_inter", refuse)
     monkeypatch.setattr(SC, "ssd_chunk_intra", refuse)
+    monkeypatch.setattr(SC, "ssd_chunk_recur", refuse)
     x, la, b, c = _short_case("scan cpu", "float32", 32, 16, 8)
     before = SC.launches_scan.value
     y, h = SC.ssd_chunk_scan(x, la, b, c, 8)
     want = SC.ssd_chunk_scan_plain(x, la, b, c, 8)
     assert torch.equal(y, want[0]) and torch.equal(h, want[1])
     assert SC.launches_scan.value == before
+
+
+# ------------------------------------------- the one-token-chunk kernel, emulated ----
+def _lane_tree(parts):
+    """The eight lane groups' sums as ssd_recur's shuffle stages add them
+    (lane offsets 16, 8, 4): ((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7))."""
+    return (((parts[0] + parts[4]) + (parts[2] + parts[6]))
+            + ((parts[1] + parts[5]) + (parts[3] + parts[7])))
+
+
+def _recur_emulated(x, la, b, c):
+    """``csrc/ssd_chunk.cu:ssd_recur``'s arithmetic in torch ops → (y,
+    h_final), token by token from h = 0: lane group j sums c_t[n] h[n, p]
+    over its n = 32 k + 4 j + i (k, then i) with fmaf, n past N being 0;
+    the eight groups' sums by ``_lane_tree``; h = d h + b xᵀ as a rounded
+    multiply, a rounded product and a rounded add; c·b with lane l summing n
+    = l, l + 32, … with fmaf, then the shuffle tree (offsets 16, 8, 4, 2,
+    1); y = round(round(c·b x) + e * sum), d = e = ``chunk_decays`` at
+    chunk 1."""
+    bt, S, H, P = x.shape
+    N = b.shape[-1]
+    K = next(k for k in (1, 2, 4, 8) if N <= 32 * k)
+    pad = (0, 32 * K - N)
+    xf = x.float()
+    bf = torch.nn.functional.pad(b.float(), pad)
+    cf = torch.nn.functional.pad(c.float(), pad)
+    e = SC.chunk_decays(la, S)[:, :, 0]  # (bt, S, H)
+    lanes = torch.zeros(bt, S, 32)
+    for n in range(N):
+        lanes[..., n % 32] = _fma(cf[..., n], bf[..., n], lanes[..., n % 32])
+    while lanes.shape[-1] > 1:
+        half = lanes.shape[-1] // 2
+        lanes = lanes[..., :half] + lanes[..., half:]
+    cb = lanes[..., 0]  # (bt, S)
+    h = torch.zeros(bt, H, 32 * K, P)
+    y = torch.empty(bt, S, H, P)
+    for t in range(S):
+        parts = []
+        for j in range(8):
+            s = torch.zeros(bt, H, P)
+            for k in range(K):
+                for i in range(4):
+                    n = 32 * k + 4 * j + i
+                    s = _fma(cf[:, t, n, None, None], h[:, :, n], s)
+            parts.append(s)
+        yi = (cb[:, t, None, None] * xf[:, t]).to(x.dtype).float()
+        y[:, t] = yi + e[:, t, :, None] * _lane_tree(parts)
+        h = e[:, t, :, None, None] * h + bf[:, t, None, :, None] * xf[:, t, :, None, :]
+    return y.to(x.dtype), h[:, :, :N]
+
+
+@pytest.mark.parametrize("N,P", [(17, 7), (128, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recur_state_equals_the_plain_version(N, P, dtype):
+    """The one-token-chunk kernel's h_final, emulated from x, log_a, b and
+    c, equals ``ssd_chunk_scan_plain(..., 1)``'s bit for bit: each step is
+    the plain loop's round(round(d h) + round(b x)); y differs only by the
+    order of c·b's and c·h's sums, within one ulp of its type of max |y|."""
+    x, la, b, c = _short_case("recur", dtype, 24, N, P, H=2)
+    ey, eh = _recur_emulated(x, la, b, c)
+    py, ph = SC.ssd_chunk_scan_plain(x, la, b, c, 1)
+    assert torch.equal(eh, ph)
+    assert ey.dtype == py.dtype == x.dtype
+    rel = 1e-5 if dtype == "float32" else 2.0**-7
+    assert float((ey.float() - py.float()).abs().max()) <= rel * float(py.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recur_vs_pallas(dtype):
+    """The one-token-chunk kernel's arithmetic, emulated at N 17 and P 7,
+    against the Pallas ``ssd_chunk_scan`` at chunk 1 in interpret mode, with
+    the tolerances of ``test_ssd_chunk_scan_plain_vs_pallas``."""
+    x, la, b, c = _short_case("recur pallas", dtype, 32, 17, 7)
+    ty, th = _recur_emulated(x, la, b, c)
+    jdt = jnp.float32 if dtype == "float32" else _BF16
+    for i in range(x.shape[0]):
+        jy, jh = j_ssd(jnp.asarray(x[i].float().numpy(), jdt), jnp.asarray(la[i].numpy()),
+                       jnp.asarray(b[i].float().numpy(), jdt),
+                       jnp.asarray(c[i].float().numpy(), jdt), chunk=1, interpret=True)
+        jy, jh = np.asarray(jy.astype(jnp.float32)), np.asarray(jh)
+        rel = 1e-5 if dtype == "float32" else 2.0**-7
+        np.testing.assert_allclose(ty[i].float().numpy(), jy, rtol=0,
+                                   atol=rel * np.abs(jy).max())
+        np.testing.assert_allclose(th[i].numpy(), jh, rtol=0, atol=1e-5 * np.abs(jh).max())
+
+
+def test_recur_wrapper_rejects_cpu_and_bad_shapes():
+    """``ssd_chunk_recur`` takes CUDA tensors only, and checks shapes first."""
+    x, la, b, c = _short_case("recur reject", "float32", 16, 16, 8)
+    with pytest.raises(ValueError, match="device"):
+        SC.ssd_chunk_recur(x, la, b, c)
+    wide = torch.zeros(2, 16, 257)  # N past RECUR_MAX_N
+    bad = [(x[:, :-1], la, b, c),  # S no longer matches log_a, b and c
+           (x, la[:, :, :-1], b, c),  # heads
+           (x, la, b, c[..., :-1]),  # N
+           (x, la, wide, wide),
+           (x[0], la, b, c)]  # rank
+    for args in bad:
+        with pytest.raises(ValueError, match="unsupported"):
+            SC.ssd_chunk_recur(*args)
+
+
+@pytest.mark.parametrize("L,N,route", [
+    (1, 128, "recur"), (1, 17, "recur"), (1, 256, "recur"), (1, 257, "pair"), (2, 128, "pair"),
+    (16, 64, "pair"), (128, 128, "pair")])
+def test_scan_route_by_sizes(L, N, route):
+    """One-token chunks with N up to ssd_recur's register limit take
+    ``ssd_recur``; every other shape the pair of launches."""
+    assert SC.scan_route(L, N) == route
+
+
+@pytest.mark.parametrize("batch,H,P,grid", [
+    (1, 80, 64, (4, 80, 1)), (2, 3, 7, (1, 3, 2)), (1, 24, 128, (8, 24, 1))])
+def test_recur_grid_fills_132_sms(batch, H, P, grid):
+    """Blocks of 16 columns: 4 x 80 = 320 blocks at the serving shape, more
+    than the 132 SMs (80 heads alone fill 80)."""
+    assert SC.recur_grid(batch, H, P) == grid
+    if (batch, H, P) == (1, 80, 64):
+        assert grid[0] * grid[1] * grid[2] >= 132
+
+
+@pytest.mark.parametrize("batch,chunks,H,P,L,cpb", [
+    (1, 8, 80, 64, 128, 1), (2, 13, 7, 64, 128, 1), (1, 4, 3, 24, 64, 1),
+    (1, 1000, 80, 64, 1, 500), (2, 350, 10, 24, 1, 50), (1, 3, 2, 16, 32, 1),
+    (1, 16, 80, 64, 16, 8), (2, 50, 3, 7, 1, 3)])
+def test_scan_chunks_per_block(batch, chunks, H, P, L, cpb):
+    """``ssd_scan`` takes one chunk a block from 64 rows up (640 blocks at
+    the serving shape); shorter chunks in as few segments as give each of
+    132 SMs a block: 2 segments of 500 one-token chunks at 80 heads."""
+    assert SC.scan_chunks(batch, chunks, H, P, L, 132) == cpb
 
 
 @pytest.mark.parametrize("dtype,L,N,P,route", [
