@@ -53,7 +53,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    edge shapes (GQA groups 1, 3, 4, 8; D 64, 120, 128; bf16 and f32; causal
    or not; windows 32 and 4,096; q_offset > 0 with Sq < Skv, down to one
    128-row q tile with only 64 rows live; one tile; danube's heads over
-   4,096 keys; B 1 to 4), two backward runs equal bit for bit, and two
+   4,096 keys; B 1 to 4; and at D 256 and 192: MQA group 16 with a window
+   of 2,048 over 4,096 keys in both types, window 32, not causal, q_offset
+   > 0, a ragged 96-row sequence), two backward runs equal bit for bit, and two
    faulty plain attentions (no alpha rescale; a dK/dV that drops a head)
    over the limits; a forward and backward in a new thread equal the same
    call in the main one;
@@ -101,6 +103,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    gradient norm and gradients against the plain attention's (and a faulty
    plain attention over the limit); a run killed by ``fail_at_step=3``
    resumes and ends bit for bit where the uninterrupted run ended;
+4d. hybrid serving — ``granite_moe_3b_a800m`` (32 layers, 40 experts, top
+   8) and ``recurrentgemma_9b`` (38 layers) at full width and depth, random
+   weights from a seed, behind an ``OpportunisticServer``: the requests of
+   4b at 1,024 tokens (cold, anticipated and prefilled in think time, its
+   resubmission), RecurrentGemma also a 2,048-token prompt (it fills the
+   local-attention ring; its decode steps wrap it); no attention kernel may
+   launch (the cached branch is the plain path); warm equal to a cold
+   recompute, and the same requests in a fresh server equal in tokens and
+   last logits bit for bit.  granite: layer 0's ``moe_ffn`` on the model's
+   own inputs within 2^-5 of the largest |y| of float64 on the CPU at the
+   tokens whose experts agree (any other token a near tie), the assignments
+   dropped at capacity the same on the card and by the CPU's dispatch.
+   RecurrentGemma cut to one pattern group: 2,176 decode steps from
+   position 0 against one cache-free forward (the D 256 forward kernel),
+   every position within 2^-5 of the largest |logit|.  Request walls, and
+   profiled prefills and decodes split by kernel;
+4e. hybrid training — ``recurrentgemma_9b`` at full width cut to one
+   pattern group (2.69e9 parameters, float32 master weights, AdamW in
+   place) trained by ``train_loop`` for 4 steps of 1 x 4,096 tokens (remat
+   full): finite losses and gradient norms, 2 forward launches a step on
+   ``attn_fwd_wgmma`` and 1 of each backward kernel on the tensor-core
+   kernels (D 256), the peak device memory; the same step twice from one
+   state equal bit for bit (the first state kept on the host), one step
+   profiled; one microbatch's loss, gradient norm and gradients against the
+   plain attention's (and the faulty plain attention over the limit);
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2 (segment_reduce with all its contracts), at every shape the
    main path (or the serving phase) gave it;
@@ -108,7 +135,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    the largest of them, beside the card's bound (attention: at the training
    shape, against ``scaled_dot_product_attention`` and its backward, with
    the FMA backward kernels on the same bf16 inputs beside the tensor-core
-   ones, and the forward and backward also at qwen3_8b's heads, D 128;
+   ones, the forward and backward also at qwen3_8b's heads, D 128, and at
+   phase 4e's shape, 16 heads over one kv head of 256, window 2,048 (SDPA
+   with the window as a mask);
    segment_reduce also at B = 100,000 and at B = 1,000 with one sum row;
    join_probe's wrapper beside its bare C entry point, against
    ``torch.searchsorted``; masked_stats, topk and filter_compact each
@@ -129,6 +158,7 @@ The last two lines are a JSON object per kernel and the result line
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -184,6 +214,29 @@ TRAINING = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd_dq"
             "flash_attention_bwd_dkdv", "flash_attention_bwd_dq_wgmma",
             "flash_attention_bwd_dkdv_wgmma")
 BF16_ULP = 2.0 ** -7  # one bfloat16 ulp, relative
+
+
+def ptxas_report(log: str):
+    """[(kernel<template arguments>, registers, spill store bytes, spill load
+    bytes)] of the attention kernels in an nvcc ``-Xptxas -v`` log."""
+    import re
+
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d+(attn_[a-z_]+)I(\S*?)EEv", line)
+        if m:
+            kind = ("bf16," if "bfloat16" in m.group(2) else
+                    "f32," if m.group(2).startswith("f") else "")
+            name = f"{m.group(1)}<{kind}{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+            spills = (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1))) + spills)
+            name = None
+    return out
 
 
 def fail(msg: str) -> None:
@@ -776,6 +829,21 @@ ATTN_SHAPES = (
     (2, 8, 2, 256, 256, 128, "bfloat16", False, None, 0),
     (1, 32, 8, 4096, 4096, 120, "bfloat16", True, 4096, 0),
     (1, 4, 2, 64, 384, 64, "bfloat16", True, None, 320),
+) + (
+    # head dim 256 (RecurrentGemma's local attention; DP 256: four swizzle
+    # atoms, the backward's column halves, the FMA backward's 32-key tiles):
+    # MQA group 16 with a window of 2,048 over 4,096 keys in both types; a
+    # window of 32 in batches of 2; not causal; q_offset > 0 with Sq < Skv;
+    # D 192 (the fourth atom zero-filled); a ragged 96-row sequence
+    (1, 16, 1, 4096, 4096, 256, "bfloat16", True, 2048, 0),
+    (1, 16, 1, 4096, 4096, 256, "float32", True, 2048, 0),
+    (2, 16, 1, 256, 256, 256, "bfloat16", True, 32, 0),
+    (2, 16, 1, 256, 256, 256, "float32", True, 32, 0),
+    (1, 4, 2, 256, 256, 256, "bfloat16", False, None, 0),
+    (2, 16, 1, 128, 384, 256, "bfloat16", True, 32, 256),
+    (1, 4, 1, 128, 384, 256, "float32", True, None, 256),
+    (1, 4, 2, 128, 128, 192, "bfloat16", True, None, 0),
+    (1, 2, 1, 96, 96, 256, "bfloat16", True, None, 0),
 )
 # Limits, relative to the largest |value| of the plain version's tensor: the
 # kernel and the plain version sum in float32 in another order and round to
@@ -1691,6 +1759,20 @@ def join_timing(torch, jp, args, flush):
 TRAIN_ATTN = (4, 15, 5, 4096, 4096, 64, "bfloat16", True, None, 0)
 # the forward also at qwen3_8b's heads (32 / 8 x 128), one sequence of 4,096
 WIDE_ATTN = (1, 32, 8, 4096, 4096, 128, "bfloat16", True, None, 0)
+# phase 4e's shape: recurrentgemma_9b's local attention, one sequence of
+# 4,096 tokens, 16 q-heads over one kv head of 256, window 2,048
+RG_ATTN = (1, 16, 1, 4096, 4096, 256, "bfloat16", True, 2048, 0)
+
+
+def sdpa_call(torch, fa, q, k, v, causal, window, off):
+    """``scaled_dot_product_attention`` of the same function: a boolean
+    mask where a window or an offset makes one (the library yardstick)."""
+    import torch.nn.functional as F
+
+    if window is None and off == 0:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+    mask = fa._mask(q.shape[2], k.shape[2], causal, window, off, q.device)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
 def visible_pairs(Sq, Skv, causal, window, q_offset):
@@ -1723,8 +1805,6 @@ def forward_timing(torch, rng, dev, shape, flush):
     """The forward (through ``flash_forward``, on the kernel its route
     names), the plain forward and SDPA's forward at ``shape``, in ms, and
     the forward's bound."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import flash_attention as fa
 
     B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off = shape
@@ -1734,8 +1814,8 @@ def forward_timing(torch, rng, dev, shape, flush):
         shape=[B, Hq, Hkv, Sq, Skv, D, dtype, "causal" if causal else "full"],
         ms=timed(torch, lambda: fa.flash_forward(q, k, v, *mask), 10, flush),
         plain_ms=timed(torch, lambda: fa.flash_attention_plain(q, k, v, *mask), 3, flush),
-        library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), 10, flush),
+        library_ms=timed(torch, lambda: sdpa_call(torch, fa, q, k, v, causal, window, off), 10,
+                         flush),
         bound=bound(*attention_work(shape)["flash_attention"], BF16_OPS_PER_S))
 
 
@@ -1747,8 +1827,6 @@ def backward_timing(torch, rng, dev, shape, flush, fma=False):
     kernels on the same bf16 inputs through their C entry points (the
     wrappers send bf16 at these widths to the tensor cores).  Returns (rows
     by kernel name, the ms printed)."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import flash_attention as fa
 
     B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off = shape
@@ -1768,8 +1846,8 @@ def backward_timing(torch, rng, dev, shape, flush, fma=False):
                              10, flush),
         "plain bwd": timed(torch, backward_of(
             lambda qq, kk, vv: fa.flash_attention_plain(qq, kk, vv, *mask)), 3, flush),
-        "sdpa bwd": timed(torch, backward_of(lambda qq, kk, vv: F.scaled_dot_product_attention(
-            qq, kk, vv, is_causal=causal, enable_gqa=True)), 10, flush),
+        "sdpa bwd": timed(torch, backward_of(lambda qq, kk, vv: sdpa_call(
+            torch, fa, qq, kk, vv, causal, window, off)), 10, flush),
     }
     if fma:
         args = fa._mask_args(q, k, causal, window, None, off)
@@ -1838,9 +1916,18 @@ def attention_timings(torch, rng, dev):
           + json.dumps(wide_ms), flush=True)
     out = {"flash_attention": fwd, "flash_attention_wgmma": fwd,
            "flash_attention D=128": forward_timing(torch, rng, dev, WIDE_ATTN, flush)}
+    # phase 4e's shape (D 256): the forward and both backward kernels beside
+    # the plain version, SDPA and its backward, and their bounds
+    check(fa.forward_route(torch.bfloat16, 256) == "wgmma", "D 256 is not on the wgmma route")
+    out["flash_attention D=256"] = forward_timing(torch, rng, dev, RG_ATTN, flush)
+    rg, rg_ms = backward_timing(torch, rng, dev, RG_ATTN, flush)
+    print("[time] attention at phase 4e's shape " + json.dumps(RG_ATTN) + ", ms: "
+          + json.dumps(dict(rg_ms, **{"kernel fwd": out["flash_attention D=256"]["ms"]})),
+          flush=True)
     for name in bwd:
         out[name] = out[name + "_wgmma"] = bwd[name]
         out[name + " D=128"] = wide[name]
+        out[name + " D=256"] = rg[name]
     return out
 
 
@@ -2227,6 +2314,277 @@ def serving(torch, ops, cfg, dev, record):
     finally:
         mod.ssd_chunk_inter, mod.ssd_chunk_recur = inter, recur_fn
     del srv, model
+    gc.collect()  # the server and its engine's closures form a cycle
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 4d: serving granite_moe_3b_a800m and recurrentgemma_9b at full width    #
+# --------------------------------------------------------------------------- #
+
+HYBRID_SERVED = ("granite_moe_3b_a800m", "recurrentgemma_9b")
+# A serving step's attention is the cached branch, the reference's plain
+# path in both packages: no attention kernel may launch while serving.
+# The card's moe_ffn on layer 0's own inputs against the same layer in
+# float64 on the CPU: within test_smoke_model_forward_vs_reference's bf16
+# limit, 2^-5 of the largest |y|, at every token whose experts (its top k,
+# and those of them kept at capacity) agree; a token whose top k differs
+# must be a near tie, its swapped experts' float64 logits within 2^-7 of the
+# token's largest |logit| (the card rounds x and the router's product to
+# bf16).  Such a token can move the capacity cut of its experts, so other
+# tokens may keep other experts: they are counted, not held.
+MOE_TOL, MOE_TIE = 2.0 ** -5, 2.0 ** -7
+# RecurrentGemma cut to one pattern group (rglru, rglru, local_attn),
+# decoded token by token from position 0 (as the reference's
+# test_decode_matches_full_forward does; a prefill of more than one token
+# into the ring is not causal in either package, ROADMAP C7) past the
+# 2,048-slot local-attention ring by DECODE_STEPS: every position's logits
+# within 2^-5 of the largest |logit| of one cache-free forward over the
+# whole sequence, which runs the head-dim-256 forward kernel.
+DECODE_STEPS, DECODE_TOL = 128, 2.0 ** -5
+
+
+def moe_layer0(torch, cfg, model, prompt_t, dev):
+    """granite's layer-0 moe_ffn on the model's own inputs (captured during a
+    prefill) on the card against float64 on the CPU; the assignments dropped
+    at capacity counted on the card, by the CPU's dispatch of the card's
+    routing, and by the float64 routing."""
+    import dataclasses as dc
+
+    from repro_torch.models import SINGLE, blocks, moe
+    from repro_torch.serve import make_serve_fns
+
+    seen = []
+    ffn = blocks.moe_ffn
+
+    def capture(params, cfg_, x, ctx):
+        if not seen:
+            seen.append((params, x.detach().clone()))
+        return ffn(params, cfg_, x, ctx)
+
+    pre, _, _ = make_serve_fns(cfg, SINGLE, capacity=2048)
+    blocks.moe_ffn = capture
+    try:
+        pre(model, prompt_t)
+    finally:
+        blocks.moe_ffn = ffn
+    params, x = seen[0]
+    T, E = x.shape[0] * x.shape[1], cfg.moe.n_experts
+    cap = moe.expert_capacity(cfg, T)
+    with torch.no_grad():
+        y_card, _ = moe.moe_ffn(params, cfg, x, SINGLE)
+        _, e_card, _ = moe._route(params, cfg, x.reshape(T, -1), E)
+        p64 = {k: v.detach().double().cpu() for k, v in params.items()}
+        x64 = x.double().cpu()
+        y64, _ = moe.moe_ffn(p64, dc.replace(cfg, dtype="float32"), x64, SINGLE)
+        _, e64, _ = moe._route(p64, cfg, x64.reshape(T, -1), E)
+        logit64 = x64.reshape(T, -1) @ p64["router"]
+    y_card = y_card.double().cpu().reshape(T, -1)
+    y64 = y64.reshape(T, -1)
+    order, keep, _ = moe._dispatch(e_card, E, cap)
+    c_order, c_keep, _ = moe._dispatch(e_card.cpu(), E, cap)
+    o64, k64, _ = moe._dispatch(e64, E, cap)
+
+    def kept_sets(e, order, keep):
+        flat = torch.zeros(e.numel(), dtype=torch.bool)
+        flat[order.cpu()] = keep.cpu()
+        return torch.sort(torch.where(flat.view(e.shape), e.cpu(), -1), -1).values
+
+    differ = (torch.sort(e_card.cpu(), -1).values != torch.sort(e64, -1).values).any(-1)
+    moved = (kept_sets(e_card, order, keep) != kept_sets(e64, o64, k64)).any(-1) & ~differ
+    err = (y_card - y64).abs().max(-1).values
+    scale = float(y64.abs().max())
+    agree = ~differ & ~moved
+    held = float(err[agree].max()) if bool(agree.any()) else 0.0
+    check(int(agree.sum()) >= T // 2, f"granite layer 0: only {int(agree.sum())} of {T} tokens "
+          "keep the same experts on the card and in float64")
+    check(held <= MOE_TOL * scale, f"granite layer-0 moe_ffn on the card vs float64: max |err| "
+          f"{held} over {MOE_TOL} of the largest |y| {scale} at tokens whose experts agree")
+    gaps = []
+    for t in torch.nonzero(differ).flatten().tolist():
+        a, b = set(e64[t].tolist()), set(e_card[t].cpu().tolist())
+        lost, taken = sorted(a - b), sorted(b - a)
+        gap = float(logit64[t, lost].max() - logit64[t, taken].min())
+        gaps.append(gap / float(logit64[t].abs().max()))
+    check(all(g <= MOE_TIE for g in gaps), f"granite layer 0: a token's experts differ from "
+          f"float64's beyond a near tie (gaps / max |logit| {gaps})")
+    d_card = set(order[~keep].cpu().tolist())
+    d_cpu = set(c_order[~c_keep].tolist())
+    d64 = set(o64[~k64].tolist())
+    check(d_card == d_cpu, f"granite layer 0: {len(d_card)} assignments dropped on the card, "
+          f"{len(d_cpu)} by the CPU's dispatch of the same routing (or other ones)")
+    if not bool(differ.any()):
+        check(d_card == d64, "granite layer 0: the dropped assignments differ from float64's")
+    print(f"[serve-moe] granite layer 0, {T} tokens, capacity {cap}: moe_ffn on the card vs "
+          f"float64 on the CPU, max |err| {float(err.max())} at all tokens, {held} at the "
+          f"{int(agree.sum())} whose experts agree (limit {MOE_TOL * scale}); "
+          f"{int(differ.sum())} tokens take other experts, swap gaps / max |logit| {gaps} "
+          f"(limit {MOE_TIE}), {int(moved.sum())} others keep other experts at capacity; "
+          f"dropped at capacity: {len(d_card)} on the card, {len(d_cpu)} by "
+          f"the CPU's dispatch of the card's routing, {len(d64)} by the float64 routing",
+          flush=True)
+
+
+def decode_vs_forward(torch, ops, cfg, model, dev):
+    """RecurrentGemma cut to one pattern group, decoded token by token over
+    2,048 + DECODE_STEPS tokens, against one cache-free forward (the D 256
+    forward kernel) over the same tokens."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import SINGLE
+    from repro_torch.models.lm import forward, init_cache
+    from repro_torch.serve import make_serve_fns
+
+    cut = dc.replace(cfg, n_layers=len(cfg.block_pattern))
+    S = cut.local_window + DECODE_STEPS
+    tokens = torch.as_tensor(np.random.default_rng(SERVE_SEED + 1).integers(0, cfg.vocab, (1, S)),
+                             device=dev)
+    before = fa.launches_wgmma.value
+    with torch.no_grad():
+        full, _, _ = forward(model, cut, tokens, SINGLE)
+    check(fa.launches_wgmma.value - before == 1,
+          "the cut model's cache-free forward did not run the D 256 forward kernel once")
+    _, dec, _ = make_serve_fns(cut, SINGLE, capacity=2048)
+    steps = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache = init_cache(cut, 1, 2048, dev)
+        for t in range(S):
+            last, cache = dec(model, cache, tokens[:, t:t + 1],
+                              torch.tensor(t, dtype=torch.int32, device=dev))
+            steps.append(last.float())
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    want = full[0].float()
+    got = torch.cat(steps, 0)
+    check(got.shape[0] == S, f"decode logits cover {got.shape[0]} positions, not {S}")
+    err = (got - want).abs().max(-1).values
+    scale = float(want.abs().max())
+    check(bool(torch.isfinite(got).all()), "decode logits not finite")
+    check(float(err.max()) <= DECODE_TOL * scale, f"RecurrentGemma, one group: decode logits "
+          f"max |err| {float(err.max())} over {DECODE_TOL} of the largest |logit| {scale}")
+    P = cut.local_window
+    print(f"[serve-rg] recurrentgemma_9b cut to one group ({cut.block_pattern}): {S} decode "
+          f"steps from position 0 ({wall} ms; the ring wraps after {P}) against one cache-free "
+          f"forward over {S} tokens (the D 256 forward kernel): max |err| {float(err.max())} "
+          f"(first {P} positions {float(err[:P].max())}, after {float(err[P:].max())}; limit "
+          f"{DECODE_TOL * scale}); top token equal at "
+          f"{float((got.argmax(-1) == want.argmax(-1)).float().mean())} of the positions",
+          flush=True)
+
+
+def serving_hybrid(torch, ops, name, dev):
+    """``name`` (granite-MoE or RecurrentGemma) at full width and depth
+    behind an OpportunisticServer; returns the launch counts of its
+    requests (every attention counter must read 0)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import OpportunisticServer, greedy_generate, make_serve_fns
+
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=SERVE_SEED, device=dev)
+    torch.cuda.synchronize()
+    params = list(model.parameters())
+    print(f"[serve-hybrid] {cfg.name} at full width: {cfg.n_layers} layers "
+          f"({cfg.block_pattern}), d_model {cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.head_dim}, {sum(p.numel() for p in params)} parameters, "
+          f"{sum(p.numel() * p.element_size() for p in params)} bytes on the card, made in "
+          f"{time.perf_counter() - t0} s", flush=True)
+    rng = np.random.default_rng(SERVE_SEED)
+    cold_p, warm_p = (tuple(int(t) for t in rng.integers(0, cfg.vocab, 1024)) for _ in range(2))
+    # RecurrentGemma: a prompt that fills the 2,048-slot local-attention
+    # ring, whose decode steps then wrap it
+    long_p = (tuple(int(t) for t in rng.integers(0, cfg.vocab, cfg.local_window))
+              if cfg.rglru is not None else None)
+
+    def request(srv, label, prompt):
+        t0 = time.perf_counter()
+        out = srv.request(prompt, n_tokens=N_TOKENS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rec = srv.metrics.interactions[-1]
+        print(f"[serve-hybrid] {cfg.name} {label}: {len(prompt)}-token prompt, {N_TOKENS} tokens: "
+              f"wall {wall} ms, sim latency {rec.latency_s * 1e3} ms, ops executed "
+              f"{rec.ops_executed}", flush=True)
+        return out, rec
+
+    def last_logits(srv, prompt):
+        return srv.engine.display(srv.anticipate(prompt)).logits
+
+    srv = OpportunisticServer(cfg, model, capacity=2048, device=dev)
+    ops.reset_launch_counts()  # counts start at 0 just before the serving path
+    cold = request(srv, "cold request", cold_p)
+    srv.anticipate(warm_p)
+    t0 = time.perf_counter()
+    srv.think(10.0)
+    torch.cuda.synchronize()
+    print(f"[serve-hybrid] {cfg.name} think(10): anticipated 1024-token prefill, wall "
+          f"{(time.perf_counter() - t0) * 1e3} ms", flush=True)
+    warm = request(srv, "warm request", warm_p)
+    again = request(srv, "resubmission", warm_p)
+    longer = request(srv, f"{len(long_p)}-token request", long_p) if long_p else None
+    launches = ops.launch_counts()
+    print(f"[serve-hybrid] {cfg.name} launches: " + json.dumps(launches), flush=True)
+    attn = {k: v for k, v in launches.items() if k.startswith("flash_attention")}
+    check(not any(attn.values()), f"{cfg.name}: the serving path launched attention kernels "
+          f"{attn}; the cached branch is the plain path")
+    check(warm[1].latency_s < cold[1].latency_s, f"{cfg.name}: the warm request was not faster "
+          "(sim)")
+    check(again[1].ops_executed == 0 and again[1].latency_s == 0.0,
+          f"{cfg.name}: the resubmission was not a cache hit")
+    check(np.array_equal(again[0].tokens, warm[0].tokens), f"{cfg.name}: resubmission tokens")
+
+    pre, dec, _ = make_serve_fns(cfg, srv.ctx, capacity=2048)
+    warm_t = torch.tensor([warm_p], device=dev)
+    recomputed = greedy_generate(cfg, model, pre, dec, warm_t, N_TOKENS)[0].cpu().numpy()
+    check(np.array_equal(recomputed, warm[0].tokens), f"{cfg.name}: warm tokens != a cold "
+          "recompute")
+    # the same requests in a fresh server: tokens and last logits bit for bit
+    fresh = OpportunisticServer(cfg, model, capacity=2048, device=dev)
+    served = [("cold", cold_p, cold), ("warm", warm_p, warm)] + (
+        [("long", long_p, longer)] if long_p else [])
+    for label, prompt, (out, _) in served:
+        out2 = fresh.request(prompt, n_tokens=N_TOKENS)
+        check(np.array_equal(out2.tokens, out.tokens), f"{cfg.name} {label}: a fresh server "
+              "gave other tokens")
+        check(torch.equal(last_logits(fresh, prompt), last_logits(srv, prompt)),
+              f"{cfg.name} {label}: a fresh server gave other last logits")
+    print(f"[serve-hybrid] {cfg.name}: warm tokens equal a cold recompute; a fresh server gave "
+          f"the same tokens and last logits bit for bit for {len(served)} requests", flush=True)
+    del fresh
+
+    cold_t = torch.tensor([cold_p], device=dev)
+    if cfg.moe is not None:
+        moe_layer0(torch, cfg, model, cold_t, dev)
+    else:
+        decode_vs_forward(torch, ops, cfg, model, dev)
+
+    # where a request's time goes: a prefill, then a prefill and decode steps
+    runs = [("prefill 1024 tokens", lambda: pre(model, cold_t)),
+            (f"prefill 1024 + {N_TOKENS} decode steps",
+             lambda: greedy_generate(cfg, model, pre, dec, cold_t, N_TOKENS))]
+    if long_p:
+        long_t = torch.tensor([long_p], device=dev)
+        runs.append((f"prefill {len(long_p)} + {N_TOKENS} decode steps (the ring wraps)",
+                     lambda: greedy_generate(cfg, model, pre, dec, long_t, N_TOKENS)))
+    for label, fn in runs:
+        wall, busy, copy, kern, _ = profiled(torch, fn)
+        gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
+                                                                       "cutlass")))
+        attn_k = sum(t for t, k in kern if "attn_" in k)
+        print(f"[serve-trace] {cfg.name} {label}: wall {wall} ms, device kernels {busy} ms (GEMMs "
+              f"{gemm} ms, attention kernels {attn_k} ms, other {busy - gemm - attn_k} ms), "
+              f"device copies {copy} ms, device idle {100 * (1 - (busy + copy) / wall)}%; top: "
+              + ", ".join(f"{k[:50]} {t}" for t, k in kern[:5]), flush=True)
+    del srv, model
+    gc.collect()  # the server and its engine's closures form a cycle
     torch.cuda.empty_cache()
     return launches
 
@@ -2445,6 +2803,131 @@ def training(torch, ops, dev):
     return {k: launches[k] for k in PER_STEP}
 
 
+# --------------------------------------------------------------------------- #
+# phase 4e: training recurrentgemma_9b at full width, one pattern group        #
+# --------------------------------------------------------------------------- #
+
+# The whole model (9.57e9 parameters) needs 153 GB of float32 weights,
+# gradients and AdamW moments; one pattern group (rglru, rglru, local_attn)
+# with the 256,000-token embedding and head has 2.69e9, 43 GB.  One
+# sequence of 4,096 tokens a step (the train_4k shape's global batch 256,
+# cut to one card and this state), remat full.
+RG_STEPS, RG_BATCH = 4, 1
+# predicted launches per step: 1 local_attn layer x 1 microbatch x 2
+# forwards (remat) of the forward, 1 of each backward kernel, every one on
+# the tensor-core kernels (bf16, D 256)
+RG_PER_STEP = {"flash_attention": 2, "flash_attention_wgmma": 2,
+               "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkdv": 1,
+               "flash_attention_bwd_dq_wgmma": 1, "flash_attention_bwd_dkdv_wgmma": 1}
+
+
+def training_rg(torch, ops, dev):
+    """``recurrentgemma_9b`` cut to one pattern group, trained by
+    ``train_loop`` on the card; returns the attention kernels' launch
+    counts over the run."""
+    import dataclasses as dc
+
+    from repro_torch.configs import RunConfig, get_config, get_shape
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_model
+    from repro_torch.models.base import tree_flatten
+    from repro_torch.train import train_loop
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    full = get_config("recurrentgemma_9b")
+    cfg = dc.replace(full, n_layers=len(full.block_pattern))
+    base = get_shape("train_4k")
+    shape = ShapeConfig(base.name, base.kind, base.seq_len, RG_BATCH)
+    run = RunConfig(model=cfg, shape=shape, dp=1, tp=1, remat="full", microbatch=RG_BATCH)
+    data = SynthSpec(vocab=cfg.vocab, seq_len=shape.seq_len, batch=RG_BATCH, seed=0)
+    check(fa.forward_route(torch.bfloat16, cfg.head_dim) == "wgmma"
+          and fa.backward_route(torch.bfloat16, cfg.head_dim) == "wgmma",
+          "RecurrentGemma's head dim is not on the tensor-core route")
+    print(f"[train-rg] {cfg.name} cut to {cfg.n_layers} layers ({cfg.block_pattern}) at full "
+          f"width: d_model {cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.head_dim}, lru width {cfg.rglru.lru_width}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.param_count()} parameters; {RG_STEPS} steps of {RG_BATCH} x {shape.seq_len} "
+          f"tokens (microbatch {RG_BATCH}, remat full), seed {TRAIN_SEED}", flush=True)
+    logs = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train-rg] {torch.cuda.memory_allocated()} bytes held on the card before the run",
+          flush=True)
+    ops.reset_launch_counts()  # counts start at 0 just before the training path
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole = train_loop(cfg, run, data, RG_STEPS, seed=TRAIN_SEED, log_every=1,
+                       log_fn=logs.append, device=dev)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = shape.seq_len * RG_BATCH
+    print(f"[train-rg] {RG_STEPS} steps in {wall} s: step ms "
+          + json.dumps([t * 1e3 for t in whole.step_times]) + ", tokens/s "
+          + json.dumps([tokens / t for t in whole.step_times]) + ", losses "
+          + json.dumps(whole.losses) + ", grad norms " + json.dumps(whole.grad_norms)
+          + f", peak device memory {peak} bytes", flush=True)
+    check(whole.steps == RG_STEPS and all(math.isfinite(x) for x in
+                                          whole.losses + whole.grad_norms),
+          "RecurrentGemma training: a loss or gradient norm is not finite")
+    print("[train-rg] launches in the run: " + json.dumps(
+        {k: launches[k] for k in RG_PER_STEP}), flush=True)
+    for name, n in RG_PER_STEP.items():
+        check(launches[name] == n * RG_STEPS, f"RecurrentGemma training: {name} launched "
+              f"{launches[name]} times in {RG_STEPS} steps, not {n * RG_STEPS}")
+    torch.cuda.empty_cache()
+
+    # the same step twice from the same state, bit for bit: the first
+    # state waits on the host (two do not fit on the card beside a step)
+    gc.collect()
+    step_fn, _ = make_train_step(cfg, run)
+    batch = to_device(batch_at(data, 0), dev)
+    kept = None
+    for i in range(2):
+        model, opt_state = init_train_state(cfg, run, seed=TRAIN_SEED, device=dev)
+        if i == 0:
+            model, opt_state, m0 = step_fn(model, opt_state, batch)
+            kept = [t.detach().cpu() for _, t in tree_flatten({"params": model.tree(),
+                                                               "opt": opt_state})]
+        else:
+            out = {}
+
+            def one_step():
+                out["state"] = step_fn(model, opt_state, batch)
+
+            pwall, busy, copy, kern, _ = profiled(torch, one_step)
+            model, opt_state, m1 = out["state"]
+            leaves = [t for _, t in tree_flatten({"params": model.tree(), "opt": opt_state})]
+            check(len(leaves) == len(kept) and all(
+                torch.equal(a.detach().cpu(), b) for a, b in zip(leaves, kept)),
+                "RecurrentGemma: the same step from the same state gave other params or "
+                "optimizer state")
+            check(float(m0["loss"]) == float(m1["loss"]), "RecurrentGemma: repeated step loss")
+        del model, opt_state
+    del kept
+    torch.cuda.empty_cache()
+    attn = sum(t for t, k in kern if "attn_" in k)
+    gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
+                                                                   "cutlass")))
+    print("[train-rg] a step repeated from the same state gave params and optimizer state "
+          "equal bit for bit", flush=True)
+    print(f"[train-rg-trace] one step, profiled: wall {pwall} ms, device kernels {busy} ms "
+          f"(attention kernels {attn} ms, GEMMs {gemm} ms, other {busy - attn - gemm} ms), "
+          f"device copies {copy} ms, device idle {100 * (1 - (busy + copy) / pwall)}%; top: "
+          + ", ".join(f"{k[:50]} {t}" for t, k in kern[:8]), flush=True)
+
+    # kernels against the plain attention on one microbatch
+    model = init_model(cfg, seed=TRAIN_SEED, device=dev, trainable=True)
+    step_vs_plain(torch, ops, cfg, model, dev)
+    del model
+    torch.cuda.empty_cache()
+    print("[train-rg] loop log: " + " | ".join(logs), flush=True)
+    return {k: launches[k] for k in RG_PER_STEP}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2475,6 +2958,13 @@ def main() -> int:
     ).stdout.strip()
     print(f"[build] {len(built)} kernel libraries compiled in {build_s} s "
           f"({', '.join(built) or 'cached'})")
+    if "flash_attention" in _build.LOGS:
+        # registers and spills of the attention kernels (ptxas -v); a kernel
+        # with a producer warpgroup reports its launch bound's 168, and its
+        # consumers raise theirs to 232 (setmaxnreg)
+        print("[build] ptxas, attention kernels (registers, spill stores / loads in bytes): "
+              + "; ".join(f"{n} {r}, {st}/{ld}" for n, r, st, ld in
+                          ptxas_report(_build.LOGS["flash_attention"])), flush=True)
     print(f"[card] {smi}", flush=True)
 
     # -- phase 2: parity on the card
@@ -2512,12 +3002,29 @@ def main() -> int:
     launches.update(training(torch, ops, dev))
     print(f"[train] phase took {time.perf_counter() - t0} s", flush=True)
 
+    # -- phase 4d: serving granite-MoE and RecurrentGemma (no attention kernel
+    # launches on a cached serving path: the counters must stay at 0)
+    for name in HYBRID_SERVED:
+        t0 = time.perf_counter()
+        served = serving_hybrid(torch, ops, name, dev)
+        for kernel in TRAINING:
+            launches[kernel] += served[kernel]
+        print(f"[serve-hybrid] {name} phase took {time.perf_counter() - t0} s", flush=True)
+
+    # -- phase 4e: training RecurrentGemma, one pattern group; the kernels'
+    # launches on the JSON line are those of phases 4c and 4e together
+    t0 = time.perf_counter()
+    for kernel, n in training_rg(torch, ops, dev).items():
+        launches[kernel] += n
+    print(f"[train-rg] phase took {time.perf_counter() - t0} s", flush=True)
+
     # -- phase 5: kernel vs plain, then timing, at the main path's shapes
     t0 = time.perf_counter()
     mp = main_path_parity(torch, K, shapes, rng, dev)
     for name in mp:
         errs[name] = max(errs[name], mp[name][0])
-    train_shapes = (TRAIN_ATTN, (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0))
+    train_shapes = (TRAIN_ATTN, (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0), RG_ATTN,
+                    (2, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0))
     for name, e in attention_parity(torch, rng, dev, train_shapes, "training").items():
         errs[name] = max(errs[name], e)
     print(f"[shapes] kernel vs plain passed at every main-path shape in "

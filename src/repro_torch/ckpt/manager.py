@@ -36,9 +36,12 @@ from ..models.base import keystr, tree_flatten, tree_unflatten
 
 
 def _host(leaf) -> np.ndarray:
+    """A host copy of ``leaf``: the train step updates the tensors in place
+    while an async save is still writing."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach()
+        return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+    return np.array(leaf)
 
 
 def _leaf_paths(tree) -> List[Tuple[str, object]]:

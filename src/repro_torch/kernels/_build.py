@@ -4,13 +4,14 @@ Each source compiles on first use into its own shared library with a plain C
 interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
 
 The library name carries a hash of the source and the shared header, so an
 edited kernel is rebuilt and a stale one is never loaded.  Libraries go to
 ``_build/`` beside this file (listed in ``.gitignore``).  :func:`build_all`
 starts one ``nvcc`` per source at once; a wrapper's first launch builds only
-its own source.
+its own source.  ``ptxas -v``'s report (each kernel's registers and
+spills) of every source built in this process is kept in :data:`LOGS`.
 Libraries are loaded with :mod:`ctypes`; nothing here imports torch, so the
 CPU tests can import every kernel module without a compiler.
 """
@@ -30,13 +31,14 @@ SOURCES = ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_pro
            "ssd_chunk", "flash_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}  # source name → nvcc's output (ptxas -v) when built here
 
 
 def nvcc() -> str:
@@ -78,6 +80,7 @@ def _finish(name: str, proc: subprocess.Popen) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}")
+    LOGS[name] = log.decode(errors="replace")
     os.replace(tmp, out)
 
 

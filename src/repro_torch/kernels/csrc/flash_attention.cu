@@ -18,14 +18,15 @@
 // Six kernels, with no atomics, so every result has one summation order and
 // a training step is reproducible bit for bit:
 //
-//   attn_fwd_wgmma  the bf16 forward (D <= 128, D % 8 == 0) on the tensor
+//   attn_fwd_wgmma  the bf16 forward (D <= 256, D % 8 == 0) on the tensor
 //            cores.  One block per (b, q-head, 128-row q tile), launched
 //            longest-first under the causal mask: two consumer warpgroups
 //            of 64 rows and one producer warp.  The producer's lane 0 loads
 //            Q once and then the visible K and V tiles of 64 keys, in
 //            order, through a ring of 3-4 shared-memory slots with TMA
 //            (3-D tensor maps, completion on mbarriers), so tile j + 1 is
-//            in flight while tile j is multiplied.  S = Q Kᵀ is
+//            in flight while tile j is multiplied (2 slots at D > 128).
+//            S = Q Kᵀ is
 //            wgmma m64n64k16 with both operands read from shared memory;
 //            the scale is applied to the float32 S; the online softmax runs
 //            on the accumulator fragments (a row's 64 values sit in the
@@ -34,7 +35,9 @@
 //            operand of O += P V (wgmma m64nDk16, V read through the
 //            transpose bit since it is stored keys x D); O accumulates in
 //            float32 registers.  Writes what attn_fwd writes.  D <= 64
-//            runs two blocks an SM.
+//            runs two blocks an SM.  At D > 128 O takes 128 registers a
+//            thread: the producer is a warpgroup that hands its registers
+//            to the consumers (setmaxnreg), and P V is m64n256k16.
 //   attn_fwd  the forward for float32 (IEEE FMA on the CUDA cores, never
 //            TF32) and for bf16 widths TMA cannot take: one block per
 //            (b, q-head, 64-row q block) walks the visible kv blocks in
@@ -108,7 +111,11 @@
 // head's values.  dQ holds 32 + 32 + DP / 2 float32 a thread, dK/dV 64 +
 // DP (192 at DP 128, over the 168 registers 384 threads leave each), so its
 // producer warpgroup hands its registers to the consumers (setmaxnreg): one
-// block an SM.
+// block an SM.  At D > 128 (DP 256) that would be 160 and 320: there both
+// consumer warpgroups of a block take the same 64 rows (dQ) or keys (dK/dV)
+// and each holds the gradient's columns of one half of D, the same
+// registers as at DP 128; each repeats the full-depth S and dP products,
+// so the backward does 1.5x the products it needs at D 256.
 //
 // What the tensor-core design had to get right:
 // - The 128-byte swizzle is the same in the TMA maps and the wgmma
@@ -116,9 +123,9 @@
 //   1,024-byte boundaries); a mismatch would give wrong numbers silently.
 //   A K-major k16 step moves the descriptor 32 bytes into its atom.
 // - A box is 64 bf16 columns, one swizzle atom: D = 128 takes two atoms
-//   (the N-major V descriptor steps between them by its leading offset),
-//   and D = 120 relies on TMA's zero fill past column 120 to pad the
-//   product's depth to 128.  D % 8 == 0 keeps each row stride a multiple of
+//   and D = 256 four, one load each (the N-major V descriptor steps
+//   between them by its leading offset), and D = 120 relies on TMA's zero
+//   fill past column 120 to pad the product's depth to 128.  D % 8 == 0 keeps each row stride a multiple of
 //   16 bytes, as TMA requires.
 // - The maps are 3-D (b·h, S, D), so a ragged last tile (96 rows; a
 //   128-row q tile over 64 rows) reads zeros, not the next head's rows;
@@ -129,14 +136,17 @@
 //   __grid_constant__ parameters.
 // - The ring's slots hold up to 128 KB, over the 48 KB default, so the
 //   launch raises the limit first (prepare) and checks cudaGetLastError().
+//   At DP 256 every kernel takes about 194 KB (two ring slots).
 //
 // Layout of the FMA kernels: 256 threads as 16 x 16; thread (ty, tx) owns
-// tile rows ty + 16a and columns tx + 16c (a, c < 4) of a 64 x 64 logit
-// tile, and columns
+// tile rows ty + 16a and columns tx + 16c (a < 4, c < 4; c < 2 for a kv
+// tile of 32 keys) of a 64 x 64 (64 x 32) logit tile, and columns
 // tx + 16c (c < DC = ceil(D / 16)) of a D-wide output row.  Tiles of q, k, v
 // and dO are staged in shared memory as float32 with rows padded to D + 1
 // floats, so the 16 threads of a half-warp reading 16 rows at one column hit
-// 16 banks.  D ≤ 128: the dK/dV kernel's six tiles take 166 KB there.
+// 16 banks.  At D ≤ 128 the dK/dV kernel's six tiles take 166 KB there; at
+// D ≤ 256 the backward kernels stage kv tiles of 32 keys (206 KB and 215
+// KB), and the forward keeps 64 (214 KB).
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 
@@ -146,6 +156,7 @@
 namespace {
 
 constexpr int BQ = 64, THREADS = 256, PS = BK + 1;  // BK: hopper.cuh
+constexpr int MAX_D = 256;
 constexpr long long SMEM_MAX = 227 * 1024;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -166,10 +177,10 @@ struct Mask {
     if (window > 0 && j <= p - window) return false;
     return true;
   }
-  // can any row of the q tile at q0 see any key of the kv tile at k0?
-  __device__ __forceinline__ bool tile_needed(int q0, int k0) const {
+  // can any row of the q tile at q0 see any key of the kv tile of nk keys at k0?
+  __device__ __forceinline__ bool tile_needed(int q0, int k0, int nk = BK) const {
     const int first_q = q0 + q_offset, last_q = min(q0 + BQ, Sq) - 1 + q_offset;
-    const int last_k = min(k0 + BK, Skv) - 1;
+    const int last_k = min(k0 + nk, Skv) - 1;
     if (causal && k0 > last_q) return false;
     if (window > 0 && last_k <= first_q - window) return false;
     return true;
@@ -180,8 +191,8 @@ struct Mask {
 // floats, multiplied by `mul`; rows past `avail` are zero.
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, const T* src, int avail, int D, int DP,
-                                      float mul) {
-  for (int e = threadIdx.x; e < 64 * D; e += THREADS) {
+                                      float mul, int rows = 64) {
+  for (int e = threadIdx.x; e < rows * D; e += THREADS) {
     const int r = e / D, c = e - r * D;
     dst[r * DP + c] = r < avail ? to_f(src[(long long)r * D + c]) * mul : 0.0f;
   }
@@ -199,20 +210,21 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// s[a][c] = Σ_d A[ty + 16a][d] B[tx + 16c][d] over two shared tiles
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A, const float* B,
+// s[a][c] = Σ_d A[ty + 16a][d] B[tx + 16c][d] over two shared tiles (NC
+// columns of 16: a kv tile of 16 NC keys)
+template <int NC>
+__device__ __forceinline__ void tile_dot(float (&s)[4][NC], const float* A, const float* B,
                                          int D, int DP, int tx, int ty) {
   for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
+    float av[4], bv[NC];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      av[a] = A[(ty + 16 * a) * DP + d];
-      bv[a] = B[(tx + 16 * a) * DP + d];
-    }
+    for (int a = 0; a < 4; ++a) av[a] = A[(ty + 16 * a) * DP + d];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) bv[c] = B[(tx + 16 * c) * DP + d];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = fmaf(av[a], bv[c], s[a][c]);
+      for (int c = 0; c < NC; ++c) s[a][c] = fmaf(av[a], bv[c], s[a][c]);
   }
 }
 
@@ -327,6 +339,9 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
 
 constexpr int WQ = 128;                   // q rows a block: two consumer warpgroups of 64
 constexpr int WTHREADS = 288;             // 8 consumer warps + 1 producer warp
+// 8 consumer warps and a producer warpgroup, which keeps 40 registers a
+// thread and gives the rest to the consumers (232)
+constexpr int BTHREADS = 384, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 // can any row of q rows [q_first, q_first + n) see any key of [k0, k0 + nk)?
 __device__ __forceinline__ bool span_needed(const Mask& mk, int q_first, int n, int k0,
@@ -392,30 +407,42 @@ __device__ __forceinline__ void softmax_tile(float (&sv)[32], float (&m)[2], flo
 template <int DP>
 struct WgmmaShape {
   static constexpr int ATOMS = DP / 64;                    // 128-byte swizzle atoms per row
-  static constexpr int STAGES = DP == 64 ? 4 : 3;          // K/V ring depth
+  static constexpr int STAGES = DP == 64 ? 4 : DP == 128 ? 3 : 2;  // K/V ring depth
   static constexpr int Q_ATOM = WQ * ATOM_ROW;             // bytes of one atom column of Q
   static constexpr int KV_ATOM = BK * ATOM_ROW;            // ... of K or V
   static constexpr int Q_BYTES = ATOMS * Q_ATOM;
   static constexpr int KV_BYTES = ATOMS * KV_ATOM;         // one K (or V) tile
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;  // + alignment slack
-  // the backward: dQ holds Q and dO of 128 rows and rings K and V of 64;
-  // dK/dV holds K and V of 128 keys and rings Q and dO of 64 rows with their
-  // L and Δ (64 float32 each)
+  // the forward at DP 256 holds O in 128 float32 a thread: its producer is
+  // a warpgroup that hands its registers to the consumers (setmaxnreg)
+  static constexpr int FWD_THREADS = DP == 256 ? BTHREADS : WTHREADS;
+  // the backward: dQ holds Q and dO of BROWS rows and rings K and V of 64;
+  // dK/dV holds K and V of BROWS keys and rings Q and dO of 64 rows with
+  // their L and Δ (64 float32 each).  Up to DP 128 each consumer warpgroup
+  // takes 64 of the 128 rows; at DP 256 (SPLIT 2) both take the same 64
+  // rows and each holds the gradient's columns of one half of D, repeating
+  // the full-depth S and dP products, so that the accumulators fit.
+  static constexpr int SPLIT = DP == 256 ? 2 : 1;
+  static constexpr int COLS = DP / SPLIT;                  // gradient columns a warpgroup holds
+  static constexpr int BROWS = WQ / SPLIT;                 // rows (keys) a backward block
+  static constexpr int B_ATOM = BROWS * ATOM_ROW;
+  static constexpr int B_BYTES = ATOMS * B_ATOM;
   static constexpr int ROW_BYTES = 64 * 4;
-  static constexpr int DQ_SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
-  static constexpr int DKDV_SMEM = 2 * Q_BYTES + STAGES * (2 * KV_BYTES + 2 * ROW_BYTES) + 1024;
+  static constexpr int DQ_SMEM = 2 * B_BYTES + 2 * STAGES * KV_BYTES + 1024;
+  static constexpr int DKDV_SMEM = 2 * B_BYTES + STAGES * (2 * KV_BYTES + 2 * ROW_BYTES) + 1024;
 };
 
 // One block: 128 query rows of one (b, q-head).  Warps 0-7 are two consumer
 // warpgroups of 64 rows; warp 8 is the producer, one lane of which issues
 // every TMA load: Q once, then the needed K and V tiles in order through a
 // ring of STAGES slots (`full` completes on the bytes, `empty` on the eight
-// consumer warps).  D is the head width, DP = 64 or 128 its padded width:
-// TMA fills the columns past D (and rows past Sq or Skv) with zeros.
+// consumer warps).  D is the head width, DP = 64, 128 or 256 its padded
+// width: TMA fills the columns past D (and rows past Sq or Skv) with zeros.
 // D <= 64 keeps few enough registers for two blocks an SM (their slots take
-// 81 KB of shared memory each).
+// 81 KB of shared memory each).  At DP 256 warps 8-11 are the producer
+// warpgroup, which gives its registers to the consumers.
 template <int DP>
-__global__ void __launch_bounds__(WTHREADS, DP == 64 ? 2 : 1)
+__global__ void __launch_bounds__(WgmmaShape<DP>::FWD_THREADS, DP == 64 ? 2 : 1)
 attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, int Hq, int Hkv, int D, float scale,
                Mask mk, __nv_bfloat16* __restrict__ o, float* __restrict__ o32,
@@ -446,8 +473,9 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   }
   __syncthreads();
 
-  if (warp == 8) {  // producer
-    if (lane == 0) {
+  if (warp >= 8) {  // producer
+    if constexpr (DP == 256) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp == 8 && lane == 0) {
       mbar_expect_tx(&q_full, W::Q_BYTES);
       for (int a = 0; a < W::ATOMS; ++a) tma_load(qs + a * W::Q_ATOM, &tm_q, &q_full, 64 * a, q0, bh);
       int it = 0;
@@ -469,6 +497,7 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 
   // consumers: warpgroup wg owns rows q0 + 64 wg + [0, 64); this thread rows
   // r0 and r0 + 8 of them, and of each 8-column block the two columns 2 t, 2 t + 1
+  if constexpr (DP == 256) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int wg = warp >> 2, t = lane & 3;
   const int qw = q0 + 64 * wg;
   const int r0 = qw + 16 * (warp & 3) + (lane >> 2);
@@ -543,12 +572,6 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 // The bf16 backward on Hopper's tensor cores.                                //
 // ------------------------------------------------------------------------ //
 
-constexpr int BKV = 128;  // keys a dK/dV block: two consumer warpgroups of 64
-// dK/dV: 8 consumer warps and a producer warpgroup, which keeps 40 registers
-// a thread and gives the rest to the consumers (232: dK and dV take DP
-// float32 a thread, Sᵀ and dPᵀ 64 more)
-constexpr int BTHREADS = 384, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-
 // dQ's P and dS of one 64-key tile for this thread's two rows: register i of
 // `sv` (S) and `dp` (dP) is row r0 + 8 ((i >> 1) & 1), key k0 + 8 (i >> 2) +
 // 2 t + (i & 1).  lb is the row's L in base 2 (+inf for a row that sees no
@@ -604,8 +627,9 @@ __device__ __forceinline__ void probs_t(const float (&st)[32], const float (&dpt
   }
 }
 
-// dQ: one block per (b, q-head, 128-row q tile), launched longest-first
-// under the causal mask; warps 0-7 are two consumer warpgroups of 64 rows,
+// dQ: one block per (b, q-head, BROWS-row q tile), launched longest-first
+// under the causal mask; warps 0-7 are two consumer warpgroups (64 rows
+// each, or at DP 256 the same 64 rows and one half of dQ's columns each),
 // warp 8 the producer, which loads Q and dO once and then the visible K and V
 // tiles in order through the ring, as the forward does.  Each consumer
 // thread first computes Δ of its two rows from the float32 O (its columns in
@@ -626,15 +650,15 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   __shared__ __align__(8) uint64_t q_full, kv_full[W::STAGES], kv_empty[W::STAGES];
   uint8_t* base = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
   uint8_t* qs = base;
-  uint8_t* dos = qs + W::Q_BYTES;
-  uint8_t* ks = dos + W::Q_BYTES;
+  uint8_t* dos = qs + W::B_BYTES;
+  uint8_t* ks = dos + W::B_BYTES;
   uint8_t* vs = ks + W::STAGES * W::KV_BYTES;
 
   const int bh = blockIdx.x, b = bh / Hq, h = bh - b * Hq;
   const int bkv = b * Hkv + h / (Hq / Hkv);
   const int nq = gridDim.y;
   const int qt = mk.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;  // longest first
-  const int q0 = qt * WQ, Sq = mk.Sq;
+  const int q0 = qt * W::BROWS, Sq = mk.Sq;
   const int nk = (mk.Skv + BK - 1) / BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -650,15 +674,15 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   if (warp == 8) {  // producer
     if (lane == 0) {
-      mbar_expect_tx(&q_full, 2 * W::Q_BYTES);
+      mbar_expect_tx(&q_full, 2 * W::B_BYTES);
       for (int a = 0; a < W::ATOMS; ++a) {
-        tma_load(qs + a * W::Q_ATOM, &tm_q, &q_full, 64 * a, q0, bh);
-        tma_load(dos + a * W::Q_ATOM, &tm_do, &q_full, 64 * a, q0, bh);
+        tma_load(qs + a * W::B_ATOM, &tm_q, &q_full, 64 * a, q0, bh);
+        tma_load(dos + a * W::B_ATOM, &tm_do, &q_full, 64 * a, q0, bh);
       }
       int it = 0;
       for (int kb = 0; kb < nk; ++kb) {
         const int k0 = kb * BK;
-        if (!span_needed(mk, q0, WQ, k0)) continue;
+        if (!span_needed(mk, q0, W::BROWS, k0)) continue;
         const int s = it % W::STAGES;
         mbar_wait(&kv_empty[s], ((it / W::STAGES) & 1) ^ 1);
         mbar_expect_tx(&kv_full[s], 2 * W::KV_BYTES);
@@ -673,7 +697,8 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 
   const int wg = warp >> 2, t = lane & 3;
-  const int qw = q0 + 64 * wg;
+  const int qw = q0 + (W::SPLIT == 1 ? 64 * wg : 0);
+  const int c0 = W::SPLIT == 1 ? 0 : W::COLS * wg;  // this warpgroup's first dQ column
   const int r0 = qw + 16 * (warp & 3) + (lane >> 2);
   const float sc2 = scale * LOG2E;
   float lb[2], dl[2];
@@ -698,19 +723,19 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     dl[r] = acc;
     lb[r] = row < Sq ? lse[g] * LOG2E : CUDART_INF_F;
-    if (row < Sq && t == 0) delta[g] = acc;
+    if (row < Sq && t == 0 && c0 == 0) delta[g] = acc;
   }
-  float acc[DP / 2];
+  float acc[W::COLS / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
-  const uint8_t* qw_smem = qs + 64 * wg * ATOM_ROW;
-  const uint8_t* dow_smem = dos + 64 * wg * ATOM_ROW;
+  for (int i = 0; i < W::COLS / 2; ++i) acc[i] = 0.0f;
+  const uint8_t* qw_smem = qs + (qw - q0) * ATOM_ROW;
+  const uint8_t* dow_smem = dos + (qw - q0) * ATOM_ROW;
 
   mbar_wait(&q_full, 0);
   int it = 0;
   for (int kb = 0; kb < nk; ++kb) {
     const int k0 = kb * BK;
-    if (!span_needed(mk, q0, WQ, k0)) continue;
+    if (!span_needed(mk, q0, W::BROWS, k0)) continue;
     const int s = it % W::STAGES;
     mbar_wait(&kv_full[s], (it / W::STAGES) & 1);
     if (span_needed(mk, qw, 64, k0)) {
@@ -720,8 +745,8 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sv);
       fence_regs(dp);
       wgmma_fence();
-      product_ss<DP>(sv, qw_smem, W::Q_ATOM, kt, W::KV_ATOM);   // S = Q Kᵀ
-      product_ss<DP>(dp, dow_smem, W::Q_ATOM, vt, W::KV_ATOM);  // dP = dO Vᵀ
+      product_ss<DP>(sv, qw_smem, W::B_ATOM, kt, W::KV_ATOM);   // S = Q Kᵀ
+      product_ss<DP>(dp, dow_smem, W::B_ATOM, vt, W::KV_ATOM);  // dP = dO Vᵀ
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sv);
@@ -735,7 +760,7 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
       fence_regs(acc);
       wgmma_fence();
-      product_rs<DP>(acc, da, kt);  // dQ += dS K
+      product_rs<W::COLS>(acc, da, kt + (c0 / 64) * W::KV_ATOM);  // dQ += dS K
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -750,8 +775,8 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (row >= Sq) continue;
     const long long g = (long long)bh * Sq + row;
 #pragma unroll
-    for (int nb = 0; nb < DP / 8; ++nb) {
-      const int col = 8 * nb + 2 * t;
+    for (int nb = 0; nb < W::COLS / 8; ++nb) {
+      const int col = c0 + 8 * nb + 2 * t;
       if (col >= D) continue;
       *reinterpret_cast<__nv_bfloat162*>(dq + g * D + col) =
           __floats2bfloat162_rn(scale * acc[4 * nb + 2 * r], scale * acc[4 * nb + 2 * r + 1]);
@@ -759,9 +784,10 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// dK/dV: one block per (b, kv-head, 128-key tile), the tile that the most q
-// tiles see first under the causal mask; warps 0-7 are two consumer
-// warpgroups of 64 keys, warps 8-11 the producer warpgroup.  It loads K and V once, then
+// dK/dV: one block per (b, kv-head, BROWS-key tile), the tile that the most
+// q tiles see first under the causal mask; warps 0-7 are two consumer
+// warpgroups of 64 keys (at DP 256 the same 64 keys and one half of dK's
+// and dV's columns each), warps 8-11 the producer warpgroup.  It loads K and V once, then
 // walks the q-heads of the group in order and, for each, the q tiles of 64
 // rows that see the kv tile, in order: Q, dO and their L and Δ rows through
 // the ring (the rows by 1-D maps over the flat (b, h, row) arrays).  Per q
@@ -782,15 +808,15 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t kv_full, full[W::STAGES], empty[W::STAGES];
   uint8_t* base = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
-  uint8_t* ks = base;  // K and V: 128-row tiles
-  uint8_t* vs = ks + W::Q_BYTES;
-  uint8_t* qs = vs + W::Q_BYTES;  // the ring of Q and dO: 64-row tiles
+  uint8_t* ks = base;  // K and V: BROWS-row tiles
+  uint8_t* vs = ks + W::B_BYTES;
+  uint8_t* qs = vs + W::B_BYTES;  // the ring of Q and dO: 64-row tiles
   uint8_t* dos = qs + W::STAGES * W::KV_BYTES;
   float* ls = reinterpret_cast<float*>(dos + W::STAGES * W::KV_BYTES);  // L, 64 a slot
   float* dls = ls + W::STAGES * 64;                                      // Δ, 64 a slot
 
   const int bkv = blockIdx.x, b = bkv / Hkv, hk = bkv - b * Hkv, group = Hq / Hkv;
-  const int k0 = (int)blockIdx.y * BKV, Sq = mk.Sq, Skv = mk.Skv;
+  const int k0 = (int)blockIdx.y * W::BROWS, Sq = mk.Sq, Skv = mk.Skv;
   const int nq = (Sq + BK - 1) / BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -807,17 +833,17 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   if (warp >= 8) {  // the producer warpgroup; one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (warp == 8 && lane == 0) {
-      mbar_expect_tx(&kv_full, 2 * W::Q_BYTES);
+      mbar_expect_tx(&kv_full, 2 * W::B_BYTES);
       for (int a = 0; a < W::ATOMS; ++a) {
-        tma_load(ks + a * W::Q_ATOM, &tm_k, &kv_full, 64 * a, k0, bkv);
-        tma_load(vs + a * W::Q_ATOM, &tm_v, &kv_full, 64 * a, k0, bkv);
+        tma_load(ks + a * W::B_ATOM, &tm_k, &kv_full, 64 * a, k0, bkv);
+        tma_load(vs + a * W::B_ATOM, &tm_v, &kv_full, 64 * a, k0, bkv);
       }
       int it = 0;
       for (int g = 0; g < group; ++g) {
         const int bh = b * Hq + hk * group + g;
         for (int qb = 0; qb < nq; ++qb) {
           const int q0 = qb * BK;
-          if (!span_needed(mk, q0, BK, k0, BKV)) continue;
+          if (!span_needed(mk, q0, BK, k0, W::BROWS)) continue;
           const int s = it % W::STAGES;
           mbar_wait(&empty[s], ((it / W::STAGES) & 1) ^ 1);
           mbar_expect_tx(&full[s], 2 * W::KV_BYTES + 2 * W::ROW_BYTES);
@@ -838,21 +864,22 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   // kr + 8, and of each 8-query block the two queries 2 t, 2 t + 1
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int wg = warp >> 2, t = lane & 3;
-  const int kw = k0 + 64 * wg;
+  const int kw = k0 + (W::SPLIT == 1 ? 64 * wg : 0);
+  const int c0 = W::SPLIT == 1 ? 0 : W::COLS * wg;  // this warpgroup's first column
   const int kr = kw + 16 * (warp & 3) + (lane >> 2);
   const float sc2 = scale * LOG2E;
-  float gk[DP / 2], gv[DP / 2];
+  float gk[W::COLS / 2], gv[W::COLS / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) gk[i] = gv[i] = 0.0f;
-  const uint8_t* kw_smem = ks + 64 * wg * ATOM_ROW;
-  const uint8_t* vw_smem = vs + 64 * wg * ATOM_ROW;
+  for (int i = 0; i < W::COLS / 2; ++i) gk[i] = gv[i] = 0.0f;
+  const uint8_t* kw_smem = ks + (kw - k0) * ATOM_ROW;
+  const uint8_t* vw_smem = vs + (kw - k0) * ATOM_ROW;
 
   mbar_wait(&kv_full, 0);
   int it = 0;
   for (int g = 0; g < group; ++g) {
     for (int qb = 0; qb < nq; ++qb) {
       const int q0 = qb * BK;
-      if (!span_needed(mk, q0, BK, k0, BKV)) continue;
+      if (!span_needed(mk, q0, BK, k0, W::BROWS)) continue;
       const int s = it % W::STAGES;
       mbar_wait(&full[s], (it / W::STAGES) & 1);
       if (span_needed(mk, q0, BK, kw, 64)) {
@@ -862,8 +889,8 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(st);
         fence_regs(dpt);
         wgmma_fence();
-        product_ss<DP>(st, kw_smem, W::Q_ATOM, qt, W::KV_ATOM);    // Sᵀ = K Qᵀ
-        product_ss<DP>(dpt, vw_smem, W::Q_ATOM, dot, W::KV_ATOM);  // dPᵀ = V dOᵀ
+        product_ss<DP>(st, kw_smem, W::B_ATOM, qt, W::KV_ATOM);    // Sᵀ = K Qᵀ
+        product_ss<DP>(dpt, vw_smem, W::B_ATOM, dot, W::KV_ATOM);  // dPᵀ = V dOᵀ
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(st);
@@ -878,8 +905,8 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(gv);
         fence_regs(gk);
         wgmma_fence();
-        product_rs<DP>(gv, pa, dot);  // dV += Pᵀ dO
-        product_rs<DP>(gk, da, qt);   // dK += dSᵀ Q
+        product_rs<W::COLS>(gv, pa, dot + (c0 / 64) * W::KV_ATOM);  // dV += Pᵀ dO
+        product_rs<W::COLS>(gk, da, qt + (c0 / 64) * W::KV_ATOM);   // dK += dSᵀ Q
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(gv);
@@ -897,8 +924,8 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (row >= Skv) continue;
     const long long g = (long long)bkv * Skv + row;
 #pragma unroll
-    for (int nb = 0; nb < DP / 8; ++nb) {
-      const int col = 8 * nb + 2 * t;
+    for (int nb = 0; nb < W::COLS / 8; ++nb) {
+      const int col = c0 + 8 * nb + 2 * t;
       if (col >= D) continue;
       *reinterpret_cast<__nv_bfloat162*>(dk + g * D + col) =
           __floats2bfloat162_rn(scale * gk[4 * nb + 2 * r], scale * gk[4 * nb + 2 * r + 1]);
@@ -908,25 +935,26 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// S and dP of one (q tile, kv tile) pair → P and dS in registers
-__device__ __forceinline__ void probs_and_dscores(float (&p)[4][4], float (&ds)[4][4],
+// S and dP of one (q tile, kv tile of 16 NC keys) pair → P and dS in registers
+template <int NC>
+__device__ __forceinline__ void probs_and_dscores(float (&p)[4][NC], float (&ds)[4][NC],
                                                   const float* qs, const float* dos,
                                                   const float* ks, const float* vs,
                                                   const float* ls, const float* dl,
                                                   const Mask& mk, int q0, int k0, int D,
                                                   int DP, int tx, int ty) {
-  float dp[4][4] = {};
+  float dp[4][NC] = {};
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) p[a][c] = 0.0f;
+    for (int c = 0; c < NC; ++c) p[a][c] = 0.0f;
   tile_dot(p, qs, ks, D, DP, tx, ty);
   tile_dot(dp, dos, vs, D, DP, tx, ty);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = ty + 16 * a;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const bool vis = mk.visible(q0 + r, k0 + tx + 16 * c);
       p[a][c] = vis ? expf(p[a][c] - ls[r]) : 0.0f;
       ds[a][c] = p[a][c] * (dp[a][c] - dl[r]);
@@ -934,20 +962,22 @@ __device__ __forceinline__ void probs_and_dscores(float (&p)[4][4], float (&ds)[
   }
 }
 
-template <typename T, int DC>
+// KB: keys a kv tile (64; 32 at D > 128, so that the float32 tiles fit)
+template <typename T, int DC, int KB>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const float* __restrict__ o32, const T* __restrict__ dout,
             const float* __restrict__ lse, int Hq, int Hkv, int D, float scale, Mask mk,
             float* __restrict__ delta, T* __restrict__ dq) {
+  constexpr int NC = KB / 16, PK = KB + 1;
   extern __shared__ __align__(16) float sm[];
   const int DP = D + 1, Sq = mk.Sq, Skv = mk.Skv;
   float* qs = sm;
   float* dos = qs + BQ * DP;
   float* ks = dos + BQ * DP;
-  float* vs = ks + BK * DP;
-  float* dss = vs + BK * DP;  // (BQ, PS)
-  float* ls = dss + BQ * PS;
+  float* vs = ks + KB * DP;
+  float* dss = vs + KB * DP;  // (BQ, PK)
+  float* ls = dss + BQ * PK;
   float* dl = ls + BQ;
 
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (Hq / Hkv);
@@ -976,25 +1006,25 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[a][c] = 0.0f;
 
-  const int nk = (Skv + BK - 1) / BK;
+  const int nk = (Skv + KB - 1) / KB;
   for (int kb = 0; kb < nk; ++kb) {
-    const int k0 = kb * BK;
-    if (!mk.tile_needed(q0, k0)) continue;
+    const int k0 = kb * KB;
+    if (!mk.tile_needed(q0, k0, KB)) continue;
     __syncthreads();
-    stage(ks, kg + (long long)k0 * D, Skv - k0, D, DP, 1.0f);
-    stage(vs, vg + (long long)k0 * D, Skv - k0, D, DP, 1.0f);
+    stage(ks, kg + (long long)k0 * D, Skv - k0, D, DP, 1.0f, KB);
+    stage(vs, vg + (long long)k0 * D, Skv - k0, D, DP, 1.0f, KB);
     __syncthreads();
-    float p[4][4], ds[4][4];
-    probs_and_dscores(p, ds, qs, dos, ks, vs, ls, dl, mk, q0, k0, D, DP, tx, ty);
+    float p[4][NC], ds[4][NC];
+    probs_and_dscores<NC>(p, ds, qs, dos, ks, vs, ls, dl, mk, q0, k0, D, DP, tx, ty);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) dss[(ty + 16 * a) * PS + tx + 16 * c] = ds[a][c];
+      for (int c = 0; c < NC; ++c) dss[(ty + 16 * a) * PK + tx + 16 * c] = ds[a][c];
     __syncthreads();
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < KB; ++j) {
       float dv[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) dv[a] = dss[(ty + 16 * a) * PS + j];
+      for (int a = 0; a < 4; ++a) dv[a] = dss[(ty + 16 * a) * PK + j];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const int d = tx + 16 * c;
@@ -1017,33 +1047,34 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
 }
 
-template <typename T, int DC>
+template <typename T, int DC, int KB>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, int Hq, int Hkv, int D, float scale, Mask mk,
               T* __restrict__ dk, T* __restrict__ dv) {
+  constexpr int NC = KB / 16, PK = KB + 1;  // this thread's keys: ty + 16a, a < NC
   extern __shared__ __align__(16) float sm[];
   const int DP = D + 1, Sq = mk.Sq, Skv = mk.Skv;
   float* qs = sm;
   float* dos = qs + BQ * DP;
   float* ks = dos + BQ * DP;
-  float* vs = ks + BK * DP;
-  float* pss = vs + BK * DP;   // P (BQ, PS)
-  float* dss = pss + BQ * PS;  // dS (BQ, PS)
-  float* ls = dss + BQ * PS;
+  float* vs = ks + KB * DP;
+  float* pss = vs + KB * DP;   // P (BQ, PK)
+  float* dss = pss + BQ * PK;  // dS (BQ, PK)
+  float* ls = dss + BQ * PK;
   float* dl = ls + BQ;
 
   const int hk = blockIdx.y, b = blockIdx.z, group = Hq / Hkv;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * KB;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const long long krow0 = ((long long)b * Hkv + hk) * Skv + k0;
-  stage(ks, k + krow0 * D, Skv - k0, D, DP, 1.0f);
-  stage(vs, v + krow0 * D, Skv - k0, D, DP, 1.0f);
+  stage(ks, k + krow0 * D, Skv - k0, D, DP, 1.0f, KB);
+  stage(vs, v + krow0 * D, Skv - k0, D, DP, 1.0f, KB);
 
-  float gk[4][DC], gv[4][DC];  // rows k0 + ty + 16a, columns tx + 16c
+  float gk[NC][DC], gv[NC][DC];  // rows k0 + ty + 16a, columns tx + 16c
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < NC; ++a)
 #pragma unroll
     for (int c = 0; c < DC; ++c) gk[a][c] = gv[a][c] = 0.0f;
 
@@ -1052,7 +1083,7 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int h = hk * group + g;
     for (int qb = 0; qb < nq; ++qb) {
       const int q0 = qb * BQ;
-      if (!mk.tile_needed(q0, k0)) continue;
+      if (!mk.tile_needed(q0, k0, KB)) continue;
       const long long qrow0 = ((long long)b * Hq + h) * Sq + q0;
       __syncthreads();
       stage(qs, q + qrow0 * D, Sq - q0, D, DP, scale);
@@ -1063,23 +1094,23 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         dl[tid] = in ? delta[qrow0 + tid] : 0.0f;
       }
       __syncthreads();
-      float p[4][4], ds[4][4];
-      probs_and_dscores(p, ds, qs, dos, ks, vs, ls, dl, mk, q0, k0, D, DP, tx, ty);
+      float p[4][NC], ds[4][NC];
+      probs_and_dscores<NC>(p, ds, qs, dos, ks, vs, ls, dl, mk, q0, k0, D, DP, tx, ty);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          pss[(ty + 16 * a) * PS + tx + 16 * c] = p[a][c];
-          dss[(ty + 16 * a) * PS + tx + 16 * c] = ds[a][c];
+        for (int c = 0; c < NC; ++c) {
+          pss[(ty + 16 * a) * PK + tx + 16 * c] = p[a][c];
+          dss[(ty + 16 * a) * PK + tx + 16 * c] = ds[a][c];
         }
       __syncthreads();
       // dV_j += Σ_i P_ij dO_i, dK_j += Σ_i dS_ij Qs_i, i in order
       for (int i = 0; i < BQ; ++i) {
-        float pj[4], dj[4];
+        float pj[NC], dj[NC];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pj[a] = pss[i * PS + ty + 16 * a];
-          dj[a] = dss[i * PS + ty + 16 * a];
+        for (int a = 0; a < NC; ++a) {
+          pj[a] = pss[i * PK + ty + 16 * a];
+          dj[a] = dss[i * PK + ty + 16 * a];
         }
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
@@ -1087,7 +1118,7 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
           const float ov = d < D ? dos[i * DP + d] : 0.0f;
           const float qv = d < D ? qs[i * DP + d] : 0.0f;
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
+          for (int a = 0; a < NC; ++a) {
             gv[a][c] = fmaf(pj[a], ov, gv[a][c]);
             gk[a][c] = fmaf(dj[a], qv, gk[a][c]);
           }
@@ -1097,7 +1128,7 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < NC; ++a) {
     const int r = ty + 16 * a;
     if (k0 + r >= Skv) continue;
 #pragma unroll
@@ -1111,9 +1142,11 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 long long fwd_smem(int D) { return 4LL * ((BQ + 2 * BK) * (D + 1) + BQ * PS); }
-long long dq_smem(int D) { return 4LL * ((2 * BQ + 2 * BK) * (D + 1) + BQ * PS + 2 * BQ); }
-long long dkdv_smem(int D) {
-  return 4LL * ((2 * BQ + 2 * BK) * (D + 1) + 2 * BQ * PS + 2 * BQ);
+long long dq_smem(int D, int KB) {
+  return 4LL * ((2 * BQ + 2 * KB) * (D + 1) + BQ * (KB + 1) + 2 * BQ);
+}
+long long dkdv_smem(int D, int KB) {
+  return 4LL * ((2 * BQ + 2 * KB) * (D + 1) + 2 * BQ * (KB + 1) + 2 * BQ);
 }
 
 template <typename K>
@@ -1132,7 +1165,8 @@ struct Args {
   cudaStream_t st;
 };
 
-template <typename T, int DC>
+// DC: output columns of 16 a thread; KB: keys a kv tile of the backward
+template <typename T, int DC, int KB>
 int run(int which, const Args& a) {
   int e;
   if (which == 0) {
@@ -1143,18 +1177,18 @@ int run(int which, const Args& a) {
         (const T*)a.q, (const T*)a.k, (const T*)a.v, a.Hq, a.Hkv, a.D, a.scale, a.mk,
         (T*)a.o, (float*)a.o32_out, (float*)a.lse_out);
   } else if (which == 1) {
-    const long long smem = dq_smem(a.D);
-    if ((e = prepare(attn_bwd_dq<T, DC>, smem)) != 0) return e;
+    const long long smem = dq_smem(a.D, KB);
+    if ((e = prepare(attn_bwd_dq<T, DC, KB>, smem)) != 0) return e;
     const dim3 grid((unsigned)((a.mk.Sq + BQ - 1) / BQ), (unsigned)a.Hq, (unsigned)a.B);
-    attn_bwd_dq<T, DC><<<grid, THREADS, (size_t)smem, a.st>>>(
+    attn_bwd_dq<T, DC, KB><<<grid, THREADS, (size_t)smem, a.st>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.o32,
         (const T*)a.dout, (const float*)a.lse, a.Hq, a.Hkv, a.D, a.scale, a.mk,
         (float*)a.delta, (T*)a.dq);
   } else {
-    const long long smem = dkdv_smem(a.D);
-    if ((e = prepare(attn_bwd_dkdv<T, DC>, smem)) != 0) return e;
-    const dim3 grid((unsigned)((a.mk.Skv + BK - 1) / BK), (unsigned)a.Hkv, (unsigned)a.B);
-    attn_bwd_dkdv<T, DC><<<grid, THREADS, (size_t)smem, a.st>>>(
+    const long long smem = dkdv_smem(a.D, KB);
+    if ((e = prepare(attn_bwd_dkdv<T, DC, KB>, smem)) != 0) return e;
+    const dim3 grid((unsigned)((a.mk.Skv + KB - 1) / KB), (unsigned)a.Hkv, (unsigned)a.B);
+    attn_bwd_dkdv<T, DC, KB><<<grid, THREADS, (size_t)smem, a.st>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
         (const float*)a.lse, (const float*)a.delta, a.Hq, a.Hkv, a.D, a.scale, a.mk,
         (T*)a.dk, (T*)a.dv);
@@ -1164,14 +1198,15 @@ int run(int which, const Args& a) {
 
 template <typename T>
 int by_width(int which, const Args& a) {
-  if (a.D <= 16) return run<T, 1>(which, a);
-  if (a.D <= 32) return run<T, 2>(which, a);
-  if (a.D <= 64) return run<T, 4>(which, a);
-  return run<T, 8>(which, a);
+  if (a.D <= 16) return run<T, 1, 64>(which, a);
+  if (a.D <= 32) return run<T, 2, 64>(which, a);
+  if (a.D <= 64) return run<T, 4, 64>(which, a);
+  if (a.D <= 128) return run<T, 8, 64>(which, a);
+  return run<T, 16, 32>(which, a);  // the backward's float32 tiles fit at 32 keys
 }
 
 int dispatch(int which, int dtype, const Args& a) {
-  if (a.B <= 0 || a.Hq <= 0 || a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.D <= 0 || a.D > 128 ||
+  if (a.B <= 0 || a.Hq <= 0 || a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.D <= 0 || a.D > MAX_D ||
       a.mk.Sq <= 0 || a.mk.Skv <= 0 || a.B > 65535 || a.Hq > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return by_width<float>(which, a);
@@ -1227,12 +1262,13 @@ int encode_rows(CUtensorMap* map, const void* ptr, long long n) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// what the tensor-core kernels take: bf16, D <= 128 with D % 8 == 0 (TMA
-// needs 16-byte row strides), grids and flat row indices within range
+// what the tensor-core kernels take: bf16, D <= 256 with D % 8 == 0 (TMA
+// needs 16-byte row strides), grids (of 64-row tiles at most) and flat row
+// indices within range
 bool wgmma_shape_ok(int dtype, int B, int Hq, int Hkv, int Sq, int Skv, int D) {
-  return dtype == 1 && D > 0 && D <= 128 && D % 8 == 0 && B > 0 && Hq > 0 && Hkv > 0 &&
-         Hq % Hkv == 0 && Sq > 0 && Skv > 0 && (Sq + WQ - 1) / WQ <= 65535 &&
-         (Skv + BKV - 1) / BKV <= 65535 && (long long)B * Hq * Sq < (1LL << 31);
+  return dtype == 1 && D > 0 && D <= MAX_D && D % 8 == 0 && B > 0 && Hq > 0 && Hkv > 0 &&
+         Hq % Hkv == 0 && Sq > 0 && Skv > 0 && (Sq + 63) / 64 <= 65535 &&
+         (Skv + 63) / 64 <= 65535 && (long long)B * Hq * Sq < (1LL << 31);
 }
 
 template <int DP>
@@ -1250,7 +1286,7 @@ int run_wgmma(const Args& a) {
                                      cudaFuncAttributePreferredSharedMemoryCarveout, 100)) != 0)
     return e;
   const dim3 grid((unsigned)(a.B * a.Hq), (unsigned)((Sq + WQ - 1) / WQ));
-  attn_fwd_wgmma<DP><<<grid, WTHREADS, (size_t)W::SMEM, a.st>>>(
+  attn_fwd_wgmma<DP><<<grid, W::FWD_THREADS, (size_t)W::SMEM, a.st>>>(
       tq, tk, tv, a.Hq, a.Hkv, a.D, a.scale, a.mk, (__nv_bfloat16*)a.o, (float*)a.o32_out,
       (float*)a.lse_out);
   return (int)cudaGetLastError();
@@ -1263,11 +1299,11 @@ int run_bwd_dq_wgmma(const Args& a) {
   CUtensorMap tq, tdo, tk, tv;
   int e;
   if ((e = prepare(attn_bwd_dq_wgmma<DP>, W::DQ_SMEM)) != 0) return e;  // before the maps
-  if ((e = encode_map(&tq, a.q, a.B * a.Hq, Sq, a.D, WQ)) != 0) return e;
-  if ((e = encode_map(&tdo, a.dout, a.B * a.Hq, Sq, a.D, WQ)) != 0) return e;
+  if ((e = encode_map(&tq, a.q, a.B * a.Hq, Sq, a.D, W::BROWS)) != 0) return e;
+  if ((e = encode_map(&tdo, a.dout, a.B * a.Hq, Sq, a.D, W::BROWS)) != 0) return e;
   if ((e = encode_map(&tk, a.k, a.B * a.Hkv, Skv, a.D, BK)) != 0) return e;
   if ((e = encode_map(&tv, a.v, a.B * a.Hkv, Skv, a.D, BK)) != 0) return e;
-  const dim3 grid((unsigned)(a.B * a.Hq), (unsigned)((Sq + WQ - 1) / WQ));
+  const dim3 grid((unsigned)(a.B * a.Hq), (unsigned)((Sq + W::BROWS - 1) / W::BROWS));
   attn_bwd_dq_wgmma<DP><<<grid, WTHREADS, (size_t)W::DQ_SMEM, a.st>>>(
       tq, tdo, tk, tv, (const float*)a.o32, (const __nv_bfloat16*)a.dout, (const float*)a.lse,
       a.Hq, a.Hkv, a.D, a.scale, a.mk, (float*)a.delta, (__nv_bfloat16*)a.dq);
@@ -1283,11 +1319,11 @@ int run_bwd_dkdv_wgmma(const Args& a) {
   if ((e = prepare(attn_bwd_dkdv_wgmma<DP>, W::DKDV_SMEM)) != 0) return e;  // before the maps
   if ((e = encode_map(&tq, a.q, a.B * a.Hq, Sq, a.D, BK)) != 0) return e;
   if ((e = encode_map(&tdo, a.dout, a.B * a.Hq, Sq, a.D, BK)) != 0) return e;
-  if ((e = encode_map(&tk, a.k, a.B * a.Hkv, Skv, a.D, BKV)) != 0) return e;
-  if ((e = encode_map(&tv, a.v, a.B * a.Hkv, Skv, a.D, BKV)) != 0) return e;
+  if ((e = encode_map(&tk, a.k, a.B * a.Hkv, Skv, a.D, W::BROWS)) != 0) return e;
+  if ((e = encode_map(&tv, a.v, a.B * a.Hkv, Skv, a.D, W::BROWS)) != 0) return e;
   if ((e = encode_rows(&tl, a.lse, (long long)a.B * a.Hq * Sq)) != 0) return e;
   if ((e = encode_rows(&td, a.delta, (long long)a.B * a.Hq * Sq)) != 0) return e;
-  const dim3 grid((unsigned)(a.B * a.Hkv), (unsigned)((Skv + BKV - 1) / BKV));
+  const dim3 grid((unsigned)(a.B * a.Hkv), (unsigned)((Skv + W::BROWS - 1) / W::BROWS));
   attn_bwd_dkdv_wgmma<DP><<<grid, BTHREADS, (size_t)W::DKDV_SMEM, a.st>>>(
       tq, tdo, tk, tv, tl, td, a.Hq, a.Hkv, a.D, a.scale, a.mk, (__nv_bfloat16*)a.dk,
       (__nv_bfloat16*)a.dv);
@@ -1313,7 +1349,7 @@ REPRO_EXPORT int repro_flash_fwd(const void* q, const void* k, const void* v, in
 }
 
 // The bf16 forward on the tensor cores (attn_fwd_wgmma): the arguments of
-// repro_flash_fwd, for bfloat16 (dtype 1) with D <= 128 and D % 8 == 0 only.
+// repro_flash_fwd, for bfloat16 (dtype 1) with D <= 256 and D % 8 == 0 only.
 REPRO_EXPORT int repro_flash_fwd_wgmma(const void* q, const void* k, const void* v, int B,
                                        int Hq, int Hkv, int Sq, int Skv, int D, float scale,
                                        int causal, int window, int q_offset, int dtype, void* o,
@@ -1325,7 +1361,7 @@ REPRO_EXPORT int repro_flash_fwd_wgmma(const void* q, const void* k, const void*
   a.mk = make_mask(Sq, Skv, causal, window, q_offset);
   a.o = o; a.o32_out = o32; a.lse_out = lse;
   a.st = (cudaStream_t)stream;
-  return D <= 64 ? run_wgmma<64>(a) : run_wgmma<128>(a);
+  return D <= 64 ? run_wgmma<64>(a) : D <= 128 ? run_wgmma<128>(a) : run_wgmma<256>(a);
 }
 
 // Writes delta (B, Hq, Sq) float32 and dq; run it before repro_flash_bwd_dkdv,
@@ -1360,7 +1396,7 @@ REPRO_EXPORT int repro_flash_bwd_dkdv(const void* q, const void* k, const void* 
 
 // The bf16 backward on the tensor cores (attn_bwd_dq_wgmma, then
 // attn_bwd_dkdv_wgmma): the arguments of repro_flash_bwd_dq and
-// repro_flash_bwd_dkdv, for bfloat16 (dtype 1) with D <= 128 and D % 8 == 0
+// repro_flash_bwd_dkdv, for bfloat16 (dtype 1) with D <= 256 and D % 8 == 0
 // only.  lse and delta must be 16-byte aligned (TMA reads them).
 REPRO_EXPORT int repro_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v,
                                           const void* o32, const void* dout, const void* lse,
@@ -1374,7 +1410,9 @@ REPRO_EXPORT int repro_flash_bwd_dq_wgmma(const void* q, const void* k, const vo
   a.mk = make_mask(Sq, Skv, causal, window, q_offset);
   a.delta = delta; a.dq = dq;
   a.st = (cudaStream_t)stream;
-  return D <= 64 ? run_bwd_dq_wgmma<64>(a) : run_bwd_dq_wgmma<128>(a);
+  return D <= 64    ? run_bwd_dq_wgmma<64>(a)
+         : D <= 128 ? run_bwd_dq_wgmma<128>(a)
+                    : run_bwd_dq_wgmma<256>(a);
 }
 
 REPRO_EXPORT int repro_flash_bwd_dkdv_wgmma(const void* q, const void* k, const void* v,
@@ -1390,5 +1428,7 @@ REPRO_EXPORT int repro_flash_bwd_dkdv_wgmma(const void* q, const void* k, const 
   a.mk = make_mask(Sq, Skv, causal, window, q_offset);
   a.delta = const_cast<void*>(delta); a.dk = dk; a.dv = dv;
   a.st = (cudaStream_t)stream;
-  return D <= 64 ? run_bwd_dkdv_wgmma<64>(a) : run_bwd_dkdv_wgmma<128>(a);
+  return D <= 64    ? run_bwd_dkdv_wgmma<64>(a)
+         : D <= 128 ? run_bwd_dkdv_wgmma<128>(a)
+                    : run_bwd_dkdv_wgmma<256>(a);
 }

@@ -49,7 +49,7 @@ from ._launch import F32, I32, P, LaunchCounter, bind, check_launch, require, st
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK = 128  # the reference's block size, which sets the tiling contract
-MAX_D = 128
+MAX_D = 256  # RecurrentGemma's local attention (head dim 256) is the widest
 NEG_FILL = -1e30
 
 launches = LaunchCounter("flash_attention")
@@ -147,7 +147,7 @@ def _fns():
 def forward_route(dtype: torch.dtype, D: int) -> str:
     """The forward kernel for a type and head width: ``"wgmma"`` for bf16
     with D % 8 == 0 (TMA needs 16-byte row strides), ``"fma"`` for float32
-    and any other bf16 width; raises for D > 128 or another type."""
+    and any other bf16 width; raises for D > 256 or another type."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: unsupported type {dtype}")
     if not 0 < D <= MAX_D:
@@ -158,7 +158,10 @@ def forward_route(dtype: torch.dtype, D: int) -> str:
 def backward_route(dtype: torch.dtype, D: int) -> str:
     """The backward kernels (dQ and dK/dV) for a type and head width, by the
     rule of :func:`forward_route`: ``"wgmma"`` for bf16 with D % 8 == 0,
-    ``"fma"`` for float32 (IEEE, never TF32) and other bf16 widths."""
+    ``"fma"`` for float32 (IEEE, never TF32) and other bf16 widths.  At D >
+    128 the tensor-core kernels split the gradient's columns in halves over
+    their two consumer warpgroups and the FMA kernels stage kv tiles of 32
+    keys; the route names the same kernels."""
     return forward_route(dtype, D)
 
 

@@ -1,6 +1,6 @@
 """Per-layer blocks with per-type caches: (pre-norm residual) attention and
-local-attention blocks with their MLP, and the SSD block.  The RG-LRU block
-and MoE feed-forwards raise and name the ROADMAP item that brings them."""
+local-attention blocks with their MLP or MoE feed-forward, the SSD block,
+and the RG-LRU block with its MLP."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
@@ -12,34 +12,27 @@ from ..configs.base import ModelConfig
 from .base import ShardCtx, tree_index
 from .attention import attention_block, attn_spec, init_kv_cache
 from .layers import apply_mlp, apply_norm, mlp_spec, norm_spec
+from .moe import moe_ffn, moe_spec
+from .rglru import init_rglru_cache, rglru_block, rglru_spec
 from .ssd import init_ssd_cache, ssd_block, ssd_spec
 
 ATTENTION = ("attn", "local_attn")
-_NOT_PORTED = {
-    "rglru": "RG-LRU blocks are not ported yet (ROADMAP A6.2)",
-}
-
-
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE feed-forwards are not ported yet (ROADMAP A6.2)")
-
-
-def _unported(btype: str) -> NotImplementedError:
-    reason = _NOT_PORTED.get(btype)
-    if reason is None:
-        return NotImplementedError(f"unknown block type {btype!r}")
-    return NotImplementedError(f"block type {btype!r}: {reason}")
 
 
 def block_spec(btype: str, cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, Any]:
     if btype in ATTENTION:
-        _no_moe(cfg)
-        return {"norm1": norm_spec(cfg), "attn": attn_spec(cfg, ctx), "norm2": norm_spec(cfg),
-                "mlp": mlp_spec(cfg, ctx)}
+        spec = {"norm1": norm_spec(cfg), "attn": attn_spec(cfg, ctx), "norm2": norm_spec(cfg)}
+        if cfg.moe is not None:
+            spec["moe"] = moe_spec(cfg, ctx)
+        else:
+            spec["mlp"] = mlp_spec(cfg, ctx)
+        return spec
     if btype == "ssd":
         return {"norm1": norm_spec(cfg), "ssd": ssd_spec(cfg, ctx)}
-    raise _unported(btype)
+    if btype == "rglru":
+        return {"norm1": norm_spec(cfg), "rglru": rglru_spec(cfg, ctx), "norm2": norm_spec(cfg),
+                "mlp": mlp_spec(cfg, ctx)}
+    raise ValueError(f"unknown block type {btype!r}")
 
 
 def init_block_cache(btype: str, cfg: ModelConfig, batch: int, capacity: int, device):
@@ -48,7 +41,9 @@ def init_block_cache(btype: str, cfg: ModelConfig, batch: int, capacity: int, de
         return init_kv_cache(cfg, batch, capacity, window=window, device=device)
     if btype == "ssd":
         return init_ssd_cache(cfg, batch, device)
-    raise _unported(btype)
+    if btype == "rglru":
+        return init_rglru_cache(cfg, batch, device)
+    raise ValueError(f"unknown block type {btype!r}")
 
 
 def block_fwd(
@@ -61,18 +56,28 @@ def block_fwd(
     cache=None,
 ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
     """One pre-norm residual block → (x, new cache, aux losses)."""
+    aux: Dict[str, torch.Tensor] = {}
     if btype in ATTENTION:
-        _no_moe(cfg)
         window = cfg.window if btype == "attn" else cfg.local_window
         h, new_cache = attention_block(params["attn"], cfg, apply_norm(params["norm1"], cfg, x),
                                        positions, window=window, cache=cache, ctx=ctx)
         x = x + h
-        return x + apply_mlp(params["mlp"], cfg, apply_norm(params["norm2"], cfg, x)), new_cache, {}
+        h2_in = apply_norm(params["norm2"], cfg, x)
+        if cfg.moe is not None:
+            h2, aux = moe_ffn(params["moe"], cfg, h2_in, ctx)
+        else:
+            h2 = apply_mlp(params["mlp"], cfg, h2_in)
+        return x + h2, new_cache, aux
     if btype == "ssd":
         h, new_cache = ssd_block(params["ssd"], cfg, apply_norm(params["norm1"], cfg, x),
                                  cache=cache)
-        return x + h, new_cache, {}
-    raise _unported(btype)
+        return x + h, new_cache, aux
+    if btype == "rglru":
+        h, new_cache = rglru_block(params["rglru"], cfg, apply_norm(params["norm1"], cfg, x),
+                                   cache=cache)
+        x = x + h
+        return x + apply_mlp(params["mlp"], cfg, apply_norm(params["norm2"], cfg, x)), new_cache, aux
+    raise ValueError(f"unknown block type {btype!r}")
 
 
 class ParamTree(nn.Module):

@@ -22,9 +22,10 @@ from .attention import KVCache
 from .base import SINGLE, ShardCtx, init_params, resolve_device, stack_tree, tree_map
 from .blocks import Block, ParamTree, block_spec, init_block_cache
 from .layers import apply_norm, compute_dtype, embed_spec, embed_tokens, lm_logits, norm_spec
+from .rglru import RGLRUCache
 from .ssd import SSDCache
 
-_CACHES = (SSDCache, KVCache)
+_CACHES = (SSDCache, KVCache, RGLRUCache)
 
 # ------------------------------------------------------------------ params --
 

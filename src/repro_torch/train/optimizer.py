@@ -63,31 +63,35 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(gsq)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    gnorm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-    return tree_map(lambda g: g.float() * scale, grads), gnorm
-
-
 def adamw_update(cfg: AdamWConfig, params, grads, state
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """One AdamW step → (new params in their storage type, new state,
-    {"grad_norm", "lr"}).  Pure: the caller writes the new params where it
-    keeps them."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    """One AdamW step → (params, new state, {"grad_norm", "lr"}).  The
+    reference returns new trees; here each leaf's new param (in its storage
+    type) and moments overwrite the given tensors as soon as they are
+    computed, and the trees returned hold those tensors, so a step holds one
+    copy of the weights and moments and one leaf's temporaries.  Gradients
+    are clipped by the global norm's scale leaf by leaf, the reference's
+    arithmetic."""
+    gnorm = global_norm(grads)
+    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1, bc2 = 1 - b1 ** step.float(), 1 - b2 ** step.float()
 
     def upd(p, g, mu, nu):
-        mu = b1 * mu + (1 - b1) * g
-        nu = b2 * nu + (1 - b2) * g * g
-        delta = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+        g = g.float() * clip
+        new_mu = b1 * mu + (1 - b1) * g
+        new_nu = b2 * nu + (1 - b2) * g * g
+        delta = (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + cfg.eps)
         pf = p.detach().float()
         if p.dim() >= 2:  # decoupled weight decay on matrices only
             pf = pf * (1 - lr * cfg.weight_decay)
-        return (pf - lr * delta).to(p.dtype), mu, nu
+        with torch.no_grad():
+            p.copy_(pf - lr * delta)
+            mu.copy_(new_mu)
+            nu.copy_(new_nu)
+        return p, mu, nu
 
     flat = tree_flatten(params)
     paths = [path for path, _ in flat]

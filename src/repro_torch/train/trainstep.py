@@ -3,6 +3,9 @@
 Built once per (ModelConfig, RunConfig).  The step is a Python call, run
 eagerly; gradient accumulation (microbatching) sums float32 gradients over
 ``run.microbatch``-row slices of the batch, then divides by their count.
+The step updates the parameters and the AdamW moments in place, leaf by
+leaf (the reference returns new trees), and accumulates in place, so it
+holds one copy of the weights, the moments and the gradients.
 The port runs on one device, so the reference's mesh context reduces to
 ``ShardCtx(tp=1)`` and its data-parallel reduction to the identity.
 """
@@ -49,8 +52,8 @@ def value_and_grad(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: boo
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, opt: Optional[AdamWConfig] = None):
     """Returns (step_fn, ctx).  step_fn(model, opt_state, batch) → (model,
-    opt_state, metrics); the model's parameters are updated in place (the
-    reference returns new ones), the optimizer state is a new tree.
+    opt_state, metrics); the model's parameters and the moments of
+    ``opt_state`` are updated in place (the reference returns new ones).
     Compression keeps its error-feedback tree in opt_state["err"]."""
     ctx = make_shard_ctx(run)
     opt = opt or AdamWConfig(lr=run.lr, weight_decay=run.weight_decay, grad_clip=run.grad_clip)
@@ -66,9 +69,10 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt: Optional[AdamWConfig]
                 if grads is None:
                     grads, loss_sum = g, total
                 else:
-                    grads = _tree_add(grads, g)
+                    _tree_add_(grads, g)
                     loss_sum = loss_sum + total
-            grads = _tree_div(grads, n_micro)
+                del g
+            _tree_div_(grads, n_micro)
             metrics = {"loss": loss_sum / n_micro}
         else:
             _, metrics, grads = value_and_grad(model, cfg, batch, ctx, remat)
@@ -83,11 +87,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt: Optional[AdamWConfig]
             opt_state["err"] = tree_unflatten(paths, [p[1] for p in pairs])
 
         inner = {k: v for k, v in opt_state.items() if k != "err"}
-        params = model.tree()
-        new_params, new_inner, opt_metrics = adamw_update(opt, params, grads, inner)
-        with torch.no_grad():
-            for (_, p), (_, new) in zip(tree_flatten(params), tree_flatten(new_params)):
-                p.copy_(new)
+        _, new_inner, opt_metrics = adamw_update(opt, model.tree(), grads, inner)
         new_state = dict(new_inner)
         if "err" in opt_state:
             new_state["err"] = opt_state["err"]
@@ -96,15 +96,14 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt: Optional[AdamWConfig]
     return step, ctx
 
 
-def _tree_add(a, b):
-    flat = tree_flatten(a)
-    return tree_unflatten([p for p, _ in flat],
-                          [x + y for (_, x), (_, y) in zip(flat, tree_flatten(b))])
+def _tree_add_(a, b) -> None:
+    for (_, x), (_, y) in zip(tree_flatten(a), tree_flatten(b)):
+        x.add_(y)
 
 
-def _tree_div(a, n: int):
-    flat = tree_flatten(a)
-    return tree_unflatten([p for p, _ in flat], [x / n for _, x in flat])
+def _tree_div_(a, n: int) -> None:
+    for _, x in tree_flatten(a):
+        x.div_(n)
 
 
 def init_train_state(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx = SINGLE, seed: int = 0,

@@ -72,6 +72,7 @@ def _j(a, dtype=jnp.float32):
     (2, 8, 2, 256, 64),    # GQA 4:1
     (1, 4, 1, 256, 128),   # MQA
     (1, 3, 1, 128, 64),    # odd head count
+    (1, 16, 1, 256, 256),  # MQA group 16 at RecurrentGemma's head dim
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_attention_vs_pallas_and_ref(B, Hq, Hkv, S, D, dtype):
@@ -154,7 +155,8 @@ def test_tiling_contract_raises_for_ragged_lengths(Sq, Skv):
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 120, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 64, "fma"), (torch.float32, 120, "fma"), (torch.float32, 128, "fma"),
-    (torch.bfloat16, 100, "fma"),
+    (torch.bfloat16, 100, "fma"), (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 200, "wgmma"),
+    (torch.float32, 256, "fma"), (torch.bfloat16, 250, "fma"),
 ])
 def test_forward_route_by_type_and_head_width(dtype, D, route):
     """bf16 with D % 8 == 0 takes the tensor-core kernel; float32 (never
@@ -162,8 +164,8 @@ def test_forward_route_by_type_and_head_width(dtype, D, route):
     assert tfa.forward_route(dtype, D) == route
 
 
-@pytest.mark.parametrize("dtype,D,exc", [(torch.bfloat16, 136, ValueError),
-                                         (torch.float32, 136, ValueError),
+@pytest.mark.parametrize("dtype,D,exc", [(torch.bfloat16, 264, ValueError),
+                                         (torch.float32, 264, ValueError),
                                          (torch.float16, 64, TypeError)])
 def test_forward_route_raises_beyond_the_kernels(dtype, D, exc):
     with pytest.raises(exc):
@@ -173,7 +175,7 @@ def test_forward_route_raises_beyond_the_kernels(dtype, D, exc):
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 120, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 64, "fma"), (torch.float32, 120, "fma"), (torch.float32, 128, "fma"),
-    (torch.bfloat16, 100, "fma"),
+    (torch.bfloat16, 100, "fma"), (torch.bfloat16, 256, "wgmma"), (torch.float32, 256, "fma"),
 ])
 def test_backward_route_by_type_and_head_width(dtype, D, route):
     """The backward follows the forward's rule: bf16 with D % 8 == 0 takes
@@ -182,8 +184,8 @@ def test_backward_route_by_type_and_head_width(dtype, D, route):
     assert tfa.backward_route(dtype, D) == route == tfa.forward_route(dtype, D)
 
 
-@pytest.mark.parametrize("dtype,D,exc", [(torch.bfloat16, 136, ValueError),
-                                         (torch.float32, 136, ValueError),
+@pytest.mark.parametrize("dtype,D,exc", [(torch.bfloat16, 264, ValueError),
+                                         (torch.float32, 264, ValueError),
                                          (torch.bfloat16, 0, ValueError),
                                          (torch.float16, 64, TypeError)])
 def test_backward_route_raises_beyond_the_kernels(dtype, D, exc):
@@ -269,6 +271,8 @@ def _wgmma_backward_model(q, k, v, do, causal, window, q_offset):
     (2, 15, 5, 1024, 1024, 64, True, None, 0),
     (2, 8, 2, 256, 256, 128, False, None, 0),
     (1, 4, 2, 64, 384, 64, True, None, 320),
+    (1, 16, 1, 256, 256, 256, True, 64, 0),
+    (2, 16, 1, 128, 384, 256, True, 32, 256),
 ])
 def test_wgmma_rounding_model_within_the_card_limit(B, Hq, Hkv, Sq, Skv, D, causal, window,
                                                      q_offset):
@@ -297,6 +301,8 @@ def test_wgmma_rounding_model_within_the_card_limit(B, Hq, Hkv, Sq, Skv, D, caus
     (2, 15, 5, 1024, 1024, 64, True, None, 0),
     (2, 8, 2, 256, 256, 128, False, None, 0),
     (1, 4, 2, 64, 384, 64, True, None, 320),
+    (1, 16, 1, 256, 256, 256, True, 64, 0),
+    (2, 16, 1, 128, 384, 256, True, 32, 256),
 ])
 def test_wgmma_backward_rounding_model_within_the_card_limit(B, Hq, Hkv, Sq, Skv, D, causal,
                                                               window, q_offset):

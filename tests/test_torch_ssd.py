@@ -40,6 +40,7 @@ from repro.configs import get_smoke_config as j_smoke
 from repro.kernels import ops as jops
 from repro.kernels.ssd_chunk import ssd_chunk_scan as j_ssd
 from repro.models import init_model as j_init_model
+from repro.models.blocks import block_spec as j_block_spec
 from repro.models.base import ShardCtx as JShardCtx
 from repro.serve.engine import greedy_generate as j_generate
 from repro.serve.engine import make_serve_fns as j_serve_fns
@@ -558,6 +559,13 @@ def test_short_heads_leave_16_blocks_an_sm_within_48kb(batch, chunks, H, L, N, P
 
 
 # ------------------------------------------------------------------- model ----
+def _spec_shapes(tree):
+    """A spec tree as nested dicts of shapes."""
+    if isinstance(tree, dict):
+        return {k: _spec_shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
 def test_param_tree_and_count_match_reference():
     cfg = get_config("mamba2_2p7b")
     spec = model_spec(cfg)
@@ -566,10 +574,11 @@ def test_param_tree_and_count_match_reference():
     assert spec["embed"]["head"].shape == (2560, 50280)
     assert param_count(spec) == 2_831_296_000
     assert cfg.param_count() == 2_830_704_640  # the config's own estimate
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block_spec("rglru", get_smoke_config("recurrentgemma_9b"), SINGLE)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6.2"):
-        block_spec("attn", get_smoke_config("qwen3_moe_30b_a3b"), SINGLE)
+    # the RG-LRU block and an attention block with a MoE feed-forward give
+    # the reference's subtree, leaf for leaf, with its shapes
+    for btype, arch in (("rglru", "recurrentgemma_9b"), ("attn", "qwen3_moe_30b_a3b")):
+        want = _spec_shapes(j_block_spec(btype, j_smoke(arch), JShardCtx()))
+        assert _spec_shapes(block_spec(btype, get_smoke_config(arch), SINGLE)) == want
 
 
 def _prefill_and_decode(dtype, S=40):
