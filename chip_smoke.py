@@ -67,6 +67,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    have failed or fallen back to numpy.  The notebook then runs once more
    under torch.profiler, which prints per cell the wall time beside the
    device time in kernels and in copies;
+3b. examples — ``examples/torch_quickstart.py`` and
+   ``torch_interactive_session.py`` called in-process (``main()``) in a
+   cuda session and in a numpy session: answers within the parity
+   tolerances of tests/test_backend_parity.py:51-54, the simulated
+   latencies equal, the first dispatch of each planner key on the kernels,
+   masked_stats (both), segment_reduce and filter_compact (the second)
+   launched, no breaker failure; the planner's decisions and the launches
+   printed.  ``torch_serve_opportunistic.py``, ``repro_torch.launch.serve``
+   and ``torch_train_lm.py`` (200 steps) at smoke width, each twice: tokens,
+   latencies and losses equal bit for bit;
 4. real mode — the first two cells with the background worker running;
 4b. serving — ``mamba2_2p7b`` at full width (random weights from a seed)
    behind an ``OpportunisticServer``: a cold 1,024-token request, an
@@ -128,6 +138,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    state equal bit for bit (the first state kept on the host), one step
    profiled; one microbatch's loss, gradient norm and gradients against the
    plain attention's (and the faulty plain attention over the limit);
+4f. MoE training — ``granite_moe_3b_a800m`` at full width and depth
+   (3.37e9 parameters, float32 master weights) trained through
+   ``repro_torch.launch.train.main`` for 4 steps of 8 x 4,096 tokens
+   (microbatch 4, remat full, seed 12): finite losses, step times, tokens/s
+   and the peak device memory beside its prediction; 128 forward and 64 +
+   64 backward attention launches a step, every one on the tensor-core
+   kernels; the assignments dropped at capacity counted; a run killed at
+   step 2 resumed from its step-2 checkpoint with the uninterrupted run's
+   losses and end-state fingerprint (every leaf's two 64-bit checksums);
+   the same step twice from one state equal bit for bit (the first state
+   kept on the host), one step profiled (attention, GEMMs, the MoE layer's
+   sort / gather / scatter / index kernels, other, idle share); one
+   microbatch with the kernels against the plain attention, the experts of
+   tokens whose top-k set moved (and the router) printed, every other leaf
+   held, and the faulty plain attention over the limit;
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2 (segment_reduce with all its contracts), at every shape the
    main path (or the serving phase) gave it;
@@ -135,9 +160,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    the largest of them, beside the card's bound (attention: at the training
    shape, against ``scaled_dot_product_attention`` and its backward, with
    the FMA backward kernels on the same bf16 inputs beside the tensor-core
-   ones, the forward and backward also at qwen3_8b's heads, D 128, and at
+   ones, the forward and backward also at qwen3_8b's heads, D 128, at
    phase 4e's shape, 16 heads over one kv head of 256, window 2,048 (SDPA
-   with the window as a mask);
+   with the window as a mask), and at phase 4f's, 4 x 24 (8) x 4,096 x 64;
    segment_reduce also at B = 100,000 and at B = 1,000 with one sum row;
    join_probe's wrapper beside its bare C entry point, against
    ``torch.searchsorted``; masked_stats, topk and filter_compact each
@@ -1209,6 +1234,182 @@ def real_mode(torch, ref):
 
 
 # --------------------------------------------------------------------------- #
+# phase 3b: the examples and the serve launcher on the card                     #
+# --------------------------------------------------------------------------- #
+
+# The dataframe examples' answers against a numpy session's, under the
+# parity tolerances of tests/test_backend_parity.py:51-54 (describe's count
+# exact, mean rtol 1e-4 / atol 1e-5, std rtol 1e-3 / atol 1e-4, min and max
+# rtol 1e-5; group means as means; everything else exact), and the kernels
+# each example's cells reach.
+STAT_TOL = {"count": (0.0, 0.0), "mean": (1e-4, 1e-5), "std": (1e-3, 1e-4),
+            "min": (1e-5, 0.0), "max": (1e-5, 0.0)}
+EXAMPLE_KERNELS = {"quickstart": ("masked_stats",),
+                   "interactive_session": ("segment_reduce", "filter_compact", "masked_stats")}
+
+
+def example(name):
+    """``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                  ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quiet(fn, *args, **kwargs):
+    """``fn(...)`` with its standard output kept → (result, output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def compare_answer(want, got, code):
+    import numpy as np
+
+    plain = [a.to_pydict() if hasattr(a, "to_pydict") else list(a) for a in (want, got)]
+    want, got = plain
+    if isinstance(want, list):
+        check(got == want, f"{code}: {got} != {want}")
+        return
+    check(list(got) == list(want), f"{code}: columns {list(got)} != {list(want)}")
+    stats = want.get("stat")
+    for col, w in want.items():
+        g = got[col]
+        check(g.shape == w.shape, f"{code}/{col}: shape {g.shape} != {w.shape}")
+        if w.dtype.kind in "OUS":
+            check(np.array_equal(g, w), f"{code}/{col}: not equal")
+        elif stats is not None:
+            for i, stat in enumerate(stats):
+                rtol, atol = STAT_TOL[stat]
+                np.testing.assert_allclose(float(g[i]), float(w[i]), rtol=rtol, atol=atol,
+                                           err_msg=f"{code}/{col}/{stat}")
+        elif ".mean()" in code:
+            np.testing.assert_allclose(g.astype(np.float64), w.astype(np.float64),
+                                       rtol=STAT_TOL["mean"][0], atol=STAT_TOL["mean"][1],
+                                       err_msg=f"{code}/{col}")
+        else:
+            check(np.array_equal(g, w, equal_nan=True), f"{code}/{col}: not equal")
+
+
+def dataframe_example(torch, ops, BK, name):
+    """One dataframe example in a cuda session against the same program in
+    a numpy session → the kernels' launches in the cuda run."""
+    from repro_torch.frame import api
+    from repro_torch.frame.runtime import FrameRuntime
+
+    mod = example(name)
+    cells, first = [], {}
+    cell, planned, kwargs = api.Session.cell, FrameRuntime._planned_backend, mod.session_kwargs
+
+    def recording_cell(self, code):
+        out = cell(self, code)
+        cells.append((code, out))
+        return out
+
+    def recording_plan(self, key, rows):
+        bk = planned(self, key, rows)
+        first.setdefault(key, bk)
+        return bk
+
+    api.Session.cell = recording_cell
+    try:
+        mod.session_kwargs = lambda device: {"kernel_backend": "numpy", "device": "cpu"}
+        ref, _ = quiet(mod.main, [])
+        ref_cells, cells[:] = list(cells), []
+        mod.session_kwargs = kwargs
+        FrameRuntime._planned_backend = recording_plan
+        BK.reset_breakers()
+        ops.reset_launch_counts()  # counts start at 0 just before the example
+        got, _ = quiet(mod.main, [])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        api.Session.cell, FrameRuntime._planned_backend = cell, planned
+        mod.session_kwargs = kwargs
+    check([c for c, _ in cells] == [c for c, _ in ref_cells], f"{name}: other cells ran")
+    shown = [(c, a) for c, a in cells if a is not None]
+    check(len(shown) == len(got["answers"]), f"{name}: answers and cells differ")
+    for (code, g), (_, w) in zip(shown, [(c, a) for c, a in ref_cells if a is not None]):
+        compare_answer(w, g, f"{name}: {code.strip()}")
+    check(got["latencies"] == ref["latencies"], f"{name}: simulated latencies "
+          f"{got['latencies']} != the numpy session's {ref['latencies']}")
+    for kernel in EXAMPLE_KERNELS[name]:
+        check(launches[kernel] > 0, f"{name}: {kernel} never launched")
+    check(first and all(bk == "cuda" for bk in first.values()),
+          f"{name}: a first dispatch did not take the kernels: {first}")
+    snap = {k: v for k, v in BK.breaker_board().snapshot().items() if k.endswith("|cuda")}
+    check(snap and all(st["failures"] == 0 and st["fallbacks"] == 0 for st in snap.values()),
+          f"{name}: breakers {snap}")
+    planner = got["session"].engine.cost_model.planner_report()
+    print(f"[examples] {name}: {len(shown)} answers equal the numpy session's; simulated "
+          f"latencies s {json.dumps(got['latencies'])} (equal); first dispatch per key "
+          f"{json.dumps(first)}; planner decisions {json.dumps(planner)}; launches "
+          + json.dumps({k: v for k, v in launches.items() if v}) + "; breakers: zero "
+          "failures and fallbacks on cuda for " + ", ".join(sorted(k.split("|")[0]
+                                                               for k in snap)), flush=True)
+    return launches
+
+
+def examples_on_card(torch, ops, BK):
+    """Phase 3b → the kernels' launches over its runs."""
+    import shutil
+
+    from repro_torch.launch import serve as launch_serve
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for name in EXAMPLE_KERNELS:
+        add(dataframe_example(torch, ops, BK, name))
+
+    # the LM examples and the serve launcher at smoke width, each twice
+    ops.reset_launch_counts()
+    serve = example("serve_opportunistic")
+    (a, _), (b, _) = quiet(serve.main, []), quiet(serve.main, [])
+    check(a["tokens"] == b["tokens"] and a["latencies"] == b["latencies"],
+          "serve example: a fresh run gave other tokens or latencies")
+    print(f"[examples] serve_opportunistic twice: tokens {json.dumps(a['tokens'])} and "
+          f"simulated latencies s {json.dumps(a['latencies'])}, equal", flush=True)
+    (a, _), (b, _) = quiet(launch_serve.main, []), quiet(launch_serve.main, [])
+    check(a == b, "launch.serve: a fresh run gave other tokens or latencies")
+    print("[examples] launch.serve twice: " + json.dumps(a) + ", equal", flush=True)
+    train = example("train_lm")
+    runs = []
+    try:
+        for i in range(2):
+            ckpt = CKPT_ROOT / f"train_lm_{i}"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            t0 = time.perf_counter()
+            stats, _ = quiet(train.main, ["--ckpt-dir", str(ckpt)])
+            runs.append((stats, time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    (s0, w0), (s1, w1) = runs
+    check(s0.losses == s1.losses and s0.grad_norms == s1.grad_norms,
+          "train example: a fresh run gave other losses")
+    check(all(math.isfinite(x) for x in s0.losses) and s0.losses[-1] < s0.losses[0],
+          f"train example: losses {s0.losses[0]} -> {s0.losses[-1]}")
+    print(f"[examples] train_lm twice, {s0.steps} steps each in {w0} and {w1} s: losses "
+          f"{s0.losses[0]} -> {s0.losses[-1]}, equal bit for bit; median step "
+          f"{sorted(s0.step_times)[len(s0.step_times) // 2] * 1e3} ms", flush=True)
+    torch.cuda.synchronize()
+    add(ops.launch_counts())
+    print("[examples] launches in phase 3b: " + json.dumps({k: v for k, v in total.items()
+                                                            if v}), flush=True)
+    return total
+
+
+# --------------------------------------------------------------------------- #
 # phase 5: timing at the main path's shapes                                    #
 # --------------------------------------------------------------------------- #
 
@@ -1762,6 +1963,9 @@ WIDE_ATTN = (1, 32, 8, 4096, 4096, 128, "bfloat16", True, None, 0)
 # phase 4e's shape: recurrentgemma_9b's local attention, one sequence of
 # 4,096 tokens, 16 q-heads over one kv head of 256, window 2,048
 RG_ATTN = (1, 16, 1, 4096, 4096, 256, "bfloat16", True, 2048, 0)
+# phase 4f's shape: one microbatch of granite_moe_3b_a800m, 4 x 24 q-heads
+# (8 kv heads) x 4,096 x 64, bf16, causal
+MOE_ATTN = (4, 24, 8, 4096, 4096, 64, "bfloat16", True, None, 0)
 
 
 def sdpa_call(torch, fa, q, k, v, causal, window, off):
@@ -1924,10 +2128,18 @@ def attention_timings(torch, rng, dev):
     print("[time] attention at phase 4e's shape " + json.dumps(RG_ATTN) + ", ms: "
           + json.dumps(dict(rg_ms, **{"kernel fwd": out["flash_attention D=256"]["ms"]})),
           flush=True)
+    # phase 4f's shape: 24 q-heads over 8 kv heads
+    out["flash_attention 24/8 heads"] = forward_timing(torch, rng, dev, MOE_ATTN, flush)
+    moe_rows, moe_ms = backward_timing(torch, rng, dev, MOE_ATTN, flush)
+    print("[time] attention at phase 4f's shape " + json.dumps(MOE_ATTN) + ", ms: "
+          + json.dumps(dict(moe_ms, **{"kernel fwd": out["flash_attention 24/8 heads"]["ms"],
+                                       "sdpa fwd": out["flash_attention 24/8 heads"][
+                                           "library_ms"]})), flush=True)
     for name in bwd:
         out[name] = out[name + "_wgmma"] = bwd[name]
         out[name + " D=128"] = wide[name]
         out[name + " D=256"] = rg[name]
+        out[name + " 24/8 heads"] = moe_rows[name]
     return out
 
 
@@ -2928,6 +3140,345 @@ def training_rg(torch, ops, dev):
     return {k: launches[k] for k in RG_PER_STEP}
 
 
+# --------------------------------------------------------------------------- #
+# phase 4f: granite-MoE trained at full width through the train launcher      #
+# --------------------------------------------------------------------------- #
+
+# granite_moe_3b_a800m at full width and depth (32 layers, d_model 1536, 24 /
+# 8 heads x 64, 40 experts top 8, d_ff_expert 512, vocab 49,155): 3.37e9
+# parameters, 54 GB of float32 weights, gradients and AdamW moments; phase
+# 4c's shape (4 steps of 8 x 4,096 tokens, microbatch 4, remat full), so the
+# attention launches a step are PER_STEP's (32 layers x 2 microbatches).
+MOE_SEQ = 4096
+MOE_FLAGS = ["--arch", "granite_moe_3b_a800m", "--full-config", "--steps", str(TRAIN_STEPS),
+             "--batch", str(TRAIN_BATCH), "--seq", str(MOE_SEQ), "--microbatch",
+             str(TRAIN_MICRO), "--remat", "full", "--seed", str(TRAIN_SEED)]
+MOE_CUT = 2  # the interrupted run fails at step 2 and resumes from its step-2 checkpoint
+# The peak, predicted before the first run on the card: weights, both
+# moments and the accumulated gradients (4 x 13.5 GB), a second gradient
+# tree while the second microbatch's backward fills it, and the loss head's
+# float32 logits of 4 x 4,096 tokens.
+MOE_PEAK_PREDICTED = (68e9, 76e9)
+MASK64 = (1 << 64) - 1
+
+
+def fingerprint(torch, tree):
+    """{leaf: (the sum of its 32-bit words, the sum of each word times its
+    index mod 65,521 plus 1), both mod 2^64}, computed on the card."""
+    from repro_torch.models.base import keystr, tree_flatten
+
+    out = {}
+    for path, t in tree_flatten(tree):
+        words = t.detach().reshape(-1).view(torch.uint8).view(torch.int32)
+        s1 = s2 = 0
+        for a in range(0, words.numel(), 1 << 26):
+            w = words[a:a + (1 << 26)].long()
+            pos = torch.arange(a, a + w.numel(), device=w.device) % 65521 + 1
+            s1 += int(w.sum())
+            s2 += int((w * pos).sum())
+        out[keystr(path)] = (s1 & MASK64, s2 & MASK64)
+    return out
+
+
+def moe_step_vs_plain(torch, ops, cfg, model, dev):
+    """Check 2 for the MoE model: one microbatch (2 x 1,024 tokens, remat
+    off) with the kernels against the plain attention.  A token whose top-k
+    set differs between the two runs (a near tie that the attention's
+    rounding tips) sends other rows through other experts, so the experts
+    such a token chose in either run, in its layer, and the router are
+    printed and not held; every other leaf (attention, norms, embeddings, the
+    untouched experts' slices) is held to phase 4c's leaf limit.  The
+    control whose dK/dV drops a head must cross it."""
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import SINGLE, moe
+    from repro_torch.models.base import keystr, tree_flatten
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.trainstep import value_and_grad
+
+    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=1024, batch=2, seed=0), 0),
+                      dev)
+    route = moe._route
+
+    def run(backend):
+        routes = []
+
+        def recording(params, cfg_, xf, e_pad):
+            out = route(params, cfg_, xf, e_pad)
+            routes.append(torch.sort(out[1], dim=-1).values)
+            return out
+
+        moe._route = recording
+        try:
+            with ops.local_backend(backend):
+                loss, _, grads = value_and_grad(model, cfg, batch, SINGLE, remat=False)
+        finally:
+            moe._route = route
+        return float(loss), float(global_norm(grads)), grads, routes
+
+    def held_and_shown(got, got_routes, want, want_routes):
+        """({leaf: worst |err| / max |g|} held, the same shown, tokens
+        moved per layer, (layer, expert) slices untouched)."""
+        moved, touched = [], []
+        for a, b in zip(got_routes, want_routes):
+            m = (a != b).any(-1)
+            moved.append(int(m.sum()))
+            t = torch.zeros(cfg.moe.n_experts, dtype=torch.bool, device=dev)
+            t[torch.cat([a[m], b[m]]).reshape(-1)] = True
+            touched.append(t)
+        touched = torch.stack(touched)  # (layers, experts)
+        held, shown = {}, {}
+        for (path, g), (_, w) in zip(tree_flatten(got), tree_flatten(want)):
+            key = keystr(path)
+            if "moe" in path and path[-1] == "router":
+                shown[key] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            elif "moe" in path:
+                dims = tuple(range(2, g.dim()))
+                err, big = (g - w).abs().amax(dim=dims), w.abs().amax(dim=dims)
+                for mask, into, label in ((~touched, held, "untouched"),
+                                          (touched, shown, "touched")):
+                    if bool(mask.any()):
+                        into[f"{key} {label}"] = float(err[mask].max()) / max(
+                            float(big[mask].max()), 1e-30)
+            else:
+                held[key] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        return held, shown, moved, int((~touched).sum())
+
+    kl, kn, kg, kr = run("cuda")
+    pl, pn, pg, pr = run("torch")
+    held, shown, moved, untouched = held_and_shown(kg, kr, pg, pr)
+    del kg
+    worst = max(held.values())
+    print(f"[train-moe] check 2, 2 x 1,024 tokens, kernels vs plain attention: loss {kl} vs "
+          f"{pl}, grad norm {kn} vs {pn}; tokens whose top-k set differs, per layer "
+          f"{json.dumps(moved)} ({sum(moved)} of {len(moved) * 2048}); expert slices no such "
+          f"token reaches: {untouched} of {len(moved) * cfg.moe.n_experts}; held leaves, "
+          f"worst |err| / max |g| {worst}: {json.dumps(held)}; not held: {json.dumps(shown)}",
+          flush=True)
+    check(math.isfinite(kl) and math.isfinite(kn), "MoE training step: loss or norm not finite")
+    check(worst <= STEP_GRAD_TOL, f"MoE training step gradients vs plain: worst held {worst}")
+    controls = attn_controls(torch, fa)
+    faulty, _ = controls["dK/dV that skips one head of each group"]
+    plain = fa.flash_attention_plain
+    fa.flash_attention_plain = faulty
+    try:
+        _, _, cg, cr = run("torch")
+    finally:
+        fa.flash_attention_plain = plain
+    cheld, _, cmoved, _ = held_and_shown(cg, cr, pg, pr)
+    cworst = max(cheld.values())
+    check(cworst > STEP_GRAD_TOL, f"MoE control, dK/dV without a head: worst held leaf "
+          f"{cworst} is within the limit {STEP_GRAD_TOL}, which cannot see it")
+    print(f"[train-moe] control, plain attention whose dK/dV drops a head: worst held leaf "
+          f"|err| / max |g| {cworst}, above the limit {STEP_GRAD_TOL} (tokens moved "
+          f"{sum(cmoved)})", flush=True)
+
+
+def training_moe(torch, ops, dev):
+    """``granite_moe_3b_a800m`` at full width trained through
+    ``repro_torch.launch.train.main``; returns the attention kernels'
+    launch counts over the main run."""
+    import shutil
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_model, moe
+    from repro_torch.models.base import tree_flatten
+    from repro_torch.train import loop
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    cfg = get_config("granite_moe_3b_a800m")
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    CKPT_ROOT.mkdir()
+    free = shutil.disk_usage(CKPT_ROOT).free
+    state_bytes = 12 * cfg.param_count()  # weights and both moments, float32
+    check(free > state_bytes * 1.1, f"{free} bytes free for a {state_bytes}-byte checkpoint")
+    cap = moe.expert_capacity(cfg, TRAIN_MICRO * MOE_SEQ)
+    print(f"[train-moe] {cfg.name} at full width and depth: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, "
+          f"{cfg.moe.n_experts} experts top {cfg.moe.top_k}, d_ff_expert "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab}, {cfg.param_count()} parameters; launcher "
+          f"flags {' '.join(MOE_FLAGS)}; capacity {cap} a microbatch; predicted peak "
+          f"{MOE_PEAK_PREDICTED[0]}-{MOE_PEAK_PREDICTED[1]} bytes; {free} bytes free for the "
+          f"step-{MOE_CUT} checkpoint; {torch.cuda.memory_allocated()} bytes held on the card "
+          "before the run", flush=True)
+
+    # the final checkpoint of a run is replaced by the fingerprint of its
+    # state: two 40 GB checkpoints do not fit the disk beside each other
+    prints = {}
+
+    class FingerprintAtEnd(CheckpointManager):
+        def save(self, step, tree):
+            if step == TRAIN_STEPS:
+                prints[self.dir] = fingerprint(torch, tree)
+                return None
+            return super().save(step, tree)
+
+    dispatch, drops = moe._dispatch, []
+
+    def counting(top_e, e_count, capacity):
+        order, keep, slot = dispatch(top_e, e_count, capacity)
+        drops.append((~keep).sum())
+        return order, keep, slot
+
+    manager = loop.CheckpointManager
+    loop.CheckpointManager = FingerprintAtEnd
+    try:
+        # the main path: 4 steps through the launcher
+        whole_dir, cut_dir = str(CKPT_ROOT / "whole"), str(CKPT_ROOT / "cut")
+        moe._dispatch = counting
+        ops.reset_launch_counts()  # counts start at 0 just before the training path
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            whole, log = quiet(launch_train.main, MOE_FLAGS + ["--ckpt-dir", whole_dir])
+        finally:
+            moe._dispatch = dispatch
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        tokens = TRAIN_BATCH * MOE_SEQ
+        dropped = [int(d) for d in drops]
+        print(f"[train-moe] {TRAIN_STEPS} steps in {wall} s (the end state's fingerprint "
+              "included): step ms " + json.dumps([t * 1e3 for t in whole.step_times])
+              + ", tokens/s " + json.dumps([tokens / t for t in whole.step_times])
+              + ", losses " + json.dumps(whole.losses) + ", grad norms "
+              + json.dumps(whole.grad_norms) + f", peak device memory {peak} bytes (predicted "
+              f"{MOE_PEAK_PREDICTED[0]}-{MOE_PEAK_PREDICTED[1]}); launcher output: "
+              + " | ".join(log.strip().splitlines()), flush=True)
+        check(whole.steps == TRAIN_STEPS and all(math.isfinite(x) for x in
+                                                 whole.losses + whole.grad_norms),
+              "MoE training: a loss or gradient norm is not finite")
+        check(peak < torch.cuda.get_device_properties(0).total_memory,
+              f"MoE training peak {peak} bytes")
+        print(f"[train-moe] assignments dropped at capacity ({cap} a expert): "
+              f"{sum(dropped)} over {len(dropped)} layer forwards (remat runs each twice) of "
+              f"{TRAIN_MICRO * MOE_SEQ * cfg.moe.top_k} assignments, "
+              f"{sum(dropped) / len(dropped)} a forward; per forward of the first "
+              f"microbatch's layers: " + json.dumps(dropped[:cfg.n_layers]), flush=True)
+        print("[train-moe] launches in the run: " + json.dumps(
+            {k: launches[k] for k in PER_STEP}), flush=True)
+        for name, n in PER_STEP.items():
+            check(launches[name] == n * TRAIN_STEPS, f"MoE training: {name} launched "
+                  f"{launches[name]} times in {TRAIN_STEPS} steps, not {n * TRAIN_STEPS}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a run killed at step 2 resumes from its step-2 checkpoint and ends
+        # where the uninterrupted run ended
+        t0 = time.perf_counter()
+        try:
+            quiet(launch_train.main, MOE_FLAGS + ["--ckpt-dir", cut_dir, "--fail-at-step",
+                                                  str(MOE_CUT)])
+            fail(f"--fail-at-step {MOE_CUT} did not stop the run")
+        except RuntimeError as exc:
+            if str(exc) != f"injected node failure at step {MOE_CUT}":
+                raise
+        latest = CheckpointManager(cut_dir).latest_step()
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed, _ = quiet(launch_train.main, MOE_FLAGS + ["--ckpt-dir", cut_dir])
+        check(latest == MOE_CUT and resumed.resumed_from == MOE_CUT
+              and resumed.steps == TRAIN_STEPS - MOE_CUT,
+              f"the run resumed from {resumed.resumed_from}, not from step {MOE_CUT}")
+        check(resumed.losses == whole.losses[MOE_CUT:], f"resumed losses {resumed.losses} != "
+              f"{whole.losses[MOE_CUT:]}")
+        check(prints[cut_dir] == prints[whole_dir], "the resumed run's end state differs "
+              "from the uninterrupted one's: " + json.dumps(
+                  [k for k in prints[whole_dir] if prints[cut_dir][k] != prints[whole_dir][k]]))
+        print(f"[train-moe] the injected failure at step {MOE_CUT} raised and left its "
+              f"step-{MOE_CUT} checkpoint; the rerun resumed from it, its losses "
+              f"{resumed.losses} equal the uninterrupted run's bit for bit, and its end state "
+              f"has the uninterrupted one's fingerprint in all {len(prints[whole_dir])} leaves "
+              f"({time.perf_counter() - t0} s with the checkpoint)", flush=True)
+    finally:
+        loop.CheckpointManager = manager
+        moe._dispatch = dispatch
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same step twice from the same state, bit for bit (the first state
+    # waits on the host); the second step profiled, the MoE layer's parts as
+    # profiler ranges (their forward and remat passes: the backward runs
+    # outside them)
+    shape = ShapeConfig("cli", "train", seq_len=MOE_SEQ, global_batch=TRAIN_BATCH)
+    run = RunConfig(model=cfg, shape=shape, dp=1, tp=1, remat="full", microbatch=TRAIN_MICRO)
+    step_fn, _ = make_train_step(cfg, run)
+    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=MOE_SEQ, batch=TRAIN_BATCH,
+                                         seed=TRAIN_SEED), 0), dev)
+    ranges = {"moe routing": "_route", "moe grouping, experts, combine": "_group_and_compute"}
+    originals = {name: getattr(moe, name) for name in ranges.values()}
+
+    def in_range(label, fn):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    kept = None
+    for i in range(2):
+        model, opt_state = init_train_state(cfg, run, seed=TRAIN_SEED, device=dev)
+        if i == 0:
+            model, opt_state, m0 = step_fn(model, opt_state, batch)
+            kept = [t.detach().cpu() for _, t in tree_flatten({"params": model.tree(),
+                                                               "opt": opt_state})]
+        else:
+            out = {}
+
+            def one_step():
+                out["state"] = step_fn(model, opt_state, batch)
+
+            for label, name in ranges.items():
+                setattr(moe, name, in_range(label, originals[name]))
+            try:
+                pwall, busy, copy, kern, spans = profiled(torch, one_step, tuple(ranges))
+            finally:
+                for name, fn in originals.items():
+                    setattr(moe, name, fn)
+            model, opt_state, m1 = out.pop("state")
+            leaves = [t for _, t in tree_flatten({"params": model.tree(), "opt": opt_state})]
+            check(len(leaves) == len(kept) and all(
+                torch.equal(a.detach().cpu(), b) for a, b in zip(leaves, kept)),
+                "granite-MoE: the same step from the same state gave other params or "
+                "optimizer state")
+            check(float(m0["loss"]) == float(m1["loss"]), "granite-MoE: repeated step loss")
+            del leaves
+        del model, opt_state
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn = sum(t for t, k in kern if "attn_" in k)
+    gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
+                                                                   "cutlass")))
+    moved = sum(t for t, k in kern if "attn_" not in k and any(
+        w in k.lower() for w in ("sort", "scatter", "gather", "index", "radix", "scan")))
+    print(f"[train-moe] a step repeated from the same state gave params, AdamW moments and "
+          f"loss ({float(m1['loss'])}) equal bit for bit", flush=True)
+    print(f"[train-moe-trace] one step, profiled: wall {pwall} ms, device kernels {busy} ms "
+          f"(attention kernels {attn} ms, GEMMs {gemm} ms, sort / gather / scatter / index "
+          f"kernels (MoE routing, grouping, combine and their backward) {moved} ms, other "
+          f"{busy - attn - gemm - moved} ms), device copies {copy} ms, device idle "
+          f"{100 * (1 - (busy + copy) / pwall)}%; forward and remat passes of the MoE layer "
+          "(host ms, device ms): " + json.dumps(spans) + "; top: "
+          + ", ".join(f"{k[:50]} {t}" for t, k in kern[:10]), flush=True)
+
+    # check 2: the kernels against the plain attention on one microbatch
+    model = init_model(cfg, seed=TRAIN_SEED, device=dev, trainable=True)
+    moe_step_vs_plain(torch, ops, cfg, model, dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in PER_STEP}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2986,6 +3537,12 @@ def main() -> int:
 
     trace_notebook(torch)
 
+    # -- phase 3b: the examples and the serve launcher
+    t0 = time.perf_counter()
+    for kernel, n in examples_on_card(torch, ops, BK).items():
+        launches[kernel] += n
+    print(f"[examples] phase took {time.perf_counter() - t0} s", flush=True)
+
     # -- phase 4: real mode
     real_mode(torch, ref)
 
@@ -2999,7 +3556,8 @@ def main() -> int:
 
     # -- phase 4c: training
     t0 = time.perf_counter()
-    launches.update(training(torch, ops, dev))
+    for kernel, n in training(torch, ops, dev).items():
+        launches[kernel] += n
     print(f"[train] phase took {time.perf_counter() - t0} s", flush=True)
 
     # -- phase 4d: serving granite-MoE and RecurrentGemma (no attention kernel
@@ -3011,12 +3569,18 @@ def main() -> int:
             launches[kernel] += served[kernel]
         print(f"[serve-hybrid] {name} phase took {time.perf_counter() - t0} s", flush=True)
 
-    # -- phase 4e: training RecurrentGemma, one pattern group; the kernels'
-    # launches on the JSON line are those of phases 4c and 4e together
+    # -- phase 4e: training RecurrentGemma, one pattern group
     t0 = time.perf_counter()
     for kernel, n in training_rg(torch, ops, dev).items():
         launches[kernel] += n
     print(f"[train-rg] phase took {time.perf_counter() - t0} s", flush=True)
+
+    # -- phase 4f: training granite-MoE through the train launcher; the
+    # attention launches on the JSON line are those of 3b, 4c, 4e and 4f
+    t0 = time.perf_counter()
+    for kernel, n in training_moe(torch, ops, dev).items():
+        launches[kernel] += n
+    print(f"[train-moe] phase took {time.perf_counter() - t0} s", flush=True)
 
     # -- phase 5: kernel vs plain, then timing, at the main path's shapes
     t0 = time.perf_counter()
@@ -3024,7 +3588,8 @@ def main() -> int:
     for name in mp:
         errs[name] = max(errs[name], mp[name][0])
     train_shapes = (TRAIN_ATTN, (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0), RG_ATTN,
-                    (2, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0))
+                    (2, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0), MOE_ATTN,
+                    (2, 24, 8, 1024, 1024, 64, "bfloat16", True, None, 0))
     for name, e in attention_parity(torch, rng, dev, train_shapes, "training").items():
         errs[name] = max(errs[name], e)
     print(f"[shapes] kernel vs plain passed at every main-path shape in "

@@ -16,6 +16,17 @@ atomics in an order that changes from run to run, so here the k
 contributions are un-permuted to (T, k, d), ordered by expert id, and added
 one after the other from 0, rounding to the compute type after each add.
 
+So is the backward.  The gather of each token into its k grid rows
+(``_TokenGather``) would differentiate through ``index_put_(accumulate=True)``,
+which on the card adds a token's up to k gradient rows in an order that may
+change between runs; its backward adds them from 0 in ascending expert id,
+as the combine does.  The gather of each assignment's grid row
+(``_SlotGather``) writes its gradient rows without adding, the kept slots
+being distinct.  Every other index on the path takes each index once per
+row (the router's ``gather``, the combine's ``gather`` / ``index_copy``,
+the weights' permutation), so its backward adds one value into each
+element, in any order.
+
 The reference's expert-parallel bodies (``moe_ffn_sharded``,
 ``moe_ffn_ep``) are ``shard_map`` islands over a model axis; under a
 ``tp > 1`` context this raises (ROADMAP A7).
@@ -96,16 +107,14 @@ def _group_and_compute(params, cfg: ModelConfig, xf: torch.Tensor, top_w: torch.
                        top_e: torch.Tensor, e_count: int, capacity: int) -> torch.Tensor:
     """Capacity grouping, the experts' MLPs over the (E, C, d) grid, and the
     weighted combine back to tokens → (T, d) in x's type."""
-    T, d = xf.shape
-    k = cfg.moe.top_k
+    d = xf.shape[1]
     dt = xf.dtype
-    order, keep, slot = _dispatch(top_e, e_count, capacity)
-    token_of = order // k
+    order, _, slot = _dispatch(top_e, e_count, capacity)
 
     # gather tokens into the (E, C, d) grid; dropped ones land on the dump
     # row, which is sliced away
     buf = torch.zeros((e_count * capacity + 1, d), dtype=dt, device=xf.device)
-    buf = buf.index_put((slot,), xf[token_of])
+    buf = buf.index_put((slot,), _TokenGather.apply(xf, order, top_e))
     grid = buf[:-1].reshape(e_count, capacity, d)
 
     if cfg.mlp_type in ("swiglu", "geglu"):
@@ -119,19 +128,68 @@ def _group_and_compute(params, cfg: ModelConfig, xf: torch.Tensor, top_w: torch.
     y_grid = torch.einsum("ecf,efd->ecd", h, params["w_down"].to(dt))
 
     # each sorted assignment's weighted output (0 when dropped), in x's type
-    y_flat = y_grid.reshape(e_count * capacity, d)
-    y_assign = torch.where(keep[:, None], y_flat[torch.clamp(slot, max=e_count * capacity - 1)],
-                           torch.zeros((), dtype=dt, device=xf.device))
+    y_assign = _SlotGather.apply(y_grid.reshape(e_count * capacity, d), slot)
     contrib = y_assign * top_w.reshape(-1)[order][:, None].to(dt)
-    # back to (T, k, d) in the order of the sort (ascending expert id within
-    # a token, its k experts being distinct), then added from 0 in that order
-    per_token = torch.empty_like(contrib).index_copy(0, order, contrib).reshape(T, k, d)
+    return _sum_by_expert(contrib, order, top_e)
+
+
+def _sum_by_expert(rows: torch.Tensor, order: torch.Tensor, top_e: torch.Tensor) -> torch.Tensor:
+    """The (T·k, d) rows of the sorted assignments summed per token →
+    (T, d): back to (T, k, d) in the order of the sort (ascending expert id
+    within a token, its k experts being distinct), then added from 0 in
+    that order, rounding to the rows' type after each add."""
+    T, k = top_e.shape
+    d = rows.shape[1]
+    per_token = torch.empty_like(rows).index_copy(0, order, rows).reshape(T, k, d)
     by_expert = torch.argsort(top_e, dim=-1)
     per_token = per_token.gather(1, by_expert[..., None].expand(T, k, d))
-    out = torch.zeros((T, d), dtype=dt, device=xf.device)
+    out = torch.zeros((T, d), dtype=rows.dtype, device=rows.device)
     for j in range(k):
         out = out + per_token[:, j]
     return out
+
+
+class _SlotGather(torch.autograd.Function):
+    """Each sorted assignment's row of the (E·C, d) grid, zero where it was
+    dropped (``slot`` is E·C, one past the grid).  The kept slots are
+    distinct, so the backward writes each gradient row to its grid row
+    without adding; an accumulating index would add every dropped
+    assignment's zero row into one grid row, which the card serialises (at
+    granite-MoE's training shape it took a third of the step)."""
+
+    @staticmethod
+    def forward(ctx, y_flat: torch.Tensor, slot: torch.Tensor):
+        rows = y_flat.shape[0]
+        ctx.save_for_backward(slot)
+        ctx.rows = rows
+        kept = (slot < rows)[:, None]
+        return torch.where(kept, y_flat[torch.clamp(slot, max=rows - 1)],
+                           torch.zeros((), dtype=y_flat.dtype, device=y_flat.device))
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (slot,) = ctx.saved_tensors
+        out = grad.new_zeros((ctx.rows + 1, grad.shape[1]))
+        out.index_put_((slot,), grad)  # the dropped rows land on row E·C, cut off
+        return out[:-1], None
+
+
+class _TokenGather(torch.autograd.Function):
+    """``xf[order // k]``: each token's row once for each of its k sorted
+    assignments.  The backward adds a token's k gradient rows from 0 in
+    ascending expert id (``_sum_by_expert``), the order in which the
+    reference's scatter-add meets them, instead of an accumulating index
+    whose order on the card may change between runs."""
+
+    @staticmethod
+    def forward(ctx, xf: torch.Tensor, order: torch.Tensor, top_e: torch.Tensor):
+        ctx.save_for_backward(order, top_e)
+        return xf[order // top_e.shape[1]]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        order, top_e = ctx.saved_tensors
+        return _sum_by_expert(grad, order, top_e), None, None
 
 
 def expert_capacity(cfg: ModelConfig, tokens: int) -> int:

@@ -67,15 +67,17 @@ def train_loop(
     start_step = 0
     if manager is not None and manager.latest_step() is not None:
         start_step = manager.latest_step()
-        state = manager.restore({"params": model.tree(), "opt": opt_state}, device=dev)
+        # restored on the host and copied into the state in place: a second
+        # copy on the device would not fit beside a state of half the card
+        state = manager.restore(snapshot_of(model, opt_state), device="cpu")
         with torch.no_grad():
-            _copy_tree(model.tree(), state["params"])
-        opt_state = state["opt"]
+            _copy_tree(snapshot_of(model, opt_state), state)
+        del state
         stats.resumed_from = start_step
         log_fn(f"[loop] resumed from step {start_step}")
 
     def snapshot():
-        return {"params": model.tree(), "opt": opt_state}
+        return snapshot_of(model, opt_state)
 
     try:
         for step in range(start_step, total_steps):
@@ -107,6 +109,11 @@ def train_loop(
             if stats.steps:
                 manager.save(start_step + stats.steps, snapshot())
     return stats
+
+
+def snapshot_of(model, opt_state):
+    """The state a checkpoint holds: the parameters and the optimizer state."""
+    return {"params": model.tree(), "opt": opt_state}
 
 
 def _copy_tree(dst, src) -> None:

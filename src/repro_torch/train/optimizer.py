@@ -63,14 +63,19 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(gsq)
 
 
+UPDATE_SLICE = 1 << 24  # elements of a leaf updated at a time
+
+
 def adamw_update(cfg: AdamWConfig, params, grads, state
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step → (params, new state, {"grad_norm", "lr"}).  The
     reference returns new trees; here each leaf's new param (in its storage
     type) and moments overwrite the given tensors as soon as they are
-    computed, and the trees returned hold those tensors, so a step holds one
-    copy of the weights and moments and one leaf's temporaries.  Gradients
-    are clipped by the global norm's scale leaf by leaf, the reference's
+    computed, slice by slice of ``UPDATE_SLICE`` elements (the arithmetic
+    is elementwise), and the trees returned hold those tensors, so a step
+    holds one copy of the weights and moments and one slice's temporaries
+    (a leaf's would be 20 GB beside granite-MoE's 4 GB expert leaves).
+    Gradients are clipped by the global norm's scale, the reference's
     arithmetic."""
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -79,18 +84,24 @@ def adamw_update(cfg: AdamWConfig, params, grads, state
     b1, b2 = cfg.b1, cfg.b2
     bc1, bc2 = 1 - b1 ** step.float(), 1 - b2 ** step.float()
 
-    def upd(p, g, mu, nu):
+    def upd_slice(p, g, mu, nu, decay: bool):
         g = g.float() * clip
         new_mu = b1 * mu + (1 - b1) * g
         new_nu = b2 * nu + (1 - b2) * g * g
         delta = (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + cfg.eps)
-        pf = p.detach().float()
-        if p.dim() >= 2:  # decoupled weight decay on matrices only
+        pf = p.float()
+        if decay:
             pf = pf * (1 - lr * cfg.weight_decay)
+        p.copy_(pf - lr * delta)
+        mu.copy_(new_mu)
+        nu.copy_(new_nu)
+
+    def upd(p, g, mu, nu):
+        decay = p.dim() >= 2  # decoupled weight decay on matrices only
+        flat = (p.detach().view(-1), g.reshape(-1), mu.view(-1), nu.view(-1))
         with torch.no_grad():
-            p.copy_(pf - lr * delta)
-            mu.copy_(new_mu)
-            nu.copy_(new_nu)
+            for a in range(0, flat[0].numel(), UPDATE_SLICE):
+                upd_slice(*(t[a:a + UPDATE_SLICE] for t in flat), decay)
         return p, mu, nu
 
     flat = tree_flatten(params)

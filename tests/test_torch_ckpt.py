@@ -131,3 +131,49 @@ def test_fail_at_step_then_resume_equals_uninterrupted_run(tmp_path):
     for entry in ma["leaves"]:
         assert np.load(a / entry["file"]).tobytes() == np.load(b / entry["file"]).tobytes(), \
             entry["key"]
+
+
+def test_resume_restores_into_the_state_in_place(tmp_path, monkeypatch):
+    """A resumed run trains the very tensors ``init_train_state`` made, the
+    checkpoint's values copied into them (restored on the host), so the
+    device holds one copy of the state: a second one would not fit beside a
+    state of more than half the card (granite-MoE's 40.5 GB of weights and
+    moments on an 80 GB card).  The values equal the checkpoint's."""
+    from repro_torch.train import loop
+
+    cfg = get_smoke_config("smollm_360m")
+    shape = ShapeConfig("tiny", "train", seq_len=32, global_batch=4)
+    run = RunConfig(model=cfg, shape=shape, dp=1, tp=1)
+    data = SynthSpec(vocab=cfg.vocab, seq_len=32, batch=4, seed=0)
+    kw = dict(total_steps=3, ckpt_dir=str(tmp_path), log_fn=lambda s: None, device="cpu")
+    with pytest.raises(RuntimeError):
+        train_loop(cfg, run, data, fail_at_step=2, **kw)
+    saved = CheckpointManager(str(tmp_path)).restore(
+        loop.snapshot_of(*loop.init_train_state(cfg, run, seed=0, device="cpu")))
+
+    made, seen = [], []
+    init, make = loop.init_train_state, loop.make_train_step
+
+    def recording_init(*args, **kwargs):
+        made.append(init(*args, **kwargs))
+        return made[-1]
+
+    def recording_make(*args, **kwargs):
+        step_fn, ctx = make(*args, **kwargs)
+
+        def step(model, opt_state, batch):
+            if not seen:
+                seen.append([(keystr(p), t.clone()) for p, t in
+                             tree_flatten(loop.snapshot_of(model, opt_state))])
+                assert model is made[0][0] and opt_state is made[0][1]
+            return step_fn(model, opt_state, batch)
+        return step, ctx
+
+    monkeypatch.setattr(loop, "init_train_state", recording_init)
+    monkeypatch.setattr(loop, "make_train_step", recording_make)
+    resumed = train_loop(cfg, run, data, **kw)
+    assert resumed.resumed_from == 2 and resumed.steps == 1
+    want = [(keystr(p), t) for p, t in tree_flatten(saved)]
+    assert [k for k, _ in seen[0]] == [k for k, _ in want]
+    for (key, got), (_, w) in zip(seen[0], want):
+        assert torch.equal(got, w), key

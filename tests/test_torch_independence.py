@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: ``repro_torch``, ``chip_smoke.py`` and
-``tools/ssd_scan_variants.py`` import neither JAX nor the JAX package,
+"""The PyTorch port stands alone: ``repro_torch``, ``chip_smoke.py``,
+``tools/ssd_scan_variants.py`` and ``examples/torch_*.py`` import neither
+JAX nor the JAX package,
 ``repro_torch`` keeps the reference's module layout, and the smoke script
 refuses to run without the package or a CUDA card."""
 import ast
@@ -33,7 +34,8 @@ def _forbidden(name: str) -> bool:
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py", "tools/ssd_scan_variants.py"],
+    + ["chip_smoke.py", "tools/ssd_scan_variants.py"]
+    + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("torch_*.py")),
 )
 def test_no_jax_or_reference_import(path):
     bad = [m for m in _absolute_imports(ROOT / path) if _forbidden(m)]
@@ -48,6 +50,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.serve.multitenant\n"
         "import repro_torch.models.convert\n"
         "import repro_torch.train, repro_torch.ckpt, repro_torch.data\n"
+        "import repro_torch.launch.train, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -62,11 +65,15 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
 def test_layout_mirrors_reference():
     """Every ported module keeps its reference module's path and name."""
     for sub in ("core", "frame", "kernels", "models", "serve", "configs", "train", "ckpt",
-                "data"):
+                "data", "launch"):
         for p in (PORT / sub).glob("*.py"):
             if p.name in ("convert.py", "_build.py", "_launch.py"):
                 continue  # port-only modules
+            if sub == "launch" and p.name == "__init__.py":
+                continue  # the reference's launch/ is a namespace package
             assert (REF / sub / p.name).exists(), f"{sub}/{p.name} has no counterpart"
+    for name in ("quickstart", "interactive_session", "serve_opportunistic", "train_lm"):
+        assert (ROOT / "examples" / f"torch_{name}.py").exists(), f"examples/{name}.py"
     for name in ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe",
                  "ssd_chunk", "flash_attention"):
         assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()

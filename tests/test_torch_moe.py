@@ -229,3 +229,54 @@ def test_loss_with_aux_and_every_gradient_vs_jax_value_and_grad():
     for key, w in want.items():
         np.testing.assert_allclose(got[key].numpy(), w, rtol=0,
                                    atol=1e-5 * max(np.abs(w).max(), 1e-30), err_msg=key)
+
+
+@pytest.mark.parametrize("k,E", [(8, 40), (2, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_token_gather_backward_adds_each_tokens_rows_in_expert_order(dtype, k, E):
+    """``_TokenGather``: the forward is ``xf[order // k]``; the backward
+    equals, bit for bit, an explicit loop that adds each token's k gradient
+    rows from 0 in ascending expert id, rounding to the type after each
+    add (rows of dropped assignments are zero, as the grid gives them)."""
+    rng = _rng("gather", k, E, str(dtype))
+    T, d = 96, 24
+    top_e = torch.from_numpy(np.argsort(rng.random((T, E)), axis=1)[:, :k].copy())
+    order = torch.argsort(top_e.reshape(-1), stable=True)
+    xf = torch.from_numpy(rng.normal(size=(T, d))).to(dtype).requires_grad_(True)
+    rows = tmoe._TokenGather.apply(xf, order, top_e)
+    assert torch.equal(rows, xf.detach()[order // k])
+
+    g = torch.from_numpy(rng.normal(size=(T * k, d))).to(dtype)
+    g[torch.from_numpy(rng.random(T * k) < 0.2)] = 0
+    rows.backward(g)
+
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(T * k)  # sorted position of assignment (t, j)
+    want = torch.empty((T, d), dtype=dtype)
+    for t in range(T):
+        acc = torch.zeros(d, dtype=dtype)
+        for j in torch.argsort(top_e[t]).tolist():  # ascending expert id
+            acc = acc + g[pos[t * k + j]]
+        want[t] = acc
+    assert torch.equal(xf.grad, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slot_gather_forward_and_backward(dtype):
+    """``_SlotGather``: each assignment's grid row, zero where dropped; the
+    backward puts each kept assignment's gradient row on its grid row as it
+    is (kept slots are distinct) and nothing from a dropped one."""
+    rng = _rng("slot", str(dtype))
+    rows, d, n = 40, 6, 64
+    slot = torch.from_numpy(rng.permutation(rows + n)[:n].copy())
+    slot = torch.where(slot < rows, slot, torch.tensor(rows))  # the rest dropped
+    y = torch.from_numpy(rng.normal(size=(rows, d))).to(dtype).requires_grad_(True)
+    out = tmoe._SlotGather.apply(y, slot)
+    kept = slot < rows
+    assert torch.equal(out[kept], y.detach()[slot[kept]])
+    assert torch.equal(out[~kept], torch.zeros((int((~kept).sum()), d), dtype=dtype))
+    g = torch.from_numpy(rng.normal(size=(n, d))).to(dtype)
+    out.backward(g)
+    want = torch.zeros((rows, d), dtype=dtype)
+    want[slot[kept]] = g[kept]
+    assert torch.equal(y.grad, want)

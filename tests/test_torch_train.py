@@ -265,3 +265,26 @@ def test_train_loop_loss_decreases_and_init_is_master_weights():
                                                             total_steps=30),
                        log_every=1000, log_fn=lambda s: None, device="cpu")
     assert np.mean(stats.losses[-5:]) < np.mean(stats.losses[:5]) - 0.2, stats.losses
+
+
+@pytest.mark.parametrize("slice_elems", [1, 17, 455])
+def test_adamw_sliced_update_equals_whole_leaf_update(monkeypatch, slice_elems):
+    """The update runs leaf by leaf in slices of ``UPDATE_SLICE`` elements
+    (one slice's temporaries at a time); the arithmetic is elementwise, so
+    params and moments equal a whole-leaf update's bit for bit over three
+    steps, weight decay on the matrix only."""
+    def run(elems):
+        monkeypatch.setattr(topt, "UPDATE_SLICE", elems)
+        gen = torch.Generator().manual_seed(0)
+        params = {"w": torch.randn(7, 13, 5, generator=gen), "b": torch.randn(11, generator=gen)}
+        state = topt.init_opt_state(params)
+        for _ in range(3):
+            grads = {k: torch.randn(v.shape, generator=gen) for k, v in params.items()}
+            params, state, _ = topt.adamw_update(topt.AdamWConfig(warmup_steps=1), params,
+                                                 grads, state)
+        return params, state
+
+    (wp, ws), (gp, gs) = run(1 << 24), run(slice_elems)
+    for k in wp:
+        assert torch.equal(gp[k], wp[k]) and torch.equal(gs["mu"][k], ws["mu"][k]) \
+            and torch.equal(gs["nu"][k], ws["nu"][k]), k
