@@ -67,6 +67,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    have failed or fallen back to numpy.  The notebook then runs once more
    under torch.profiler, which prints per cell the wall time beside the
    device time in kernels and in copies;
+3c. data mesh — the same seven cells over ``dist.use_mesh([cuda:0] * 4)``
+   (the port's data mesh emulated as four shards on one card, two of the 8
+   partitions a shard) under ``dist.use_sharded("on")``, each answer bit for
+   bit against the same cells under ``"off"`` (the host path) on the same
+   catalog, and a ``df.mean()`` declared, computed in think time as one
+   sharded UnitBatch (the executor's ``sharded_batches``) and then shown: a
+   sharded call of every family the cells reach (stats, stats_raws,
+   value_counts, topk, groupby, join build and probe), the kernel each must
+   launch counted inside it (masked_stats, segment_reduce, topk,
+   join_probe), no ``"sharded"`` breaker failure; each cell's wall beside
+   the host path's, and the cells traced once more.  Then, under ``"auto"``, a join against the
+   4,000,000-row ``accounts`` (32 MB of int64 keys, above
+   ``JOIN_BROADCAST_MAX_BYTES``) takes the partition-parallel build by its
+   size alone while describe stays on the host path (``no_estimate``: the
+   port has no priors).  With 2^k >= 2 cards the cells run once more over
+   ``data_mesh()``; on one card that branch says it did not run;
 3b. examples — ``examples/torch_quickstart.py`` and
    ``torch_interactive_session.py`` called in-process (``main()``) in a
    cuda session and in a numpy session: answers within the parity
@@ -155,7 +171,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    held, and the faulty plain attention over the limit;
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2 (segment_reduce with all its contracts), at every shape the
-   main path (or the serving phase) gave it;
+   main path (or the serving phase, or phase 3c's sharded run) gave it;
    then the kernel, its plain version and one PyTorch library call timed at
    the largest of them, beside the card's bound (attention: at the training
    shape, against ``scaled_dot_product_attention`` and its backward, with
@@ -1180,7 +1196,7 @@ SEGMENT_KERNELS = ("count_shared", "count_global", "fill_neutral", "sort_hist",
                    "fold_level")
 
 
-def trace_notebook(torch):
+def trace_notebook(torch, tag="[trace]"):
     """The cuda notebook once more, each cell under torch.profiler: wall ms,
     device ms in kernels and in copies, and the top kernels by device time.
     Measurement only; launch counts were read before this run."""
@@ -1202,7 +1218,7 @@ def trace_notebook(torch):
                        if not e.key.startswith("Mem")), reverse=True)
         busy = sum(t for t, _ in kern)
         seg = sum(t for t, k in kern if any(f in k for f in SEGMENT_KERNELS))
-        print(f"[trace] cell{i + 1}: wall {wall} ms, device kernels {busy} ms "
+        print(f"{tag} cell{i + 1}: wall {wall} ms, device kernels {busy} ms "
               f"(segment_reduce {seg} ms), device copies {copy} ms, device idle "
               f"{100 * (1 - (busy + copy) / wall)}%; "
               "top: " + ", ".join(f"{k[:60]} {t}" for t, k in kern[:3]))
@@ -1231,6 +1247,208 @@ def real_mode(torch, ref):
         compare(r, g, f"cell{i + 1}-real")
     print("[real] latencies ms (describe, filter+groupby): "
           + json.dumps(lat))
+
+
+# --------------------------------------------------------------------------- #
+# phase 3c: the notebook over a data mesh of four shards on one card            #
+# --------------------------------------------------------------------------- #
+
+MESH_SHARDS = 4  # dist.use_mesh([cuda:0] * 4): two of the 8 partitions a shard
+ACCOUNTS = 4_000_000  # int64 keys, 32 MB: above JOIN_BROADCAST_MAX_BYTES (8 MiB)
+AUTO_CELLS = [
+    'df = pd.read_csv("events")\ndf.describe()',
+    'a = pd.read_csv("accounts")\ndf.join(a, on="i").head(100)',
+]
+# the op families the seven cells and the declared mean reach on the
+# sharded path (cell 2's groupby reads an uncached filter, which is left to
+# the fusion lowering; the mean runs in think time as a sharded UnitBatch)
+DIST_FAMILIES = ("stats", "stats_raws", "value_counts", "topk", "groupby", "join_build",
+                 "join_probe")
+DIST_KERNELS = ("masked_stats", "segment_reduce", "topk", "join_probe")
+# the sharded calls of frame/dist.py, each with the kernel it must launch
+DIST_CALLS = {"stats_combined": "masked_stats", "stats_raws": "masked_stats",
+              "segment_fold": "segment_reduce", "topk_winners": "topk",
+              "join_probe": "join_probe"}
+
+
+def dist_catalog():
+    from repro_torch.frame import ColSpec, TableSpec
+
+    cat = catalog()
+    cat.register(TableSpec(
+        "accounts", nrows=ACCOUNTS, io_seconds=1.0, seed=2203,
+        cols=(ColSpec("i", kind="key"), ColSpec("tier", kind="cat", n_categories=16),
+              ColSpec("balance", low=0.0, high=1e4)),
+    ))
+    return cat
+
+
+def launches_inside(ops, dist):
+    """Context manager that counts the kernel launches made inside each
+    sharded call of ``frame/dist.py`` (calls pass straight through)."""
+    from contextlib import contextmanager
+
+    inside = {name: dict.fromkeys(DIST_KERNELS, 0) for name in DIST_CALLS}
+    originals = {name: getattr(dist, name) for name in DIST_CALLS}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            before = ops.launch_counts()
+            try:
+                return originals[name](*args, **kwargs)
+            finally:
+                after = ops.launch_counts()
+                for k in DIST_KERNELS:
+                    inside[name][k] += after[k] - before[k]
+        return call
+
+    @contextmanager
+    def watch():
+        for name in DIST_CALLS:
+            setattr(dist, name, wrap(name))
+        try:
+            yield
+        finally:
+            for name, fn in originals.items():
+                setattr(dist, name, fn)
+
+    return inside, watch
+
+
+def declared_mean(torch, s):
+    """``m = df.mean()`` declared, not shown; the engine computes it in think
+    time (drained to the end), then the cell ``m`` shows it → (answer, ms
+    of the showing cell)."""
+    s.cell("m = df.mean()")
+    s.think(THINK_S)
+    s.drain()
+    t0 = time.perf_counter()
+    out = s.cell("m").to_pydict()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def bit_equal_cells(host, got, label):
+    from repro_torch.frame.table import pydict_equal
+
+    for i, (h, g) in enumerate(zip(host, got)):
+        check(pydict_equal(h, g), f"{label} cell {i + 1}: not bit for bit the host path's")
+
+
+def dist_phase(torch, ops, BK, record, smi):
+    """The seven cells over ``use_mesh([cuda:0] * 4)`` under
+    ``use_sharded("on")``, bit for bit against the same cells under "off"
+    (the host path) on the same catalog, then a mean computed in think time
+    (one sharded UnitBatch); every family the cells reach dispatched
+    sharded, its kernel launched inside the sharded call, no "sharded"
+    breaker failed.  Then, under "auto", a join against the
+    4,000,000-row ``accounts`` engages the partition-parallel build by its
+    size alone while describe stays on the host path (no priors).  Returns
+    the sharded run's launch counts."""
+    from repro_torch.frame import Session, dist
+
+    cat = dist_catalog()
+    mesh = [torch.device("cuda", 0)] * MESH_SHARDS
+    cards = torch.cuda.device_count()
+    print(f"[dist] {smi}; {cards} card(s); mesh of {MESH_SHARDS} shards on cuda:0, "
+          f"JOIN_BROADCAST_MAX_BYTES {BK.JOIN_BROADCAST_MAX_BYTES}", flush=True)
+    with dist.use_mesh(mesh):
+        check(dist.device_count() == MESH_SHARDS, "use_mesh did not install the mesh")
+        with dist.use_sharded("off"):
+            hs = Session(catalog=cat, mode="sim", kernel_backend="cuda")
+            host, host_lat = run_notebook(torch, hs, CELLS, sync=True)
+            host_mean, host_mean_ms = declared_mean(torch, hs)
+            host_batches = hs.engine.executor.stats.sharded_batches
+        del hs
+        gc.collect()
+        BK.reset_breakers()
+        dist.reset_dispatch_counts()
+        inside, watch = launches_inside(ops, dist)
+        ops.reset_launch_counts()  # counts start at 0 just before the sharded run
+        with dist.use_sharded("on"), record(), watch():
+            s = Session(catalog=cat, mode="sim", kernel_backend="cuda")
+            got, lat, after = run_notebook(
+                torch, s, CELLS, sync=True,
+                counts=lambda: (ops.launch_counts(), dist.dispatch_counts()))
+            got_mean, mean_ms = declared_mean(torch, s)
+        launches = ops.launch_counts()
+        counts = dist.dispatch_counts()
+        ex = s.engine.executor.stats
+        snap = BK.breaker_board().snapshot()
+        bit_equal_cells(host + [host_mean], got + [got_mean], "[dist]")
+        check(host_batches == 0 and ex.sharded_batches >= 1,
+              f"[dist] sharded UnitBatches: {ex.sharded_batches} (host path {host_batches})")
+        prev = (dict.fromkeys(launches, 0), {})
+        for i, (cell_launches, cell_counts) in enumerate(after):
+            print(f"[dist] cell{i + 1}: wall {lat[i]} ms (host path {host_lat[i]} ms); "
+                  "sharded calls " + json.dumps({f: cell_counts.get(f, 0) - prev[1].get(f, 0)
+                                                 for f in sorted(cell_counts)})
+                  + ", launches " + json.dumps({k: cell_launches[k] - prev[0][k]
+                                                for k in DIST_KERNELS}))
+            prev = (cell_launches, cell_counts)
+        print(f"[dist] declared mean shown after think time: {mean_ms} ms (host path "
+              f"{host_mean_ms} ms)")
+        print(f"[dist] seven cells and the mean bit for bit against the host path; sharded calls "
+              + json.dumps(counts) + f"; executor sharded_batches {ex.sharded_batches}, "
+              f"units_sharded {ex.units_sharded}; launches inside the sharded calls "
+              + json.dumps(inside), flush=True)
+        for fam in DIST_FAMILIES:
+            check(counts.get(fam, 0) > 0, f"[dist] no sharded {fam} call: {counts}")
+        for name, kernel in DIST_CALLS.items():
+            check(inside[name][kernel] > 0, f"[dist] {name} launched no {kernel}")
+        sharded = {k: st for k, st in snap.items() if k.endswith("|sharded")}
+        check(sharded, "[dist] no sharded call reached the breaker board")
+        for key, st in sharded.items():
+            check(st["state"] == "closed" and st["failures"] == 0 and st["fallbacks"] == 0,
+                  f"[dist] breaker {key}: {st}")
+        del s
+        gc.collect()
+        with dist.use_sharded("on"):
+            trace_notebook(torch, "[dist-trace]")  # measurement only
+        gc.collect()
+
+        # "auto": the planner has no estimate (no priors), the size gate alone
+        check(BK.JOIN_BROADCAST_MAX_BYTES == 8 << 20, "JOIN_BROADCAST_MAX_BYTES not 8 MiB")
+        check(ACCOUNTS * 8 > BK.JOIN_BROADCAST_MAX_BYTES, "accounts below the threshold")
+        dist.reset_dispatch_counts()
+        with dist.use_sharded("auto"):
+            s = Session(catalog=cat, mode="sim", kernel_backend="cuda")
+            auto, auto_lat = run_notebook(torch, s, AUTO_CELLS, sync=True)
+            auto_counts = dist.dispatch_counts()
+            decisions = dict(s.engine.cost_model.planner_decisions)
+        del s
+        gc.collect()
+        with dist.use_sharded("off"):
+            ref, ref_lat = run_notebook(torch, Session(catalog=cat, mode="sim",
+                                                       kernel_backend="cuda"),
+                                        AUTO_CELLS, sync=True)
+        bit_equal_cells(ref, auto, "[dist] auto")
+        check(auto_counts.get("join_build") == 1 and auto_counts.get("join_probe", 0) > 0,
+              f"[dist] auto: the accounts join did not take the sharded build: {auto_counts}")
+        check("stats" not in auto_counts and decisions.get("describe|sharded|no_estimate", 0),
+              f"[dist] auto: describe left the host path: {auto_counts} {decisions}")
+        print(f"[dist] auto: describe on the host path (describe|sharded|no_estimate "
+              f"{decisions['describe|sharded|no_estimate']}), the {ACCOUNTS}-row accounts "
+              f"join on the partition-parallel build: {json.dumps(auto_counts)}; walls ms "
+              f"{auto_lat} (host path {ref_lat}); bit for bit", flush=True)
+    gc.collect()
+
+    # every card, where their count makes a mesh (data_mesh() needs 2^k >= 2)
+    if cards >= 2 and cards & (cards - 1) == 0:
+        with dist.use_sharded("on"):
+            check(dist.device_count() == cards, "data_mesh() did not span the cards")
+            multi, multi_lat = run_notebook(torch, Session(catalog=cat, mode="sim",
+                                                           kernel_backend="cuda"),
+                                            CELLS, sync=True)
+        bit_equal_cells(host, multi, f"[dist] {cards} cards")
+        print(f"[dist] the seven cells over data_mesh() on {cards} cards: walls ms "
+              f"{multi_lat}; bit for bit", flush=True)
+    else:
+        print(f"[dist] {cards} card(s): the multi-card mesh (data_mesh() over every card) "
+              "did not run", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -3537,6 +3755,14 @@ def main() -> int:
 
     trace_notebook(torch)
 
+    # -- phase 3c: the notebook over a data mesh of four shards on the card
+    t0 = time.perf_counter()
+    shapes_mesh, record_mesh = recorder(K)
+    for kernel, n in dist_phase(torch, ops, BK, record_mesh, smi).items():
+        if kernel in DATAFRAME:
+            launches[kernel] += n
+    print(f"[dist] phase took {time.perf_counter() - t0} s", flush=True)
+
     # -- phase 3b: the examples and the serve launcher
     t0 = time.perf_counter()
     for kernel, n in examples_on_card(torch, ops, BK).items():
@@ -3587,6 +3813,9 @@ def main() -> int:
     mp = main_path_parity(torch, K, shapes, rng, dev)
     for name in mp:
         errs[name] = max(errs[name], mp[name][0])
+    mpc = main_path_parity(torch, {k: K[k] for k in DIST_KERNELS}, shapes_mesh, rng, dev)
+    for name in mpc:
+        errs[name] = max(errs[name], mpc[name][0])
     train_shapes = (TRAIN_ATTN, (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0), RG_ATTN,
                     (2, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0), MOE_ATTN,
                     (2, 24, 8, 1024, 1024, 64, "bfloat16", True, None, 0))
@@ -3594,7 +3823,9 @@ def main() -> int:
         errs[name] = max(errs[name], e)
     print(f"[shapes] kernel vs plain passed at every main-path shape in "
           f"{time.perf_counter() - t0} s: "
-          + json.dumps({name: {"shapes": n, "max_abs_err": e} for name, (e, n) in mp.items()}),
+          + json.dumps({name: {"shapes": n, "max_abs_err": e} for name, (e, n) in mp.items()})
+          + "; phase 3c's: "
+          + json.dumps({name: {"shapes": n, "max_abs_err": e} for name, (e, n) in mpc.items()}),
           flush=True)
     tm = timings(torch, K, shapes, rng, dev)
     tm.update(attention_timings(torch, rng, dev))

@@ -52,6 +52,7 @@ import torch
 
 from ..core import faults as _faults
 from ..kernels import ops
+from ..kernels.segment_reduce import MAX_BUCKETS
 from . import blocking as B
 from .blocking import BUILTIN_AGGS, ColStats
 from .table import Column, Partition, PTable
@@ -905,7 +906,29 @@ def join_partition(
         and not lcol.is_string and not rcol.is_string
         else None
     )
-    if bk == "numpy" or how not in ("inner", "left") or dtype is None or left.nrows == 0:
+    eligible = how in ("inner", "left") and dtype is not None and left.nrows > 0
+    if eligible and sharded_available(dev):
+        # the sharded build is size/mode-gated, not backend-gated: a right
+        # side too big to broadcast takes the partition-parallel path even
+        # when the planner demoted the *probe* to numpy (the broadcast build
+        # is exactly the cost being avoided)
+        sharded = _sharded_join_build_cached(right, on, dtype)
+        if sharded is not None:
+            from . import dist
+
+            rmerged_s, sb = sharded
+
+            def _run_sharded():
+                l_keys = [_dev_probe_keys(lcol, dtype, d) for d in sb.mesh]
+                gather, hit = dist.join_probe(sb, l_keys)
+                if lcol.mask is not None:
+                    hit = hit & np.asarray(lcol.mask)  # null left keys never match
+                return B.join_assemble(left, rmerged_s, gather, hit, how, on)
+
+            out = _guarded("join", "sharded", sb.mesh[0], _run_sharded, lambda: None)
+            if out is not None:
+                return out
+    if bk == "numpy" or not eligible:
         return B.join_partition(left, right, on, how)
 
     def _run():
@@ -1388,3 +1411,350 @@ def fused_topk_partition(
         return sorted_part, samples
 
     return _guarded("fused_topk", bk, dev, _run, lambda: None)
+
+
+# --------------------------------------------------------------------------- #
+# sharded (data-mesh) dispatch paths                                           #
+#                                                                              #
+# Whole-node entry points over the ``data`` mesh (frame/dist.py): one call     #
+# covers every partition of the node and the combine gathers onto the mesh's  #
+# first device, replacing P per-partition dispatches + the host-side merge    #
+# loop.  Each returns None when it declines (no mesh, op outside the          #
+# envelope) — callers fall through to the ordinary paths.  "sharded" is a     #
+# breaker/cost-model backend key only; it never flows through the BACKENDS    #
+# policy chain (resolve() would reject it).                                    #
+# --------------------------------------------------------------------------- #
+
+# Right sides whose key array (in the probe's key type) is at most this
+# broadcast to every probe as one device-resident array; above it, the
+# partition-parallel build shards the sort across ``data`` and probes
+# locally (env-tunable so tests and benches can exercise the sharded build
+# without gigabyte tables).
+JOIN_BROADCAST_MAX_BYTES = int(
+    os.environ.get("REPRO_JOIN_BROADCAST_MAX", 8 << 20)
+)
+
+
+def sharded_available(device=None) -> bool:
+    """A usable data mesh and sharding not forced off; given ``device`` (a
+    session's), the mesh must also be on that kind of device, so a session
+    asked onto the CPU never reaches the cards and the other way round."""
+    from . import dist
+
+    if not dist.sharded_available():
+        return False
+    return device is None or dist.data_mesh()[0].type == torch.device(device).type
+
+
+def sharded_stats(table: "PTable", cols: Optional[Sequence[str]] = None):
+    """Merged ColStats for the table's numeric columns in one sharded call —
+    bit-for-bit ``B.merge_stats`` over the per-partition kernel partials.
+    Returns ``None`` when declined (no mesh, <2 partitions, no numeric
+    columns)."""
+    from . import dist
+
+    if not dist.sharded_available() or len(table.partitions) < 2:
+        return None
+    names = list(cols) if cols is not None else B.numeric_columns(
+        table.partitions[0]
+    )
+    if not names:
+        return None
+    st = dist.ShardedPTable.from_table(table, names)
+    if st is None:
+        return None
+
+    def _run():
+        raw = dist.stats_combined(st)  # (C, 5) f64: n, mean, m2, mn, mx
+        return {
+            nm: ColStats(
+                float(r[0]), float(r[1]), float(r[2]), float(r[3]), float(r[4])
+            )
+            for nm, r in zip(names, raw)
+        }
+
+    return _guarded("stats", "sharded", st.mesh[0], _run, lambda: None)
+
+
+def sharded_stats_raws(table: "PTable", names: Sequence[str]):
+    """Per-partition (count, sum, m2, min, max) raws for EVERY partition in
+    one call — the sharded UnitBatch's kernel.  Row i sliced through
+    ``_stats_from_raw`` is bit-identical to ``partial_stats(partitions[i])``.
+    Cached on the table: think-time batches after the first are host-only."""
+    from . import dist
+
+    if not dist.sharded_available():
+        return None
+    key = (tuple(names), dist.data_mesh())
+    cached = table.__dict__.get("_sharded_raws")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    st = dist.ShardedPTable.from_table(table, key[0])
+    if st is None:
+        return None
+    raw = _guarded("stats", "sharded", st.mesh[0], lambda: dist.stats_raws(st),
+                   lambda: None)
+    if raw is not None:
+        table.__dict__["_sharded_raws"] = (key, raw)
+    return raw
+
+
+def _shared_dictionary(table: "PTable", col: str):
+    """The column's dictionary when every partition shares the same object
+    (from_pydict encodes once, so derived tables keep sharing); None otherwise
+    — cross-partition codes are only comparable against one dictionary."""
+    d0 = table.partitions[0].columns[col].dictionary
+    if d0 is None:
+        return None
+    for p in table.partitions[1:]:
+        c = p.columns.get(col)
+        if c is None or c.dictionary is not d0:
+            return None
+    return d0
+
+
+def _sharded_seg_plan(part: Partition, by: str, aggs, dev: torch.device) -> tuple:
+    """One partition's segment-reduction plan on its shard's device: the
+    host path's own ``_groupby_plan`` (so the two cannot drift), its
+    structure — modes, valid rows, agg plan — as tuples that partitions must
+    share to stack into one call."""
+    keys, values, valids, modes, valid_idx, agg_plan = _groupby_plan(part, by, aggs, dev)
+    return (keys, values, valids, tuple(modes), tuple(valid_idx),
+            [tuple(a) for a in agg_plan])
+
+
+def _sharded_seg_stack(table: "PTable", by: str, aggs, cache_key):
+    """Per-shard stacked (keys, values, valids) device matrices for a
+    whole-table segment reduction, plus the shared plan.  None when the plan
+    structure differs across partitions (mask layout drift) — the
+    per-partition path handles those."""
+    from . import dist
+
+    mesh = dist.data_mesh()
+    if mesh is None:
+        return None
+    key = (cache_key, mesh)
+    cached = table.__dict__.get("_sharded_seg")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    parts = table.partitions
+    ppad, pl, d = dist._padded_layout(len(parts), mesh)
+    plans = [_sharded_seg_plan(p, by, aggs, mesh[i // pl]) for i, p in enumerate(parts)]
+    _, v0, m0, modes0, vidx0, plan0 = plans[0]
+    for pl_ in plans[1:]:
+        if pl_[3] != modes0 or pl_[4] != vidx0 or len(pl_[2]) != len(m0) or pl_[5] != plan0:
+            return None
+    nb = dist._common_bucket([p.nrows for p in parts])
+    S, V = len(v0), len(m0)
+    keys_l, values_l, valids_l = [], [], []
+    for s, dev in enumerate(mesh):
+        keys = torch.zeros((pl, nb), dtype=torch.int32, device=dev)
+        values = torch.zeros((pl, S, nb), dtype=torch.float32, device=dev)
+        valids = torch.zeros((pl, V, nb), dtype=torch.bool, device=dev)
+        for i in dist._shard_parts(s, pl, len(parts)):
+            k, vs, ms, *_ = plans[i]
+            p, n = i - s * pl, parts[i].nrows
+            keys[p, :n] = k
+            for j in range(S):
+                values[p, j, :n] = vs[j]
+            for j in range(V):
+                valids[p, j, :n] = ms[j]
+        keys_l.append(keys)
+        values_l.append(values)
+        valids_l.append(valids)
+    entry = (tuple(keys_l), tuple(values_l), tuple(valids_l), modes0, vidx0, plan0, pl)
+    table.__dict__["_sharded_seg"] = (key, entry)
+    return entry
+
+
+def sharded_value_counts(table: "PTable", col: str):
+    """One sharded call for a whole-table value_counts over a dictionary
+    column: per-partition count rows + an exact integer sum.  Returns ONE
+    (values, counts) partial — feed ``B.merge_value_counts``."""
+    from . import dist
+
+    if not dist.sharded_available() or len(table.partitions) < 2:
+        return None
+    c0 = table.partitions[0].columns.get(col)
+    if c0 is None:
+        return None
+    dictionary = _shared_dictionary(table, col)
+    if dictionary is None or not 0 < len(dictionary) < MAX_BUCKETS:
+        return None
+    stack = _sharded_seg_stack(table, col, (), ("vc", col))
+    if stack is None:
+        return None
+    keys, values, valids, modes, vidx, _, pl = stack
+    mesh = dist.data_mesh()
+
+    def _run():
+        _, cnts = dist.segment_fold(
+            mesh, keys, values, valids, len(dictionary), modes, vidx, pl,
+            len(table.partitions),
+        )
+        return _vc_from_raw(c0.data.dtype, cnts[0])
+
+    return _guarded("value_counts", "sharded", mesh[0], _run, lambda: None)
+
+
+def sharded_groupby(table: "PTable", by: str, aggs):
+    """One sharded call for a whole-table groupby: per-partition segment
+    reductions + a float64 fold in global partition order (the host combine
+    is a flat left fold — np.add.at over payloads in partition order —
+    replayed exactly).  Returns ONE partial dict — feed
+    ``B.merge_groupby``."""
+    from . import dist
+
+    if not dist.sharded_available() or len(table.partitions) < 2:
+        return None
+    parts = table.partitions
+    for p in parts:
+        if not _groupby_supported(p, by, aggs, None):
+            return None
+    dictionary = _shared_dictionary(table, by)
+    if dictionary is None or not 0 < len(dictionary) < MAX_BUCKETS:
+        return None
+    stack = _sharded_seg_stack(table, by, tuple(aggs), ("gb", by, tuple(aggs)))
+    if stack is None:
+        return None
+    keys, values, valids, modes, vidx, agg_plan, pl = stack
+    key_dtype = parts[0].columns[by].data.dtype
+    mesh = dist.data_mesh()
+
+    def _run():
+        reds, cnts = dist.segment_fold(
+            mesh, keys, values, valids, len(dictionary), modes, vidx, pl, len(parts),
+        )
+        return _groupby_from_raw(key_dtype, agg_plan, reds, cnts)
+
+    return _guarded("groupby", "sharded", mesh[0], _run, lambda: None)
+
+
+def sharded_topk(
+    table: "PTable", by: str, ascending: bool, limit: int, n_samples: int = 32
+):
+    """One sharded call for every partition's top-k winners, then the same
+    host candidate selection (``_limit_select``) the per-partition path
+    runs — partials are bit-identical to it.  Partitions outside the kernel
+    envelope (≤ limit rows, NaN keys) take the numpy partial individually,
+    exactly as the host path would.  Returns the (partition, samples) partial
+    list — feed ``B.merge_sort``."""
+    from . import dist
+
+    if not dist.sharded_available() or len(table.partitions) < 2:
+        return None
+    if not (1 <= limit <= TOPK_MAX_K):
+        return None
+    parts = table.partitions
+    for p in parts:
+        c = p.columns.get(by)
+        if c is None or c.is_string:
+            return None
+    mesh = dist.data_mesh()
+    cached = table.__dict__.get("_sharded_topk")
+    tkey = (by, ascending, mesh)
+    if cached is not None and cached[0] == tkey:
+        kf64s, kf32s, stack = cached[1]
+    else:
+        ppad, pl, d = dist._padded_layout(len(parts), mesh)
+        nb = dist._common_bucket([p.nrows for p in parts])
+        sentinel = float("inf") if ascending else float("-inf")
+        kf64s = [_sort_keys(p.columns[by], ascending) for p in parts]
+        kf32s = [k.astype(np.float32) for k in kf64s]
+        stack = []
+        for s, dev in enumerate(mesh):
+            x = torch.full((pl, nb), sentinel, dtype=torch.float32, device=dev)
+            for i in dist._shard_parts(s, pl, len(parts)):
+                x[i - s * pl, : len(kf32s[i])] = _upload(kf32s[i], dev)
+            stack.append(x)
+        table.__dict__["_sharded_topk"] = (tkey, (kf64s, kf32s, stack))
+
+    def _run():
+        winners = dist.topk_winners(mesh, stack, limit, not ascending)
+        out = []
+        for i, part in enumerate(parts):
+            if part.nrows <= limit or np.isnan(kf64s[i]).any():
+                out.append(B.partial_sort(part, by, ascending, limit, n_samples))
+            else:
+                out.append(
+                    _limit_select(
+                        part, kf64s[i], kf32s[i], winners[i],
+                        ascending, limit, n_samples,
+                    )
+                )
+        return out
+
+    return _guarded("topk", "sharded", mesh[0], _run, lambda: None)
+
+
+def plan_stats_sharded_batch(
+    table: "PTable", indices: Sequence[int], backend: Optional[str] = None,
+    device=None,
+):
+    """Sharded :class:`UnitBatch` plan for the stats family: ONE call
+    produces every partition's (count, sum, m2, min, max) raw row, and
+    ``finalize`` slices the listed slots through ``_stats_from_raw`` — each
+    slot bit-identical to ``partial_stats`` of that partition.  Returns
+    ``(dispatch, finalize, n_devices)`` or ``None`` when the table is outside
+    the sharded envelope.  ``backend`` / ``device`` serve the host per-unit
+    fallback."""
+    from . import dist
+
+    if not dist.sharded_available() or len(table.partitions) < 2:
+        return None
+    names = tuple(B.numeric_columns(table.partitions[0]))
+    if not names or dist.ShardedPTable.from_table(table, names) is None:
+        return None
+
+    def dispatch():
+        return sharded_stats_raws(table, names)
+
+    def finalize(raws):
+        if raws is None:  # sharded call declined at run time: host per-unit path
+            return [partial_stats(table.partitions[i], backend=backend, device=device)
+                    for i in indices]
+        return [
+            _stats_from_raw(names, np.asarray(raws[i], np.float64))
+            for i in indices
+        ]
+
+    return dispatch, finalize, dist.device_count()
+
+
+def _sharded_join_build_cached(right: "PTable", on: str, dtype: np.dtype):
+    """Partition-parallel build, cached on the right table: shard the valid
+    (key, row-id) pairs across ``data`` and sort each shard on its own
+    device — for right sides whose broadcast key array would exceed
+    ``JOIN_BROADCAST_MAX_BYTES`` (or when sharding is forced on).  ``None``
+    marks a right side outside the gate or the envelope (NaN keys, or
+    integer keys a float64 probe would not hold exactly); the broadcast path
+    covers it."""
+    from . import dist
+
+    total = sum(p.nrows for p in right.partitions)
+    if not (
+        dist.sharded_available()
+        and total > 0
+        and (total * dtype.itemsize > JOIN_BROADCAST_MAX_BYTES or dist.mode() == "on")
+    ):
+        return None
+    cache = right.__dict__.setdefault("_sharded_join", {})
+    key = (on, dtype.str, dist.data_mesh())
+    if key in cache:
+        return cache[key]
+    entry = None
+    rmerged = right.concat()
+    rcol = rmerged.columns[on]
+    native = np.asarray(rcol.data)
+    ridx = np.nonzero(np.asarray(rcol.valid_mask()))[0]
+    exact = not (
+        dtype.kind == "f" and native.dtype.kind in "iu" and len(ridx)
+        and float(np.abs(native[ridx]).max()) > 2.0 ** (np.finfo(dtype).nmant + 1)
+    )
+    if exact:
+        keys = _probe_host(native[ridx], dtype)
+        if dtype.kind != "f" or not np.isnan(keys).any():
+            # duplicate keys raise here, the host build's error
+            entry = (rmerged, dist.join_build(keys, ridx.astype(np.int64)))
+    cache[key] = entry
+    return entry

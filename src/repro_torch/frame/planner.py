@@ -27,6 +27,13 @@ estimate beats the summed unfused estimates (see ``FrameRuntime``'s
 ``try_fused`` hooks and ``kernels.ops``'s ``filter_then_*`` entry points).
 A chain is never fused blind, so without priors or calibration of the fused
 key it runs unfused.
+
+They also weigh the *sharded* lowering (``choose_sharded``): one call over
+the data mesh (``frame/dist.py``) covering every partition of a node,
+costed under the ``"sharded"`` backend key against the per-partition host
+dispatches it replaces.  It is never chosen blind either: until the card's
+own samples calibrate ``(key, "sharded")``, mode ``"auto"`` keeps the host
+path, and ``dist.use_sharded("on")`` forces the sharded one.
 """
 from __future__ import annotations
 
@@ -45,6 +52,9 @@ from ..core.dag import Node
 # --------------------------------------------------------------------------- #
 
 COLD_START_PRIORS: Dict[Tuple[str, str], Tuple[float, float]] = {}
+# (The JAX package's ``(key, "sharded")`` priors are fits from an emulated
+# 8-device CPU mesh and are not carried over either: an uncalibrated
+# sharded key answers ``no_estimate`` and keeps the host path.)
 
 # The keys the planner governs.
 PLANNED_KEYS = frozenset(
@@ -169,6 +179,48 @@ class Planner:
             return "numpy"
         self.cost_model.note_planner_decision(key, default, "estimated")
         return default
+
+    # --------------------------------------------------------------- sharded --
+    def choose_sharded(
+        self, key: str, backend: str, total_rows: float, n_dispatches: int
+    ) -> bool:
+        """Run this node as ONE sharded call instead of ``n_dispatches``
+        per-partition dispatches on ``backend``?
+
+        The host side is costed honestly: ``n_dispatches`` affine estimates
+        (each paying the dispatch-overhead intercept — exactly the term one
+        sharded call amortises) at the cheaper of the kernel backend and
+        numpy.  Declines without an estimate on either side — sharded
+        dispatch is chosen, never forced."""
+        if not self.enabled or key not in PLANNED_KEYS:
+            return False
+        if not self._available(key, "sharded"):
+            self.cost_model.note_planner_decision(key, "sharded", "breaker_open")
+            return False
+        est_sharded = self.estimate(key, "sharded", total_rows)
+        if est_sharded is None:
+            self.cost_model.note_planner_decision(key, "sharded", "no_estimate")
+            return False
+        n = max(int(n_dispatches), 1)
+        rows_per = float(total_rows) / n
+        host_cands = []
+        for bk in (backend, "numpy"):
+            if bk != "numpy" and not self._available(key, bk):
+                continue
+            per = self.cost_model.estimate_dispatches(key, bk, rows_per, n)
+            if per is None:
+                one = self.estimate(key, bk, rows_per)
+                per = one * n if one is not None else None
+            if per is not None:
+                host_cands.append(per)
+        if not host_cands:
+            self.cost_model.note_planner_decision(key, backend, "no_estimate")
+            return False
+        if est_sharded < min(host_cands):
+            self.cost_model.note_planner_decision(key, "sharded", "estimated")
+            return True
+        self.cost_model.note_planner_decision(key, backend, "estimated")
+        return False
 
     # ---------------------------------------------------------------- fusion --
     def choose_fusion(

@@ -110,6 +110,7 @@ class FrameRuntime:
     def _batch_maker(
         self,
         planner: Callable[[Node, Sequence[Any], List[Partition], str], Any],
+        sharded_planner: Optional[Callable[[Node, Any, List[int]], Any]] = None,
     ):
         """Build an ``OpRuntime.make_batches`` hook from a per-group planner.
 
@@ -131,6 +132,16 @@ class FrameRuntime:
         def make_batches(node, inputs, units, indices, max_batch):
             parent = inputs[0]
             bk, tier = self.backend_policy.resolve_tier()
+            if sharded_planner is not None and tier in ("engine", "default"):
+                # The sharded attempt precedes the numpy early-out below: one
+                # call over the data mesh is a *whole-node* alternative
+                # costed against the host plan (numpy included) by
+                # choose_sharded, so the default-numpy resolution must not
+                # veto it.  Covers the raw missing set — per-partition backend
+                # demotions are irrelevant once a single call serves all.
+                sh = self._sharded_batch(node, parent, units, indices, sharded_planner)
+                if sh is not None:
+                    return sh
             if bk == "numpy" or max_batch < 2:
                 return None
             parts = parent.partitions
@@ -211,6 +222,58 @@ class FrameRuntime:
             return batches or None
 
         return make_batches
+
+    def _sharded_batch(
+        self,
+        node: Node,
+        parent: Any,
+        units: List[Unit],
+        indices: List[int],
+        sharded_planner: Callable[[Node, Any, List[int]], Any],
+    ) -> Optional[List[UnitBatch]]:
+        """One sharded :class:`UnitBatch` covering every missing partition of
+        ``node`` — a single call over the data mesh replaces k per-partition
+        kernel dispatches (frame/dist.py).  Chosen by the planner's
+        per-(op, sharded|host) estimates, or forced under dist mode "on";
+        None declines back to the per-backend batching path."""
+        from . import dist
+
+        if not BK.sharded_available(self.device) or len(indices) < 2:
+            return None
+        key = planner_key(node)
+        parts = parent.partitions
+        rows = sum(parts[i].nrows for i in indices)
+        if dist.mode() != "on" and not self.planner.choose_sharded(
+            key, self.backend_policy.resolve(), rows, len(indices)
+        ):
+            return None
+        plan = sharded_planner(node, parent, list(indices))
+        if plan is None:
+            return None
+        dispatch, finalize, n_dev = plan
+        t_disp: List[float] = []
+
+        def disp():
+            t_disp.append(time.perf_counter())
+            return dispatch()
+
+        def fin(handle):
+            out = finalize(handle)
+            self.cost_model.add_sample(
+                key, "sharded", rows, time.perf_counter() - t_disp[0]
+            )
+            return out
+
+        return [
+            UnitBatch(
+                indices=list(indices),
+                dispatch=disp,
+                finalize=fin,
+                cost_s=sum(units[i].cost_s for i in indices),
+                tag=f"{node.op}[sharded x{len(indices)}@{n_dev}]",
+                devices=n_dev,
+            )
+        ]
 
     def _read_bounds(self, node: Node):
         return node.kwargs["partition_bounds"]
@@ -478,6 +541,9 @@ class FrameRuntime:
             lambda node, inputs, group, bk: BK.plan_stats_batch(
                 group, backend=bk, device=self.device
             ),
+            sharded_planner=lambda node, parent, idx: BK.plan_stats_sharded_batch(
+                parent, idx, backend=self.backend(), device=self.device
+            ),
         )
 
         def stats_running(kind):
@@ -496,7 +562,7 @@ class FrameRuntime:
                 units=stats_units,
                 combine=lambda n, i, r: B.stats_to_table(B.merge_stats(r)),
                 make_batches=stats_batches,
-                try_fused=self._try_fused,
+                try_fused=self._try_sharded_or_fused,
                 running_combine=stats_running("describe"),
             ),
         )
@@ -506,7 +572,7 @@ class FrameRuntime:
                 units=stats_units,
                 combine=lambda n, i, r: B.means_to_table(B.merge_stats(r)),
                 make_batches=stats_batches,
-                try_fused=self._try_fused,
+                try_fused=self._try_sharded_or_fused,
                 running_combine=stats_running("mean"),
             ),
         )
@@ -522,7 +588,7 @@ class FrameRuntime:
                 units=stats_units,
                 combine=mean_scalar_combine,
                 make_batches=stats_batches,
-                try_fused=self._try_fused,
+                try_fused=self._try_sharded_or_fused,
                 running_combine=stats_running("mean_scalar"),
             ),
         )
@@ -567,6 +633,7 @@ class FrameRuntime:
                         group, node.kwargs["col"], backend=bk, device=self.device
                     )
                 ),
+                try_fused=self._try_sharded,  # no filter-fusion lowering exists
                 running_combine=vc_running,
             ),
         )
@@ -626,7 +693,7 @@ class FrameRuntime:
                         backend=bk, device=self.device,
                     )
                 ),
-                try_fused=self._try_fused,
+                try_fused=self._try_sharded_or_fused,
                 running_combine=gb_running,
             ),
         )
@@ -677,7 +744,7 @@ class FrameRuntime:
                         backend=bk, device=self.device,
                     )
                 ),
-                try_fused=self._try_fused,
+                try_fused=self._try_sharded_or_fused,
             ),
         )
 
@@ -716,6 +783,96 @@ class FrameRuntime:
             "synthetic",
             OpRuntime(units=synth_units, combine=lambda n, i, r: len(r)),
         )
+
+    # ---- sharded whole-node lowering: one call over the data mesh -----------
+    def _sharded_whole_value(self, node: Node, key: str, table: PTable):
+        """``node``'s final value through ONE sharded call, or None outside
+        the sharded envelope.  Every branch feeds the op's ordinary combine
+        helpers, so results are bit-for-bit identical to the per-partition
+        path (the sharded combines replay the host merges exactly — see
+        frame/dist.py)."""
+        if key == "describe":  # describe / mean / mean_scalar share the unit
+            merged = BK.sharded_stats(table)
+            if merged is None:
+                return None
+            if node.op == "describe":
+                return B.stats_to_table(merged)
+            if node.op == "mean":
+                return B.means_to_table(merged)
+            vals = [s.mean for s in merged.values() if s.n > 0]
+            return float(np.mean(vals)) if vals else float("nan")
+        if key == "value_counts":
+            col = node.kwargs["col"]
+            partial = BK.sharded_value_counts(table, col)
+            if partial is None:
+                return None
+            dictionary = table.partitions[0].columns[col].dictionary
+            return B.merge_value_counts([partial], dictionary, col)
+        if key == "groupby_agg" and node.kwargs.get("topk") is None:
+            by, aggs = node.kwargs["by"], node.kwargs["aggs"]
+            partial = BK.sharded_groupby(table, by, aggs)
+            if partial is None:
+                return None
+            dictionary = table.partitions[0].columns[by].dictionary
+            return B.merge_groupby([partial], by, aggs, dictionary, None)
+        if key == "sort_values:topk":
+            by = node.kwargs["by"]
+            asc = node.kwargs.get("ascending", True)
+            limit = node.kwargs["limit"]
+            partials = BK.sharded_topk(table, by, asc, limit)
+            if partials is None:
+                return None
+            return BK.merge_sort(
+                partials, by, asc, limit, backend=self.backend_policy.resolve(),
+                device=self.device,
+            )
+        return None
+
+    def _try_sharded(self, node: Node, ensure) -> Optional[Any]:
+        """Engine ``try_fused`` hook: run the whole node as one sharded call
+        when a data mesh on this session's kind of device exists and the
+        planner's per-(op, sharded|host) estimates favour it over
+        per-partition dispatches (dist mode "on" skips the cost check —
+        forced, for tests and benches).  Returns the combined value, or None
+        for the normal path."""
+        from . import dist
+
+        if not BK.sharded_available(self.device) or len(node.parents) != 1:
+            return None
+        bk, tier = self.backend_policy.resolve_tier()
+        if tier not in ("engine", "default"):
+            return None  # an explicit backend override pins the host path
+        eng = self.engine
+        fnode = node.parents[0]
+        if fnode.op in _FUSABLE_FILTER_OPS and fnode.nid not in eng.cache:
+            return None  # leave uncached filter chains to the fusion lowering
+        table = ensure(fnode)
+        if not isinstance(table, PTable) or len(table.partitions) < 2:
+            return None
+        key = planner_key(node)
+        rows = sum(p.nrows for p in table.partitions)
+        if dist.mode() != "on" and not self.planner.choose_sharded(
+            key, bk, rows, len(table.partitions)
+        ):
+            return None
+        t0 = time.perf_counter()
+        value = self._sharded_whole_value(node, key, table)
+        if value is None:
+            return None
+        self.cost_model.add_sample(key, "sharded", rows, time.perf_counter() - t0)
+        est = self.planner.estimate(key, "sharded", rows)
+        if est is not None:
+            eng.clock.advance(est)
+        return value
+
+    def _try_sharded_or_fused(self, node: Node, ensure) -> Optional[Any]:
+        """Composite ``try_fused`` slot: the sharded whole-node lowering
+        first (it covers every partition in one call), then the
+        filter-fusion lowering."""
+        out = self._try_sharded(node, ensure)
+        if out is not None:
+            return out
+        return self._try_fused(node, ensure)
 
     # ---- planner fusion: filter→reduce chains as one dispatch ----------------
     def _fuse_keep(self, fnode: Node, part: Partition) -> np.ndarray:
@@ -828,6 +985,33 @@ class FrameRuntime:
         return eng.registry[node.op].combine(node, [parent_table], results)
 
     # ---- interaction fast paths (paper Fig. 2b, §5.1) -----------------------------
+    def _sharded_topk_value(self, frame, by, asc, k, bk):
+        """Top-k over the data mesh for the head-of-sort pushdown: one call
+        yields every partition's local winners, merged by the same
+        ``B.merge_sort`` the host path uses.  Partial-sort row selection is
+        bit-exact across backends, so the result is bit-for-bit the host
+        answer.  None declines to the per-partition host loop."""
+        from . import dist
+
+        if not BK.sharded_available(self.device):
+            return None
+        if not isinstance(frame, PTable) or len(frame.partitions) < 2:
+            return None
+        rows = sum(p.nrows for p in frame.partitions)
+        if dist.mode() != "on" and not self.planner.choose_sharded(
+            "sort_values:topk", bk, rows, len(frame.partitions)
+        ):
+            return None
+        t0 = time.perf_counter()
+        partials = BK.sharded_topk(frame, by, asc, k)
+        if partials is None:
+            return None
+        value = B.merge_sort(partials, by, asc, limit=k)
+        self.cost_model.add_sample(
+            "sort_values:topk", "sharded", rows, time.perf_counter() - t0
+        )
+        return value
+
     def _fast_head(self, node: Node) -> Optional[Any]:
         """head/tail over an unexecuted groupby or sort: compute only the
         top-k groups / rows (predicate pushdown through blocking ops)."""
@@ -865,11 +1049,13 @@ class FrameRuntime:
             if node.op == "tail":
                 asc = not asc
             bk = self.backend()
-            partials = [
-                BK.partial_sort(p, by, asc, limit=k, backend=bk, device=self.device)
-                for p in frame.partitions
-            ]
-            value = B.merge_sort(partials, by, asc, limit=k)
+            value = self._sharded_topk_value(frame, by, asc, k, bk)
+            if value is None:
+                partials = [
+                    BK.partial_sort(p, by, asc, limit=k, backend=bk, device=self.device)
+                    for p in frame.partitions
+                ]
+                value = B.merge_sort(partials, by, asc, limit=k)
             # local top-k selection avoids the global merge: charge ~60 %
             eng.clock.advance(self._node_cost(parent) * 0.6)
             out = PTable(list(value.partitions)).head(k)

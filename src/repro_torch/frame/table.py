@@ -172,6 +172,24 @@ class PTable:
     def npartitions(self) -> int:
         return len(self.partitions)
 
+    def shard(self, cols: Optional[Sequence[str]] = None):
+        """Device-resident sharded view of this table's numeric column blocks
+        along the ``data`` mesh axis (see ``frame.dist.ShardedPTable``) —
+        cached on the table, so repeated sharded dispatches reuse the upload.
+        ``None`` when no data mesh exists or the columns fall outside the
+        sharded envelope (string/missing columns)."""
+        from . import dist
+
+        if not dist.sharded_available() or not self.partitions:
+            return None
+        if cols is None:
+            from . import blocking as B
+
+            cols = B.numeric_columns(self.partitions[0])
+        if not cols:
+            return None
+        return dist.ShardedPTable.from_table(self, tuple(cols))
+
     def concat(self) -> Partition:
         if not self.partitions:
             return Partition({}, [])

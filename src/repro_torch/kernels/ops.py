@@ -302,6 +302,13 @@ def topk_padded_parts(xs_parts: Sequence, k: int, largest: bool = True) -> torch
     return _topk_rows(xs, k, largest)
 
 
+def topk_rows(xs, k: int, largest: bool = True) -> torch.Tensor:
+    """Top-k winner values of rows already padded to one bucket with the
+    losing sentinel: (R, nb) → (R, k), each row bit-for-bit
+    :func:`topk_padded` on that row's values alone."""
+    return _topk_rows(xs.to(torch.float32).contiguous(), k, largest)
+
+
 def argsort_f64_parts(keys_parts: Sequence) -> torch.Tensor:
     """k partitions' stable argsorts: (P, nb) int64; row p's first
     ``len(keys_parts[p])`` entries are :func:`argsort_f64` on that partition

@@ -95,8 +95,10 @@ def segment_reduce_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (reds f32[S, B], cnts i32[V, B]) on the inputs' device.
 
-    Sums accumulate with ``index_put_(accumulate=True)``, which adds in row
-    order on the CPU."""
+    Sums add in row order on the CPU (``index_add_``; ``index_put_``'s
+    accumulate splits the rows over threads there above 32,768 rows, and two
+    calls then differ in the last bits).  On a CUDA device they take
+    ``index_put_(accumulate=True)``, in the order its accumulate chooses."""
     dev = keys.device
     S, V, B = values.shape[0], valids.shape[0], int(num_buckets)
     k = keys.long()
@@ -110,7 +112,10 @@ def segment_reduce_plain(
         x = values[s][sel]
         if modes[s] == "sum":
             acc = torch.zeros(B, dtype=torch.float32, device=dev)
-            acc.index_put_((k[sel],), x, accumulate=True)
+            if dev.type == "cpu":
+                acc.index_add_(0, k[sel], x)
+            else:
+                acc.index_put_((k[sel],), x, accumulate=True)
         else:
             fill = float("inf") if modes[s] == "min" else float("-inf")
             acc = torch.full((B,), fill, dtype=torch.float32, device=dev)

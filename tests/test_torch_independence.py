@@ -46,6 +46,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
     code = (
         "import sys\n"
         "import repro_torch.frame, repro_torch.kernels.ops, repro_torch.frame.convert\n"
+        "import repro_torch.frame.dist\n"
         "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
         "import repro_torch.serve.multitenant\n"
         "import repro_torch.models.convert\n"
