@@ -1335,6 +1335,95 @@ def bit_equal_cells(host, got, label):
         check(pydict_equal(h, g), f"{label} cell {i + 1}: not bit for bit the host path's")
 
 
+def sharded_cells(torch, ops, BK, dist, cat, host, label, record=None):
+    """The seven cells and the declared mean under ``use_sharded("on")`` on
+    the installed mesh, bit for bit against ``host`` (the host path's
+    answers): every family the cells reach dispatched sharded, its kernel
+    launched inside the sharded call, no "sharded" breaker failed.  Returns
+    (the launch counts, the cells' walls)."""
+    import contextlib
+
+    from repro_torch.frame import Session
+
+    (host_cells, host_lat), (host_mean, host_mean_ms, host_batches) = host
+    BK.reset_breakers()
+    dist.reset_dispatch_counts()
+    inside, watch = launches_inside(ops, dist)
+    ops.reset_launch_counts()  # counts start at 0 just before the sharded run
+    with dist.use_sharded("on"), (record or contextlib.nullcontext)(), watch():
+        s = Session(catalog=cat, mode="sim", kernel_backend="cuda")
+        got, lat, after = run_notebook(
+            torch, s, CELLS, sync=True,
+            counts=lambda: (ops.launch_counts(), dist.dispatch_counts()))
+        got_mean, mean_ms = declared_mean(torch, s)
+    launches = ops.launch_counts()
+    counts = dist.dispatch_counts()
+    ex = s.engine.executor.stats
+    snap = BK.breaker_board().snapshot()
+    bit_equal_cells(host_cells + [host_mean], got + [got_mean], label)
+    check(host_batches == 0 and ex.sharded_batches >= 1,
+          f"{label} sharded UnitBatches: {ex.sharded_batches} (host path {host_batches})")
+    prev = (dict.fromkeys(launches, 0), {})
+    for i, (cell_launches, cell_counts) in enumerate(after):
+        print(f"{label} cell{i + 1}: wall {lat[i]} ms (host path {host_lat[i]} ms); "
+              "sharded calls " + json.dumps({f: cell_counts.get(f, 0) - prev[1].get(f, 0)
+                                             for f in sorted(cell_counts)})
+              + ", launches " + json.dumps({k: cell_launches[k] - prev[0][k]
+                                            for k in DIST_KERNELS}))
+        prev = (cell_launches, cell_counts)
+    print(f"{label} declared mean shown after think time: {mean_ms} ms (host path "
+          f"{host_mean_ms} ms)")
+    print(f"{label} seven cells and the mean bit for bit against the host path; sharded "
+          "calls " + json.dumps(counts) + f"; executor sharded_batches {ex.sharded_batches}, "
+          f"units_sharded {ex.units_sharded}; launches inside the sharded calls "
+          + json.dumps(inside), flush=True)
+    for fam in DIST_FAMILIES:
+        check(counts.get(fam, 0) > 0, f"{label} no sharded {fam} call: {counts}")
+    for name, kernel in DIST_CALLS.items():
+        check(inside[name][kernel] > 0, f"{label} {name} launched no {kernel}")
+    sharded = {k: st for k, st in snap.items() if k.endswith("|sharded")}
+    check(sharded, f"{label} no sharded call reached the breaker board")
+    for key, st in sharded.items():
+        check(st["state"] == "closed" and st["failures"] == 0 and st["fallbacks"] == 0,
+              f"{label} breaker {key}: {st}")
+    del s
+    gc.collect()
+    return launches, lat
+
+
+def auto_join(torch, BK, dist, cat, label):
+    """Under "auto": describe stays on the host path (the planner has no
+    sharded priors: ``no_estimate``) and the join against the
+    4,000,000-row ``accounts`` takes the partition-parallel build by its
+    size alone, bit for bit against the host path."""
+    from repro_torch.frame import Session
+
+    check(BK.JOIN_BROADCAST_MAX_BYTES == 8 << 20, "JOIN_BROADCAST_MAX_BYTES not 8 MiB")
+    check(ACCOUNTS * 8 > BK.JOIN_BROADCAST_MAX_BYTES, "accounts below the threshold")
+    dist.reset_dispatch_counts()
+    with dist.use_sharded("auto"):
+        s = Session(catalog=cat, mode="sim", kernel_backend="cuda")
+        auto, auto_lat = run_notebook(torch, s, AUTO_CELLS, sync=True)
+        auto_counts = dist.dispatch_counts()
+        decisions = dict(s.engine.cost_model.planner_decisions)
+    del s
+    gc.collect()
+    with dist.use_sharded("off"):
+        ref, ref_lat = run_notebook(torch, Session(catalog=cat, mode="sim",
+                                                   kernel_backend="cuda"),
+                                    AUTO_CELLS, sync=True)
+    bit_equal_cells(ref, auto, f"{label} auto")
+    check(auto_counts.get("join_build") == 1 and auto_counts.get("join_probe", 0) > 0,
+          f"{label} auto: the accounts join did not take the sharded build: {auto_counts}")
+    check("stats" not in auto_counts and decisions.get("describe|sharded|no_estimate", 0),
+          f"{label} auto: describe left the host path: {auto_counts} {decisions}")
+    print(f"{label} auto: describe on the host path (describe|sharded|no_estimate "
+          f"{decisions['describe|sharded|no_estimate']}), the {ACCOUNTS}-row accounts "
+          f"join on the partition-parallel build: {json.dumps(auto_counts)}; walls ms "
+          f"{auto_lat} (host path {ref_lat}); bit for bit", flush=True)
+    gc.collect()
+
+
 def dist_phase(torch, ops, BK, record, smi):
     """The seven cells over ``use_mesh([cuda:0] * 4)`` under
     ``use_sharded("on")``, bit for bit against the same cells under "off"
@@ -1343,8 +1432,9 @@ def dist_phase(torch, ops, BK, record, smi):
     sharded, its kernel launched inside the sharded call, no "sharded"
     breaker failed.  Then, under "auto", a join against the
     4,000,000-row ``accounts`` engages the partition-parallel build by its
-    size alone while describe stays on the host path (no priors).  Returns
-    the sharded run's launch counts."""
+    size alone while describe stays on the host path (no priors).  Where
+    the cards number 2^k >= 2, all of it again over ``data_mesh()``, every
+    card a shard.  Returns the emulated mesh's launch counts."""
     from repro_torch.frame import Session, dist
 
     cat = dist_catalog()
@@ -1356,93 +1446,30 @@ def dist_phase(torch, ops, BK, record, smi):
         check(dist.device_count() == MESH_SHARDS, "use_mesh did not install the mesh")
         with dist.use_sharded("off"):
             hs = Session(catalog=cat, mode="sim", kernel_backend="cuda")
-            host, host_lat = run_notebook(torch, hs, CELLS, sync=True)
-            host_mean, host_mean_ms = declared_mean(torch, hs)
-            host_batches = hs.engine.executor.stats.sharded_batches
+            host = run_notebook(torch, hs, CELLS, sync=True)
+            host_mean = (*declared_mean(torch, hs), hs.engine.executor.stats.sharded_batches)
         del hs
         gc.collect()
-        BK.reset_breakers()
-        dist.reset_dispatch_counts()
-        inside, watch = launches_inside(ops, dist)
-        ops.reset_launch_counts()  # counts start at 0 just before the sharded run
-        with dist.use_sharded("on"), record(), watch():
-            s = Session(catalog=cat, mode="sim", kernel_backend="cuda")
-            got, lat, after = run_notebook(
-                torch, s, CELLS, sync=True,
-                counts=lambda: (ops.launch_counts(), dist.dispatch_counts()))
-            got_mean, mean_ms = declared_mean(torch, s)
-        launches = ops.launch_counts()
-        counts = dist.dispatch_counts()
-        ex = s.engine.executor.stats
-        snap = BK.breaker_board().snapshot()
-        bit_equal_cells(host + [host_mean], got + [got_mean], "[dist]")
-        check(host_batches == 0 and ex.sharded_batches >= 1,
-              f"[dist] sharded UnitBatches: {ex.sharded_batches} (host path {host_batches})")
-        prev = (dict.fromkeys(launches, 0), {})
-        for i, (cell_launches, cell_counts) in enumerate(after):
-            print(f"[dist] cell{i + 1}: wall {lat[i]} ms (host path {host_lat[i]} ms); "
-                  "sharded calls " + json.dumps({f: cell_counts.get(f, 0) - prev[1].get(f, 0)
-                                                 for f in sorted(cell_counts)})
-                  + ", launches " + json.dumps({k: cell_launches[k] - prev[0][k]
-                                                for k in DIST_KERNELS}))
-            prev = (cell_launches, cell_counts)
-        print(f"[dist] declared mean shown after think time: {mean_ms} ms (host path "
-              f"{host_mean_ms} ms)")
-        print(f"[dist] seven cells and the mean bit for bit against the host path; sharded calls "
-              + json.dumps(counts) + f"; executor sharded_batches {ex.sharded_batches}, "
-              f"units_sharded {ex.units_sharded}; launches inside the sharded calls "
-              + json.dumps(inside), flush=True)
-        for fam in DIST_FAMILIES:
-            check(counts.get(fam, 0) > 0, f"[dist] no sharded {fam} call: {counts}")
-        for name, kernel in DIST_CALLS.items():
-            check(inside[name][kernel] > 0, f"[dist] {name} launched no {kernel}")
-        sharded = {k: st for k, st in snap.items() if k.endswith("|sharded")}
-        check(sharded, "[dist] no sharded call reached the breaker board")
-        for key, st in sharded.items():
-            check(st["state"] == "closed" and st["failures"] == 0 and st["fallbacks"] == 0,
-                  f"[dist] breaker {key}: {st}")
-        del s
-        gc.collect()
+        launches, _ = sharded_cells(torch, ops, BK, dist, cat, (host, host_mean), "[dist]",
+                                    record)
         with dist.use_sharded("on"):
             trace_notebook(torch, "[dist-trace]")  # measurement only
         gc.collect()
+        auto_join(torch, BK, dist, cat, "[dist]")
 
-        # "auto": the planner has no estimate (no priors), the size gate alone
-        check(BK.JOIN_BROADCAST_MAX_BYTES == 8 << 20, "JOIN_BROADCAST_MAX_BYTES not 8 MiB")
-        check(ACCOUNTS * 8 > BK.JOIN_BROADCAST_MAX_BYTES, "accounts below the threshold")
-        dist.reset_dispatch_counts()
-        with dist.use_sharded("auto"):
-            s = Session(catalog=cat, mode="sim", kernel_backend="cuda")
-            auto, auto_lat = run_notebook(torch, s, AUTO_CELLS, sync=True)
-            auto_counts = dist.dispatch_counts()
-            decisions = dict(s.engine.cost_model.planner_decisions)
-        del s
-        gc.collect()
-        with dist.use_sharded("off"):
-            ref, ref_lat = run_notebook(torch, Session(catalog=cat, mode="sim",
-                                                       kernel_backend="cuda"),
-                                        AUTO_CELLS, sync=True)
-        bit_equal_cells(ref, auto, "[dist] auto")
-        check(auto_counts.get("join_build") == 1 and auto_counts.get("join_probe", 0) > 0,
-              f"[dist] auto: the accounts join did not take the sharded build: {auto_counts}")
-        check("stats" not in auto_counts and decisions.get("describe|sharded|no_estimate", 0),
-              f"[dist] auto: describe left the host path: {auto_counts} {decisions}")
-        print(f"[dist] auto: describe on the host path (describe|sharded|no_estimate "
-              f"{decisions['describe|sharded|no_estimate']}), the {ACCOUNTS}-row accounts "
-              f"join on the partition-parallel build: {json.dumps(auto_counts)}; walls ms "
-              f"{auto_lat} (host path {ref_lat}); bit for bit", flush=True)
-    gc.collect()
-
-    # every card, where their count makes a mesh (data_mesh() needs 2^k >= 2)
+    # every card a shard, where their count makes a mesh (2^k >= 2)
     if cards >= 2 and cards & (cards - 1) == 0:
-        with dist.use_sharded("on"):
-            check(dist.device_count() == cards, "data_mesh() did not span the cards")
-            multi, multi_lat = run_notebook(torch, Session(catalog=cat, mode="sim",
-                                                           kernel_backend="cuda"),
-                                            CELLS, sync=True)
-        bit_equal_cells(host, multi, f"[dist] {cards} cards")
-        print(f"[dist] the seven cells over data_mesh() on {cards} cards: walls ms "
-              f"{multi_lat}; bit for bit", flush=True)
+        label = f"[dist {cards} cards]"
+        mesh = dist.data_mesh()
+        check(mesh == tuple(torch.device("cuda", i) for i in range(cards)),
+              f"data_mesh() did not span the cards: {mesh}")
+        for i in range(cards):
+            torch.cuda.reset_peak_memory_stats(i)
+        sharded_cells(torch, ops, BK, dist, cat, (host, host_mean), label)
+        peak = [torch.cuda.max_memory_allocated(i) for i in range(cards)]
+        check(all(b > 0 for b in peak), f"{label} a card took no shard: {peak}")
+        print(f"{label} peak bytes allocated on each card: {peak}", flush=True)
+        auto_join(torch, BK, dist, cat, label)
     else:
         print(f"[dist] {cards} card(s): the multi-card mesh (data_mesh() over every card) "
               "did not run", flush=True)

@@ -920,7 +920,7 @@ def join_partition(
 
             def _run_sharded():
                 l_keys = [_dev_probe_keys(lcol, dtype, d) for d in sb.mesh]
-                gather, hit = dist.join_probe(sb, l_keys)
+                gather, hit = dist.join_probe(sb, l_keys, _mesh_kernel(bk))
                 if lcol.mask is not None:
                     hit = hit & np.asarray(lcol.mask)  # null left keys never match
                 return B.join_assemble(left, rmerged_s, gather, hit, how, on)
@@ -1446,7 +1446,17 @@ def sharded_available(device=None) -> bool:
     return device is None or dist.data_mesh()[0].type == torch.device(device).type
 
 
-def sharded_stats(table: "PTable", cols: Optional[Sequence[str]] = None):
+def _mesh_kernel(backend: Optional[str]) -> str:
+    """The kernel backend a sharded dispatch runs under: a ``cuda`` or
+    ``torch`` session's own, so its shards compute what its host path
+    computes; a ``numpy`` session's sharded path runs the kernels, as the
+    JAX package's runs its xla kernels."""
+    bk = active_backend(backend)
+    return bk if bk in ("cuda", "torch") else "cuda"
+
+
+def sharded_stats(table: "PTable", cols: Optional[Sequence[str]] = None,
+                  backend: Optional[str] = None):
     """Merged ColStats for the table's numeric columns in one sharded call —
     bit-for-bit ``B.merge_stats`` over the per-partition kernel partials.
     Returns ``None`` when declined (no mesh, <2 partitions, no numeric
@@ -1463,9 +1473,10 @@ def sharded_stats(table: "PTable", cols: Optional[Sequence[str]] = None):
     st = dist.ShardedPTable.from_table(table, names)
     if st is None:
         return None
+    kb = _mesh_kernel(backend)
 
     def _run():
-        raw = dist.stats_combined(st)  # (C, 5) f64: n, mean, m2, mn, mx
+        raw = dist.stats_combined(st, kb)  # (C, 5) f64: n, mean, m2, mn, mx
         return {
             nm: ColStats(
                 float(r[0]), float(r[1]), float(r[2]), float(r[3]), float(r[4])
@@ -1476,7 +1487,7 @@ def sharded_stats(table: "PTable", cols: Optional[Sequence[str]] = None):
     return _guarded("stats", "sharded", st.mesh[0], _run, lambda: None)
 
 
-def sharded_stats_raws(table: "PTable", names: Sequence[str]):
+def sharded_stats_raws(table: "PTable", names: Sequence[str], backend: Optional[str] = None):
     """Per-partition (count, sum, m2, min, max) raws for EVERY partition in
     one call — the sharded UnitBatch's kernel.  Row i sliced through
     ``_stats_from_raw`` is bit-identical to ``partial_stats(partitions[i])``.
@@ -1485,18 +1496,17 @@ def sharded_stats_raws(table: "PTable", names: Sequence[str]):
 
     if not dist.sharded_available():
         return None
-    key = (tuple(names), dist.data_mesh())
-    cached = table.__dict__.get("_sharded_raws")
-    if cached is not None and cached[0] == key:
-        return cached[1]
-    st = dist.ShardedPTable.from_table(table, key[0])
+    st = dist.ShardedPTable.from_table(table, names)
     if st is None:
         return None
-    raw = _guarded("stats", "sharded", st.mesh[0], lambda: dist.stats_raws(st),
-                   lambda: None)
-    if raw is not None:
-        table.__dict__["_sharded_raws"] = (key, raw)
-    return raw
+    kb = _mesh_kernel(backend)
+
+    def build():
+        return _guarded("stats", "sharded", st.mesh[0], lambda: dist.stats_raws(st, kb),
+                        lambda: None)
+
+    # a failed call is not kept: the next batch tries again
+    return dist.mesh_cached(table, "raws", (tuple(names), kb), build, keep_none=False)
 
 
 def _shared_dictionary(table: "PTable", col: str):
@@ -1523,7 +1533,7 @@ def _sharded_seg_plan(part: Partition, by: str, aggs, dev: torch.device) -> tupl
             [tuple(a) for a in agg_plan])
 
 
-def _sharded_seg_stack(table: "PTable", by: str, aggs, cache_key):
+def _sharded_seg_stack(table: "PTable", by: str, aggs):
     """Per-shard stacked (keys, values, valids) device matrices for a
     whole-table segment reduction, plus the shared plan.  None when the plan
     structure differs across partitions (mask layout drift) — the
@@ -1533,41 +1543,29 @@ def _sharded_seg_stack(table: "PTable", by: str, aggs, cache_key):
     mesh = dist.data_mesh()
     if mesh is None:
         return None
-    key = (cache_key, mesh)
-    cached = table.__dict__.get("_sharded_seg")
-    if cached is not None and cached[0] == key:
-        return cached[1]
     parts = table.partitions
-    ppad, pl, d = dist._padded_layout(len(parts), mesh)
-    plans = [_sharded_seg_plan(p, by, aggs, mesh[i // pl]) for i, p in enumerate(parts)]
-    _, v0, m0, modes0, vidx0, plan0 = plans[0]
-    for pl_ in plans[1:]:
-        if pl_[3] != modes0 or pl_[4] != vidx0 or len(pl_[2]) != len(m0) or pl_[5] != plan0:
-            return None
-    nb = dist._common_bucket([p.nrows for p in parts])
-    S, V = len(v0), len(m0)
-    keys_l, values_l, valids_l = [], [], []
-    for s, dev in enumerate(mesh):
-        keys = torch.zeros((pl, nb), dtype=torch.int32, device=dev)
-        values = torch.zeros((pl, S, nb), dtype=torch.float32, device=dev)
-        valids = torch.zeros((pl, V, nb), dtype=torch.bool, device=dev)
-        for i in dist._shard_parts(s, pl, len(parts)):
-            k, vs, ms, *_ = plans[i]
-            p, n = i - s * pl, parts[i].nrows
-            keys[p, :n] = k
-            for j in range(S):
-                values[p, j, :n] = vs[j]
-            for j in range(V):
-                valids[p, j, :n] = ms[j]
-        keys_l.append(keys)
-        values_l.append(values)
-        valids_l.append(valids)
-    entry = (tuple(keys_l), tuple(values_l), tuple(valids_l), modes0, vidx0, plan0, pl)
-    table.__dict__["_sharded_seg"] = (key, entry)
-    return entry
+
+    def build():
+        _, pl, _ = dist._padded_layout(len(parts), mesh)
+        plans = [_sharded_seg_plan(p, by, aggs, mesh[i // pl]) for i, p in enumerate(parts)]
+        _, v0, m0, modes0, vidx0, plan0 = plans[0]
+        for pl_ in plans[1:]:
+            if pl_[3] != modes0 or pl_[4] != vidx0 or len(pl_[2]) != len(m0) or pl_[5] != plan0:
+                return None
+        nb = dist._common_bucket([p.nrows for p in parts])
+
+        def stack(field, width, dtype):
+            return dist.stack_rows(mesh, len(parts), nb, width, dtype, 0,
+                                   lambda i, dev: field(plans[i]))
+
+        keys = tuple(k[:, 0] for k in stack(lambda pln: [pln[0]], 1, torch.int32))
+        return (keys, stack(lambda pln: pln[1], len(v0), torch.float32),
+                stack(lambda pln: pln[2], len(m0), torch.bool), modes0, vidx0, plan0, pl)
+
+    return dist.mesh_cached(table, "segments", (by, tuple(aggs)), build)
 
 
-def sharded_value_counts(table: "PTable", col: str):
+def sharded_value_counts(table: "PTable", col: str, backend: Optional[str] = None):
     """One sharded call for a whole-table value_counts over a dictionary
     column: per-partition count rows + an exact integer sum.  Returns ONE
     (values, counts) partial — feed ``B.merge_value_counts``."""
@@ -1581,23 +1579,24 @@ def sharded_value_counts(table: "PTable", col: str):
     dictionary = _shared_dictionary(table, col)
     if dictionary is None or not 0 < len(dictionary) < MAX_BUCKETS:
         return None
-    stack = _sharded_seg_stack(table, col, (), ("vc", col))
+    stack = _sharded_seg_stack(table, col, ())
     if stack is None:
         return None
     keys, values, valids, modes, vidx, _, pl = stack
     mesh = dist.data_mesh()
+    kb = _mesh_kernel(backend)
 
     def _run():
         _, cnts = dist.segment_fold(
             mesh, keys, values, valids, len(dictionary), modes, vidx, pl,
-            len(table.partitions),
+            len(table.partitions), kb,
         )
         return _vc_from_raw(c0.data.dtype, cnts[0])
 
     return _guarded("value_counts", "sharded", mesh[0], _run, lambda: None)
 
 
-def sharded_groupby(table: "PTable", by: str, aggs):
+def sharded_groupby(table: "PTable", by: str, aggs, backend: Optional[str] = None):
     """One sharded call for a whole-table groupby: per-partition segment
     reductions + a float64 fold in global partition order (the host combine
     is a flat left fold — np.add.at over payloads in partition order —
@@ -1614,16 +1613,17 @@ def sharded_groupby(table: "PTable", by: str, aggs):
     dictionary = _shared_dictionary(table, by)
     if dictionary is None or not 0 < len(dictionary) < MAX_BUCKETS:
         return None
-    stack = _sharded_seg_stack(table, by, tuple(aggs), ("gb", by, tuple(aggs)))
+    stack = _sharded_seg_stack(table, by, tuple(aggs))
     if stack is None:
         return None
     keys, values, valids, modes, vidx, agg_plan, pl = stack
     key_dtype = parts[0].columns[by].data.dtype
     mesh = dist.data_mesh()
+    kb = _mesh_kernel(backend)
 
     def _run():
         reds, cnts = dist.segment_fold(
-            mesh, keys, values, valids, len(dictionary), modes, vidx, pl, len(parts),
+            mesh, keys, values, valids, len(dictionary), modes, vidx, pl, len(parts), kb,
         )
         return _groupby_from_raw(key_dtype, agg_plan, reds, cnts)
 
@@ -1631,7 +1631,8 @@ def sharded_groupby(table: "PTable", by: str, aggs):
 
 
 def sharded_topk(
-    table: "PTable", by: str, ascending: bool, limit: int, n_samples: int = 32
+    table: "PTable", by: str, ascending: bool, limit: int, n_samples: int = 32,
+    backend: Optional[str] = None,
 ):
     """One sharded call for every partition's top-k winners, then the same
     host candidate selection (``_limit_select``) the per-partition path
@@ -1651,26 +1652,21 @@ def sharded_topk(
         if c is None or c.is_string:
             return None
     mesh = dist.data_mesh()
-    cached = table.__dict__.get("_sharded_topk")
-    tkey = (by, ascending, mesh)
-    if cached is not None and cached[0] == tkey:
-        kf64s, kf32s, stack = cached[1]
-    else:
-        ppad, pl, d = dist._padded_layout(len(parts), mesh)
+
+    def build():
         nb = dist._common_bucket([p.nrows for p in parts])
-        sentinel = float("inf") if ascending else float("-inf")
         kf64s = [_sort_keys(p.columns[by], ascending) for p in parts]
         kf32s = [k.astype(np.float32) for k in kf64s]
-        stack = []
-        for s, dev in enumerate(mesh):
-            x = torch.full((pl, nb), sentinel, dtype=torch.float32, device=dev)
-            for i in dist._shard_parts(s, pl, len(parts)):
-                x[i - s * pl, : len(kf32s[i])] = _upload(kf32s[i], dev)
-            stack.append(x)
-        table.__dict__["_sharded_topk"] = (tkey, (kf64s, kf32s, stack))
+        sentinel = float("inf") if ascending else float("-inf")
+        stack = dist.stack_rows(mesh, len(parts), nb, 1, torch.float32, sentinel,
+                                lambda i, dev: [_upload(kf32s[i], dev)])
+        return kf64s, kf32s, tuple(x[:, 0] for x in stack)
+
+    kf64s, kf32s, stack = dist.mesh_cached(table, "topk", (by, ascending), build)
+    kb = _mesh_kernel(backend)
 
     def _run():
-        winners = dist.topk_winners(mesh, stack, limit, not ascending)
+        winners = dist.topk_winners(mesh, stack, limit, not ascending, kb)
         out = []
         for i, part in enumerate(parts):
             if part.nrows <= limit or np.isnan(kf64s[i]).any():
@@ -1696,8 +1692,8 @@ def plan_stats_sharded_batch(
     ``finalize`` slices the listed slots through ``_stats_from_raw`` — each
     slot bit-identical to ``partial_stats`` of that partition.  Returns
     ``(dispatch, finalize, n_devices)`` or ``None`` when the table is outside
-    the sharded envelope.  ``backend`` / ``device`` serve the host per-unit
-    fallback."""
+    the sharded envelope.  ``backend`` picks the shards' kernel backend and
+    serves, with ``device``, the host per-unit fallback."""
     from . import dist
 
     if not dist.sharded_available() or len(table.partitions) < 2:
@@ -1707,7 +1703,7 @@ def plan_stats_sharded_batch(
         return None
 
     def dispatch():
-        return sharded_stats_raws(table, names)
+        return sharded_stats_raws(table, names, backend)
 
     def finalize(raws):
         if raws is None:  # sharded call declined at run time: host per-unit path
@@ -1738,23 +1734,19 @@ def _sharded_join_build_cached(right: "PTable", on: str, dtype: np.dtype):
         and (total * dtype.itemsize > JOIN_BROADCAST_MAX_BYTES or dist.mode() == "on")
     ):
         return None
-    cache = right.__dict__.setdefault("_sharded_join", {})
-    key = (on, dtype.str, dist.data_mesh())
-    if key in cache:
-        return cache[key]
-    entry = None
-    rmerged = right.concat()
-    rcol = rmerged.columns[on]
-    native = np.asarray(rcol.data)
-    ridx = np.nonzero(np.asarray(rcol.valid_mask()))[0]
-    exact = not (
-        dtype.kind == "f" and native.dtype.kind in "iu" and len(ridx)
-        and float(np.abs(native[ridx]).max()) > 2.0 ** (np.finfo(dtype).nmant + 1)
-    )
-    if exact:
+
+    def build():
+        rmerged = right.concat()
+        rcol = rmerged.columns[on]
+        native = np.asarray(rcol.data)
+        ridx = np.nonzero(np.asarray(rcol.valid_mask()))[0]
+        if (dtype.kind == "f" and native.dtype.kind in "iu" and len(ridx)
+                and float(np.abs(native[ridx]).max()) > 2.0 ** (np.finfo(dtype).nmant + 1)):
+            return None
         keys = _probe_host(native[ridx], dtype)
-        if dtype.kind != "f" or not np.isnan(keys).any():
-            # duplicate keys raise here, the host build's error
-            entry = (rmerged, dist.join_build(keys, ridx.astype(np.int64)))
-    cache[key] = entry
-    return entry
+        if dtype.kind == "f" and np.isnan(keys).any():
+            return None
+        # duplicate keys raise here, the host build's error
+        return rmerged, dist.join_build(keys, ridx.astype(np.int64))
+
+    return dist.mesh_cached(right, "join", (on, dtype.str), build)

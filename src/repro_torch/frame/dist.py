@@ -32,8 +32,10 @@ gathered subtree roots on ``mesh[0]`` complete it.  Per-partition raws come
 from the *same* kernel entry points (:mod:`repro_torch.kernels.ops`) the host
 path dispatches, at a shared row bucket whose extra padding is an exact no-op
 in every kernel — so the numbers entering the combine are bit-identical too.
-The kernels run through their CUDA wrappers, which launch the hand-written
-kernels on a CUDA shard and run their plain versions on a CPU shard.
+Each dispatch runs under the session's kernel backend: ``"cuda"`` calls the
+kernels' wrappers (the hand-written kernels on a CUDA shard, which each
+launch on its own card, and their plain versions on a CPU shard), ``"torch"``
+the plain versions, as the session's host path does.
 """
 from __future__ import annotations
 
@@ -193,6 +195,40 @@ def _shard_parts(s: int, pl: int, nparts: int) -> range:
     return range(s * pl, min((s + 1) * pl, nparts))
 
 
+def stack_rows(mesh: DataMesh, nparts: int, nb: int, width: int, dtype: torch.dtype,
+               fill, rows) -> Tuple[torch.Tensor, ...]:
+    """Per-partition rows stacked onto the mesh: one ``(pl, width, nb)``
+    tensor of ``fill`` per shard on ``mesh[s]``, partition ``s*pl + p``'s
+    rows written at ``[p, :, :n]`` from ``rows(i, dev)`` (``width`` tensors
+    of its ``n`` rows each, on ``dev``).  Partitions at or past ``nparts``
+    stay all ``fill``."""
+    _, pl, _ = _padded_layout(nparts, mesh)
+    out = []
+    for s, dev in enumerate(mesh):
+        t = torch.full((pl, width, nb), fill, dtype=dtype, device=dev)
+        for i in _shard_parts(s, pl, nparts):
+            for j, row in enumerate(rows(i, dev)):
+                t[i - s * pl, j, : row.shape[0]] = row
+        out.append(t)
+    return tuple(out)
+
+
+def mesh_cached(table, slot: str, key, build, keep_none: bool = True):
+    """``build()`` for ``key`` on the current mesh, cached on the immutable
+    ``table``: one entry per ``slot``, which a new key or mesh replaces (the
+    device stacks are as large as the table).  A ``None`` from ``build`` is
+    kept only under ``keep_none``."""
+    full = (key, data_mesh())
+    cache = table.__dict__.setdefault("_mesh_cache", {})
+    hit = cache.get(slot)
+    if hit is None or hit[0] != full:
+        value = build()
+        if value is None and not keep_none:
+            return None
+        hit = cache[slot] = (full, value)
+    return hit[1]
+
+
 # --------------------------------------------------------------------------- #
 # ShardedPTable — device-resident stats stack                                  #
 # --------------------------------------------------------------------------- #
@@ -227,35 +263,28 @@ class ShardedPTable:
         if mesh is None:
             return None
         key = tuple(names)
-        cached = table.__dict__.get("_sharded_stats")
-        if cached is not None and cached.names == key and cached.mesh == mesh:
-            return cached
         parts = table.partitions
-        if not parts or not key:
-            return None
-        for part in parts:
-            for name in key:
-                col = part.columns.get(name)
-                if col is None or col.is_string:
-                    return None
-        ppad, pl, d = _padded_layout(len(parts), mesh)
-        nb = _common_bucket([p.nrows for p in parts])
-        xs, ms = [], []
-        for s, dev in enumerate(mesh):
-            x = torch.zeros((pl, len(key), nb), dtype=torch.float32, device=dev)
-            m = torch.zeros((pl, len(key), nb), dtype=torch.bool, device=dev)
-            for i in _shard_parts(s, pl, len(parts)):
-                part = parts[i]
-                for c, name in enumerate(key):
-                    col = part.columns[name]
-                    x[i - s * pl, c, : part.nrows] = _dev_f32(col, dev)
-                    m[i - s * pl, c, : part.nrows] = _dev_valid(col, dev)
-            xs.append(x)
-            ms.append(m)
-        sh = cls(mesh=mesh, names=key, xs=tuple(xs), ms=tuple(ms),
-                 nparts=len(parts), ppad=ppad, pl=pl, nb=nb)
-        table.__dict__["_sharded_stats"] = sh
-        return sh
+
+        def build():
+            if not parts or not key:
+                return None
+            for part in parts:
+                for name in key:
+                    col = part.columns.get(name)
+                    if col is None or col.is_string:
+                        return None
+            ppad, pl, _ = _padded_layout(len(parts), mesh)
+            nb = _common_bucket([p.nrows for p in parts])
+
+            def stack(dtype, row):
+                return stack_rows(mesh, len(parts), nb, len(key), dtype, 0, lambda i, dev: [
+                    row(parts[i].columns[name], dev) for name in key])
+
+            return cls(mesh=mesh, names=key, xs=stack(torch.float32, _dev_f32),
+                       ms=stack(torch.bool, _dev_valid), nparts=len(parts), ppad=ppad,
+                       pl=pl, nb=nb)
+
+        return mesh_cached(table, "stats", key, build)
 
 
 # --------------------------------------------------------------------------- #
@@ -325,26 +354,27 @@ def _stats_from_raw(raw64):
 # --------------------------------------------------------------------------- #
 
 
-def _shard_raws(st: ShardedPTable, s: int) -> torch.Tensor:
+def _shard_raws(st: ShardedPTable, s: int, backend: str) -> torch.Tensor:
     """Shard ``s``'s per-partition (count, sum, m2, min, max) f32 raws,
-    (pl, C, 5) on ``mesh[s]``: one masked_stats launch over its pl × C rows,
-    each row bit for bit the host path's kernel row for that partition."""
+    (pl, C, 5) on ``mesh[s]``: one masked_stats call over its pl × C rows
+    under the kernel backend ``backend``, each row bit for bit the host
+    path's row for that partition under the same backend."""
     C = len(st.names)
-    with ops.local_backend("cuda"):
+    with ops.local_backend(backend):
         raw = ops.masked_stats_batch(
             st.xs[s].reshape(st.pl * C, st.nb), st.ms[s].reshape(st.pl * C, st.nb)
         )
     return raw.reshape(st.pl, C, 5)
 
 
-def stats_combined(st: ShardedPTable) -> np.ndarray:
+def stats_combined(st: ShardedPTable, backend: str = "cuda") -> np.ndarray:
     """Per-partition fused stats on every shard + the exact combine.  Returns
     (C, 5) f64 rows of (n, mean, m2, min, max) — the merged ColStats for each
     column, bit-for-bit the host pairwise merge of per-partition kernel
     partials: each shard folds its pow-2 subtree on its own device, and the
     d subtree roots are gathered onto ``mesh[0]`` for the last levels."""
     roots = [
-        _pairwise_tree(_stats_from_raw(_shard_raws(st, s).to(torch.float64)))
+        _pairwise_tree(_stats_from_raw(_shard_raws(st, s, backend).to(torch.float64)))
         for s in range(len(st.mesh))
     ]
     top = tuple(
@@ -355,13 +385,13 @@ def stats_combined(st: ShardedPTable) -> np.ndarray:
     return out
 
 
-def stats_raws(st: ShardedPTable) -> np.ndarray:
+def stats_raws(st: ShardedPTable, backend: str = "cuda") -> np.ndarray:
     """One call covering every partition: per-partition (count, sum, m2,
     min, max) f32 raws, (Ppad, C, 5) — the sharded flavor of the executor's
     UnitBatch (k partitions × d devices in one call).  Rows are bit-identical
     to the host per-partition kernel, so slicing row i and feeding it through
     backend._stats_from_raw reproduces the host partial exactly."""
-    raws = [_shard_raws(st, s) for s in range(len(st.mesh))]
+    raws = [_shard_raws(st, s, backend) for s in range(len(st.mesh))]
     out = torch.cat([r.to(st.mesh[0]) for r in raws]).cpu().numpy()
     _count("stats_raws")
     return out
@@ -388,6 +418,7 @@ def segment_fold(
     valid_idx: Tuple[int, ...],
     pl: int,
     nparts: int,
+    backend: str = "cuda",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Per-partition segment reductions on every shard + the exact fold in
     global partition order.  Returns (reds (S, B) f64, cnts (V, B) i64) —
@@ -402,7 +433,7 @@ def segment_fold(
     shard_reds, shard_cnts = [], []
     for s in range(len(mesh)):
         reds_l, cnts_l = [], []
-        with ops.local_backend("cuda"):
+        with ops.local_backend(backend):
             for i in _shard_parts(s, pl, nparts):
                 p = i - s * pl
                 r, c = ops.segment_reduce_batch(
@@ -440,14 +471,15 @@ def segment_fold(
 
 
 def topk_winners(
-    mesh: DataMesh, stack: Sequence[torch.Tensor], k: int, largest: bool
+    mesh: DataMesh, stack: Sequence[torch.Tensor], k: int, largest: bool,
+    backend: str = "cuda",
 ) -> np.ndarray:
     """Per-partition top-k winner values for every partition, (Ppad, k) f32:
-    one topk launch per shard over its (pl, nb) rows, padded with the losing
+    one topk call per shard over its (pl, nb) rows, padded with the losing
     sentinel.  Only winners[-1] (the per-partition k-th value) is consumed —
     backend._limit_select does the host-side candidate pick, so results stay
     bit-identical to the per-partition topk path."""
-    with ops.local_backend("cuda"):
+    with ops.local_backend(backend):
         wins = [ops.topk_rows(x, k, largest) for x in stack]
     out = torch.cat([w.to(mesh[0]) for w in wins]).cpu().numpy()
     _count("topk")
@@ -498,16 +530,16 @@ def join_build(keys: np.ndarray, ids: np.ndarray) -> ShardedJoinBuild:
 
 
 def join_probe(
-    build: ShardedJoinBuild, l_keys: Sequence[torch.Tensor]
+    build: ShardedJoinBuild, l_keys: Sequence[torch.Tensor], backend: str = "cuda"
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Probe the replicated left keys (``l_keys[s]`` on ``mesh[s]``) against
-    every shard with the join_probe kernel; combine with two sums on
+    every shard with join_probe; combine with two sums on
     ``mesh[0]`` (hit count + hit row-id — only the owning shard contributes).
     Returns (gather row-ids, hit) for the left partition.  A summed hit count
     > 1 means duplicate right keys straddled shards: same ValueError the host
     build raises, just detected at first probe."""
     shards = []
-    with ops.local_backend("cuda"):
+    with ops.local_backend(backend):
         for ks, ids, lk in zip(build.keys_sorted, build.ids_sorted, l_keys):
             if len(ks):
                 pos, hit = ops.join_probe_padded(ks, lk)

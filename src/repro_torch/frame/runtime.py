@@ -785,48 +785,32 @@ class FrameRuntime:
         )
 
     # ---- sharded whole-node lowering: one call over the data mesh -----------
-    def _sharded_whole_value(self, node: Node, key: str, table: PTable):
-        """``node``'s final value through ONE sharded call, or None outside
-        the sharded envelope.  Every branch feeds the op's ordinary combine
-        helpers, so results are bit-for-bit identical to the per-partition
-        path (the sharded combines replay the host merges exactly — see
-        frame/dist.py)."""
+    def _sharded_whole_value(self, node: Node, key: str, table: PTable, bk: str):
+        """``node``'s final value through ONE sharded call under the kernel
+        backend ``bk``, or None outside the sharded envelope.  The sharded
+        partials feed the op's registered combine, so results are bit-for-bit
+        identical to the per-partition path (the sharded combines replay the
+        host merges exactly — see frame/dist.py; merging one merged ColStats
+        returns it as it is)."""
         if key == "describe":  # describe / mean / mean_scalar share the unit
-            merged = BK.sharded_stats(table)
-            if merged is None:
-                return None
-            if node.op == "describe":
-                return B.stats_to_table(merged)
-            if node.op == "mean":
-                return B.means_to_table(merged)
-            vals = [s.mean for s in merged.values() if s.n > 0]
-            return float(np.mean(vals)) if vals else float("nan")
-        if key == "value_counts":
-            col = node.kwargs["col"]
-            partial = BK.sharded_value_counts(table, col)
-            if partial is None:
-                return None
-            dictionary = table.partitions[0].columns[col].dictionary
-            return B.merge_value_counts([partial], dictionary, col)
-        if key == "groupby_agg" and node.kwargs.get("topk") is None:
-            by, aggs = node.kwargs["by"], node.kwargs["aggs"]
-            partial = BK.sharded_groupby(table, by, aggs)
-            if partial is None:
-                return None
-            dictionary = table.partitions[0].columns[by].dictionary
-            return B.merge_groupby([partial], by, aggs, dictionary, None)
-        if key == "sort_values:topk":
-            by = node.kwargs["by"]
-            asc = node.kwargs.get("ascending", True)
-            limit = node.kwargs["limit"]
-            partials = BK.sharded_topk(table, by, asc, limit)
-            if partials is None:
-                return None
-            return BK.merge_sort(
-                partials, by, asc, limit, backend=self.backend_policy.resolve(),
-                device=self.device,
-            )
-        return None
+            merged = BK.sharded_stats(table, backend=bk)
+            partials = None if merged is None else [merged]
+        elif key == "value_counts":
+            partial = BK.sharded_value_counts(table, node.kwargs["col"], backend=bk)
+            partials = None if partial is None else [partial]
+        elif key == "groupby_agg" and node.kwargs.get("topk") is None:
+            partial = BK.sharded_groupby(table, node.kwargs["by"], node.kwargs["aggs"],
+                                         backend=bk)
+            partials = None if partial is None else [partial]
+        elif key == "sort_values:topk":
+            partials = BK.sharded_topk(table, node.kwargs["by"],
+                                       node.kwargs.get("ascending", True),
+                                       node.kwargs["limit"], backend=bk)
+        else:
+            return None
+        if partials is None:
+            return None
+        return self.engine.registry[node.op].combine(node, [table], partials)
 
     def _try_sharded(self, node: Node, ensure) -> Optional[Any]:
         """Engine ``try_fused`` hook: run the whole node as one sharded call
@@ -856,7 +840,7 @@ class FrameRuntime:
         ):
             return None
         t0 = time.perf_counter()
-        value = self._sharded_whole_value(node, key, table)
+        value = self._sharded_whole_value(node, key, table, bk)
         if value is None:
             return None
         self.cost_model.add_sample(key, "sharded", rows, time.perf_counter() - t0)
@@ -1003,7 +987,7 @@ class FrameRuntime:
         ):
             return None
         t0 = time.perf_counter()
-        partials = BK.sharded_topk(frame, by, asc, k)
+        partials = BK.sharded_topk(frame, by, asc, k, backend=bk)
         if partials is None:
             return None
         value = B.merge_sort(partials, by, asc, limit=k)

@@ -58,6 +58,14 @@ def stream_ptr(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def on_device(device: torch.device):
+    """``device`` as the calling thread's current CUDA device around a
+    launch: a kernel launched into another card's stream fails, and the C
+    entry points size and configure their kernels (``cudaGetDevice``,
+    ``cudaFuncSetAttribute``) on the current device."""
+    return torch.cuda.device(device)
+
+
 def require(t: torch.Tensor, name: str, dtype=None, ndim=None, device=None) -> None:
     """Raise on anything the kernel does not take: wrong dtype, rank,
     device, or a non-contiguous layout."""

@@ -19,7 +19,8 @@ from typing import Tuple
 import torch
 
 from . import _build
-from ._launch import I32, I64, P, U64, LaunchCounter, bind, check_launch, require, stream_ptr
+from ._launch import (I32, I64, P, U64, LaunchCounter, bind, check_launch, on_device, require,
+                      stream_ptr)
 
 FC_TILE = 2048  # == TILE in csrc/filter_compact.cu
 _BITS = {1: torch.uint8, 4: torch.int32, 8: torch.int64}
@@ -91,8 +92,9 @@ def filter_compact(xs: torch.Tensor, keep: torch.Tensor, fill=0) -> Tuple[torch.
         raise ValueError(f"filter_compact: empty input {tuple(xs.shape)}")
     scratch = torch.empty(scratch_size(keep_rows, n), dtype=torch.int64, device=dev)
     out = torch.empty_like(xs)
-    err = _fn()(xs.data_ptr(), out.data_ptr(), keep.data_ptr(), keep_rows, r, n,
-                size, _fill_bits(fill, xs.dtype, size), scratch.data_ptr(), stream_ptr(dev))
+    with on_device(dev):
+        err = _fn()(xs.data_ptr(), out.data_ptr(), keep.data_ptr(), keep_rows, r, n, size,
+                    _fill_bits(fill, xs.dtype, size), scratch.data_ptr(), stream_ptr(dev))
     check_launch("filter_compact", err)
     launches.add()
     totals = scratch[:keep_rows]

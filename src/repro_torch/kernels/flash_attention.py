@@ -45,7 +45,8 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from ._launch import F32, I32, P, LaunchCounter, bind, check_launch, require, stream_ptr
+from ._launch import (F32, I32, P, LaunchCounter, bind, check_launch, on_device, require,
+                      stream_ptr)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK = 128  # the reference's block size, which sets the tiling contract
@@ -196,10 +197,11 @@ def flash_forward(q, k, v, causal=True, window=None, scale=None, q_offset=0,
     o32 = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
            if keep_f32 and q.dtype != torch.float32 else None)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    err = _fns()[3 if wgmma else 0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    *_mask_args(q, k, causal, window, scale, q_offset),
-                                    o.data_ptr(), 0 if o32 is None else o32.data_ptr(),
-                                    lse.data_ptr(), stream_ptr(q.device))
+    with on_device(q.device):
+        err = _fns()[3 if wgmma else 0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        *_mask_args(q, k, causal, window, scale, q_offset),
+                                        o.data_ptr(), 0 if o32 is None else o32.data_ptr(),
+                                        lse.data_ptr(), stream_ptr(q.device))
     check_launch("flash_attention_wgmma" if wgmma else "flash_attention", err)
     launches.add()
     if wgmma:
@@ -221,10 +223,11 @@ def backward_dq(q, k, v, o32, lse, do, causal=True, window=None, scale=None, q_o
     wgmma = backward_route(q.dtype, q.shape[3]) == "wgmma"
     delta = torch.empty_like(lse)
     dq = torch.empty_like(q)
-    err = _fns()[4 if wgmma else 1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),
-                                    do.data_ptr(), lse.data_ptr(),
-                                    *_mask_args(q, k, causal, window, scale, q_offset),
-                                    delta.data_ptr(), dq.data_ptr(), stream_ptr(q.device))
+    with on_device(q.device):
+        err = _fns()[4 if wgmma else 1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        o32.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                        *_mask_args(q, k, causal, window, scale, q_offset),
+                                        delta.data_ptr(), dq.data_ptr(), stream_ptr(q.device))
     check_launch("flash_attention_bwd_dq_wgmma" if wgmma else "flash_attention_bwd_dq", err)
     launches_dq.add()
     if wgmma:
@@ -244,10 +247,11 @@ def backward_dkdv(q, k, v, lse, delta, do, causal=True, window=None, scale=None,
         raise ValueError("flash_attention backward: do, lse and delta must match q")
     wgmma = backward_route(q.dtype, q.shape[3]) == "wgmma"
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _fns()[5 if wgmma else 2](q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                    lse.data_ptr(), delta.data_ptr(),
-                                    *_mask_args(q, k, causal, window, scale, q_offset),
-                                    dk.data_ptr(), dv.data_ptr(), stream_ptr(q.device))
+    with on_device(q.device):
+        err = _fns()[5 if wgmma else 2](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                        *_mask_args(q, k, causal, window, scale, q_offset),
+                                        dk.data_ptr(), dv.data_ptr(), stream_ptr(q.device))
     check_launch("flash_attention_bwd_dkdv_wgmma" if wgmma else "flash_attention_bwd_dkdv",
                  err)
     launches_dkdv.add()

@@ -21,7 +21,8 @@ from typing import Tuple
 import torch
 
 from . import _build
-from ._launch import I32, I64, P, LaunchCounter, bind, check_launch, require, stream_ptr
+from ._launch import (I32, I64, P, LaunchCounter, bind, check_launch, on_device, require,
+                      stream_ptr)
 
 DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3}
 
@@ -87,9 +88,10 @@ def join_probe(l_keys: torch.Tensor, r_sorted: torch.Tensor
     scratch = torch.empty(0 if k == 0 else -(-m >> k) * size, dtype=torch.uint8, device=dev)
     pos = torch.empty(n, dtype=torch.int32, device=dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
-    err = _fns()(l_keys.data_ptr(), n, r_sorted.data_ptr(), m, DTYPES[l_keys.dtype], k,
-                    scratch.data_ptr(), scratch.numel(), pos.data_ptr(), hit.data_ptr(),
-                    stream_ptr(dev))
+    with on_device(dev):
+        err = _fns()(l_keys.data_ptr(), n, r_sorted.data_ptr(), m, DTYPES[l_keys.dtype], k,
+                     scratch.data_ptr(), scratch.numel(), pos.data_ptr(), hit.data_ptr(),
+                     stream_ptr(dev))
     check_launch("join_probe", err)
     launches.add()
     return pos, hit

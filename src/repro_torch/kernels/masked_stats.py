@@ -16,7 +16,8 @@ import functools
 import torch
 
 from . import _build
-from ._launch import I64, P, LaunchCounter, bind, check_launch, require, stream_ptr
+from ._launch import (I64, P, LaunchCounter, bind, check_launch, on_device, require,
+                      stream_ptr)
 
 TILE = 16384  # == ops._TILE == TILE in csrc/masked_stats.cu
 
@@ -97,7 +98,8 @@ def masked_stats(xs: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
     size, head = buffer_rows(r, n)
     buf = torch.empty((size, 5), dtype=torch.float32, device=dev)
     ptr = buf.data_ptr()
-    err = _fn()(xs.data_ptr(), ms.data_ptr(), r, n, ptr + 20 * head, ptr, stream_ptr(dev))
+    with on_device(dev):
+        err = _fn()(xs.data_ptr(), ms.data_ptr(), r, n, ptr + 20 * head, ptr, stream_ptr(dev))
     check_launch("masked_stats", err)
     launches.add()
     return buf[:r]

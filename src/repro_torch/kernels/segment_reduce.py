@@ -28,7 +28,8 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from . import _build
-from ._launch import I32, I64, P, LaunchCounter, bind, check_launch, require, stream_ptr
+from ._launch import (I32, I64, P, LaunchCounter, bind, check_launch, on_device, require,
+                      stream_ptr)
 
 TILE_ROWS = 4096  # == TILE in csrc/segment_reduce.cu: rows a block sorts or folds
 MAX_DIGIT_BITS = 11  # == MAX_DIGIT_BITS: at most 2,048 bins a sort pass
@@ -164,10 +165,11 @@ def segment_reduce(
     cnts = torch.empty((V, B), dtype=torch.int32, device=dev)
     host = (ctypes.c_int * max(2 * S, 1))(*[MODES[m] for m in modes],
                                           *[int(i) for i in valid_idx])
-    err = _fn()(keys.data_ptr(), values.data_ptr(), valids.data_ptr(), ctypes.addressof(host),
-                S, V, B, n, plan.passes, plan.digit_bits, plan.fold_levels,
-                *[t.data_ptr() if t is not None else None for t in scratch],
-                reds.data_ptr(), cnts.data_ptr(), stream_ptr(dev))
+    with on_device(dev):
+        err = _fn()(keys.data_ptr(), values.data_ptr(), valids.data_ptr(),
+                    ctypes.addressof(host), S, V, B, n, plan.passes, plan.digit_bits,
+                    plan.fold_levels, *[t.data_ptr() if t is not None else None for t in scratch],
+                    reds.data_ptr(), cnts.data_ptr(), stream_ptr(dev))
     check_launch("segment_reduce", err)
     launches.add()
     return reds, cnts

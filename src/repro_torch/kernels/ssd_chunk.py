@@ -55,7 +55,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from ._launch import I32, P, LaunchCounter, bind, check_launch, require, stream_ptr
+from ._launch import I32, P, LaunchCounter, bind, check_launch, on_device, require, stream_ptr
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -240,9 +240,10 @@ def ssd_chunk_inter(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Ten
     y = torch.empty((bt, S, H, Pd), dtype=dt, device=dev)
     h = torch.empty((bt, H, N, Pd), dtype=torch.float32, device=dev)
     cpb = scan_chunks(bt, nc, H, Pd, S // nc, _sm_count(dev.index))
-    check_launch("ssd_chunk_inter", _fns()["scan"](
-        y_intra.data_ptr(), state.data_ptr(), ecum.data_ptr(), c.data_ptr(),
-        bt, S, H, Pd, N, S // nc, cpb, DTYPES[dt], y.data_ptr(), h.data_ptr(), stream_ptr(dev)))
+    with on_device(dev):
+        check_launch("ssd_chunk_inter", _fns()["scan"](
+            y_intra.data_ptr(), state.data_ptr(), ecum.data_ptr(), c.data_ptr(), bt, S, H, Pd,
+            N, S // nc, cpb, DTYPES[dt], y.data_ptr(), h.data_ptr(), stream_ptr(dev)))
     launches_scan.add()
     return y, h
 
@@ -274,9 +275,10 @@ def ssd_chunk_recur(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     ecum = chunk_decays(log_a, S)
     y = torch.empty_like(x)
     h = torch.empty((bt, H, N, Pd), dtype=torch.float32, device=dev)
-    check_launch("ssd_chunk_recur", _fns()["recur"](
-        x.data_ptr(), ecum.data_ptr(), b.data_ptr(), c.data_ptr(), bt, S, H, Pd, N,
-        DTYPES[x.dtype], y.data_ptr(), h.data_ptr(), stream_ptr(dev)))
+    with on_device(dev):
+        check_launch("ssd_chunk_recur", _fns()["recur"](
+            x.data_ptr(), ecum.data_ptr(), b.data_ptr(), c.data_ptr(), bt, S, H, Pd, N,
+            DTYPES[x.dtype], y.data_ptr(), h.data_ptr(), stream_ptr(dev)))
     launches_recur.add()
     launches.add()
     return y, h
@@ -331,16 +333,20 @@ def ssd_chunk_intra(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: to
     if route == "wgmma":
         # its TMA maps need x, b and c on 16-byte boundaries, or the launch fails
         G = heads_per_block(bt, S // L, H, _sm_count(dev.index))
-        check_launch("ssd_chunk_scan_wgmma", _fns()["wgmma"](*ptrs, bt, S, H, Pd, N, L, G, *out))
+        with on_device(dev):
+            check_launch("ssd_chunk_scan_wgmma",
+                         _fns()["wgmma"](*ptrs, bt, S, H, Pd, N, L, G, *out))
         launches_wgmma.add()
     elif route == "short":
         G = short_heads(bt, S // L, H, L, N, Pd, _sm_count(dev.index))
-        check_launch("ssd_chunk_scan_short",
-                     _fns()["short"](*ptrs, bt, S, H, Pd, N, L, DTYPES[x.dtype], G, *out))
+        with on_device(dev):
+            check_launch("ssd_chunk_scan_short",
+                         _fns()["short"](*ptrs, bt, S, H, Pd, N, L, DTYPES[x.dtype], G, *out))
         launches_short.add()
     else:
-        check_launch("ssd_chunk_scan",
-                     _fns()["cells"](*ptrs, bt, S, H, Pd, N, L, DTYPES[x.dtype], *out))
+        with on_device(dev):
+            check_launch("ssd_chunk_scan",
+                         _fns()["cells"](*ptrs, bt, S, H, Pd, N, L, DTYPES[x.dtype], *out))
         launches_cells.add()
     launches.add()
     return y, state

@@ -17,7 +17,8 @@ import functools
 import torch
 
 from . import _build
-from ._launch import F32, I32, I64, P, LaunchCounter, bind, check_launch, require, stream_ptr
+from ._launch import (F32, I32, I64, P, LaunchCounter, bind, check_launch, on_device, require,
+                      stream_ptr)
 
 GRID = 264  # blocks launch 1 aims for across all rows: two an SM of an H100
 SPAN = 4096  # fewest values a block of launch 1 takes
@@ -70,8 +71,9 @@ def topk(xs: torch.Tensor, k: int, largest: bool = True) -> torch.Tensor:
     blocks, size = buffer_rows(r, n)
     buf = torch.empty((size, k), dtype=torch.float32, device=dev)
     ptr = buf.data_ptr()
-    err = _fn()(xs.data_ptr(), r, n, k, blocks, 1.0 if largest else -1.0, ptr + 4 * r * k, ptr,
-                stream_ptr(dev))
+    with on_device(dev):
+        err = _fn()(xs.data_ptr(), r, n, k, blocks, 1.0 if largest else -1.0, ptr + 4 * r * k,
+                    ptr, stream_ptr(dev))
     check_launch("topk", err)
     launches.add()
     return buf[:r]

@@ -567,6 +567,88 @@ def test_auto_mode_size_gate_alone(monkeypatch):
 
 
 # --------------------------------------------------------------------------- #
+# the shards' kernel backend, the mesh stacks and their cache                  #
+# --------------------------------------------------------------------------- #
+
+SHARDED_OPS = ("masked_stats_batch", "segment_reduce_batch", "topk_rows", "join_probe_padded")
+FAMILY_CALLS = {
+    "stats": lambda t, bk: BK.sharded_stats(t, backend=bk),
+    "stats_raws": lambda t, bk: BK.sharded_stats_raws(t, ("x", "y"), backend=bk),
+    "value_counts": lambda t, bk: BK.sharded_value_counts(t, "k", backend=bk),
+    "groupby": lambda t, bk: BK.sharded_groupby(t, "k", AGGS, backend=bk),
+    "topk": lambda t, bk: BK.sharded_topk(t, "x", False, 9, backend=bk),
+}
+
+
+@pytest.mark.parametrize("family", [*FAMILY_CALLS, "join"])
+@pytest.mark.parametrize("session_bk, kernel_bk",
+                         [("torch", "torch"), ("cuda", "cuda"), ("numpy", "cuda")])
+def test_sharded_calls_run_under_the_sessions_kernel_backend(
+        table, monkeypatch, family, session_bk, kernel_bk):
+    """A torch session's shards run the plain versions as its host path
+    does, a cuda session's the kernels' wrappers; a numpy session's sharded
+    path takes the kernels.  (A cuda session's join needs the card.)"""
+    if family == "join" and session_bk == "cuda":
+        session_bk, kernel_bk = "torch", "torch"
+    seen = []
+    for name in SHARDED_OPS:
+        def spy(*args, _fn=getattr(ops, name), **kwargs):
+            seen.append(ops.backend())
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(ops, name, spy)
+    with dist.use_mesh([CPU] * 2), dist.use_sharded("on"):
+        if family == "join":
+            left, right = _join_tables(T)
+            monkeypatch.setattr(BK, "JOIN_BROADCAST_MAX_BYTES", 1024)
+            BK.join_partition(left.partitions[0], right, "j", "inner", backend=session_bk,
+                              device="cpu")
+            assert dist.dispatch_counts().get("join_probe") == 1
+        else:
+            assert FAMILY_CALLS[family](table, session_bk) is not None
+    assert seen and set(seen) == {kernel_bk}
+
+
+def test_stack_rows_places_partitions_and_fills_the_rest():
+    """Five partitions over four shards pad to eight: shard s holds
+    partitions 2s and 2s + 1 on mesh[s], each row written up to its length,
+    everything else the fill value."""
+    mesh = (CPU,) * 4
+    lengths = [3, 5, 0, 4, 2]
+    rows = {i: [torch.arange(n, dtype=torch.float32) + 10 * i + j for j in range(2)]
+            for i, n in enumerate(lengths)}
+    stack = dist.stack_rows(mesh, 5, 6, 2, torch.float32, -1.0, lambda i, dev: rows[i])
+    assert len(stack) == 4 and all(t.shape == (2, 2, 6) for t in stack)
+    for s, t in enumerate(stack):
+        for p in range(2):
+            i = 2 * s + p
+            n = lengths[i] if i < 5 else 0
+            for j in range(2):
+                if n:
+                    assert torch.equal(t[p, j, :n], rows[i][j])
+                assert (t[p, j, n:] == -1.0).all()
+
+
+def test_mesh_cached_keeps_one_entry_per_slot(table):
+    built = []
+
+    def build(tag):
+        built.append(tag)
+        return tag
+
+    with dist.use_mesh([CPU] * 2):
+        assert dist.mesh_cached(table, "a", 1, lambda: build("a1")) == "a1"
+        assert dist.mesh_cached(table, "a", 1, lambda: build("again")) == "a1"
+        assert dist.mesh_cached(table, "b", 1, lambda: build("b1")) == "b1"
+        assert dist.mesh_cached(table, "a", 2, lambda: build("a2")) == "a2"  # replaces
+        assert dist.mesh_cached(table, "a", 1, lambda: build("a1'")) == "a1'"
+        assert dist.mesh_cached(table, "n", 1, lambda: None, keep_none=False) is None
+        assert dist.mesh_cached(table, "n", 1, lambda: build("n1"), keep_none=False) == "n1"
+    with dist.use_mesh([CPU] * 4):  # another mesh is another key
+        assert dist.mesh_cached(table, "a", 1, lambda: build("a1@4")) == "a1@4"
+    assert built == ["a1", "b1", "a2", "a1'", "n1", "a1@4"]
+
+
+# --------------------------------------------------------------------------- #
 # inert without a usable mesh                                                  #
 # --------------------------------------------------------------------------- #
 
