@@ -83,6 +83,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    size alone while describe stays on the host path (``no_estimate``: the
    port has no priors).  With 2^k >= 2 cards the cells run once more over
    ``data_mesh()``; on one card that branch says it did not run;
+3d. engine contracts — on the same 10M-row ``events`` in cuda sessions,
+   one alive at a time but where a check compares two: (a)
+   ``warm_device_cache`` of the materialised table (its ms and the bytes it
+   adds), then cells 1-5 profiled, bit for bit phase 3's unwarmed answers,
+   describe copying under 1 MiB host → device (each cell's wall beside
+   phase 3's, its host → device copy ms and bytes); (b) describe, a groupby
+   and value_counts as progressive interactions, a first estimate below
+   full coverage and ``upgrade()`` bit for bit a fresh session's ``show``;
+   (c) five nodes drained in think time with and without batching, bit for
+   bit, batched units only in the first; (d) three filter chains with the
+   cost model calibrated (injected samples) so that each ``fused:`` key is
+   lowered on cuda, bit for bit a ``planner=False`` session; (e) every
+   background unit failing: cells 1-4 bit for bit phase 3's; half the
+   background kernel dispatches failing: within the parity tolerances of
+   the numpy session, a ``|cuda`` breaker failure and samples labelled as
+   served by numpy; the phase's launches join the JSON line's;
 3b. examples — ``examples/torch_quickstart.py`` and
    ``torch_interactive_session.py`` called in-process (``main()``) in a
    cuda session and in a numpy session: answers within the parity
@@ -140,7 +156,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    last logits bit for bit.  granite: layer 0's ``moe_ffn`` on the model's
    own inputs within 2^-5 of the largest |y| of float64 on the CPU at the
    tokens whose experts agree (any other token a near tie), the assignments
-   dropped at capacity the same on the card and by the CPU's dispatch.
+   dropped at capacity the same on the card and by the CPU's dispatch, and
+   one layer-0 ``moe_ffn`` forward under ``set_sync_debug_mode("error")``
+   (no host synchronization: ROADMAP C12).
    RecurrentGemma cut to one pattern group: 2,176 decode steps from
    position 0 against one cache-free forward (the D 256 forward kernel),
    every position within 2^-5 of the largest |logit|.  Request walls, and
@@ -1150,7 +1168,7 @@ def compare(ref, got, label):
                                        rtol=2e-3, atol=1e-5, err_msg=f"{label}/{col}")
 
 
-def main_path(torch, ops, BK, K, record):
+def main_path(torch, ops, BK, record):
     from repro_torch.frame import Session
 
     cat = catalog()
@@ -1187,7 +1205,7 @@ def main_path(torch, ops, BK, K, record):
     check(cuda_keys, "no cuda dispatch reached the breaker board")
     print("[main] breakers: zero failures and fallbacks on cuda for "
           + ", ".join(sorted(k.split("|")[0] for k in cuda_keys)))
-    return ref, launches, lat
+    return ref, got, launches, lat
 
 
 # the device functions of csrc/segment_reduce.cu, for the trace's split
@@ -1450,8 +1468,10 @@ def dist_phase(torch, ops, BK, record, smi):
             host_mean = (*declared_mean(torch, hs), hs.engine.executor.stats.sharded_batches)
         del hs
         gc.collect()
-        launches, _ = sharded_cells(torch, ops, BK, dist, cat, (host, host_mean), "[dist]",
-                                    record)
+        launches, lat = sharded_cells(torch, ops, BK, dist, cat, (host, host_mean), "[dist]",
+                                      record)
+        print(f"[dist] sharded describe wall {lat[0]} ms (PR 25's run 2: "
+              f"{PR25_DESCRIBE_3C_MS} ms, before one device key a card)", flush=True)
         with dist.use_sharded("on"):
             trace_notebook(torch, "[dist-trace]")  # measurement only
         gc.collect()
@@ -1475,6 +1495,314 @@ def dist_phase(torch, ops, BK, record, smi):
               "did not run", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 3d: the engine's contracts on the card                                  #
+# --------------------------------------------------------------------------- #
+
+# the filter chains of the fusion check, each on its own filter node (one
+# consumer: the fusable shape): cell 2's filter → groupby, a filter →
+# describe, a filter → sort + head(20) (a sort with a limit)
+FUSED_KEYS = ("fused:filter|groupby_agg", "fused:filter|describe",
+              "fused:filter|sort_values:topk")
+WARM_H2D_MAX = 1 << 20  # bytes a warmed describe may copy host → device
+PR25_DESCRIBE_3C_MS = 1344.91  # phase 3c's sharded describe, PR 25's run 2
+
+
+def h2d_copies(prof):
+    """(ms, bytes) of the host → device copies in a finished profile, read
+    from its exported trace (the summary tables carry no byte counts)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    check(all("bytes" in e.get("args", {}) for e in copies),
+          "[contracts] a host → device copy in the trace has no byte count")
+    return (sum(e.get("dur", 0) for e in copies) / 1e3,
+            sum(int(e["args"]["bytes"]) for e in copies))
+
+
+def profiled_cells(torch, s, cells):
+    """The cells with think time between them, each under torch.profiler →
+    (answers, wall ms, [(h2d ms, h2d bytes)])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    outs, lat, h2d = [], [], []
+    for i, code in enumerate(cells):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            outs.append(s.cell(code).to_pydict())
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        h2d.append(h2d_copies(prof))
+        if i < len(cells) - 1:
+            s.think(THINK_S)
+    return outs, lat, h2d
+
+
+def free_sessions():
+    import torch
+
+    gc.collect()  # a session's engine and runtime form reference cycles
+    torch.cuda.empty_cache()
+
+
+def tables_bit_equal(a, b) -> bool:
+    """Two PTables with the same rows, column for column, byte for byte
+    (data and validity), NaN payloads included: ``pydict_equal`` on 10M-row
+    results would decode and compare every string in Python."""
+    import numpy as np
+
+    pa, pb = a.concat(), b.concat()
+    if pa.order != pb.order or pa.nrows != pb.nrows:
+        return False
+    for name in pa.order:
+        ca, cb = pa.columns[name], pb.columns[name]
+        if ca.data.dtype != cb.data.dtype or not np.array_equal(
+                np.ascontiguousarray(ca.data).view(np.uint8),
+                np.ascontiguousarray(cb.data).view(np.uint8)):
+            return False
+        if not np.array_equal(ca.valid_mask(), cb.valid_mask()):
+            return False
+    return True
+
+
+def contracts_warm(torch, BK, cold, cold_lat):
+    """(a) ``warm_device_cache`` on the materialised ``events``, then cells
+    1-5, each profiled: answers bit for bit the unwarmed cuda session's
+    (phase 3's), and describe copying under 1 MiB host → device."""
+    from repro_torch.frame import Session
+    from repro_torch.frame.table import pydict_equal
+
+    s = Session(catalog=catalog(), mode="sim", kernel_backend="cuda")
+    s.cell('df = pd.read_csv("events")')
+    node = s._runner.env["df"].node
+    table = s.engine.value_of(node)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    BK.warm_device_cache(table)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_bytes = torch.cuda.memory_allocated() - mem0
+    print(f"[contracts] (a) warm_device_cache(events): {warm_ms} ms, {warm_bytes} bytes added "
+          f"on the card ({len(table.partitions)} partitions, {table.nrows} rows)", flush=True)
+    got, lat, h2d = profiled_cells(torch, s, CELLS[:5])
+    check(s._runner.env["df"].node is node, "[contracts] (a) cell 1 read another events node "
+          "than the warmed one")
+    for i, (want, g) in enumerate(zip(cold, got)):
+        check(pydict_equal(want, g), f"[contracts] (a) cell {i + 1} on the warmed table is not "
+              "bit for bit the unwarmed cuda session's")
+    for i in range(len(got)):
+        print(f"[contracts] (a) cell{i + 1} warmed: wall {lat[i]} ms (phase 3 cold "
+              f"{cold_lat[i]} ms), host → device copies {h2d[i][0]} ms, {h2d[i][1]} bytes",
+              flush=True)
+    check(h2d[0][1] < WARM_H2D_MAX, f"[contracts] (a) the warmed describe copied {h2d[0][1]} "
+          f"bytes host → device (limit {WARM_H2D_MAX})")
+    del s, table
+    free_sessions()
+
+
+def contracts_progressive(torch):
+    """(b) describe, a groupby and value_counts as progressive interactions:
+    a first estimate below full coverage, and ``upgrade()`` bit for bit what
+    a fresh cuda session shows."""
+    from repro_torch.frame import Session
+    from repro_torch.frame.table import pydict_equal
+
+    queries = {
+        "describe": lambda df: df.describe(),
+        "groupby": lambda df: df.groupby("k").agg({"y": "mean", "z": "min", "x": "max"}),
+        "value_counts": lambda df: df["g"].value_counts(),
+    }
+    s = Session(catalog=catalog(), mode="sim", kernel_backend="cuda")
+    df = s.read_table("events")
+    upgraded, covs = {}, {}
+    for name, build in queries.items():
+        t0 = time.perf_counter()
+        pr = s.interact(build(df), progressive=True)
+        est = pr.estimate()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        covs[name] = est.coverage
+        check(est.coverage < 1.0 and not est.exact,
+              f"[contracts] (b) {name}: the first estimate was exact (coverage {est.coverage})")
+        t0 = time.perf_counter()
+        upgraded[name] = pr.upgrade().to_pydict()
+        torch.cuda.synchronize()
+        print(f"[contracts] (b) {name}: first estimate in {first_ms} ms at coverage "
+              f"{est.coverage}, upgrade() {(time.perf_counter() - t0) * 1e3} ms", flush=True)
+    del s, df, pr
+    free_sessions()
+    s = Session(catalog=catalog(), mode="sim", kernel_backend="cuda")
+    df = s.read_table("events")
+    for name, build in queries.items():
+        check(pydict_equal(upgraded[name], s.show(build(df)).to_pydict()),
+              f"[contracts] (b) {name}: upgrade() is not bit for bit a fresh session's show")
+    print("[contracts] (b) upgrade() bit for bit a fresh cuda session's show for "
+          + ", ".join(queries), flush=True)
+    del s, df
+    free_sessions()
+
+
+def contracts_batched(torch):
+    """(c) describe, a groupby, value_counts, a filter and a full sort drained
+    in think time under ``batching=True`` and ``False``: bit for bit."""
+    from repro_torch.frame import Session
+
+    def run(batching):
+        s = Session(catalog=catalog(), mode="sim", kernel_backend="cuda", batching=batching)
+        df = s.read_table("events")
+        nodes = [df.describe().node, df.groupby("k").agg({"x": "mean", "y": "sum"}).node,
+                 df["k"].value_counts().node, df[df["x"] > 50.0].node, df.sort_values("x").node]
+        t0 = time.perf_counter()
+        s.think(1000.0)
+        s.drain()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return s, [s.engine.value_of(n) for n in nodes], ms
+
+    sb, vb, ms_b = run(True)
+    su, vu, ms_u = run(False)
+    nb, nu = sb.engine.executor.stats.units_batched, su.engine.executor.stats.units_batched
+    check(nb > 0 and nu == 0, f"[contracts] (c) units_batched {nb} batched, {nu} unbatched")
+    for i, (a, b) in enumerate(zip(vb, vu)):
+        check(tables_bit_equal(a, b), f"[contracts] (c) node {i}: batched != unbatched")
+    print(f"[contracts] (c) five nodes drained in think time, batched ({nb} units in "
+          f"{sb.engine.executor.stats.batches_run} batches, {ms_b} ms) == unbatched ({ms_u} "
+          "ms), bit for bit", flush=True)
+    del sb, su, vb, vu
+    free_sessions()
+
+
+def contracts_fused(torch):
+    """(d) three filter chains in a session whose cost model favours the
+    fused lowering (injected samples), then with ``planner=False``: every
+    ``fused:`` key lowered on cuda, answers bit for bit."""
+    from repro_torch.frame import Session
+
+    def run(planner):
+        s = Session(catalog=catalog(), mode="sim", kernel_backend="cuda", planner=planner)
+        if planner:
+            cm = s.engine.cost_model
+            for rows in (1e5, 1e6, 1e7):
+                for key in ("filter", "describe", "groupby_agg", "sort_values:topk"):
+                    cm.add_sample(key, "cuda", rows, 1e-8 * rows)
+                    cm.add_sample(key, "numpy", rows, 2e-8 * rows)
+                for key in FUSED_KEYS:
+                    cm.add_sample(key, "cuda", rows, 1e-10 * rows)
+            cm.calibrate()
+        df = s.read_table("events")
+        t0 = time.perf_counter()
+        out = [
+            s.show(df[df["x"] > 50].groupby("k").agg({"y": "mean", "z": "min", "x": "max"})),
+            s.show(df[df["x"] > 25].describe()),
+            s.engine.display(s.engine.add(
+                "sort_values", parents=[df[df["x"] > 75].node],
+                kwargs={"by": "z", "ascending": False, "limit": 20})),
+        ]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return [o.to_pydict() for o in out], dict(s.engine.cost_model.planner_report()), ms
+
+    from repro_torch.frame.table import pydict_equal
+
+    fused, report, ms_f = run(True)
+    free_sessions()
+    for key in FUSED_KEYS:
+        check(report.get(f"{key}|cuda|fused", 0) >= 1,
+              f"[contracts] (d) {key} was not lowered fused on cuda: {report}")
+    unfused, report_off, ms_u = run(False)
+    free_sessions()
+    check(report_off == {}, f"[contracts] (d) planner=False recorded decisions {report_off}")
+    for key, a, b in zip(FUSED_KEYS, fused, unfused):
+        check(pydict_equal(a, b), f"[contracts] (d) {key}: fused != unfused")
+    print(f"[contracts] (d) fused ({ms_f} ms; " + json.dumps(
+        {k: v for k, v in report.items() if k.startswith("fused:")}) + f") == unfused "
+          f"({ms_u} ms), bit for bit", flush=True)
+
+
+# cells 1-4's work declared before it is shown, so that think time has
+# background units to run (and to fail)
+DECLARE = ('df = pd.read_csv("events")\nf = df[df["x"] > 50]\n'
+           'gb = f.groupby("k").agg({"y": "mean", "z": "min", "x": "max"})\n'
+           'vc = df["g"].value_counts()\nd = df.describe()')
+
+
+def faulty_cells(torch, s):
+    """Cells 1-4 after their work was declared and think time ran it."""
+    s.cell(DECLARE)
+    s.think(THINK_S)
+    return run_notebook(torch, s, CELLS[:4], sync=True)
+
+
+def contracts_faults(torch, BK, ref, cold):
+    """(e) background faults: every unit failing in think time leaves cells
+    1-4 bit for bit the clean cuda session's (phase 3's); half the kernel
+    dispatches failing in think time leaves them within the parity
+    tolerances of the numpy session's, with the fallbacks on the board."""
+    from repro_torch.core import FaultPlan, FaultSpec
+    from repro_torch.frame import Session
+    from repro_torch.frame.table import pydict_equal
+
+    plan = FaultPlan([FaultSpec("exec.unit", rate=1.0)], seed=1)
+    s = Session(catalog=catalog(), mode="sim", kernel_backend="cuda", fault_plan=plan)
+    got, lat = faulty_cells(torch, s)
+    n_faults = s.engine.metrics.n_background_faults
+    check(n_faults >= 1, "[contracts] (e) no background unit fault fired")
+    for i, (want, g) in enumerate(zip(cold, got)):
+        check(pydict_equal(want, g), f"[contracts] (e) cell {i + 1} under background unit "
+              "faults is not bit for bit the clean cuda session's")
+    print(f"[contracts] (e) every background unit failing ({n_faults} faults, "
+          f"{s.engine.metrics.quarantines} quarantines): cells 1-4 bit for bit the clean "
+          f"session's; walls ms {lat}", flush=True)
+    del s
+    free_sessions()
+
+    BK.reset_breakers()
+    plan = FaultPlan([FaultSpec("kernel", mode="raise", rate=0.5, background_only=True)],
+                     seed=2)
+    s = Session(catalog=catalog(), mode="sim", kernel_backend="cuda", fault_plan=plan)
+    got, lat = faulty_cells(torch, s)
+    for i, (want, g) in enumerate(zip(ref, got)):
+        compare(want, g, f"cell{i + 1}-kernel-faults")
+    snap = BK.breaker_board().snapshot()
+    failed = {k: st["failures"] for k, st in snap.items()
+              if k.endswith("|cuda") and st["failures"]}
+    served = sorted({key for key, bk in s.engine.cost_model.samples() if bk == "numpy"})
+    check(plan.total_fired() >= 1 and failed, f"[contracts] (e) no cuda breaker recorded a "
+          f"kernel fault: {snap}")
+    check(served, "[contracts] (e) no sample was labelled as served by the numpy fallback")
+    print(f"[contracts] (e) half the background kernel dispatches failing ({plan.total_fired()} "
+          f"fired): cells 1-4 within the parity tolerances of the numpy session; breaker "
+          f"failures " + json.dumps(failed) + "; samples served by numpy for "
+          + ", ".join(served) + f"; walls ms {lat}", flush=True)
+    del s
+    BK.reset_breakers()
+    free_sessions()
+
+
+def contracts_phase(torch, ops, BK, ref, cold, cold_lat):
+    """Phase 3d: the engine's internal contracts on the card, on phase 3's
+    10M-row ``events`` in cuda sessions; returns the dataframe kernels'
+    launches in the phase."""
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    contracts_warm(torch, BK, cold, cold_lat)
+    contracts_progressive(torch)
+    contracts_batched(torch)
+    contracts_fused(torch)
+    contracts_faults(torch, BK, ref, cold)
+    after = ops.launch_counts()
+    launches = {k: after[k] - before[k] for k in DATAFRAME}
+    print("[contracts] launches in phase 3d: " + json.dumps(launches)
+          + f"; phase took {time.perf_counter() - t0} s", flush=True)
+    for name in ("masked_stats", "segment_reduce", "topk", "filter_compact"):
+        check(launches[name] > 0, f"[contracts] {name} never launched in phase 3d")
     return launches
 
 
@@ -2829,6 +3157,18 @@ def moe_layer0(torch, cfg, model, prompt_t, dev):
     params, x = seen[0]
     T, E = x.shape[0] * x.shape[1], cfg.moe.n_experts
     cap = moe.expert_capacity(cfg, T)
+    # one forward reads nothing back to the host (the routing counts its
+    # experts at a fixed size, ROADMAP C12): any synchronizing call raises
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            moe.moe_ffn(params, cfg, x, SINGLE)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    print(f"[serve-hybrid] {cfg.name}: a layer-0 moe_ffn forward ({T} tokens) ran under "
+          "set_sync_debug_mode('error') with no host synchronization", flush=True)
     with torch.no_grad():
         y_card, _ = moe.moe_ffn(params, cfg, x, SINGLE)
         _, e_card, _ = moe._route(params, cfg, x.reshape(T, -1), E)
@@ -3031,8 +3371,10 @@ def serving_hybrid(torch, ops, name, dev):
         long_t = torch.tensor([long_p], device=dev)
         runs.append((f"prefill {len(long_p)} + {N_TOKENS} decode steps (the ring wraps)",
                      lambda: greedy_generate(cfg, model, pre, dec, long_t, N_TOKENS)))
+    walls = []
     for label, fn in runs:
         wall, busy, copy, kern, _ = profiled(torch, fn)
+        walls.append(wall)
         gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
                                                                        "cutlass")))
         attn_k = sum(t for t, k in kern if "attn_" in k)
@@ -3040,6 +3382,9 @@ def serving_hybrid(torch, ops, name, dev):
               f"{gemm} ms, attention kernels {attn_k} ms, other {busy - gemm - attn_k} ms), "
               f"device copies {copy} ms, device idle {100 * (1 - (busy + copy) / wall)}%; top: "
               + ", ".join(f"{k[:50]} {t}" for t, k in kern[:5]), flush=True)
+    if cfg.moe is not None:
+        print(f"[serve-trace] {cfg.name} decode: {(walls[1] - walls[0]) / N_TOKENS} ms a token "
+              "(profiled walls; PR 24's run: about 130 ms a token)", flush=True)
     del srv, model
     gc.collect()  # the server and its engine's closures form a cycle
     torch.cuda.empty_cache()
@@ -3595,7 +3940,8 @@ def training_moe(torch, ops, dev):
               "included): step ms " + json.dumps([t * 1e3 for t in whole.step_times])
               + ", tokens/s " + json.dumps([tokens / t for t in whole.step_times])
               + ", losses " + json.dumps(whole.losses) + ", grad norms "
-              + json.dumps(whole.grad_norms) + f", peak device memory {peak} bytes (predicted "
+              + json.dumps(whole.grad_norms) + " (step ms in PR 24's run 4, before C12's "
+              f"repair: 4,224.26-4,319.84), peak device memory {peak} bytes (predicted "
               f"{MOE_PEAK_PREDICTED[0]}-{MOE_PEAK_PREDICTED[1]}); launcher output: "
               + " | ".join(log.strip().splitlines()), flush=True)
         check(whole.steps == TRAIN_STEPS and all(math.isfinite(x) for x in
@@ -3707,7 +4053,8 @@ def training_moe(torch, ops, dev):
         w in k.lower() for w in ("sort", "scatter", "gather", "index", "radix", "scan")))
     print(f"[train-moe] a step repeated from the same state gave params, AdamW moments and "
           f"loss ({float(m1['loss'])}) equal bit for bit", flush=True)
-    print(f"[train-moe-trace] one step, profiled: wall {pwall} ms, device kernels {busy} ms "
+    print(f"[train-moe-trace] one step, profiled: wall {pwall} ms (PR 24's run 4: 4,310.91 ms), "
+          f"device kernels {busy} ms "
           f"(attention kernels {attn} ms, GEMMs {gemm} ms, sort / gather / scatter / index "
           f"kernels (MoE routing, grouping, combine and their backward) {moved} ms, other "
           f"{busy - attn - gemm - moved} ms), device copies {copy} ms, device idle "
@@ -3777,7 +4124,7 @@ def main() -> int:
     # -- phase 3: main path
     shapes, record = recorder(K)
     t0 = time.perf_counter()
-    ref, launches, _ = main_path(torch, ops, BK, K, record)
+    ref, cold, launches, cold_lat = main_path(torch, ops, BK, record)
     print(f"[main] phase took {time.perf_counter() - t0} s", flush=True)
 
     trace_notebook(torch)
@@ -3789,6 +4136,10 @@ def main() -> int:
         if kernel in DATAFRAME:
             launches[kernel] += n
     print(f"[dist] phase took {time.perf_counter() - t0} s", flush=True)
+
+    # -- phase 3d: the engine's contracts on the card
+    for kernel, n in contracts_phase(torch, ops, BK, ref, cold, cold_lat).items():
+        launches[kernel] += n
 
     # -- phase 3b: the examples and the serve launcher
     t0 = time.perf_counter()

@@ -40,6 +40,7 @@ backends accumulate in float32; the numpy path uses float64.  Parity is to
 from __future__ import annotations
 
 import logging
+import math
 import os
 import threading
 import time
@@ -380,6 +381,16 @@ def _breaker_watch(op: str, bk: str, dev: torch.device):
 # --------------------------------------------------------------------------- #
 
 
+def device_key(dev) -> str:
+    """The cache key of a device: an index-less ``cuda`` names the current
+    card, so a session's ``cuda`` and a data mesh's ``cuda:0`` share one
+    copy of a column on one card (a host with no card counts as card 0)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device() if torch.cuda.is_available() else 0)
+    return str(dev)
+
+
 def _cached(obj, key: str, make: Callable[[], Any]):
     val = obj.__dict__.get(key)
     if val is None:
@@ -398,26 +409,26 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 def _dev_native(col: Column, dev: torch.device) -> torch.Tensor:
     """The column's data in its own dtype (what compaction moves)."""
-    return _cached(col, f"_dev_native@{dev}", lambda: _upload(col.data, dev))
+    return _cached(col, f"_dev_native@{device_key(dev)}", lambda: _upload(col.data, dev))
 
 
 def _dev_mask(col: Column, dev: torch.device) -> torch.Tensor:
     """The column's explicit mask (callers check ``col.mask is not None``)."""
-    return _cached(col, f"_dev_mask@{dev}", lambda: _upload(col.mask, dev))
+    return _cached(col, f"_dev_mask@{device_key(dev)}", lambda: _upload(col.mask, dev))
 
 
 def _dev_f32(col: Column, dev: torch.device) -> torch.Tensor:
     """f32 values, converted on the device from the native copy (float64 →
     float32 rounds to nearest on both host and device: the same bits)."""
     return _cached(
-        col, f"_dev_f32@{dev}",
+        col, f"_dev_f32@{device_key(dev)}",
         lambda: _dev_native(col, dev).to(torch.float32).contiguous(),
     )
 
 
 def _dev_i32(col: Column, dev: torch.device) -> torch.Tensor:
     return _cached(
-        col, f"_dev_i32@{dev}",
+        col, f"_dev_i32@{device_key(dev)}",
         lambda: _dev_native(col, dev).to(torch.int32).contiguous(),
     )
 
@@ -426,7 +437,7 @@ def _dev_valid(col: Column, dev: torch.device) -> torch.Tensor:
     if col.mask is not None:
         return _dev_mask(col, dev)
     return _cached(
-        col, f"_dev_valid@{dev}",
+        col, f"_dev_valid@{device_key(dev)}",
         lambda: torch.ones(col.nrows, dtype=torch.bool, device=dev),
     )
 
@@ -446,7 +457,7 @@ def _dev_stats_stack(part: Partition, names: Sequence[str], dev: torch.device):
     """The stacked + shape-bucketed (C, nb) value/validity matrices, cached
     per partition so steady-state describe partials skip all host work."""
     key = tuple(names)
-    slot = f"_dev_stats@{dev}"
+    slot = f"_dev_stats@{device_key(dev)}"
     cached = part.__dict__.get(slot)
     if cached is None or cached[0] != key:
         nb = ops.pad_len(part.nrows)
@@ -458,6 +469,32 @@ def _dev_stats_stack(part: Partition, names: Sequence[str], dev: torch.device):
         cached = (key, xs, ms)
         part.__dict__[slot] = cached
     return cached[1], cached[2]
+
+
+def warm_device_cache(table, device=None) -> None:
+    """Make every device copy the partial functions read, for every
+    partition of ``table`` (production preloading: think-time partials then
+    skip every host→device copy of a column).  Per column: the native copy
+    (compaction, sort and probe keys derive from it) and the mask; the
+    float32 values of a numeric column (stats, groupby values); the int32
+    codes of a dictionary column (groupby keys, value_counts); its validity.
+    Then each partition's stacked describe matrices.  ``device`` is the
+    card unless the caller passes ``"cpu"``; without a card that raises."""
+    dev = require_device("cuda" if device is None else "torch", device)
+    for part in table.partitions:
+        for name in part.order:
+            c = part.columns[name]
+            if c.data.dtype.kind not in "biuf":
+                continue  # object columns never leave the host
+            _dev_native(c, dev)
+            if c.is_string:
+                _dev_i32(c, dev)
+            else:
+                _dev_f32(c, dev)
+            _dev_valid(c, dev)
+        numeric = B.numeric_columns(part)
+        if numeric and part.nrows:
+            _dev_stats_stack(part, numeric, dev)
 
 
 def _stats_from_raw(names: Sequence[str], raw: np.ndarray) -> Dict[str, ColStats]:
@@ -655,6 +692,25 @@ def _sort_keys(key_col: Column, ascending: bool) -> np.ndarray:
     return keys
 
 
+def _dev_sort_keys(key_col: Column, ascending: bool, dev: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``_sort_keys`` on the device in ``dtype`` (float64 for a full sort,
+    float32 for top-k), negated for a descending float64 sort: made from the
+    column's cached native copy and mask (int → float64 → ``dtype`` rounds
+    to nearest there as on the host: the same bits), so a warmed column
+    sorts without an upload.  uint64 columns (no conversion on the card)
+    upload their host keys."""
+    if key_col.data.dtype == _U64:
+        x = _upload(_sort_keys(key_col, ascending), dev)
+    else:
+        x = _dev_native(key_col, dev).to(torch.float64)
+        if key_col.mask is not None:
+            x = torch.where(_dev_mask(key_col, dev), x, math.inf if ascending else -math.inf)
+    if dtype == torch.float64:
+        return x if ascending else -x
+    return x.to(dtype)
+
+
 def partial_sort(
     part: Partition,
     by: str,
@@ -706,7 +762,8 @@ def _partial_sort_full(
 
     def _run():
         with _kernel(bk):
-            order = _host(ops.argsort_f64(_upload(keys if ascending else -keys, dev)))
+            order = _host(ops.argsort_f64(
+                _dev_sort_keys(key_col, ascending, dev, torch.float64)))
         return _sorted_result(part, keys, order, n_samples)
 
     return _guarded(
@@ -735,7 +792,9 @@ def _partial_sort_limit(
 
     def _run():
         with _kernel(bk):
-            winners = _host(ops.topk_padded(_upload(kf32, dev), limit, largest=not ascending))
+            winners = _host(ops.topk_padded(
+                _dev_sort_keys(key_col, ascending, dev, torch.float32), limit,
+                largest=not ascending))
         return _limit_select(part, keys, kf32, winners, ascending, limit, n_samples)
 
     return _guarded(
@@ -868,7 +927,7 @@ def _join_build_cached(right: "PTable", on: str, dtype: np.dtype, dev: torch.dev
     host = cache.get(on)
     if host is None:
         host = cache[on] = B.join_build(right, on)
-    key = (on, dtype.str, str(dev))
+    key = (on, dtype.str, device_key(dev))
     r_dev = cache.get(key)
     if r_dev is None and len(host[1]):
         r_dev = cache[key] = _upload(_probe_host(host[1], dtype), dev)
@@ -880,7 +939,7 @@ def _dev_probe_keys(col: Column, dtype: np.dtype, dev: torch.device) -> torch.Te
         make = lambda: _upload(_probe_host(col.data, dtype), dev)  # noqa: E731
     else:
         make = lambda: _dev_native(col, dev).to(_PROBE_TORCH[dtype]).contiguous()  # noqa: E731
-    return _cached(col, f"_dev_probe_{dtype.str}@{dev}", make)
+    return _cached(col, f"_dev_probe_{dtype.str}@{device_key(dev)}", make)
 
 
 def join_partition(
@@ -964,9 +1023,9 @@ def _new_column(data_dev, mask_dev, like: Column, count: int, dev) -> Column:
         data=_host(data), mask=None if mask is None else _host(mask),
         dictionary=like.dictionary,
     )
-    col.__dict__[f"_dev_native@{dev}"] = data
+    col.__dict__[f"_dev_native@{device_key(dev)}"] = data
     if mask is not None:
-        col.__dict__[f"_dev_mask@{dev}"] = mask
+        col.__dict__[f"_dev_mask@{device_key(dev)}"] = mask
     return col
 
 
@@ -1174,7 +1233,8 @@ def plan_sort_batch(
             with _breaker_watch("sort", bk, dev):
                 with _kernel(bk):
                     return ops.argsort_f64_parts(
-                        [_upload(k if ascending else -k, dev) for k in keys_list]
+                        [_dev_sort_keys(p.columns[by], ascending, dev, torch.float64)
+                         for p in parts]
                     )
 
         def finalize(handle):
@@ -1203,7 +1263,9 @@ def plan_sort_batch(
         with _breaker_watch("topk", bk, dev):
             with _kernel(bk):
                 return ops.topk_padded_parts(
-                    [_upload(k, dev) for k in kf32s], limit, largest=not ascending
+                    [_dev_sort_keys(p.columns[by], ascending, dev, torch.float32)
+                     for p in parts],
+                    limit, largest=not ascending,
                 )
 
     def finalize(handle):
@@ -1391,7 +1453,8 @@ def fused_topk_partition(
     def _run():
         with _kernel(bk):
             winners = _host(ops.topk_masked_padded(
-                _upload(kf32, dev), _upload(keep, dev), limit, largest=not ascending
+                _dev_sort_keys(key_col, ascending, dev, torch.float32), _upload(keep, dev),
+                limit, largest=not ascending,
             ))
         kth = winners[-1]
         kk32 = kf32[kept_idx]

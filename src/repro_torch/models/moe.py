@@ -78,7 +78,11 @@ def _route(params, cfg: ModelConfig, xf: torch.Tensor, e_pad: int):
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     # aux losses (Switch-style load balance + router z-loss)
     T = xf.shape[0]
-    counts = torch.bincount(top_e.reshape(-1), minlength=e_pad).float()
+    # a fixed-size count: nothing is read back to size the output, and
+    # integer adds give the same float32 values in any order
+    flat_e = top_e.reshape(-1)
+    counts = torch.zeros(e_pad, dtype=torch.int64, device=xf.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e)).float()
     frac_tokens = counts / (T * moe.top_k)
     mean_probs = probs.mean(0)
     aux = moe.n_experts * torch.sum(frac_tokens * mean_probs)

@@ -280,3 +280,49 @@ def test_slot_gather_forward_and_backward(dtype):
     want = torch.zeros((rows, d), dtype=dtype)
     want[slot[kept]] = g[kept]
     assert torch.equal(y.grad, want)
+
+
+def _old_moe_aux(params, cfg, xf, e_pad, top_e):
+    """``moe_aux`` as ``_route`` computed it with ``torch.bincount`` (which
+    reads the largest expert id back to the host on a card)."""
+    moe = cfg.moe
+    logits = (xf @ params["router"].to(xf.dtype)).float()
+    if e_pad > moe.n_experts:
+        pad_mask = torch.arange(e_pad) >= moe.n_experts
+        logits = torch.where(pad_mask[None, :], -1e30, logits)
+    probs = torch.softmax(logits, dim=-1)
+    counts = torch.bincount(top_e.reshape(-1), minlength=e_pad).float()
+    frac_tokens = counts / (xf.shape[0] * moe.top_k)
+    return moe.n_experts * torch.sum(frac_tokens * probs.mean(0)) * moe.aux_loss_coef
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pad", [0, 8])
+def test_route_aux_counts_bit_for_bit_the_bincount_formula(arch, dtype, pad):
+    """The fixed-size count (an int64 scatter-add) gives ``moe_aux`` bit for
+    bit what the bincount did, padded experts included."""
+    _, tcfg = _cfgs(arch, dtype)
+    params, x = _moe_inputs(tcfg, _rng("aux", arch, dtype, pad))
+    E = tcfg.moe.n_experts + pad
+    d = tcfg.d_model
+    router = np.concatenate([params["router"], np.zeros((d, pad), np.float32)], 1)
+    tparams = {"router": torch.from_numpy(router)}
+    xf = torch.from_numpy(x.reshape(-1, d)).to(getattr(torch, dtype))
+    _, top_e, aux = tmoe._route(tparams, tcfg, xf, E)
+    want = _old_moe_aux(tparams, tcfg, xf, E, top_e)
+    assert aux["moe_aux"].dtype == want.dtype
+    assert torch.equal(aux["moe_aux"], want)
+
+
+def test_no_bincount_in_the_port_models():
+    """bincount sizes its output from the data, which on a card reads the
+    largest id back to the host: the models count with fixed shapes."""
+    from pathlib import Path
+
+    import repro_torch.models as models
+
+    root = Path(models.__file__).parent
+    hits = [f"{p.name}:{i}" for p in sorted(root.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1) if "bincount" in line]
+    assert hits == []
