@@ -187,6 +187,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    microbatch with the kernels against the plain attention, the experts of
    tokens whose top-k set moved (and the router) printed, every other leaf
    held, and the faulty plain attention over the limit;
+4g. the model mesh — four shards emulated on the card, as phase 3c
+   emulates the data mesh.  (a) ``granite_moe_3b_a800m`` at full width and
+   depth at ``ShardCtx(tp=4)`` (40 experts, ten a shard; vocab padded to
+   49,184) served through ``make_serve_fns`` over ``make_mesh(1, 4,
+   devices=[cuda:0] * 4)`` expert-parallel: a 1,024-token prefill and 16
+   greedy decode steps, beside the same context with no mesh; every
+   decode step split-S in all 32 attention layers and four shard calls a
+   layer, each with its ten experts on its shard's device, the cache's
+   slots sharded four ways; a fresh mesh repeats tokens and last logits bit
+   for bit; layer 0's ``moe_ffn_sharded`` on the model's own inputs under
+   ``set_sync_debug_mode("error")``, against ``moe_ffn`` within 2^-5 of the
+   largest |y| with the same kept and dropped assignments; one split-S
+   decode step of layer 0 within 2e-2 of the dense cached path's largest
+   |out| with the same written cache; the tokens that agree with the
+   no-mesh run and the walls printed, not held.  (b) ``smollm_360m`` at full
+   width, one step of 8 x 4,096 tokens (remat full) over ``make_mesh(4, 1,
+   devices=[cuda:0] * 4)`` and one with microbatch 2 and no mesh from the
+   same state, in turns (mesh, microbatch, microbatch, mesh): params,
+   moments and loss bit for bit, each repeat bit for bit, 256 forward and
+   128 + 128 backward attention launches a step; step ms and peak memory
+   printed;
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2 (segment_reduce with all its contracts), at every shape the
    main path (or the serving phase, or phase 3c's sharded run) gave it;
@@ -3913,8 +3934,8 @@ def training_moe(torch, ops, dev):
 
     dispatch, drops = moe._dispatch, []
 
-    def counting(top_e, e_count, capacity):
-        order, keep, slot = dispatch(top_e, e_count, capacity)
+    def counting(top_e, e_count, capacity, e_first=0):
+        order, keep, slot = dispatch(top_e, e_count, capacity, e_first)
         drops.append((~keep).sum())
         return order, keep, slot
 
@@ -4071,6 +4092,311 @@ def training_moe(torch, ops, dev):
     return {k: launches[k] for k in PER_STEP}
 
 
+# --------------------------------------------------------------------------- #
+# phase 4g: the model mesh, four shards emulated on the card                    #
+# --------------------------------------------------------------------------- #
+
+# granite-MoE served over one data row of four model shards on the one card,
+# expert-parallel (40 experts, ten a shard) with split-S decode against a
+# cache sharded over the shards, against the same context (tp 4: vocab padded
+# to 49,184) with no mesh.  Layer 0's expert-parallel MoE on the model's own
+# inputs within MOE_TOL (2^-5) of the largest |y| of moe_ffn's (the shards'
+# parts add in another order in bf16), its kept and dropped assignments
+# exact; one split-S decode step of layer 0 within SPLIT_TOL of the dense
+# cached path's largest |out| (the bf16 limit of tests/test_torch_attention.py:
+# split-S rounds p to bf16 before the PV product, as the reference does), its
+# written cache bit for bit.
+MESH_TP = 4
+SPLIT_TOL = 2e-2
+# smollm trained over four data rows (one step of 8 x 4,096 tokens, remat
+# full) against one step with microbatch 2 and no mesh: 4 rows x 32 layers x
+# 2 forwards (remat) and 4 x 32 of each backward kernel, in each step
+MESH_DP = 4
+MESH_STEP = {"flash_attention": 256, "flash_attention_wgmma": 256,
+             "flash_attention_bwd_dq": 128, "flash_attention_bwd_dkdv": 128,
+             "flash_attention_bwd_dq_wgmma": 128, "flash_attention_bwd_dkdv_wgmma": 128}
+
+
+def mesh_generate(torch, cfg, model, pre, dec, prompt):
+    """A greedy prefill + N_TOKENS decode steps → (tokens, last logits,
+    prefill ms, ms a decode token), synchronized walls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = pre(model, prompt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = []
+        for t in range(N_TOKENS):
+            nxt = logits[..., :cfg.vocab].argmax(-1).to(torch.int32)
+            outs.append(nxt)
+            pos = torch.tensor(prompt.shape[1] + t, dtype=torch.int32, device=prompt.device)
+            logits, cache = dec(model, cache, nxt[:, None], pos)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (torch.stack(outs, -1), logits, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / N_TOKENS, cache)
+
+
+def mesh_serving(torch, devices):
+    """Phase 4g (a): granite-MoE at full width and depth served over
+    ``make_mesh(1, 4, devices=devices)`` (``[cuda:0] * 4`` in the smoke),
+    expert-parallel, split-S."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, attention, blocks, init_model, moe
+    from repro_torch.serve import make_serve_fns
+
+    cfg = get_config("granite_moe_3b_a800m")
+    ctx = ShardCtx(tp=MESH_TP)
+    e_pad, vocab = cfg.moe.padded_experts(MESH_TP), cfg.padded_vocab(MESH_TP)
+    e_loc = e_pad // MESH_TP
+    mesh = make_mesh(1, MESH_TP, devices=devices)
+    dev = mesh.first
+    t0 = time.perf_counter()
+    model = init_model(cfg, ctx, seed=SERVE_SEED, device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[mesh-serve] {cfg.name} at ShardCtx(tp={MESH_TP}): {e_pad} experts ({e_loc} a "
+          f"shard), vocab padded to {vocab}, {nbytes} bytes, made in "
+          f"{time.perf_counter() - t0} s; mesh {mesh.shape} over {[str(d) for d in mesh.devices]}",
+          flush=True)
+    check(model.embed.tok.shape[1] == vocab and e_pad == 40, "granite at tp 4: the padded shapes")
+    rng = np.random.default_rng(SERVE_SEED)
+    prompt = torch.tensor([rng.integers(0, cfg.vocab, 1024).tolist()], device=dev)
+
+    plain = make_serve_fns(cfg, ctx, capacity=2048)[:2]
+    meshed = make_serve_fns(cfg, ctx, mesh=mesh, capacity=2048, use_ep=True)[:2]
+    toks0, last0, pre0, dec0, _ = mesh_generate(torch, cfg, model, *plain, prompt)
+    # one decode step counted: the split-S calls and each shard's experts
+    calls = {"split": 0, "ep": []}
+    split_fn, ep_fn = attention._split_s_decode, moe.moe_ffn_ep
+
+    def count_split(*args):
+        calls["split"] += 1
+        return split_fn(*args)
+
+    def record_ep(params_local, cfg_, x, ctx_, shard):
+        calls["ep"].append((shard, params_local["w_up"].device, params_local["w_up"].shape[0],
+                            x.device))
+        return ep_fn(params_local, cfg_, x, ctx_, shard)
+
+    toks1, last1, pre1, dec1, cache = mesh_generate(torch, cfg, model, *meshed, prompt)
+    kv = cache["groups"]["p0_attn"]
+    check(isinstance(kv, attention.ShardedKVCache) and len(kv.k) == MESH_TP
+          and all(kv.k[s].device == mesh.device(0, s) and kv.k[s].shape[-2] == 2048 // MESH_TP
+                  for s in range(MESH_TP)),
+          "the mesh cache is not sharded over the four model shards by slot")
+    attention._split_s_decode, moe.moe_ffn_ep = count_split, record_ep
+    try:
+        step_tok = toks1[:, -1:]
+        with torch.no_grad():
+            meshed[1](model, cache, step_tok, torch.tensor(1024 + N_TOKENS, dtype=torch.int32,
+                                                           device=dev))
+    finally:
+        attention._split_s_decode, moe.moe_ffn_ep = split_fn, ep_fn
+    layers = cfg.n_layers
+    check(calls["split"] == layers, f"a decode step ran split-S in {calls['split']} of "
+          f"{layers} attention layers")
+    check(len(calls["ep"]) == layers * MESH_TP and all(
+        dev_w == mesh.device(0, s) and n == e_loc and dev_x == mesh.device(0, s)
+        for s, dev_w, n, dev_x in calls["ep"]) and [c[0] for c in calls["ep"]]
+        == list(range(MESH_TP)) * layers,
+        "a decode step's expert-parallel calls: not four shards a layer, each on its own "
+        "device with its ten experts")
+    print(f"[mesh-serve] one decode step: split-S in {calls['split']} layers, "
+          f"{len(calls['ep'])} expert-parallel shard calls ({MESH_TP} a layer, each with "
+          f"{e_loc} experts on its shard's device); the cache's slots {2048 // MESH_TP} a shard",
+          flush=True)
+
+    # a whole repeat in a fresh mesh: tokens and last logits bit for bit
+    mesh2 = make_mesh(1, MESH_TP, devices=devices)
+    toks2, last2, pre2, dec2, _ = mesh_generate(
+        torch, cfg, model, *make_serve_fns(cfg, ctx, mesh=mesh2, capacity=2048, use_ep=True)[:2],
+        prompt)
+    check(torch.equal(toks2, toks1) and torch.equal(last2, last1),
+          "a repeat in a fresh mesh gave other tokens or last logits")
+    toks3, _, pre3, dec3, _ = mesh_generate(torch, cfg, model, *plain, prompt)
+    check(torch.equal(toks3, toks0), "the no-mesh run repeated other tokens")
+    check(bool(torch.isfinite(last1.float()).all()) and last1.shape[-1] == vocab,
+          "mesh logits not finite or not of the padded vocab")
+    agree = int((toks1 == toks0).sum())
+    print(f"[mesh-serve] a fresh mesh repeated the tokens and last logits bit for bit; "
+          f"{agree} of {N_TOKENS} generated tokens equal the no-mesh run's (random weights "
+          f"route near ties); in the order run: prefill 1,024 tokens, no mesh {pre0} ms, mesh "
+          f"{pre1} / {pre2} ms, no mesh {pre3} ms; decode: no mesh {dec0} ms a token, mesh "
+          f"{dec1} / {dec2}, no mesh {dec3}", flush=True)
+
+    # layer 0 on the model's own inputs: the EP MoE and a split-S decode step
+    seen = {}
+    sharded_fn, attn_fn = blocks.moe_ffn_sharded, blocks.attention_block
+
+    def capture_moe(params, cfg_, x, ctx_, mesh_):
+        seen.setdefault("moe", (params, x.detach().clone()))
+        return sharded_fn(params, cfg_, x, ctx_, mesh_)
+
+    def capture_attn(params, cfg_, x, positions, **kw):
+        seen.setdefault("attn", (params, x.detach().clone(), positions, kw))
+        return attn_fn(params, cfg_, x, positions, **kw)
+
+    blocks.moe_ffn_sharded, blocks.attention_block = capture_moe, capture_attn
+    try:
+        with torch.no_grad():
+            _, cache = meshed[0](model, prompt)
+            seen.pop("attn")
+            meshed[1](model, cache, toks1[:, :1], torch.tensor(1024, dtype=torch.int32,
+                                                             device=dev))
+    finally:
+        blocks.moe_ffn_sharded, blocks.attention_block = sharded_fn, attn_fn
+    params_ep, x = seen["moe"]
+    check(all(params_ep["w_up"][s].device == mesh.device(0, s) and
+              params_ep["w_up"][s].shape[0] == e_loc for s in range(MESH_TP)),
+          "layer 0's expert slices are not on their shards")
+    full = model.groups["p0_attn"].layer(0)["moe"]
+    T = x.shape[0] * x.shape[1]
+    cap = moe.expert_capacity(cfg, T)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            y_ep, aux_ep = moe.moe_ffn_sharded(params_ep, cfg, x, ctx, mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        y_g, aux_g = moe.moe_ffn(full, cfg, x, ctx)
+        _, top_e, _ = moe._route(full, cfg, x.reshape(T, -1), e_pad)
+        _, top_e0, _ = moe._route({"router": full["router"].to(mesh.device(0, 0))}, cfg,
+                                  x.reshape(T, -1), e_pad)
+    check(torch.equal(top_e, top_e0), "layer 0: a shard routed other experts than moe_ffn")
+    order, keep, _ = moe._dispatch(top_e, e_pad, cap)
+    dropped = set(order[~keep].tolist())
+    kept = set()
+    for s in range(MESH_TP):
+        o_s, k_s, _ = moe._dispatch(top_e, e_loc, cap, e_first=s * e_loc)
+        kept |= set(o_s[k_s].tolist())
+    check(kept == set(order[keep].tolist()) and dropped == set(range(T * cfg.moe.top_k)) - kept,
+          "layer 0: the shards kept other assignments than moe_ffn")
+    err = float((y_ep.float() - y_g.float()).abs().max())
+    scale = float(y_g.float().abs().max())
+    check(err <= MOE_TOL * scale, f"layer 0: moe_ffn_sharded vs moe_ffn max |err| {err} over "
+          f"{MOE_TOL} of the largest |y| {scale}")
+    aux_err = {k: abs(float(aux_ep[k]) - float(aux_g[k])) / abs(float(aux_g[k])) for k in aux_g}
+    print(f"[mesh-serve] layer 0, {T} tokens, capacity {cap}: moe_ffn_sharded over "
+          f"{MESH_TP} shards ran under set_sync_debug_mode('error') with no host "
+          f"synchronization; against moe_ffn at the same context: {len(kept)} kept and "
+          f"{len(dropped)} dropped assignments equal, max |err| {err} (limit {MOE_TOL * scale}), "
+          f"aux relative errors {aux_err}", flush=True)
+
+    a_params, a_x, a_pos, a_kw = seen["attn"]
+    sharded = a_kw["cache"]
+    check(isinstance(sharded, attention.ShardedKVCache), "layer 0's decode cache not sharded")
+    with torch.no_grad():
+        out_s, cache_s = attention.attention_block(a_params, cfg, a_x, a_pos, **a_kw)
+        out_d, cache_d = attention.attention_block(
+            a_params, cfg, a_x, a_pos, window=a_kw["window"], cache=sharded.gathered(), ctx=ctx)
+    gathered = cache_s.gathered()
+    check(torch.equal(gathered.k, cache_d.k) and torch.equal(gathered.v, cache_d.v)
+          and int(gathered.pos) == int(cache_d.pos), "layer 0: split-S wrote another cache")
+    err = float((out_s.float() - out_d.float()).abs().max())
+    scale = float(out_d.float().abs().max())
+    check(err <= SPLIT_TOL * scale, f"layer 0: split-S decode vs the dense cached path max "
+          f"|err| {err} over {SPLIT_TOL} of the largest |out| {scale}")
+    print(f"[mesh-serve] layer 0, one decode step at position 1,024: split-S over {MESH_TP} "
+          f"shards against the dense cached path, max |err| {err} (limit {SPLIT_TOL * scale}); "
+          "the written cache equal bit for bit", flush=True)
+    del model, cache, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_training(torch, ops, devices):
+    """Phase 4g (b): smollm at full width, one step over ``make_mesh(4, 1,
+    devices=devices)`` (``[cuda:0] * 4`` in the smoke) and one step with
+    microbatch 2 and no mesh from the same state, each twice: bit for bit;
+    returns the attention launches of the four steps."""
+    from repro_torch.configs import RunConfig, get_config, get_shape
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    cfg = get_config("smollm_360m")
+    base = get_shape("train_4k")
+    shape = ShapeConfig(base.name, base.kind, base.seq_len, TRAIN_BATCH)
+    mesh = make_mesh(MESH_DP, 1, devices=devices)
+    dev = mesh.first
+    runs = {"mesh": RunConfig(model=cfg, shape=shape, dp=MESH_DP, tp=1, remat="full"),
+            "microbatch": RunConfig(model=cfg, shape=shape, dp=1, tp=1, remat="full",
+                                    microbatch=TRAIN_BATCH // MESH_DP)}
+    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=shape.seq_len,
+                                         batch=TRAIN_BATCH, seed=0), 0), dev)
+    out, launches, total = {}, {}, {k: 0 for k in TRAINING}
+    # in turns (mesh, microbatch, microbatch, mesh): the first of each is
+    # kept for the bit-for-bit check, the second must repeat it
+    for name in ("mesh", "microbatch", "microbatch", "mesh"):
+        run = runs[name]
+        step_fn, _ = make_train_step(cfg, run, mesh=mesh if name == "mesh" else None)
+        model, opt_state = init_train_state(cfg, run, seed=TRAIN_SEED, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, opt_state, metrics = step_fn(model, opt_state, batch)
+        loss = float(metrics["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[name] = ops.launch_counts()
+        for k in TRAINING:
+            total[k] += launches[name][k]
+        peak = torch.cuda.max_memory_allocated()
+        state = ({"params": model.tree(), "opt": opt_state}, metrics["loss"])
+        if name in out:
+            check(tree_bytes_equal(torch, state[0], out[name][0]) and torch.equal(
+                state[1], out[name][1]), f"the {name} step repeated gave another state")
+        else:
+            out[name] = state
+        del state
+        print(f"[mesh-train] {cfg.name}, one step of {TRAIN_BATCH} x {shape.seq_len} tokens "
+              f"({name}: " + (f"{MESH_DP} data rows on {[str(d) for d in mesh.devices]}"
+                              if name == "mesh" else
+                              f"microbatch {run.microbatch}, no mesh")
+              + f"): {ms} ms, loss {loss}, peak device memory {peak} bytes; launches "
+              + json.dumps({k: launches[name][k] for k in MESH_STEP}), flush=True)
+        for k, n in MESH_STEP.items():
+            check(launches[name][k] == n, f"{name} step: {k} launched {launches[name][k]} "
+                  f"times, not {n}")
+        check(math.isfinite(loss), f"{name} step: loss not finite")
+        del model, opt_state
+    (a, la), (b, lb) = out["mesh"], out["microbatch"]
+    check(tree_bytes_equal(torch, a, b) and torch.equal(la, lb), "the step over four data rows "
+          "is not the microbatch-2 step bit for bit (params, moments or loss)")
+    print("[mesh-train] the step over four data rows equals the microbatch-2 step bit for bit: "
+          "params, both moments, the step count and the loss", flush=True)
+    del out, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def mesh_phase(torch, ops, devices):
+    """Phase 4g: the model mesh over four ``devices`` (``[cuda:0] * 4`` in
+    the smoke: four shards emulated on the card); returns its attention
+    launches."""
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()  # counts start at 0 just before the phase's paths
+    mesh_serving(torch, devices)
+    served = ops.launch_counts()
+    attn = {k: v for k, v in served.items() if k.startswith("flash_attention")}
+    check(not any(attn.values()), f"the mesh serving path launched attention kernels {attn}; "
+          "the cached branch and split-S are plain paths")
+    launches = mesh_training(torch, ops, devices)
+    print(f"[mesh] flash_attention launches in phase 4g: " + json.dumps(launches)
+          + f"; phase took {time.perf_counter() - t0} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4180,11 +4506,15 @@ def main() -> int:
     print(f"[train-rg] phase took {time.perf_counter() - t0} s", flush=True)
 
     # -- phase 4f: training granite-MoE through the train launcher; the
-    # attention launches on the JSON line are those of 3b, 4c, 4e and 4f
+    # attention launches on the JSON line are those of 3b, 4c, 4e, 4f and 4g
     t0 = time.perf_counter()
     for kernel, n in training_moe(torch, ops, dev).items():
         launches[kernel] += n
     print(f"[train-moe] phase took {time.perf_counter() - t0} s", flush=True)
+
+    # -- phase 4g: the model mesh, four shards emulated on the card
+    for kernel, n in mesh_phase(torch, ops, [dev] * MESH_TP).items():
+        launches[kernel] += n
 
     # -- phase 5: kernel vs plain, then timing, at the main path's shapes
     t0 = time.perf_counter()

@@ -1,5 +1,6 @@
-"""repro_torch.launch — the train and serve launchers
-(``python -m repro_torch.launch.train``, ``python -m repro_torch.launch.serve``).
+"""repro_torch.launch — the model mesh (``launch.mesh``) and the train and
+serve launchers (``python -m repro_torch.launch.train``, ``python -m
+repro_torch.launch.serve``).
 
-The reference's mesh, dry-run, probe and roofline tools need a device mesh
-or analyse XLA HLO; they are not ported (ROADMAP A7, A8)."""
+The reference's dry-run, probe, roofline and spec tools analyse XLA HLO
+against TPU constants; they are not ported yet (ROADMAP A8)."""

@@ -4,9 +4,10 @@ The reference launcher's flags and defaults, plus ``--device``: the run is
 on the CUDA card unless ``--device cpu`` asks for the CPU.  It trains the
 smoke-scale variant of the architecture, or the full config with
 ``--full-config``, through ``train_loop`` (real steps, checkpoints,
-resume).  The port runs on one device: ``--dp × --tp × --pods > 1`` asks
-for a mesh, which it does not have until ROADMAP A7, so it exits with an
-error instead of training on one device.
+resume).  ``--dp × --tp × --pods > 1`` trains over a model mesh
+(``launch.mesh.make_mesh``): over the host's first cards, or, with
+``--device cpu``, over that many emulated shards on the CPU; a host with
+too few cards is refused, naming both counts.
 
 ``main(argv)`` returns the loop's ``LoopStats``, so a caller can drive it
 in-process.
@@ -17,11 +18,13 @@ import argparse
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..configs import RunConfig, get_config, get_smoke_config
 from ..configs.base import ShapeConfig
 from ..data import SynthSpec
 from ..train import AdamWConfig, LoopStats, train_loop
+from .mesh import make_mesh
 
 
 def parser() -> argparse.ArgumentParser:
@@ -53,10 +56,14 @@ def main(argv: Optional[Sequence[str]] = None) -> LoopStats:
     ap = parser()
     args = ap.parse_args(argv)
     devices = args.dp * args.tp * args.pods
+    mesh = None
     if devices > 1:
-        ap.error(f"--dp {args.dp} --tp {args.tp} --pods {args.pods} asks for a mesh of "
-                 f"{devices} devices; the port trains on one device until ROADMAP A7 "
-                 "ports the mesh")
+        on_cpu = torch.device(args.device).type == "cpu"
+        try:
+            mesh = make_mesh(args.dp, args.tp, args.pods,
+                             devices=[args.device] * devices if on_cpu else None)
+        except RuntimeError as exc:
+            ap.error(f"--dp {args.dp} --tp {args.tp} --pods {args.pods}: {exc}")
 
     cfg = get_config(args.arch) if args.full_config else get_smoke_config(args.arch)
     shape = ShapeConfig("cli", "train", seq_len=args.seq, global_batch=args.batch)
@@ -75,7 +82,7 @@ def main(argv: Optional[Sequence[str]] = None) -> LoopStats:
         cfg, run, data, total_steps=args.steps, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, opt=opt, seed=args.seed,
         fail_at_step=args.fail_at_step, log_every=max(1, args.steps // 10),
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
     print(
         f"steps={stats.steps} loss {np.mean(stats.losses[:5]):.4f} -> "

@@ -4,14 +4,23 @@ KV caches (full, sliding-window ring buffer).
 Without a cache (training, a cache-free forward) the block runs
 ``kernels.ops.attention``: the flash_attention kernels and their backward on
 the card.  With a cache (prefill and decode) it appends to the cache and
-attends densely in float32, as the reference does.  The reference's split-S
-decode over a sequence-sharded cache exists only under a ``tp > 1`` mesh and
-is not ported (ROADMAP A7).
+attends densely in float32, as the reference does.
+
+Split-S decode (FlashDecoding-style), under the reference's condition: one
+token, a model mesh with ``tp > 1``, a contiguous cache (not the window
+ring) whose capacity divides by ``tp``.  The cache is then a
+:class:`ShardedKVCache`: model shard ``s`` holds slots ``[s·c_loc,
+(s+1)·c_loc)`` on its own device, writes the new token there if the slot is
+its own, and computes a partial attention over its slice
+(:func:`partial_decode_attention`); only the partials ``(o, m, l)`` go to
+the row's first device, where :func:`combine_partial_attention` adds them
+in shard order.  A prefill into a sharded cache runs the dense cached path
+on the gathered cache and puts the written cache back on its shards.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,11 +33,13 @@ from .layers import apply_rope, compute_dtype, rms_head_norm, rope_freqs
 def attn_spec(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     qh, kvh, hd = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    tp_ok = cfg.attn_tp_eligible(ctx.tp)
+    kv_ok = cfg.kv_sharded(ctx.tp)
     out = {
-        "wq": matrix_spec(ctx, (d, qh * hd)),
-        "wk": matrix_spec(ctx, (d, kvh * hd)),
-        "wv": matrix_spec(ctx, (d, kvh * hd)),
-        "wo": matrix_spec(ctx, (qh * hd, d)),
+        "wq": matrix_spec(ctx, (d, qh * hd), tp_dim=1 if tp_ok else None, fsdp_dim=0),
+        "wk": matrix_spec(ctx, (d, kvh * hd), tp_dim=1 if kv_ok else None, fsdp_dim=0),
+        "wv": matrix_spec(ctx, (d, kvh * hd), tp_dim=1 if kv_ok else None, fsdp_dim=0),
+        "wo": matrix_spec(ctx, (qh * hd, d), tp_dim=0 if tp_ok else None, fsdp_dim=1),
     }
     if cfg.qk_norm:
         out["q_norm"] = replicated_spec((hd,), "ones")
@@ -52,10 +63,60 @@ class KVCache:
         return (self.k, self.v, self.pos)
 
 
+@dataclass
+class ShardedKVCache:
+    """A contiguous cache split along its slots over a data row's model
+    shards: ``k[s]`` and ``v[s]`` (B, Hkv, C / tp, D) hold slots
+    ``[s·C/tp, (s+1)·C/tp)`` on shard ``s``'s device; ``pos`` lies on the
+    row's first device."""
+
+    k: Tuple[torch.Tensor, ...]
+    v: Tuple[torch.Tensor, ...]
+    pos: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return sum(t.shape[2] for t in self.k)
+
+    def tensors(self):
+        return (*self.k, *self.v, self.pos)
+
+    @classmethod
+    def split(cls, cache: KVCache, devices: Sequence[torch.device]) -> "ShardedKVCache":
+        c = cache.capacity // len(devices)
+
+        def parts(buf):
+            return tuple(buf[:, :, s * c:(s + 1) * c].to(dev).contiguous()
+                         for s, dev in enumerate(devices))
+
+        return cls(parts(cache.k), parts(cache.v), cache.pos)
+
+    def gathered(self) -> KVCache:
+        dev = self.pos.device
+        return KVCache(k=torch.cat([t.to(dev) for t in self.k], dim=2),
+                       v=torch.cat([t.to(dev) for t in self.v], dim=2), pos=self.pos)
+
+
+def split_s_eligible(capacity: int, window: Optional[int], tp: int) -> bool:
+    """The reference's condition for split-S decode, less the one token:
+    ``tp > 1`` and a contiguous cache (not the window ring) whose capacity
+    divides by ``tp``."""
+    return tp > 1 and (window is None or capacity != window) and capacity % tp == 0
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, window: Optional[int] = None,
-                  device=None) -> KVCache:
+                  device=None, shards: Optional[Sequence[torch.device]] = None):
+    """A zero cache on ``device``; given a data row's model ``shards`` where
+    split-S decode applies, a :class:`ShardedKVCache` over them (``pos`` on
+    the first)."""
     cap = min(capacity, window) if window else capacity
     dt = compute_dtype(cfg)
+    if shards is not None and split_s_eligible(cap, window, len(shards)):
+        shape = (batch, cfg.n_kv_heads, cap // len(shards), cfg.head_dim)
+        return ShardedKVCache(
+            k=tuple(torch.zeros(shape, dtype=dt, device=d) for d in shards),
+            v=tuple(torch.zeros(shape, dtype=dt, device=d) for d in shards),
+            pos=torch.zeros((), dtype=torch.int32, device=shards[0]))
     shape = (batch, cfg.n_kv_heads, cap, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                    v=torch.zeros(shape, dtype=dt, device=device),
@@ -93,16 +154,31 @@ def attention_block(
     x: torch.Tensor,  # (B, S, d)
     positions: torch.Tensor,  # (B, S)
     window: Optional[int] = None,
-    cache: Optional[KVCache] = None,
+    cache=None,
+    mesh=None,
     ctx: Optional[ShardCtx] = None,
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Full-sequence (train / prefill) or cached (decode) attention."""
-    if ctx is not None and ctx.tp > 1:
-        raise NotImplementedError("attention under tensor parallelism (split-S decode) is "
-                                  "not ported (ROADMAP A7)")
+):
+    """Full-sequence (train / prefill) or cached (decode) attention.
+    ``mesh``: the data row's model mesh (one data row; ``lm.forward``
+    splits a batch over the rows)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)
+    if mesh is not None and mesh.dp_total != 1:
+        raise ValueError(f"attention_block runs one data row; the mesh has {mesh.dp_total}")
 
+    use_split_s = (cache is not None and S == 1 and mesh is not None and ctx is not None
+                   and ctx.tp > 1 and split_s_eligible(cache.capacity, window, ctx.tp))
+    if use_split_s:
+        if isinstance(cache, KVCache):
+            cache = ShardedKVCache.split(cache, mesh.row_devices(0))
+        out, new_cache = _split_s_decode(q * (cfg.head_dim ** -0.5), k, v, cache)
+        out = out.to(x.dtype)[:, :, None, :]  # (B, Hq, 1, D)
+        out = out.transpose(1, 2).reshape(B, S, cfg.n_q_heads * cfg.head_dim)
+        return out @ params["wo"].to(x.dtype), new_cache
+
+    sharded = cache if isinstance(cache, ShardedKVCache) else None
+    if sharded is not None:
+        cache = sharded.gathered()
     if cache is None:
         out = kops.attention(q, k, v, causal=True, window=window)
         new_cache = None
@@ -136,6 +212,80 @@ def attention_block(
         logits = logits.masked_fill(~valid[None, None], float("-inf"))
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(x.dtype)
+        if sharded is not None:  # the written cache back on its shards
+            new_cache = ShardedKVCache.split(new_cache, [t.device for t in sharded.k])
 
     out = out.transpose(1, 2).reshape(B, S, cfg.n_q_heads * cfg.head_dim)
     return out @ params["wo"].to(x.dtype), new_cache
+
+
+def _split_s_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cache: ShardedKVCache) -> Tuple[torch.Tensor, ShardedKVCache]:
+    """One token against a slot-sharded cache: q (B, Hq, 1, D) scaled and
+    roped, k / v (B, Hkv, 1, D) the token's → ((B, Hq, D) float32 on the
+    row's first device, the written cache).  Each shard writes the token
+    if its slot (``pos``, clamped into the cache as XLA clamps an update)
+    is its own, and attends over its written slots; the partials combine
+    on the first device in shard order."""
+    first = cache.pos.device
+    c = cache.k[0].shape[2]
+    slot = torch.clamp(cache.pos.to(torch.int64), 0, cache.capacity - 1)
+    ks, vs, parts = [], [], []
+    for s, (k_s, v_s) in enumerate(zip(cache.k, cache.v)):
+        dev = k_s.device
+        slots = s * c + torch.arange(c, device=dev)
+        hit = (slots == slot.to(dev))[None, None, :, None]
+        k_s = torch.where(hit, k.to(device=dev, dtype=k_s.dtype), k_s)
+        v_s = torch.where(hit, v.to(device=dev, dtype=v_s.dtype), v_s)
+        valid = (slots <= cache.pos.to(dev))[None, :].expand(q.shape[0], c)
+        o, m, l = partial_decode_attention(q.to(dev), k_s, v_s, valid)
+        parts.append((o.to(first), m.to(first), l.to(first)))
+        ks.append(k_s)
+        vs.append(v_s)
+    out = combine_partial_attention(*zip(*parts))
+    return out, ShardedKVCache(tuple(ks), tuple(vs), cache.pos + 1)
+
+
+# ------------------------------------------------- split-S decode (serving) --
+
+
+def partial_decode_attention(q: torch.Tensor, k_shard: torch.Tensor, v_shard: torch.Tensor,
+                             valid: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FlashDecoding-style partial attention over one cache shard: q (B,
+    Hq, 1, D) scaled and roped, k / v (B, Hkv, C_shard, D), valid (B,
+    C_shard) → (o (B, Hq, D), m (B, Hq), l (B, Hq)), float32, combinable
+    across shards.  GQA groups the q heads over the cache's heads; the
+    logits and the PV product sum in float32 over the cache's values, and
+    p is cast to the cache's type before the PV product, as in the
+    reference.  A shard with no valid slot gives m = -1e30, l = 0, o = 0."""
+    B, Hq, _, D = q.shape
+    Hkv = k_shard.shape[1]
+    qg = q[:, :, 0, :].reshape(B, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_shard.float())
+    mask = valid[:, None, None]
+    logits = logits.masked_fill(~mask, float("-inf"))
+    m = logits.amax(-1)  # (B, Hkv, G)
+    p = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
+    l = p.sum(-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p.to(k_shard.dtype).float(), v_shard.float())
+    safe_m = torch.where(torch.isfinite(m), m, -1e30)
+    return o.reshape(B, Hq, D), safe_m.reshape(B, Hq), l.reshape(B, Hq)
+
+
+def combine_partial_attention(os: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
+                              ls: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The shards' partials (in shard order, on one device) combined with
+    the global running max: Σ o_i·exp(m_i − m) / max(Σ l_i·exp(m_i − m),
+    1e-30), the sums added in shard order (the reference's ``pmax`` and
+    ``psum`` over the model axis)."""
+    m_glob = ms[0]
+    for m in ms[1:]:
+        m_glob = torch.maximum(m_glob, m)
+    o_sum = l_sum = None
+    for o, m, l in zip(os, ms, ls):
+        scale = torch.exp(m - m_glob)
+        o_s, l_s = o * scale[..., None], l * scale
+        o_sum = o_s if o_sum is None else o_sum + o_s
+        l_sum = l_s if l_sum is None else l_sum + l_s
+    return o_sum / torch.clamp(l_sum, min=1e-30)[..., None]

@@ -6,13 +6,20 @@ used); :func:`init_params` materialises tensors from it with a seeded
 ``torch.Generator``.  Serving stores a cast-at-use parameter in the compute
 type; training (``master=True``) stores every leaf in float32, as the
 reference does, and casts at use, so AdamW's small updates are not lost to
-bf16 rounding.  The port runs on one device, so the reference's
-sharding annotations reduce to :class:`ShardCtx` with ``tp = 1``.
+bf16 rounding.
+
+Each spec carries the reference's placement: one entry per dimension,
+``None``, the model axis, or the data axes (``"data"``, or ``("pod",
+"data")``), equal to ``tuple(pspec)`` of the reference's ``PartitionSpec``
+(Megatron TP over ``model``, ZeRO/FSDP over the data axes where the
+dimension divides).  The single-controller mesh (``launch/mesh.py``) keeps
+the experts' slices on their model shards and replicates the rest on each
+data row; the placements are what the reference's dry-run shards.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,10 +27,21 @@ import torch
 
 @dataclass(frozen=True)
 class ShardCtx:
-    """Mesh-shape context of the reference; the port is single-device, so
-    only the tensor-parallel degree (which pads the vocab) is left."""
+    """Mesh-shape context: axis names and sizes (no live mesh needed)."""
 
     tp: int = 1
+    dp: int = 1
+    pods: int = 1
+    model_axis: str = "model"
+    data_axes: Tuple[str, ...] = ("data",)  # ("pod", "data") for multi-pod
+
+    @property
+    def dp_total(self) -> int:
+        return self.dp * self.pods
+
+    def data_spec(self):
+        """The combined data-parallel axes: one name, or a tuple of them."""
+        return self.data_axes if len(self.data_axes) > 1 else self.data_axes[0]
 
 
 SINGLE = ShardCtx()
@@ -36,6 +54,8 @@ class ParamSpec:
     # the reference casts it to the compute type where it is used
     # (``.astype(dt)``), so the port stores it in that type
     at_use: bool = False
+    # one entry a dimension: None, a mesh axis name or a tuple of them
+    placement: Tuple[Any, ...] = ()
 
     def dtype(self, compute: torch.dtype, master: bool = False) -> torch.dtype:
         return compute if self.at_use and not master else torch.float32
@@ -52,14 +72,40 @@ class ParamSpec:
         return (out * scale).to(dt)
 
 
-def matrix_spec(ctx: ShardCtx, shape: Tuple[int, ...], init: str = "normal") -> ParamSpec:
-    """A weight matrix (the reference shards it; it casts it at use)."""
-    return ParamSpec(shape=tuple(shape), init=init, at_use=True)
+def _divides(dim: int, parts: int) -> bool:
+    return parts > 0 and dim % parts == 0
+
+
+def fsdp_axis(ctx: ShardCtx, dim: int):
+    """Shard ``dim`` over the data axes if it divides; else replicate."""
+    if ctx.dp_total > 1 and _divides(dim, ctx.dp_total):
+        return ctx.data_spec()
+    return None
+
+
+def tp_axis(ctx: ShardCtx, dim: int):
+    if ctx.tp > 1 and _divides(dim, ctx.tp):
+        return ctx.model_axis
+    return None
+
+
+def matrix_spec(ctx: ShardCtx, shape: Tuple[int, ...], tp_dim: Optional[int],
+                fsdp_dim: Optional[int], init: str = "normal", at_use: bool = True
+                ) -> ParamSpec:
+    """A weight matrix with one TP-sharded dim and one FSDP-sharded dim; the
+    reference casts it to the compute type at use unless ``at_use`` is
+    False (the RG-LRU gates, which it uses in float32)."""
+    axes: list = [None] * len(shape)
+    if tp_dim is not None:
+        axes[tp_dim] = tp_axis(ctx, shape[tp_dim])
+    if fsdp_dim is not None and axes[fsdp_dim] is None:
+        axes[fsdp_dim] = fsdp_axis(ctx, shape[fsdp_dim])
+    return ParamSpec(shape=tuple(shape), init=init, at_use=at_use, placement=tuple(axes))
 
 
 def replicated_spec(shape: Tuple[int, ...], init: str = "ones") -> ParamSpec:
     """A small replicated parameter, used in float32."""
-    return ParamSpec(shape=tuple(shape), init=init)
+    return ParamSpec(shape=tuple(shape), init=init, placement=(None,) * len(shape))
 
 
 # ------------------------------------------------------------------ trees --
@@ -90,9 +136,20 @@ def init_params(tree, seed: int, compute: torch.dtype, device,
     return tree_map(lambda s: s.materialise(gen, compute, device, master), tree)
 
 
+def stack_specs(spec: ParamSpec, n: int) -> ParamSpec:
+    """Prepend a layer-stack dimension of ``n``, replicated across the mesh."""
+    return replace(spec, shape=(n,) + spec.shape, placement=(None,) + spec.placement)
+
+
 def stack_tree(tree, n: int):
-    """Prepend a layer-stack dimension of ``n`` to every spec."""
-    return tree_map(lambda s: replace(s, shape=(n,) + s.shape), tree)
+    return tree_map(lambda s: stack_specs(s, n), tree)
+
+
+def tree_specs_to_shapes(tree):
+    """ParamSpec tree → (a tree of float32 ``meta`` tensors of its shapes,
+    the tree of its placements); nothing is allocated."""
+    shapes = tree_map(lambda s: torch.empty(s.shape, dtype=torch.float32, device="meta"), tree)
+    return shapes, tree_map(lambda s: s.placement, tree)
 
 
 def tree_flatten(tree, prefix: Tuple[str, ...] = ()):

@@ -3,7 +3,7 @@ local-attention blocks with their MLP or MoE feed-forward, the SSD block,
 and the RG-LRU block with its MLP."""
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -12,7 +12,7 @@ from ..configs.base import ModelConfig
 from .base import ShardCtx, tree_index
 from .attention import attention_block, attn_spec, init_kv_cache
 from .layers import apply_mlp, apply_norm, mlp_spec, norm_spec
-from .moe import moe_ffn, moe_spec
+from .moe import EXPERT_LEAVES, moe_ffn, moe_ffn_sharded, moe_spec
 from .rglru import init_rglru_cache, rglru_block, rglru_spec
 from .ssd import init_ssd_cache, ssd_block, ssd_spec
 
@@ -35,10 +35,13 @@ def block_spec(btype: str, cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, Any]:
     raise ValueError(f"unknown block type {btype!r}")
 
 
-def init_block_cache(btype: str, cfg: ModelConfig, batch: int, capacity: int, device):
+def init_block_cache(btype: str, cfg: ModelConfig, batch: int, capacity: int, device,
+                     shards: Optional[Sequence[torch.device]] = None):
+    """``shards``: a data row's model shards, over which an attention cache
+    that split-S decode reads is split."""
     if btype in ATTENTION:
         window = cfg.window if btype == "attn" else cfg.local_window
-        return init_kv_cache(cfg, batch, capacity, window=window, device=device)
+        return init_kv_cache(cfg, batch, capacity, window=window, device=device, shards=shards)
     if btype == "ssd":
         return init_ssd_cache(cfg, batch, device)
     if btype == "rglru":
@@ -54,17 +57,24 @@ def block_fwd(
     positions: torch.Tensor,
     ctx: ShardCtx,
     cache=None,
+    use_ep: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
-    """One pre-norm residual block → (x, new cache, aux losses)."""
+    """One pre-norm residual block → (x, new cache, aux losses).  ``mesh``:
+    the data row's model mesh; ``use_ep`` runs the MoE expert-parallel
+    over it."""
     aux: Dict[str, torch.Tensor] = {}
     if btype in ATTENTION:
         window = cfg.window if btype == "attn" else cfg.local_window
         h, new_cache = attention_block(params["attn"], cfg, apply_norm(params["norm1"], cfg, x),
-                                       positions, window=window, cache=cache, ctx=ctx)
+                                       positions, window=window, cache=cache, mesh=mesh, ctx=ctx)
         x = x + h
         h2_in = apply_norm(params["norm2"], cfg, x)
         if cfg.moe is not None:
-            h2, aux = moe_ffn(params["moe"], cfg, h2_in, ctx)
+            if use_ep and mesh is not None:
+                h2, aux = moe_ffn_sharded(params["moe"], cfg, h2_in, ctx, mesh)
+            else:
+                h2, aux = moe_ffn(params["moe"], cfg, h2_in, ctx)
         else:
             h2 = apply_mlp(params["mlp"], cfg, h2_in)
         return x + h2, new_cache, aux
@@ -108,6 +118,22 @@ class Block(ParamTree):
         super().__init__(tree, trainable)
         self.btype, self.cfg, self.stacked = btype, cfg, stacked
 
-    def forward(self, x, positions, ctx: ShardCtx, layer: int = 0, cache=None):
-        params = tree_index(self.tree(), layer) if self.stacked else self.tree()
-        return block_fwd(self.btype, params, self.cfg, x, positions, ctx, cache=cache)
+    def layer(self, layer: int):
+        return tree_index(self.tree(), layer) if self.stacked else self.tree()
+
+    def forward(self, x, positions, ctx: ShardCtx, layer: int = 0, cache=None, mesh=None,
+                use_ep: bool = False, shards: Optional[Sequence["Block"]] = None):
+        """``shards``: this block on each model shard's device (the model's
+        replicas there), whose expert slices the shards compute with."""
+        params = self.layer(layer)
+        if shards is not None and "moe" in params:
+            moe = dict(params["moe"])
+            on_shard = [b.layer(layer)["moe"] for b in shards]
+            for name in EXPERT_LEAVES:
+                if name in moe:
+                    e_loc = moe[name].shape[0] // len(shards)
+                    moe[name] = tuple(m[name][s * e_loc:(s + 1) * e_loc]
+                                      for s, m in enumerate(on_shard))
+            params = dict(params, moe=moe)
+        return block_fwd(self.btype, params, self.cfg, x, positions, ctx, cache=cache,
+                         use_ep=use_ep, mesh=mesh)

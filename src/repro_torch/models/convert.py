@@ -18,16 +18,17 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .base import resolve_device
+from .base import SINGLE, ShardCtx, resolve_device
 from .layers import compute_dtype
 from .lm import LM, model_spec
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None,
-                      trainable: bool = False) -> LM:
+                      trainable: bool = False, ctx: ShardCtx = SINGLE) -> LM:
     """``tree``: the reference's parameter tree with numpy leaves
-    (``jax.tree.map(np.asarray, params)``) → the port's model on ``device``
-    (the card unless asked), in the serving storage or, ``trainable``, the
+    (``jax.tree.map(np.asarray, params)``), made at ``ctx`` (whose ``tp``
+    pads the vocab and the experts) → the port's model on ``device`` (the
+    card unless asked), in the serving storage or, ``trainable``, the
     training storage."""
     dev = resolve_device(device)
     compute = compute_dtype(cfg)
@@ -47,4 +48,4 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None,
             out[key] = torch.from_numpy(a).to(device=dev, dtype=s.dtype(compute, trainable))
         return out
 
-    return LM(cfg, walk(model_spec(cfg), tree, ""), trainable=trainable)
+    return LM(cfg, walk(model_spec(cfg, ctx), tree, ""), ctx, trainable=trainable)

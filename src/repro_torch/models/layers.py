@@ -78,9 +78,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def mlp_spec(cfg: ModelConfig, ctx: ShardCtx):
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_type in ("swiglu", "geglu"):
-        return {"w_gate": matrix_spec(ctx, (d, f)), "w_up": matrix_spec(ctx, (d, f)),
-                "w_down": matrix_spec(ctx, (f, d))}
-    return {"w_up": matrix_spec(ctx, (d, f)), "w_down": matrix_spec(ctx, (f, d))}
+        return {"w_gate": matrix_spec(ctx, (d, f), tp_dim=1, fsdp_dim=0),
+                "w_up": matrix_spec(ctx, (d, f), tp_dim=1, fsdp_dim=0),
+                "w_down": matrix_spec(ctx, (f, d), tp_dim=0, fsdp_dim=1)}
+    return {"w_up": matrix_spec(ctx, (d, f), tp_dim=1, fsdp_dim=0),
+            "w_down": matrix_spec(ctx, (f, d), tp_dim=0, fsdp_dim=1)}
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -106,9 +108,11 @@ def apply_mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def embed_spec(cfg: ModelConfig, ctx: ShardCtx):
     v = cfg.padded_vocab(ctx.tp)
     d = cfg.d_model
-    out = {"tok": matrix_spec(ctx, (cfg.n_codebooks, v, d), init="normal:0.02")}
+    out = {"tok": matrix_spec(ctx, (cfg.n_codebooks, v, d), tp_dim=1, fsdp_dim=2,
+                              init="normal:0.02")}
     if not cfg.tie_embeddings:
-        out["head"] = matrix_spec(ctx, (d, cfg.n_codebooks * v), init="normal:0.02")
+        out["head"] = matrix_spec(ctx, (d, cfg.n_codebooks * v), tp_dim=1, fsdp_dim=0,
+                                  init="normal:0.02")
     return out
 
 

@@ -6,11 +6,21 @@ for remainder layers), held by the :class:`LM` module.  The reference scans
 over the groups; here the layers are a loop over them, each group
 optionally rematerialised in the backward (``remat``).  Caches are stacked
 the same way.  :func:`lm_loss` is the training loss.
+
+Over a model mesh (``launch/mesh.py``), single-controller: each data row
+runs the model on its own slice of the batch on its own first device, with
+the model's :func:`replica` there (the model itself where it lies there),
+and the logits gather onto the mesh's first device in row order.  Within a
+row, ``use_ep`` runs each MoE layer expert-parallel over the row's model
+shards, and attention decodes split-S against a cache sharded over them.
+The reference's ``_constrain`` (a sharding hint with no effect on the
+answer) has no counterpart.
 """
 from __future__ import annotations
 
 from contextlib import nullcontext
-from typing import Any, Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -18,7 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from .attention import KVCache
+from ..launch.mesh import indexed_device
+from .attention import KVCache, ShardedKVCache
 from .base import SINGLE, ShardCtx, init_params, resolve_device, stack_tree, tree_map
 from .blocks import Block, ParamTree, block_spec, init_block_cache
 from .layers import apply_norm, compute_dtype, embed_spec, embed_tokens, lm_logits, norm_spec
@@ -81,9 +92,47 @@ class LM(nn.Module):
         return self.embed.tok.device
 
     def forward(self, tokens, cache=None, start_pos=None, remat: bool = False,
-                vis_embeds=None):
-        return forward(self, self.cfg, tokens, self.ctx, cache=cache, start_pos=start_pos,
-                       remat=remat, vis_embeds=vis_embeds)
+                vis_embeds=None, mesh=None, use_ep: bool = False):
+        return forward(self, self.cfg, tokens, self.ctx, mesh=mesh, cache=cache,
+                       start_pos=start_pos, remat=remat, vis_embeds=vis_embeds, use_ep=use_ep)
+
+
+def replica(model: LM, device) -> LM:
+    """The model's parameters on ``device``: the model itself where it lies
+    there (no copy), else a copy made the first time and kept on the model
+    (trainable if the model is), which :func:`sync_replicas` refreshes
+    after an update.  A replica's replica is the model's."""
+    model = model.__dict__.get("_master", model)
+    dev = indexed_device(device)
+    if model.device == dev:
+        return model
+    reps = model.__dict__.setdefault("_replicas", {})
+    if dev not in reps:
+        trainable = next(model.parameters()).requires_grad
+        with torch.no_grad():
+            tree = tree_map(lambda t: t.detach().to(dev, copy=True), model.tree())
+        rep = LM(model.cfg, tree, model.ctx, trainable=trainable)
+        rep.__dict__["_master"] = model
+        reps[dev] = rep
+    return reps[dev]
+
+
+def sync_replicas(model: LM) -> None:
+    """Copy the model's parameters into each of its replicas."""
+    with torch.no_grad():
+        for rep in model.__dict__.get("_replicas", {}).values():
+            for p, q in zip(rep.parameters(), model.parameters()):
+                p.copy_(q)
+
+
+def data_rows(mesh, cfg: ModelConfig, batch: int, use_ep: bool = False) -> int:
+    """How many data rows of ``mesh`` split a batch of ``batch``: all of
+    them when they divide it and the rows are independent (a dense model,
+    or MoE run expert-parallel, which routes each row at its own capacity as
+    the reference's EP does); else one, the first, which takes the whole
+    batch (a global-semantics MoE routes the whole batch at one capacity)."""
+    n = mesh.dp_total
+    return n if n > 1 and batch % n == 0 and (cfg.moe is None or use_ep) else 1
 
 
 def init_model(cfg: ModelConfig, ctx: ShardCtx = SINGLE, seed: int = 0, device=None,
@@ -100,34 +149,63 @@ def init_model(cfg: ModelConfig, ctx: ShardCtx = SINGLE, seed: int = 0, device=N
 # ------------------------------------------------------------------- cache --
 
 
+@dataclass
+class RowCaches:
+    """A cache tree for each data row of a mesh that splits the batch."""
+
+    rows: List[Any]
+
+
 def _stack(caches):
     first = caches[0]
+    if isinstance(first, ShardedKVCache):
+        return ShardedKVCache(tuple(torch.stack(ts) for ts in zip(*(c.k for c in caches))),
+                              tuple(torch.stack(ts) for ts in zip(*(c.v for c in caches))),
+                              torch.stack([c.pos for c in caches]))
     if isinstance(first, _CACHES):
         return type(first)(*(torch.stack(ts) for ts in zip(*(c.tensors() for c in caches))))
     raise TypeError(f"no stacking rule for {type(first).__name__}")
 
 
 def _index(cache, i: int):
+    if isinstance(cache, ShardedKVCache):
+        return ShardedKVCache(tuple(t[i] for t in cache.k), tuple(t[i] for t in cache.v),
+                              cache.pos[i])
     if isinstance(cache, _CACHES):
         return type(cache)(*(t[i] for t in cache.tensors()))
     raise TypeError(f"no indexing rule for {type(cache).__name__}")
 
 
-def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None):
-    """Per-layer caches, stacked like the parameters."""
-    dev = resolve_device(device)
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None, mesh=None,
+               use_ep: bool = False):
+    """Per-layer caches, stacked like the parameters, on ``device`` (the
+    card unless asked).  Over a ``mesh``: one cache tree a data row where
+    :func:`data_rows` splits the batch (:class:`RowCaches`), each on its
+    row's first device, with the caches that split-S decode reads sharded
+    over the row's model shards."""
+    shards = None
+    if mesh is not None:
+        rows = data_rows(mesh, cfg, batch, use_ep)
+        if rows > 1:
+            return RowCaches([init_cache(cfg, batch // rows, capacity, mesh=mesh.row(r))
+                              for r in range(rows)])
+        shards = mesh.row_devices(0)
+        dev = shards[0]
+    else:
+        dev = resolve_device(device)
     n_groups, n_extra = cfg.pattern_groups
     pattern = cfg.block_pattern
     cache: Dict[str, Any] = {}
     if n_groups > 0:
         cache["groups"] = {
-            f"p{i}_{btype}": _stack([init_block_cache(btype, cfg, batch, capacity, dev)] * n_groups)
+            f"p{i}_{btype}": _stack(
+                [init_block_cache(btype, cfg, batch, capacity, dev, shards)] * n_groups)
             for i, btype in enumerate(pattern)
         }
     if n_extra:
         cache["extra"] = {
             f"x{i}_{pattern[i % len(pattern)]}": init_block_cache(
-                pattern[i % len(pattern)], cfg, batch, capacity, dev)
+                pattern[i % len(pattern)], cfg, batch, capacity, dev, shards)
             for i in range(n_extra)
         }
     return cache
@@ -135,6 +213,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None):
 
 def cache_tensors(cache):
     """Every tensor of a stacked cache tree."""
+    if isinstance(cache, RowCaches):
+        return [t for row in cache.rows for t in cache_tensors(row)]
     out = []
     tree_map(lambda c: out.extend(c.tensors()), cache)
     return out
@@ -148,17 +228,34 @@ def forward(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # (B, S) or (B, K, S) for multi-codebook
     ctx: ShardCtx = SINGLE,
+    mesh=None,
     cache=None,
     start_pos: Optional[torch.Tensor] = None,
     remat: bool = False,
     vis_embeds: Optional[torch.Tensor] = None,  # (B, n_vis, d) VLM stub input
+    use_ep: bool = False,
 ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
     """Returns (logits, new_cache, aux_losses).  ``remat`` (without a cache)
     recomputes each group's activations in the backward
     (``torch.utils.checkpoint``, non-reentrant).  A VLM config
     (``cfg.n_vis_tokens``) given ``vis_embeds`` prepends them to the token
     embeddings; positions run over the whole sequence and the logits cover
-    the text positions only, as in the reference."""
+    the text positions only, as in the reference.  ``mesh``: a model mesh
+    (``launch.mesh.make_mesh``) to run over, the logits and aux losses on
+    its first device; ``use_ep`` runs the MoE layers expert-parallel."""
+    shard_models = None
+    if mesh is not None:
+        if mesh.tp != ctx.tp:
+            raise ValueError(f"a mesh of {mesh.tp} model shards under ShardCtx(tp={ctx.tp})")
+        rows = data_rows(mesh, cfg, tokens.shape[0], use_ep)
+        if rows > 1:
+            return _forward_rows(params, cfg, tokens, ctx, mesh, rows, cache, start_pos, remat,
+                                 vis_embeds, use_ep)
+        mesh = mesh.row(0)
+        params = replica(params, mesh.first)
+        tokens = tokens.to(mesh.first)
+        if use_ep and cfg.moe is not None:
+            shard_models = [replica(params, d) for d in mesh.row_devices(0)]
     dt = compute_dtype(cfg)
     x = embed_tokens(params.embed.tree(), cfg, tokens).to(dt)
     vis = cfg.n_vis_tokens and vis_embeds is not None
@@ -184,7 +281,9 @@ def forward(
             auxes = []
             for key, block in params.groups.items():
                 c_in = None if cache is None else _index(cache["groups"][key], g)
-                x, c_out, aux = block(x, positions, ctx, layer=g, cache=c_in)
+                shards = None if shard_models is None else [m.groups[key] for m in shard_models]
+                x, c_out, aux = block(x, positions, ctx, layer=g, cache=c_in, mesh=mesh,
+                                      use_ep=use_ep, shards=shards)
                 auxes.append(aux)
                 if c_out is not None:
                     outs[key].append(c_out)
@@ -212,7 +311,9 @@ def forward(
         extra: Dict[str, Any] = {}
         for key, block in params.extra.items():
             c_in = None if cache is None else cache["extra"][key]
-            x, c_out, aux = block(x, positions, ctx, cache=c_in)
+            shards = None if shard_models is None else [m.extra[key] for m in shard_models]
+            x, c_out, aux = block(x, positions, ctx, cache=c_in, mesh=mesh, use_ep=use_ep,
+                                  shards=shards)
             merge(aux)
             if c_out is not None:
                 extra[key] = c_out
@@ -224,6 +325,33 @@ def forward(
         x = x[:, vis_embeds.shape[1]:]  # logits over text positions only
     logits = lm_logits(params.embed.tree(), cfg, x, ctx.tp)
     return logits, new_cache, aux_total
+
+
+def _forward_rows(params: LM, cfg: ModelConfig, tokens, ctx: ShardCtx, mesh, rows: int, cache,
+                  start_pos, remat: bool, vis_embeds, use_ep: bool):
+    """:func:`forward` over ``rows`` data rows, each on its slice of the
+    batch; the logits gather onto the mesh's first device in row order, and
+    each aux loss is the mean over the rows (added in row order)."""
+    b = tokens.shape[0] // rows
+    outs = []
+    for r in range(rows):
+        dev = mesh.device(r, 0)
+        part = slice(r * b, (r + 1) * b)
+        outs.append(forward(
+            params, cfg, tokens[part], ctx, mesh=mesh.row(r),
+            cache=None if cache is None else cache.rows[r],
+            start_pos=None if start_pos is None else start_pos.to(dev), remat=remat,
+            vis_embeds=None if vis_embeds is None else vis_embeds[part], use_ep=use_ep))
+    first = mesh.first
+    logits = torch.cat([o[0].to(first) for o in outs])
+    aux: Dict[str, torch.Tensor] = {}
+    for k in outs[0][2]:
+        total = outs[0][2][k].to(first)
+        for o in outs[1:]:
+            total = total + o[2][k].to(first)
+        aux[k] = total / rows
+    new_cache = None if cache is None else RowCaches([o[1] for o in outs])
+    return logits, new_cache, aux
 
 
 # -------------------------------------------------------------------- loss --

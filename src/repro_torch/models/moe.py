@@ -27,14 +27,21 @@ row (the router's ``gather``, the combine's ``gather`` / ``index_copy``,
 the weights' permutation), so its backward adds one value into each
 element, in any order.
 
-The reference's expert-parallel bodies (``moe_ffn_sharded``,
-``moe_ffn_ep``) are ``shard_map`` islands over a model axis; under a
-``tp > 1`` context this raises (ROADMAP A7).
+Expert parallelism (``moe_ffn_sharded``, ``moe_ffn_ep``) runs on a model
+mesh (``launch/mesh.py``), single-controller: model shard ``s`` of a data
+row holds experts ``[s·e_loc, (s+1)·e_loc)`` of the ``padded_experts(tp)``
+on its own device, routes the row's tokens itself (the router is
+replicated) at the row's capacity, and computes its experts' part of the
+combine; the parts go to the row's first device and are added there in
+shard order (the reference's ``psum`` over the model axis), and the aux
+losses are averaged over the data rows in row order (its ``pmean``).
+``moe_ffn`` at the same context, with no mesh, is the global semantics,
+padded experts included.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,12 +59,12 @@ def moe_spec(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, ParamSpec]:
     e_pad = cfg.moe.padded_experts(ctx.tp)
     f = cfg.moe.d_ff_expert
     specs = {
-        "router": matrix_spec(ctx, (d, e_pad), init="normal:0.01"),
-        "w_up": matrix_spec(ctx, (e_pad, d, f)),
-        "w_down": matrix_spec(ctx, (e_pad, f, d)),
+        "router": matrix_spec(ctx, (d, e_pad), tp_dim=None, fsdp_dim=0, init="normal:0.01"),
+        "w_up": matrix_spec(ctx, (e_pad, d, f), tp_dim=0, fsdp_dim=1),
+        "w_down": matrix_spec(ctx, (e_pad, f, d), tp_dim=0, fsdp_dim=2),
     }
     if cfg.mlp_type in ("swiglu", "geglu"):
-        specs["w_gate"] = matrix_spec(ctx, (e_pad, d, f))
+        specs["w_gate"] = matrix_spec(ctx, (e_pad, d, f), tp_dim=0, fsdp_dim=1)
     return specs
 
 
@@ -91,14 +98,17 @@ def _route(params, cfg: ModelConfig, xf: torch.Tensor, e_pad: int):
                           "moe_z": zloss * moe.router_z_coef}
 
 
-def _dispatch(top_e: torch.Tensor, e_count: int, capacity: int):
-    """The reference's capacity grouping of the T·k assignments → (order:
-    the stable sort by expert, keep: whether the sorted assignment fits its
-    expert's capacity, slot: its row of the (e_count · capacity) grid, or
-    the dump row e_count · capacity when dropped)."""
-    flat_e = top_e.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
+def _dispatch(top_e: torch.Tensor, e_count: int, capacity: int, e_first: int = 0):
+    """The reference's capacity grouping of the T·k assignments to experts
+    ``[e_first, e_first + e_count)`` → (order: the stable sort by expert,
+    the others last, keep: whether the sorted assignment is one of those
+    experts' and fits its capacity, slot: its row of the (e_count ·
+    capacity) grid, or the dump row e_count · capacity when not kept)."""
+    local = top_e.reshape(-1) - e_first
+    in_range = (local >= 0) & (local < e_count)
+    sort_key = torch.where(in_range, local, e_count)  # out of range sorts last
+    order = torch.argsort(sort_key, stable=True)
+    sorted_e = sort_key[order]
     # position within each expert's run (first occurrence via searchsorted)
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
     pos_in_e = torch.arange(sorted_e.shape[0], device=top_e.device) - first
@@ -108,12 +118,15 @@ def _dispatch(top_e: torch.Tensor, e_count: int, capacity: int):
 
 
 def _group_and_compute(params, cfg: ModelConfig, xf: torch.Tensor, top_w: torch.Tensor,
-                       top_e: torch.Tensor, e_count: int, capacity: int) -> torch.Tensor:
-    """Capacity grouping, the experts' MLPs over the (E, C, d) grid, and the
-    weighted combine back to tokens → (T, d) in x's type."""
+                       top_e: torch.Tensor, e_first: int, e_count: int, capacity: int
+                       ) -> torch.Tensor:
+    """Capacity grouping, the MLPs of experts ``[e_first, e_first + e_count)``
+    (the ``e_count`` experts ``params`` holds) over the (E, C, d) grid, and
+    the weighted combine back to tokens → (T, d) in x's type; an assignment
+    to another expert adds 0."""
     d = xf.shape[1]
     dt = xf.dtype
-    order, _, slot = _dispatch(top_e, e_count, capacity)
+    order, _, slot = _dispatch(top_e, e_count, capacity, e_first)
 
     # gather tokens into the (E, C, d) grid; dropped ones land on the dump
     # row, which is sliced away
@@ -204,14 +217,100 @@ def expert_capacity(cfg: ModelConfig, tokens: int) -> int:
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Global-semantics MoE FFN: x (B, S, d) → (y, aux losses)."""
-    if ctx.tp > 1:
-        raise NotImplementedError("expert-parallel MoE over a model axis is not ported "
-                                  "(ROADMAP A7)")
+    """Global-semantics MoE FFN: x (B, S, d) → (y, aux losses), over the
+    ``padded_experts(ctx.tp)`` experts (the padded ones never routed to)."""
     B, S, d = x.shape
     e_pad = cfg.moe.padded_experts(ctx.tp)
     xf = x.reshape(B * S, d)
     top_w, top_e, aux = _route(params, cfg, xf, e_pad)
     cap = expert_capacity(cfg, B * S)
-    y = _group_and_compute(params, cfg, xf, top_w, top_e, e_pad, cap)
+    y = _group_and_compute(params, cfg, xf, top_w, top_e, 0, e_pad, cap)
+    return y.reshape(B, S, d), aux
+
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def expert_slices(params, ctx: ShardCtx, devices: Sequence[torch.device]) -> List[Dict]:
+    """Each model shard's parameters on its device: the router, and its
+    ``e_pad / tp`` experts.  An expert leaf of ``params`` is either every
+    expert (shard ``s`` takes rows ``[s·e_loc, (s+1)·e_loc)``: a view where
+    the shard's device is the leaf's) or already a tuple of the shards'
+    slices, each on its shard's device."""
+    out = []
+    for s, dev in enumerate(devices):
+        local = {"router": params["router"].to(dev)}
+        for name in EXPERT_LEAVES:
+            if name not in params:
+                continue
+            w = params[name]
+            if isinstance(w, (tuple, list)):
+                local[name] = w[s]
+            else:
+                e_loc = w.shape[0] // ctx.tp
+                local[name] = w[s * e_loc:(s + 1) * e_loc].to(dev)
+        out.append(local)
+    return out
+
+
+def moe_ffn_sharded(params, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx, mesh
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expert-parallel MoE over ``mesh`` (a ``launch.mesh.ModelMesh``): x
+    (B, S, d) → (y on the mesh's first device, aux losses there).
+
+    The batch is split over the data rows when ``B`` divides by their
+    count; otherwise every row takes the whole batch (the reference's
+    ``dspec = None``).  In each row every model shard runs
+    :func:`moe_ffn_ep` on its own device, and the parts are added on the
+    row's first device in shard order; the rows' outputs gather onto the
+    mesh's first device in row order, and each aux loss is the mean over
+    the rows, added in row order."""
+    rows = mesh.dp_total
+    B = x.shape[0]
+    split = B % rows == 0
+    b = B // rows if split else B
+    ys, auxes = [], []
+    for r in range(rows):
+        devs = mesh.row_devices(r)
+        xr = x[r * b:(r + 1) * b] if split else x
+        local = expert_slices(params, ctx, devs)
+        y = aux = None
+        for s, dev in enumerate(devs):
+            y_s, aux_s = moe_ffn_ep(local[s], cfg, xr.to(dev), ctx, s)
+            y_s = y_s.to(devs[0])
+            if s == 0:  # the aux losses are replicated over the model axis
+                y, aux = y_s, aux_s
+            else:
+                y = y + y_s
+        ys.append(y)
+        auxes.append(aux)
+    first = mesh.first
+    out = torch.cat([y.to(first) for y in ys]) if split else ys[0].to(first)
+    mean = {}
+    for k in auxes[0]:
+        total = auxes[0][k].to(first)
+        for a in auxes[1:]:
+            total = total + a[k].to(first)
+        mean[k] = total / rows
+    return out, mean
+
+
+def moe_ffn_ep(params_local, cfg: ModelConfig, x_local: torch.Tensor, ctx: ShardCtx,
+               shard: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Model shard ``shard``'s part of the expert-parallel MoE:
+    ``params_local`` hold the router and experts ``[shard·e_loc,
+    (shard+1)·e_loc)`` of the ``padded_experts(tp)``; ``x_local`` is the
+    data row's tokens (replicated over the model axis).  The row's tokens
+    are routed here at the row's capacity, and the kept assignments to
+    this shard's experts computed → (this shard's part of y, in x's type;
+    the row's aux losses).  The reference's body ends with a ``psum`` over
+    the model axis and a ``pmean`` over the data axes: single-controller,
+    :func:`moe_ffn_sharded` does both across the shards."""
+    B, S, d = x_local.shape
+    e_pad = cfg.moe.padded_experts(ctx.tp)
+    e_loc = e_pad // ctx.tp
+    xf = x_local.reshape(B * S, d)
+    top_w, top_e, aux = _route(params_local, cfg, xf, e_pad)
+    cap = expert_capacity(cfg, B * S)
+    y = _group_and_compute(params_local, cfg, xf, top_w, top_e, shard * e_loc, e_loc, cap)
     return y.reshape(B, S, d), aux

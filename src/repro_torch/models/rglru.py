@@ -33,13 +33,15 @@ def rglru_spec(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, ParamSpec]:
     r = cfg.rglru
     d, w = cfg.d_model, r.lru_width
     return {
-        "in_proj": matrix_spec(ctx, (d, 2 * w)),  # (x, gate)
+        "in_proj": matrix_spec(ctx, (d, 2 * w), tp_dim=1, fsdp_dim=0),  # (x, gate)
         "conv_w": replicated_spec((r.conv_width, w), "normal:0.1"),
         "conv_b": replicated_spec((w,), "zeros"),
         "lambda_p": replicated_spec((w,), "normal:0.5"),
-        "w_rec_gate": replicated_spec((w, w), "normal:0.01"),
-        "w_in_gate": replicated_spec((w, w), "normal:0.01"),
-        "out_proj": matrix_spec(ctx, (w, d)),
+        "w_rec_gate": matrix_spec(ctx, (w, w), tp_dim=None, fsdp_dim=0, init="normal:0.01",
+                                  at_use=False),
+        "w_in_gate": matrix_spec(ctx, (w, w), tp_dim=None, fsdp_dim=0, init="normal:0.01",
+                                 at_use=False),
+        "out_proj": matrix_spec(ctx, (w, d), tp_dim=0, fsdp_dim=1),
     }
 
 

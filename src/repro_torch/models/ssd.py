@@ -35,14 +35,14 @@ def ssd_spec(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, ParamSpec]:
     di, nh, ns = ssd_dims(cfg)
     conv_dim = di + 2 * ns  # conv over (x, B, C)
     return {
-        "in_proj": matrix_spec(ctx, (d, 2 * di + 2 * ns + nh)),
+        "in_proj": matrix_spec(ctx, (d, 2 * di + 2 * ns + nh), tp_dim=1, fsdp_dim=0),
         "conv_w": replicated_spec((s.conv_width, conv_dim), "normal:0.1"),
         "conv_b": replicated_spec((conv_dim,), "zeros"),
         "a_log": replicated_spec((nh,), "zeros"),
         "dt_bias": replicated_spec((nh,), "zeros"),
         "d_skip": replicated_spec((nh,), "ones"),
         "norm_scale": replicated_spec((di,), "ones"),
-        "out_proj": matrix_spec(ctx, (di, d)),
+        "out_proj": matrix_spec(ctx, (di, d), tp_dim=0, fsdp_dim=1),
     }
 
 

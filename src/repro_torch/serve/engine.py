@@ -13,27 +13,33 @@ from ..models.base import ShardCtx
 from ..models.lm import forward, init_cache
 
 
-def make_serve_fns(cfg: ModelConfig, ctx: ShardCtx, capacity: int = 2048):
-    """Returns (prefill_fn, decode_fn, new_cache_fn), on the model's device.
+def make_serve_fns(cfg: ModelConfig, ctx: ShardCtx, mesh=None, capacity: int = 2048,
+                   use_ep: bool = False):
+    """Returns (prefill_fn, decode_fn, new_cache_fn), on the model's device,
+    or over ``mesh`` (a ``launch.mesh.ModelMesh``: the logits on its first
+    device; ``use_ep`` runs the MoE layers expert-parallel).
 
     prefill_fn(params, tokens)            -> (last_logits, cache)
     decode_fn(params, cache, tokens, pos) -> (last_logits, cache)
     """
 
+    def new_cache(batch, device=None):
+        return init_cache(cfg, batch, capacity, device, mesh=mesh, use_ep=use_ep)
+
     @torch.no_grad()
     def prefill(params, tokens):
-        cache = init_cache(cfg, tokens.shape[0], capacity, params.device)
-        start = torch.zeros((), dtype=torch.int32, device=params.device)
-        logits, cache, _ = forward(params, cfg, tokens, ctx, cache=cache, start_pos=start)
+        dev = params.device if mesh is None else mesh.first
+        cache = new_cache(tokens.shape[0], dev)
+        start = torch.zeros((), dtype=torch.int32, device=dev)
+        logits, cache, _ = forward(params, cfg, tokens, ctx, mesh=mesh, cache=cache,
+                                   start_pos=start, use_ep=use_ep)
         return logits[:, -1], cache
 
     @torch.no_grad()
     def decode(params, cache, tokens, pos):
-        logits, cache, _ = forward(params, cfg, tokens, ctx, cache=cache, start_pos=pos)
+        logits, cache, _ = forward(params, cfg, tokens, ctx, mesh=mesh, cache=cache,
+                                   start_pos=pos, use_ep=use_ep)
         return logits[:, -1], cache
-
-    def new_cache(batch, device=None):
-        return init_cache(cfg, batch, capacity, device)
 
     return prefill, decode, new_cache
 

@@ -24,6 +24,7 @@ from ..configs.base import ModelConfig, RunConfig
 from ..data.loader import to_device
 from ..data.synth import SynthSpec, batch_at
 from ..models.base import resolve_device
+from ..models.lm import sync_replicas
 from .optimizer import AdamWConfig
 from .trainstep import init_train_state, make_train_step
 
@@ -53,12 +54,14 @@ def train_loop(
     log_every: int = 10,
     log_fn: Callable[[str], None] = print,
     device=None,
+    mesh=None,
 ) -> LoopStats:
-    """Train ``cfg`` on ``device`` (the card unless asked) for
-    ``total_steps`` steps, resuming from ``ckpt_dir`` if it holds a
+    """Train ``cfg`` on ``device`` (the card unless asked), or over
+    ``mesh`` (a ``launch.mesh.ModelMesh``: the state on its first device),
+    for ``total_steps`` steps, resuming from ``ckpt_dir`` if it holds a
     checkpoint; the final state is saved there on the way out."""
-    dev = resolve_device(device)
-    step_fn, ctx = make_train_step(cfg, run, opt=opt)
+    dev = resolve_device(device) if mesh is None else mesh.first
+    step_fn, ctx = make_train_step(cfg, run, mesh=mesh, opt=opt)
 
     stats = LoopStats()
     manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
@@ -72,6 +75,7 @@ def train_loop(
         state = manager.restore(snapshot_of(model, opt_state), device="cpu")
         with torch.no_grad():
             _copy_tree(snapshot_of(model, opt_state), state)
+        sync_replicas(model)
         del state
         stats.resumed_from = start_step
         log_fn(f"[loop] resumed from step {start_step}")

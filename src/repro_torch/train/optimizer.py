@@ -6,9 +6,10 @@ error-feedback gradient compression helpers:
   every leaf), global-norm clipping;
 * **int8 error-feedback compression**: quantise per tensor to int8 with one
   scale, dequantise, and carry the quantisation error into the next step's
-  gradient (Karimireddy et al. 2019).  On one device the exchange itself is
-  the identity; the quantise → dequantise and the carried error are what the
-  step sees.
+  gradient (Karimireddy et al. 2019).  The train step quantises the mean
+  gradient (``compress_with_feedback``), as the reference's step does;
+  ``compressed_psum`` is the reference's exchange across data shards
+  itself, run single-controller over a list of the shards' gradients.
 
 Master weights are float32; the moments are float32.  Trees are nested dicts
 of tensors (``LM.tree()``), walked in sorted-key order as JAX flattens them.
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -139,3 +140,32 @@ def compress_with_feedback(g: torch.Tensor, err: torch.Tensor
 def init_error_state(params):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                     params)
+
+
+def compressed_psum(gs: Sequence[torch.Tensor], errs: Sequence[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The reference's error-feedback int8 all-reduce over data shards,
+    shard ``i`` holding ``gs[i]`` and its carried error ``errs[i]`` → (the
+    mean gradient, float32, on the first shard's device; each shard's new
+    error, on its device).  Each shard quantises its gradient with its
+    error; the scale shared is the largest shard's; each requantises
+    against it, and the int32 payloads add in shard order before the
+    division by the shard count."""
+    first = gs[0].device
+    g_efs, new_errs, scales = [], [], []
+    for g, e in zip(gs, errs):
+        g_ef = g.float() + e
+        q, scale = quantize_int8(g_ef)
+        new_errs.append(g_ef - dequantize_int8(q, scale))
+        g_efs.append(g_ef)
+        scales.append(scale.to(first))
+    scale_max = scales[0]
+    for sc in scales[1:]:
+        scale_max = torch.maximum(scale_max, sc)
+    total = None
+    for g_ef in g_efs:
+        q2 = torch.clamp(torch.round(g_ef / scale_max.to(g_ef.device)), -127, 127)
+        q2 = q2.to(torch.int32).to(first)
+        total = q2 if total is None else total + q2
+    n = torch.tensor(float(len(gs)), dtype=torch.float32, device=first)
+    return total.float() * scale_max / n, new_errs

@@ -6,8 +6,14 @@ eagerly; gradient accumulation (microbatching) sums float32 gradients over
 The step updates the parameters and the AdamW moments in place, leaf by
 leaf (the reference returns new trees), and accumulates in place, so it
 holds one copy of the weights, the moments and the gradients.
-The port runs on one device, so the reference's mesh context reduces to
-``ShardCtx(tp=1)`` and its data-parallel reduction to the identity.
+
+Over a model mesh (single-controller), data row ``i`` of ``dp_total`` takes
+rows ``[i·B/dp_total, (i+1)·B/dp_total)`` of the batch and computes its
+gradient on the model's replica on its first device; the gradients are
+added on the mesh's first device in row order, from the first, then
+divided by ``dp_total``, so a step equals the step with ``microbatch =
+B/dp_total`` bit for bit on one device.  AdamW runs there on the master
+weights, which then go back to the replicas.
 """
 from __future__ import annotations
 
@@ -16,8 +22,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, RunConfig
-from ..models.base import SINGLE, ShardCtx, tree_flatten, tree_unflatten
-from ..models.lm import LM, forward, init_model, lm_loss
+from ..models.base import SINGLE, ShardCtx, tree_flatten, tree_specs_to_shapes, tree_unflatten
+from ..models.lm import LM, data_rows, forward, init_model, lm_loss, model_spec, replica, \
+    sync_replicas
 from .optimizer import (
     AdamWConfig,
     adamw_update,
@@ -28,33 +35,92 @@ from .optimizer import (
 
 
 def make_shard_ctx(run: RunConfig) -> ShardCtx:
-    """One device: no tensor parallelism, whatever ``run.tp`` says."""
-    return SINGLE
+    if run.pods > 1:
+        return ShardCtx(tp=run.tp, dp=run.dp, pods=run.pods, data_axes=("pod", "data"))
+    return ShardCtx(tp=run.tp, dp=run.dp, pods=1, data_axes=("data",))
 
 
-def loss_fn(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: bool
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, _, aux = forward(model, cfg, batch["tokens"], ctx, remat=remat,
-                             vis_embeds=batch.get("vis_embeds"))
+def batch_spec(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, tuple]:
+    """The placement of each batch entry: its batch dim over the data axes."""
+    dspec = ctx.data_spec()
+    toks = (dspec, None, None) if cfg.n_codebooks > 1 else (dspec, None)
+    out = {"tokens": toks, "labels": toks}
+    if cfg.n_vis_tokens:
+        out["vis_embeds"] = (dspec, None, None)
+    return out
+
+
+def loss_fn(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: bool, mesh=None,
+            use_ep: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits, _, aux = forward(model, cfg, batch["tokens"], ctx, mesh=mesh, remat=remat,
+                             vis_embeds=batch.get("vis_embeds"), use_ep=use_ep)
     loss = lm_loss(logits, batch["labels"], cfg.vocab)
     total = loss + sum(aux.values(), 0.0)
     return total, {"loss": loss, **aux}
 
 
-def value_and_grad(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: bool):
-    """→ (total loss, metrics, float32 gradients as a tree like ``model.tree()``)."""
-    flat = tree_flatten(model.tree())
-    total, metrics = loss_fn(model, cfg, batch, ctx, remat)
-    grads = torch.autograd.grad(total, [p for _, p in flat])
+def value_and_grad(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: bool, mesh=None,
+                   use_ep: bool = False):
+    """→ (total loss, metrics, float32 gradients as a tree like
+    ``model.tree()``, on the model's device).  Over a ``mesh`` whose data
+    rows split the batch (``lm.data_rows``), each row's gradient comes from
+    the replicas on its devices; the rows' gradients, totals and metrics
+    are added on the mesh's first device in row order and divided by the
+    number of rows."""
+    rows = 1 if mesh is None else data_rows(mesh, cfg, batch["tokens"].shape[0], use_ep)
+    if rows == 1:
+        return _row_value_and_grad(model, cfg, batch, ctx, remat,
+                                   None if mesh is None else mesh.row(0), use_ep)
+    b = batch["tokens"].shape[0] // rows
+    total = metrics = grads = None
+    for r in range(rows):
+        part = {k: v[r * b:(r + 1) * b] for k, v in batch.items()}
+        t, m, g = _row_value_and_grad(model, cfg, part, ctx, remat, mesh.row(r), use_ep)
+        if grads is None:
+            total, metrics, grads = t, m, g
+        else:
+            total = total + t.to(total.device)
+            metrics = {k: v + m[k].to(v.device) for k, v in metrics.items()}
+            _tree_add_(grads, g)
+        del g
+    _tree_div_(grads, rows)
+    return total / rows, {k: v / rows for k, v in metrics.items()}, grads
+
+
+def _row_value_and_grad(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: bool, mesh,
+                        use_ep: bool):
+    """One data row's (total, metrics, gradient tree on the model's
+    device): the gradient of every replica the row computed with, added in
+    the order of the row's devices (a replica of another device holds only
+    its shard's part)."""
+    models = [model]
+    if mesh is not None:
+        reps = (replica(model, dev) for dev in mesh.row_devices(0))
+        models = list({id(m): m for m in reps}.values())  # distinct, in shard order
+        batch = {k: v.to(mesh.first) for k, v in batch.items()}
+    flats = [tree_flatten(m.tree()) for m in models]
+    total, metrics = loss_fn(models[0], cfg, batch, ctx, remat, mesh, use_ep)
+    leaves = [p for flat in flats for _, p in flat]
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    n = len(flats[0])
+    dev = model.device
+    out = [g.float().to(dev) for g in grads[:n]]
+    for i in range(1, len(models)):
+        for j, g in enumerate(grads[i * n:(i + 1) * n]):
+            if g is not None:
+                out[j] = out[j] + g.float().to(dev)
     return total.detach(), {k: v.detach() for k, v in metrics.items()}, tree_unflatten(
-        [path for path, _ in flat], [g.float() for g in grads])
+        [path for path, _ in flats[0]], out)
 
 
-def make_train_step(cfg: ModelConfig, run: RunConfig, opt: Optional[AdamWConfig] = None):
+def make_train_step(cfg: ModelConfig, run: RunConfig, mesh=None,
+                    opt: Optional[AdamWConfig] = None, use_ep: bool = False):
     """Returns (step_fn, ctx).  step_fn(model, opt_state, batch) → (model,
     opt_state, metrics); the model's parameters and the moments of
     ``opt_state`` are updated in place (the reference returns new ones).
-    Compression keeps its error-feedback tree in opt_state["err"]."""
+    Compression keeps its error-feedback tree in opt_state["err"].  Over a
+    ``mesh`` (the model on its first device) each data row computes its
+    part of the gradient on its own replica (:func:`value_and_grad`)."""
     ctx = make_shard_ctx(run)
     opt = opt or AdamWConfig(lr=run.lr, weight_decay=run.weight_decay, grad_clip=run.grad_clip)
     remat = run.remat != "none"
@@ -65,7 +131,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt: Optional[AdamWConfig]
             grads = loss_sum = None
             for i in range(n_micro):
                 sl = {k: v[i * run.microbatch:(i + 1) * run.microbatch] for k, v in batch.items()}
-                total, _, g = value_and_grad(model, cfg, sl, ctx, remat)
+                total, _, g = value_and_grad(model, cfg, sl, ctx, remat, mesh, use_ep)
                 if grads is None:
                     grads, loss_sum = g, total
                 else:
@@ -75,7 +141,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt: Optional[AdamWConfig]
             _tree_div_(grads, n_micro)
             metrics = {"loss": loss_sum / n_micro}
         else:
-            _, metrics, grads = value_and_grad(model, cfg, batch, ctx, remat)
+            _, metrics, grads = value_and_grad(model, cfg, batch, ctx, remat, mesh, use_ep)
 
         if run.grad_compression and "err" in opt_state:
             flat_g = tree_flatten(grads)
@@ -88,6 +154,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt: Optional[AdamWConfig]
 
         inner = {k: v for k, v in opt_state.items() if k != "err"}
         _, new_inner, opt_metrics = adamw_update(opt, model.tree(), grads, inner)
+        sync_replicas(model)
         new_state = dict(new_inner)
         if "err" in opt_state:
             new_state["err"] = opt_state["err"]
@@ -98,7 +165,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt: Optional[AdamWConfig]
 
 def _tree_add_(a, b) -> None:
     for (_, x), (_, y) in zip(tree_flatten(a), tree_flatten(b)):
-        x.add_(y)
+        x.add_(y.to(x.device))
 
 
 def _tree_div_(a, n: int) -> None:
@@ -115,3 +182,17 @@ def init_train_state(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx = SINGLE, s
     if run.grad_compression:
         opt_state["err"] = init_error_state(model.tree())
     return model, opt_state
+
+
+def train_state_specs(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx):
+    """((parameter shapes, placements), (optimizer state shapes,
+    placements)): ``meta`` tensors, nothing allocated; the moments (and the
+    compression's error tree) are placed like the parameters."""
+    p_shapes, p_specs = tree_specs_to_shapes(model_spec(cfg, ctx))  # float32, as the moments
+    o_shapes = {"mu": p_shapes, "nu": p_shapes,
+                "step": torch.empty((), dtype=torch.int32, device="meta")}
+    o_specs = {"mu": p_specs, "nu": p_specs, "step": ()}
+    if run.grad_compression:
+        o_shapes["err"] = p_shapes
+        o_specs["err"] = p_specs
+    return (p_shapes, p_specs), (o_shapes, o_specs)

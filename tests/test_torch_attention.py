@@ -415,11 +415,33 @@ def test_attention_block_with_and_without_cache(arch, window):
         assert int(tc.pos) == int(jc.pos)
 
 
-def test_attention_block_refuses_tensor_parallel_ctx():
-    cfg = get_smoke_config("smollm_360m")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tatt.attention_block({}, cfg, torch.zeros(1, 1, cfg.d_model), torch.zeros(1, 1),
-                             ctx=dataclasses.replace(SINGLE, tp=2))
+@pytest.mark.parametrize("tp", [2, 4])
+def test_attention_block_at_tensor_parallel_ctx_vs_reference(tp):
+    """ROADMAP C13: at ``ShardCtx(tp)`` with no mesh the block is the
+    reference's dense path: cache-free, a prefill into a cache, then a
+    decode step, within 1e-5 of the largest |value| (float32)."""
+    cfg = dataclasses.replace(j_smoke("qwen3_8b"), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config("qwen3_8b"), dtype="float32")
+    rng = _rng("block-tp", tp)
+    p = _block_params(cfg, rng)
+    jp, tp_ = {n: _j(a) for n, a in p.items()}, {n: _t(a) for n, a in p.items()}
+    jctx, tctx = JShardCtx(tp=tp), dataclasses.replace(SINGLE, tp=tp)
+    x = rng.normal(size=(2, 9, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(9), (2, 9)).astype(np.int32)
+    jc = jatt.init_kv_cache(cfg, 2, 16)
+    tc = tatt.init_kv_cache(tcfg, 2, 16, device="cpu")
+    for lo, hi, cached in ((0, 9, False), (0, 8, True), (8, 9, True)):
+        with jops.local_backend("xla"):
+            jo, jc2 = jatt.attention_block(jp, cfg, _j(x[:, lo:hi]), jnp.asarray(pos[:, lo:hi]),
+                                           cache=jc if cached else None, ctx=jctx)
+        to, tc2 = tatt.attention_block(tp_, tcfg, _t(x[:, lo:hi]), torch.from_numpy(pos[:, lo:hi]),
+                                       cache=tc if cached else None, ctx=tctx)
+        jo = np.asarray(jo)
+        np.testing.assert_allclose(to.numpy(), jo, rtol=0, atol=1e-5 * np.abs(jo).max(),
+                                   err_msg=f"{lo}:{hi}")
+        if cached:
+            jc, tc = jc2, tc2
+            assert int(tc.pos) == int(jc.pos) == hi
 
 
 # ------------------------------------------------------------ whole model --

@@ -7,8 +7,9 @@ AdamWConfig, and hands ``train_loop`` the same arguments, as
 replaced by a recorder); smoke runs of granite-MoE and smollm train with
 finite, falling losses; ``--fail-at-step`` with ``--ckpt-dir`` resumes from
 the checkpoint written on exit (ROADMAP C4) and ends on the uninterrupted
-run's loss; a mesh (``--dp``/``--tp``/``--pods`` > 1) is refused with a
-message naming ROADMAP A7.  ``launch.serve.main`` serving the JAX launcher's
+run's loss; ``--dp``/``--tp``/``--pods`` > 1 train over an emulated mesh
+with ``--device cpu`` (``--dp 2`` equal to ``--microbatch`` of half the
+batch), and a mesh beyond the host's cards is refused, naming both counts.  ``launch.serve.main`` serving the JAX launcher's
 weights (``params_from_numpy``) gives the reference's tokens and simulated
 latencies, equal.
 """
@@ -21,6 +22,7 @@ from contextlib import redirect_stdout
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.launch.serve as jserve
 import repro.launch.train as jtrain
@@ -73,7 +75,7 @@ def test_train_builds_the_references_configs(monkeypatch, flags):
     got = _captured_loop(monkeypatch, ttrain, stats)
     assert _quiet(ttrain.main, [*flags, "--device", "cpu"]) is stats
 
-    assert want.pop("mesh") is None
+    assert want.pop("mesh") is None and got.pop("mesh") is None
     assert got.pop("device") == "cpu"
     assert set(got) == set(want)
     for key in want:
@@ -102,12 +104,39 @@ def test_train_fail_at_step_resumes_from_the_exit_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--dp", "--tp", "--pods"])
-def test_train_refuses_a_mesh_naming_a7(capsys, flag):
+def test_train_refuses_a_mesh_beyond_the_hosts_cards(capsys, monkeypatch, flag):
+    """A mesh over the host's cards (no ``--device cpu``) larger than the
+    host has is refused, naming both counts."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit) as exc:
-        ttrain.main(["--arch", "smollm_360m", flag, "2", "--device", "cpu"])
+        ttrain.main(["--arch", "smollm_360m", flag, "2"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "ROADMAP A7" in err and "mesh of 2 devices" in err
+    assert f"{flag} 2" in err and "needs 2 devices; this host has 1 CUDA devices" in err
+
+
+def test_train_dp_on_cpu_equals_microbatch_of_half_the_batch():
+    """``--dp 2 --device cpu`` trains over two emulated data shards; each
+    step equals the ``--microbatch`` of half the batch bit for bit, so the
+    losses and gradient norms are equal."""
+    base = ["--arch", "smollm_360m", "--steps", "3", "--batch", "4", "--seq", "32",
+            "--device", "cpu"]
+    dp = _quiet(ttrain.main, [*base, "--dp", "2"])
+    micro = _quiet(ttrain.main, [*base, "--microbatch", "2"])
+    assert dp.steps == micro.steps == 3
+    assert dp.losses == micro.losses and dp.grad_norms == micro.grad_norms
+
+
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--pods", "2"], ["--dp", "2", "--tp", "2"]])
+def test_train_over_a_cpu_mesh(flags):
+    """granite-MoE over an emulated model mesh: the model and data axes
+    train, losses finite and falling (the vocab and experts padded for
+    ``--tp``)."""
+    stats = _quiet(ttrain.main, ["--arch", "granite_moe_3b_a800m", "--steps", "3", "--batch",
+                                 "4", "--device", "cpu", *flags])
+    assert stats.steps == 3
+    assert all(math.isfinite(x) for x in stats.losses + stats.grad_norms)
+    assert stats.losses[-1] < stats.losses[0]
 
 
 def test_serve_launcher_vs_reference(monkeypatch):

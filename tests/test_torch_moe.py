@@ -134,11 +134,38 @@ def test_expert_capacity_vs_reference(tokens):
         assert tmoe.expert_capacity(tcfg, tokens) == jmoe.expert_capacity(cfg, tokens)
 
 
-def test_moe_under_tensor_parallelism_raises():
+@pytest.mark.parametrize("tp", [2, 4])
+def test_moe_ffn_at_tensor_parallel_ctx_vs_reference(tp):
+    """ROADMAP C13: ``moe_ffn`` at ``ShardCtx(tp)`` with no mesh is the
+    global semantics over ``padded_experts(tp)`` experts (the padded ones
+    masked out of the routing), as in the reference: the output within
+    1e-5 of max |y| (float32), the routing exact."""
     cfg, tcfg = _cfgs("granite_moe_3b_a800m", "float32")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tmoe.moe_ffn({}, tcfg, torch.zeros(1, 1, tcfg.d_model),
-                     dataclasses.replace(SINGLE, tp=2))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=5))
+    tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe, n_experts=5))
+    e_pad = tcfg.moe.padded_experts(tp)
+    assert e_pad == cfg.moe.padded_experts(tp) > cfg.moe.n_experts
+    rng = _rng("moe-tp", tp)
+    params, x = _moe_inputs(cfg, rng)
+    extra = e_pad - cfg.moe.n_experts  # the padded experts' weights
+    params = {k: np.concatenate([v, rng.normal(0, 0.1, (v.shape[0], extra) if k == "router"
+                                               else (extra,) + v.shape[1:]).astype(np.float32)],
+                                axis=1 if k == "router" else 0) for k, v in params.items()}
+    jy, jaux = jmoe.moe_ffn({k: jnp.asarray(v) for k, v in params.items()}, cfg,
+                            jnp.asarray(x), JShardCtx(tp=tp))
+    ty, taux = tmoe.moe_ffn({k: torch.from_numpy(v) for k, v in params.items()}, tcfg,
+                            torch.from_numpy(x), dataclasses.replace(SINGLE, tp=tp))
+    jy = np.asarray(jy)
+    np.testing.assert_allclose(ty.numpy(), jy, rtol=0, atol=1e-5 * np.abs(jy).max())
+    for key in ("moe_aux", "moe_z"):
+        assert float(taux[key]) == pytest.approx(float(jaux[key]), rel=1e-5)
+    T = x.shape[0] * x.shape[1]
+    _, j_top_e, _ = jmoe._route({"router": jnp.asarray(params["router"])}, cfg,
+                                jnp.asarray(x).reshape(T, -1), e_pad)
+    _, t_top_e, _ = tmoe._route({"router": torch.from_numpy(params["router"])}, tcfg,
+                                torch.from_numpy(x).reshape(T, -1), e_pad)
+    np.testing.assert_array_equal(t_top_e.numpy(), np.asarray(j_top_e))
+    assert int(t_top_e.max()) < cfg.moe.n_experts  # no padded expert is routed to
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
