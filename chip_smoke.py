@@ -208,6 +208,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    moments and loss bit for bit, each repeat bit for bit, 256 forward and
    128 + 128 backward attention launches a step; step ms and peak memory
    printed;
+4h. the train state in slices over four data rows emulated on the card
+   (``make_mesh(4, 1, devices=[cuda:0] * 4)``; each row keeps its quarter
+   of every sliced leaf of the float32 weights and AdamW moments and
+   gathers a layer's weights as it runs it).  (a) ``smollm_360m`` at full
+   width and depth, one step of 8 x 4,096 tokens (remat full) sliced and one
+   replicated from the same seed, in turns (sliced, replicated, replicated,
+   sliced): params, moments, loss and grad_norm bit for bit, each repeat bit
+   for bit, each row's bytes the placements' reckoning, 256 forward and 128
+   + 128 backward attention launches a step.  (b) ``qwen3_8b`` at full width
+   cut to 8 of its 36 layers (its whole state is 131 GB; 8 layers: 2.79e9
+   parameters, 44.6 GB, 11.15 GB a row): two steps of one 4,096-token
+   sequence a row, then the same two again from the same seed (the last
+   traced: the step's device time split into the gathers' copies, their
+   gradient adds, GEMMs, attention and the rest): the loss finite and
+   falling, the repeat bit for bit, each row a quarter of every sliced leaf,
+   the peak under 72 GB, 64 forward and 32 + 32 backward launches a step;
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2 (segment_reduce with all its contracts), at every shape the
    main path (or the serving phase, or phase 3c's sharded run) gave it;
@@ -217,7 +233,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the FMA backward kernels on the same bf16 inputs beside the tensor-core
    ones, the forward and backward also at qwen3_8b's heads, D 128, at
    phase 4e's shape, 16 heads over one kv head of 256, window 2,048 (SDPA
-   with the window as a mask), and at phase 4f's, 4 x 24 (8) x 4,096 x 64;
+   with the window as a mask), at phase 4f's, 4 x 24 (8) x 4,096 x 64, and
+   at phase 4h's heads over four sequences, 4 x 32 (8) x 4,096 x 128;
    segment_reduce also at B = 100,000 and at B = 1,000 with one sum row;
    join_probe's wrapper beside its bare C entry point, against
    ``torch.searchsorted``; masked_stats, topk and filter_compact each
@@ -2554,6 +2571,9 @@ def join_timing(torch, jp, args, flush):
 TRAIN_ATTN = (4, 15, 5, 4096, 4096, 64, "bfloat16", True, None, 0)
 # the forward also at qwen3_8b's heads (32 / 8 x 128), one sequence of 4,096
 WIDE_ATTN = (1, 32, 8, 4096, 4096, 128, "bfloat16", True, None, 0)
+# phase 4h (b)'s launches are WIDE_ATTN's (one sequence a row); its four
+# rows' sequences side by side:
+QWEN4_ATTN = (4, 32, 8, 4096, 4096, 128, "bfloat16", True, None, 0)
 # phase 4e's shape: recurrentgemma_9b's local attention, one sequence of
 # 4,096 tokens, 16 q-heads over one kv head of 256, window 2,048
 RG_ATTN = (1, 16, 1, 4096, 4096, 256, "bfloat16", True, 2048, 0)
@@ -2729,8 +2749,19 @@ def attention_timings(torch, rng, dev):
           + json.dumps(dict(moe_ms, **{"kernel fwd": out["flash_attention 24/8 heads"]["ms"],
                                        "sdpa fwd": out["flash_attention 24/8 heads"][
                                            "library_ms"]})), flush=True)
+    # phase 4h's heads (qwen3_8b, D 128) at four sequences
+    out["flash_attention 4h"] = forward_timing(torch, rng, dev, QWEN4_ATTN, flush)
+    q4_rows, q4_ms = backward_timing(torch, rng, dev, QWEN4_ATTN, flush)
+    print("[time] attention at phase 4h's heads, four sequences " + json.dumps(QWEN4_ATTN)
+          + ", ms: " + json.dumps(dict(q4_ms, **{
+              "kernel fwd": out["flash_attention 4h"]["ms"],
+              "sdpa fwd": out["flash_attention 4h"]["library_ms"],
+              "bound fwd": out["flash_attention 4h"]["bound"][0],
+              "bound dq": q4_rows["flash_attention_bwd_dq"]["bound"][0],
+              "bound dkdv": q4_rows["flash_attention_bwd_dkdv"]["bound"][0]})), flush=True)
     for name in bwd:
         out[name] = out[name + "_wgmma"] = bwd[name]
+        out[name + " 4h"] = q4_rows[name]
         out[name + " D=128"] = wide[name]
         out[name + " D=256"] = rg[name]
         out[name + " 24/8 heads"] = moe_rows[name]
@@ -4397,6 +4428,289 @@ def mesh_phase(torch, ops, devices):
     return launches
 
 
+# Phase 4h: the train state stored in slices over four data rows emulated on
+# the card (each row keeps its quarter of every sliced leaf of the float32
+# weights and AdamW moments, and gathers a layer's weights as it runs it).
+# (a) smollm at full width and depth, one step of 8 x 4,096 tokens sliced and
+# one replicated over the same mesh from the same seed, in turns: the launches
+# of each step are MESH_STEP's.  (b) qwen3_8b at full width cut to 8 of its 36
+# layers: its whole state (weights, gradients, two moments in float32) is
+# 131 GB, past one card's 80 GB, and 44.6 GB at 8 layers, 11.15 GB a row.
+# One sequence of 4,096 tokens a row, two steps, then the same two again from
+# the same seed (the second traced); a step launches 4 rows x 8 layers x 2
+# forwards (remat) and 4 x 8 of each backward kernel (fsdp_launches).
+FSDP_DP = 4
+FSDP_QWEN_LAYERS = 8
+FSDP_QWEN_BATCH = 4
+FSDP_QWEN_STEPS = 2
+FSDP_PEAK_LIMIT = 72e9
+
+
+def fsdp_launches(layers):
+    """The attention launches of one 4h (b) step at ``layers`` layers."""
+    fwd, bwd = FSDP_DP * layers * 2, FSDP_DP * layers
+    return {"flash_attention": fwd, "flash_attention_wgmma": fwd,
+            "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkdv": bwd,
+            "flash_attention_bwd_dq_wgmma": bwd, "flash_attention_bwd_dkdv_wgmma": bwd}
+
+
+
+def placed_equal(torch, placed, whole) -> bool:
+    """A placed tree (``fsdp.Sliced`` leaves) against a whole one, leaf by
+    leaf gathered onto the whole leaf's device: bit for bit."""
+    from repro_torch.models.base import tree_flatten
+
+    fa, fb = tree_flatten(placed), tree_flatten(whole)
+    return [p for p, _ in fa] == [p for p, _ in fb] and all(
+        torch.equal(x.whole(y.device), y.detach()) for (_, x), (_, y) in zip(fa, fb))
+
+
+def placed_fingerprint(torch, tree):
+    """``fingerprint`` of each part of each sliced leaf."""
+    from repro_torch.models.base import keystr, tree_flatten
+
+    return {f"{keystr(path)}[{r}][{s}]": v
+            for path, leaf in tree_flatten(tree)
+            for r, row in enumerate(leaf.parts) for s, part in enumerate(row)
+            for v in fingerprint(torch, {"p": part}).values()}
+
+
+def sliced_quarters(model, rows) -> bool:
+    """Every leaf sliced over the rows holds 1/rows of itself a row."""
+    from repro_torch.models.base import tree_flatten
+
+    return all(all(p.numel() * rows == leaf.numel() for p in leaf.all_parts())
+               for _, leaf in tree_flatten(model.tree()) if leaf.dim is not None)
+
+
+def fsdp_smollm(torch, ops, devices):
+    """Phase 4h (a): smollm's step over four rows, sliced and replicated, in
+    turns; → the attention launches of the four steps."""
+    from repro_torch.configs import RunConfig, get_config, get_shape
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.base import ShardCtx
+    from repro_torch.train.trainstep import (init_placed_state, init_train_state,
+                                             make_train_step, placement_bytes, row_state_bytes)
+
+    cfg = get_config("smollm_360m")
+    base = get_shape("train_4k")
+    shape = ShapeConfig(base.name, base.kind, base.seq_len, TRAIN_BATCH)
+    mesh = make_mesh(FSDP_DP, 1, devices=devices)
+    dev = mesh.first
+    run = RunConfig(model=cfg, shape=shape, dp=FSDP_DP, tp=1, remat="full")
+    step_fn, ctx = make_train_step(cfg, run, mesh=mesh)
+    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=shape.seq_len,
+                                         batch=TRAIN_BATCH, seed=0), 0), dev)
+    cards = sorted({d.index for d in mesh.devices})
+    out, total = {}, {k: 0 for k in TRAINING}
+    for name in ("sliced", "replicated", "replicated", "sliced"):
+        torch.cuda.synchronize()
+        if name == "sliced":
+            model, opt_state = init_placed_state(cfg, run, ctx, mesh, seed=TRAIN_SEED)
+        else:
+            model, opt_state = init_train_state(cfg, run, ctx, seed=TRAIN_SEED, device=dev)
+        torch.cuda.synchronize()
+        held = [torch.cuda.memory_allocated(i) for i in cards]
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+        if name == "sliced":
+            rows = row_state_bytes(model, opt_state)
+            want = placement_bytes(cfg, ShardCtx(dp=FSDP_DP), arrays=3)[1]
+            check(rows == [want] * FSDP_DP and sliced_quarters(model, FSDP_DP),
+                  f"4h (a): the rows hold {rows} bytes of weights and moments, not the "
+                  f"placements' {want} each, or a sliced leaf not in quarters")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, opt_state, metrics = step_fn(model, opt_state, batch)
+        loss = float(metrics["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        peak = [torch.cuda.max_memory_allocated(i) for i in cards]
+        for k in TRAINING:
+            total[k] += launches[k]
+        for k, n in MESH_STEP.items():
+            check(launches[k] == n, f"4h (a) {name} step: {k} launched {launches[k]} times, "
+                  f"not {n}")
+        check(math.isfinite(loss), f"4h (a) {name} step: loss not finite")
+        state = ({"params": model.tree(), "opt": {k: opt_state[k] for k in ("mu", "nu")}},
+                 metrics["loss"], metrics["grad_norm"])
+        if name in out:
+            same = (placed_fingerprint(torch, state[0]) == placed_fingerprint(torch, out[name][0])
+                    if name == "sliced" else tree_bytes_equal(torch, state[0], out[name][0]))
+            check(same and torch.equal(state[1], out[name][1]),
+                  f"4h (a): the {name} step repeated gave another state")
+        else:
+            out[name] = state
+        del state
+        print(f"[fsdp] {cfg.name}, one step of {TRAIN_BATCH} x {shape.seq_len} tokens over "
+              f"{FSDP_DP} data rows on {[str(d) for d in mesh.devices]} ({name}): {ms} ms, "
+              f"loss {loss}, grad_norm {float(metrics['grad_norm'])}; device memory held "
+              f"before the step {held} bytes, peak {peak} bytes"
+              + (f"; bytes of weights and moments each row holds {rows}" if name == "sliced"
+                 else ""), flush=True)
+        del model, opt_state, metrics
+    (a, la, ga), (b, lb, gb) = out["sliced"], out["replicated"]
+    check(placed_equal(torch, a, b) and torch.equal(la, lb) and torch.equal(ga, gb),
+          "4h (a): the sliced step is not the replicated step bit for bit (params, moments, "
+          "loss or grad_norm)")
+    print("[fsdp] the sliced step equals the replicated step bit for bit: params, both "
+          "moments, the loss and grad_norm", flush=True)
+    del out, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def step_split(torch, prof):
+    """A traced step's device time split into the gathers' copies, their
+    gradient adds, GEMMs, attention and the rest (ms)."""
+    from torch.autograd import DeviceType
+
+    avg = prof.key_averages()
+    spans = {e.key: e.device_time_total / 1e3 for e in avg
+             if e.key in ("fsdp_gather", "fsdp_grad_add") and e.device_type == DeviceType.CPU}
+    dev = [e for e in avg if e.device_type == DeviceType.CUDA]
+    split = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+    others = []
+    for e in dev:
+        t = e.self_device_time_total / 1e3
+        key = e.key.lower()
+        if "attn_" in key:
+            split["attention"] += t
+        elif any(w in key for w in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
+            split["gemm"] += t
+        else:
+            split["other"] += t
+            others.append((t, e.count, e.key[:90]))
+    split["device"] = sum(split.values())
+    split.update(spans)
+    split["other less the gathers and adds"] = split["other"] - sum(spans.values())
+    split["largest other kernels (ms, launches, name)"] = sorted(others, reverse=True)[:8]
+    return split
+
+
+def fsdp_qwen(torch, ops, devices, layers=FSDP_QWEN_LAYERS, steps=FSDP_QWEN_STEPS,
+              repeat=True, peak_limit=FSDP_PEAK_LIMIT):
+    """Phase 4h (b): qwen3_8b at full width cut to ``layers`` layers, trained
+    ``steps`` steps of one 4,096-token sequence a row over ``devices`` (four
+    rows), the state sliced; with ``repeat``, the same steps again from the
+    same seed (the last one traced), bit for bit.  → the attention launches
+    of the first run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.base import ShardCtx, param_count
+    from repro_torch.models.lm import model_spec
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainstep import (init_placed_state, make_train_step,
+                                             placement_bytes, row_state_bytes)
+
+    cfg = dataclasses.replace(get_config("qwen3_8b"), n_layers=layers)
+    seq = 4096
+    shape = ShapeConfig("train_4k", "train", seq, FSDP_QWEN_BATCH)
+    mesh = make_mesh(FSDP_DP, 1, devices=devices)
+    run = RunConfig(model=cfg, shape=shape, dp=FSDP_DP, tp=1, remat="full")
+    # no warmup, so that two steps move the loss
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=steps)
+    step_fn, ctx = make_train_step(cfg, run, mesh=mesh, opt=opt)
+    data = SynthSpec(vocab=cfg.vocab, seq_len=seq, batch=FSDP_QWEN_BATCH, seed=0)
+    n_params = param_count(model_spec(cfg, ctx))
+    whole, per_row = placement_bytes(cfg, ShardCtx(dp=FSDP_DP))
+    print(f"[fsdp] {cfg.name} cut to {layers} layers: {n_params} parameters; float32 weights, "
+          f"gradients and two moments {whole} bytes whole, {per_row} a row sliced over "
+          f"{FSDP_DP} rows (the placements' reckoning)", flush=True)
+    cards = sorted({d.index for d in mesh.devices})
+    runs, total = [], {k: 0 for k in TRAINING}
+    for attempt in range(2 if repeat else 1):
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+        t0 = time.perf_counter()
+        model, opt_state = init_placed_state(cfg, run, ctx, mesh, seed=TRAIN_SEED)
+        torch.cuda.synchronize()
+        rows = row_state_bytes(model, opt_state)
+        want = placement_bytes(cfg, ShardCtx(dp=FSDP_DP), arrays=3)[1]
+        check(rows == [want] * FSDP_DP and sliced_quarters(model, FSDP_DP),
+              f"4h (b): the rows hold {rows} bytes of weights and moments, not the "
+              f"placements' {want} each, or a sliced leaf not in quarters")
+        print(f"[fsdp] state placed in {time.perf_counter() - t0} s; bytes of weights and "
+              f"moments each row holds {rows}; device memory held "
+              f"{[torch.cuda.memory_allocated(i) for i in cards]}", flush=True)
+        losses, metrics = [], None
+        for step in range(steps):
+            batch = to_device(batch_at(data, step), mesh.first)
+            traced = repeat and attempt == 1 and step == steps - 1
+            for i in cards:
+                torch.cuda.reset_peak_memory_stats(i)
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if traced:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    model, opt_state, metrics = step_fn(model, opt_state, batch)
+                    torch.cuda.synchronize()
+            else:
+                model, opt_state, metrics = step_fn(model, opt_state, batch)
+            loss = float(metrics["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = ops.launch_counts()
+            peaks = [torch.cuda.max_memory_allocated(i) for i in cards]
+            losses.append(metrics["loss"])
+            if attempt == 0:
+                for k in TRAINING:
+                    total[k] += launches[k]
+            for k, n in fsdp_launches(layers).items():
+                check(launches[k] == n, f"4h (b) step {step}: {k} launched {launches[k]} times, "
+                      f"not {n}")
+            check(math.isfinite(loss), f"4h (b) step {step}: loss not finite")
+            check(max(peaks) < peak_limit, f"4h (b) step {step}: peak device memory "
+                  f"{max(peaks)} bytes, over {peak_limit}")
+            print(f"[fsdp] {cfg.name} ({layers} layers) step {step} over {FSDP_DP} rows on "
+                  f"{[str(d) for d in mesh.devices]}" + (" (traced)" if traced else "")
+                  + f": {ms} ms, {FSDP_QWEN_BATCH * seq / ms * 1e3} tokens/s, loss {loss}, "
+                  f"grad_norm {float(metrics['grad_norm'])}, peak device memory {peaks} bytes; "
+                  "launches " + json.dumps({k: launches[k] for k in fsdp_launches(layers)}),
+                  flush=True)
+            if traced:
+                print("[fsdp] the traced step's device ms: "
+                      + json.dumps(step_split(torch, prof)), flush=True)
+                del prof
+        check(float(losses[-1]) < float(losses[0]), f"4h (b): the loss did not fall: "
+              f"{[float(x) for x in losses]}")
+        runs.append((placed_fingerprint(torch, {"params": model.tree(), "mu": opt_state["mu"],
+                                                "nu": opt_state["nu"]}), losses))
+        del model, opt_state, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    if repeat:
+        (fa, la), (fb, lb) = runs
+        check(fa == fb and all(torch.equal(x, y) for x, y in zip(la, lb)),
+              "4h (b): a repeat from the same seed gave another state or other losses")
+        print(f"[fsdp] a repeat from the same seed gave the same state (a fingerprint of each "
+              f"of the {len(fa)} slices) and losses {[float(x) for x in la]} bit for bit",
+              flush=True)
+    return total
+
+
+def fsdp_phase(torch, ops, devices):
+    """Phase 4h: the train state in slices over four data rows on
+    ``devices`` (``[cuda:0] * 4`` in the smoke); returns its attention
+    launches."""
+    t0 = time.perf_counter()
+    launches = fsdp_smollm(torch, ops, devices)
+    for k, n in fsdp_qwen(torch, ops, devices).items():
+        launches[k] += n
+    print(f"[fsdp] flash_attention launches in phase 4h: " + json.dumps(launches)
+          + f"; phase took {time.perf_counter() - t0} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4506,7 +4820,7 @@ def main() -> int:
     print(f"[train-rg] phase took {time.perf_counter() - t0} s", flush=True)
 
     # -- phase 4f: training granite-MoE through the train launcher; the
-    # attention launches on the JSON line are those of 3b, 4c, 4e, 4f and 4g
+    # attention launches on the JSON line are those of 3b, 4c, 4e, 4f, 4g and 4h
     t0 = time.perf_counter()
     for kernel, n in training_moe(torch, ops, dev).items():
         launches[kernel] += n
@@ -4514,6 +4828,10 @@ def main() -> int:
 
     # -- phase 4g: the model mesh, four shards emulated on the card
     for kernel, n in mesh_phase(torch, ops, [dev] * MESH_TP).items():
+        launches[kernel] += n
+
+    # -- phase 4h: the train state in slices over four data rows on the card
+    for kernel, n in fsdp_phase(torch, ops, [dev] * FSDP_DP).items():
         launches[kernel] += n
 
     # -- phase 5: kernel vs plain, then timing, at the main path's shapes
@@ -4526,7 +4844,7 @@ def main() -> int:
         errs[name] = max(errs[name], mpc[name][0])
     train_shapes = (TRAIN_ATTN, (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0), RG_ATTN,
                     (2, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0), MOE_ATTN,
-                    (2, 24, 8, 1024, 1024, 64, "bfloat16", True, None, 0))
+                    (2, 24, 8, 1024, 1024, 64, "bfloat16", True, None, 0), WIDE_ATTN)
     for name, e in attention_parity(torch, rng, dev, train_shapes, "training").items():
         errs[name] = max(errs[name], e)
     print(f"[shapes] kernel vs plain passed at every main-path shape in "

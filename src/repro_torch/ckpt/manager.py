@@ -19,7 +19,15 @@ every level), each keyed as ``jax.tree_util.keystr`` writes its path
   the fsync'd manifest are written; a crash mid-write leaves only a .tmp dir,
   which restore ignores and the next save removes.
 * **restore**: leaves are loaded as host arrays and placed on ``device``
-  (default: the device of each template leaf).
+  (default: the device of each template leaf); ``restore_into`` copies
+  them into the template's own tensors, one leaf at a time.
+* **sliced state** (``models/fsdp.Sliced``, a train state stored over a
+  mesh's data rows): ``save`` gathers each leaf whole to the host, one leaf
+  at a time, so the files are those of a whole state; a sliced template
+  takes each leaf slice by slice, on each slice's device, whatever layout
+  the state was saved from (the reference restores with a ``sharding_fn``
+  the same way).  So a checkpoint of four rows resumes over two, one, or a
+  whole state.
 """
 from __future__ import annotations
 
@@ -33,11 +41,14 @@ import numpy as np
 import torch
 
 from ..models.base import keystr, tree_flatten, tree_unflatten
+from ..models.fsdp import Sliced
 
 
 def _host(leaf) -> np.ndarray:
     """A host copy of ``leaf``: the train step updates the tensors in place
     while an async save is still writing."""
+    if isinstance(leaf, Sliced):
+        return leaf.whole("cpu").numpy()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
@@ -124,10 +135,9 @@ class CheckpointManager:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, template, step: Optional[int] = None, device=None):
-        """Restore into the structure of ``template`` (a nested dict of
-        tensors): each leaf as a tensor on ``device``, or on its template
-        leaf's device."""
+    def _leaves(self, template, step: Optional[int]):
+        """(path, template leaf, the saved array, memory-mapped) for every
+        leaf of ``template``, in order."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -135,14 +145,39 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_key = {entry["key"]: entry for entry in manifest["leaves"]}
-        flat = tree_flatten(template)
-        leaves = []
-        for path, tmpl in flat:
+        for path, tmpl in tree_flatten(template):
             key = keystr(path)
-            arr = np.load(os.path.join(d, by_key[key]["file"]))
+            arr = np.load(os.path.join(d, by_key[key]["file"]), mmap_mode="r")
             if tuple(arr.shape) != tuple(tmpl.shape):
                 raise ValueError(f"checkpoint leaf {key} shape {arr.shape} != expected "
                                  f"{tuple(tmpl.shape)}")
+            yield path, tmpl, arr
+
+    def restore(self, template, step: Optional[int] = None, device=None):
+        """Restore into the structure of ``template`` (a nested dict of
+        tensors): each leaf as a tensor on ``device``, or on its template
+        leaf's device; a sliced leaf as a new one of the template's layout,
+        each slice on its device."""
+        paths, leaves = [], []
+        for path, tmpl, arr in self._leaves(template, step):
+            paths.append(path)
+            if isinstance(tmpl, Sliced):
+                out = tmpl.like(torch.empty)
+                out.copy_from(torch.from_numpy(np.array(arr)))
+                leaves.append(out)
+                continue
             dev = device if device is not None else getattr(tmpl, "device", "cpu")
-            leaves.append(torch.from_numpy(arr).to(dev))
-        return tree_unflatten([p for p, _ in flat], leaves)
+            leaves.append(torch.from_numpy(np.array(arr)).to(dev))
+        return tree_unflatten(paths, leaves)
+
+    def restore_into(self, state, step: Optional[int] = None) -> None:
+        """Copy a checkpoint into ``state``'s own tensors in place (a sliced
+        leaf slice by slice), one leaf at a time: no second copy of the
+        state is made on any device."""
+        with torch.no_grad():
+            for _, leaf, arr in self._leaves(state, step):
+                whole = torch.from_numpy(np.array(arr))
+                if isinstance(leaf, Sliced):
+                    leaf.copy_from(whole)
+                else:
+                    leaf.copy_(whole)

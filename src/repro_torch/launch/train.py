@@ -9,6 +9,14 @@ resume).  ``--dp × --tp × --pods > 1`` trains over a model mesh
 ``--device cpu``, over that many emulated shards on the CPU; a host with
 too few cards is refused, naming both counts.
 
+``--fsdp`` (with ``--dp × --pods > 1``) stores the train state in slices
+over the mesh's data rows, as the reference's placements say: the port's
+counterpart of the input shardings the reference's dry run compiles the
+train step with (``launch/dryrun.py``).  Each row then holds its slice of
+the float32 weights and AdamW moments and gathers a layer's weights as it
+runs it; the run's numbers are those of the replicated run bit for bit.
+Without it the state is replicated on each row.
+
 ``main(argv)`` returns the loop's ``LoopStats``, so a caller can drive it
 in-process.
 """
@@ -43,6 +51,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="store the train state in slices over the data rows "
+                         "(needs --dp x --pods > 1)")
     ap.add_argument("--remat", default="none", choices=["none", "full"])
     ap.add_argument("--fail-at-step", type=int, default=None,
                     help="failure injection (fault-tolerance demo)")
@@ -56,6 +67,9 @@ def main(argv: Optional[Sequence[str]] = None) -> LoopStats:
     ap = parser()
     args = ap.parse_args(argv)
     devices = args.dp * args.tp * args.pods
+    if args.fsdp and args.dp * args.pods < 2:
+        ap.error(f"--fsdp slices the state over the data rows: it needs --dp x --pods > 1, "
+                 f"not --dp {args.dp} --pods {args.pods}")
     mesh = None
     if devices > 1:
         on_cpu = torch.device(args.device).type == "cpu"
@@ -82,7 +96,7 @@ def main(argv: Optional[Sequence[str]] = None) -> LoopStats:
         cfg, run, data, total_steps=args.steps, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, opt=opt, seed=args.seed,
         fail_at_step=args.fail_at_step, log_every=max(1, args.steps // 10),
-        device=args.device, mesh=mesh,
+        device=args.device, mesh=mesh, fsdp=args.fsdp,
     )
     print(
         f"steps={stats.steps} loss {np.mean(stats.losses[:5]):.4f} -> "

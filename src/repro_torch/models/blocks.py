@@ -9,8 +9,9 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .base import ShardCtx, tree_index
+from .base import ShardCtx
 from .attention import attention_block, attn_spec, init_kv_cache
+from .fsdp import Sliced, gather, use_tree
 from .layers import apply_mlp, apply_norm, mlp_spec, norm_spec
 from .moe import EXPERT_LEAVES, moe_ffn, moe_ffn_sharded, moe_spec
 from .rglru import init_rglru_cache, rglru_block, rglru_spec
@@ -93,20 +94,38 @@ def block_fwd(
 class ParamTree(nn.Module):
     """A nested dict of tensors held as a module: its parameter names are
     the tree's paths joined by dots, so the reference's parameter tree maps
-    onto the port's one to one.  ``trainable`` parameters require grad."""
+    onto the port's one to one.  ``trainable`` parameters require grad.  A
+    leaf stored in slices over a mesh (``fsdp.Sliced``) is held as it is,
+    outside the module's parameters."""
 
     def __init__(self, tree: Dict[str, Any], trainable: bool = False):
         super().__init__()
+        self._sliced: Dict[str, Sliced] = {}
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v, trainable))
+            elif isinstance(v, Sliced):
+                self._sliced[k] = v
+                setattr(self, k, v)
             else:
                 self.register_parameter(k, nn.Parameter(v, requires_grad=trainable))
 
     def tree(self) -> Dict[str, Any]:
         out = {name: p for name, p in self.named_parameters(recurse=False)}
+        out.update(self._sliced)
         out.update({name: m.tree() for name, m in self.named_children()})
         return out
+
+    def place_(self, fn, prefix: Tuple[str, ...] = ()) -> None:
+        """Replace every parameter by ``fn(path, tensor)`` (a ``Sliced``),
+        leaf by leaf, dropping the module's hold on each tensor as it goes."""
+        for name in list(self._parameters):
+            t = self._parameters.pop(name)
+            self._sliced[name] = leaf = fn(prefix + (name,), t)
+            del t
+            setattr(self, name, leaf)
+        for name, m in self.named_children():
+            m.place_(fn, prefix + (name,))
 
 
 class Block(ParamTree):
@@ -118,22 +137,37 @@ class Block(ParamTree):
         super().__init__(tree, trainable)
         self.btype, self.cfg, self.stacked = btype, cfg, stacked
 
-    def layer(self, layer: int):
-        return tree_index(self.tree(), layer) if self.stacked else self.tree()
+    def layer(self, layer: int, device=None):
+        """Layer ``layer``'s parameters as ``device`` computes with them:
+        sliced leaves gathered there (``fsdp.use_tree``)."""
+        return use_tree(self.tree(), device, layer if self.stacked else None)
+
+    def expert_slice(self, name: str, layer: int, shard: int, shards: int, device):
+        """Model shard ``shard`` of ``shards``'s experts of leaf ``name`` at
+        ``layer``: a view of this block's leaf (a replica on the shard's
+        device), or, sliced, the shard's slices gathered onto ``device``."""
+        w = self.tree()["moe"][name]
+        if isinstance(w, Sliced):
+            return gather(w, device, layer if self.stacked else None, shard)
+        w = w[layer] if self.stacked else w
+        e_loc = w.shape[0] // shards
+        return w[shard * e_loc:(shard + 1) * e_loc]
 
     def forward(self, x, positions, ctx: ShardCtx, layer: int = 0, cache=None, mesh=None,
                 use_ep: bool = False, shards: Optional[Sequence["Block"]] = None):
         """``shards``: this block on each model shard's device (the model's
         replicas there), whose expert slices the shards compute with."""
-        params = self.layer(layer)
-        if shards is not None and "moe" in params:
+        tree = self.tree()
+        ep = shards is not None and "moe" in tree
+        params = use_tree(tree, x.device, layer if self.stacked else None,
+                          skip=EXPERT_LEAVES if ep else ())
+        if ep:
             moe = dict(params["moe"])
-            on_shard = [b.layer(layer)["moe"] for b in shards]
+            devices = mesh.row_devices(0)
             for name in EXPERT_LEAVES:
-                if name in moe:
-                    e_loc = moe[name].shape[0] // len(shards)
-                    moe[name] = tuple(m[name][s * e_loc:(s + 1) * e_loc]
-                                      for s, m in enumerate(on_shard))
+                if name in tree["moe"]:
+                    moe[name] = tuple(b.expert_slice(name, layer, s, len(shards), devices[s])
+                                      for s, b in enumerate(shards))
             params = dict(params, moe=moe)
         return block_fwd(self.btype, params, self.cfg, x, positions, ctx, cache=cache,
                          use_ep=use_ep, mesh=mesh)

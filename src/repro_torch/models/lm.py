@@ -13,8 +13,11 @@ the model's :func:`replica` there (the model itself where it lies there),
 and the logits gather onto the mesh's first device in row order.  Within a
 row, ``use_ep`` runs each MoE layer expert-parallel over the row's model
 shards, and attention decodes split-S against a cache sharded over them.
-The reference's ``_constrain`` (a sharding hint with no effect on the
-answer) has no counterpart.
+A model whose state is stored in slices over the rows (``models/fsdp.py``)
+has no replicas: each row gathers a layer's weights onto its device inside
+the layer's remat region and frees them after.  The reference's
+``_constrain`` (a sharding hint with no effect on the answer) has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from ..launch.mesh import indexed_device
 from .attention import KVCache, ShardedKVCache
 from .base import SINGLE, ShardCtx, init_params, resolve_device, stack_tree, tree_map
 from .blocks import Block, ParamTree, block_spec, init_block_cache
+from .fsdp import Sliced, gather, use_tree
 from .layers import apply_norm, compute_dtype, embed_spec, embed_tokens, lm_logits, norm_spec
 from .rglru import RGLRUCache
 from .ssd import SSDCache
@@ -91,6 +95,22 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.tok.device
 
+    def place_(self, fn) -> None:
+        """Replace every parameter by ``fn(path, tensor)``, leaf by leaf
+        (``blocks.ParamTree.place_``); replicas made before are dropped."""
+        self.__dict__.pop("_replicas", None)
+        self.embed.place_(fn, ("embed",))
+        self.final_norm.place_(fn, ("final_norm",))
+        for name in ("groups", "extra"):
+            for key, block in getattr(self, name).items():
+                block.place_(fn, (name, key))
+
+    @property
+    def placed(self) -> bool:
+        """Whether the parameters are stored in slices over a mesh's data
+        rows (``train.trainstep.place_train_state``)."""
+        return isinstance(self.embed.tok, Sliced)
+
     def forward(self, tokens, cache=None, start_pos=None, remat: bool = False,
                 vis_embeds=None, mesh=None, use_ep: bool = False):
         return forward(self, self.cfg, tokens, self.ctx, mesh=mesh, cache=cache,
@@ -104,8 +124,8 @@ def replica(model: LM, device) -> LM:
     after an update.  A replica's replica is the model's."""
     model = model.__dict__.get("_master", model)
     dev = indexed_device(device)
-    if model.device == dev:
-        return model
+    if model.device == dev or model.placed:
+        return model  # a placed model gathers onto the device that computes
     reps = model.__dict__.setdefault("_replicas", {})
     if dev not in reps:
         trainable = next(model.parameters()).requires_grad
@@ -257,7 +277,36 @@ def forward(
         if use_ep and cfg.moe is not None:
             shard_models = [replica(params, d) for d in mesh.row_devices(0)]
     dt = compute_dtype(cfg)
-    x = embed_tokens(params.embed.tree(), cfg, tokens).to(dt)
+    dev = tokens.device
+    backend = kops.backend()  # a recompute runs on autograd's thread
+
+    def contexts():
+        return nullcontext(), kops.local_backend(backend)
+
+    remat = remat and cache is None
+    placed = params.placed
+
+    def region(fn, *args, always: bool = False):
+        """``fn(*args)``, its activations recomputed in the backward under
+        ``remat``: a group's always (the reference's jax.checkpoint around
+        the group body), the embedding's, an extra block's and the head's
+        where the weights are sliced, so that their gathers run again in
+        the backward instead of being kept."""
+        if remat and (always or placed):
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+        return fn(*args)
+
+    emb = params.embed.tree()
+    tied = None
+    if placed and cfg.tie_embeddings:
+        # the table serves both ends: gathered once a row, so that the
+        # gradients of its two uses add as on a whole leaf
+        tied = {"tok": gather(emb["tok"], dev)}
+
+    def embed_params(keys):
+        return tied or use_tree({k: emb[k] for k in keys}, dev)
+
+    x = region(lambda t: embed_tokens(embed_params(("tok",)), cfg, t).to(dt), tokens)
     vis = cfg.n_vis_tokens and vis_embeds is not None
     if vis:
         x = torch.cat([vis_embeds.to(device=x.device, dtype=dt), x], dim=1)
@@ -289,20 +338,9 @@ def forward(
                     outs[key].append(c_out)
             return x, auxes
 
-        backend = kops.backend()  # the recompute runs on autograd's thread
-
-        def contexts():
-            return nullcontext(), kops.local_backend(backend)
-
         for g in range(n_groups):
-            if remat and cache is None:
-                # the reference's jax.checkpoint around the group body: its
-                # activations are recomputed in the backward, on the same
-                # kernel backend as the forward
-                x, auxes = checkpoint(group_body, x, g, use_reentrant=False,
-                                      context_fn=contexts)
-            else:
-                x, auxes = group_body(x, g)
+            # the recompute runs on the same kernel backend as the forward
+            x, auxes = region(group_body, x, g, always=True)
             for aux in auxes:
                 merge(aux)
         if new_cache is not None:
@@ -312,19 +350,23 @@ def forward(
         for key, block in params.extra.items():
             c_in = None if cache is None else cache["extra"][key]
             shards = None if shard_models is None else [m.extra[key] for m in shard_models]
-            x, c_out, aux = block(x, positions, ctx, cache=c_in, mesh=mesh, use_ep=use_ep,
-                                  shards=shards)
+            x, c_out, aux = region(
+                lambda x, block=block, c_in=c_in, shards=shards: block(
+                    x, positions, ctx, cache=c_in, mesh=mesh, use_ep=use_ep, shards=shards), x)
             merge(aux)
             if c_out is not None:
                 extra[key] = c_out
         if new_cache is not None:
             new_cache["extra"] = extra
 
-    x = apply_norm(params.final_norm.tree(), cfg, x)
-    if vis:
-        x = x[:, vis_embeds.shape[1]:]  # logits over text positions only
-    logits = lm_logits(params.embed.tree(), cfg, x, ctx.tp)
-    return logits, new_cache, aux_total
+    def head(x):
+        x = apply_norm(use_tree(params.final_norm.tree(), dev), cfg, x)
+        if vis:
+            x = x[:, vis_embeds.shape[1]:]  # logits over text positions only
+        return lm_logits(embed_params(("tok",) if cfg.tie_embeddings else ("head",)), cfg, x,
+                         ctx.tp)
+
+    return region(head, x), new_cache, aux_total
 
 
 def _forward_rows(params: LM, cfg: ModelConfig, tokens, ctx: ShardCtx, mesh, rows: int, cache,

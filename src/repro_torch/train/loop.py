@@ -17,7 +17,6 @@ from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import numpy as np
-import torch
 
 from ..ckpt.manager import CheckpointManager
 from ..configs.base import ModelConfig, RunConfig
@@ -26,7 +25,7 @@ from ..data.synth import SynthSpec, batch_at
 from ..models.base import resolve_device
 from ..models.lm import sync_replicas
 from .optimizer import AdamWConfig
-from .trainstep import init_train_state, make_train_step
+from .trainstep import init_placed_state, init_train_state, make_train_step
 
 
 @dataclass
@@ -55,28 +54,32 @@ def train_loop(
     log_fn: Callable[[str], None] = print,
     device=None,
     mesh=None,
+    fsdp: bool = False,
 ) -> LoopStats:
     """Train ``cfg`` on ``device`` (the card unless asked), or over
-    ``mesh`` (a ``launch.mesh.ModelMesh``: the state on its first device),
-    for ``total_steps`` steps, resuming from ``ckpt_dir`` if it holds a
-    checkpoint; the final state is saved there on the way out."""
+    ``mesh`` (a ``launch.mesh.ModelMesh``: the state on its first device;
+    with ``fsdp``, stored in slices over its data rows as the placements
+    say, ``trainstep.place_train_state``), for ``total_steps`` steps,
+    resuming from ``ckpt_dir`` if it holds a checkpoint; the final state is
+    saved there on the way out."""
     dev = resolve_device(device) if mesh is None else mesh.first
     step_fn, ctx = make_train_step(cfg, run, mesh=mesh, opt=opt)
 
     stats = LoopStats()
     manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
 
-    model, opt_state = init_train_state(cfg, run, ctx, seed=seed, device=dev)
+    if fsdp:
+        model, opt_state = init_placed_state(cfg, run, ctx, mesh, seed=seed)
+    else:
+        model, opt_state = init_train_state(cfg, run, ctx, seed=seed, device=dev)
     start_step = 0
     if manager is not None and manager.latest_step() is not None:
         start_step = manager.latest_step()
-        # restored on the host and copied into the state in place: a second
-        # copy on the device would not fit beside a state of half the card
-        state = manager.restore(snapshot_of(model, opt_state), device="cpu")
-        with torch.no_grad():
-            _copy_tree(snapshot_of(model, opt_state), state)
+        # read leaf by leaf on the host and copied into the state in place
+        # (a sliced leaf slice by slice): a second copy on the device would
+        # not fit beside a state of half the card
+        manager.restore_into(snapshot_of(model, opt_state), start_step)
         sync_replicas(model)
-        del state
         stats.resumed_from = start_step
         log_fn(f"[loop] resumed from step {start_step}")
 
@@ -118,11 +121,3 @@ def train_loop(
 def snapshot_of(model, opt_state):
     """The state a checkpoint holds: the parameters and the optimizer state."""
     return {"params": model.tree(), "opt": opt_state}
-
-
-def _copy_tree(dst, src) -> None:
-    for k, v in dst.items():
-        if isinstance(v, dict):
-            _copy_tree(v, src[k])
-        else:
-            v.copy_(src[k])

@@ -13,6 +13,11 @@ error-feedback gradient compression helpers:
 
 Master weights are float32; the moments are float32.  Trees are nested dicts
 of tensors (``LM.tree()``), walked in sorted-key order as JAX flattens them.
+A leaf of a train state placed over a mesh's data rows (``fsdp.Sliced``)
+is updated part by part where each part lies (the arithmetic is
+elementwise); a leaf held whole on every row is updated on the first row
+and copied to the others.  The global norm and the compression's scale
+read each leaf whole, so both take the same bits as on a whole state.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 
 from ..models.base import tree_flatten, tree_map, tree_unflatten
+from ..models.fsdp import Sliced
 
 
 @dataclass(frozen=True)
@@ -50,6 +56,8 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_opt_state(params) -> Dict[str, Any]:
     def zeros(p):
+        if isinstance(p, Sliced):
+            return p.like()
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     step = torch.zeros((), dtype=torch.int32, device=tree_flatten(params)[0][1].device)
@@ -57,9 +65,14 @@ def init_opt_state(params) -> Dict[str, Any]:
 
 
 def global_norm(grads) -> torch.Tensor:
-    """sqrt(Σ over leaves in order of Σ g²), float32."""
+    """sqrt(Σ over leaves in order of Σ g²), float32.  A sliced leaf is
+    gathered whole onto its first device, one leaf at a time, and squared
+    there in place: a sum over its slices would round otherwise."""
     gsq = 0
     for _, g in tree_flatten(grads):
+        if isinstance(g, Sliced):
+            gsq = gsq + torch.sum(g.whole(g.devices[0][0]).square_())
+            continue
         gsq = gsq + torch.sum(torch.square(g.float()))
     return torch.sqrt(gsq)
 
@@ -84,8 +97,14 @@ def adamw_update(cfg: AdamWConfig, params, grads, state
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1, bc2 = 1 - b1 ** step.float(), 1 - b2 ** step.float()
+    scalars = {}  # (clip, lr, bc1, bc2) on each device a part lies on
 
-    def upd_slice(p, g, mu, nu, decay: bool):
+    def on(dev):
+        if dev not in scalars:
+            scalars[dev] = tuple(t.to(dev) for t in (clip, lr, bc1, bc2))
+        return scalars[dev]
+
+    def upd_slice(p, g, mu, nu, decay: bool, clip, lr, bc1, bc2):
         g = g.float() * clip
         new_mu = b1 * mu + (1 - b1) * g
         new_nu = b2 * nu + (1 - b2) * g * g
@@ -97,12 +116,26 @@ def adamw_update(cfg: AdamWConfig, params, grads, state
         mu.copy_(new_mu)
         nu.copy_(new_nu)
 
-    def upd(p, g, mu, nu):
+    def upd_tensor(p, g, mu, nu):
         decay = p.dim() >= 2  # decoupled weight decay on matrices only
         flat = (p.detach().view(-1), g.reshape(-1), mu.view(-1), nu.view(-1))
+        consts = on(p.device)
         with torch.no_grad():
             for a in range(0, flat[0].numel(), UPDATE_SLICE):
-                upd_slice(*(t[a:a + UPDATE_SLICE] for t in flat), decay)
+                upd_slice(*(t[a:a + UPDATE_SLICE] for t in flat), decay, *consts)
+
+    def upd(p, g, mu, nu):
+        if not isinstance(p, Sliced):
+            upd_tensor(p, g, mu, nu)
+            return p, mu, nu
+        for r in range(g.rows):  # one row where the leaf is whole on every row
+            for s in range(g.shards):
+                upd_tensor(p.parts[r][s], g.parts[r][s], mu.parts[r][s], nu.parts[r][s])
+        with torch.no_grad():
+            for r in range(g.rows, p.rows):
+                for t in (p, mu, nu):
+                    for dst, src in zip(t.parts[r], t.parts[0]):
+                        dst.copy_(src)
         return p, mu, nu
 
     flat = tree_flatten(params)
@@ -119,8 +152,11 @@ def adamw_update(cfg: AdamWConfig, params, grads, state
 # ---------------------------------------------------------------- compression --
 
 
-def quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.max(torch.abs(g)) / 127.0 + 1e-12
+def quantize_int8(g: torch.Tensor, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (g in int8 steps of ``scale``, the scale: by default g's largest
+    |value| over 127)."""
+    if scale is None:
+        scale = torch.max(torch.abs(g)) / 127.0 + 1e-12
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -129,17 +165,42 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_with_feedback(g: torch.Tensor, err: torch.Tensor
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (the dequantised gradient with the carried error, the new error)."""
-    g_ef = g.float() + err
-    deq = dequantize_int8(*quantize_int8(g_ef))
-    return deq, g_ef - deq
+def compress_with_feedback(g, err):
+    """→ (the dequantised gradient with the carried error, the new error).
+    Sliced leaves: the scale is the largest |value| over the slices (a
+    maximum, so the same bits as the whole leaf's); the rest is
+    elementwise, slice by slice; the new error goes to every row's copy of
+    a leaf held whole on every row."""
+    if not isinstance(g, Sliced):
+        g_ef = g.float() + err
+        deq = dequantize_int8(*quantize_int8(g_ef))
+        return deq, g_ef - deq
+    first = g.devices[0][0]
+    g_efs = [[gp.float() + ep for gp, ep in zip(g.parts[r], err.parts[r])]
+             for r in range(g.rows)]
+    amax = None
+    for row in g_efs:
+        for x in row:
+            m = torch.max(torch.abs(x)).to(first)
+            amax = m if amax is None else torch.maximum(amax, m)
+    scale = amax / 127.0 + 1e-12
+    deq = Sliced(g.shape, g.dim, g.tp_dim, [], g.devices)
+    new_err = Sliced(err.shape, err.dim, err.tp_dim, [], err.devices)
+    for row in g_efs:
+        d_row = []
+        for x in row:
+            d_row.append(dequantize_int8(*quantize_int8(x, scale.to(x.device))))
+        deq.parts.append(d_row)
+        new_err.parts.append([x - d for x, d in zip(row, d_row)])
+    for r in range(g.rows, err.rows):
+        new_err.parts.append([e.to(d, copy=True) for e, d in zip(new_err.parts[0],
+                                                                 err.devices[r])])
+    return deq, new_err
 
 
 def init_error_state(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                    params)
+    return tree_map(lambda p: p.like() if isinstance(p, Sliced) else
+                    torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
 
 
 def compressed_psum(gs: Sequence[torch.Tensor], errs: Sequence[torch.Tensor]

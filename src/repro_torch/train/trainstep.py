@@ -14,15 +14,26 @@ added on the mesh's first device in row order, from the first, then
 divided by ``dp_total``, so a step equals the step with ``microbatch =
 B/dp_total`` bit for bit on one device.  AdamW runs there on the master
 weights, which then go back to the replicas.
+
+With the state placed (:func:`place_train_state`, the counterpart of the
+reference dry run's input shardings), each row keeps its slices of the
+weights and moments: row ``r`` gathers each layer's weights as it runs it,
+and the gather's backward adds the row's gradient into each slice's float32
+accumulator on the slice's device, rows in order, so the accumulated slices
+equal the replicated step's gradient bit for bit; AdamW then updates each
+slice where it lies.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig, RunConfig
-from ..models.base import SINGLE, ShardCtx, tree_flatten, tree_specs_to_shapes, tree_unflatten
+from ..models.base import (SINGLE, ShardCtx, resolve_device, tree_flatten, tree_map,
+                           tree_specs_to_shapes, tree_unflatten)
+from ..models.fsdp import Sliced, place_leaf
+from ..models.layers import compute_dtype
 from ..models.lm import LM, data_rows, forward, init_model, lm_loss, model_spec, replica, \
     sync_replicas
 from .optimizer import (
@@ -66,23 +77,30 @@ def value_and_grad(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: boo
     rows split the batch (``lm.data_rows``), each row's gradient comes from
     the replicas on its devices; the rows' gradients, totals and metrics
     are added on the mesh's first device in row order and divided by the
-    number of rows."""
+    number of rows.  A placed model's gradients are fresh accumulators, a
+    ``Sliced`` leaf for each of its leaves, into which the rows add."""
     rows = 1 if mesh is None else data_rows(mesh, cfg, batch["tokens"].shape[0], use_ep)
-    if rows == 1:
-        return _row_value_and_grad(model, cfg, batch, ctx, remat,
-                                   None if mesh is None else mesh.row(0), use_ep)
     b = batch["tokens"].shape[0] // rows
-    total = metrics = grads = None
+    grads = _zero_grads(model) if model.placed else None
+    total = metrics = None
     for r in range(rows):
-        part = {k: v[r * b:(r + 1) * b] for k, v in batch.items()}
-        t, m, g = _row_value_and_grad(model, cfg, part, ctx, remat, mesh.row(r), use_ep)
-        if grads is None:
-            total, metrics, grads = t, m, g
+        part = batch if rows == 1 else {k: v[r * b:(r + 1) * b] for k, v in batch.items()}
+        t, m, g = _row_value_and_grad(model, cfg, part, ctx, remat,
+                                      None if mesh is None else mesh.row(r), use_ep)
+        if total is None:
+            total, metrics = t, m
         else:
             total = total + t.to(total.device)
             metrics = {k: v + m[k].to(v.device) for k, v in metrics.items()}
+        if g is None:  # a placed model's row added its gradient in place
+            continue
+        if grads is None:
+            grads = g
+        else:
             _tree_add_(grads, g)
         del g
+    if rows == 1:
+        return total, metrics, grads
     _tree_div_(grads, rows)
     return total / rows, {k: v / rows for k, v in metrics.items()}, grads
 
@@ -92,12 +110,18 @@ def _row_value_and_grad(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat
     """One data row's (total, metrics, gradient tree on the model's
     device): the gradient of every replica the row computed with, added in
     the order of the row's devices (a replica of another device holds only
-    its shard's part)."""
+    its shard's part).  A placed model's row adds its gradient into the
+    leaves' accumulators (the gathers' backward) and returns None for it."""
+    if mesh is not None:
+        batch = {k: v.to(mesh.first) for k, v in batch.items()}
+    if model.placed:
+        total, metrics = loss_fn(model, cfg, batch, ctx, remat, mesh, use_ep)
+        total.backward()
+        return total.detach(), {k: v.detach() for k, v in metrics.items()}, None
     models = [model]
     if mesh is not None:
         reps = (replica(model, dev) for dev in mesh.row_devices(0))
         models = list({id(m): m for m in reps}.values())  # distinct, in shard order
-        batch = {k: v.to(mesh.first) for k, v in batch.items()}
     flats = [tree_flatten(m.tree()) for m in models]
     total, metrics = loss_fn(models[0], cfg, batch, ctx, remat, mesh, use_ep)
     leaves = [p for flat in flats for _, p in flat]
@@ -113,6 +137,17 @@ def _row_value_and_grad(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat
         [path for path, _ in flats[0]], out)
 
 
+def _zero_grads(model: LM):
+    """Fresh float32 accumulators for a placed model's gradient, each set
+    as its leaf's ``grad`` (the gathers' backward adds into it): one a part,
+    on the first row only for a leaf held whole on every row."""
+    def fresh(leaf: Sliced) -> Sliced:
+        leaf.grad = leaf.like(rows=leaf.rows if leaf.dim is not None else 1)
+        return leaf.grad
+
+    return tree_map(fresh, model.tree())
+
+
 def make_train_step(cfg: ModelConfig, run: RunConfig, mesh=None,
                     opt: Optional[AdamWConfig] = None, use_ep: bool = False):
     """Returns (step_fn, ctx).  step_fn(model, opt_state, batch) → (model,
@@ -120,7 +155,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh=None,
     ``opt_state`` are updated in place (the reference returns new ones).
     Compression keeps its error-feedback tree in opt_state["err"].  Over a
     ``mesh`` (the model on its first device) each data row computes its
-    part of the gradient on its own replica (:func:`value_and_grad`)."""
+    part of the gradient on its own replica (:func:`value_and_grad`); a
+    model placed over the mesh (:func:`place_train_state`) is stepped slice
+    by slice where each slice lies."""
     ctx = make_shard_ctx(run)
     opt = opt or AdamWConfig(lr=run.lr, weight_decay=run.weight_decay, grad_clip=run.grad_clip)
     remat = run.remat != "none"
@@ -155,6 +192,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh=None,
         inner = {k: v for k, v in opt_state.items() if k != "err"}
         _, new_inner, opt_metrics = adamw_update(opt, model.tree(), grads, inner)
         sync_replicas(model)
+        if model.placed:
+            del grads
+            tree_map(lambda leaf: setattr(leaf, "grad", None), model.tree())
         new_state = dict(new_inner)
         if "err" in opt_state:
             new_state["err"] = opt_state["err"]
@@ -163,14 +203,20 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh=None,
     return step, ctx
 
 
+def _tensors(leaf) -> List[torch.Tensor]:
+    return leaf.all_parts() if isinstance(leaf, Sliced) else [leaf]
+
+
 def _tree_add_(a, b) -> None:
     for (_, x), (_, y) in zip(tree_flatten(a), tree_flatten(b)):
-        x.add_(y.to(x.device))
+        for xp, yp in zip(_tensors(x), _tensors(y)):
+            xp.add_(yp.to(xp.device))
 
 
 def _tree_div_(a, n: int) -> None:
     for _, x in tree_flatten(a):
-        x.div_(n)
+        for xp in _tensors(x):
+            xp.div_(n)
 
 
 def init_train_state(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx = SINGLE, seed: int = 0,
@@ -182,6 +228,116 @@ def init_train_state(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx = SINGLE, s
     if run.grad_compression:
         opt_state["err"] = init_error_state(model.tree())
     return model, opt_state
+
+
+def init_placed_state(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx, mesh, seed: int = 0):
+    """:func:`init_train_state`'s state placed over ``mesh``'s data rows as
+    it is made (:func:`place_train_state`): each leaf is drawn on the
+    mesh's first device from the generator that would make the whole model
+    there, sliced at once and freed, so the whole state never lies on one
+    device."""
+    first = resolve_device(mesh.first)
+    gen = torch.Generator(device=first)
+    gen.manual_seed(seed)
+    place = _placer(cfg, ctx, mesh)
+    compute = compute_dtype(cfg)
+
+    def make(path, spec):
+        return place(path, spec.materialise(gen, compute, first, master=True), True)
+
+    model = LM(cfg, _map_paths(make, model_spec(cfg, ctx)), ctx, trainable=True)
+    opt_state = init_opt_state(model.tree())
+    if run.grad_compression:
+        opt_state["err"] = init_error_state(model.tree())
+    return model, opt_state
+
+
+def place_train_state(model: LM, opt_state, mesh):
+    """Store a whole train state in slices over ``mesh``'s data rows, as
+    the reference's placements say (``ParamSpec.placement``; the dry run's
+    input shardings): row ``r`` keeps slice ``r`` of each leaf's data-axis
+    dimension on ``mesh.device(r, 0)`` (an expert leaf's shard ``s`` on
+    ``mesh.device(r, s)``); a leaf with no data axis is held whole on every
+    row.  The moments and the error tree are sliced like their parameters.
+    The given state is consumed, as the dry run donates it: each whole leaf
+    is dropped as soon as it is sliced.  → (the model, now placed, and the
+    placed optimizer state)."""
+    if mesh.tp != model.ctx.tp:
+        raise ValueError(f"a mesh of {mesh.tp} model shards under ShardCtx(tp={model.ctx.tp})")
+    place = _placer(model.cfg, model.ctx, mesh)
+    model.place_(lambda path, t: place(path, t, True))
+
+    def place_tree(tree, prefix=()):
+        for k in list(tree):
+            if isinstance(tree[k], dict):
+                place_tree(tree[k], prefix + (k,))
+            else:
+                t = tree.pop(k)
+                tree[k] = place(prefix + (k,), t, False)
+                del t
+
+    for key in ("mu", "nu", "err"):
+        if key in opt_state:
+            place_tree(opt_state[key])
+    opt_state["step"] = opt_state["step"].to(mesh.first)
+    return model, opt_state
+
+
+def _mesh_ctx(mesh, tp: int) -> ShardCtx:
+    """The context whose placements ``mesh`` stores: its data rows, and
+    ``tp`` model shards."""
+    if mesh.axis_names[0] == "pod":
+        return ShardCtx(tp=tp, dp=mesh.shape[1], pods=mesh.shape[0], data_axes=("pod", "data"))
+    return ShardCtx(tp=tp, dp=mesh.shape[0])
+
+
+def _placer(cfg: ModelConfig, ctx: ShardCtx, mesh):
+    """(path, whole leaf, requires grad) → the leaf placed over ``mesh``,
+    from the placements computed at the mesh's context."""
+    mctx = _mesh_ctx(mesh, ctx.tp)
+    specs = dict(tree_flatten(model_spec(cfg, mctx)))
+
+    def place(path, t, requires_grad):
+        spec = specs[path]
+        if tuple(t.shape) != spec.shape:
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != {spec.shape}")
+        return place_leaf(t, spec.placement, mctx.data_spec(), path, mesh, requires_grad)
+
+    return place
+
+
+def _map_paths(fn, tree, prefix=()):
+    """``fn(path, leaf)`` over a nested dict, in its insertion order."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, prefix + (k,)) for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+def row_state_bytes(model: LM, opt_state) -> List[int]:
+    """The bytes of the train state (weights, moments, error tree) that
+    each data row of a placed model holds, counted on its tensors."""
+    out: List[int] = []
+    for tree in (model.tree(), opt_state["mu"], opt_state["nu"], opt_state.get("err", {})):
+        for _, leaf in tree_flatten(tree):
+            for r, row in enumerate(leaf.parts):
+                while len(out) <= r:
+                    out.append(0)
+                out[r] += sum(p.numel() * p.element_size() for p in row)
+    return out
+
+
+def placement_bytes(cfg: ModelConfig, ctx: ShardCtx, arrays: int = 4) -> Tuple[int, int]:
+    """(bytes of a whole float32 train state, bytes a data row holds where
+    each leaf is sliced as its placement says) for ``arrays`` float32
+    copies of the parameters (weights, gradients and two moments: 4), from
+    the specs alone: nothing is allocated."""
+    whole = row = 0
+    dspec = ctx.data_spec()
+    for _, spec in tree_flatten(model_spec(cfg, ctx)):
+        n = int(torch.Size(spec.shape).numel())
+        whole += n
+        row += n // ctx.dp_total if dspec in spec.placement and ctx.dp_total > 1 else n
+    return whole * 4 * arrays, row * 4 * arrays
 
 
 def train_state_specs(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx):

@@ -177,3 +177,164 @@ def test_resume_restores_into_the_state_in_place(tmp_path, monkeypatch):
     assert [k for k, _ in seen[0]] == [k for k, _ in want]
     for (key, got), (_, w) in zip(seen[0], want):
         assert torch.equal(got, w), key
+
+
+# ------------------------------------------------ sliced (FSDP) state --
+# A train state stored in slices over a mesh's data rows saves each leaf
+# whole (the files of a whole state), and restores into any layout: four
+# rows, two, one, or a whole state.
+
+SLICED_SHAPE = ShapeConfig("tiny", "train", seq_len=32, global_batch=4)
+SLICED_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+
+
+def _layout(name):
+    """(mesh or None, RunConfig kwargs) of a layout; each takes a step with
+    the same arithmetic as four rows of one sequence (rows in order, or
+    microbatches of one sequence in order), except two rows."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return {"4 rows": (make_mesh(4, 1, devices=["cpu"] * 4), dict(dp=4)),
+            "2 rows": (make_mesh(2, 1, devices=["cpu:0", "cpu:1"]), dict(dp=2)),
+            "1 row": (make_mesh(1, 1, devices=["cpu"]), dict(dp=1, microbatch=1)),
+            "whole": (None, dict(dp=1, microbatch=1))}[name]
+
+
+def _sliced_setup(name, seed):
+    from repro_torch.train.trainstep import init_placed_state, init_train_state, make_train_step
+
+    cfg = get_smoke_config("smollm_360m")
+    mesh, kw = _layout(name)
+    run = RunConfig(model=cfg, shape=SLICED_SHAPE, tp=1, grad_compression=True, **kw)
+    step, ctx = make_train_step(cfg, run, mesh=mesh, opt=AdamWConfig(**SLICED_OPT))
+    if mesh is None:
+        model, state = init_train_state(cfg, run, ctx, seed=seed, device="cpu")
+    else:
+        model, state = init_placed_state(cfg, run, ctx, mesh, seed=seed)
+    return cfg, step, model, state
+
+
+def _batch(cfg, i):
+    from repro_torch.data import batch_at
+
+    return {k: torch.from_numpy(v) for k, v in
+            batch_at(SynthSpec(vocab=cfg.vocab, seq_len=32, batch=4, seed=1), i).items()}
+
+
+def _host_tree(model, state):
+    from repro_torch.models.fsdp import Sliced
+
+    return [(keystr(p), t.whole("cpu") if isinstance(t, Sliced) else t.detach().clone())
+            for p, t in tree_flatten({"params": model.tree(), "opt": state})]
+
+
+def _into(name, host):
+    """A state of layout ``name`` holding the host tree's values (made from
+    another seed, then overwritten leaf by leaf)."""
+    from repro_torch.models.fsdp import Sliced
+
+    cfg, step, model, state = _sliced_setup(name, seed=7)
+    values = dict(host)
+    with torch.no_grad():
+        for path, leaf in tree_flatten({"params": model.tree(), "opt": state}):
+            if isinstance(leaf, Sliced):
+                leaf.copy_from(values[keystr(path)])
+            else:
+                leaf.copy_(values[keystr(path)])
+    return cfg, step, model, state
+
+
+def _same(a, b):
+    return [k for k, _ in a] == [k for k, _ in b] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+
+
+@pytest.mark.parametrize("layout", ["4 rows", "2 rows", "1 row", "whole"])
+def test_sliced_checkpoint_restores_over_any_row_count(tmp_path, layout):
+    """A state over four sliced rows (with the int8 error tree) saved after
+    a step restores into ``layout`` bit for bit, and the next step from it
+    equals the next step of the uninterrupted state moved to that layout in
+    memory; over four rows, one row and a whole state (whose arithmetic is
+    the four rows' in order) it equals the uninterrupted run's next step."""
+    cfg, step, model, state = _sliced_setup("4 rows", seed=0)
+    model, state, _ = step(model, state, _batch(cfg, 0))
+    CheckpointManager(str(tmp_path)).save(1, {"params": model.tree(), "opt": state})
+    saved = _host_tree(model, state)
+    model, state, m4 = step(model, state, _batch(cfg, 1))
+    uninterrupted = _host_tree(model, state)
+
+    _, rstep, rmodel, rstate = _sliced_setup(layout, seed=7)
+    CheckpointManager(str(tmp_path)).restore_into({"params": rmodel.tree(), "opt": rstate})
+    assert _same(_host_tree(rmodel, rstate), saved)
+    rmodel, rstate, rm = rstep(rmodel, rstate, _batch(cfg, 1))
+    got = _host_tree(rmodel, rstate)
+
+    _, wstep, wmodel, wstate = _into(layout, saved)
+    wmodel, wstate, wm = wstep(wmodel, wstate, _batch(cfg, 1))
+    assert _same(got, _host_tree(wmodel, wstate))
+    assert torch.equal(rm["loss"], wm["loss"]) and torch.equal(rm["grad_norm"], wm["grad_norm"])
+    if layout != "2 rows":
+        assert _same(got, uninterrupted)
+        assert torch.equal(rm["loss"], m4["loss"]) and torch.equal(rm["grad_norm"],
+                                                                    m4["grad_norm"])
+
+
+def test_sliced_restore_makes_slices_of_the_templates_layout(tmp_path):
+    """``restore`` with a sliced template returns new sliced leaves of the
+    template's layout holding the saved values; a whole template takes the
+    same checkpoint as whole tensors."""
+    from repro_torch.models.fsdp import Sliced
+
+    cfg, step, model, state = _sliced_setup("4 rows", seed=0)
+    model, state, _ = step(model, state, _batch(cfg, 0))
+    m = CheckpointManager(str(tmp_path))
+    m.save(1, {"params": model.tree(), "opt": state})
+    _, _, tmodel, tstate = _sliced_setup("2 rows", seed=7)
+    template = {"params": tmodel.tree(), "opt": tstate}
+    out = m.restore(template)
+    for (path, got), (_, tmpl) in zip(tree_flatten(out), tree_flatten(template)):
+        if isinstance(tmpl, Sliced):
+            assert isinstance(got, Sliced) and got.dim == tmpl.dim and got.rows == 2
+            assert [p.shape for p in got.all_parts()] == [p.shape for p in tmpl.all_parts()]
+    assert _same([(keystr(p), t.whole("cpu") if isinstance(t, Sliced) else t)
+                  for p, t in tree_flatten(out)], _host_tree(model, state))
+    whole = m.restore(_port_template() | {"opt": init_opt_state(_port_template()["params"])})
+    assert all(isinstance(t, torch.Tensor) for _, t in tree_flatten(whole))
+
+
+def test_fail_at_step_resumes_over_sliced_state(tmp_path, monkeypatch):
+    """``train_loop(..., mesh=make_mesh(2, 1), fsdp=True)`` killed at step 3
+    resumes from its exit checkpoint into the placed state in place (no
+    whole copy: ``restore`` is never called) and ends on the uninterrupted
+    sliced run's files, which are the replicated run's, byte for byte."""
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = get_smoke_config("smollm_360m")
+    run = RunConfig(model=cfg, shape=SLICED_SHAPE, dp=2, tp=1, remat="full",
+                    grad_compression=True)
+    data = SynthSpec(vocab=cfg.vocab, seq_len=32, batch=4, seed=0)
+    mesh = make_mesh(2, 1, devices=["cpu:0", "cpu:1"])
+    kw = dict(total_steps=5, ckpt_every=2, opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                           total_steps=5),
+              log_fn=lambda s: None, device="cpu", mesh=mesh)
+    sliced = train_loop(cfg, run, data, ckpt_dir=str(tmp_path / "sliced"), fsdp=True, **kw)
+    replicated = train_loop(cfg, run, data, ckpt_dir=str(tmp_path / "replicated"), **kw)
+    assert sliced.losses == replicated.losses and sliced.grad_norms == replicated.grad_norms
+    with pytest.raises(RuntimeError, match="^injected node failure at step 3$"):
+        train_loop(cfg, run, data, ckpt_dir=str(tmp_path / "cut"), fsdp=True, fail_at_step=3,
+                   **kw)
+
+    def no_whole_restore(*args, **kwargs):
+        raise AssertionError("the resume made a whole copy of the state")
+
+    monkeypatch.setattr(CheckpointManager, "restore", no_whole_restore)
+    resumed = train_loop(cfg, run, data, ckpt_dir=str(tmp_path / "cut"), fsdp=True, **kw)
+    assert resumed.resumed_from == 3 and resumed.steps == 2
+    assert resumed.losses == sliced.losses[3:]
+    files = {}
+    for name in ("sliced", "replicated", "cut"):
+        d = tmp_path / name
+        manifest = _manifest(d, 5)
+        files[name] = (manifest, [np.load(d / "step_00000005" / e["file"]).tobytes()
+                                  for e in manifest["leaves"]])
+    assert files["sliced"] == files["replicated"] == files["cut"]

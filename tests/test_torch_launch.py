@@ -9,7 +9,9 @@ finite, falling losses; ``--fail-at-step`` with ``--ckpt-dir`` resumes from
 the checkpoint written on exit (ROADMAP C4) and ends on the uninterrupted
 run's loss; ``--dp``/``--tp``/``--pods`` > 1 train over an emulated mesh
 with ``--device cpu`` (``--dp 2`` equal to ``--microbatch`` of half the
-batch), and a mesh beyond the host's cards is refused, naming both counts.  ``launch.serve.main`` serving the JAX launcher's
+batch), and a mesh beyond the host's cards is refused, naming both counts;
+``--fsdp`` stores the state in slices over the data rows, bit for bit the
+replicated run, and is refused with one data row.  ``launch.serve.main`` serving the JAX launcher's
 weights (``params_from_numpy``) gives the reference's tokens and simulated
 latencies, equal.
 """
@@ -77,6 +79,7 @@ def test_train_builds_the_references_configs(monkeypatch, flags):
 
     assert want.pop("mesh") is None and got.pop("mesh") is None
     assert got.pop("device") == "cpu"
+    assert got.pop("fsdp") is False  # the port's --fsdp, off unless asked
     assert set(got) == set(want)
     for key in want:
         assert _fields(got[key]) == _fields(want[key]), key
@@ -125,6 +128,30 @@ def test_train_dp_on_cpu_equals_microbatch_of_half_the_batch():
     micro = _quiet(ttrain.main, [*base, "--microbatch", "2"])
     assert dp.steps == micro.steps == 3
     assert dp.losses == micro.losses and dp.grad_norms == micro.grad_norms
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_8b"])
+def test_train_fsdp_on_cpu_equals_the_replicated_run(arch):
+    """``--fsdp --dp 2 --device cpu`` stores the state in slices over two
+    emulated data rows; every step equals the replicated run's bit for bit
+    (losses and gradient norms), the compressed one too."""
+    base = ["--arch", arch, "--steps", "3", "--batch", "4", "--seq", "32", "--device", "cpu",
+            "--dp", "2", "--remat", "full", "--grad-compression"]
+    sliced = _quiet(ttrain.main, [*base, "--fsdp"])
+    whole = _quiet(ttrain.main, base)
+    assert sliced.steps == whole.steps == 3
+    assert sliced.losses == whole.losses and sliced.grad_norms == whole.grad_norms
+
+
+@pytest.mark.parametrize("flags", [["--dp", "1"], ["--tp", "2"]])
+def test_train_refuses_fsdp_without_data_rows(capsys, flags):
+    """``--fsdp`` slices the state over the data rows, so a mesh of one
+    data row is refused, naming the flag."""
+    with pytest.raises(SystemExit) as exc:
+        ttrain.main(["--arch", "smollm_360m", "--device", "cpu", "--fsdp", *flags])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "--fsdp" in err and "--dp x --pods > 1" in err
 
 
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--pods", "2"], ["--dp", "2", "--tp", "2"]])

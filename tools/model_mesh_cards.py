@@ -7,7 +7,14 @@ every attention cache; split-S decode), its layer-0 checks and a repeat
 in a fresh mesh bit for bit, then smollm's step over ``make_mesh(4, 1)``
 (each card a data row, its gradient added on the first card) bit for bit
 the microbatch-2 step on one card.  Prints the walls beside the no-mesh
-run's.  Exits 2 on a host with fewer than four cards.
+run's.  Then phase 4h, ``chip_smoke.fsdp_phase``, over ``make_mesh(4, 1)``
+with every card a data row: smollm's sliced step bit for bit the
+replicated one, and ``qwen3_8b`` at full width cut to 8 layers, each card
+holding its quarter of the state; then ``qwen3_8b`` at full width and
+depth (36 layers, 8.19e9 parameters: 131 GB of float32 weights, gradients
+and moments whole, 32.77 GB a card sliced), three steps of 4 x 4,096
+tokens, with step ms, tokens/s and each card's peak.  Exits 2 on a host
+with fewer than four cards.
 
     python3 tools/model_mesh_cards.py
 """
@@ -45,7 +52,13 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().replace("\n", "; ")
     print(f"[card] {smi}", flush=True)
-    smoke.mesh_phase(torch, ops, [torch.device("cuda", i) for i in range(smoke.MESH_TP)])
+    devices = [torch.device("cuda", i) for i in range(smoke.MESH_TP)]
+    smoke.mesh_phase(torch, ops, devices)
+    smoke.fsdp_phase(torch, ops, devices)
+    t0 = time.perf_counter()
+    smoke.fsdp_qwen(torch, ops, devices, layers=36, steps=3, repeat=False, peak_limit=80e9)
+    print(f"[fsdp] qwen3_8b at full depth over four cards took {time.perf_counter() - t0} s",
+          flush=True)
     return 0
 
 
