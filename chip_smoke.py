@@ -224,6 +224,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    gradient adds, GEMMs, attention and the rest): the loss finite and
    falling, the repeat bit for bit, each row a quarter of every sliced leaf,
    the peak under 72 GB, 64 forward and 32 + 32 backward launches a step;
+4i. the roofline — (a) 4c's step counted on ``meta`` tensors by
+   ``repro_torch.launch.dryrun`` (nothing allocated), in parts (outer +
+   32 layers + accumulation + AdamW) equal to the whole step counted at
+   once, its model flops exactly 6 x 361,820,160 x 32,768; (b) one real
+   step of 4c's model on the card under ``launch.roofline.count()``: its
+   flops equal to (a)'s, its bytes within 1% (the ops that differ named),
+   and the attention launches the kernels made equal to the launches the
+   counter charged, every one on the tensor-core kernels; (c) achieved
+   TFLOP/s, mfu (model flops over the step at 989 TFLOP/s) and the
+   roofline bound's share of each of 4c's warm steps, and of 4h (b)'s
+   ``qwen3_8b`` at 8 layers from its dry run over four data rows;
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2 (segment_reduce with all its contracts), at every shape the
    main path (or the serving phase, or phase 3c's sharded run) gave it;
@@ -249,8 +260,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    beside its bare C entry, the pair ``ssd_short`` + ``ssd_scan`` on the
    same inputs, the plain version and its bound).
 
-The last two lines are a JSON object per kernel and the result line
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Each kernel's bound comes from ``repro_torch.launch.roofline`` (``bound`` and
+the work formulas), the copy the roofline's step count reads.  The last
+lines are phase 4i's counts as a JSON object, the card's name and power
+limit, a JSON object per kernel, and the result line ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -266,9 +280,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
-BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 on the tensor cores, dense (data sheet)
+try:  # the card's peaks and the kernels' work formulas: one copy, in the package
+    from repro_torch.launch.roofline import (PEAK_FLOPS as BF16_OPS_PER_S,
+                                             PEAK_FLOPS_F32 as F32_OPS_PER_S, attention_work,
+                                             bound, recur_work, scan_work, ssd_work)
+except ImportError:  # main() says the package is missing
+    BF16_OPS_PER_S = F32_OPS_PER_S = None
 ROWS = 10_000_000
 
 REPLACES = {
@@ -2043,13 +2060,6 @@ def timed(torch, fn, iters, flush):
     return total / iters
 
 
-def bound(nbytes, nops, ops_per_s=F32_OPS_PER_S):
-    """The least time (ms) and what bounds it: bytes over the memory rate, or
-    operations over the peak rate of the operands' type."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
 def main_path_inputs(torch, name, shape, rng, dev):
     """Random inputs of one shape the main path gave a kernel (the shape
     tuples are those :func:`recorder` keeps)."""
@@ -2107,16 +2117,6 @@ def main_path_parity(torch, K, shapes, rng, dev):
                       if name == "segment_reduce" else kernel_vs_plain(torch, K, name, args, label))
         out[name] = (err, len(distinct))
     return out
-
-
-def ssd_work(bt, S, H, Pd, N, L, esize):
-    """(bytes, flops) of one intra-chunk launch: each input read once, each
-    output written once; per cell, C·Bᵀ and M·X over the causal triangle
-    (T = L (L + 1) / 2 entries, the rest is masked to 0) and the chunk
-    state in full: 2 (T N + T P + N L P) flops."""
-    nc, tri = S // L, L * (L + 1) // 2
-    nbytes = bt * (esize * (2 * S * H * Pd + 2 * S * N) + 4 * S * H + 4 * nc * H * N * Pd)
-    return nbytes, bt * nc * H * 2 * (tri * N + tri * Pd + N * L * Pd)
 
 
 def timings(torch, K, shapes, rng, dev):
@@ -2200,15 +2200,6 @@ def timings(torch, K, shapes, rng, dev):
     return out
 
 
-def scan_work(bt, S, H, Pd, N, L, esize):
-    """(bytes, flops) of the inter-chunk pass: y_intra, the chunk states,
-    log_a and c read once, y and h_final written once; C h_in (2 S H N P),
-    the recurrence (2 nc H N P) and the correction (2 S H P)."""
-    nc = S // L
-    nbytes = bt * (esize * (2 * S * H * Pd + S * N) + 4 * (nc * H * N * Pd + S * H + H * N * Pd))
-    return nbytes, bt * 2 * H * Pd * (S * N + nc * N + S)
-
-
 def scan_timing(torch, mod, shapes, rng, dev, flush):
     """The inter-chunk scan at the serving path's two prompt shapes (the
     1,024-token prompt's chunks of 128, and the one-token-chunk prompt's,
@@ -2257,15 +2248,6 @@ def scan_timing(torch, mod, shapes, rng, dev, flush):
               f"{r['c_entry_ms']} ms, plain {r['plain_ms']} ms, bound {r['bound'][0]} ms "
               f"({r['bound'][1]})", flush=True)
     return dict(rows["chunk128"], L1=rows["L1"])
-
-
-def recur_work(bt, S, H, Pd, N, esize):
-    """(bytes, flops) of the whole function at one-token chunks: x, log_a,
-    b and c read once, y and h_final written once; c·h (2 S H N P), the
-    update d h + b xᵀ (3 S H N P), c·b (2 S N) and y's three operations a
-    value (3 S H P)."""
-    nbytes = bt * (esize * (2 * S * H * Pd + 2 * S * N) + 4 * (S * H + H * N * Pd))
-    return nbytes, bt * (5 * S * H * N * Pd + 2 * S * N + 3 * S * H * Pd)
 
 
 def recur_timing(torch, mod, shapes, rng, dev, flush):
@@ -2591,32 +2573,6 @@ def sdpa_call(torch, fa, q, k, v, causal, window, off):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
     mask = fa._mask(q.shape[2], k.shape[2], causal, window, off, q.device)
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
-
-
-def visible_pairs(Sq, Skv, causal, window, q_offset):
-    """The (query, key) pairs the mask lets through, per (batch, q-head)."""
-    import numpy as np
-
-    p = np.arange(Sq, dtype=np.int64) + q_offset
-    hi = np.minimum(p, Skv - 1) if causal else np.full(Sq, Skv - 1)
-    lo = np.maximum(0, p - window + 1) if window else np.zeros(Sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
-def attention_work(shape):
-    """(bytes, flops) of the three kernels at ``shape``, each input read
-    once and each output written once; flops over the visible pairs only:
-    forward S and P V (4 D a pair), dQ S, dP and dS K (6 D), dK/dV S, dP,
-    Pᵀ dO and dSᵀ Q (8 D)."""
-    B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, off = shape
-    e = 2 if dtype == "bfloat16" else 4
-    qn, kn, rows = B * Hq * Sq * D, B * Hkv * Skv * D, B * Hq * Sq
-    pairs = B * Hq * visible_pairs(Sq, Skv, causal, window, off)
-    return {
-        "flash_attention": (e * (2 * qn + 2 * kn) + 4 * rows, 4 * D * pairs),
-        "flash_attention_bwd_dq": (e * (3 * qn + 2 * kn) + 4 * qn + 8 * rows, 6 * D * pairs),
-        "flash_attention_bwd_dkdv": (e * (2 * qn + 4 * kn) + 8 * rows, 8 * D * pairs),
-    }
 
 
 def forward_timing(torch, rng, dev, shape, flush):
@@ -3449,6 +3405,7 @@ def serving_hybrid(torch, ops, name, dev):
 
 TRAIN_SEED = 12
 TRAIN_STEPS = 4
+STEP_MS = {}  # step ms of 4c's run and of 4h (b)'s untraced steps, which phase 4i reads
 TRAIN_BATCH, TRAIN_MICRO = 8, 4  # the train_4k shape's global batch 256, cut to one card
 CKPT_ROOT = ROOT / ".smoke_ckpt"  # checkpoints of this phase, removed at its end
 # predicted launches per step: 32 layers x 2 microbatches x 2 forwards (remat)
@@ -3569,6 +3526,7 @@ def training(torch, ops, dev):
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
+        STEP_MS["4c"] = [t * 1e3 for t in whole.step_times]
         print(f"[train] {TRAIN_STEPS} steps in {wall} s (checkpoints included): step ms "
               + json.dumps([t * 1e3 for t in whole.step_times]) + ", tokens/s "
               + json.dumps([tokens / t for t in whole.step_times]) + ", losses "
@@ -4662,6 +4620,8 @@ def fsdp_qwen(torch, ops, devices, layers=FSDP_QWEN_LAYERS, steps=FSDP_QWEN_STEP
             launches = ops.launch_counts()
             peaks = [torch.cuda.max_memory_allocated(i) for i in cards]
             losses.append(metrics["loss"])
+            if not traced:
+                STEP_MS.setdefault("4h", []).append(ms)
             if attempt == 0:
                 for k in TRAINING:
                     total[k] += launches[k]
@@ -4709,6 +4669,149 @@ def fsdp_phase(torch, ops, devices):
     print(f"[fsdp] flash_attention launches in phase 4h: " + json.dumps(launches)
           + f"; phase took {time.perf_counter() - t0} s", flush=True)
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# Phase 4i: the roofline on the card                                            #
+# --------------------------------------------------------------------------- #
+# (a) 4c's step (smollm_360m, 8 x 4,096 tokens, microbatch 4, remat full, one
+# card) counted on meta tensors by the dry run, in parts and whole; (b) one
+# real step of 4c's model on the card counted by ``roofline.count()``: its
+# flops must equal (a)'s, its bytes too unless the card's route runs ops the
+# meta route does not (each named, under 1% in all), and the attention
+# launches the kernels made must equal the launches the counter charged, all
+# on the tensor-core kernels; (c) the step's shares from 4c's warm steps, and
+# 4h (b)'s qwen3_8b at 8 layers from its dry run and its untraced steps.
+SMOLLM_PARAMS = 361_820_160  # the config's count, which model_flops_for reads
+ROUTE_BYTES_TOL = 0.01
+
+
+def op_differences(card, meta):
+    """{op: (card calls, flops, bytes, meta calls, flops, bytes)} where the
+    two counts differ."""
+    out = {}
+    for k in sorted(set(card) | set(meta)):
+        a, b = card.get(k, [0, 0.0, 0.0]), meta.get(k, [0, 0.0, 0.0])
+        if list(a) != list(b):
+            out[k] = list(a) + list(b)
+    return out
+
+
+def shares(name, flops, model_flops, bound_s, steps_ms):
+    """Achieved TFLOP/s, mfu and the roofline bound's share of each step."""
+    from repro_torch.launch.roofline import PEAK_FLOPS
+
+    rows = [{"step_ms": ms, "tflops": flops / (ms / 1e3) / 1e12,
+             "mfu": model_flops / (ms / 1e3 * PEAK_FLOPS), "bound_share": bound_s / (ms / 1e3)}
+            for ms in steps_ms]
+    print(f"[roofline] {name}: counted flops {flops}, model flops {model_flops}, bound "
+          f"{bound_s * 1e3} ms; per warm step " + json.dumps(rows), flush=True)
+    return rows
+
+
+def roofline_phase(torch, ops, dev):
+    """Phase 4i; → the JSON object printed before the last lines."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models.base import SINGLE, ShardCtx
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("smollm_360m")
+    shape = ShapeConfig("train_4k", "train", 4096, TRAIN_BATCH)
+    run = RunConfig(model=cfg, shape=shape, dp=1, tp=1, remat="full", microbatch=TRAIN_MICRO)
+
+    # (a) the dry run of 4c's step on meta: in parts (the dry run's row) and whole
+    t0 = time.perf_counter()
+    row = dryrun.dryrun_cell(cfg.name, shape.name, cfg=cfg, shape=shape, ctx=SINGLE,
+                             microbatch=TRAIN_MICRO, verbose=False)
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meta = dryrun.whole_step_counter(cfg, run, SINGLE, "train")
+    whole = meta.cost
+    whole_s = time.perf_counter() - t0
+    want = 6 * SMOLLM_PARAMS * shape.global_batch * shape.seq_len
+    check(row["model_flops"] == want == RL.model_flops_for(cfg, shape),
+          f"4i (a): model flops {row['model_flops']}, not 6 x {SMOLLM_PARAMS} x "
+          f"{shape.global_batch * shape.seq_len} = {want}")
+    check(row["hlo_flops_per_dev"] == whole.flops and row["bytes_per_dev"] == whole.bytes,
+          f"4i (a): the dry run in parts ({row['hlo_flops_per_dev']} flops, "
+          f"{row['bytes_per_dev']} bytes) is not the whole step counted on meta ({whole.flops}, "
+          f"{whole.bytes})")
+    print(f"[roofline] (a) {cfg.name}, {shape.global_batch} x {shape.seq_len} tokens, microbatch "
+          f"{TRAIN_MICRO}, remat full, on meta: flops {whole.flops}, bytes {whole.bytes}, "
+          f"model flops {row['model_flops']}; t_compute {row['t_compute_s']} s, t_memory "
+          f"{row['t_memory_s']} s, t_collective {row['t_collective_s']} s ({row['bottleneck']}); "
+          f"the parts {json.dumps(row['detail'])} equal the whole step; counted in {split_s} s "
+          f"(parts) and {whole_s} s (whole)", flush=True)
+
+    # (b) one real step of 4c's model on the card, counted
+    model, opt_state = init_train_state(cfg, run, seed=TRAIN_SEED, device=dev)
+    step_fn, _ = make_train_step(cfg, run)
+    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=shape.seq_len,
+                                         batch=TRAIN_BATCH, seed=0), 0), dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with RL.count() as c:
+        model, opt_state, metrics = step_fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+    counted_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    loss = float(metrics["loss"])
+    del model, opt_state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = c.cost
+    diffs = op_differences(c.by_op, meta.by_op)
+    check(math.isfinite(loss), "4i (b): the counted step's loss is not finite")
+    check(card.flops == whole.flops, f"4i (b): the step on the card counts {card.flops} flops, "
+          f"the meta dry run {whole.flops}; ops that differ: " + json.dumps(diffs))
+    gap = abs(card.bytes - whole.bytes) / whole.bytes
+    check(gap < ROUTE_BYTES_TOL, f"4i (b): bytes on the card {card.bytes} against {whole.bytes} "
+          f"on meta, {gap} apart; ops that differ: " + json.dumps(diffs))
+    for name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+        n = c.charged.get(name, 0)
+        check(launches[name] == n == PER_STEP[name] and launches[name + "_wgmma"] == n,
+              f"4i (b): {name} launched {launches[name]} times ({launches[name + '_wgmma']} on "
+              f"the tensor cores), the counter charged {n}, a step makes {PER_STEP[name]}")
+    print(f"[roofline] (b) one step of {cfg.name} on the card, counted ({counted_ms} ms with the "
+          f"counter): flops {card.flops} (equal to the meta dry run's), bytes {card.bytes} against "
+          f"{whole.bytes} ({gap} apart; ops that differ: {json.dumps(diffs)}); attention charged "
+          + json.dumps(c.charged) + ", launched " + json.dumps(
+              {k: launches[k] for k in PER_STEP}) + f"; loss {loss}", flush=True)
+
+    # (c) the shares of 4c's warm steps, and of 4h (b)'s qwen3_8b at 8 layers
+    smol = shares(f"{cfg.name} (4c)", whole.flops, row["model_flops"],
+                  max(whole.flops / RL.PEAK_FLOPS, whole.bytes / RL.HBM_BW), STEP_MS["4c"][1:])
+    qcfg = dataclasses.replace(get_config("qwen3_8b"), n_layers=FSDP_QWEN_LAYERS)
+    qshape = ShapeConfig("train_4k", "train", 4096, FSDP_QWEN_BATCH)
+    t0 = time.perf_counter()
+    qrow = dryrun.dryrun_cell(qcfg.name, qshape.name, cfg=qcfg, shape=qshape,
+                              ctx=ShardCtx(dp=FSDP_DP), verbose=False)
+    q_s = time.perf_counter() - t0
+    qflops = qrow["hlo_flops_per_dev"] * qrow["chips"]  # the four rows share one card
+    qbytes = qrow["bytes_per_dev"] * qrow["chips"]
+    print(f"[roofline] (a) {qcfg.name} at {FSDP_QWEN_LAYERS} layers, {FSDP_QWEN_BATCH} x 4,096 "
+          f"tokens over {FSDP_DP} data rows, on meta in {q_s} s: flops {qflops}, bytes {qbytes}, "
+          f"model flops {qrow['model_flops']}; collectives reckoned for {FSDP_DP} cards "
+          + json.dumps(qrow["collectives"]) + f" (t_collective {qrow['t_collective_s']} s a card; "
+          "on one card the rows' gathers are copies within it)", flush=True)
+    warm = STEP_MS["4h"][1:]
+    qwen = shares(f"{qcfg.name} at {FSDP_QWEN_LAYERS} layers (4h b)", qflops, qrow["model_flops"],
+                  max(qflops / RL.PEAK_FLOPS, qbytes / RL.HBM_BW), warm)
+    took = time.perf_counter() - t_phase
+    print(f"[roofline] phase took {took} s", flush=True)
+    return {"smollm_360m": {"flops": whole.flops, "bytes": whole.bytes,
+                            "card_bytes": card.bytes, "model_flops": row["model_flops"],
+                            "charged": c.charged, "steps": smol},
+            "qwen3_8b_8_layers": {"flops": qflops, "bytes": qbytes,
+                                  "model_flops": qrow["model_flops"], "steps": qwen},
+            "phase_s": took}
 
 
 def main() -> int:
@@ -4834,6 +4937,9 @@ def main() -> int:
     for kernel, n in fsdp_phase(torch, ops, [dev] * FSDP_DP).items():
         launches[kernel] += n
 
+    # -- phase 4i: the roofline on the card (counts, not launches of the JSON line)
+    roofline = roofline_phase(torch, ops, dev)
+
     # -- phase 5: kernel vs plain, then timing, at the main path's shapes
     t0 = time.perf_counter()
     mp = main_path_parity(torch, K, shapes, rng, dev)
@@ -4875,6 +4981,7 @@ def main() -> int:
         }
         for name in DATAFRAME + SERVING + TRAINING
     ]
+    print(json.dumps({"roofline": roofline}))
     print(f"{smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ..launch import roofline
 from ._launch import (F32, I32, P, LaunchCounter, bind, check_launch, on_device, require,
                       stream_ptr)
 
@@ -284,7 +285,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o32, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, o32, lse, do.contiguous(), *ctx.mask)
+        causal, window, _, q_offset = ctx.mask
+        work = roofline.attention_work(roofline.attention_shape(q, k, causal, window, q_offset))
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+            roofline.charge(name, work[name])  # under launch.roofline.count()
+        with roofline.uncounted():
+            dq, dk, dv = flash_backward(q, k, v, o32, lse, do.contiguous(), *ctx.mask)
         return dq, dk, dv, None, None, None, None
 
 

@@ -14,6 +14,12 @@ concurrently with foreground interactions.
 
 Every entry point takes and returns torch tensors on one device and never
 moves data between host and device itself; the frame backend does that.
+
+Under ``launch.roofline.count()``, :func:`attention` and :func:`ssd_scan`
+charge their kernels' work formulas once a call and count nothing inside,
+whichever route runs them; the attention backward charges its two kernels'
+(``flash_attention.FlashAttention.backward`` on the card,
+:class:`_CountedAttention` on the plain route).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from . import masked_stats as _ms
 from . import segment_reduce as _sr
 from . import ssd_chunk as _ssd
 from . import topk as _tk
+from ..launch import roofline as _rl
 
 _TLS = threading.local()  # per-thread override (scoped, race-free)
 
@@ -125,17 +132,40 @@ def _ssd_scan(x, log_a, b, c, chunk):
     return _ssd.ssd_chunk_scan_plain(x, log_a, b, c, chunk)
 
 
+def _kernel_route(x: torch.Tensor) -> bool:
+    """Whether a call on ``x`` launches the CUDA kernels."""
+    return backend() == "cuda" and x.device.type == "cuda"
+
+
 def ssd_scan(x, log_a, bmat, cmat, chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked Mamba-2 SSD over a batch: x (B, S, H, P), log_a (B, S, H),
     bmat / cmat (B, S, N) → (y (B, S, H, P) in x's type, h_final f32
     (B, H, N, P)), starting from the empty state.  The batch is a grid
     dimension of the kernel (the reference vmaps its per-sequence call);
-    ``chunk`` is cut to S and must then divide it, as in the reference."""
+    ``chunk`` is cut to S and must then divide it, as in the reference.
+    Counted: the launches the card makes at this shape (``ssd_recur``
+    alone where ``scan_route`` says so, else the intra-chunk kernel and
+    ``ssd_scan``); the kernels have no backward, so a backward of the plain
+    route is counted op by op."""
     chunk = min(int(chunk), x.shape[1])
     if x.shape[1] % chunk:
         raise ValueError(f"ssd_scan: S={x.shape[1]} is not a multiple of chunk={chunk}")
-    return _ssd_scan(x.contiguous(), log_a.to(torch.float32).contiguous(),
-                     bmat.to(x.dtype).contiguous(), cmat.to(x.dtype).contiguous(), chunk)
+    args = (x.contiguous(), log_a.to(torch.float32).contiguous(),
+            bmat.to(x.dtype).contiguous(), cmat.to(x.dtype).contiguous())
+    counter = _rl.active()
+    if counter is None:
+        return _ssd_scan(*args, chunk)
+    bt, S, H, Pd = x.shape
+    N, e = bmat.shape[-1], x.element_size()
+    if _ssd.scan_route(chunk, N) == "recur":
+        counter.charge("ssd_chunk_scan_recur", *_rl.recur_work(bt, S, H, Pd, N, e))
+    else:
+        counter.charge("ssd_chunk_scan", *_rl.ssd_work(bt, S, H, Pd, N, chunk, e))
+        counter.charge("ssd_chunk_scan_inter", *_rl.scan_work(bt, S, H, Pd, N, chunk, e))
+    if _kernel_route(x):
+        with counter.paused():
+            return _ssd_scan(*args, chunk)
+    return _CountedSSD.apply(*args, chunk)
 
 
 def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
@@ -143,10 +173,79 @@ def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     """GQA attention over q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D) → (B, Hq,
     Sq, D) in q's type.  ``"cuda"``: the flash_attention wrapper (the kernels
     and their backward on CUDA tensors, the plain version on CPU tensors);
-    ``"torch"``: the plain version on any device."""
+    ``"torch"``: the plain version on any device.  Counted: the forward
+    kernel's work over the visible pairs."""
+    counter = _rl.active()
+    if counter is not None:
+        shape = _rl.attention_shape(q, k, causal, window, q_offset)
+        counter.charge("flash_attention", *_rl.attention_work(shape)["flash_attention"])
+        if _kernel_route(q):
+            with counter.paused():
+                return _fa.flash_attention(q, k, v, causal, window, scale, q_offset)
+        return _CountedAttention.apply(q, k, v, causal, window, scale, q_offset)
     if backend() == "cuda":
         return _fa.flash_attention(q, k, v, causal, window, scale, q_offset)
     return _fa.flash_attention_plain(q, k, v, causal, window, scale, q_offset)
+
+
+class _CountedAttention(torch.autograd.Function):
+    """The plain attention while a counter runs: the forward uncounted (its
+    work is charged by :func:`attention`), the backward charged as the
+    card's dQ and dK/dV kernels and run uncounted (the plain version's
+    gradient, recomputed from q, k and v).  On ``meta`` tensors, which hold
+    no values, neither runs: the outputs are empty tensors of their shapes.
+    Outputs and gradients are contiguous, as the kernels write them, so
+    what autograd does with them counts the same on every route."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        ctx.mask = (causal, window, scale, q_offset)
+        ctx.save_for_backward(q, k, v)
+        if q.is_meta:
+            return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        with _rl.uncounted():
+            return _fa.flash_attention_plain(q, k, v, causal, window, scale,
+                                             q_offset).contiguous()
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        work = _rl.attention_work(_rl.attention_shape(q, k, ctx.mask[0], ctx.mask[1],
+                                                      ctx.mask[3]))
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+            _rl.charge(name, work[name])
+        if q.is_meta:
+            return (*(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v)),
+                    None, None, None, None)
+        with _rl.uncounted(), torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = _fa.flash_attention_plain(*leaves, *ctx.mask)
+            grads = [g.contiguous() for g in torch.autograd.grad(out, leaves, do)]
+        return (*grads, None, None, None, None)
+
+
+class _CountedSSD(torch.autograd.Function):
+    """The plain SSD while a counter runs: the forward uncounted (its work is
+    charged by :func:`ssd_scan`); no kernel computes its backward, so the
+    plain version's backward is recomputed and counted op by op."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, b, c, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, log_a, b, c)
+        with _rl.uncounted():
+            return _ssd.ssd_chunk_scan_plain(x, log_a, b, c, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        ins = ctx.saved_tensors
+        with _rl.uncounted(), torch.enable_grad():
+            leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in ins]
+            outs = _ssd.ssd_chunk_scan_plain(*leaves, ctx.chunk)
+        pairs = [(o, g) for o, g in zip(outs, (dy, dh)) if g is not None]
+        grads = torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs],
+                                    allow_unused=True)
+        return (*grads, None)
 
 
 # --------------------------------------------------------------------------- #

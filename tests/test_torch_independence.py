@@ -52,6 +52,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.models.convert\n"
         "import repro_torch.train, repro_torch.ckpt, repro_torch.data\n"
         "import repro_torch.launch.train, repro_torch.launch.serve\n"
+        "import repro_torch.launch.specs, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.probe, repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -64,7 +66,13 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
 
 
 def test_layout_mirrors_reference():
-    """Every ported module keeps its reference module's path and name."""
+    """Every ported module keeps its reference module's path and name, and
+    every module of the reference has its counterpart in the port but
+    ``jaxcompat.py``, a bridge over changes in JAX's own API."""
+    for p in REF.rglob("*.py"):
+        rel = p.relative_to(REF)
+        if rel.name != "jaxcompat.py":
+            assert (PORT / rel).exists(), f"{rel} has no counterpart in the port"
     for sub in ("core", "frame", "kernels", "models", "serve", "configs", "train", "ckpt",
                 "data", "launch"):
         for p in (PORT / sub).glob("*.py"):
