@@ -58,7 +58,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    > 0, a ragged 96-row sequence), two backward runs equal bit for bit, and two
    faulty plain attentions (no alpha rescale; a dK/dV that drops a head)
    over the limits; a forward and backward in a new thread equal the same
-   call in the main one;
+   call in the main one; then the SSD's backward (phase 2c), its three
+   kernels ``ssd_bwd_state``, ``ssd_bwd_chunk`` and ``ssd_bwd_sum`` against
+   the plain backward (dx, dlog_a, db, dc, and the state kernel's h_in and
+   g) and both against float64 autograd of the plain forward, at
+   mamba2_2p7b's training launch (1 x 4,096 x 80 x 64, N 128, chunk 128,
+   bf16), in float32, at chunks of 64, 96 (one chunk), 16 and 1 (the
+   chunk-1 rule), N 17 with P 7, N 256 with P 128 over 7 heads, batches of
+   2, dh given and absent, decays slow enough that the gradient carried
+   between chunks counts; each call one launch of each kernel, a repeat
+   equal bit for bit, the plain backward that drops the carry D_k g_k over
+   the limits, and ``ssd_chunk_scan``'s autograd route equal to the
+   wrapper's gradient bit for bit;
 3. main path — a 10M-row table and a 900,000-row dimension table through a
    seven-cell notebook (describe, filter + groupby, value_counts, sort +
    head, head, a left join + head, and an inner join + a groupby over
@@ -235,6 +246,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    TFLOP/s, mfu (model flops over the step at 989 TFLOP/s) and the
    roofline bound's share of each of 4c's warm steps, and of 4h (b)'s
    ``qwen3_8b`` at 8 layers from its dry run over four data rows;
+4j. SSD training — ``mamba2_2p7b`` at full width and depth (64 layers,
+   2.83e9 parameters, float32 master weights, AdamW) trained through
+   ``repro_torch.launch.train.main`` for 4 steps of 1 x 4,096 tokens (remat
+   full, bf16 compute, seed 12): finite losses and gradient norms, the peak
+   under 80 GB beside its prediction, step ms and tokens/s; a step's
+   launches 128 ``ssd_wgmma`` + 128 ``ssd_scan`` forwards and 64 of each
+   backward kernel; the same step twice from one state equal bit for bit
+   (the first state kept on the host), one step profiled (SSD forward and
+   backward kernels, GEMMs, the rest, idle share).  The C14 check: the
+   model cut to 2 layers at full width, its decays set as Mamba-2
+   initialises them, one microbatch of 1 x 4,096 tokens through the kernels
+   against the plain SSD's autograd: loss and gradient norm within phase
+   4c's limits, every leaf within 2^-6 of its largest |g|, no leaf all
+   zeros, and the plain backward that drops the carry D_k g_k over the leaf
+   limit; that model's step counted on the card equal to the meta dry run
+   (flops; bytes within 1%), each SSD kernel launched as often as charged;
+   the full model's count on meta and the warm steps' mfu and bound share;
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2 (segment_reduce with all its contracts), at every shape the
    main path (or the serving phase, or phase 3c's sharded run) gave it;
@@ -258,7 +286,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    shapes, its wrapper beside its bare C entry, the plain loop and its
    bound; ``ssd_recur`` at the one-token-chunk prompt's shape, its wrapper
    beside its bare C entry, the pair ``ssd_short`` + ``ssd_scan`` on the
-   same inputs, the plain version and its bound).
+   same inputs, the plain version and its bound; the SSD's three backward
+   kernels at mamba2_2p7b's training launch, each through its C entry,
+   beside the wrapper, the plain backward and each kernel's bound).
 
 Each kernel's bound comes from ``repro_torch.launch.roofline`` (``bound`` and
 the work formulas), the copy the roofline's step count reads.  The last
@@ -268,6 +298,7 @@ limit, a JSON object per kernel, and the result line ``{"ok": true,
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -283,7 +314,8 @@ sys.path.insert(0, str(ROOT / "src"))
 try:  # the card's peaks and the kernels' work formulas: one copy, in the package
     from repro_torch.launch.roofline import (PEAK_FLOPS as BF16_OPS_PER_S,
                                              PEAK_FLOPS_F32 as F32_OPS_PER_S, attention_work,
-                                             bound, recur_work, scan_work, ssd_work)
+                                             bound, recur_work, scan_work, ssd_bwd_work,
+                                             ssd_work)
 except ImportError:  # main() says the package is missing
     BF16_OPS_PER_S = F32_OPS_PER_S = None
 ROWS = 10_000_000
@@ -317,9 +349,16 @@ REPLACES = {
                                     "ref.attention_xla_chunked with XLA)",
     "flash_attention_bwd_dkdv_wgmma": "none (no TPU kernel: the reference differentiates "
                                       "ref.attention_xla_chunked with XLA)",
+    # the SSD's backward: no TPU counterpart, the reference differentiates
+    # its XLA chunked scan
+    **{name: "none (no TPU kernel: the reference differentiates ref.ssd_xla_chunked with XLA, "
+             "src/repro/kernels/ops.py:119-123)"
+       for name in ("ssd_chunk_scan_bwd_state", "ssd_chunk_scan_bwd_chunk",
+                    "ssd_chunk_scan_bwd_sum")},
 }
 SOURCES = {name: name for name in REPLACES} | {
     name: "ssd_chunk" for name in REPLACES if name.startswith("ssd_chunk_scan")} | {
+    name: "ssd_bwd" for name in REPLACES if name.startswith("ssd_chunk_scan_bwd")} | {
     name: "flash_attention" for name in REPLACES if name.startswith("flash_attention")}
 DATAFRAME = ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe")
 SERVING = ("ssd_chunk_scan_cells", "ssd_chunk_scan_short", "ssd_chunk_scan_wgmma",
@@ -1141,6 +1180,175 @@ def attention_in_new_thread(torch, rng, dev):
           "attention in a new thread differs from the same call in this one")
     print("[parity] attention: a forward and backward in a new thread equal the same call "
           "here bit for bit", flush=True)
+
+
+# --------------------------------------------------------------------------- #
+# phase 2c: the SSD's backward, kernels vs plain                               #
+# --------------------------------------------------------------------------- #
+
+SSD_BWD = ("ssd_chunk_scan_bwd_state", "ssd_chunk_scan_bwd_chunk", "ssd_chunk_scan_bwd_sum")
+# (batch, S, H, P, N, L, dtype, dh given, slow decays): mamba2_2p7b's training
+# launch (1 x 4,096 x 80 x 64, N 128, chunk 128, bf16; no dh, as in the
+# model), and the same with dh and slow decays; float32 in batches of 2; L
+# 64; the chunk-1 rule at S 40; one chunk of 96 (S < 128); N 17 with P 7 at
+# chunks of 16 and of 1; 7 heads at N 256 and P 128, the kernels' limits.
+# Slow decays: log_a in (-0.02, -1e-4), so a chunk of 128 keeps about a
+# quarter of its state and the gradient carried between chunks (D_k g_k)
+# counts; the model's range (-0.5, -1e-3) keeps e^-32 of it at chunk 128.
+SSD_BWD_SHAPES = (
+    (1, 4096, 80, 64, 128, 128, "bfloat16", False, False),
+    (1, 4096, 80, 64, 128, 128, "bfloat16", True, True),
+    (2, 512, 8, 64, 128, 128, "float32", True, True),
+    (2, 256, 8, 64, 128, 64, "bfloat16", True, True),
+    (1, 40, 3, 64, 128, 1, "bfloat16", True, False),
+    (1, 96, 3, 64, 128, 96, "bfloat16", False, True),
+    (2, 64, 5, 7, 17, 16, "float32", True, True),
+    (2, 50, 3, 7, 17, 1, "float32", False, False),
+    (1, 256, 7, 128, 256, 32, "bfloat16", True, True),
+)
+# Limits, relative to the largest |value| of the reference's gradient: dx,
+# db and dc are float32 sums rounded once to the inputs' type on both
+# sides, so they take check_ssd's limits for y (bf16 two ulps, 2^-6; float32
+# 1e-5); dlog_a, h_in and g are float32 on both sides: 1e-5, check_ssd's
+# limit for h_final.  The same limits hold the kernels and the plain
+# backward against float64 autograd of the plain forward.
+SSD_BWD_TOL = {"bfloat16": 2 * BF16_ULP, "float32": 1e-5}
+
+
+def ssd_bwd_inputs(torch, rng, dev, bt, S, H, Pd, N, dtype, dh, slow):
+    """x, log_a, b, c, dy, dh of one backward call; log_a in the model's
+    range or the slow one."""
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, device=dev).to(dt).contiguous()
+
+    lo, hi = (1e-4, 0.02) if slow else (1e-3, 0.5)
+    return (t(rng.normal(0, 1, (bt, S, H, Pd))), t(-rng.uniform(lo, hi, (bt, S, H)), torch.float32),
+            t(rng.normal(0, 0.3, (bt, S, N))), t(rng.normal(0, 0.3, (bt, S, N))),
+            t(rng.normal(0, 1, (bt, S, H, Pd))),
+            t(rng.normal(0, 1, (bt, H, N, Pd)), torch.float32) if dh else None)
+
+
+def grad_ratios(torch, got, want, dtype):
+    """{name: max |err| / (limit x max |want|)} of (dx, dlog_a, db, dc)."""
+    out = {}
+    for name, g, w in zip(("dx", "dlog_a", "db", "dc"), got, want):
+        rel = 1e-5 if name == "dlog_a" else SSD_BWD_TOL[dtype]
+        err = float((g.double() - w.double()).abs().max())
+        if not bool(torch.isfinite(g.float()).all()):
+            err = math.inf
+        out[name] = err / (rel * max(float(w.double().abs().max()), 1e-30))
+    return out
+
+
+@contextlib.contextmanager
+def carry_dropped(torch, sc):
+    """Inside the block, ``sc.ssd_bwd_states_plain`` walks back with the
+    carry D_k g_k dropped (g_k = Q_{k+1}), so ``ssd_chunk_scan_bwd_plain``
+    is the faulty backward that the checks must catch."""
+    states = sc.ssd_bwd_states_plain
+
+    def without_carry(x, log_a, b, c, chunk, dy, dh=None):
+        hin, g = states(x, log_a, b, c, chunk, dy, dh)
+        bt, S, H, Pd = x.shape
+        nc, N = S // chunk, b.shape[-1]
+        e = log_a.to(hin.dtype).reshape(bt, nc, chunk, H).cumsum(2).exp()
+        ce = c.to(hin.dtype).reshape(bt, nc, chunk, 1, N) * e[..., None]
+        q = torch.einsum("bnlhk,bnlhp->bnhkp", ce,
+                         dy.to(hin.dtype).reshape(bt, nc, chunk, H, Pd))
+        return hin, torch.cat([q[:, 1:], g[:, -1:]], 1)
+
+    sc.ssd_bwd_states_plain = without_carry
+    try:
+        yield
+    finally:
+        sc.ssd_bwd_states_plain = states
+
+
+def ssd_bwd_parity(torch, rng, dev, shapes=SSD_BWD_SHAPES):
+    """The SSD backward's three kernels against the plain backward
+    (``ssd_chunk_scan_bwd_plain``, and ``ssd_bwd_states_plain`` for the
+    state kernel's h_in and g) at ``shapes``, and both against float64
+    autograd of the plain forward, within SSD_BWD_TOL; every call launches
+    each kernel once, and a repeated call is equal bit for bit.  Then the
+    autograd route (``ssd_chunk_scan`` on inputs that need a gradient) gives
+    the wrapper's gradient bit for bit with one launch of each kernel, and
+    the faulty plain backward that drops the carry D_k g_k crosses the
+    limits.  → {kernel: max |err|}."""
+    from repro_torch.kernels import ssd_chunk as sc
+
+    errs = {name: 0.0 for name in SSD_BWD}
+    counters = (sc.launches_bwd_state, sc.launches_bwd_chunk, sc.launches_bwd_sum)
+    for bt, S, H, Pd, N, L, dtype, with_dh, slow in shapes:
+        label = f"{(bt, S, H, Pd, N, L, dtype, with_dh, slow)}"
+        x, la, b, c, dy, dh = ssd_bwd_inputs(torch, rng, dev, bt, S, H, Pd, N,
+                                             getattr(torch, dtype), with_dh, slow)
+        before = [k.value for k in counters]
+        got = sc.ssd_chunk_scan_bwd(x, la, b, c, L, dy, dh)
+        again = sc.ssd_chunk_scan_bwd(x, la, b, c, L, dy, dh)
+        check([k.value - v for k, v in zip(counters, before)] == [2, 2, 2],
+              f"ssd backward {label}: each kernel must launch once a call")
+        check(all(torch.equal(p, q) for p, q in zip(got, again)),
+              f"ssd backward {label}: a repeated call differs")
+        want = sc.ssd_chunk_scan_bwd_plain(x, la, b, c, L, dy, dh)
+        leaves = [t.double().requires_grad_(True) for t in (x, la, b, c)]
+        y64, h64 = sc.ssd_chunk_scan_plain(*leaves, L)
+        outs, cots = [y64], [dy.double()]
+        if dh is not None:
+            outs.append(h64)
+            cots.append(dh.double())
+        ref = torch.autograd.grad(outs, leaves, cots)
+        del leaves, outs, y64, h64
+        ratios = {f"kernel {k}": v for k, v in grad_ratios(torch, got, want, dtype).items()}
+        ratios.update({f"kernel vs float64 {k}": v
+                       for k, v in grad_ratios(torch, got, ref, dtype).items()})
+        ratios.update({f"plain vs float64 {k}": v
+                       for k, v in grad_ratios(torch, want, ref, dtype).items()})
+        hin, g = sc.ssd_bwd_states(x, la, b, c, L, dy, dh)
+        phin, pg = sc.ssd_bwd_states_plain(x, la, b, c, L, dy, dh)
+        for name, p, q in (("h_in", hin, phin), ("g", g, pg)):
+            ratios[f"state kernel {name}"] = float((p - q).abs().max()) / (
+                1e-5 * max(float(q.abs().max()), 1e-30))
+        worst = max(ratios.values())
+        print(f"[parity] ssd backward {label}: worst err / limit {worst}: "
+              + json.dumps(ratios), flush=True)
+        check(worst <= 1.0, f"ssd backward {label}: err / limit {worst}")
+        errs["ssd_chunk_scan_bwd_state"] = max(errs["ssd_chunk_scan_bwd_state"],
+                                               float((hin - phin).abs().max()),
+                                               float((g - pg).abs().max()))
+        for name, i in (("ssd_chunk_scan_bwd_chunk", 0), ("ssd_chunk_scan_bwd_chunk", 1),
+                        ("ssd_chunk_scan_bwd_sum", 2), ("ssd_chunk_scan_bwd_sum", 3)):
+            errs[name] = max(errs[name], float((got[i].double() - want[i].double()).abs().max()))
+        if slow and with_dh and S // L > 1:
+            with carry_dropped(torch, sc):
+                bad = sc.ssd_chunk_scan_bwd_plain(x, la, b, c, L, dy, dh)
+            cworst = max(grad_ratios(torch, bad, want, dtype).values())
+            check(cworst > 1.0, f"ssd backward {label}: the control that drops the carry "
+                  f"reads {cworst} of the limit, which cannot see it")
+            print(f"[parity] ssd backward {label}: the plain backward that drops the carry "
+                  f"D_k g_k reads {cworst} of the limit", flush=True)
+        del got, again, want, ref, hin, g, phin, pg
+        torch.cuda.empty_cache()
+
+    # the autograd route: ssd_chunk_scan on inputs that need a gradient
+    x, la, b, c, dy, dh = ssd_bwd_inputs(torch, rng, dev, 2, 256, 8, 64, 128, torch.bfloat16,
+                                         True, True)
+    leaves = [t.clone().requires_grad_(True) for t in (x, la, b, c)]
+    before = [k.value for k in counters]
+    y, h = sc.ssd_chunk_scan(*leaves, 64)
+    routed = torch.autograd.grad((y, h), leaves, (dy, dh))
+    check([k.value - v for k, v in zip(counters, before)] == [1, 1, 1],
+          "ssd_chunk_scan's backward must launch each backward kernel once")
+    direct = sc.ssd_chunk_scan_bwd(x, la, b, c, 64, dy, dh)
+    check(all(torch.equal(p, q) for p, q in zip(routed, direct)),
+          "ssd_chunk_scan's autograd gradient differs from the backward wrapper's")
+    y, _ = sc.ssd_chunk_scan(*leaves, 64)
+    only_y = torch.autograd.grad(y, leaves, dy)
+    direct = sc.ssd_chunk_scan_bwd(x, la, b, c, 64, dy, None)
+    check(all(torch.equal(p, q) for p, q in zip(only_y, direct)),
+          "ssd_chunk_scan's gradient with h_final unused differs from the wrapper's with no dh")
+    print("[parity] ssd backward: the autograd route equals the wrapper bit for bit (h_final "
+          "used and unused), one launch of each kernel", flush=True)
+    return errs
 
 
 # --------------------------------------------------------------------------- #
@@ -2345,6 +2553,64 @@ def ssd_timing(torch, mod, shape, args, flush):
           f"ssd_cells on the same inputs {row['earlier_ms']} ms, plain "
           f"{row['plain_ms']} ms, bound {row['bound'][0]} ms", flush=True)
     return row
+
+
+def ssd_bwd_timing(torch, rng, dev):
+    """The SSD backward at mamba2_2p7b's training launch (1 x 4,096 x 80 x 64,
+    N 128, chunk 128, bf16, no dh): each of its three kernels through its C
+    entry on the same buffers (mean cold-L2 ms), the wrapper (all three
+    launches and their allocations), the plain backward, and each kernel's
+    bound from ``ssd_bwd_work`` (its products are float32 FMA: the float32
+    peak).  No single PyTorch call computes this gradient: library none.
+    → {kernel: row}."""
+    from repro_torch.kernels import ssd_chunk as sc
+
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    bt, S, H, Pd, N, L = 1, SSD_SEQ, 80, 64, 128, 128
+    x, la, b, c, dy, _ = ssd_bwd_inputs(torch, rng, dev, bt, S, H, Pd, N, torch.bfloat16, False,
+                                        False)
+    nc, code = S // L, sc.DTYPES[x.dtype]
+    hin = torch.empty((bt, nc, H, N, Pd), device=dev)
+    g = torch.empty_like(hin)
+    dbp = torch.empty((bt, nc, H, L, N), device=dev)
+    dcp = torch.empty_like(dbp)
+    dx, dla = torch.empty_like(x), torch.empty((bt, S, H), device=dev)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    fns, stream, shape = sc._bwd_fns(), torch.cuda.current_stream().cuda_stream, (bt, S, H, Pd,
+                                                                                   N, L)
+    ins = (x.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr())
+    entries = {
+        "ssd_chunk_scan_bwd_state": lambda: fns["state"](
+            *ins, 0, *shape, code, hin.data_ptr(), g.data_ptr(), stream),
+        "ssd_chunk_scan_bwd_chunk": lambda: fns["chunk"](
+            *ins, hin.data_ptr(), g.data_ptr(), *shape, code, dx.data_ptr(), dla.data_ptr(),
+            dbp.data_ptr(), dcp.data_ptr(), stream),
+        "ssd_chunk_scan_bwd_sum": lambda: fns["sum"](
+            dbp.data_ptr(), dcp.data_ptr(), bt, S, H, N, L, code, db.data_ptr(), dc.data_ptr(),
+            stream),
+    }
+    for name, fn in entries.items():
+        check(fn() == 0, f"{name} C entry point")
+    want = sc.ssd_chunk_scan_bwd(x, la, b, c, L, dy)
+    check(all(torch.equal(p, q) for p, q in zip((dx, dla, db, dc), want)),
+          "the SSD backward's C entries differ from its wrapper")
+    work = ssd_bwd_work(bt, S, H, Pd, N, L, x.element_size(), False)
+    wrapper_ms = timed(torch, lambda: sc.ssd_chunk_scan_bwd(x, la, b, c, L, dy), 10, flush)
+    plain_ms = timed(torch, lambda: sc.ssd_chunk_scan_bwd_plain(x, la, b, c, L, dy), 3, flush)
+    rows = {name: dict(shape=[bt, S, H, Pd, N, L, "bfloat16"],
+                       ms=timed(torch, lambda fn=fn, name=name: check(fn() == 0, name), 10,
+                                flush),
+                       plain_ms=plain_ms, library_ms=None,
+                       bound=bound(*work[name], F32_OPS_PER_S))
+            for name, fn in entries.items()}
+    total = bound(sum(w[0] for w in work.values()), sum(w[1] for w in work.values()),
+                  F32_OPS_PER_S)
+    print(f"[time] ssd backward at {rows[SSD_BWD[0]]['shape']}: wrapper (three launches) "
+          f"{wrapper_ms} ms, plain backward {plain_ms} ms, bound of the three {total[0]} ms "
+          f"({total[1]}); C entries alone: " + json.dumps(
+              {k: {"ms": r["ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+               for k, r in rows.items()}), flush=True)
+    return rows
 
 
 # the device functions of csrc/filter_compact.cu, csrc/masked_stats.cu and
@@ -4672,6 +4938,305 @@ def fsdp_phase(torch, ops, devices):
 
 
 # --------------------------------------------------------------------------- #
+# phase 4j: mamba2_2p7b trained at full width and depth                         #
+# --------------------------------------------------------------------------- #
+
+# mamba2_2p7b at full width and depth (64 layers, d_model 2,560, 80 heads x
+# 64, N 128, chunk 128, vocab 50,280): 2.83e9 parameters, 45.3 GB of float32
+# weights, gradients and AdamW moments.  One sequence of 4,096 tokens a step
+# (the reference's train_4k sequence length, its global batch 256 cut to one
+# card), remat full, bf16 compute, through the train launcher.
+SSD_SEQ = 4096
+SSD_FLAGS = ["--arch", "mamba2_2p7b", "--full-config", "--steps", str(TRAIN_STEPS), "--batch",
+             "1", "--seq", str(SSD_SEQ), "--remat", "full", "--seed", str(TRAIN_SEED)]
+# predicted launches per step: 64 layers x 2 forwards (remat) of the
+# intra-chunk kernel (ssd_wgmma: bf16, L 128, N 128, P 64) and the
+# inter-chunk scan, and one of each backward kernel a layer
+SSD_PER_STEP = {"ssd_chunk_scan": 128, "ssd_chunk_scan_wgmma": 128, "ssd_chunk_scan_inter": 128,
+                "ssd_chunk_scan_recur": 0, "ssd_chunk_scan_bwd_state": 64,
+                "ssd_chunk_scan_bwd_chunk": 64, "ssd_chunk_scan_bwd_sum": 64}
+# The peak, predicted before the first run on the card: the state (16 bytes
+# a parameter, 45.3 GB), the layers' remat boundaries (64 x 4,096 x 2,560 in
+# bf16, 1.3 GB), one layer's recomputed activations and its SSD backward's
+# scratch (h_in, g and the heads' terms: 0.5 GB), the loss head's float32
+# logits and their gradient (1.6 GB), and the allocator's slack.
+SSD_PEAK_PREDICTED = (47e9, 56e9)
+# The C14 check: the model cut to 2 layers at full width, one microbatch of
+# 1 x 4,096 tokens, through the kernels against the plain SSD (autograd of
+# ssd_chunk_scan_plain under ops.local_backend("torch")).  The reference's
+# initialisation leaves dt_bias and a_log at 0 (dt = softplus(0) = 0.69, A =
+# 1), so a chunk of 128 keeps e^-88 of its state and no gradient crosses a
+# chunk: a backward that drops the carry D_k g_k would go unseen.  The check
+# sets them as Mamba-2 initialises them (dt log-uniform in [1e-3, 0.1]
+# through dt_bias = softplus^-1(dt); A uniform in [1, 16] through a_log =
+# log A), so a head keeps up to e^-0.13 of its state over a chunk.  Limits:
+# the loss within 2e-4 relative and the gradient norm within 5e-4 (phase
+# 4c's); each leaf's gradient within 2^-6 of its largest |g|, two bf16 ulps:
+# y and the gradients round to bf16 at other places on the two routes, and
+# each layer moves the next one's input.  Phase 4c's leaf limit, 2^-4,
+# cannot see the fault: on an H100 (seed 12) the kernels read 0.0071 of
+# the largest |g| (the token embedding) and the plain backward that drops
+# the carry 0.039 (a_log).  No leaf may be all zeros on the kernel route
+# (C14), and the carry-dropping control must cross the leaf limit.
+SSD_CHECK_LAYERS = 2
+SSD_GRAD_TOL = 2.0 ** -6
+
+
+def mamba2_decays(torch, model, seed):
+    """dt_bias and a_log of every layer as Mamba-2 initialises them, in
+    place, from a numpy seed."""
+    import numpy as np
+
+    from repro_torch.models.base import tree_flatten
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for path, t in tree_flatten(model.tree()):
+            if path[-1] == "dt_bias":
+                dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), tuple(t.shape)))
+                t.copy_(torch.as_tensor(dt + np.log(-np.expm1(-dt)), dtype=t.dtype))
+            elif path[-1] == "a_log":
+                t.copy_(torch.as_tensor(np.log(rng.uniform(1.0, 16.0, tuple(t.shape))),
+                                        dtype=t.dtype))
+
+
+def ssd_step_vs_plain(torch, ops, cfg, dev):
+    """The C14 check (see SSD_CHECK_LAYERS)."""
+    import dataclasses as dc
+
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models import SINGLE, init_model
+    from repro_torch.models.base import keystr, tree_flatten
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.trainstep import value_and_grad
+
+    cut = dc.replace(cfg, n_layers=SSD_CHECK_LAYERS)
+    model = init_model(cut, seed=TRAIN_SEED, device=dev, trainable=True)
+    mamba2_decays(torch, model, TRAIN_SEED)
+    batch = to_device(batch_at(SynthSpec(vocab=cut.vocab, seq_len=SSD_SEQ, batch=1, seed=0), 0),
+                      dev)
+
+    def run(backend):
+        with ops.local_backend(backend):
+            loss, _, grads = value_and_grad(model, cut, batch, SINGLE, remat=False)
+        return float(loss), float(global_norm(grads)), grads
+
+    counters = (sc.launches_bwd_state, sc.launches_bwd_chunk, sc.launches_bwd_sum)
+    before = [k.value for k in counters]
+    kl, kn, kg = run("cuda")
+    check([k.value - v for k, v in zip(counters, before)] == [SSD_CHECK_LAYERS] * 3,
+          "C14 check: the kernel route must launch each backward kernel once a layer")
+    pl, pn, pg = run("torch")
+    zeros = [keystr(p) for p, g in tree_flatten(kg) if not bool((g != 0).any())]
+    errs = leaf_errs(torch, kg, pg)
+    ratios = {k: e / max(w, 1e-30) for k, (e, w) in errs.items()}
+    worst = max(ratios.values())
+    print(f"[train-ssd] C14 check, {SSD_CHECK_LAYERS} layers at full width, 1 x {SSD_SEQ} "
+          f"tokens, Mamba-2's decays: loss {kl} vs plain {pl}, grad norm {kn} vs {pn}, worst "
+          f"leaf |err| / max |g| {worst} (limit {SSD_GRAD_TOL}); leaves all zeros on the "
+          f"kernel route: {zeros}; " + json.dumps(ratios), flush=True)
+    check(not zeros, f"C14 check: gradient leaves all zeros on the kernel route: {zeros}")
+    check(math.isfinite(kl) and abs(kl - pl) <= STEP_LOSS_TOL * abs(pl),
+          f"C14 check: loss {kl} vs plain {pl}")
+    check(math.isfinite(kn) and abs(kn - pn) <= STEP_GNORM_TOL * pn,
+          f"C14 check: grad norm {kn} vs plain {pn}")
+    check(worst <= SSD_GRAD_TOL, f"C14 check: gradients vs plain, worst {worst}")
+    del kg
+
+    class NoCarry(torch.autograd.Function):
+        """The plain forward, and the plain backward that drops D_k g_k."""
+
+        @staticmethod
+        def forward(ctx, x, log_a, b, c, chunk):
+            ctx.save_for_backward(x, log_a, b, c)
+            ctx.chunk = chunk
+            return plain(x, log_a, b, c, chunk)
+
+        @staticmethod
+        def backward(ctx, dy, dh):
+            with carry_dropped(torch, sc):
+                return (*sc.ssd_chunk_scan_bwd_plain(*ctx.saved_tensors, ctx.chunk, dy, dh),
+                        None)
+
+    plain = sc.ssd_chunk_scan_plain
+    sc.ssd_chunk_scan_plain = NoCarry.apply
+    try:
+        _, _, cg = run("torch")
+    finally:
+        sc.ssd_chunk_scan_plain = plain
+    cratios = {k: e / max(w, 1e-30) for k, (e, w) in leaf_errs(torch, cg, pg).items()}
+    cworst = max(cratios.values())
+    print(f"[train-ssd] control, the plain backward that drops the carry D_k g_k: worst leaf "
+          f"|err| / max |g| {cworst} (limit {SSD_GRAD_TOL}): " + json.dumps(cratios),
+          flush=True)
+    check(cworst > SSD_GRAD_TOL, f"C14 control, the carry dropped: worst leaf {cworst} is "
+          f"within the limit {SSD_GRAD_TOL}, which cannot see it")
+    del model, pg, cg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ssd_counted_step(torch, ops, cfg, dev, steps_ms):
+    """4j's count: the C14 check's 2-layer model, one step of 1 x 4,096
+    tokens counted on the card by ``roofline.count()``, against the same
+    step counted on meta by the dry run (flops equal, bytes within
+    ROUTE_BYTES_TOL, as 4i holds smollm's), each SSD kernel launched as
+    often as the counter charged it; then the full model's step counted on
+    meta, and 4j's warm steps' shares of it (achieved TFLOP/s, mfu, the
+    bound's share)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models.base import SINGLE
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    shape = ShapeConfig("cli", "train", seq_len=SSD_SEQ, global_batch=1)
+    cut = dc.replace(cfg, n_layers=SSD_CHECK_LAYERS)
+    run = RunConfig(model=cut, shape=shape, dp=1, tp=1, remat="full")
+    meta = dryrun.whole_step_counter(cut, run, SINGLE, "train")
+    model, opt_state = init_train_state(cut, run, seed=TRAIN_SEED, device=dev)
+    step_fn, _ = make_train_step(cut, run)
+    batch = to_device(batch_at(SynthSpec(vocab=cut.vocab, seq_len=SSD_SEQ, batch=1, seed=0), 0),
+                      dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with RL.count() as c:
+        step_fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    del model, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffs = op_differences(c.by_op, meta.by_op)
+    gap = abs(c.cost.bytes - meta.cost.bytes) / meta.cost.bytes
+    want = {"ssd_chunk_scan": 2, "ssd_chunk_scan_inter": 2, **{k: 1 for k in SSD_BWD}}
+    print(f"[train-ssd] counted step, {SSD_CHECK_LAYERS} layers, 1 x {SSD_SEQ} tokens: on the "
+          f"card {c.cost.flops} flops, {c.cost.bytes} bytes; on meta {meta.cost.flops}, "
+          f"{meta.cost.bytes} ({gap} apart; ops that differ: {json.dumps(diffs)}); charged "
+          + json.dumps(c.charged) + ", launched " + json.dumps({k: launches[k] for k in want}),
+          flush=True)
+    check(c.cost.flops == meta.cost.flops, f"4j: the step on the card counts {c.cost.flops} "
+          f"flops, the meta dry run {meta.cost.flops}")
+    check(gap < ROUTE_BYTES_TOL, f"4j: bytes on the card {c.cost.bytes} against "
+          f"{meta.cost.bytes} on meta")
+    for name, n in want.items():
+        check(launches[name] == c.charged.get(name, 0) == n * SSD_CHECK_LAYERS,
+              f"4j: {name} launched {launches[name]} times, charged {c.charged.get(name, 0)}, "
+              f"a step of {SSD_CHECK_LAYERS} layers makes {n * SSD_CHECK_LAYERS}")
+    full = dryrun.whole_step_counter(cfg, dc.replace(run, model=cfg), SINGLE, "train").cost
+    return shares(f"{cfg.name} (4j)", full.flops, RL.model_flops_for(cfg, shape),
+                  max(full.flops / RL.PEAK_FLOPS, full.bytes / RL.HBM_BW), steps_ms)
+
+
+def training_ssd(torch, ops, dev):
+    """Phase 4j: ``mamba2_2p7b`` at full width and depth trained through
+    ``repro_torch.launch.train.main``; → the SSD kernels' launch counts
+    over the launcher's run."""
+    import re
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.base import tree_flatten
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    cfg = get_config("mamba2_2p7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train-ssd] {cfg.name} at full width and depth: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_q_heads} heads x {cfg.ssd.head_dim}, N {cfg.ssd.d_state}, "
+          f"chunk {cfg.ssd.chunk}, vocab {cfg.vocab}, {cfg.param_count()} parameters; launcher "
+          f"flags {' '.join(SSD_FLAGS)}; predicted peak {SSD_PEAK_PREDICTED[0]}-"
+          f"{SSD_PEAK_PREDICTED[1]} bytes; {torch.cuda.memory_allocated()} bytes held on the "
+          "card before the run", flush=True)
+    ops.reset_launch_counts()  # counts start at 0 just before the training path
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole, log = quiet(launch_train.main, SSD_FLAGS)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train-ssd] {TRAIN_STEPS} steps in {wall} s: step ms "
+          + json.dumps([t * 1e3 for t in whole.step_times]) + ", tokens/s "
+          + json.dumps([SSD_SEQ / t for t in whole.step_times]) + ", losses "
+          + json.dumps(whole.losses) + ", grad norms " + json.dumps(whole.grad_norms)
+          + f", peak device memory {peak} bytes (predicted {SSD_PEAK_PREDICTED[0]}-"
+          f"{SSD_PEAK_PREDICTED[1]}); launcher output: " + " | ".join(log.strip().splitlines()),
+          flush=True)
+    check(whole.steps == TRAIN_STEPS and all(math.isfinite(x) for x in
+                                             whole.losses + whole.grad_norms),
+          "Mamba-2 training: a loss or gradient norm is not finite")
+    check(peak < 80e9, f"Mamba-2 training peak {peak} bytes, not under 80 GB")
+    print("[train-ssd] launches in the run: " + json.dumps(
+        {k: launches[k] for k in SSD_PER_STEP}), flush=True)
+    for name, n in SSD_PER_STEP.items():
+        check(launches[name] == n * TRAIN_STEPS, f"Mamba-2 training: {name} launched "
+              f"{launches[name]} times in {TRAIN_STEPS} steps, not {n * TRAIN_STEPS}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same step twice from the same state, bit for bit (the first state
+    # waits on the host); the second step profiled
+    shape = ShapeConfig("cli", "train", seq_len=SSD_SEQ, global_batch=1)
+    run = RunConfig(model=cfg, shape=shape, dp=1, tp=1, remat="full")
+    step_fn, _ = make_train_step(cfg, run)
+    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=SSD_SEQ, batch=1,
+                                         seed=TRAIN_SEED), 0), dev)
+    kept = None
+    for i in range(2):
+        model, opt_state = init_train_state(cfg, run, seed=TRAIN_SEED, device=dev)
+        if i == 0:
+            model, opt_state, m0 = step_fn(model, opt_state, batch)
+            kept = [t.detach().cpu() for _, t in tree_flatten({"params": model.tree(),
+                                                               "opt": opt_state})]
+        else:
+            out = {}
+
+            def one_step():
+                out["state"] = step_fn(model, opt_state, batch)
+
+            pwall, busy, copy, kern, _ = profiled(torch, one_step)
+            model, opt_state, m1 = out.pop("state")
+            leaves = [t for _, t in tree_flatten({"params": model.tree(), "opt": opt_state})]
+            check(len(leaves) == len(kept) and all(
+                torch.equal(a.detach().cpu(), b) for a, b in zip(leaves, kept)),
+                "Mamba-2: the same step from the same state gave other params or optimizer "
+                "state")
+            check(float(m0["loss"]) == float(m1["loss"]), "Mamba-2: repeated step loss")
+            del leaves
+        del model, opt_state
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd = sum(t for t, k in kern if "ssd_" in k and "ssd_bwd" not in k)
+    bwd = sum(t for t, k in kern if "ssd_bwd" in k)
+    gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
+                                                                   "cutlass")))
+    print(f"[train-ssd] a step repeated from the same state gave params, AdamW moments and "
+          f"loss ({float(m1['loss'])}) equal bit for bit", flush=True)
+    print(f"[train-ssd-trace] one step, profiled: wall {pwall} ms, device kernels {busy} ms "
+          f"(SSD forward kernels {fwd} ms, SSD backward kernels {bwd} ms: "
+          + ", ".join(f"{re.search(r'ssd_bwd_[a-z]+', k).group(0)} {t}" for t, k in kern
+                      if "ssd_bwd" in k)
+          + f"; GEMMs {gemm} ms, elementwise and other {busy - fwd - bwd - gemm} ms), device "
+          f"copies {copy} ms, device idle {100 * (1 - (busy + copy) / pwall)}%; top: "
+          + ", ".join(f"{k[:50]} {t}" for t, k in kern[:10]), flush=True)
+
+    ssd_step_vs_plain(torch, ops, cfg, dev)
+    ssd_counted_step(torch, ops, cfg, dev, [t * 1e3 for t in whole.step_times[1:]])
+    return {k: launches[k] for k in SSD_PER_STEP}
+
+
+# --------------------------------------------------------------------------- #
 # Phase 4i: the roofline on the card                                            #
 # --------------------------------------------------------------------------- #
 # (a) 4c's step (smollm_360m, 8 x 4,096 tokens, microbatch 4, remat full, one
@@ -4814,29 +5379,18 @@ def roofline_phase(torch, ops, dev):
             "phase_s": took}
 
 
-def main() -> int:
-    import numpy as np
-    import torch
+def card_setup(torch, sources=None):
+    """How every run of these phases starts, the whole script's and a
+    tool's: IEEE float32 products for the plain versions (no TF32), the
+    kernel libraries of ``sources`` (every source if None) built from the
+    checkout, one ``nvcc`` each, all at once, and the card's line printed
+    → that line (``nvidia-smi``'s name and power limit)."""
+    from repro_torch.kernels import _build
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    try:
-        from repro_torch.frame import backend as BK
-        from repro_torch.kernels import _build, ops
-    except ImportError as exc:
-        print(f"chip_smoke: the repro_torch package is not beside this script ({exc})",
-              file=sys.stderr)
-        return 2
-    check("jax" not in sys.modules, "jax was imported")
-    dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: IEEE f32 products
     torch.backends.cudnn.allow_tf32 = False
-    K = {name: mod for name, mod in ops.KERNELS.items() if name not in TRAINING}
-
-    # -- phase 1: build
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = _build.build_all() if sources is None else _build.build_all(sources)
     build_s = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4852,6 +5406,29 @@ def main() -> int:
               + "; ".join(f"{n} {r}, {st}/{ld}" for n, r, st, ld in
                           ptxas_report(_build.LOGS["flash_attention"])), flush=True)
     print(f"[card] {smi}", flush=True)
+    return smi
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.frame import backend as BK
+        from repro_torch.kernels import ops
+    except ImportError as exc:
+        print(f"chip_smoke: the repro_torch package is not beside this script ({exc})",
+              file=sys.stderr)
+        return 2
+    check("jax" not in sys.modules, "jax was imported")
+    dev = torch.device("cuda")
+    K = {name: mod for name, mod in ops.KERNELS.items() if name not in TRAINING}
+
+    # -- phase 1: build
+    smi = card_setup(torch)
 
     # -- phase 2: parity on the card
     rng = np.random.default_rng(0)
@@ -4860,6 +5437,7 @@ def main() -> int:
     fused_parity(torch, ops, rng, dev)
     errs.update(attention_parity(torch, rng, dev))
     attention_in_new_thread(torch, rng, dev)
+    errs.update(ssd_bwd_parity(torch, rng, dev))
     torch.cuda.synchronize()
     print(f"[parity] kernel vs plain passed for all {len(errs)} kernels in "
           f"{time.perf_counter() - t0} s; max |err|: " + json.dumps(errs), flush=True)
@@ -4940,6 +5518,13 @@ def main() -> int:
     # -- phase 4i: the roofline on the card (counts, not launches of the JSON line)
     roofline = roofline_phase(torch, ops, dev)
 
+    # -- phase 4j: Mamba-2 trained at full width and depth through the SSD's
+    # backward kernels (C14); its forward launches join 4b's on the JSON line
+    t0 = time.perf_counter()
+    for kernel, n in training_ssd(torch, ops, dev).items():
+        launches[kernel] += n
+    print(f"[train-ssd] phase took {time.perf_counter() - t0} s", flush=True)
+
     # -- phase 5: kernel vs plain, then timing, at the main path's shapes
     t0 = time.perf_counter()
     mp = main_path_parity(torch, K, shapes, rng, dev)
@@ -4961,6 +5546,7 @@ def main() -> int:
           flush=True)
     tm = timings(torch, K, shapes, rng, dev)
     tm.update(attention_timings(torch, rng, dev))
+    tm.update(ssd_bwd_timing(torch, rng, dev))
     for name, t in tm.items():
         print(f"[time] {name} shape {t['shape']}: kernel {t['ms']} ms, "
               f"plain {t['plain_ms']} ms, library {t['library_ms']} ms, "
@@ -4979,7 +5565,7 @@ def main() -> int:
             "bound_by": tm[name]["bound"][1],
             "library_ms": tm[name]["library_ms"],
         }
-        for name in DATAFRAME + SERVING + TRAINING
+        for name in DATAFRAME + SERVING + TRAINING + SSD_BWD
     ]
     print(json.dumps({"roofline": roofline}))
     print(f"{smi}")

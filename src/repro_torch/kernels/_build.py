@@ -28,7 +28,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("masked_stats", "segment_reduce", "topk", "filter_compact", "join_probe",
-           "ssd_chunk", "flash_attention")
+           "ssd_chunk", "ssd_bwd", "flash_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

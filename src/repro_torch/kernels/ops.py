@@ -17,9 +17,10 @@ moves data between host and device itself; the frame backend does that.
 
 Under ``launch.roofline.count()``, :func:`attention` and :func:`ssd_scan`
 charge their kernels' work formulas once a call and count nothing inside,
-whichever route runs them; the attention backward charges its two kernels'
-(``flash_attention.FlashAttention.backward`` on the card,
-:class:`_CountedAttention` on the plain route).
+whichever route runs them; their backward charges its kernels' (attention's
+two: ``flash_attention.FlashAttention.backward`` on the card,
+:class:`_CountedAttention` on the plain route; the SSD's three:
+``ssd_chunk.SSDChunkScan.backward`` and :class:`_CountedSSD`).
 """
 from __future__ import annotations
 
@@ -49,9 +50,9 @@ KERNELS = {
     "ssd_chunk_scan": _ssd,
     "flash_attention": _fa,
 }
-# launch counters by kernel: one per module, attention's two backward kernels,
-# the attention and SSD launches that took the tensor-core kernels, and the
-# SSD launches that took each FMA kernel
+# launch counters by kernel: one per module, attention's two backward kernels
+# and the SSD's three, the attention and SSD launches that took the
+# tensor-core kernels, and the SSD launches that took each FMA kernel
 COUNTERS = {name: mod.launches for name, mod in KERNELS.items()}
 COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
                  "flash_attention_bwd_dkdv": _fa.launches_dkdv,
@@ -62,7 +63,10 @@ COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
                  "ssd_chunk_scan_short": _ssd.launches_short,
                  "ssd_chunk_scan_cells": _ssd.launches_cells,
                  "ssd_chunk_scan_inter": _ssd.launches_scan,
-                 "ssd_chunk_scan_recur": _ssd.launches_recur})
+                 "ssd_chunk_scan_recur": _ssd.launches_recur,
+                 "ssd_chunk_scan_bwd_state": _ssd.launches_bwd_state,
+                 "ssd_chunk_scan_bwd_chunk": _ssd.launches_bwd_chunk,
+                 "ssd_chunk_scan_bwd_sum": _ssd.launches_bwd_sum})
 
 
 @contextmanager
@@ -145,8 +149,8 @@ def ssd_scan(x, log_a, bmat, cmat, chunk: int = 128) -> Tuple[torch.Tensor, torc
     ``chunk`` is cut to S and must then divide it, as in the reference.
     Counted: the launches the card makes at this shape (``ssd_recur``
     alone where ``scan_route`` says so, else the intra-chunk kernel and
-    ``ssd_scan``); the kernels have no backward, so a backward of the plain
-    route is counted op by op."""
+    ``ssd_scan``), and in the backward the three backward kernels
+    (``roofline.ssd_bwd_work``), on every route."""
     chunk = min(int(chunk), x.shape[1])
     if x.shape[1] % chunk:
         raise ValueError(f"ssd_scan: S={x.shape[1]} is not a multiple of chunk={chunk}")
@@ -226,26 +230,44 @@ class _CountedAttention(torch.autograd.Function):
 
 class _CountedSSD(torch.autograd.Function):
     """The plain SSD while a counter runs: the forward uncounted (its work is
-    charged by :func:`ssd_scan`); no kernel computes its backward, so the
-    plain version's backward is recomputed and counted op by op."""
+    charged by :func:`ssd_scan`), the backward charged as the card's three
+    backward kernels and run uncounted (the plain version's gradient,
+    recomputed from x, log_a, b and c).  On ``meta`` tensors neither runs:
+    the outputs are empty tensors of their shapes.  Outputs and gradients
+    are contiguous, as the kernels write them."""
 
     @staticmethod
     def forward(ctx, x, log_a, b, c, chunk):
+        ctx.set_materialize_grads(False)
         ctx.chunk = chunk
         ctx.save_for_backward(x, log_a, b, c)
+        if x.is_meta:
+            bt, _, H, Pd = x.shape
+            return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                    torch.empty((bt, H, b.shape[-1], Pd), dtype=torch.float32, device=x.device))
         with _rl.uncounted():
-            return _ssd.ssd_chunk_scan_plain(x, log_a, b, c, chunk)
+            y, h = _ssd.ssd_chunk_scan_plain(x, log_a, b, c, chunk)
+            return y.contiguous(), h.contiguous()
 
     @staticmethod
     def backward(ctx, dy, dh):
         ins = ctx.saved_tensors
+        x, b = ins[0], ins[2]
+        bt, S, H, Pd = x.shape
+        work = _rl.ssd_bwd_work(bt, S, H, Pd, b.shape[-1], ctx.chunk, x.element_size(),
+                                dh is not None)
+        for name in _ssd.BWD_KERNELS:
+            _rl.charge(name, work[name])
+        if x.is_meta:
+            return (*(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in ins), None)
         with _rl.uncounted(), torch.enable_grad():
-            leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in ins]
+            leaves = [t.detach().requires_grad_(True) for t in ins]
             outs = _ssd.ssd_chunk_scan_plain(*leaves, ctx.chunk)
-        pairs = [(o, g) for o, g in zip(outs, (dy, dh)) if g is not None]
-        grads = torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs],
-                                    allow_unused=True)
-        return (*grads, None)
+            pairs = [(o, g) for o, g in zip(outs, (dy, dh)) if g is not None]
+            grads = torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs],
+                                        allow_unused=True)
+            return (*(torch.zeros_like(t) if g is None else g.contiguous()
+                      for t, g in zip(ins, grads)), None)
 
 
 # --------------------------------------------------------------------------- #

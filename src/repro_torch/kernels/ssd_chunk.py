@@ -46,15 +46,27 @@ walks the tokens from h = 0 with h in registers, so no chunk state reaches
 device memory; its h_final equals :func:`ssd_chunk_scan_plain`'s at chunk 1
 bit for bit.  ``ssd_short`` stays reachable at L = 1 through
 :func:`ssd_chunk_intra`.
+
+The gradient: on CUDA tensors ``ssd_chunk_scan`` is :class:`SSDChunkScan`,
+an autograd Function whose forward is the route above (it saves x, log_a, b
+and c alone) and whose backward is three launches of ``csrc/ssd_bwd.cu``
+(:func:`ssd_chunk_scan_bwd`): ``ssd_bwd_state`` (the states h_in and their
+gradients g, walked from the inputs), ``ssd_bwd_chunk`` (dx, dlog_a and each
+head's terms of db and dc) and ``ssd_bwd_sum`` (db and dc, the heads summed
+in order), counted by ``launches_bwd_state``, ``launches_bwd_chunk`` and
+``launches_bwd_sum``.  :func:`ssd_chunk_scan_bwd_plain` writes the same
+gradient in torch ops; on CPU tensors autograd differentiates the plain
+version.
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
+from ..launch import roofline
 from ._launch import I32, P, LaunchCounter, bind, check_launch, on_device, require, stream_ptr
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -65,6 +77,10 @@ launches_short = LaunchCounter("ssd_chunk_scan_short")
 launches_cells = LaunchCounter("ssd_chunk_scan_cells")
 launches_scan = LaunchCounter("ssd_chunk_scan_inter")
 launches_recur = LaunchCounter("ssd_chunk_scan_recur")
+launches_bwd_state = LaunchCounter("ssd_chunk_scan_bwd_state")
+launches_bwd_chunk = LaunchCounter("ssd_chunk_scan_bwd_chunk")
+launches_bwd_sum = LaunchCounter("ssd_chunk_scan_bwd_sum")
+BWD_KERNELS = ("ssd_chunk_scan_bwd_state", "ssd_chunk_scan_bwd_chunk", "ssd_chunk_scan_bwd_sum")
 
 SHORT_MAX_L = 16  # == SHORT_MAX_L in csrc/ssd_chunk.cu: past it ssd_cells is faster
 SHORT_SMEM = 48 * 1024  # shared memory a block of ssd_short aims at: several blocks an SM
@@ -73,6 +89,7 @@ SCAN_MAX_N = 256  # the largest state size ssd_scan holds in registers
 SCAN_PS = 64  # == SCAN_PS in csrc/ssd_chunk.cu: P columns a block of ssd_scan
 RECUR_MAX_N = 256  # the largest state size ssd_recur holds in registers
 RECUR_PB = 16  # == RECUR_PB in csrc/ssd_chunk.cu: P columns a block of ssd_recur
+BWD_MAX_L, BWD_MAX_N, BWD_MAX_P = 128, 256, 128  # == MAX_L, MAX_N, MAX_P in csrc/ssd_bwd.cu
 
 
 def ssd_route(dtype: torch.dtype, L: int, N: int, P: int) -> str:
@@ -143,17 +160,24 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' working type: float32, or float64 for
+    float64 inputs (a float64 reference of the same expressions)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def ssd_chunk_intra_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
                  c: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Step 1 in torch ops → (y_intra (batch, S, H, P) in x's type, chunk
-    states f32 (batch, S/L, H, N, P))."""
+    states f32 (batch, S/L, H, N, P); float64 throughout for float64
+    inputs)."""
     bt, S, H, Pd = x.shape
     N, L = b.shape[-1], int(chunk)
     nc = S // L
-    xf = x.float().reshape(bt, nc, L, H, Pd)
-    la = log_a.float().reshape(bt, nc, L, H)
-    bf = b.float().reshape(bt, nc, L, N)
-    cf = c.float().reshape(bt, nc, L, N)
+    xf = _acc(x).reshape(bt, nc, L, H, Pd)
+    la = _acc(log_a).reshape(bt, nc, L, H)
+    bf = _acc(b).reshape(bt, nc, L, N)
+    cf = _acc(c).reshape(bt, nc, L, N)
     cum = la.cumsum(2)  # (bt, nc, L, H)
     causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()[..., None]
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (bt, nc, i, j, H)
@@ -189,7 +213,7 @@ def chunk_decays(log_a: torch.Tensor, n_chunks: int) -> torch.Tensor:
     log_a over chunk k).  Both versions of step 2 take them from here, so
     their h agree bit for bit."""
     bt, S, H = log_a.shape
-    return torch.exp(log_a.float().reshape(bt, n_chunks, S // n_chunks, H).cumsum(2))
+    return torch.exp(_acc(log_a).reshape(bt, n_chunks, S // n_chunks, H).cumsum(2))
 
 
 def ssd_chunk_inter_plain(y_intra: torch.Tensor, state: torch.Tensor, log_a: torch.Tensor,
@@ -201,14 +225,14 @@ def ssd_chunk_inter_plain(y_intra: torch.Tensor, state: torch.Tensor, log_a: tor
     L = S // nc
     ecum = chunk_decays(log_a, nc)
     chunk_decay = ecum[:, :, -1]  # (bt, nc, H)
-    h = torch.zeros((bt, H, N, Pd), dtype=torch.float32, device=y_intra.device)
+    h = torch.zeros((bt, H, N, Pd), dtype=state.dtype, device=y_intra.device)
     h_in = []
     for k in range(nc):
         h_in.append(h)
         h = chunk_decay[:, k, :, None, None] * h + state[:, k]
-    ch = torch.einsum("bnlk,bnhkp->bnlhp", c.float().reshape(bt, nc, L, N),
+    ch = torch.einsum("bnlk,bnhkp->bnlhp", _acc(c).reshape(bt, nc, L, N),
                       torch.stack(h_in, 1))
-    y = y_intra.float().reshape(bt, nc, L, H, Pd) + ecum[..., None] * ch
+    y = _acc(y_intra).reshape(bt, nc, L, H, Pd) + ecum[..., None] * ch
     return y.reshape(bt, S, H, Pd).to(y_intra.dtype), h
 
 
@@ -292,18 +316,234 @@ def ssd_chunk_scan_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     return ssd_chunk_inter_plain(y_intra, state, log_a, c)
 
 
+def _bwd_operands(x, log_a, b, c, chunk, dy):
+    """The plain backward's operands by chunk: x, dy (batch, nc, L, H, P), b,
+    c (batch, nc, L, N), cum, e = exp(cum), w = exp(cum_{L-1} - cum) (batch,
+    nc, L, H) and D (batch, nc, H), in the working type."""
+    bt, S, H, Pd = x.shape
+    N, L = b.shape[-1], int(chunk)
+    nc = S // L
+    xf = _acc(x).reshape(bt, nc, L, H, Pd)
+    dyf = _acc(dy).reshape(bt, nc, L, H, Pd)
+    bf = _acc(b).reshape(bt, nc, L, N)
+    cf = _acc(c).reshape(bt, nc, L, N)
+    cum = _acc(log_a).reshape(bt, nc, L, H).cumsum(2)
+    e = torch.exp(cum)
+    return xf, dyf, bf, cf, cum, e, torch.exp(cum[:, :, -1:] - cum), e[:, :, -1]
+
+
+def ssd_bwd_states_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
+                         c: torch.Tensor, chunk: int, dy: torch.Tensor,
+                         dh: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The states of the plain backward → (h_in, g), each (batch, S / L, H,
+    N, P) float32 (float64 for float64 inputs): h_in_k from h = 0 (h ← D_k h
+    + S_k, S_k = Σ_j w_j b_j x_jᵀ), and g_k, the gradient of the state after
+    chunk k, from g_{nc-1} = dh (0 if None) by g_{k-1} = Q_k + D_k g_k, Q_k =
+    Σ_i e_i c_i dy_iᵀ."""
+    xf, dyf, bf, cf, _, e, w, D = _bwd_operands(x, log_a, b, c, chunk, dy)
+    bt, nc, _, H, Pd = xf.shape
+    N = bf.shape[-1]
+    state = torch.einsum("bnlhk,bnlhp->bnhkp", bf[:, :, :, None, :] * w[..., None], xf)
+    h = torch.zeros((bt, H, N, Pd), dtype=xf.dtype, device=x.device)
+    hin = []
+    for k in range(nc):
+        hin.append(h)
+        h = D[:, k, :, None, None] * h + state[:, k]
+    q = torch.einsum("bnlhk,bnlhp->bnhkp", cf[:, :, :, None, :] * e[..., None], dyf)
+    g = torch.zeros_like(h) if dh is None else dh.to(h.dtype)
+    gs = []
+    for k in reversed(range(nc)):
+        gs.append(g)
+        g = q[:, k] + D[:, k, :, None, None] * g
+    return torch.stack(hin, 1), torch.stack(gs[::-1], 1)
+
+
+def ssd_chunk_scan_bwd_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
+                             c: torch.Tensor, chunk: int, dy: torch.Tensor,
+                             dh: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`ssd_chunk_scan_plain` in torch ops, written out
+    (not autograd of the forward): given dy (batch, S, H, P) and dh_final
+    f32 (batch, H, N, P) or None (zero) → (dx in x's type, dlog_a f32, db in
+    b's type, dc in c's type); float64 throughout for float64 inputs.  Per
+    chunk, with cum the inclusive cumsum of log_a, e = exp(cum), w =
+    exp(cum_{L-1} - cum), D = exp(cum_{L-1}) and M_ij = (c_i·b_j)
+    exp(cum_i - cum_j) for j <= i, and h_in and g from
+    :func:`ssd_bwd_states_plain`:
+
+    * dx_j = Σ_{i>=j} M_ij dy_i + w_j g_kᵀ b_j;
+    * with Z_ij = exp(cum_i - cum_j)(dy_i·x_j): db_j = Σ_h [Σ_i Z_ij c_i +
+      w_j g_k x_j] and dc_i = Σ_h [Σ_j Z_ij b_j + e_i h_in dy_i];
+    * dcum_i = Σ_j A_ij - Σ_j A_ji (A = (C Bᵀ) ∘ Z) + e_i c_i·(h_in dy_i)
+      - w_i b_i·(g_k x_i), and at i = L - 1 also Σ_j w_j b_j·(g_k x_j) +
+      D_k ⟨g_k, h_in⟩; dlog_a is the reverse cumsum of dcum in the chunk.
+
+    Every decay is at most 1 (log_a <= 0).  The tests and chip_smoke.py use
+    it; the card's route runs the kernels of ``csrc/ssd_bwd.cu``."""
+    bt, S, H, Pd = x.shape
+    N, L = b.shape[-1], int(chunk)
+    xf, dyf, bf, cf, cum, e, w, D = _bwd_operands(x, log_a, b, c, chunk, dy)
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()[..., None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (bt, nc, i, j, H)
+    E = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)), 0.0)
+    cb = torch.einsum("bnik,bnjk->bnij", cf, bf)[..., None]  # (bt, nc, i, j, 1)
+    hin, g = ssd_bwd_states_plain(x, log_a, b, c, chunk, dy, dh)
+
+    z = torch.einsum("bnihp,bnjhp->bnijh", dyf, xf) * E
+    m = cb * E
+    a = cb * z
+    bg = torch.einsum("bnjk,bnhkp->bnjhp", bf, g)  # g_kᵀ b_j
+    dx = torch.einsum("bnijh,bnihp->bnjhp", m, dyf) + w[..., None] * bg
+    v = torch.einsum("bnhkp,bnjhp->bnjhk", g, xf)  # g_k x_j
+    db = torch.einsum("bnijh,bnik->bnjk", z, cf) + torch.einsum("bnjh,bnjhk->bnjk", w, v)
+    u = torch.einsum("bnhkp,bnihp->bnihk", hin, dyf)  # h_in dy_i
+    dc = torch.einsum("bnijh,bnjk->bnik", z, bf) + torch.einsum("bnih,bnihk->bnik", e, u)
+    sv = w * torch.einsum("bnjk,bnjhk->bnjh", bf, v)
+    dcum = a.sum(3) - a.sum(2) + e * torch.einsum("bnik,bnihk->bnih", cf, u) - sv
+    last = sv.sum(2) + D * (g * hin).sum((-2, -1))
+    dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + last[:, :, None]], 2)
+    dla = dcum.flip(2).cumsum(2).flip(2)
+    return (dx.reshape(bt, S, H, Pd).to(x.dtype), dla.reshape(bt, S, H).to(log_a.dtype),
+            db.reshape(bt, S, N).to(b.dtype), dc.reshape(bt, S, N).to(c.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fns():
+    """→ {kernel: C entry point} of ``csrc/ssd_bwd.cu``."""
+    lib = _build.load("ssd_bwd")
+    return {"state": bind(lib, "repro_ssd_bwd_state", [P] * 6 + [I32] * 7 + [P] * 3),
+            "chunk": bind(lib, "repro_ssd_bwd_chunk", [P] * 7 + [I32] * 7 + [P] * 5),
+            "sum": bind(lib, "repro_ssd_bwd_sum", [P] * 2 + [I32] * 6 + [P] * 3)}
+
+
+def _bwd_checked(x, log_a, b, c, chunk, dy, dh):
+    """Raise on what the backward kernels do not take → (dtype code, shape
+    arguments (batch, S, H, P, N, L))."""
+    if x.dim() != 4 or log_a.dim() != 3 or b.dim() != 3 or c.dim() != 3:
+        raise ValueError(f"ssd_chunk_scan_bwd: unsupported ranks x {tuple(x.shape)}, "
+                         f"log_a {tuple(log_a.shape)}, b {tuple(b.shape)}")
+    bt, S, H, Pd = x.shape
+    N, L = b.shape[-1], int(chunk)
+    if (log_a.shape != (bt, S, H) or b.shape != (bt, S, N) or c.shape != b.shape
+            or dy.shape != x.shape or (dh is not None and dh.shape != (bt, H, N, Pd))
+            or not 0 < L <= BWD_MAX_L or S % L or not 0 < N <= BWD_MAX_N
+            or not 0 < Pd <= BWD_MAX_P):
+        raise ValueError(f"ssd_chunk_scan_bwd: unsupported shapes x {tuple(x.shape)}, "
+                         f"b {tuple(b.shape)}, chunk {L}, dy {tuple(dy.shape)}, dh "
+                         f"{None if dh is None else tuple(dh.shape)} (L <= {BWD_MAX_L}, "
+                         f"N <= {BWD_MAX_N}, P <= {BWD_MAX_P})")
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_scan_bwd: unsupported device {x.device}")
+    dev, dt = x.device, x.dtype
+    if dt not in DTYPES:
+        raise TypeError(f"ssd_chunk_scan_bwd: unsupported type {dt}")
+    require(x, "x", None, 4)
+    require(log_a, "log_a", torch.float32, 3, dev)
+    require(b, "b", dt, 3, dev)
+    require(c, "c", dt, 3, dev)
+    require(dy, "dy", dt, 4, dev)
+    if dh is not None:
+        require(dh, "dh", torch.float32, 4, dev)
+    return DTYPES[dt], (bt, S, H, Pd, N, L)
+
+
+def _states(x, log_a, b, c, dy, dh, code, shape):
+    """One launch of ``ssd_bwd_state`` on inputs :func:`_bwd_checked` took
+    (its ``code`` and ``shape``) → (h_in, g)."""
+    bt, S, H, Pd, N, L = shape
+    hin = torch.empty((bt, S // L, H, N, Pd), dtype=torch.float32, device=x.device)
+    g = torch.empty_like(hin)
+    with on_device(x.device):
+        check_launch("ssd_chunk_scan_bwd_state", _bwd_fns()["state"](
+            x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
+            0 if dh is None else dh.data_ptr(), *shape, code, hin.data_ptr(), g.data_ptr(),
+            stream_ptr(x.device)))
+    launches_bwd_state.add()
+    return hin, g
+
+
+def ssd_bwd_states(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                   chunk: int, dy: torch.Tensor, dh: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``ssd_bwd_state`` on CUDA tensors → (h_in, g) as
+    :func:`ssd_bwd_states_plain`, float32."""
+    return _states(x, log_a, b, c, dy, dh, *_bwd_checked(x, log_a, b, c, chunk, dy, dh))
+
+
+def ssd_chunk_scan_bwd(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                       chunk: int, dy: torch.Tensor, dh: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient on CUDA tensors, three launches → (dx, dlog_a, db, dc) as
+    :func:`ssd_chunk_scan_bwd_plain`: ``ssd_bwd_state`` (:func:`ssd_bwd_states`)
+    writes h_in and g; ``ssd_bwd_chunk`` dx, dlog_a and each head's terms of
+    db and dc (batch, S / L, H, L, N) float32; ``ssd_bwd_sum`` db and dc.
+    Takes L <= 128, N <= 256, P <= 128, float32 or bf16; raises on anything
+    else."""
+    code, shape = _bwd_checked(x, log_a, b, c, chunk, dy, dh)
+    hin, g = _states(x, log_a, b, c, dy, dh, code, shape)
+    bt, S, H, Pd, N, L = shape
+    dbp = torch.empty((bt, S // L, H, L, N), dtype=torch.float32, device=x.device)
+    dcp = torch.empty_like(dbp)
+    dx = torch.empty_like(x)
+    dla = torch.empty((bt, S, H), dtype=torch.float32, device=x.device)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    fns = _bwd_fns()
+    with on_device(x.device):
+        stream = stream_ptr(x.device)
+        check_launch("ssd_chunk_scan_bwd_chunk", fns["chunk"](
+            x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
+            hin.data_ptr(), g.data_ptr(), *shape, code, dx.data_ptr(), dla.data_ptr(),
+            dbp.data_ptr(), dcp.data_ptr(), stream))
+        launches_bwd_chunk.add()
+        check_launch("ssd_chunk_scan_bwd_sum", fns["sum"](
+            dbp.data_ptr(), dcp.data_ptr(), bt, S, H, N, L, code, db.data_ptr(), dc.data_ptr(),
+            stream))
+        launches_bwd_sum.add()
+    return dx, dla, db, dc
+
+
+class SSDChunkScan(torch.autograd.Function):
+    """The kernels as an autograd Function: the forward launches what a call
+    that needs no gradient launches, and saves x, log_a, b and c alone; the
+    backward recomputes the states in :func:`ssd_chunk_scan_bwd`'s three
+    launches.  A gradient that is not given (h_final unused) counts as 0."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, b, c, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, log_a, b, c)
+        if scan_route(chunk, b.shape[-1]) == "recur":
+            return ssd_chunk_recur(x, log_a, b, c)
+        y_intra, state = ssd_chunk_intra(x, log_a, b, c, chunk)
+        return ssd_chunk_inter(y_intra, state, log_a, c)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, log_a, b, c = ctx.saved_tensors
+        bt, S, H, Pd = x.shape
+        work = roofline.ssd_bwd_work(bt, S, H, Pd, b.shape[-1], ctx.chunk, x.element_size(),
+                                     dh is not None)
+        for name in BWD_KERNELS:
+            roofline.charge(name, work[name])  # under launch.roofline.count()
+        with roofline.uncounted():
+            dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
+            dx, dla, db, dc = ssd_chunk_scan_bwd(x, log_a, b, c, ctx.chunk, dy,
+                                                 None if dh is None else dh.float().contiguous())
+        return dx, dla, db, dc, None
+
+
 def ssd_chunk_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                    chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (y, h_final) as :func:`ssd_chunk_scan_plain`.  CPU tensors take the
-    plain version; CUDA tensors launch ``ssd_recur`` once where
-    :func:`scan_route` says ``"recur"``, else one kernel for each step (or
+    plain version (autograd differentiates it); CUDA tensors go through
+    :class:`SSDChunkScan`: ``ssd_recur`` once where :func:`scan_route` says
+    ``"recur"``, else one kernel for each step, and the backward kernels (or
     raise)."""
     if x.device.type == "cpu":
         return ssd_chunk_scan_plain(x, log_a, b, c, chunk)
-    if scan_route(int(chunk), b.shape[-1]) == "recur":
-        return ssd_chunk_recur(x, log_a, b, c)
-    y_intra, state = ssd_chunk_intra(x, log_a, b, c, chunk)
-    return ssd_chunk_inter(y_intra, state, log_a, c)
+    return SSDChunkScan.apply(x, log_a, b, c, int(chunk))
 
 
 def ssd_chunk_intra(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -18,9 +18,9 @@ real ones: :func:`count` is a ``TorchDispatchMode`` that sees every aten op.
   once, op by op, as if nothing fused: an upper bound on the traffic a
   fused step would make.
 * A kernel entry point (``kernels.ops.attention``, ``kernels.ops.ssd_scan``
-  and the attention backward) charges its own work formula once
-  (:func:`charge`: :func:`attention_work`, :func:`ssd_work` with
-  :func:`scan_work`, :func:`recur_work`) and counts nothing inside, so the
+  and their backward) charges its own work formula once (:func:`charge`:
+  :func:`attention_work`, :func:`ssd_work` with :func:`scan_work`,
+  :func:`recur_work`, :func:`ssd_bwd_work`) and counts nothing inside, so the
   count is the same whichever route implements it: the CUDA kernels (whose
   ``ctypes`` launches no dispatch mode sees), the plain version on the CPU
   or on ``meta``.  Attention counts the visible (query, key) pairs only.
@@ -83,6 +83,40 @@ def scan_work(bt, S, H, Pd, N, L, esize):
     nc = S // L
     nbytes = bt * (esize * (2 * S * H * Pd + S * N) + 4 * (nc * H * N * Pd + S * H + H * N * Pd))
     return nbytes, bt * 2 * H * Pd * (S * N + nc * N + S)
+
+
+def ssd_bwd_work(bt, S, H, Pd, N, L, esize, dh=True):
+    """{kernel: (bytes, flops)} of the SSD backward's three launches, by the
+    conventions of :func:`ssd_work`: each input read once, each output and
+    scratch written once (and read once by the launch after), flops over
+    the causal triangle (T = L (L + 1) / 2 entries).
+    ``ssd_chunk_scan_bwd_state``: the walk to each h_in_k (S_k, 2 L N P,
+    and D h + S, 2 N P, for every chunk but the last) and back to each g_k
+    (Q_k and Q + D g, for every chunk but the first); x, dy, b, c, log_a
+    and ``dh`` (if given) read, h_in and g written.
+    ``ssd_chunk_scan_bwd_chunk``: C Bᵀ (2 T N) once per chunk, since b and
+    c are shared by the heads (the kernel recomputes it for each head), and
+    per (chunk, head) Zᵀ C and Z B (2 T N each), dY Xᵀ and Mᵀ dY (2 T P
+    each), E, M, Z, A and A's row and column sums (6 T), B g, X gᵀ and dY
+    h_inᵀ (2 L N P each), their scalings and the partial dot products of
+    dcum (4 L P + 6 L N), ⟨g, h_in⟩ (2 N P) and dcum to dlog_a (6 L); the
+    inputs, h_in and g read, dx, dlog_a and the heads' db and dc terms
+    written.
+    ``ssd_chunk_scan_bwd_sum``: the heads' terms read, db and dc written."""
+    nc, tri = S // L, L * (L + 1) // 2
+    state = bt * nc * H * N * Pd * 4  # bytes of h_in, and of g
+    ins = bt * (esize * (2 * S * H * Pd + 2 * S * N) + 4 * S * H)
+    terms = bt * nc * H * L * N * 4  # bytes of the heads' db terms, and of dc's
+    return {
+        "ssd_chunk_scan_bwd_state": (
+            ins + (4 * bt * H * N * Pd if dh else 0) + 2 * state,
+            bt * H * max(nc - 1, 0) * 4 * N * Pd * (L + 1)),
+        "ssd_chunk_scan_bwd_chunk": (
+            ins + 2 * state + bt * (esize * S * H * Pd + 4 * S * H) + 2 * terms,
+            bt * nc * (2 * tri * N + H * (2 * tri * (2 * N + 2 * Pd + 3) + 6 * L * N * Pd
+                                          + 4 * L * Pd + 6 * L * N + 2 * N * Pd + 6 * L))),
+        "ssd_chunk_scan_bwd_sum": (2 * terms + 2 * bt * S * N * esize, 2 * bt * S * N * H),
+    }
 
 
 def recur_work(bt, S, H, Pd, N, esize):

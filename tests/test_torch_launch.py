@@ -85,7 +85,7 @@ def test_train_builds_the_references_configs(monkeypatch, flags):
         assert _fields(got[key]) == _fields(want[key]), key
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "smollm_360m"])
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "smollm_360m", "mamba2_2p7b"])
 def test_train_smoke_run_losses_finite_and_falling(arch):
     stats = _quiet(ttrain.main, ["--arch", arch, "--steps", "3", "--device", "cpu"])
     assert stats.steps == 3 and len(stats.losses) == 3

@@ -94,7 +94,8 @@ def test_kernel_bounds_pinned_and_shared_with_chip_smoke():
     work = rl.attention_work((4, 15, 5, 4096, 4096, 64, "bfloat16", True, None, 0))
     assert rl.bound(*work["flash_attention"], rl.PEAK_FLOPS) == (0.13031392938321537,
                                                                   "operations")
-    for name in ("bound", "attention_work", "ssd_work", "scan_work", "recur_work"):
+    for name in ("bound", "attention_work", "ssd_work", "scan_work", "recur_work",
+                 "ssd_bwd_work"):
         assert getattr(chip_smoke, name) is getattr(rl, name)
     assert chip_smoke.BF16_OPS_PER_S == 989e12 and chip_smoke.F32_OPS_PER_S == 67e12
     assert rl.visible_pairs(4, 4, True, None, 0) == 10
@@ -235,6 +236,29 @@ def test_charges_follow_the_card_launches():
         run = _run(cfg, "prefill", S, B=2)
         c = dryrun.whole_step_counter(cfg, run, SINGLE, "prefill")
         assert c.charged == {k: v * cfg.n_layers for k, v in want.items()}, S
+
+
+def test_ssd_step_charges_the_backward_kernels():
+    """A smoke Mamba-2 training step (remat full, two microbatches of 64
+    tokens, chunk 32) counts the same on ``meta`` as on the CPU, and
+    charges per layer and microbatch the intra-chunk kernel and the
+    inter-chunk scan twice (the forward and its recompute) and each of the
+    SSD's three backward kernels once, each at ``ssd_bwd_work``'s figure."""
+    cfg = _grown("mamba2_2p7b")
+    run = _run(cfg, "train", microbatch=2)
+    meta, _ = _counted_step(cfg, run, "meta")
+    cpu, _ = _counted_step(cfg, run, "cpu")
+    assert (cpu.cost.flops, cpu.cost.bytes) == (meta.cost.flops, meta.cost.bytes)
+    assert cpu.by_op == meta.by_op
+    n = cfg.n_layers * 2
+    bwd = ("ssd_chunk_scan_bwd_state", "ssd_chunk_scan_bwd_chunk", "ssd_chunk_scan_bwd_sum")
+    assert cpu.charged == meta.charged == {"ssd_chunk_scan": 2 * n, "ssd_chunk_scan_inter": 2 * n,
+                                           **{k: n for k in bwd}}
+    di = cfg.ssd.expand * cfg.d_model
+    work = rl.ssd_bwd_work(2, 64, di // cfg.ssd.head_dim, cfg.ssd.head_dim, cfg.ssd.d_state,
+                           cfg.ssd.chunk, 2, False)
+    for k in bwd:
+        assert cpu.by_op[k] == [n, float(n * work[k][1]), float(n * work[k][0])]
 
 
 def test_counting_leaves_the_step_unchanged():

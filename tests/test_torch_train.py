@@ -47,15 +47,16 @@ from repro_torch.train.trainstep import init_train_state, make_train_step, value
 SHAPE = dict(name="tiny", kind="train", seq_len=32, global_batch=4)
 
 
-def _setup(arch="smollm_360m", **run_kw):
+def _setup(arch="smollm_360m", seq=32, **run_kw):
     cfg = dataclasses.replace(j_smoke(arch), dtype="float32")
     tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     jparams = j_init_model(cfg, JShardCtx(), seed=0)
     model = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, device="cpu",
                               trainable=True)
-    data = batch_at(SynthSpec(vocab=cfg.vocab, seq_len=32, batch=4, seed=1), 0)
-    jrun = JRunConfig(model=cfg, shape=JShape(**SHAPE), dp=1, tp=1, **run_kw)
-    trun = RunConfig(model=tcfg, shape=ShapeConfig(**SHAPE), dp=1, tp=1, **run_kw)
+    data = batch_at(SynthSpec(vocab=cfg.vocab, seq_len=seq, batch=4, seed=1), 0)
+    shape = dict(SHAPE, seq_len=seq)
+    jrun = JRunConfig(model=cfg, shape=JShape(**shape), dp=1, tp=1, **run_kw)
+    trun = RunConfig(model=tcfg, shape=ShapeConfig(**shape), dp=1, tp=1, **run_kw)
     return cfg, tcfg, jparams, model, data, jrun, trun
 
 
@@ -86,6 +87,25 @@ def test_loss_and_every_gradient_vs_jax_value_and_grad(remat):
     tl, metrics, tg = value_and_grad(model, tcfg, tbatch, SINGLE, remat != "none")
     assert float(tl) == pytest.approx(float(jl), rel=1e-6)
     assert float(metrics["loss"]) == pytest.approx(float(jl), rel=1e-6)
+    _assert_tree_close(tg, _jtree(jg), 1e-5, "grad")
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("seq", [96, 40])
+def test_ssd_loss_and_every_gradient_vs_jax_value_and_grad(seq, remat):
+    """The smoke ``mamba2_2p7b`` (chunk 32): at 96 tokens three chunks, so
+    the gradient crosses chunks through the states; at 40 the reference's
+    chunk rule takes one-token chunks.  Loss within 1e-6 relative and every
+    leaf's gradient within 1e-5 of its largest |g|, as for smollm."""
+    cfg, tcfg, jparams, model, data, jrun, trun = _setup("mamba2_2p7b", seq, remat=remat)
+    jbatch = {k: jnp.asarray(v) for k, v in data.items()}
+    with jops.local_backend("xla"):
+        (jl, _), jg = jax.value_and_grad(
+            lambda p: j_loss_fn(p, cfg, jbatch, JShardCtx(), None, remat != "none", False),
+            has_aux=True)(jparams)
+    tbatch = {k: torch.from_numpy(v) for k, v in data.items()}
+    tl, _, tg = value_and_grad(model, tcfg, tbatch, SINGLE, remat != "none")
+    assert float(tl) == pytest.approx(float(jl), rel=1e-6)
     _assert_tree_close(tg, _jtree(jg), 1e-5, "grad")
 
 

@@ -15,7 +15,6 @@ without a card.
 from __future__ import annotations
 
 import importlib.util
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -34,18 +33,9 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     from repro_torch.frame import backend as BK
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ops
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    _build.build_all()
-    print(f"[build] {time.perf_counter() - t0} s", flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    print(f"[card] {smi}", flush=True)
+    smi = smoke.card_setup(torch)
     _, record = smoke.recorder({name: mod for name, mod in ops.KERNELS.items()
                                 if name not in smoke.TRAINING})
     t0 = time.perf_counter()
