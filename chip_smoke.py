@@ -59,14 +59,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    faulty plain attentions (no alpha rescale; a dK/dV that drops a head)
    over the limits; a forward and backward in a new thread equal the same
    call in the main one; then the SSD's backward (phase 2c), its three
-   kernels ``ssd_bwd_state``, ``ssd_bwd_chunk`` and ``ssd_bwd_sum`` against
+   launches (the state and chunk kernels of the route ``bwd_route`` names,
+   ``ssd_bwd_state_wgmma`` and ``ssd_bwd_chunk_wgmma`` on the tensor cores
+   for the bf16 shapes at chunks of 128 and 64, ``ssd_bwd_state`` and
+   ``ssd_bwd_chunk`` in float32 FMA for the rest, each shape's route
+   printed and checked, then ``ssd_bwd_sum``) against
    the plain backward (dx, dlog_a, db, dc, and the state kernel's h_in and
    g) and both against float64 autograd of the plain forward, at
    mamba2_2p7b's training launch (1 x 4,096 x 80 x 64, N 128, chunk 128,
    bf16), in float32, at chunks of 64, 96 (one chunk), 16 and 1 (the
    chunk-1 rule), N 17 with P 7, N 256 with P 128 over 7 heads, batches of
    2, dh given and absent, decays slow enough that the gradient carried
-   between chunks counts; each call one launch of each kernel, a repeat
+   between chunks counts; each call one launch of each of its route's
+   kernels (the route's launch counters read), a repeat
    equal bit for bit, the plain backward that drops the carry D_k g_k over
    the limits, and ``ssd_chunk_scan``'s autograd route equal to the
    wrapper's gradient bit for bit;
@@ -252,7 +257,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    full, bf16 compute, seed 12): finite losses and gradient norms, the peak
    under 80 GB beside its prediction, step ms and tokens/s; a step's
    launches 128 ``ssd_wgmma`` + 128 ``ssd_scan`` forwards and 64 of each
-   backward kernel; the same step twice from one state equal bit for bit
+   backward launch, the state and chunk kernels all on the tensor-core
+   route; the same step twice from one state equal bit for bit
    (the first state kept on the host), one step profiled (SSD forward and
    backward kernels, GEMMs, the rest, idle share).  The C14 check: the
    model cut to 2 layers at full width, its decays set as Mamba-2
@@ -270,7 +276,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    the largest of them, beside the card's bound (attention: at the training
    shape, against ``scaled_dot_product_attention`` and its backward, with
    the FMA backward kernels on the same bf16 inputs beside the tensor-core
-   ones, the forward and backward also at qwen3_8b's heads, D 128, at
+   ones; the SSD's backward at mamba2_2p7b's training launch, each kernel
+   through its C entry, the tensor-core state and chunk kernels beside the
+   FMA ones on the same buffers, bounds at the bf16 and the float32 peaks;
+   the forward and backward also at qwen3_8b's heads, D 128, at
    phase 4e's shape, 16 heads over one kv head of 256, window 2,048 (SDPA
    with the window as a mask), at phase 4f's, 4 x 24 (8) x 4,096 x 64, and
    at phase 4h's heads over four sequences, 4 x 32 (8) x 4,096 x 128;
@@ -314,8 +323,8 @@ sys.path.insert(0, str(ROOT / "src"))
 try:  # the card's peaks and the kernels' work formulas: one copy, in the package
     from repro_torch.launch.roofline import (PEAK_FLOPS as BF16_OPS_PER_S,
                                              PEAK_FLOPS_F32 as F32_OPS_PER_S, attention_work,
-                                             bound, recur_work, scan_work, ssd_bwd_work,
-                                             ssd_work)
+                                             bound, recur_work, scan_work, ssd_bwd_total,
+                                             ssd_bwd_work, ssd_work)
 except ImportError:  # main() says the package is missing
     BF16_OPS_PER_S = F32_OPS_PER_S = None
 ROWS = 10_000_000
@@ -350,11 +359,13 @@ REPLACES = {
     "flash_attention_bwd_dkdv_wgmma": "none (no TPU kernel: the reference differentiates "
                                       "ref.attention_xla_chunked with XLA)",
     # the SSD's backward: no TPU counterpart, the reference differentiates
-    # its XLA chunked scan
+    # its XLA chunked scan; its state and chunk kernels' bf16 route on the
+    # tensor cores beside the float32 FMA ones
     **{name: "none (no TPU kernel: the reference differentiates ref.ssd_xla_chunked with XLA, "
              "src/repro/kernels/ops.py:119-123)"
        for name in ("ssd_chunk_scan_bwd_state", "ssd_chunk_scan_bwd_chunk",
-                    "ssd_chunk_scan_bwd_sum")},
+                    "ssd_chunk_scan_bwd_sum", "ssd_chunk_scan_bwd_state_wgmma",
+                    "ssd_chunk_scan_bwd_chunk_wgmma")},
 }
 SOURCES = {name: name for name in REPLACES} | {
     name: "ssd_chunk" for name in REPLACES if name.startswith("ssd_chunk_scan")} | {
@@ -369,14 +380,15 @@ TRAINING = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd_dq"
 BF16_ULP = 2.0 ** -7  # one bfloat16 ulp, relative
 
 
-def ptxas_report(log: str):
+def ptxas_report(log: str, kernels: str = r"attn_[a-z_]+"):
     """[(kernel<template arguments>, registers, spill store bytes, spill load
-    bytes)] of the attention kernels in an nvcc ``-Xptxas -v`` log."""
+    bytes)] of the kernels whose names match ``kernels`` (the attention
+    kernels by default) in an nvcc ``-Xptxas -v`` log."""
     import re
 
     out, name, spills = [], None, (0, 0)
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d+(attn_[a-z_]+)I(\S*?)EEv", line)
+        m = re.search(rf"Compiling entry function '\S*?\d+({kernels})I(\S*?)EEv", line)
         if m:
             kind = ("bf16," if "bfloat16" in m.group(2) else
                     "f32," if m.group(2).startswith("f") else "")
@@ -1187,11 +1199,20 @@ def attention_in_new_thread(torch, rng, dev):
 # --------------------------------------------------------------------------- #
 
 SSD_BWD = ("ssd_chunk_scan_bwd_state", "ssd_chunk_scan_bwd_chunk", "ssd_chunk_scan_bwd_sum")
+# the rows of the kernels line, one a kernel and each with its own counter:
+# the FMA kernels ("cells" route) and ssd_bwd_sum, then the tensor-core
+# route's state and chunk kernels
+SSD_BWD_WGMMA = ("ssd_chunk_scan_bwd_state_wgmma", "ssd_chunk_scan_bwd_chunk_wgmma")
+SSD_BWD_ROWS = SSD_BWD + SSD_BWD_WGMMA
 # (batch, S, H, P, N, L, dtype, dh given, slow decays): mamba2_2p7b's training
 # launch (1 x 4,096 x 80 x 64, N 128, chunk 128, bf16; no dh, as in the
 # model), and the same with dh and slow decays; float32 in batches of 2; L
 # 64; the chunk-1 rule at S 40; one chunk of 96 (S < 128); N 17 with P 7 at
-# chunks of 16 and of 1; 7 heads at N 256 and P 128, the kernels' limits.
+# chunks of 16 and of 1; 7 heads at N 256 and P 128, the kernels' limits;
+# then the tensor-core route's other instantiations and a partial head
+# group: 1,152 tokens at 80 heads (6 heads a chunk block, the last block 2),
+# N 64 with P 128, and P 72 at chunks of 64 (2 heads a block of 7, the last
+# block 1).
 # Slow decays: log_a in (-0.02, -1e-4), so a chunk of 128 keeps about a
 # quarter of its state and the gradient carried between chunks (D_k g_k)
 # counts; the model's range (-0.5, -1e-3) keeps e^-32 of it at chunk 128.
@@ -1205,7 +1226,15 @@ SSD_BWD_SHAPES = (
     (2, 64, 5, 7, 17, 16, "float32", True, True),
     (2, 50, 3, 7, 17, 1, "float32", False, False),
     (1, 256, 7, 128, 256, 32, "bfloat16", True, True),
+    (1, 1152, 80, 64, 128, 128, "bfloat16", True, True),
+    (1, 256, 3, 128, 64, 128, "bfloat16", True, True),
+    (1, 2048, 7, 72, 128, 64, "bfloat16", True, True),
 )
+# the route ssd_chunk.bwd_route must give each entry: the bf16 entries at
+# chunks of 128 and 64 with N 64 or 128 on the tensor cores, the rest
+# (float32, chunks of 1 and 96, N 17, N 256) on the FMA kernels
+SSD_BWD_ROUTES = ("wgmma", "wgmma", "cells", "wgmma", "cells", "cells", "cells", "cells",
+                  "cells", "wgmma", "wgmma", "wgmma")
 # Limits, relative to the largest |value| of the reference's gradient: dx,
 # db and dc are float32 sums rounded once to the inputs' type on both
 # sides, so they take check_ssd's limits for y (bf16 two ulps, 2^-6; float32
@@ -1265,28 +1294,41 @@ def carry_dropped(torch, sc):
 
 
 def ssd_bwd_parity(torch, rng, dev, shapes=SSD_BWD_SHAPES):
-    """The SSD backward's three kernels against the plain backward
+    """The SSD backward's kernels against the plain backward
     (``ssd_chunk_scan_bwd_plain``, and ``ssd_bwd_states_plain`` for the
     state kernel's h_in and g) at ``shapes``, and both against float64
-    autograd of the plain forward, within SSD_BWD_TOL; every call launches
-    each kernel once, and a repeated call is equal bit for bit.  Then the
-    autograd route (``ssd_chunk_scan`` on inputs that need a gradient) gives
-    the wrapper's gradient bit for bit with one launch of each kernel, and
-    the faulty plain backward that drops the carry D_k g_k crosses the
-    limits.  → {kernel: max |err|}."""
+    autograd of the plain forward, within SSD_BWD_TOL; each shape on the
+    route SSD_BWD_ROUTES names (``bwd_route``), every call launching its
+    route's state and chunk kernels and ``ssd_bwd_sum`` once and the other
+    route's none, and a repeated call equal bit for bit.  Then the autograd
+    route (``ssd_chunk_scan`` on inputs that need a gradient) gives the
+    wrapper's gradient bit for bit with one launch of each tensor-core
+    kernel and none of the FMA ones, and the faulty plain
+    backward that drops the carry D_k g_k crosses the limits.  → {kernel:
+    max |err|} for the rows of SSD_BWD_ROWS."""
     from repro_torch.kernels import ssd_chunk as sc
 
-    errs = {name: 0.0 for name in SSD_BWD}
-    counters = (sc.launches_bwd_state, sc.launches_bwd_chunk, sc.launches_bwd_sum)
-    for bt, S, H, Pd, N, L, dtype, with_dh, slow in shapes:
-        label = f"{(bt, S, H, Pd, N, L, dtype, with_dh, slow)}"
+    errs = {name: 0.0 for name in SSD_BWD_ROWS}
+    counters = (sc.launches_bwd_state, sc.launches_bwd_chunk, sc.launches_bwd_sum,
+                sc.launches_bwd_state_wgmma, sc.launches_bwd_chunk_wgmma)
+    routes = dict(zip(SSD_BWD_SHAPES, SSD_BWD_ROUTES))
+    for shape in shapes:
+        bt, S, H, Pd, N, L, dtype, with_dh, slow = shape
+        label = f"{shape}"
+        route = sc.bwd_route(getattr(torch, dtype), L, N, Pd)
+        print(f"[parity] ssd backward {label}: route {route}", flush=True)
+        check(route == routes.get(shape, route), f"ssd backward {label}: route {route}, not "
+              f"{routes.get(shape)}")
         x, la, b, c, dy, dh = ssd_bwd_inputs(torch, rng, dev, bt, S, H, Pd, N,
                                              getattr(torch, dtype), with_dh, slow)
         before = [k.value for k in counters]
         got = sc.ssd_chunk_scan_bwd(x, la, b, c, L, dy, dh)
         again = sc.ssd_chunk_scan_bwd(x, la, b, c, L, dy, dh)
-        check([k.value - v for k, v in zip(counters, before)] == [2, 2, 2],
-              f"ssd backward {label}: each kernel must launch once a call")
+        want_counts = [0, 0, 2, 2, 2] if route == "wgmma" else [2, 2, 2, 0, 0]
+        counts = [k.value - v for k, v in zip(counters, before)]
+        check(counts == want_counts, f"ssd backward {label}: launches {counts} in two calls, "
+              f"not {want_counts}: each kernel of the {route} route once a call, the other "
+              "route's none")
         check(all(torch.equal(p, q) for p, q in zip(got, again)),
               f"ssd backward {label}: a repeated call differs")
         want = sc.ssd_chunk_scan_bwd_plain(x, la, b, c, L, dy, dh)
@@ -1312,10 +1354,12 @@ def ssd_bwd_parity(torch, rng, dev, shapes=SSD_BWD_SHAPES):
         print(f"[parity] ssd backward {label}: worst err / limit {worst}: "
               + json.dumps(ratios), flush=True)
         check(worst <= 1.0, f"ssd backward {label}: err / limit {worst}")
-        errs["ssd_chunk_scan_bwd_state"] = max(errs["ssd_chunk_scan_bwd_state"],
-                                               float((hin - phin).abs().max()),
-                                               float((g - pg).abs().max()))
-        for name, i in (("ssd_chunk_scan_bwd_chunk", 0), ("ssd_chunk_scan_bwd_chunk", 1),
+        suffix = "_wgmma" if route == "wgmma" else ""
+        name = "ssd_chunk_scan_bwd_state" + suffix
+        errs[name] = max(errs[name], float((hin - phin).abs().max()),
+                         float((g - pg).abs().max()))
+        for name, i in (("ssd_chunk_scan_bwd_chunk" + suffix, 0),
+                        ("ssd_chunk_scan_bwd_chunk" + suffix, 1),
                         ("ssd_chunk_scan_bwd_sum", 2), ("ssd_chunk_scan_bwd_sum", 3)):
             errs[name] = max(errs[name], float((got[i].double() - want[i].double()).abs().max()))
         if slow and with_dh and S // L > 1:
@@ -1336,8 +1380,9 @@ def ssd_bwd_parity(torch, rng, dev, shapes=SSD_BWD_SHAPES):
     before = [k.value for k in counters]
     y, h = sc.ssd_chunk_scan(*leaves, 64)
     routed = torch.autograd.grad((y, h), leaves, (dy, dh))
-    check([k.value - v for k, v in zip(counters, before)] == [1, 1, 1],
-          "ssd_chunk_scan's backward must launch each backward kernel once")
+    check([k.value - v for k, v in zip(counters, before)] == [0, 0, 1, 1, 1],
+          "ssd_chunk_scan's backward must launch each tensor-core backward kernel once and "
+          "no FMA one")
     direct = sc.ssd_chunk_scan_bwd(x, la, b, c, 64, dy, dh)
     check(all(torch.equal(p, q) for p, q in zip(routed, direct)),
           "ssd_chunk_scan's autograd gradient differs from the backward wrapper's")
@@ -1347,7 +1392,8 @@ def ssd_bwd_parity(torch, rng, dev, shapes=SSD_BWD_SHAPES):
     check(all(torch.equal(p, q) for p, q in zip(only_y, direct)),
           "ssd_chunk_scan's gradient with h_final unused differs from the wrapper's with no dh")
     print("[parity] ssd backward: the autograd route equals the wrapper bit for bit (h_final "
-          "used and unused), one launch of each kernel", flush=True)
+          "used and unused), one launch of each tensor-core kernel, none of the FMA ones",
+          flush=True)
     return errs
 
 
@@ -2557,19 +2603,28 @@ def ssd_timing(torch, mod, shape, args, flush):
 
 def ssd_bwd_timing(torch, rng, dev):
     """The SSD backward at mamba2_2p7b's training launch (1 x 4,096 x 80 x 64,
-    N 128, chunk 128, bf16, no dh): each of its three kernels through its C
-    entry on the same buffers (mean cold-L2 ms), the wrapper (all three
-    launches and their allocations), the plain backward, and each kernel's
-    bound from ``ssd_bwd_work`` (its products are float32 FMA: the float32
-    peak).  No single PyTorch call computes this gradient: library none.
-    → {kernel: row}."""
+    N 128, chunk 128, bf16, no dh): each kernel through its C entry on the
+    same buffers (mean cold-L2 ms): the tensor-core route's state and chunk
+    kernels, and beside them the float32 FMA kernels of the same function
+    (``earlier_ms``), then ``ssd_bwd_sum``; the wrapper (all three launches
+    and their allocations), the plain backward, and each kernel's bound from
+    ``ssd_bwd_work`` at the bf16 peak (bf16 inputs, as ``ssd_timing``) with
+    the float32 peak's beside it, and the whole gradient's bound
+    (``ssd_bwd_total``: its inputs and outputs alone, no scratch) beside
+    the three launches'.  No single PyTorch call computes this
+    gradient: library none.  → {row of SSD_BWD_ROWS: row}: the FMA kernels'
+    rows carry their own times, the tensor-core rows theirs with the FMA
+    kernel's as ``earlier_ms``."""
     from repro_torch.kernels import ssd_chunk as sc
 
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
     bt, S, H, Pd, N, L = 1, SSD_SEQ, 80, 64, 128, 128
     x, la, b, c, dy, _ = ssd_bwd_inputs(torch, rng, dev, bt, S, H, Pd, N, torch.bfloat16, False,
                                         False)
+    check(sc.bwd_route(x.dtype, L, N, Pd) == "wgmma", "the training launch is not on the "
+          "tensor-core route")
     nc, code = S // L, sc.DTYPES[x.dtype]
+    G = sc.heads_per_block(bt, nc, H, sc._sm_count(dev.index or 0))
     hin = torch.empty((bt, nc, H, N, Pd), device=dev)
     g = torch.empty_like(hin)
     dbp = torch.empty((bt, nc, H, L, N), device=dev)
@@ -2579,15 +2634,21 @@ def ssd_bwd_timing(torch, rng, dev):
     fns, stream, shape = sc._bwd_fns(), torch.cuda.current_stream().cuda_stream, (bt, S, H, Pd,
                                                                                    N, L)
     ins = (x.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr())
+    outs = (dx.data_ptr(), dla.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), stream)
     entries = {
-        "ssd_chunk_scan_bwd_state": lambda: fns["state"](
-            *ins, 0, *shape, code, hin.data_ptr(), g.data_ptr(), stream),
-        "ssd_chunk_scan_bwd_chunk": lambda: fns["chunk"](
-            *ins, hin.data_ptr(), g.data_ptr(), *shape, code, dx.data_ptr(), dla.data_ptr(),
-            dbp.data_ptr(), dcp.data_ptr(), stream),
+        "ssd_chunk_scan_bwd_state_wgmma": lambda: fns["state_wgmma"](
+            *ins, 0, *shape, hin.data_ptr(), g.data_ptr(), stream),
+        "ssd_chunk_scan_bwd_chunk_wgmma": lambda: fns["chunk_wgmma"](
+            *ins, hin.data_ptr(), g.data_ptr(), *shape, G, *outs),
         "ssd_chunk_scan_bwd_sum": lambda: fns["sum"](
             dbp.data_ptr(), dcp.data_ptr(), bt, S, H, N, L, code, db.data_ptr(), dc.data_ptr(),
             stream),
+    }
+    earlier = {
+        "ssd_chunk_scan_bwd_state": lambda: fns["state"](
+            *ins, 0, *shape, code, hin.data_ptr(), g.data_ptr(), stream),
+        "ssd_chunk_scan_bwd_chunk": lambda: fns["chunk"](
+            *ins, hin.data_ptr(), g.data_ptr(), *shape, code, *outs),
     }
     for name, fn in entries.items():
         check(fn() == 0, f"{name} C entry point")
@@ -2597,18 +2658,32 @@ def ssd_bwd_timing(torch, rng, dev):
     work = ssd_bwd_work(bt, S, H, Pd, N, L, x.element_size(), False)
     wrapper_ms = timed(torch, lambda: sc.ssd_chunk_scan_bwd(x, la, b, c, L, dy), 10, flush)
     plain_ms = timed(torch, lambda: sc.ssd_chunk_scan_bwd_plain(x, la, b, c, L, dy), 3, flush)
-    rows = {name: dict(shape=[bt, S, H, Pd, N, L, "bfloat16"],
-                       ms=timed(torch, lambda fn=fn, name=name: check(fn() == 0, name), 10,
-                                flush),
-                       plain_ms=plain_ms, library_ms=None,
-                       bound=bound(*work[name], F32_OPS_PER_S))
-            for name, fn in entries.items()}
+
+    def ms(name, fn, iters):
+        return timed(torch, lambda: check(fn() == 0, name), iters, flush)
+
+    def row(kernel, t, earlier_ms=None):
+        return dict(shape=[bt, S, H, Pd, N, L, "bfloat16"], ms=t, earlier_ms=earlier_ms,
+                    plain_ms=plain_ms, library_ms=None,
+                    bound=bound(*work[kernel], BF16_OPS_PER_S),
+                    bound_f32=bound(*work[kernel], F32_OPS_PER_S))
+
+    fma = {name: ms(name, fn, 5) for name, fn in earlier.items()}
+    rows = {name: row(name, t) for name, t in fma.items()}
+    for name, fn in entries.items():
+        kernel = name.replace("_wgmma", "")
+        rows[name] = row(kernel, ms(name, fn, 10), fma.get(kernel))
     total = bound(sum(w[0] for w in work.values()), sum(w[1] for w in work.values()),
-                  F32_OPS_PER_S)
+                  BF16_OPS_PER_S)
+    whole = bound(*ssd_bwd_total(bt, S, H, Pd, N, L, x.element_size(), False), BF16_OPS_PER_S)
     print(f"[time] ssd backward at {rows[SSD_BWD[0]]['shape']}: wrapper (three launches) "
-          f"{wrapper_ms} ms, plain backward {plain_ms} ms, bound of the three {total[0]} ms "
-          f"({total[1]}); C entries alone: " + json.dumps(
-              {k: {"ms": r["ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+          f"{wrapper_ms} ms, plain backward {plain_ms} ms, bound of the three launches' own "
+          f"work {total[0]} ms ({total[1]}, bf16 peak; h_in, g and the heads' db and dc terms "
+          f"written and read again), bound of the gradient {whole[0]} ms ({whole[1]}: x, dy, "
+          f"b, c and log_a read, dx, dlog_a, db and dc written, no scratch); C entries alone "
+          f"({G} heads a chunk block): " + json.dumps(
+              {k: {"ms": r["ms"], "earlier_ms": r["earlier_ms"], "bound_ms": r["bound"][0],
+                   "bound_by": r["bound"][1], "bound_f32_ms": r["bound_f32"][0]}
                for k, r in rows.items()}), flush=True)
     return rows
 
@@ -4951,10 +5026,13 @@ SSD_FLAGS = ["--arch", "mamba2_2p7b", "--full-config", "--steps", str(TRAIN_STEP
              "1", "--seq", str(SSD_SEQ), "--remat", "full", "--seed", str(TRAIN_SEED)]
 # predicted launches per step: 64 layers x 2 forwards (remat) of the
 # intra-chunk kernel (ssd_wgmma: bf16, L 128, N 128, P 64) and the
-# inter-chunk scan, and one of each backward kernel a layer
+# inter-chunk scan, and one of each tensor-core backward kernel and of
+# ssd_bwd_sum a layer (bf16, L 128, N 128, P 64: bwd_route "wgmma"), none of
+# the FMA ones
 SSD_PER_STEP = {"ssd_chunk_scan": 128, "ssd_chunk_scan_wgmma": 128, "ssd_chunk_scan_inter": 128,
-                "ssd_chunk_scan_recur": 0, "ssd_chunk_scan_bwd_state": 64,
-                "ssd_chunk_scan_bwd_chunk": 64, "ssd_chunk_scan_bwd_sum": 64}
+                "ssd_chunk_scan_recur": 0, "ssd_chunk_scan_bwd_state": 0,
+                "ssd_chunk_scan_bwd_chunk": 0, "ssd_chunk_scan_bwd_sum": 64,
+                "ssd_chunk_scan_bwd_state_wgmma": 64, "ssd_chunk_scan_bwd_chunk_wgmma": 64}
 # The peak, predicted before the first run on the card: the state (16 bytes
 # a parameter, 45.3 GB), the layers' remat boundaries (64 x 4,096 x 2,560 in
 # bf16, 1.3 GB), one layer's recomputed activations and its SSD backward's
@@ -5023,11 +5101,12 @@ def ssd_step_vs_plain(torch, ops, cfg, dev):
             loss, _, grads = value_and_grad(model, cut, batch, SINGLE, remat=False)
         return float(loss), float(global_norm(grads)), grads
 
-    counters = (sc.launches_bwd_state, sc.launches_bwd_chunk, sc.launches_bwd_sum)
+    counters = (sc.launches_bwd_state_wgmma, sc.launches_bwd_chunk_wgmma, sc.launches_bwd_sum)
     before = [k.value for k in counters]
     kl, kn, kg = run("cuda")
     check([k.value - v for k, v in zip(counters, before)] == [SSD_CHECK_LAYERS] * 3,
-          "C14 check: the kernel route must launch each backward kernel once a layer")
+          "C14 check: the kernel route must launch each tensor-core backward kernel once a "
+          "layer")
     pl, pn, pg = run("torch")
     zeros = [keystr(p) for p, g in tree_flatten(kg) if not bool((g != 0).any())]
     errs = leaf_errs(torch, kg, pg)
@@ -5116,7 +5195,8 @@ def ssd_counted_step(torch, ops, cfg, dev, steps_ms):
     torch.cuda.empty_cache()
     diffs = op_differences(c.by_op, meta.by_op)
     gap = abs(c.cost.bytes - meta.cost.bytes) / meta.cost.bytes
-    want = {"ssd_chunk_scan": 2, "ssd_chunk_scan_inter": 2, **{k: 1 for k in SSD_BWD}}
+    want = {"ssd_chunk_scan": 2, "ssd_chunk_scan_inter": 2,
+            **{k: 1 for k in SSD_BWD_WGMMA + SSD_BWD[2:]}, **{k: 0 for k in SSD_BWD[:2]}}
     print(f"[train-ssd] counted step, {SSD_CHECK_LAYERS} layers, 1 x {SSD_SEQ} tokens: on the "
           f"card {c.cost.flops} flops, {c.cost.bytes} bytes; on meta {meta.cost.flops}, "
           f"{meta.cost.bytes} ({gap} apart; ops that differ: {json.dumps(diffs)}); charged "
@@ -5225,7 +5305,7 @@ def training_ssd(torch, ops, dev):
           f"loss ({float(m1['loss'])}) equal bit for bit", flush=True)
     print(f"[train-ssd-trace] one step, profiled: wall {pwall} ms, device kernels {busy} ms "
           f"(SSD forward kernels {fwd} ms, SSD backward kernels {bwd} ms: "
-          + ", ".join(f"{re.search(r'ssd_bwd_[a-z]+', k).group(0)} {t}" for t, k in kern
+          + ", ".join(f"{re.search(r'ssd_bwd_[a-z_]+', k).group(0)} {t}" for t, k in kern
                       if "ssd_bwd" in k)
           + f"; GEMMs {gemm} ms, elementwise and other {busy - fwd - bwd - gemm} ms), device "
           f"copies {copy} ms, device idle {100 * (1 - (busy + copy) / pwall)}%; top: "
@@ -5405,6 +5485,14 @@ def card_setup(torch, sources=None):
         print("[build] ptxas, attention kernels (registers, spill stores / loads in bytes): "
               + "; ".join(f"{n} {r}, {st}/{ld}" for n, r, st, ld in
                           ptxas_report(_build.LOGS["flash_attention"])), flush=True)
+    if "ssd_bwd" in _build.LOGS:
+        # the SSD backward's tensor-core kernels (a consumer warpgroup of the
+        # chunk kernel, too, raises its registers to 232 with setmaxnreg)
+        print("[build] ptxas, SSD backward tensor-core kernels (registers, spill stores / loads "
+              "in bytes): " + "; ".join(
+                  f"{n} {r}, {st}/{ld}" for n, r, st, ld in
+                  ptxas_report(_build.LOGS["ssd_bwd"], r"ssd_bwd_(?:chunk|state)_wgmma")),
+              flush=True)
     print(f"[card] {smi}", flush=True)
     return smi
 
@@ -5565,7 +5653,7 @@ def main() -> int:
             "bound_by": tm[name]["bound"][1],
             "library_ms": tm[name]["library_ms"],
         }
-        for name in DATAFRAME + SERVING + TRAINING + SSD_BWD
+        for name in DATAFRAME + SERVING + TRAINING + SSD_BWD_ROWS
     ]
     print(json.dumps({"roofline": roofline}))
     print(f"{smi}")

@@ -1,8 +1,9 @@
 // Hopper helpers shared by the tensor-core kernels of repro_torch
-// (flash_attention.cu, ssd_chunk.cu): mbarriers, TMA loads and the tensor-map
-// encoder, wgmma descriptors for the 128-byte swizzle, the two wgmma forms
-// (both operands K-major in shared memory; A in registers with B read
-// N-major), and the products built on them over 64-row tiles.
+// (flash_attention.cu, ssd_chunk.cu, ssd_bwd.cu): mbarriers, TMA loads and
+// the tensor-map encoder, wgmma descriptors for the 128-byte swizzle, the
+// wgmma forms (both operands K-major in shared memory; A in registers with B
+// read N-major or K-major), the products built on them over 64-row tiles,
+// and float32 operands as three bf16 terms.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
@@ -14,6 +15,7 @@ namespace {
 
 constexpr int BK = 64;                    // rows of one tile: the depth of product_rs
 constexpr int ATOM_ROW = 128;             // bytes of one swizzled row: 64 bf16
+constexpr int TILE_BYTES = BK * ATOM_ROW;  // 64 rows x 64 bf16: one swizzle atom
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -186,6 +188,43 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// v (two float32) as three bf16 pairs whose sum is v to about 2^-27
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& a, uint32_t& b,
+                                       uint32_t& c) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = v0 - hf.x, r1 = v1 - hf.y;
+  const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(mid);
+  a = *reinterpret_cast<const uint32_t*>(&h);
+  b = *reinterpret_cast<const uint32_t*>(&mid);
+  c = pack_bf16(r0 - mf.x, r1 - mf.y);
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr));
+}
+
+// d += A B over one k16 step: A (64 x 16) in registers, B (n x 16) K-major in
+// shared memory (the descriptor of product_ss's B side)
+__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // one box of a 1-D tensor map into shared memory
 __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0) {
@@ -225,6 +264,55 @@ __device__ __forceinline__ void product_rs(float (&d)[DP / 2], const uint32_t (&
   }
 }
 
+// sᵀ = (v ⊙ A)ᵀ Bn, the SSD's chunk state transposed (ssd_chunk.cu's
+// forward, ssd_bwd.cu's walks), over the chunk's L rows of depth on the
+// warpgroup's 64 rows p of p tile `cw`: A the chunk's X (or dY) as
+// [64-row tile][PT atoms][64][128 bytes], read with ldmatrix.trans, scaled
+// by v (w or e) in float32 and written as three bf16 register terms; Bn a
+// 64-column atom of B (or C) of L rows, read N-major; float32 sums.
+template <int L, int PT>
+__device__ __forceinline__ void state_product(float (&d)[32], const uint8_t* xs,
+                                              const uint8_t* ns, const float* v, int cw, int w4,
+                                              int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+#pragma unroll
+  for (int rt = 0; rt < L / 64; ++rt) {
+    uint32_t fr[4][3][4];
+    const uint8_t* xa = xs + (rt * PT + cw) * TILE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // lanes 8 m .. 8 m + 7 address matrix m: rows j (+ 8 for m >= 2) and
+      // columns p (+ 8 for odd m) of this warp's 16 p rows
+      const int m = lane >> 3, jr = 16 * kk + (lane & 7) + 8 * (m >> 1);
+      const int chunk16 = 2 * w4 + (m & 1);
+      uint32_t dd[4];
+      ldmatrix_x4_trans(dd, smem_u32(xa + jr * ATOM_ROW + ((chunk16 ^ (jr & 7)) << 4)));
+      const int j = 64 * rt + 16 * kk + 2 * t;
+      const float2 va = *reinterpret_cast<const float2*>(v + j);
+      const float2 vb = *reinterpret_cast<const float2*>(v + j + 8);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dd[q]));
+        const float2 vq = q < 2 ? va : vb;  // dd0, dd1: depth 2 t, 2 t + 1; dd2, dd3: + 8
+        split3(xv.x * vq.x, xv.y * vq.y, fr[kk][0][q], fr[kk][1][q], fr[kk][2][q]);
+      }
+    }
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = sw128_desc(ns + (64 * rt + 16 * kk) * ATOM_ROW, L * ATOM_ROW, 1024);
+#pragma unroll
+      for (int u = 0; u < 3; ++u) wgmma_rs_n64(d, fr[kk][u], db);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(d);
+  }
+}
+
 // ---------------------------------------------------------------- host --
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -249,6 +337,21 @@ EncodeTiled encoder() {
     return q == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
   }();
   return fn;
+}
+
+// a bf16 tensor of up to three dimensions (innermost first, strides in
+// bytes) as a tensor map with boxes `box`, in the 128-byte swizzle; reads
+// out of range give zeros
+inline int encode_bf16(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[3],
+                       const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -454,7 +454,6 @@ int launch_short(const void* x, const void* log_a, const void* b, const void* c,
 // the second warpgroup's threads across the whole head loop)
 constexpr int STHREADS = 384, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int STAGES = 2;                   // X slots in the ring
-constexpr int TILE_BYTES = BK * ATOM_ROW;   // 64 rows x 64 bf16, one swizzle atom
 
 template <int L, int N, int DP>
 struct SsdShape {
@@ -464,19 +463,6 @@ struct SsdShape {
   static constexpr int X_BYTES = NT * PT * TILE_BYTES;    // one head's X: [row tile][atom]
   static constexpr int SMEM = 2 * CB_BYTES + STAGES * X_BYTES + 1024;  // + alignment slack
 };
-
-// v (two float32) as three bf16 pairs whose sum is v to about 2^-27
-__device__ __forceinline__ void split3(float v0, float v1, uint32_t& a, uint32_t& b,
-                                       uint32_t& c) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  const float r0 = v0 - hf.x, r1 = v1 - hf.y;
-  const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(mid);
-  a = *reinterpret_cast<const uint32_t*>(&h);
-  b = *reinterpret_cast<const uint32_t*>(&mid);
-  c = pack_bf16(r0 - mf.x, r1 - mf.y);
-}
 
 // M's register A operands for one 64 x 64 tile of C Bᵀ: register 2k + e of
 // `cb` is row i0 + 8 (k & 1), column j0 + 8 (k >> 1) + 2 t + e.  M = C Bᵀ ⊙
@@ -499,12 +485,6 @@ __device__ __forceinline__ void decay_split(const float (&cb)[32], const float* 
     }
     split3(cb[2 * k] * expf(d0), cb[2 * k + 1] * expf(d1), m[0][k], m[1][k], m[2][k]);
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-               : "r"(addr));
 }
 
 // One block: the chunk `chunk` of sequence `bt`, heads h0 .. h0 + G - 1.
@@ -655,43 +635,7 @@ ssd_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
     for (int item = wg; item < ITEMS; item += 2) {
       const int pt = item / (N / 64), nt = item % (N / 64);
       float sacc[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sacc[i] = 0.0f;
-#pragma unroll
-      for (int rt = 0; rt < W::NT; ++rt) {  // 64 rows of depth (j) at a time
-        uint32_t fr[4][3][4];
-        const uint8_t* xa = xt + (rt * W::PT + pt) * TILE_BYTES;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          // lanes 8 m .. 8 m + 7 address matrix m: rows j (+ 8 for m >= 2) and
-          // columns p (+ 8 for odd m) of this warp's 16 p rows
-          const int m = lane >> 3, jr = 16 * kk + (lane & 7) + 8 * (m >> 1);
-          const int chunk16 = 2 * w4 + (m & 1);
-          uint32_t d[4];
-          ldmatrix_x4_trans(d, smem_u32(xa + jr * ATOM_ROW + ((chunk16 ^ (jr & 7)) << 4)));
-          const int j = 64 * rt + 16 * kk + 2 * t;
-          const float2 wa = *reinterpret_cast<const float2*>(wv + j);
-          const float2 wb = *reinterpret_cast<const float2*>(wv + j + 8);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&d[q]));
-            const float2 wq = q < 2 ? wa : wb;  // d0, d1: depth 2 t, 2 t + 1; d2, d3: + 8
-            split3(xv.x * wq.x, xv.y * wq.y, fr[kk][0][q], fr[kk][1][q], fr[kk][2][q]);
-          }
-        }
-        fence_regs(sacc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const uint64_t db = sw128_desc(bs + nt * L * ATOM_ROW + (64 * rt + 16 * kk) * ATOM_ROW,
-                                         L * ATOM_ROW, 1024);
-#pragma unroll
-          for (int term = 0; term < 3; ++term) wgmma_rs_n64(sacc, fr[kk][term], db);
-        }
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(sacc);
-      }
+      state_product<L, W::PT>(sacc, xt, bs + nt * L * ATOM_ROW, wv, pt, w4, lane);
       float* out = state + (((long long)bt * nc + chunk) * H + h) * (long long)N * P;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
@@ -703,21 +647,6 @@ ssd_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
-}
-
-// a bf16 tensor of up to three dimensions (innermost first, strides in
-// bytes) as a tensor map with boxes `box`, in the 128-byte swizzle; reads
-// out of range give zeros
-int encode_bf16(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[3],
-                const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int L, int N, int DP>

@@ -66,7 +66,9 @@ COUNTERS.update({"flash_attention_bwd_dq": _fa.launches_dq,
                  "ssd_chunk_scan_recur": _ssd.launches_recur,
                  "ssd_chunk_scan_bwd_state": _ssd.launches_bwd_state,
                  "ssd_chunk_scan_bwd_chunk": _ssd.launches_bwd_chunk,
-                 "ssd_chunk_scan_bwd_sum": _ssd.launches_bwd_sum})
+                 "ssd_chunk_scan_bwd_sum": _ssd.launches_bwd_sum,
+                 "ssd_chunk_scan_bwd_state_wgmma": _ssd.launches_bwd_state_wgmma,
+                 "ssd_chunk_scan_bwd_chunk_wgmma": _ssd.launches_bwd_chunk_wgmma})
 
 
 @contextmanager
@@ -253,11 +255,7 @@ class _CountedSSD(torch.autograd.Function):
     def backward(ctx, dy, dh):
         ins = ctx.saved_tensors
         x, b = ins[0], ins[2]
-        bt, S, H, Pd = x.shape
-        work = _rl.ssd_bwd_work(bt, S, H, Pd, b.shape[-1], ctx.chunk, x.element_size(),
-                                dh is not None)
-        for name in _ssd.BWD_KERNELS:
-            _rl.charge(name, work[name])
+        _ssd.charge_bwd(x, b.shape[-1], ctx.chunk, dh is not None)
         if x.is_meta:
             return (*(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in ins), None)
         with _rl.uncounted(), torch.enable_grad():

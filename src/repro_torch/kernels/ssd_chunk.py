@@ -50,13 +50,20 @@ bit for bit.  ``ssd_short`` stays reachable at L = 1 through
 The gradient: on CUDA tensors ``ssd_chunk_scan`` is :class:`SSDChunkScan`,
 an autograd Function whose forward is the route above (it saves x, log_a, b
 and c alone) and whose backward is three launches of ``csrc/ssd_bwd.cu``
-(:func:`ssd_chunk_scan_bwd`): ``ssd_bwd_state`` (the states h_in and their
-gradients g, walked from the inputs), ``ssd_bwd_chunk`` (dx, dlog_a and each
+(:func:`ssd_chunk_scan_bwd`): a state kernel (the states h_in and their
+gradients g, walked from the inputs), a chunk kernel (dx, dlog_a and each
 head's terms of db and dc) and ``ssd_bwd_sum`` (db and dc, the heads summed
-in order), counted by ``launches_bwd_state``, ``launches_bwd_chunk`` and
-``launches_bwd_sum``.  :func:`ssd_chunk_scan_bwd_plain` writes the same
-gradient in torch ops; on CPU tensors autograd differentiates the plain
-version.
+in order).  :func:`bwd_route` picks the first two from type and sizes:
+``ssd_bwd_state_wgmma`` and ``ssd_bwd_chunk_wgmma`` (bf16 on the tensor
+cores, TMA loads; the chunk kernel walks :func:`heads_per_block` heads a
+block) or ``ssd_bwd_state`` and ``ssd_bwd_chunk`` (float32 FMA, every other
+shape).  Each counter counts its own kernel's launches:
+``launches_bwd_state_wgmma`` and ``launches_bwd_chunk_wgmma`` the
+tensor-core route's, ``launches_bwd_state`` and ``launches_bwd_chunk`` the
+FMA kernels', ``launches_bwd_sum`` every ``ssd_bwd_sum``; the roofline is
+charged under the same names (:func:`bwd_kernels`).
+:func:`ssd_chunk_scan_bwd_plain` writes the same gradient in torch ops; on
+CPU tensors autograd differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -80,7 +87,11 @@ launches_recur = LaunchCounter("ssd_chunk_scan_recur")
 launches_bwd_state = LaunchCounter("ssd_chunk_scan_bwd_state")
 launches_bwd_chunk = LaunchCounter("ssd_chunk_scan_bwd_chunk")
 launches_bwd_sum = LaunchCounter("ssd_chunk_scan_bwd_sum")
+launches_bwd_state_wgmma = LaunchCounter("ssd_chunk_scan_bwd_state_wgmma")
+launches_bwd_chunk_wgmma = LaunchCounter("ssd_chunk_scan_bwd_chunk_wgmma")
 BWD_KERNELS = ("ssd_chunk_scan_bwd_state", "ssd_chunk_scan_bwd_chunk", "ssd_chunk_scan_bwd_sum")
+BWD_KERNELS_WGMMA = ("ssd_chunk_scan_bwd_state_wgmma", "ssd_chunk_scan_bwd_chunk_wgmma",
+                     "ssd_chunk_scan_bwd_sum")
 
 SHORT_MAX_L = 16  # == SHORT_MAX_L in csrc/ssd_chunk.cu: past it ssd_cells is faster
 SHORT_SMEM = 48 * 1024  # shared memory a block of ssd_short aims at: several blocks an SM
@@ -106,6 +117,37 @@ def ssd_route(dtype: torch.dtype, L: int, N: int, P: int) -> str:
     if L <= SHORT_MAX_L:
         return "short"
     return "cells"
+
+
+def bwd_route(dtype: torch.dtype, L: int, N: int, P: int) -> str:
+    """The backward's state and chunk kernels for a type and chunk, state
+    and head sizes: ``"wgmma"`` (``ssd_bwd_state_wgmma``,
+    ``ssd_bwd_chunk_wgmma``) where :func:`ssd_route` takes ``ssd_wgmma``
+    (bf16, L and N in {64, 128}, P <= 128, P % 8 == 0), ``"cells"``
+    (``ssd_bwd_state``, ``ssd_bwd_chunk``, float32 FMA) for every other
+    shape."""
+    return "wgmma" if ssd_route(dtype, L, N, P) == "wgmma" else "cells"
+
+
+def bwd_kernels(dtype: torch.dtype, L: int, N: int, P: int) -> Tuple[str, str, str]:
+    """The names of the backward's three launches on the card for a type
+    and sizes (state, chunk, sum): those of :func:`bwd_route`'s kernels,
+    :data:`BWD_KERNELS` (the FMA kernels) for a type the kernels do not
+    take.  Their counters and roofline charges go by these names, entry for
+    entry as :func:`launch.roofline.ssd_bwd_work` lists the work."""
+    if dtype in DTYPES and bwd_route(dtype, L, N, P) == "wgmma":
+        return BWD_KERNELS_WGMMA
+    return BWD_KERNELS
+
+
+def charge_bwd(x: torch.Tensor, N: int, chunk: int, dh_given: bool) -> None:
+    """Charge the backward's three launches to an active
+    ``roofline.count()`` under :func:`bwd_kernels`' names, each at
+    ``ssd_bwd_work``'s figure for its part."""
+    bt, S, H, Pd = x.shape
+    work = roofline.ssd_bwd_work(bt, S, H, Pd, N, chunk, x.element_size(), dh_given)
+    for name, part in zip(bwd_kernels(x.dtype, chunk, N, Pd), BWD_KERNELS):
+        roofline.charge(name, work[part])
 
 
 def scan_route(L: int, N: int) -> str:
@@ -137,9 +179,10 @@ def scan_chunks(batch: int, n_chunks: int, H: int, P: int, L: int, sms: int) -> 
 
 
 def heads_per_block(batch: int, n_chunks: int, H: int, sms: int) -> int:
-    """Heads a block of ``ssd_wgmma`` walks: as few as fill the ``sms``
-    SMs with one block each (C Bᵀ is computed once a block, so a block
-    takes as many heads as that allows).  The last group may be smaller."""
+    """Heads a block of ``ssd_wgmma``, and of the backward's
+    ``ssd_bwd_chunk_wgmma``, walks: as few as fill the ``sms`` SMs with one
+    block each (C Bᵀ is computed once a block, so a block takes as many
+    heads as that allows).  The last group may be smaller."""
     groups = min(H, max(1, sms // (batch * n_chunks)))
     return -(-H // groups)
 
@@ -410,16 +453,32 @@ def ssd_chunk_scan_bwd_plain(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tens
 
 @functools.lru_cache(maxsize=None)
 def _bwd_fns():
-    """→ {kernel: C entry point} of ``csrc/ssd_bwd.cu``."""
+    """→ {kernel: C entry point} of ``csrc/ssd_bwd.cu``: ``state`` and
+    ``chunk`` (the float32 FMA kernels, given the type code), their
+    tensor-core route ``state_wgmma`` and ``chunk_wgmma`` (bf16; the chunk
+    kernel given the heads a block walks) and ``sum``."""
     lib = _build.load("ssd_bwd")
     return {"state": bind(lib, "repro_ssd_bwd_state", [P] * 6 + [I32] * 7 + [P] * 3),
             "chunk": bind(lib, "repro_ssd_bwd_chunk", [P] * 7 + [I32] * 7 + [P] * 5),
+            "state_wgmma": bind(lib, "repro_ssd_bwd_state_wgmma", [P] * 6 + [I32] * 6 + [P] * 3),
+            "chunk_wgmma": bind(lib, "repro_ssd_bwd_chunk_wgmma",
+                                [P] * 7 + [I32] * 7 + [P] * 5),
             "sum": bind(lib, "repro_ssd_bwd_sum", [P] * 2 + [I32] * 6 + [P] * 3)}
 
 
+def require_aligned(**tensors: torch.Tensor) -> None:
+    """Raise, naming the tensor, where one of ``tensors`` (the operands a
+    tensor-core kernel loads by TMA) does not start on a 16-byte boundary;
+    the route's row strides are multiples of 16 bytes by its sizes."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: its data must start on a 16-byte boundary for TMA, "
+                             f"at {t.data_ptr():#x}")
+
+
 def _bwd_checked(x, log_a, b, c, chunk, dy, dh):
-    """Raise on what the backward kernels do not take → (dtype code, shape
-    arguments (batch, S, H, P, N, L))."""
+    """Raise on what the backward kernels do not take → (the route of
+    :func:`bwd_route`, dtype code, shape arguments (batch, S, H, P, N, L))."""
     if x.dim() != 4 or log_a.dim() != 3 or b.dim() != 3 or c.dim() != 3:
         raise ValueError(f"ssd_chunk_scan_bwd: unsupported ranks x {tuple(x.shape)}, "
                          f"log_a {tuple(log_a.shape)}, b {tuple(b.shape)}")
@@ -433,11 +492,15 @@ def _bwd_checked(x, log_a, b, c, chunk, dy, dh):
                          f"b {tuple(b.shape)}, chunk {L}, dy {tuple(dy.shape)}, dh "
                          f"{None if dh is None else tuple(dh.shape)} (L <= {BWD_MAX_L}, "
                          f"N <= {BWD_MAX_N}, P <= {BWD_MAX_P})")
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunk_scan_bwd: unsupported device {x.device}")
-    dev, dt = x.device, x.dtype
+    dt = x.dtype
     if dt not in DTYPES:
         raise TypeError(f"ssd_chunk_scan_bwd: unsupported type {dt}")
+    route = bwd_route(dt, L, N, Pd)
+    if route == "wgmma":
+        require_aligned(x=x, b=b, c=c, dy=dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_scan_bwd: unsupported device {x.device}")
+    dev = x.device
     require(x, "x", None, 4)
     require(log_a, "log_a", torch.float32, 3, dev)
     require(b, "b", dt, 3, dev)
@@ -445,29 +508,36 @@ def _bwd_checked(x, log_a, b, c, chunk, dy, dh):
     require(dy, "dy", dt, 4, dev)
     if dh is not None:
         require(dh, "dh", torch.float32, 4, dev)
-    return DTYPES[dt], (bt, S, H, Pd, N, L)
+    return route, DTYPES[dt], (bt, S, H, Pd, N, L)
 
 
-def _states(x, log_a, b, c, dy, dh, code, shape):
-    """One launch of ``ssd_bwd_state`` on inputs :func:`_bwd_checked` took
-    (its ``code`` and ``shape``) → (h_in, g)."""
+def _states(x, log_a, b, c, dy, dh, route, code, shape):
+    """One launch of the state kernel of ``route`` on inputs
+    :func:`_bwd_checked` took (its ``route``, ``code`` and ``shape``) →
+    (h_in, g)."""
     bt, S, H, Pd, N, L = shape
     hin = torch.empty((bt, S // L, H, N, Pd), dtype=torch.float32, device=x.device)
     g = torch.empty_like(hin)
+    ptrs = (x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
+            0 if dh is None else dh.data_ptr())
+    out = (hin.data_ptr(), g.data_ptr(), stream_ptr(x.device))
     with on_device(x.device):
-        check_launch("ssd_chunk_scan_bwd_state", _bwd_fns()["state"](
-            x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
-            0 if dh is None else dh.data_ptr(), *shape, code, hin.data_ptr(), g.data_ptr(),
-            stream_ptr(x.device)))
-    launches_bwd_state.add()
+        if route == "wgmma":
+            check_launch("ssd_chunk_scan_bwd_state_wgmma",
+                         _bwd_fns()["state_wgmma"](*ptrs, *shape, *out))
+            launches_bwd_state_wgmma.add()
+        else:
+            check_launch("ssd_chunk_scan_bwd_state",
+                         _bwd_fns()["state"](*ptrs, *shape, code, *out))
+            launches_bwd_state.add()
     return hin, g
 
 
 def ssd_bwd_states(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                    chunk: int, dy: torch.Tensor, dh: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of ``ssd_bwd_state`` on CUDA tensors → (h_in, g) as
-    :func:`ssd_bwd_states_plain`, float32."""
+    """One launch of the state kernel :func:`bwd_route` names on CUDA
+    tensors → (h_in, g) as :func:`ssd_bwd_states_plain`, float32."""
     return _states(x, log_a, b, c, dy, dh, *_bwd_checked(x, log_a, b, c, chunk, dy, dh))
 
 
@@ -475,13 +545,15 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c:
                        chunk: int, dy: torch.Tensor, dh: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient on CUDA tensors, three launches → (dx, dlog_a, db, dc) as
-    :func:`ssd_chunk_scan_bwd_plain`: ``ssd_bwd_state`` (:func:`ssd_bwd_states`)
-    writes h_in and g; ``ssd_bwd_chunk`` dx, dlog_a and each head's terms of
+    :func:`ssd_chunk_scan_bwd_plain`: the state kernel (:func:`ssd_bwd_states`)
+    writes h_in and g; the chunk kernel dx, dlog_a and each head's terms of
     db and dc (batch, S / L, H, L, N) float32; ``ssd_bwd_sum`` db and dc.
-    Takes L <= 128, N <= 256, P <= 128, float32 or bf16; raises on anything
-    else."""
-    code, shape = _bwd_checked(x, log_a, b, c, chunk, dy, dh)
-    hin, g = _states(x, log_a, b, c, dy, dh, code, shape)
+    The first two are those :func:`bwd_route` names; the tensor-core route
+    needs x, b, c and dy on 16-byte boundaries.  Takes L <= 128, N <= 256,
+    P <= 128, float32 or bf16; raises on anything else, and on a failed
+    build or launch (no other route is tried)."""
+    route, code, shape = _bwd_checked(x, log_a, b, c, chunk, dy, dh)
+    hin, g = _states(x, log_a, b, c, dy, dh, route, code, shape)
     bt, S, H, Pd, N, L = shape
     dbp = torch.empty((bt, S // L, H, L, N), dtype=torch.float32, device=x.device)
     dcp = torch.empty_like(dbp)
@@ -489,13 +561,19 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor, c:
     dla = torch.empty((bt, S, H), dtype=torch.float32, device=x.device)
     db, dc = torch.empty_like(b), torch.empty_like(c)
     fns = _bwd_fns()
+    ins = (x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
+           hin.data_ptr(), g.data_ptr())
     with on_device(x.device):
         stream = stream_ptr(x.device)
-        check_launch("ssd_chunk_scan_bwd_chunk", fns["chunk"](
-            x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
-            hin.data_ptr(), g.data_ptr(), *shape, code, dx.data_ptr(), dla.data_ptr(),
-            dbp.data_ptr(), dcp.data_ptr(), stream))
-        launches_bwd_chunk.add()
+        out = (dx.data_ptr(), dla.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), stream)
+        if route == "wgmma":
+            G = heads_per_block(bt, S // L, H, _sm_count(x.device.index))
+            check_launch("ssd_chunk_scan_bwd_chunk_wgmma",
+                         fns["chunk_wgmma"](*ins, *shape, G, *out))
+            launches_bwd_chunk_wgmma.add()
+        else:
+            check_launch("ssd_chunk_scan_bwd_chunk", fns["chunk"](*ins, *shape, code, *out))
+            launches_bwd_chunk.add()
         check_launch("ssd_chunk_scan_bwd_sum", fns["sum"](
             dbp.data_ptr(), dcp.data_ptr(), bt, S, H, N, L, code, db.data_ptr(), dc.data_ptr(),
             stream))
@@ -522,13 +600,11 @@ class SSDChunkScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh):
         x, log_a, b, c = ctx.saved_tensors
-        bt, S, H, Pd = x.shape
-        work = roofline.ssd_bwd_work(bt, S, H, Pd, b.shape[-1], ctx.chunk, x.element_size(),
-                                     dh is not None)
-        for name in BWD_KERNELS:
-            roofline.charge(name, work[name])  # under launch.roofline.count()
+        charge_bwd(x, b.shape[-1], ctx.chunk, dh is not None)  # under launch.roofline.count()
         with roofline.uncounted():
             dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
+            if dy.data_ptr() % 16:  # an aligned copy for the TMA loads
+                dy = dy.clone()
             dx, dla, db, dc = ssd_chunk_scan_bwd(x, log_a, b, c, ctx.chunk, dy,
                                                  None if dh is None else dh.float().contiguous())
         return dx, dla, db, dc, None

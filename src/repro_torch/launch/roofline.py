@@ -119,6 +119,19 @@ def ssd_bwd_work(bt, S, H, Pd, N, L, esize, dh=True):
     }
 
 
+def ssd_bwd_total(bt, S, H, Pd, N, L, esize, dh=True):
+    """(bytes, flops) of the SSD backward as one function: x, dy, b, c,
+    log_a and ``dh`` (if given) read once, dx, dlog_a, db and dc written
+    once, and no scratch (h_in, g and the heads' db and dc terms are the
+    three-launch split's own); the flops of :func:`ssd_bwd_work`'s three
+    launches."""
+    work = ssd_bwd_work(bt, S, H, Pd, N, L, esize, dh)
+    nbytes = bt * (esize * (3 * S * H * Pd + 4 * S * N) + 4 * 2 * S * H)  # x dy dx, b c db dc
+    if dh:
+        nbytes += 4 * bt * H * N * Pd
+    return nbytes, sum(fl for _, fl in work.values())
+
+
 def recur_work(bt, S, H, Pd, N, esize):
     """(bytes, flops) of the whole function at one-token chunks: x, log_a,
     b and c read once, y and h_final written once; c·h (2 S H N P), the

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: ``repro_torch``, ``chip_smoke.py``,
-``tools/ssd_scan_variants.py``, ``tools/ssd_train_phases.py`` and
+``tools/ssd_scan_variants.py``, ``tools/ssd_train_phases.py``,
+``tools/ssd_bwd_variants.py`` and
 ``examples/torch_*.py`` import neither
 JAX nor the JAX package,
 ``repro_torch`` keeps the reference's module layout, and the smoke script
@@ -35,7 +36,8 @@ def _forbidden(name: str) -> bool:
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py", "tools/ssd_scan_variants.py", "tools/ssd_train_phases.py"]
+    + ["chip_smoke.py", "tools/ssd_scan_variants.py", "tools/ssd_train_phases.py",
+       "tools/ssd_bwd_variants.py"]
     + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("torch_*.py")),
 )
 def test_no_jax_or_reference_import(path):

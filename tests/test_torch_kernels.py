@@ -796,4 +796,5 @@ def test_cuda_backend_on_cpu_tensors_runs_plain_version_without_launch():
         "flash_attention_bwd_dkdv_wgmma": 0, "ssd_chunk_scan_wgmma": 0,
         "ssd_chunk_scan_short": 0, "ssd_chunk_scan_cells": 0, "ssd_chunk_scan_inter": 0,
         "ssd_chunk_scan_recur": 0, "ssd_chunk_scan_bwd_state": 0,
-        "ssd_chunk_scan_bwd_chunk": 0, "ssd_chunk_scan_bwd_sum": 0}
+        "ssd_chunk_scan_bwd_chunk": 0, "ssd_chunk_scan_bwd_sum": 0,
+        "ssd_chunk_scan_bwd_state_wgmma": 0, "ssd_chunk_scan_bwd_chunk_wgmma": 0}

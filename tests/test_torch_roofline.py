@@ -95,7 +95,7 @@ def test_kernel_bounds_pinned_and_shared_with_chip_smoke():
     assert rl.bound(*work["flash_attention"], rl.PEAK_FLOPS) == (0.13031392938321537,
                                                                   "operations")
     for name in ("bound", "attention_work", "ssd_work", "scan_work", "recur_work",
-                 "ssd_bwd_work"):
+                 "ssd_bwd_work", "ssd_bwd_total"):
         assert getattr(chip_smoke, name) is getattr(rl, name)
     assert chip_smoke.BF16_OPS_PER_S == 989e12 and chip_smoke.F32_OPS_PER_S == 67e12
     assert rl.visible_pairs(4, 4, True, None, 0) == 10

@@ -203,6 +203,19 @@ def test_bwd_work_at_the_training_shape():
                     "ssd_chunk_scan_bwd_sum": (337_641_472, 83_886_080)}
 
 
+def test_bwd_total_at_the_training_shape():
+    """The whole backward's work at the same launch, pinned: its inputs and
+    outputs alone (no scratch), and the three launches' flops; phase 5 of
+    chip_smoke.py prints its bound beside the kernels'."""
+    nbytes, flops = rl.ssd_bwd_total(1, 4096, 80, 64, 128, 128, 2, False)
+    work = rl.ssd_bwd_work(1, 4096, 80, 64, 128, 128, 2, False)
+    assert (nbytes, flops) == (132_644_864, 43_479_007_232)
+    assert flops == sum(fl for _, fl in work.values())
+    assert nbytes < min(nb for nb, _ in work.values())
+    with_dh = rl.ssd_bwd_total(1, 4096, 80, 64, 128, 128, 2, True)
+    assert with_dh[0] - nbytes == 4 * 80 * 128 * 64
+
+
 def test_wrapper_refuses_what_the_kernels_do_not_take():
     """The CUDA wrapper raises, with the shape in the message, on chunks past
     128, N past 256, P past 128 and tensors on the CPU; it never falls back
@@ -221,3 +234,105 @@ def test_wrapper_refuses_what_the_kernels_do_not_take():
     a = args(dev="meta")
     with pytest.raises(ValueError, match="unsupported device meta"):
         SC.ssd_chunk_scan_bwd(*a, 128, torch.zeros_like(a[0]))
+
+
+# (dtype, L, N, P) → the backward's route: chip_smoke.py's SSD_BWD_SHAPES
+# (the training launch with and without dh, float32, L 64, the chunk-1 rule,
+# one chunk of 96, N 17 with P 7 at chunks of 16 and 1, N 256, N 64 with P
+# 128, P 72 at chunks of 64), then the route's edges (P 72 at chunks of 128,
+# P 7, P 136, N 96)
+ROUTES = [(torch.bfloat16, 128, 128, 64, "wgmma"), (torch.float32, 128, 128, 64, "cells"),
+          (torch.bfloat16, 64, 128, 64, "wgmma"), (torch.bfloat16, 1, 128, 64, "cells"),
+          (torch.bfloat16, 96, 128, 64, "cells"), (torch.float32, 16, 17, 7, "cells"),
+          (torch.float32, 1, 17, 7, "cells"), (torch.bfloat16, 32, 256, 128, "cells"),
+          (torch.bfloat16, 128, 64, 128, "wgmma"), (torch.bfloat16, 128, 128, 72, "wgmma"),
+          (torch.bfloat16, 64, 128, 72, "wgmma"), (torch.bfloat16, 128, 128, 7, "cells"),
+          (torch.bfloat16, 128, 128, 136, "cells"), (torch.bfloat16, 128, 96, 64, "cells")]
+
+
+@pytest.mark.parametrize("dtype,L,N,Pd,route", ROUTES,
+                         ids=[f"{str(r[0])[6:]}-L{r[1]}-N{r[2]}-P{r[3]}" for r in ROUTES])
+def test_bwd_route(dtype, L, N, Pd, route):
+    """The backward's state and chunk kernels follow the forward's rule:
+    bf16 with L and N in {64, 128}, P <= 128 and P % 8 == 0 on the tensor
+    cores, every other shape on the float32 FMA kernels."""
+    assert SC.bwd_route(dtype, L, N, Pd) == route
+    assert route == ("wgmma" if SC.ssd_route(dtype, L, N, Pd) == "wgmma" else "cells")
+
+
+@pytest.mark.parametrize("dtype,L,N,Pd,route", ROUTES,
+                         ids=[f"{str(r[0])[6:]}-L{r[1]}-N{r[2]}-P{r[3]}" for r in ROUTES])
+def test_bwd_kernels_follow_the_route(dtype, L, N, Pd, route):
+    """The names the backward's launches count and charge under are those
+    of the route's own kernels, state, chunk and sum in ssd_bwd_work's
+    order; float16, which no kernel takes, keeps the FMA kernels' names."""
+    names = SC.bwd_kernels(dtype, L, N, Pd)
+    assert names == (SC.BWD_KERNELS_WGMMA if route == "wgmma" else SC.BWD_KERNELS)
+    assert names[2] == "ssd_chunk_scan_bwd_sum"
+    assert [n.replace("_wgmma", "") for n in names] == list(rl.ssd_bwd_work(1, L, 1, Pd, N, L, 2))
+    assert SC.bwd_kernels(torch.float16, L, N, Pd) == SC.BWD_KERNELS
+
+
+def test_counted_route_charges_the_tensor_core_kernels_at_bf16():
+    """On ``meta`` at a tensor-core shape (bf16, 1 x 256 x 2 x 64, N 128,
+    chunk 128) the counted step charges the backward under the wgmma
+    kernels' names, as the card launches them, each at ssd_bwd_work's
+    figure for its part."""
+    shapes = ((1, 256, 2, 64), (1, 256, 2), (1, 256, 128), (1, 256, 128))
+    leaves = [torch.empty(sh, dtype=torch.float32 if i == 1 else torch.bfloat16,
+                          device="meta").requires_grad_(True) for i, sh in enumerate(shapes)]
+    with tops.local_backend("torch"), rl.count() as counter:
+        y, _ = tops.ssd_scan(*leaves, chunk=128)
+        torch.autograd.grad([y], leaves, [torch.empty_like(y)])
+    route = {"recur": {"ssd_chunk_scan_recur": 1},
+             "pair": {"ssd_chunk_scan": 1, "ssd_chunk_scan_inter": 1}}[SC.scan_route(128, 128)]
+    assert counter.charged == {**route, **{k: 1 for k in SC.BWD_KERNELS_WGMMA}}
+    work = rl.ssd_bwd_work(1, 256, 2, 64, 128, 128, 2, False)
+    for name, part in zip(SC.BWD_KERNELS_WGMMA, SC.BWD_KERNELS):
+        assert counter.by_op[name] == [1, float(work[part][1]), float(work[part][0])]
+
+
+def test_bwd_route_refuses_float16():
+    with pytest.raises(TypeError, match="unsupported type torch.float16"):
+        SC.bwd_route(torch.float16, 128, 128, 64)
+
+
+def test_chunk_kernel_heads_fill_the_card_at_the_training_launch():
+    """At mamba2_2p7b's training launch (1 x 4,096 x 80 heads, chunk 128) on
+    132 SMs a block of ssd_bwd_chunk_wgmma walks 20 heads: 4 groups x 32
+    chunks = 128 blocks, one an SM; one head fewer a block would need 160."""
+    G = SC.heads_per_block(1, 32, 80, 132)
+    blocks = -(-80 // G) * 32
+    assert (G, blocks) == (20, 128)
+    assert -(-80 // (G - 1)) * 32 > 132
+
+
+def _args(dev, off=None, dtype=torch.bfloat16):
+    """x, log_a, b, c, dy at a tensor-core shape (1 x 256 x 2 x 64, N 128),
+    the one named ``off`` starting one element past a 16-byte boundary."""
+    shapes = {"x": (1, 256, 2, 64), "b": (1, 256, 128), "c": (1, 256, 128), "dy": (1, 256, 2, 64)}
+    out = {}
+    for name, shape in shapes.items():
+        n = int(np.prod(shape))
+        flat = torch.zeros(n + 8, dtype=dtype, device=dev)
+        out[name] = (flat[1:n + 1] if name == off else flat[:n]).view(shape)
+    la = torch.zeros((1, 256, 2), device=dev)
+    return out["x"], la, out["b"], out["c"], out["dy"]
+
+
+@pytest.mark.parametrize("dev", ["cpu", "meta"])
+@pytest.mark.parametrize("off", ["x", "b", "c", "dy"])
+def test_wrapper_refuses_a_misaligned_tma_operand(off, dev):
+    """On the tensor-core route the wrapper names an operand whose data is
+    off a 16-byte boundary (TMA loads it) before anything else about it; an
+    aligned set reaches the device check, and so does a misaligned float32
+    set, whose route loads nothing by TMA."""
+    x, la, b, c, dy = _args(dev, off)
+    assert SC.bwd_route(x.dtype, 128, 128, 64) == "wgmma"
+    with pytest.raises(ValueError, match=f"^{off}: its data must start on a 16-byte boundary"):
+        SC.ssd_chunk_scan_bwd(x, la, b, c, 128, dy)
+    with pytest.raises(ValueError, match=f"^{off}: its data must start"):
+        SC.ssd_bwd_states(x, la, b, c, 128, dy)
+    for args in (_args(dev), _args(dev, off, torch.float32)):
+        with pytest.raises(ValueError, match=f"unsupported device {dev}"):
+            SC.ssd_chunk_scan_bwd(*args[:4], 128, args[4])
