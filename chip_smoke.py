@@ -177,8 +177,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    (no host synchronization: ROADMAP C12).
    RecurrentGemma cut to one pattern group: 2,176 decode steps from
    position 0 against one cache-free forward (the D 256 forward kernel),
-   every position within 2^-5 of the largest |logit|.  Request walls, and
-   profiled prefills and decodes split by kernel;
+   every position within 2^-5 of the largest |logit|.  Request walls,
+   decode ms a token (a prefill with 16 decode steps against one alone,
+   timed), and profiled prefills and 2-step decodes split by kernel;
 4e. hybrid training — ``recurrentgemma_9b`` at full width cut to one
    pattern group (2.69e9 parameters, float32 master weights, AdamW in
    place) trained by ``train_loop`` for 4 steps of 1 x 4,096 tokens (remat
@@ -188,21 +189,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    state equal bit for bit (the first state kept on the host), one step
    profiled; one microbatch's loss, gradient norm and gradients against the
    plain attention's (and the faulty plain attention over the limit);
-4f. MoE training — ``granite_moe_3b_a800m`` at full width and depth
-   (3.37e9 parameters, float32 master weights) trained through
-   ``repro_torch.launch.train.main`` for 4 steps of 8 x 4,096 tokens
-   (microbatch 4, remat full, seed 12): finite losses, step times, tokens/s
-   and the peak device memory beside its prediction; 128 forward and 64 +
-   64 backward attention launches a step, every one on the tensor-core
+4f. MoE training — ``granite_moe_3b_a800m`` at full width cut to 16 of its
+   32 layers (1.76e9 parameters, float32 master weights) trained through
+   ``train_loop`` as the train launcher drives it (``train_cut``) for 4
+   steps of 8 x 4,096 tokens (microbatch 4, remat full, seed 12): finite losses, step
+   times, tokens/s and the peak device memory beside its prediction; 64
+   forward and 32 + 32 backward attention launches a step, every one on the tensor-core
    kernels; the assignments dropped at capacity counted; a run killed at
    step 2 resumed from its step-2 checkpoint with the uninterrupted run's
    losses and end-state fingerprint (every leaf's two 64-bit checksums);
    the same step twice from one state equal bit for bit (the first state
    kept on the host), one step profiled (attention, GEMMs, the MoE layer's
    sort / gather / scatter / index kernels, other, idle share); one
-   microbatch with the kernels against the plain attention, the experts of
-   tokens whose top-k set moved (and the router) printed, every other leaf
-   held, and the faulty plain attention over the limit;
+   microbatch with the kernels against the plain attention, the plain run
+   on the kernel run's experts (the tokens whose router would take others
+   counted), every leaf held, and the faulty plain attention over the limit;
 4g. the model mesh — four shards emulated on the card, as phase 3c
    emulates the data mesh.  (a) ``granite_moe_3b_a800m`` at full width and
    depth at ``ShardCtx(tp=4)`` (40 experts, ten a shard; vocab padded to
@@ -269,6 +270,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    limit; that model's step counted on the card equal to the meta dry run
    (flops; bytes within 1%), each SSD kernel launched as often as charged;
    the full model's count on meta and the warm steps' mfu and bound share;
+4k. the five registered models no earlier phase runs — ``musicgen_large``
+   (4 codebooks), ``h2o_danube_3_4b`` (D 120, window 4,096),
+   ``starcoder2_7b`` (GQA group 9), ``qwen3_moe_30b_a3b`` (128 experts, top
+   8) and ``internvl2_76b`` (256 patch embeddings), random weights from a
+   seed at full width.  Each depth is reckoned first and printed beside its
+   bytes (``reckon_depth``: the deepest within 76 GB, serving at 2 bytes a
+   parameter plus 4 GB, training at 16 plus the step's logits, remat inputs,
+   a stacked leaf's gradient and 4 GB): served at 48, 24, 32, 48 and 39 of
+   80 layers, trained at 48, 24, 16 of 32, 5 of 48 and 2 of 80.  Served
+   behind an OpportunisticServer as in 4d (musicgen's prompts (4, 1,024),
+   internvl2 text-only): warm faster in simulated latency, the resubmission
+   a cache hit, warm tokens equal to a cold recompute, a fresh server equal
+   in tokens and last logits bit for bit, no attention launch; the first 2
+   layers decoded over 128 tokens against one cache-free forward (two
+   forward kernel launches; an MoE's capacity raised so that the forward
+   drops nothing, as decode does not, and each decode step on the experts
+   the forward took there, every position held); qwen3-moe's layer-0
+   ``moe_ffn`` against float64.
+   Trained 4 steps of 1 x 4,096 tokens (remat full, float32 master weights,
+   AdamW) through ``launch.train.main`` where the whole model fits, else
+   ``make_train_step`` on the cut config with the launcher's optimizer
+   (``launcher_opt``; internvl2's batch with its
+   ``vis_embeds``): finite losses and norms, 2 forward and 1 + 1 backward
+   launches a layer a step, all on the tensor-core kernels; the first step
+   again from the same state under ``roofline.count()`` (flops equal to the
+   meta dry run's, bytes within 1%, the launches the counter charged), then
+   profiled, params, moments and loss equal (every leaf's two 64-bit
+   checksums); check 2 at 2 layers (the MoE's as 4f's); mfu and the bound's
+   share of each warm step;
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2 (segment_reduce with all its contracts), at every shape the
    main path (or the serving phase, or phase 3c's sharded run) gave it;
@@ -281,8 +311,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    FMA ones on the same buffers, bounds at the bf16 and the float32 peaks;
    the forward and backward also at qwen3_8b's heads, D 128, at
    phase 4e's shape, 16 heads over one kv head of 256, window 2,048 (SDPA
-   with the window as a mask), at phase 4f's, 4 x 24 (8) x 4,096 x 64, and
-   at phase 4h's heads over four sequences, 4 x 32 (8) x 4,096 x 128;
+   with the window as a mask), at phase 4f's, 4 x 24 (8) x 4,096 x 64, at
+   phase 4h's heads over four sequences, 4 x 32 (8) x 4,096 x 128, and at
+   phase 4k's five training shapes, each also held against the plain
+   attention (output and the three gradients);
    segment_reduce also at B = 100,000 and at B = 1,000 with one sum row;
    join_probe's wrapper beside its bare C entry point, against
    ``torch.searchsorted``; masked_stats, topk and filter_compact each
@@ -2903,14 +2935,28 @@ RG_ATTN = (1, 16, 1, 4096, 4096, 256, "bfloat16", True, 2048, 0)
 # phase 4f's shape: one microbatch of granite_moe_3b_a800m, 4 x 24 q-heads
 # (8 kv heads) x 4,096 x 64, bf16, causal
 MOE_ATTN = (4, 24, 8, 4096, 4096, 64, "bfloat16", True, None, 0)
+# phase 4k's training shapes, one sequence each: musicgen_large (MHA, 32 x
+# 64), h2o_danube_3_4b (D 120, window 4,096), starcoder2_7b (group 9),
+# qwen3_moe_30b_a3b (32 / 4 x 128) and internvl2_76b (64 / 8 x 128 over 256
+# patch embeddings + 4,096 tokens)
+REG_ATTN = {
+    "musicgen_large": (1, 32, 32, 4096, 4096, 64, "bfloat16", True, None, 0),
+    "h2o_danube_3_4b": (1, 32, 8, 4096, 4096, 120, "bfloat16", True, 4096, 0),
+    "starcoder2_7b": (1, 36, 4, 4096, 4096, 128, "bfloat16", True, None, 0),
+    "qwen3_moe_30b_a3b": (1, 32, 4, 4096, 4096, 128, "bfloat16", True, None, 0),
+    "internvl2_76b": (1, 64, 8, 4352, 4352, 128, "bfloat16", True, None, 0),
+}
 
 
 def sdpa_call(torch, fa, q, k, v, causal, window, off):
-    """``scaled_dot_product_attention`` of the same function: a boolean
-    mask where a window or an offset makes one (the library yardstick)."""
+    """``scaled_dot_product_attention`` of the same function (the library
+    yardstick): a boolean mask only where a window that cuts a key or a
+    causal offset makes one, since a mask keeps the library off its flash
+    path.  A window of at least Sq + off cuts nothing."""
     import torch.nn.functional as F
 
-    if window is None and off == 0:
+    cuts = window is not None and window < q.shape[2] + off
+    if not cuts and (off == 0 or not causal):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
     mask = fa._mask(q.shape[2], k.shape[2], causal, window, off, q.device)
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
@@ -3062,6 +3108,28 @@ def attention_timings(torch, rng, dev):
         out[name + " D=128"] = wide[name]
         out[name + " D=256"] = rg[name]
         out[name + " 24/8 heads"] = moe_rows[name]
+    out.update(reg_attention_timings(torch, rng, dev, flush))
+    return out
+
+
+def reg_attention_timings(torch, rng, dev, flush):
+    """Phase 4k's training shapes (REG_ATTN): the forward, dQ and dK/dV
+    beside their bounds, SDPA (unmasked: danube's window of 4,096 cuts no
+    key at S 4,096, ``sdpa_call``) and the plain version, by row name
+    ("flash_attention <model>", ...)."""
+    out = {}
+    for model, shape in REG_ATTN.items():
+        fwd_k = forward_timing(torch, rng, dev, shape, flush)
+        rows, k_ms = backward_timing(torch, rng, dev, shape, flush)
+        out[f"flash_attention {model}"] = fwd_k
+        for name in rows:
+            out[f"{name} {model}"] = rows[name]
+        print(f"[time] attention at phase 4k's {model} shape " + json.dumps(shape) + ", ms: "
+              + json.dumps(dict(k_ms, **{
+                  "kernel fwd": fwd_k["ms"], "plain fwd": fwd_k["plain_ms"],
+                  "sdpa fwd": fwd_k["library_ms"], "bound fwd": fwd_k["bound"][0],
+                  "bound dq": rows["flash_attention_bwd_dq"]["bound"][0],
+                  "bound dkdv": rows["flash_attention_bwd_dkdv"]["bound"][0]})), flush=True)
     return out
 
 
@@ -3123,6 +3191,10 @@ def recorder(K):
 
 SERVE_SEED = 12
 N_TOKENS = 16
+# decode steps a profiled decode runs: the profiler's reading of 16 steps of
+# a 32-layer model took 69 s on the card's host (a 2-step trace shows the
+# same kernels' split and idle share)
+TRACE_STEPS = 2
 # The prefill logits, held against the plain SSD's at every position.
 # Through all 64 layers of the random-weight model they cannot tell a sound
 # SSD from one that rounds its intermediates to bf16: a one-ulp difference
@@ -3480,7 +3552,7 @@ DECODE_STEPS, DECODE_TOL = 128, 2.0 ** -5
 
 
 def moe_layer0(torch, cfg, model, prompt_t, dev):
-    """granite's layer-0 moe_ffn on the model's own inputs (captured during a
+    """The layer-0 moe_ffn of an MoE model on its own inputs (captured during a
     prefill) on the card against float64 on the CPU; the assignments dropped
     at capacity counted on the card, by the CPU's dispatch of the card's
     routing, and by the float64 routing."""
@@ -3516,7 +3588,7 @@ def moe_layer0(torch, cfg, model, prompt_t, dev):
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     torch.cuda.synchronize()
-    print(f"[serve-hybrid] {cfg.name}: a layer-0 moe_ffn forward ({T} tokens) ran under "
+    print(f"[serve-moe] {cfg.name}: a layer-0 moe_ffn forward ({T} tokens) ran under "
           "set_sync_debug_mode('error') with no host synchronization", flush=True)
     with torch.no_grad():
         y_card, _ = moe.moe_ffn(params, cfg, x, SINGLE)
@@ -3543,9 +3615,9 @@ def moe_layer0(torch, cfg, model, prompt_t, dev):
     scale = float(y64.abs().max())
     agree = ~differ & ~moved
     held = float(err[agree].max()) if bool(agree.any()) else 0.0
-    check(int(agree.sum()) >= T // 2, f"granite layer 0: only {int(agree.sum())} of {T} tokens "
+    check(int(agree.sum()) >= T // 2, f"{cfg.name} layer 0: only {int(agree.sum())} of {T} tokens "
           "keep the same experts on the card and in float64")
-    check(held <= MOE_TOL * scale, f"granite layer-0 moe_ffn on the card vs float64: max |err| "
+    check(held <= MOE_TOL * scale, f"{cfg.name} layer-0 moe_ffn on the card vs float64: max |err| "
           f"{held} over {MOE_TOL} of the largest |y| {scale} at tokens whose experts agree")
     gaps = []
     for t in torch.nonzero(differ).flatten().tolist():
@@ -3553,16 +3625,16 @@ def moe_layer0(torch, cfg, model, prompt_t, dev):
         lost, taken = sorted(a - b), sorted(b - a)
         gap = float(logit64[t, lost].max() - logit64[t, taken].min())
         gaps.append(gap / float(logit64[t].abs().max()))
-    check(all(g <= MOE_TIE for g in gaps), f"granite layer 0: a token's experts differ from "
+    check(all(g <= MOE_TIE for g in gaps), f"{cfg.name} layer 0: a token's experts differ from "
           f"float64's beyond a near tie (gaps / max |logit| {gaps})")
     d_card = set(order[~keep].cpu().tolist())
     d_cpu = set(c_order[~c_keep].tolist())
     d64 = set(o64[~k64].tolist())
-    check(d_card == d_cpu, f"granite layer 0: {len(d_card)} assignments dropped on the card, "
+    check(d_card == d_cpu, f"{cfg.name} layer 0: {len(d_card)} assignments dropped on the card, "
           f"{len(d_cpu)} by the CPU's dispatch of the same routing (or other ones)")
     if not bool(differ.any()):
-        check(d_card == d64, "granite layer 0: the dropped assignments differ from float64's")
-    print(f"[serve-moe] granite layer 0, {T} tokens, capacity {cap}: moe_ffn on the card vs "
+        check(d_card == d64, f"{cfg.name} layer 0: the dropped assignments differ from float64's")
+    print(f"[serve-moe] {cfg.name} layer 0, {T} tokens, capacity {cap}: moe_ffn on the card vs "
           f"float64 on the CPU, max |err| {float(err.max())} at all tokens, {held} at the "
           f"{int(agree.sum())} whose experts agree (limit {MOE_TOL * scale}); "
           f"{int(differ.sum())} tokens take other experts, swap gaps / max |logit| {gaps} "
@@ -3572,12 +3644,116 @@ def moe_layer0(torch, cfg, model, prompt_t, dev):
           flush=True)
 
 
-def decode_vs_forward(torch, ops, cfg, model, dev):
-    """RecurrentGemma cut to one pattern group, decoded token by token over
-    2,048 + DECODE_STEPS tokens, against one cache-free forward (the D 256
-    forward kernel) over the same tokens."""
+@contextlib.contextmanager
+def routes_taken(torch, replay=None):
+    """``moe._route`` watched: the yielded list gets, for each call, (the
+    experts it took, its router's own top k); with ``replay``, call i takes
+    ``replay[i]``'s experts, its weights and aux losses from its own
+    router's probabilities."""
+    from repro_torch.models import moe
+
+    route, calls = moe._route, []
+
+    def routing(params, cfg_, xf, e_pad):
+        if replay is None:
+            out = route(params, cfg_, xf, e_pad)
+            calls.append((out[1], out[1]))
+            return out
+        out = route(params, cfg_, xf, e_pad, top_e=replay[len(calls)])
+        with torch.no_grad():
+            calls.append((out[1], route(params, cfg_, xf, e_pad)[1]))
+        return out
+
+    moe._route = routing
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def moved_tokens(torch, calls):
+    """Each ``routes_taken`` call's tokens whose router would take another
+    set of experts than the one taken."""
+    return [int((torch.sort(a, -1).values != torch.sort(b, -1).values).any(-1).sum())
+            for a, b in calls]
+
+
+MOE_RANGES = {"moe routing": "_route", "moe grouping, experts, combine": "_group_and_compute"}
+
+
+@contextlib.contextmanager
+def moe_ranges(torch, on=True):
+    """The MoE layer's routing and its grouping, experts and combine each
+    in a profiler range (their forward and remat passes: the backward runs
+    outside them) → the range names (none when not ``on``)."""
+    from repro_torch.models import moe
+
+    if not on:
+        yield ()
+        return
+    originals = {name: getattr(moe, name) for name in MOE_RANGES.values()}
+
+    def in_range(label, fn):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    for label, name in MOE_RANGES.items():
+        setattr(moe, name, in_range(label, originals[name]))
+    try:
+        yield tuple(MOE_RANGES)
+    finally:
+        for name, fn in originals.items():
+            setattr(moe, name, fn)
+
+
+def decode_vs_forward(torch, ops, cut, model, dev, S, tag):
+    """``model`` run as ``cut`` (its first ``cut.n_layers`` layers), decoded
+    token by token from position 0 over ``S`` tokens against one cache-free
+    forward over the same tokens, which launches each attention layer's
+    forward kernel once: every position's logits within DECODE_TOL of the
+    largest |logit|.  An MoE's forward keeps every assignment (its capacity
+    factor raised to n_experts / top_k), as each one-token decode step does,
+    and each decode step takes the experts the forward took at its position
+    in each layer (a random router's near ties tip under the two paths' bf16
+    roundings, and a token on other experts is another function); the
+    positions whose router would choose otherwise are counted."""
     import dataclasses as dc
 
+    if cut.moe is not None:
+        cut = dc.replace(cut, moe=dc.replace(cut.moe, capacity_factor=cut.moe.n_experts
+                                             / cut.moe.top_k))
+    err, scale, got, want, n_attn, wall, calls = _decode_and_forward(torch, cut, model, dev, S)
+    moved = ""
+    if calls:
+        n = len(calls) // S
+        away = (torch.tensor(moved_tokens(torch, calls)).reshape(S, n) > 0).any(-1)
+        there = float(err[away.to(err.device)].max()) if bool(away.any()) else 0.0
+        moved = (f"; each step on the forward's experts in its {n} MoE layers: "
+                 f"{int(away.sum())} positions whose router would take others in some layer "
+                 f"(largest |err| there {there}), capacity factor {cut.moe.capacity_factor}")
+    worst = float(err.max())
+    check(worst <= DECODE_TOL * scale, f"{cut.name} at {cut.n_layers} layers: decode logits max "
+          f"|err| {worst} over {DECODE_TOL} of the largest |logit| {scale}")
+    ring = ""
+    if cut.rglru is not None:
+        P = cut.local_window
+        ring = (f"; the ring wraps after {P}: first {P} positions {float(err[:P].max())}, after "
+                f"{float(err[P:].max())}")
+    print(f"[{tag}] {cut.name} cut to {cut.n_layers} layers ({cut.block_pattern}): {S} decode "
+          f"steps from position 0 ({wall} ms, {wall / S} ms a step) against one cache-free "
+          f"forward over {S} tokens ({n_attn} forward kernel launches): max |err| {worst} "
+          f"(limit {DECODE_TOL * scale}){ring}{moved}; top token equal at "
+          f"{float((got.argmax(-1) == want.argmax(-1)).float().mean())} of the positions",
+          flush=True)
+
+
+def _decode_and_forward(torch, cut, model, dev, S):
+    """decode_vs_forward's two runs, the decode on the forward's experts →
+    (each position's max |err|, the largest |logit|, decode logits, forward
+    logits, attention layers, the decode's wall ms, the decode's
+    ``routes_taken`` calls)."""
     import numpy as np
 
     from repro_torch.kernels import flash_attention as fa
@@ -3585,70 +3761,80 @@ def decode_vs_forward(torch, ops, cfg, model, dev):
     from repro_torch.models.lm import forward, init_cache
     from repro_torch.serve import make_serve_fns
 
-    cut = dc.replace(cfg, n_layers=len(cfg.block_pattern))
-    S = cut.local_window + DECODE_STEPS
-    tokens = torch.as_tensor(np.random.default_rng(SERVE_SEED + 1).integers(0, cfg.vocab, (1, S)),
+    shape = (1, S) if cut.n_codebooks == 1 else (1, cut.n_codebooks, S)
+    tokens = torch.as_tensor(np.random.default_rng(SERVE_SEED + 1).integers(0, cut.vocab, shape),
                              device=dev)
+    pattern = cut.block_pattern
+    n_attn = sum(pattern[i % len(pattern)] in ("attn", "local_attn")
+                 for i in range(cut.n_layers))
     before = fa.launches_wgmma.value
-    with torch.no_grad():
+    with torch.no_grad(), routes_taken(torch) as forward_calls:
         full, _, _ = forward(model, cut, tokens, SINGLE)
-    check(fa.launches_wgmma.value - before == 1,
-          "the cut model's cache-free forward did not run the D 256 forward kernel once")
+    check(fa.launches_wgmma.value - before == n_attn,
+          f"{cut.name} at {cut.n_layers} layers: the cache-free forward launched the forward "
+          f"kernel {fa.launches_wgmma.value - before} times, not once in each of its {n_attn} "
+          "attention layers")
     _, dec, _ = make_serve_fns(cut, SINGLE, capacity=2048)
     steps = []
+    replay = [e[t:t + 1] for t in range(S) for e, _ in forward_calls]
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), routes_taken(torch, replay if replay else None) as calls:
         cache = init_cache(cut, 1, 2048, dev)
         for t in range(S):
-            last, cache = dec(model, cache, tokens[:, t:t + 1],
+            last, cache = dec(model, cache, tokens[..., t:t + 1],
                               torch.tensor(t, dtype=torch.int32, device=dev))
             steps.append(last.float())
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     want = full[0].float()
     got = torch.cat(steps, 0)
-    check(got.shape[0] == S, f"decode logits cover {got.shape[0]} positions, not {S}")
-    err = (got - want).abs().max(-1).values
-    scale = float(want.abs().max())
-    check(bool(torch.isfinite(got).all()), "decode logits not finite")
-    check(float(err.max()) <= DECODE_TOL * scale, f"RecurrentGemma, one group: decode logits "
-          f"max |err| {float(err.max())} over {DECODE_TOL} of the largest |logit| {scale}")
-    P = cut.local_window
-    print(f"[serve-rg] recurrentgemma_9b cut to one group ({cut.block_pattern}): {S} decode "
-          f"steps from position 0 ({wall} ms; the ring wraps after {P}) against one cache-free "
-          f"forward over {S} tokens (the D 256 forward kernel): max |err| {float(err.max())} "
-          f"(first {P} positions {float(err[:P].max())}, after {float(err[P:].max())}; limit "
-          f"{DECODE_TOL * scale}); top token equal at "
-          f"{float((got.argmax(-1) == want.argmax(-1)).float().mean())} of the positions",
-          flush=True)
+    check(got.shape == want.shape, f"decode logits {tuple(got.shape)}, the forward's "
+          f"{tuple(want.shape)}")
+    err = (got - want).abs().reshape(S, -1).max(-1).values
+    check(bool(torch.isfinite(got).all()), f"{cut.name}: decode logits not finite")
+    check(len(calls) == len(replay), f"{cut.name}: the decode routed {len(calls)} times, the "
+          f"forward's experts cover {len(replay)}")
+    return err, float(want.abs().max()), got, want, n_attn, wall, calls
 
 
-def serving_hybrid(torch, ops, name, dev):
-    """``name`` (granite-MoE or RecurrentGemma) at full width and depth
-    behind an OpportunisticServer; returns the launch counts of its
-    requests (every attention counter must read 0)."""
+def trace_split(kern, moe_model):
+    """A profile's device kernel ms → (attention, GEMMs, the MoE layer's
+    sort / gather / scatter / index kernels (0 for a dense model))."""
+    attn = sum(t for t, k in kern if "attn_" in k)
+    gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
+                                                                   "cutlass")))
+    moved = sum(t for t, k in kern if moe_model and "attn_" not in k and any(
+        w in k.lower() for w in ("sort", "scatter", "gather", "index", "radix", "scan")))
+    return attn, gemm, moved
+
+
+def serve_model(torch, ops, cfg, model, dev, tag, checks, trace_decode=True):
+    """``model`` behind an OpportunisticServer: a cold 1,024-token request,
+    an anticipated prompt prefilled in think(10) and requested, its
+    resubmission, RecurrentGemma also a prompt that fills its ring; a
+    multi-codebook config's prompts are (K, 1,024).  Warm tokens equal a
+    cold recompute, a fresh server gives the same tokens and last logits bit
+    for bit, no attention kernel launches; then ``checks(cold prompt)``, a
+    prefill and a prefill with N_TOKENS decode steps timed (decode ms a
+    token), and profiled: the prefill, and with ``trace_decode`` prefills
+    with TRACE_STEPS decode steps.  Returns the requests' launches."""
     import numpy as np
 
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_model
     from repro_torch.serve import OpportunisticServer, greedy_generate, make_serve_fns
 
-    cfg = get_config(name)
-    t0 = time.perf_counter()
-    model = init_model(cfg, seed=SERVE_SEED, device=dev)
-    torch.cuda.synchronize()
-    params = list(model.parameters())
-    print(f"[serve-hybrid] {cfg.name} at full width: {cfg.n_layers} layers "
-          f"({cfg.block_pattern}), d_model {cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads x "
-          f"{cfg.head_dim}, {sum(p.numel() for p in params)} parameters, "
-          f"{sum(p.numel() * p.element_size() for p in params)} bytes on the card, made in "
-          f"{time.perf_counter() - t0} s", flush=True)
     rng = np.random.default_rng(SERVE_SEED)
-    cold_p, warm_p = (tuple(int(t) for t in rng.integers(0, cfg.vocab, 1024)) for _ in range(2))
+    K = cfg.n_codebooks
+
+    def prompt(n):
+        if K == 1:
+            return tuple(int(t) for t in rng.integers(0, cfg.vocab, n))
+        return tuple(tuple(int(t) for t in row) for row in rng.integers(0, cfg.vocab, (K, n)))
+
+    cold_p, warm_p = prompt(1024), prompt(1024)
     # RecurrentGemma: a prompt that fills the 2,048-slot local-attention
     # ring, whose decode steps then wrap it
-    long_p = (tuple(int(t) for t in rng.integers(0, cfg.vocab, cfg.local_window))
-              if cfg.rglru is not None else None)
+    long_p = prompt(cfg.local_window) if cfg.rglru is not None else None
+    shape = "" if K == 1 else f" x {K} codebooks"
 
     def request(srv, label, prompt):
         t0 = time.perf_counter()
@@ -3656,9 +3842,9 @@ def serving_hybrid(torch, ops, name, dev):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         rec = srv.metrics.interactions[-1]
-        print(f"[serve-hybrid] {cfg.name} {label}: {len(prompt)}-token prompt, {N_TOKENS} tokens: "
-              f"wall {wall} ms, sim latency {rec.latency_s * 1e3} ms, ops executed "
-              f"{rec.ops_executed}", flush=True)
+        print(f"[{tag}] {cfg.name} {label}: {np.shape(prompt)[-1]}-token prompt{shape}, "
+              f"{N_TOKENS} tokens: wall {wall} ms, sim latency {rec.latency_s * 1e3} ms, ops "
+              f"executed {rec.ops_executed}", flush=True)
         return out, rec
 
     def last_logits(srv, prompt):
@@ -3671,13 +3857,13 @@ def serving_hybrid(torch, ops, name, dev):
     t0 = time.perf_counter()
     srv.think(10.0)
     torch.cuda.synchronize()
-    print(f"[serve-hybrid] {cfg.name} think(10): anticipated 1024-token prefill, wall "
+    print(f"[{tag}] {cfg.name} think(10): anticipated 1024-token prefill, wall "
           f"{(time.perf_counter() - t0) * 1e3} ms", flush=True)
     warm = request(srv, "warm request", warm_p)
     again = request(srv, "resubmission", warm_p)
     longer = request(srv, f"{len(long_p)}-token request", long_p) if long_p else None
     launches = ops.launch_counts()
-    print(f"[serve-hybrid] {cfg.name} launches: " + json.dumps(launches), flush=True)
+    print(f"[{tag}] {cfg.name} launches: " + json.dumps(launches), flush=True)
     attn = {k: v for k, v in launches.items() if k.startswith("flash_attention")}
     check(not any(attn.values()), f"{cfg.name}: the serving path launched attention kernels "
           f"{attn}; the cached branch is the plain path")
@@ -3696,46 +3882,92 @@ def serving_hybrid(torch, ops, name, dev):
     fresh = OpportunisticServer(cfg, model, capacity=2048, device=dev)
     served = [("cold", cold_p, cold), ("warm", warm_p, warm)] + (
         [("long", long_p, longer)] if long_p else [])
-    for label, prompt, (out, _) in served:
-        out2 = fresh.request(prompt, n_tokens=N_TOKENS)
+    for label, p, (out, _) in served:
+        out2 = fresh.request(p, n_tokens=N_TOKENS)
         check(np.array_equal(out2.tokens, out.tokens), f"{cfg.name} {label}: a fresh server "
               "gave other tokens")
-        check(torch.equal(last_logits(fresh, prompt), last_logits(srv, prompt)),
+        check(torch.equal(last_logits(fresh, p), last_logits(srv, p)),
               f"{cfg.name} {label}: a fresh server gave other last logits")
-    print(f"[serve-hybrid] {cfg.name}: warm tokens equal a cold recompute; a fresh server gave "
+    print(f"[{tag}] {cfg.name}: warm tokens equal a cold recompute; a fresh server gave "
           f"the same tokens and last logits bit for bit for {len(served)} requests", flush=True)
     del fresh
 
     cold_t = torch.tensor([cold_p], device=dev)
-    if cfg.moe is not None:
-        moe_layer0(torch, cfg, model, cold_t, dev)
-    else:
-        decode_vs_forward(torch, ops, cfg, model, dev)
+    t0 = time.perf_counter()
+    checks(cold_t)
+    checks_s = time.perf_counter() - t0
 
-    # where a request's time goes: a prefill, then a prefill and decode steps
-    runs = [("prefill 1024 tokens", lambda: pre(model, cold_t)),
-            (f"prefill 1024 + {N_TOKENS} decode steps",
-             lambda: greedy_generate(cfg, model, pre, dec, cold_t, N_TOKENS))]
-    if long_p:
-        long_t = torch.tensor([long_p], device=dev)
-        runs.append((f"prefill {len(long_p)} + {N_TOKENS} decode steps (the ring wraps)",
-                     lambda: greedy_generate(cfg, model, pre, dec, long_t, N_TOKENS)))
+    # where a request's time goes: a prefill alone and with N_TOKENS decode
+    # steps, timed; then profiled, the decodes at TRACE_STEPS steps
     walls = []
+    for n in (0, N_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if n:
+            greedy_generate(cfg, model, pre, dec, cold_t, n)
+        else:
+            pre(model, cold_t)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    runs = [("prefill 1024 tokens", lambda: pre(model, cold_t))]
+    if trace_decode:
+        runs.append((f"prefill 1024 + {TRACE_STEPS} decode steps",
+                     lambda: greedy_generate(cfg, model, pre, dec, cold_t, TRACE_STEPS)))
+        if long_p:
+            long_t = torch.tensor([long_p], device=dev)
+            runs.append((f"prefill {len(long_p)} + {TRACE_STEPS} decode steps (the ring wraps)",
+                         lambda: greedy_generate(cfg, model, pre, dec, long_t, TRACE_STEPS)))
+    t_prof = time.perf_counter()
     for label, fn in runs:
         wall, busy, copy, kern, _ = profiled(torch, fn)
-        walls.append(wall)
-        gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
-                                                                       "cutlass")))
-        attn_k = sum(t for t, k in kern if "attn_" in k)
-        print(f"[serve-trace] {cfg.name} {label}: wall {wall} ms, device kernels {busy} ms (GEMMs "
-              f"{gemm} ms, attention kernels {attn_k} ms, other {busy - gemm - attn_k} ms), "
-              f"device copies {copy} ms, device idle {100 * (1 - (busy + copy) / wall)}%; top: "
+        attn_k, gemm, moved = trace_split(kern, cfg.moe is not None)
+        moe_part = (f", MoE sort / gather / scatter / index {moved} ms" if cfg.moe is not None
+                    else "")
+        print(f"[{tag.split('-')[0]}-trace] {cfg.name} {label}: wall {wall} ms, device kernels "
+              f"{busy} ms (GEMMs {gemm} ms, attention kernels {attn_k} ms{moe_part}, other "
+              f"{busy - gemm - attn_k - moved} ms), device copies {copy} ms, device idle "
+              f"{100 * (1 - (busy + copy) / wall)}%; top: "
               + ", ".join(f"{k[:50]} {t}" for t, k in kern[:5]), flush=True)
-    if cfg.moe is not None:
-        print(f"[serve-trace] {cfg.name} decode: {(walls[1] - walls[0]) / N_TOKENS} ms a token "
-              "(profiled walls; PR 24's run: about 130 ms a token)", flush=True)
-    del srv, model
+    print(f"[{tag.split('-')[0]}-trace] {cfg.name} decode: {(walls[1] - walls[0]) / N_TOKENS} ms "
+          f"a token (walls: prefill {walls[0]} ms, with {N_TOKENS} decode steps {walls[1]} ms); "
+          f"the model's own checks took {checks_s} s, the profiles {time.perf_counter() - t_prof} "
+          "s", flush=True)
+    del srv
     gc.collect()  # the server and its engine's closures form a cycle
+    return launches
+
+
+def serving_hybrid(torch, ops, name, dev):
+    """``name`` (granite-MoE or RecurrentGemma) at full width and depth
+    behind an OpportunisticServer; returns the launch counts of its
+    requests (every attention counter must read 0)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=SERVE_SEED, device=dev)
+    torch.cuda.synchronize()
+    params = list(model.parameters())
+    print(f"[serve-hybrid] {cfg.name} at full width: {cfg.n_layers} layers "
+          f"({cfg.block_pattern}), d_model {cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.head_dim}, {sum(p.numel() for p in params)} parameters, "
+          f"{sum(p.numel() * p.element_size() for p in params)} bytes on the card, made in "
+          f"{time.perf_counter() - t0} s", flush=True)
+    del params
+
+    def checks(cold_t):
+        if cfg.moe is not None:
+            moe_layer0(torch, cfg, model, cold_t, dev)
+        else:  # one pattern group, decoded past its ring
+            decode_vs_forward(torch, ops, dc.replace(cfg, n_layers=len(cfg.block_pattern)),
+                              model, dev, cfg.local_window + DECODE_STEPS, "serve-rg")
+
+    launches = serve_model(torch, ops, cfg, model, dev, "serve-hybrid", checks)
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -3774,18 +4006,38 @@ def leaf_errs(torch, got, want):
             for (p, g), (_, w) in zip(tree_flatten(got), tree_flatten(want))}
 
 
+def check_batch(torch, cfg, dev):
+    """Check 2's microbatch: 2 x 1,024 tokens (of each codebook), and a VLM's
+    ``vis_embeds`` drawn from a seed."""
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+
+    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=1024, batch=2,
+                                         n_codebooks=cfg.n_codebooks, seed=0), 0), dev)
+    if cfg.n_vis_tokens:
+        batch["vis_embeds"] = vis_embeds(torch, cfg, 2, dev)
+    return batch
+
+
+def vis_embeds(torch, cfg, batch, dev, seed=TRAIN_SEED):
+    """A VLM's stub patch embeddings (batch, n_vis, d) in bf16, N(0, 1) from
+    a numpy seed (the dry run's input spec has them in bf16)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal((batch, cfg.n_vis_tokens, cfg.d_model),
+                                               dtype=np.float32), device=dev).to(torch.bfloat16)
+
+
 def step_vs_plain(torch, ops, cfg, model, dev):
     """Check 2: one microbatch's loss, gradient norm and gradients with the
     kernels against the plain attention, and the faulty control."""
-    from repro_torch.data import SynthSpec, batch_at
-    from repro_torch.data.loader import to_device
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import SINGLE
     from repro_torch.train.optimizer import global_norm
     from repro_torch.train.trainstep import value_and_grad
 
-    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=1024, batch=2, seed=0), 0),
-                      dev)
+    batch = check_batch(torch, cfg, dev)
 
     def run(backend):
         with ops.local_backend(backend):
@@ -4082,25 +4334,57 @@ def training_rg(torch, ops, dev):
 
 
 # --------------------------------------------------------------------------- #
-# phase 4f: granite-MoE trained at full width through the train launcher      #
+# phase 4f: granite-MoE trained at full width through the training loop      #
 # --------------------------------------------------------------------------- #
 
-# granite_moe_3b_a800m at full width and depth (32 layers, d_model 1536, 24 /
-# 8 heads x 64, 40 experts top 8, d_ff_expert 512, vocab 49,155): 3.37e9
-# parameters, 54 GB of float32 weights, gradients and AdamW moments; phase
-# 4c's shape (4 steps of 8 x 4,096 tokens, microbatch 4, remat full), so the
-# attention launches a step are PER_STEP's (32 layers x 2 microbatches).
+# granite_moe_3b_a800m at full width (d_model 1536, 24 / 8 heads x 64, 40
+# experts top 8, d_ff_expert 512, vocab 49,155) cut to 16 of its 32 layers
+# (1.76e9 parameters), so that the script keeps to its time: at 32 layers
+# (54 GB of float32 weights, gradients and AdamW moments) the 40.5 GB
+# checkpoint's write and read take most of the phase.  The cut config goes
+# through ``train_loop`` as the train launcher drives it (``train_cut``), as
+# phase 4k trains its cut models.  Phase 4c's shape (4 steps of 8 x 4,096
+# tokens, microbatch 4, remat full): 16 layers x 2 microbatches x 2 forward
+# launches a step, 32 of each backward kernel.
 MOE_SEQ = 4096
-MOE_FLAGS = ["--arch", "granite_moe_3b_a800m", "--full-config", "--steps", str(TRAIN_STEPS),
-             "--batch", str(TRAIN_BATCH), "--seq", str(MOE_SEQ), "--microbatch",
-             str(TRAIN_MICRO), "--remat", "full", "--seed", str(TRAIN_SEED)]
+MOE_LAYERS = 16
+MOE_PER_STEP = {"flash_attention": 64, "flash_attention_wgmma": 64,
+                "flash_attention_bwd_dq": 32, "flash_attention_bwd_dkdv": 32,
+                "flash_attention_bwd_dq_wgmma": 32, "flash_attention_bwd_dkdv_wgmma": 32}
 MOE_CUT = 2  # the interrupted run fails at step 2 and resumes from its step-2 checkpoint
-# The peak, predicted before the first run on the card: weights, both
-# moments and the accumulated gradients (4 x 13.5 GB), a second gradient
-# tree while the second microbatch's backward fills it, and the loss head's
-# float32 logits of 4 x 4,096 tokens.
-MOE_PEAK_PREDICTED = (68e9, 76e9)
+# The peak, predicted before the first run at 16 layers: weights, both
+# moments and the accumulated gradients (4 x 7.0 GB), a second gradient
+# tree while the second microbatch's backward fills it, the loss head's
+# float32 logits of 4 x 4,096 tokens and their gradient (the whole model
+# peaked at 73,952,462,848 bytes, 20 GB over its state).
+MOE_PEAK_PREDICTED = (38e9, 48e9)
 MASK64 = (1 << 64) - 1
+
+
+def launcher_opt(steps):
+    """The train launcher's AdamW at its default ``--lr`` over ``steps``
+    steps (``repro_torch.launch.train.main``), for a config cut in depth,
+    which the launcher does not take."""
+    from repro_torch.train.optimizer import AdamWConfig
+
+    return AdamWConfig(lr=3e-3, warmup_steps=min(20, steps // 5), total_steps=steps)
+
+
+def train_cut(cfg, run, dev, ckpt_dir, fail_at_step=None):
+    """``train_loop`` on ``cfg`` (cut in depth) for TRAIN_STEPS steps of
+    ``run``'s shape from the synthetic stream, with the launcher's
+    optimizer, seed, log rate and checkpoint period → (stats, log lines)."""
+    from repro_torch.data import SynthSpec
+    from repro_torch.train import loop
+
+    data = SynthSpec(vocab=cfg.vocab, seq_len=run.shape.seq_len, batch=run.shape.global_batch,
+                     n_codebooks=cfg.n_codebooks, seed=TRAIN_SEED)
+    log = []
+    stats = loop.train_loop(cfg, run, data, total_steps=TRAIN_STEPS, ckpt_dir=ckpt_dir,
+                            ckpt_every=50, opt=launcher_opt(TRAIN_STEPS), seed=TRAIN_SEED,
+                            fail_at_step=fail_at_step, log_every=max(1, TRAIN_STEPS // 10),
+                            log_fn=log.append, device=dev)
+    return stats, log
 
 
 def fingerprint(torch, tree):
@@ -4122,104 +4406,69 @@ def fingerprint(torch, tree):
 
 
 def moe_step_vs_plain(torch, ops, cfg, model, dev):
-    """Check 2 for the MoE model: one microbatch (2 x 1,024 tokens, remat
-    off) with the kernels against the plain attention.  A token whose top-k
-    set differs between the two runs (a near tie that the attention's
-    rounding tips) sends other rows through other experts, so the experts
-    such a token chose in either run, in its layer, and the router are
-    printed and not held; every other leaf (attention, norms, embeddings, the
-    untouched experts' slices) is held to phase 4c's leaf limit.  The
-    control whose dK/dV drops a head must cross it."""
-    from repro_torch.data import SynthSpec, batch_at
-    from repro_torch.data.loader import to_device
+    """Check 2 for an MoE model: one microbatch (2 x 1,024 tokens, remat
+    off) with the kernels against the plain attention, the plain run taking
+    the kernel run's experts (each token's top k, in each layer; its
+    weights and aux losses from its own router): a random router's near
+    ties tip under the attentions' one-ulp differences, and a token that
+    moves moves every leaf's gradient, so the experts are replayed and every
+    leaf is held to phase 4c's limits.  The tokens whose router in the plain
+    run would take other experts are counted.  The control whose dK/dV
+    drops a head, with the same experts, must cross the leaf limit."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import SINGLE, moe
-    from repro_torch.models.base import keystr, tree_flatten
+    from repro_torch.models import SINGLE
     from repro_torch.train.optimizer import global_norm
     from repro_torch.train.trainstep import value_and_grad
 
-    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=1024, batch=2, seed=0), 0),
-                      dev)
-    route = moe._route
+    batch = check_batch(torch, cfg, dev)
 
-    def run(backend):
-        routes = []
+    def routed(backend, fn, replay=None):
+        """``fn()`` under ``backend`` → (its result, its ``routes_taken``
+        calls)."""
+        with routes_taken(torch, replay) as calls, ops.local_backend(backend):
+            return fn(), calls
 
-        def recording(params, cfg_, xf, e_pad):
-            out = route(params, cfg_, xf, e_pad)
-            routes.append(torch.sort(out[1], dim=-1).values)
-            return out
+    def step():
+        loss, _, grads = value_and_grad(model, cfg, batch, SINGLE, remat=False)
+        return float(loss), float(global_norm(grads)), grads
 
-        moe._route = recording
-        try:
-            with ops.local_backend(backend):
-                loss, _, grads = value_and_grad(model, cfg, batch, SINGLE, remat=False)
-        finally:
-            moe._route = route
-        return float(loss), float(global_norm(grads)), grads, routes
-
-    def held_and_shown(got, got_routes, want, want_routes):
-        """({leaf: worst |err| / max |g|} held, the same shown, tokens
-        moved per layer, (layer, expert) slices untouched)."""
-        moved, touched = [], []
-        for a, b in zip(got_routes, want_routes):
-            m = (a != b).any(-1)
-            moved.append(int(m.sum()))
-            t = torch.zeros(cfg.moe.n_experts, dtype=torch.bool, device=dev)
-            t[torch.cat([a[m], b[m]]).reshape(-1)] = True
-            touched.append(t)
-        touched = torch.stack(touched)  # (layers, experts)
-        held, shown = {}, {}
-        for (path, g), (_, w) in zip(tree_flatten(got), tree_flatten(want)):
-            key = keystr(path)
-            if "moe" in path and path[-1] == "router":
-                shown[key] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-            elif "moe" in path:
-                dims = tuple(range(2, g.dim()))
-                err, big = (g - w).abs().amax(dim=dims), w.abs().amax(dim=dims)
-                for mask, into, label in ((~touched, held, "untouched"),
-                                          (touched, shown, "touched")):
-                    if bool(mask.any()):
-                        into[f"{key} {label}"] = float(err[mask].max()) / max(
-                            float(big[mask].max()), 1e-30)
-            else:
-                held[key] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-        return held, shown, moved, int((~touched).sum())
-
-    kl, kn, kg, kr = run("cuda")
-    pl, pn, pg, pr = run("torch")
-    held, shown, moved, untouched = held_and_shown(kg, kr, pg, pr)
+    (kl, kn, kg), calls = routed("cuda", step)
+    experts = [e for e, _ in calls]
+    (pl, pn, pg), plain_calls = routed("torch", step, experts)
+    moved = moved_tokens(torch, plain_calls)
+    errs = leaf_errs(torch, kg, pg)
     del kg
-    worst = max(held.values())
-    print(f"[train-moe] check 2, 2 x 1,024 tokens, kernels vs plain attention: loss {kl} vs "
-          f"{pl}, grad norm {kn} vs {pn}; tokens whose top-k set differs, per layer "
-          f"{json.dumps(moved)} ({sum(moved)} of {len(moved) * 2048}); expert slices no such "
-          f"token reaches: {untouched} of {len(moved) * cfg.moe.n_experts}; held leaves, "
-          f"worst |err| / max |g| {worst}: {json.dumps(held)}; not held: {json.dumps(shown)}",
-          flush=True)
-    check(math.isfinite(kl) and math.isfinite(kn), "MoE training step: loss or norm not finite")
-    check(worst <= STEP_GRAD_TOL, f"MoE training step gradients vs plain: worst held {worst}")
+    ratios = {k: e / max(w, 1e-30) for k, (e, w) in errs.items()}
+    worst = max(ratios.values())
+    print(f"[train-moe] check 2, 2 x 1,024 tokens, kernels vs plain attention, the plain run on "
+          f"the kernel run's experts: loss {kl} vs {pl}, grad norm {kn} vs {pn}, worst leaf "
+          f"|err| / max |g| {worst}; tokens whose router in the plain run would take another "
+          f"top-k set, per layer {json.dumps(moved)} ({sum(moved)} of {len(moved) * 2048}): "
+          + json.dumps(ratios), flush=True)
+    check(math.isfinite(kl) and abs(kl - pl) <= STEP_LOSS_TOL * abs(pl),
+          f"MoE training step loss {kl} vs plain {pl}")
+    check(math.isfinite(kn) and abs(kn - pn) <= STEP_GNORM_TOL * pn,
+          f"MoE training step grad norm {kn} vs plain {pn}")
+    check(worst <= STEP_GRAD_TOL, f"MoE training step gradients vs plain: worst {worst}")
     controls = attn_controls(torch, fa)
     faulty, _ = controls["dK/dV that skips one head of each group"]
     plain = fa.flash_attention_plain
     fa.flash_attention_plain = faulty
     try:
-        _, _, cg, cr = run("torch")
+        (_, _, cg), _ = routed("torch", step, experts)
     finally:
         fa.flash_attention_plain = plain
-    cheld, _, cmoved, _ = held_and_shown(cg, cr, pg, pr)
-    cworst = max(cheld.values())
-    check(cworst > STEP_GRAD_TOL, f"MoE control, dK/dV without a head: worst held leaf "
-          f"{cworst} is within the limit {STEP_GRAD_TOL}, which cannot see it")
-    print(f"[train-moe] control, plain attention whose dK/dV drops a head: worst held leaf "
-          f"|err| / max |g| {cworst}, above the limit {STEP_GRAD_TOL} (tokens moved "
-          f"{sum(cmoved)})", flush=True)
+    cworst = max(e / max(w, 1e-30) for e, w in leaf_errs(torch, cg, pg).values())
+    check(cworst > STEP_GRAD_TOL, f"MoE control, dK/dV without a head: worst leaf {cworst} is "
+          f"within the limit {STEP_GRAD_TOL}, which cannot see it")
+    print(f"[train-moe] control, plain attention whose dK/dV drops a head, on the same experts: "
+          f"worst leaf |err| / max |g| {cworst}, above the limit {STEP_GRAD_TOL}", flush=True)
 
 
 def training_moe(torch, ops, dev):
-    """``granite_moe_3b_a800m`` at full width trained through
-    ``repro_torch.launch.train.main``; returns the attention kernels'
-    launch counts over the main run."""
+    """``granite_moe_3b_a800m`` at full width, cut to MOE_LAYERS layers,
+    trained through ``train_loop`` (``train_cut``); returns the attention
+    kernels' launch counts over the main run."""
     import shutil
 
     from repro_torch.ckpt import CheckpointManager
@@ -4227,13 +4476,14 @@ def training_moe(torch, ops, dev):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SynthSpec, batch_at
     from repro_torch.data.loader import to_device
-    from repro_torch.launch import train as launch_train
     from repro_torch.models import init_model, moe
     from repro_torch.models.base import tree_flatten
     from repro_torch.train import loop
     from repro_torch.train.trainstep import init_train_state, make_train_step
 
-    cfg = get_config("granite_moe_3b_a800m")
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"), n_layers=MOE_LAYERS)
+    shape = ShapeConfig("cli", "train", seq_len=MOE_SEQ, global_batch=TRAIN_BATCH)
+    run = RunConfig(model=cfg, shape=shape, dp=1, tp=1, remat="full", microbatch=TRAIN_MICRO)
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
@@ -4242,11 +4492,13 @@ def training_moe(torch, ops, dev):
     state_bytes = 12 * cfg.param_count()  # weights and both moments, float32
     check(free > state_bytes * 1.1, f"{free} bytes free for a {state_bytes}-byte checkpoint")
     cap = moe.expert_capacity(cfg, TRAIN_MICRO * MOE_SEQ)
-    print(f"[train-moe] {cfg.name} at full width and depth: {cfg.n_layers} layers, d_model "
+    print(f"[train-moe] {cfg.name} at full width cut to {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, "
           f"{cfg.moe.n_experts} experts top {cfg.moe.top_k}, d_ff_expert "
-          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab}, {cfg.param_count()} parameters; launcher "
-          f"flags {' '.join(MOE_FLAGS)}; capacity {cap} a microbatch; predicted peak "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab}, {cfg.param_count()} parameters; "
+          f"train_loop on the cut config, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {MOE_SEQ} "
+          f"tokens, microbatch {TRAIN_MICRO}, remat full, seed {TRAIN_SEED}, the launcher's "
+          f"AdamW; capacity {cap} a microbatch; predicted peak "
           f"{MOE_PEAK_PREDICTED[0]}-{MOE_PEAK_PREDICTED[1]} bytes; {free} bytes free for the "
           f"step-{MOE_CUT} checkpoint; {torch.cuda.memory_allocated()} bytes held on the card "
           "before the run", flush=True)
@@ -4272,14 +4524,14 @@ def training_moe(torch, ops, dev):
     manager = loop.CheckpointManager
     loop.CheckpointManager = FingerprintAtEnd
     try:
-        # the main path: 4 steps through the launcher
+        # the main path: 4 steps through the training loop
         whole_dir, cut_dir = str(CKPT_ROOT / "whole"), str(CKPT_ROOT / "cut")
         moe._dispatch = counting
         ops.reset_launch_counts()  # counts start at 0 just before the training path
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
-            whole, log = quiet(launch_train.main, MOE_FLAGS + ["--ckpt-dir", whole_dir])
+            whole, log = train_cut(cfg, run, dev, whole_dir)
         finally:
             moe._dispatch = dispatch
         wall = time.perf_counter() - t0
@@ -4291,10 +4543,9 @@ def training_moe(torch, ops, dev):
               "included): step ms " + json.dumps([t * 1e3 for t in whole.step_times])
               + ", tokens/s " + json.dumps([tokens / t for t in whole.step_times])
               + ", losses " + json.dumps(whole.losses) + ", grad norms "
-              + json.dumps(whole.grad_norms) + " (step ms in PR 24's run 4, before C12's "
-              f"repair: 4,224.26-4,319.84), peak device memory {peak} bytes (predicted "
-              f"{MOE_PEAK_PREDICTED[0]}-{MOE_PEAK_PREDICTED[1]}); launcher output: "
-              + " | ".join(log.strip().splitlines()), flush=True)
+              + json.dumps(whole.grad_norms) + f", peak device memory {peak} bytes (predicted "
+              f"{MOE_PEAK_PREDICTED[0]}-{MOE_PEAK_PREDICTED[1]}); loop log: "
+              + " | ".join(log), flush=True)
         check(whole.steps == TRAIN_STEPS and all(math.isfinite(x) for x in
                                                  whole.losses + whole.grad_norms),
               "MoE training: a loss or gradient norm is not finite")
@@ -4306,8 +4557,8 @@ def training_moe(torch, ops, dev):
               f"{sum(dropped) / len(dropped)} a forward; per forward of the first "
               f"microbatch's layers: " + json.dumps(dropped[:cfg.n_layers]), flush=True)
         print("[train-moe] launches in the run: " + json.dumps(
-            {k: launches[k] for k in PER_STEP}), flush=True)
-        for name, n in PER_STEP.items():
+            {k: launches[k] for k in MOE_PER_STEP}), flush=True)
+        for name, n in MOE_PER_STEP.items():
             check(launches[name] == n * TRAIN_STEPS, f"MoE training: {name} launched "
                   f"{launches[name]} times in {TRAIN_STEPS} steps, not {n * TRAIN_STEPS}")
         gc.collect()
@@ -4317,16 +4568,15 @@ def training_moe(torch, ops, dev):
         # where the uninterrupted run ended
         t0 = time.perf_counter()
         try:
-            quiet(launch_train.main, MOE_FLAGS + ["--ckpt-dir", cut_dir, "--fail-at-step",
-                                                  str(MOE_CUT)])
-            fail(f"--fail-at-step {MOE_CUT} did not stop the run")
+            train_cut(cfg, run, dev, cut_dir, fail_at_step=MOE_CUT)
+            fail(f"fail_at_step {MOE_CUT} did not stop the run")
         except RuntimeError as exc:
             if str(exc) != f"injected node failure at step {MOE_CUT}":
                 raise
         latest = CheckpointManager(cut_dir).latest_step()
         gc.collect()
         torch.cuda.empty_cache()
-        resumed, _ = quiet(launch_train.main, MOE_FLAGS + ["--ckpt-dir", cut_dir])
+        resumed, _ = train_cut(cfg, run, dev, cut_dir)
         check(latest == MOE_CUT and resumed.resumed_from == MOE_CUT
               and resumed.steps == TRAIN_STEPS - MOE_CUT,
               f"the run resumed from {resumed.resumed_from}, not from step {MOE_CUT}")
@@ -4351,20 +4601,9 @@ def training_moe(torch, ops, dev):
     # waits on the host); the second step profiled, the MoE layer's parts as
     # profiler ranges (their forward and remat passes: the backward runs
     # outside them)
-    shape = ShapeConfig("cli", "train", seq_len=MOE_SEQ, global_batch=TRAIN_BATCH)
-    run = RunConfig(model=cfg, shape=shape, dp=1, tp=1, remat="full", microbatch=TRAIN_MICRO)
     step_fn, _ = make_train_step(cfg, run)
     batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=MOE_SEQ, batch=TRAIN_BATCH,
                                          seed=TRAIN_SEED), 0), dev)
-    ranges = {"moe routing": "_route", "moe grouping, experts, combine": "_group_and_compute"}
-    originals = {name: getattr(moe, name) for name in ranges.values()}
-
-    def in_range(label, fn):
-        def wrapped(*args, **kwargs):
-            with torch.profiler.record_function(label):
-                return fn(*args, **kwargs)
-        return wrapped
-
     kept = None
     for i in range(2):
         model, opt_state = init_train_state(cfg, run, seed=TRAIN_SEED, device=dev)
@@ -4378,13 +4617,8 @@ def training_moe(torch, ops, dev):
             def one_step():
                 out["state"] = step_fn(model, opt_state, batch)
 
-            for label, name in ranges.items():
-                setattr(moe, name, in_range(label, originals[name]))
-            try:
-                pwall, busy, copy, kern, spans = profiled(torch, one_step, tuple(ranges))
-            finally:
-                for name, fn in originals.items():
-                    setattr(moe, name, fn)
+            with moe_ranges(torch) as ranges:
+                pwall, busy, copy, kern, spans = profiled(torch, one_step, ranges)
             model, opt_state, m1 = out.pop("state")
             leaves = [t for _, t in tree_flatten({"params": model.tree(), "opt": opt_state})]
             check(len(leaves) == len(kept) and all(
@@ -4397,15 +4631,10 @@ def training_moe(torch, ops, dev):
     del kept
     gc.collect()
     torch.cuda.empty_cache()
-    attn = sum(t for t, k in kern if "attn_" in k)
-    gemm = sum(t for t, k in kern if any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
-                                                                   "cutlass")))
-    moved = sum(t for t, k in kern if "attn_" not in k and any(
-        w in k.lower() for w in ("sort", "scatter", "gather", "index", "radix", "scan")))
+    attn, gemm, moved = trace_split(kern, True)
     print(f"[train-moe] a step repeated from the same state gave params, AdamW moments and "
           f"loss ({float(m1['loss'])}) equal bit for bit", flush=True)
-    print(f"[train-moe-trace] one step, profiled: wall {pwall} ms (PR 24's run 4: 4,310.91 ms), "
-          f"device kernels {busy} ms "
+    print(f"[train-moe-trace] one step, profiled: wall {pwall} ms, device kernels {busy} ms "
           f"(attention kernels {attn} ms, GEMMs {gemm} ms, sort / gather / scatter / index "
           f"kernels (MoE routing, grouping, combine and their backward) {moved} ms, other "
           f"{busy - attn - gemm - moved} ms), device copies {copy} ms, device idle "
@@ -4419,7 +4648,7 @@ def training_moe(torch, ops, dev):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in PER_STEP}
+    return {k: launches[k] for k in MOE_PER_STEP}
 
 
 # --------------------------------------------------------------------------- #
@@ -5459,6 +5688,338 @@ def roofline_phase(torch, ops, dev):
             "phase_s": took}
 
 
+# --------------------------------------------------------------------------- #
+# phase 4k: the five registered models no earlier phase runs                    #
+# --------------------------------------------------------------------------- #
+
+# Each is made from a seed with random weights at full width, served behind
+# an OpportunisticServer, decoded at 2 layers against a cache-free forward,
+# then trained 4 steps of one 4,096-token sequence (the reference's
+# train_4k length, its global batch 256 cut to one card; a VLM's 256 patch
+# embeddings before them), remat full, float32 master weights and AdamW.
+REGISTRY = ("musicgen_large", "h2o_danube_3_4b", "starcoder2_7b", "qwen3_moe_30b_a3b",
+            "internvl2_76b")
+REG_SEQ = 4096
+# Depth is cut only where the reckoned bytes pass REG_BUDGET (of the card's
+# 80 GB): serving at 2 bytes a parameter (bf16) plus SERVE_SLACK for a
+# 1,024-token prefill's activations and logits and the prefix caches the
+# server keeps; training at TRAIN_STATE_BYTES a parameter (float32 weights,
+# gradients and both moments) plus train_extra (the step's logits, the
+# layer inputs remat keeps, one stacked leaf's float32 gradient beside its
+# accumulator, and TRAIN_SLACK: one layer's recomputed activations, the
+# bf16 casts and the allocator).  4j's mamba2_2p7b peaked 7.9 GB over its
+# state and 4e's RecurrentGemma group 13.3 GB (its 256,000-token head).
+REG_BUDGET = 76e9
+SERVE_SLACK = 4e9
+TRAIN_STATE_BYTES = 16
+TRAIN_SLACK = 4e9
+REG_CHECK_LAYERS = 2  # decode and kernels-vs-plain checks: the first 2 layers at full width
+
+
+def layer_params(cfg):
+    """(parameters a layer, parameters outside the layers) of a config whose
+    blocks are all attention, reckoned from its widths as the specs of
+    ``models/{layers,attention,moe}.py`` lay them out."""
+    d, hd = cfg.d_model, cfg.head_dim
+    vocab = -(-cfg.vocab // 8) * 8  # padded_vocab(1)
+    norm = 2 * d if cfg.norm_type == "layernorm" else d
+    q, kv = cfg.n_q_heads * hd, cfg.n_kv_heads * hd
+    attn = 2 * d * q + 2 * d * kv + (2 * hd if cfg.qk_norm else 0)
+    mats = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
+    if cfg.moe is not None:
+        E = cfg.moe.n_experts
+        ffn = d * E + mats * E * d * cfg.moe.d_ff_expert
+    else:
+        ffn = mats * d * cfg.d_ff
+    heads = 1 if cfg.tie_embeddings else 2
+    return attn + 2 * norm + ffn, heads * cfg.n_codebooks * vocab * d + norm
+
+
+def train_extra(cfg, layers):
+    """The bytes a training step holds beside its state (see REG_BUDGET)."""
+    d = cfg.d_model
+    vocab = -(-cfg.vocab // 8) * 8
+    tokens = REG_SEQ + cfg.n_vis_tokens
+    logits = 8 * REG_SEQ * cfg.n_codebooks * vocab  # float32 logits and their gradient
+    bounds = 2 * layers * tokens * d  # each layer's bf16 input, kept by remat
+    if cfg.moe is not None:
+        leaf = cfg.moe.n_experts * d * cfg.moe.d_ff_expert
+    else:
+        leaf = max(d * cfg.n_q_heads * cfg.head_dim, d * cfg.d_ff)
+    return logits + bounds + 4 * layers * leaf + TRAIN_SLACK
+
+
+def reckon_depth(cfg, kind):
+    """The depth phase 4k runs ``cfg`` at (``kind`` "serve" or "train"): the
+    config's own, or the deepest whose reckoned bytes stay within REG_BUDGET
+    → {layers, params, bytes, and the whole model's}."""
+    per, outer = layer_params(cfg)
+
+    def need(layers):
+        n = outer + layers * per
+        if kind == "serve":
+            return n, 2 * n + SERVE_SLACK
+        return n, TRAIN_STATE_BYTES * n + train_extra(cfg, layers)
+
+    layers = cfg.n_layers
+    while layers > 1 and need(layers)[1] > REG_BUDGET:
+        layers -= 1
+    n, b = need(layers)
+    check(b <= REG_BUDGET, f"{cfg.name}: one layer takes {b} bytes to {kind}, over {REG_BUDGET}")
+    whole_n, whole_b = need(cfg.n_layers)
+    return {"layers": layers, "of": cfg.n_layers, "params": n, "bytes": b,
+            "whole_params": whole_n, "whole_bytes": whole_b, "per_layer": per, "outer": outer}
+
+
+def reckoning_line(cfg, kind, r):
+    how = ("bf16 weights at 2 bytes a parameter + " + f"{SERVE_SLACK:.0f}" if kind == "serve"
+           else f"state at {TRAIN_STATE_BYTES} bytes a parameter + the step's "
+           f"{train_extra(cfg, r['layers']):.0f}")
+    cut = "the whole" if r["layers"] == r["of"] else (
+        f"cut: the whole ({r['whole_params']} parameters) needs {r['whole_bytes']:.0f}")
+    return (f"{kind} at {r['layers']} of {r['of']} layers: {r['params']} parameters ({r['per_layer']} "
+            f"a layer + {r['outer']}), {r['bytes']:.0f} bytes reckoned ({how}; limit "
+            f"{REG_BUDGET:.0f}); {cut}")
+
+
+def reg_launches(layers):
+    """The attention launches of one 4k step at ``layers`` layers: the
+    forward twice a layer (remat), each backward kernel once, all on the
+    tensor cores."""
+    return {"flash_attention": 2 * layers, "flash_attention_wgmma": 2 * layers,
+            "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkdv": layers,
+            "flash_attention_bwd_dq_wgmma": layers, "flash_attention_bwd_dkdv_wgmma": layers}
+
+
+def reg_batch(torch, cfg, step, dev):
+    """Step ``step``'s batch: 1 x REG_SEQ tokens (of each codebook) from the
+    synthetic stream (seed TRAIN_SEED, as the launcher's ``--seed``), and a
+    VLM's patch embeddings."""
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+
+    batch = to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=REG_SEQ, batch=1,
+                                         n_codebooks=cfg.n_codebooks, seed=TRAIN_SEED), step),
+                      dev)
+    if cfg.n_vis_tokens:
+        batch["vis_embeds"] = vis_embeds(torch, cfg, 1, dev, seed=TRAIN_SEED + step)
+    return batch
+
+
+def registry_serving(torch, ops, cfg, dev):
+    """4k's serving: ``cfg`` at its reckoned serving depth behind an
+    OpportunisticServer (``serve_model``), its first 2 layers decoded
+    against a cache-free forward, an MoE's layer 0 against float64."""
+    import dataclasses as dc
+
+    from repro_torch.models import init_model
+
+    r = reckon_depth(cfg, "serve")
+    cut = cfg if r["layers"] == cfg.n_layers else dc.replace(cfg, n_layers=r["layers"])
+    t0 = time.perf_counter()
+    model = init_model(cut, seed=SERVE_SEED, device=dev)
+    torch.cuda.synchronize()
+    params = list(model.parameters())
+    n = sum(p.numel() for p in params)
+    nbytes = sum(p.numel() * p.element_size() for p in params)
+    del params
+    check(n == r["params"], f"{cfg.name}: the served model has {n} parameters, the reckoning "
+          f"{r['params']}")
+    print(f"[reg-serve] {cfg.name}: {cut.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, vocab {cfg.vocab}"
+          + (f" x {cfg.n_codebooks} codebooks" if cfg.n_codebooks > 1 else "")
+          + f": {n} parameters, {nbytes} bytes on the card, made in {time.perf_counter() - t0} s",
+          flush=True)
+
+    def checks(cold_t):
+        decode_vs_forward(torch, ops, dc.replace(cfg, n_layers=REG_CHECK_LAYERS), model, dev,
+                          DECODE_STEPS, "reg-serve")
+        if cfg.moe is not None:
+            moe_layer0(torch, cut, model, cold_t, dev)
+
+    launches = serve_model(torch, ops, cut, model, dev, "reg-serve", checks, trace_decode=False)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def registry_training(torch, ops, name, dev):
+    """4k's training: ``name``'s config at its reckoned training depth, 4 steps of
+    1 x REG_SEQ tokens (through ``launch.train.main`` where the whole model
+    fits, else ``make_train_step`` on the cut config), the attention
+    launches a step as predicted; the first step again from the same state
+    under ``roofline.count()`` (its flops equal to the meta dry run's, its
+    bytes within ROUTE_BYTES_TOL, the attention launches the counter
+    charged), then once more profiled: params, moments and loss equal;
+    check 2 at REG_CHECK_LAYERS layers.  → the training run's launches."""
+    import dataclasses as dc
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import SINGLE, init_model
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    cfg = get_config(name)
+    r = reckon_depth(cfg, "train")
+    layers = r["layers"]
+    cut = cfg if layers == cfg.n_layers else dc.replace(cfg, n_layers=layers)
+    shape = ShapeConfig("cli", "train", seq_len=REG_SEQ, global_batch=1)
+    run = RunConfig(model=cut, shape=shape, dp=1, tp=1, remat="full")
+    opt = launcher_opt(TRAIN_STEPS)
+    want = reg_launches(layers)
+    tokens = REG_SEQ + cut.n_vis_tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()  # counts start at 0 just before the training path
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if layers == cfg.n_layers:
+        flags = ["--arch", name, "--full-config", "--steps",
+                 str(TRAIN_STEPS), "--batch", "1", "--seq", str(REG_SEQ), "--remat", "full",
+                 "--seed", str(TRAIN_SEED)]
+        stats, log = quiet(launch_train.main, flags)
+        steps_ms = [t * 1e3 for t in stats.step_times]
+        losses, norms = stats.losses, stats.grad_norms
+        how = "launch.train.main " + " ".join(flags) + "; launcher output: " + " | ".join(
+            log.strip().splitlines())
+    else:
+        model, opt_state = init_train_state(cut, run, seed=TRAIN_SEED, device=dev)
+        step_fn, _ = make_train_step(cut, run, opt=opt)
+        steps_ms, losses, norms = [], [], []
+        for step in range(TRAIN_STEPS):
+            batch = reg_batch(torch, cut, step, dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model, opt_state, m = step_fn(model, opt_state, batch)
+            losses.append(float(m["loss"]))
+            steps_ms.append((time.perf_counter() - t1) * 1e3)
+            norms.append(float(m["grad_norm"]))
+        del model, opt_state, m, batch
+        how = f"make_train_step on the config cut to {layers} layers"
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[reg-train] {cfg.name}, {TRAIN_STEPS} steps of 1 x {tokens} tokens ({how}) in {wall} "
+          "s: step ms " + json.dumps(steps_ms) + ", tokens/s "
+          + json.dumps([tokens / t * 1e3 for t in steps_ms]) + ", losses " + json.dumps(losses)
+          + ", grad norms " + json.dumps(norms) + f", peak device memory {peak} bytes (reckoned "
+          f"{r['bytes']:.0f}); launches " + json.dumps({k: launches[k] for k in want}),
+          flush=True)
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses + norms),
+          f"{cfg.name} training: a loss or gradient norm is not finite")
+    for name, n in want.items():
+        check(launches[name] == n * TRAIN_STEPS, f"{cfg.name} training: {name} launched "
+              f"{launches[name]} times in {TRAIN_STEPS} steps, not {n * TRAIN_STEPS}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first step twice from the same state: counted, then profiled
+    t0 = time.perf_counter()
+    meta = dryrun.whole_step_counter(cut, run, SINGLE, "train")
+    meta_s = time.perf_counter() - t0
+    step_fn, _ = make_train_step(cut, run, opt=opt)
+    batch = reg_batch(torch, cut, 0, dev)
+    prints, step_loss = [], []
+    for i in range(2):
+        model, opt_state = init_train_state(cut, run, seed=TRAIN_SEED, device=dev)
+        torch.cuda.synchronize()
+        if i == 0:
+            ops.reset_launch_counts()
+            with RL.count() as c:
+                model, opt_state, m = step_fn(model, opt_state, batch)
+                torch.cuda.synchronize()
+            counted = ops.launch_counts()
+        else:
+            out = {}
+
+            def one_step():
+                out["state"] = step_fn(model, opt_state, batch)
+
+            with moe_ranges(torch, cfg.moe is not None) as ranges:
+                pwall, busy, copy, kern, spans = profiled(torch, one_step, ranges)
+            model, opt_state, m = out.pop("state")
+        step_loss.append(m["loss"])
+        prints.append(fingerprint(torch, {"params": model.tree(), "opt": opt_state}))
+        del model, opt_state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    repeat_s = time.perf_counter() - t0 - meta_s
+    check(prints[0] == prints[1] and torch.equal(step_loss[0], step_loss[1]),
+          f"{cfg.name}: the same step from the same state gave other params, moments or loss: "
+          + json.dumps([k for k in prints[0] if prints[0][k] != prints[1][k]]))
+    diffs = op_differences(c.by_op, meta.by_op)
+    gap = abs(c.cost.bytes - meta.cost.bytes) / meta.cost.bytes
+    print(f"[reg-train] {cfg.name}: the step repeated from the same state gave params, AdamW "
+          f"moments (all {len(prints[0])} leaves' two 64-bit checksums) and loss "
+          f"({float(step_loss[0])}) equal; counted on the card {c.cost.flops} flops, "
+          f"{c.cost.bytes} bytes, on meta {meta.cost.flops}, {meta.cost.bytes} ({gap} apart; ops "
+          f"that differ: {json.dumps(diffs)}); charged " + json.dumps(c.charged) + ", launched "
+          + json.dumps({k: counted[k] for k in want}) + f"; counted on meta in {meta_s} s, the "
+          f"two steps with their states made and fingerprinted in {repeat_s} s", flush=True)
+    check(c.cost.flops == meta.cost.flops, f"4k {cfg.name}: the step on the card counts "
+          f"{c.cost.flops} flops, the meta dry run {meta.cost.flops}; ops that differ: "
+          + json.dumps(diffs))
+    check(gap < ROUTE_BYTES_TOL, f"4k {cfg.name}: bytes on the card {c.cost.bytes} against "
+          f"{meta.cost.bytes} on meta; ops that differ: " + json.dumps(diffs))
+    for name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+        n = c.charged.get(name, 0)
+        check(counted[name] == counted[name + "_wgmma"] == n == want[name],
+              f"4k {cfg.name}: {name} launched {counted[name]} times ({counted[name + '_wgmma']} "
+              f"on the tensor cores), the counter charged {n}, a step makes {want[name]}")
+    attn, gemm, moved = trace_split(kern, cfg.moe is not None)
+    moe_part = (f", MoE sort / gather / scatter / index {moved} ms; the MoE layer's forward and "
+                "remat passes (host ms, device ms) " + json.dumps(spans)
+                if cfg.moe is not None else "")
+    print(f"[reg-trace] {cfg.name} one step at {layers} layers, profiled: wall {pwall} ms, device "
+          f"kernels {busy} ms (attention kernels {attn} ms, GEMMs {gemm} ms{moe_part}, other "
+          f"{busy - attn - gemm - moved} ms), device copies {copy} ms, device idle "
+          f"{100 * (1 - (busy + copy) / pwall)}%; top: "
+          + ", ".join(f"{k[:50]} {t}" for t, k in kern[:8]), flush=True)
+    shares(f"{cfg.name} at {layers} layers (4k)", meta.cost.flops, RL.model_flops_for(cut, shape),
+           max(meta.cost.flops / RL.PEAK_FLOPS, meta.cost.bytes / RL.HBM_BW), steps_ms[1:])
+
+    # check 2: the kernels against the plain attention, the first 2 layers
+    t0 = time.perf_counter()
+    small = dc.replace(cfg, n_layers=REG_CHECK_LAYERS)
+    model = init_model(small, seed=TRAIN_SEED, device=dev, trainable=True)
+    (moe_step_vs_plain if cfg.moe is not None else step_vs_plain)(torch, ops, small, model, dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[reg-train] {cfg.name}: check 2 took {time.perf_counter() - t0} s", flush=True)
+    return {k: launches[k] for k in TRAINING}
+
+
+def registry_phase(torch, ops, dev):
+    """Phase 4k: each of REGISTRY served and trained (depths reckoned and
+    printed first); → the attention launches of its training runs."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    for name in REGISTRY:
+        cfg = get_config(name)
+        for kind in ("serve", "train"):
+            print(f"[reg] {cfg.name} " + reckoning_line(cfg, kind, reckon_depth(cfg, kind)),
+                  flush=True)
+    total = {k: 0 for k in TRAINING}
+    for name in REGISTRY:
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        registry_serving(torch, ops, cfg, dev)
+        serve_s = time.perf_counter() - t0
+        for k, n in registry_training(torch, ops, name, dev).items():
+            total[k] += n
+        print(f"[reg] {cfg.name} took {time.perf_counter() - t0} s (serving {serve_s} s)",
+              flush=True)
+    print("[reg] flash_attention launches in phase 4k: " + json.dumps(total)
+          + f"; phase took {time.perf_counter() - t_phase} s", flush=True)
+    return total
+
+
 def card_setup(torch, sources=None):
     """How every run of these phases starts, the whole script's and a
     tool's: IEEE float32 products for the plain versions (no TF32), the
@@ -5613,6 +6174,11 @@ def main() -> int:
         launches[kernel] += n
     print(f"[train-ssd] phase took {time.perf_counter() - t0} s", flush=True)
 
+    # -- phase 4k: the five registered models no earlier phase runs, served
+    # and trained at full width; their training launches join the JSON line's
+    for kernel, n in registry_phase(torch, ops, dev).items():
+        launches[kernel] += n
+
     # -- phase 5: kernel vs plain, then timing, at the main path's shapes
     t0 = time.perf_counter()
     mp = main_path_parity(torch, K, shapes, rng, dev)
@@ -5623,7 +6189,8 @@ def main() -> int:
         errs[name] = max(errs[name], mpc[name][0])
     train_shapes = (TRAIN_ATTN, (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0), RG_ATTN,
                     (2, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0), MOE_ATTN,
-                    (2, 24, 8, 1024, 1024, 64, "bfloat16", True, None, 0), WIDE_ATTN)
+                    (2, 24, 8, 1024, 1024, 64, "bfloat16", True, None, 0), WIDE_ATTN,
+                    *REG_ATTN.values())
     for name, e in attention_parity(torch, rng, dev, train_shapes, "training").items():
         errs[name] = max(errs[name], e)
     print(f"[shapes] kernel vs plain passed at every main-path shape in "

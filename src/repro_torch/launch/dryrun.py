@@ -7,9 +7,9 @@ Nothing is allocated on any device: the mesh is
 parts (``corrected_costs``: outer + Σ n x layer + accumulation + AdamW) or,
 with ``--no-probe``, whole.  The per-device figures split the step's work
 evenly over the mesh, as the reference's cost analysis of a step sharded by
-GSPMD reads it; the port's single-controller mesh runs a data row's dense
-products on the row's first card (ROADMAP A7b), so for ``tp > 1`` it
-realises another split.  The collective term is reckoned from the port's
+GSPMD reads it; the port's single-controller model mesh (``launch/mesh.py``)
+runs a data row's dense products on the row's first card, so for ``tp > 1``
+it realises another split.  The collective term is reckoned from the port's
 placements and transfer points (``probe.collective_costs``).  Decode cells
 place the parameters over the model axis only unless ``--serve-fsdp``.
 

@@ -18,6 +18,7 @@ data row; the placements are what the reference's dry-run shards.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional, Tuple
 
@@ -46,6 +47,12 @@ class ShardCtx:
 
 SINGLE = ShardCtx()
 
+# A leaf of more elements is drawn one slice of its first (layer-stack)
+# dimension at a time: drawn whole, its float32 draw and the scaled copy
+# take 8 bytes an element beside the leaf (qwen3_moe_30b_a3b's stacked
+# experts, 9.66e9 elements a leaf, could not be made on an 80 GB card).
+WHOLE_DRAW_MAX = 1 << 31
+
 
 @dataclass(frozen=True)
 class ParamSpec:
@@ -68,8 +75,16 @@ class ParamSpec:
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dt, device=device)
         scale = float(self.init.split(":", 1)[1]) if ":" in self.init else 0.02
-        out = torch.randn(self.shape, generator=gen, dtype=torch.float32, device=device)
-        return (out * scale).to(dt)
+        if math.prod(self.shape) <= WHOLE_DRAW_MAX:
+            out = torch.randn(self.shape, generator=gen, dtype=torch.float32, device=device)
+            return (out * scale).to(dt)
+        # drawn a slice of the first dimension at a time, so that the
+        # float32 draw beside the leaf is one slice's (ROADMAP C16)
+        out = torch.empty(self.shape, dtype=dt, device=device)
+        for i in range(self.shape[0]):
+            out[i] = torch.randn(self.shape[1:], generator=gen, dtype=torch.float32,
+                                 device=device).mul_(scale)
+        return out
 
 
 def _divides(dim: int, parts: int) -> bool:

@@ -154,9 +154,12 @@ class Block(ParamTree):
         return w[shard * e_loc:(shard + 1) * e_loc]
 
     def forward(self, x, positions, ctx: ShardCtx, layer: int = 0, cache=None, mesh=None,
-                use_ep: bool = False, shards: Optional[Sequence["Block"]] = None):
+                use_ep: bool = False, shards: Optional[Sequence["Block"]] = None,
+                cfg: Optional[ModelConfig] = None):
         """``shards``: this block on each model shard's device (the model's
-        replicas there), whose expert slices the shards compute with."""
+        replicas there), whose expert slices the shards compute with.
+        ``cfg``: the config the caller runs the model under (``lm.forward``'s,
+        as the reference's blocks take it), else the one it was made with."""
         tree = self.tree()
         ep = shards is not None and "moe" in tree
         params = use_tree(tree, x.device, layer if self.stacked else None,
@@ -169,5 +172,5 @@ class Block(ParamTree):
                     moe[name] = tuple(b.expert_slice(name, layer, s, len(shards), devices[s])
                                       for s, b in enumerate(shards))
             params = dict(params, moe=moe)
-        return block_fwd(self.btype, params, self.cfg, x, positions, ctx, cache=cache,
+        return block_fwd(self.btype, params, cfg or self.cfg, x, positions, ctx, cache=cache,
                          use_ep=use_ep, mesh=mesh)

@@ -332,7 +332,7 @@ def forward(
                 c_in = None if cache is None else _index(cache["groups"][key], g)
                 shards = None if shard_models is None else [m.groups[key] for m in shard_models]
                 x, c_out, aux = block(x, positions, ctx, layer=g, cache=c_in, mesh=mesh,
-                                      use_ep=use_ep, shards=shards)
+                                      use_ep=use_ep, shards=shards, cfg=cfg)
                 auxes.append(aux)
                 if c_out is not None:
                     outs[key].append(c_out)
@@ -352,7 +352,8 @@ def forward(
             shards = None if shard_models is None else [m.extra[key] for m in shard_models]
             x, c_out, aux = region(
                 lambda x, block=block, c_in=c_in, shards=shards: block(
-                    x, positions, ctx, cache=c_in, mesh=mesh, use_ep=use_ep, shards=shards), x)
+                    x, positions, ctx, cache=c_in, mesh=mesh, use_ep=use_ep, shards=shards,
+                    cfg=cfg), x)
             merge(aux)
             if c_out is not None:
                 extra[key] = c_out

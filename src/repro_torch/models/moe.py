@@ -41,7 +41,7 @@ padded experts included.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,19 +68,23 @@ def moe_spec(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _route(params, cfg: ModelConfig, xf: torch.Tensor, e_pad: int):
+def _route(params, cfg: ModelConfig, xf: torch.Tensor, e_pad: int,
+           top_e: Optional[torch.Tensor] = None):
     """Router: top-k over the real experts (padded ones masked to -1e30) →
     (weights (T, k) float32 summing to 1, experts (T, k) int64, aux losses).
     The top k are the first k of a stable descending sort, so of two equal
     probabilities the lower expert index comes first, as in
-    ``jax.lax.top_k``."""
+    ``jax.lax.top_k``.  Given ``top_e``, those experts are taken instead,
+    their weights and the aux losses from this router's probabilities (a
+    check replays another run's routing so)."""
     moe = cfg.moe
     logits = (xf @ params["router"].to(xf.dtype)).float()
     if e_pad > moe.n_experts:
         pad_mask = torch.arange(e_pad, device=xf.device) >= moe.n_experts
         logits = torch.where(pad_mask[None, :], -1e30, logits)
     probs = torch.softmax(logits, dim=-1)
-    top_e = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :moe.top_k]
+    if top_e is None:
+        top_e = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :moe.top_k]
     top_w = probs.gather(-1, top_e)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     # aux losses (Switch-style load balance + router z-loss)

@@ -15,6 +15,11 @@ Mapping of the paper's concepts onto interactive LLM serving:
 
 A request whose prompt was speculatively prefilled during think time starts
 decoding immediately — the serving analogue of Figure 1(b).
+
+A prompt is a sequence of token ids, or for a multi-codebook config
+(``cfg.n_codebooks`` K > 1) K such sequences of one length, as
+``greedy_generate`` takes them; its tokens come back (K, n).  The
+reference's server takes the first form only (ROADMAP C15).
 """
 from __future__ import annotations
 
@@ -57,6 +62,14 @@ class CacheResult:
                        for t in [self.logits, *cache_tensors(self.cache)]))
 
 
+def _literal(prompt) -> tuple:
+    """A prompt as a hashable literal: its token ids, or a tuple of each
+    codebook's (a prompt of K sequences)."""
+    if np.ndim(prompt) == 2:
+        return tuple(tuple(int(t) for t in row) for row in prompt)
+    return tuple(int(t) for t in prompt)
+
+
 class OpportunisticServer:
     """Single-model interactive server scheduled by the core engine.  It runs
     on ``device`` (the card unless asked), where ``params`` must lie."""
@@ -94,8 +107,8 @@ class OpportunisticServer:
         eng = self.engine
 
         def prefill_units(node: Node, inputs) -> List[Unit]:
-            prompt = np.asarray(node.literals[0], np.int32)[None, :]
-            chunks = range(0, prompt.shape[1], self.prefill_chunk)
+            prompt = np.asarray(node.literals[0], np.int32)
+            chunks = range(0, prompt.shape[-1], self.prefill_chunk)
 
             def chunk_fn(a):
                 def run():
@@ -111,9 +124,9 @@ class OpportunisticServer:
 
         def prefill_combine(node: Node, inputs, results):
             prompt = torch.tensor(node.literals[0], dtype=torch.int64,
-                                  device=self.device)[None, :]
+                                  device=self.device)[None]
             logits, cache = self._prefill(self.params, prompt)
-            return CacheResult(logits, cache, prompt.shape[1])
+            return CacheResult(logits, cache, prompt.shape[-1])
 
         eng.register_op(
             "prefill", OpRuntime(units=prefill_units, combine=prefill_combine)
@@ -132,11 +145,12 @@ class OpportunisticServer:
             logits, cache = pre.logits, pre.cache
             outs = []
             pos = pre.prompt_len
+            multi = self.cfg.n_codebooks > 1
             for t in range(n):
                 nxt = logits[..., : self.cfg.vocab].argmax(-1)
                 outs.append(nxt.cpu().numpy().astype(np.int32))
                 logits, cache = self._decode(
-                    self.params, cache, nxt[:, None],
+                    self.params, cache, nxt[:, :, None] if multi else nxt[:, None],
                     torch.tensor(pos + t, dtype=torch.int32, device=self.device),
                 )
             return GenResult(np.stack(outs, -1)[0])
@@ -161,9 +175,7 @@ class OpportunisticServer:
     def _prefill_node(
         self, prompt: Sequence[int], tenant: Optional[str] = None
     ) -> Node:
-        node = self.engine.add(
-            "prefill", literals=[tuple(int(t) for t in prompt)]
-        )
+        node = self.engine.add("prefill", literals=[_literal(prompt)])
         self._subscribe(node, tenant)
         return node
 

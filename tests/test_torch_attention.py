@@ -471,11 +471,19 @@ def test_smoke_model_forward_vs_reference(arch, dtype):
     np.testing.assert_allclose(tl.float().numpy(), jl, rtol=0, atol=rel * np.abs(jl).max())
 
 
-def test_smoke_smollm_prefill_and_greedy_decode_vs_reference():
-    """Serving a dense model on the cache branch: last-token prefill logits
-    within 1e-5 of the largest and 8 greedy tokens equal (float32)."""
-    cfg, tcfg, jparams, model = _models("smollm_360m", "float32")
-    prompt = _rng("prompt").integers(0, cfg.vocab, (2, 24)).astype(np.int32)
+@pytest.mark.parametrize("arch", ["smollm_360m", "musicgen_large", "h2o_danube_3_4b",
+                                  "starcoder2_7b", "qwen3_moe_30b_a3b", "internvl2_76b"])
+def test_smoke_smollm_prefill_and_greedy_decode_vs_reference(arch):
+    """Serving on the cache branch: last-token prefill logits within 1e-5 of
+    the largest and 8 greedy tokens equal (float32).  musicgen_large's prompt
+    is (B, 4, S) and its tokens (B, 4, 8); h2o_danube_3_4b's 28-token prompt
+    fills most of its smoke window's ring of 32 slots (prefilled as the
+    reference prefills it, ROADMAP C7) and its decode steps wrap it;
+    internvl2_76b is served text-only."""
+    cfg, tcfg, jparams, model = _models(arch, "float32")
+    S = 28 if cfg.window else 24
+    shape = (2, S) if cfg.n_codebooks == 1 else (2, cfg.n_codebooks, S)
+    prompt = _rng("prompt", arch).integers(0, cfg.vocab, shape).astype(np.int32)
     with jops.local_backend("xla"):
         jpre, jdec, _ = j_serve_fns(cfg, JShardCtx(), capacity=64)
         jl, _ = jpre(jparams, jnp.asarray(prompt))

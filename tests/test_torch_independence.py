@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: ``repro_torch``, ``chip_smoke.py``,
 ``tools/ssd_scan_variants.py``, ``tools/ssd_train_phases.py``,
-``tools/ssd_bwd_variants.py`` and
+``tools/ssd_bwd_variants.py``, ``tools/registry_phases.py`` and
 ``examples/torch_*.py`` import neither
 JAX nor the JAX package,
 ``repro_torch`` keeps the reference's module layout, and the smoke script
@@ -37,7 +37,7 @@ def _forbidden(name: str) -> bool:
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
     + ["chip_smoke.py", "tools/ssd_scan_variants.py", "tools/ssd_train_phases.py",
-       "tools/ssd_bwd_variants.py"]
+       "tools/ssd_bwd_variants.py", "tools/registry_phases.py"]
     + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("torch_*.py")),
 )
 def test_no_jax_or_reference_import(path):

@@ -53,7 +53,8 @@ def _setup(arch="smollm_360m", seq=32, **run_kw):
     jparams = j_init_model(cfg, JShardCtx(), seed=0)
     model = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, device="cpu",
                               trainable=True)
-    data = batch_at(SynthSpec(vocab=cfg.vocab, seq_len=seq, batch=4, seed=1), 0)
+    data = batch_at(SynthSpec(vocab=cfg.vocab, seq_len=seq, batch=4,
+                              n_codebooks=cfg.n_codebooks, seed=1), 0)
     shape = dict(SHAPE, seq_len=seq)
     jrun = JRunConfig(model=cfg, shape=JShape(**shape), dp=1, tp=1, **run_kw)
     trun = RunConfig(model=tcfg, shape=ShapeConfig(**shape), dp=1, tp=1, **run_kw)
@@ -76,8 +77,13 @@ def _jtree(tree):
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])
-def test_loss_and_every_gradient_vs_jax_value_and_grad(remat):
-    cfg, tcfg, jparams, model, data, jrun, trun = _setup(remat=remat)
+@pytest.mark.parametrize("arch,seq", [("smollm_360m", 32), ("musicgen_large", 32),
+                                      ("h2o_danube_3_4b", 48), ("starcoder2_7b", 32)])
+def test_loss_and_every_gradient_vs_jax_value_and_grad(arch, seq, remat):
+    """musicgen_large takes tokens (B, 4, S) and sums four heads' losses;
+    h2o_danube_3_4b's 48 tokens pass its smoke window of 32, so the window
+    cuts; starcoder2_7b is LayerNorm + gelu at GQA group 4 (smoke)."""
+    cfg, tcfg, jparams, model, data, jrun, trun = _setup(arch, seq, remat=remat)
     jbatch = {k: jnp.asarray(v) for k, v in data.items()}
     with jops.local_backend("xla"):
         (jl, _), jg = jax.value_and_grad(
