@@ -299,6 +299,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    profiled, params, moments and loss equal (every leaf's two 64-bit
    checksums); check 2 at 2 layers (the MoE's as 4f's); mfu and the bound's
    share of each warm step;
+4l. tensor parallelism — ``internvl2_76b`` (64 (8) heads, 256 patch
+   embeddings) and ``starcoder2_7b`` at full width over ``make_mesh(1, 4,
+   devices=[cuda:0] * 4)``, each at the deepest depth where its whole copy
+   and its four slices fit 76 GB together (``tp_depth``; 16 of 80 and all 32
+   layers): made whole and, from the same seed, straight into its slices
+   (each leaf whose placement names the model axis a quarter a shard,
+   ``models/tp.py``), each shard's bytes the placements' reckoning, every
+   slice equal to the whole draw's quarter; the cache-free forward over the
+   shards (4,352 and 4,096 positions) with ``attn_fwd_wgmma`` launched once
+   a layer a shard at the shard's heads, its logits within 2^-5 of the
+   largest |logit| of the no-mesh forward's, and a TP sum that drops shard
+   3's parts over that limit (the control); layer 0 against float64 with
+   the whole weights on its first 1,024 positions; a repeat in a fresh mesh
+   bit for bit; one forward traced (the ``tp_broadcast``, ``tp_sum`` and
+   ``tp_gather`` ranges' device ms); ``make_serve_fns(mesh)``'s 1,024-token
+   prefill and 16 greedy decode steps, each step's logits against the
+   no-mesh decode fed the same tokens, walls beside the no-mesh run's;
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2 (segment_reduce with all its contracts), at every shape the
    main path (or the serving phase, or phase 3c's sharded run) gave it;
@@ -314,7 +331,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    with the window as a mask), at phase 4f's, 4 x 24 (8) x 4,096 x 64, at
    phase 4h's heads over four sequences, 4 x 32 (8) x 4,096 x 128, and at
    phase 4k's five training shapes, each also held against the plain
-   attention (output and the three gradients);
+   attention (output and the three gradients), and the forward at phase
+   4l's two shard shapes, 1 x 16 (2) x 4,352 x 128 and 1 x 9 (1) x 4,096 x
+   128;
    segment_reduce also at B = 100,000 and at B = 1,000 with one sum row;
    join_probe's wrapper beside its bare C entry point, against
    ``torch.searchsorted``; masked_stats, topk and filter_compact each
@@ -4676,24 +4695,32 @@ MESH_STEP = {"flash_attention": 256, "flash_attention_wgmma": 256,
              "flash_attention_bwd_dq_wgmma": 128, "flash_attention_bwd_dkdv_wgmma": 128}
 
 
-def mesh_generate(torch, cfg, model, pre, dec, prompt):
-    """A greedy prefill + N_TOKENS decode steps → (tokens, last logits,
-    prefill ms, ms a decode token), synchronized walls."""
-    torch.cuda.synchronize()
+def mesh_generate(torch, cfg, model, pre, dec, prompt, feed=None):
+    """A prefill + N_TOKENS decode steps, greedy or fed ``feed`` (B,
+    N_TOKENS) → (tokens, each step's last logits (the prefill's first),
+    prefill ms, ms a decode token, the cache), walls synchronized on every
+    card."""
+    def sync():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+    sync()
     t0 = time.perf_counter()
     with torch.no_grad():
         logits, cache = pre(model, prompt)
-        torch.cuda.synchronize()
+        sync()
         t1 = time.perf_counter()
-        outs = []
+        outs, steps = [], [logits]
         for t in range(N_TOKENS):
-            nxt = logits[..., :cfg.vocab].argmax(-1).to(torch.int32)
+            nxt = (logits[..., :cfg.vocab].argmax(-1).to(torch.int32) if feed is None
+                   else feed[:, t])
             outs.append(nxt)
             pos = torch.tensor(prompt.shape[1] + t, dtype=torch.int32, device=prompt.device)
             logits, cache = dec(model, cache, nxt[:, None], pos)
-        torch.cuda.synchronize()
+            steps.append(logits)
+        sync()
     t2 = time.perf_counter()
-    return (torch.stack(outs, -1), logits, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / N_TOKENS, cache)
+    return (torch.stack(outs, -1), steps, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / N_TOKENS, cache)
 
 
 def mesh_serving(torch, devices):
@@ -4727,7 +4754,7 @@ def mesh_serving(torch, devices):
 
     plain = make_serve_fns(cfg, ctx, capacity=2048)[:2]
     meshed = make_serve_fns(cfg, ctx, mesh=mesh, capacity=2048, use_ep=True)[:2]
-    toks0, last0, pre0, dec0, _ = mesh_generate(torch, cfg, model, *plain, prompt)
+    toks0, _, pre0, dec0, _ = mesh_generate(torch, cfg, model, *plain, prompt)
     # one decode step counted: the split-S calls and each shard's experts
     calls = {"split": 0, "ep": []}
     split_fn, ep_fn = attention._split_s_decode, moe.moe_ffn_ep
@@ -4741,7 +4768,8 @@ def mesh_serving(torch, devices):
                             x.device))
         return ep_fn(params_local, cfg_, x, ctx_, shard)
 
-    toks1, last1, pre1, dec1, cache = mesh_generate(torch, cfg, model, *meshed, prompt)
+    toks1, steps1, pre1, dec1, cache = mesh_generate(torch, cfg, model, *meshed, prompt)
+    last1 = steps1[-1]
     kv = cache["groups"]["p0_attn"]
     check(isinstance(kv, attention.ShardedKVCache) and len(kv.k) == MESH_TP
           and all(kv.k[s].device == mesh.device(0, s) and kv.k[s].shape[-2] == 2048 // MESH_TP
@@ -4771,10 +4799,10 @@ def mesh_serving(torch, devices):
 
     # a whole repeat in a fresh mesh: tokens and last logits bit for bit
     mesh2 = make_mesh(1, MESH_TP, devices=devices)
-    toks2, last2, pre2, dec2, _ = mesh_generate(
+    toks2, steps2, pre2, dec2, _ = mesh_generate(
         torch, cfg, model, *make_serve_fns(cfg, ctx, mesh=mesh2, capacity=2048, use_ep=True)[:2],
         prompt)
-    check(torch.equal(toks2, toks1) and torch.equal(last2, last1),
+    check(torch.equal(toks2, toks1) and torch.equal(steps2[-1], last1),
           "a repeat in a fresh mesh gave other tokens or last logits")
     toks3, _, pre3, dec3, _ = mesh_generate(torch, cfg, model, *plain, prompt)
     check(torch.equal(toks3, toks0), "the no-mesh run repeated other tokens")
@@ -6020,6 +6048,414 @@ def registry_phase(torch, ops, dev):
     return total
 
 
+# ---------------------------------------------------------------- phase 4l --
+
+TP_SHARDS = 4
+TP_MODELS = ("internvl2_76b", "starcoder2_7b")
+# Depth is cut only where the whole model (the no-mesh reference) and its
+# four slices, each reckoned from the placements (tp_reckoning: every leaf
+# in its serving type), pass TP_BUDGET together with TP_SLACK: the two
+# cache-free forwards' bf16 logits over 4,096 positions, the activations at
+# 4,352 positions, layer 0's weights cast to float64 one at a time, and the
+# serving caches.
+TP_BUDGET = REG_BUDGET
+TP_SLACK = 10e9
+TP_PROMPT = 1024
+TP_TOL = DECODE_TOL  # of the largest |value|: logits, layer 0's output, decode steps
+# The logits and the decode steps are held on the models cut to their first
+# TP_HOLD_DEPTH layers (as phase 4k holds its decode check): through 16
+# random-weight layers of internvl2_76b the whole and the sliced paths'
+# roundings grew 0.52 of a largest |logit| of 11.8 apart (an H100), as one
+# bf16 rounding grows through phase 4b's 64 layers.  The distances are
+# printed at TP_DEPTHS and the full depth.
+TP_HOLD_DEPTH = 2
+TP_DEPTHS = (1, 2, 4, 8)
+TP_RANGES = ("tp_broadcast", "tp_sum", "tp_gather")
+# layer 0 against float64 on its first positions (causal: they see only
+# each other), so that the float64 products stay small
+TP_F64_POSITIONS = 1024
+# the forward kernel at the shards' shapes (phase 4l): internvl2_76b's 64
+# (8) heads and starcoder2_7b's 36 (4), each a quarter a shard
+TP_ATTN = {
+    "internvl2_76b tp4": (1, 16, 2, 4352, 4352, 128, "bfloat16", True, None, 0),
+    "starcoder2_7b tp4": (1, 9, 1, 4096, 4096, 128, "bfloat16", True, None, 0),
+}
+
+
+def tp_reckoning(cfg, ctx):
+    """The bytes each of ``ctx.tp`` model shards of a data row holds of
+    ``cfg``'s serving weights, reckoned from the placements
+    (``tp.model_dim``): a split leaf a ``tp``-th on every shard, a whole one
+    on shard 0."""
+    from repro_torch.models import tp as TP
+    from repro_torch.models.base import tree_flatten
+    from repro_torch.models.layers import compute_dtype
+    from repro_torch.models.lm import model_spec
+
+    compute = compute_dtype(cfg)
+    out = [0] * ctx.tp
+    for path, s in tree_flatten(model_spec(cfg, ctx)):
+        nbytes = math.prod(s.shape) * s.dtype(compute).itemsize
+        if TP.model_dim(s.placement, path) is None:
+            out[0] += nbytes
+        else:
+            out = [b + nbytes // ctx.tp for b in out]
+    return out
+
+
+def tp_depth(cfg):
+    """Phase 4l's depth for ``cfg``: its own, or the deepest at which the
+    whole model and its slices (twice the placements' bytes) and TP_SLACK
+    fit TP_BUDGET → {layers, of, bytes}."""
+    from repro_torch.models import ShardCtx
+
+    ctx = ShardCtx(tp=TP_SHARDS)
+
+    def need(layers):
+        return 2 * sum(tp_reckoning(dataclasses.replace(cfg, n_layers=layers), ctx)) + TP_SLACK
+
+    layers = cfg.n_layers
+    while layers > 1 and need(layers) > TP_BUDGET:
+        layers -= 1
+    b = need(layers)
+    check(b <= TP_BUDGET, f"{cfg.name}: one layer and its slices take {b} bytes, over "
+          f"{TP_BUDGET}")
+    return {"layers": layers, "of": cfg.n_layers, "bytes": b}
+
+
+def logits_err(torch, got, want, rows=512):
+    """(max |got - want|, max |want|) over the positions of (B, S, ...)
+    tensors, compared ``rows`` positions at a time in float32."""
+    err = scale = 0.0
+    for i in range(0, want.shape[1], rows):
+        a, b = got[:, i:i + rows].float(), want[:, i:i + rows].float()
+        err = max(err, float((a - b).abs().max()))
+        scale = max(scale, float(b.abs().max()))
+    return err, scale
+
+
+@contextlib.contextmanager
+def first_block(torch):
+    """Records the first block a forward runs (layer 0): its input and
+    output (``blocks.block_fwd``)."""
+    from repro_torch.models import blocks
+
+    fn, seen = blocks.block_fwd, {}
+
+    def recording(btype, params, cfg, x, positions, ctx, **kw):
+        out = fn(btype, params, cfg, x, positions, ctx, **kw)
+        if not seen:
+            seen.update(x=x, out=out[0])
+        return out
+
+    blocks.block_fwd = recording
+    try:
+        yield seen
+    finally:
+        blocks.block_fwd = fn
+
+
+@contextlib.contextmanager
+def attention_calls(torch):
+    """Records each call of the attention entry point: (q's shape, k's
+    shape, q's device, k's device)."""
+    from repro_torch.kernels import ops
+
+    fn, calls = ops.attention, []
+
+    def recording(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), q.device, k.device))
+        return fn(q, k, v, **kw)
+
+    ops.attention = recording
+    try:
+        yield calls
+    finally:
+        ops.attention = fn
+
+
+def layer0_whole(torch, model):
+    """Layer 0's parameters of the first group, a tensor-parallel model's
+    slices joined onto its first device (the whole weights)."""
+    from repro_torch.models import tp as TP
+    from repro_torch.models.base import tree_map
+
+    first = model.device
+    block = next(iter(model.groups.values()))
+    return tree_map(lambda t: torch.cat([p[0].to(first) for p in t.parts], t.dim - 1)
+                    if isinstance(t, TP.Shards) else t[0], block.tree())
+
+
+def layer0_f64(torch, cfg, w, x):
+    """Block 0 (pre-norm attention and MLP, each with its residual add) in
+    float64 on ``x`` (B, P, d) at positions 0..P-1, causal, with the whole
+    weights ``w`` (each cast to float64 where it is used) → (B, P, d)."""
+    import torch.nn.functional as F
+
+    check(cfg.window is None, "layer0_f64 takes no window")
+    xd = x.double()
+    B, P, _ = xd.shape
+    hd, half = cfg.head_dim, cfg.head_dim // 2
+
+    def norm(p, t):
+        if cfg.norm_type == "layernorm":
+            mu = t.mean(-1, keepdim=True)
+            var = (t - mu).square().mean(-1, keepdim=True)
+            return (t - mu) * torch.rsqrt(var + 1e-5) * p["scale"].double() + p["bias"].double()
+        return t * torch.rsqrt(t.square().mean(-1, keepdim=True) + 1e-6) * p["scale"].double()
+
+    pos = torch.arange(P, dtype=torch.float64, device=x.device)
+    inv = cfg.rope_theta ** (-torch.arange(half, dtype=torch.float64, device=x.device) / half)
+    cos, sin = (pos[:, None] * inv).cos(), (pos[:, None] * inv).sin()
+
+    def heads(h, wt, scale=None, rope=True):
+        t = (h @ wt.double()).reshape(B, P, -1, hd)
+        if scale is not None:
+            t = t * torch.rsqrt(t.square().mean(-1, keepdim=True) + 1e-6) * scale.double()
+        t = t.transpose(1, 2)
+        if not rope:
+            return t
+        t1, t2 = t[..., :half], t[..., half:2 * half]
+        return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin, t[..., 2 * half:]], -1)
+
+    a = w["attn"]
+    h = norm(w["norm1"], xd)
+    group = cfg.n_q_heads // cfg.n_kv_heads
+    q = heads(h, a["wq"], a.get("q_norm"))
+    k = heads(h, a["wk"], a.get("k_norm")).repeat_interleave(group, 1)
+    v = heads(h, a["wv"], rope=False).repeat_interleave(group, 1)
+    s = (q @ k.transpose(-1, -2)) * hd ** -0.5
+    causal = torch.ones(P, P, dtype=torch.bool, device=x.device).tril()
+    o = torch.softmax(s.masked_fill(~causal, float("-inf")), -1) @ v
+    x1 = xd + o.transpose(1, 2).reshape(B, P, -1) @ a["wo"].double()
+    del q, k, v, s, o
+    m = w["mlp"]
+    h2 = norm(w["norm2"], x1)
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        g = h2 @ m["w_gate"].double()
+        g = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(g, approximate="tanh")
+        hid = g * (h2 @ m["w_up"].double())
+    else:
+        hid = F.gelu(h2 @ m["w_up"].double(), approximate="tanh")
+    return x1 + hid @ m["w_down"].double()
+
+
+def tp_layer0(torch, cfg, model, x, outs):
+    """Layer 0 on its input ``x`` against float64 with the whole weights
+    (``model``'s slices joined), on the first TP_F64_POSITIONS positions →
+    {label: max |err| / max |float64|} of each output in ``outs``."""
+    P = TP_F64_POSITIONS
+    with torch.no_grad():
+        ref = layer0_f64(torch, cfg, layer0_whole(torch, model), x[:, :P])
+        scale = float(ref.abs().max())
+        errs = {k: float((o[:, :P].double() - ref).abs().max()) / scale for k, o in outs.items()}
+    del ref
+    torch.cuda.empty_cache()
+    return errs
+
+
+def tp_forward(torch, cut, model, tokens, ctx, mesh, vis):
+    """The cache-free forward over ``mesh`` (its logits), with the attention
+    entry point's calls and layer 0's input and output recorded: each
+    layer's attention once a shard, at the shard's heads, on its device."""
+    from repro_torch.models.lm import forward
+
+    with torch.no_grad(), attention_calls(torch) as calls, first_block(torch) as seen:
+        logits = forward(model, cut, tokens, ctx, mesh=mesh, vis_embeds=vis)[0]
+    S = tokens.shape[-1] + (cut.n_vis_tokens if vis is not None else 0)
+    hq = cut.n_q_heads // TP_SHARDS
+    hkv = cut.n_kv_heads // TP_SHARDS if cut.kv_sharded(TP_SHARDS) else (
+        1 if (cut.n_q_heads // cut.n_kv_heads) % hq == 0 else hq)
+    want = [((1, hq, S, cut.head_dim), (1, hkv, S, cut.head_dim), mesh.device(0, s),
+             mesh.device(0, s)) for _ in range(cut.n_layers) for s in range(TP_SHARDS)]
+    check(calls == want, f"{cut.name}: the attention calls over the shards "
+          f"{calls[:TP_SHARDS]}... ({len(calls)}), not once a layer a shard at {want[0][:2]}")
+    return logits, seen
+
+
+def tp_depths(torch, cut, models, tokens, ctx, mesh, vis, depths):
+    """The cache-free forward of ``models`` (whole, sliced) cut to each of
+    ``depths`` layers: {depth: (max |err| over the largest |logit|, the share
+    of positions whose top token agrees)}."""
+    from repro_torch.models.lm import forward
+
+    out = {}
+    for depth in depths:
+        c = dataclasses.replace(cut, n_layers=depth)
+        with torch.no_grad():
+            want = forward(models[0], c, tokens, ctx, vis_embeds=vis)[0]
+        got = tp_forward(torch, c, models[1], tokens, ctx, mesh, vis)[0]
+        err, scale = logits_err(torch, got, want)
+        top = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        out[depth] = (err / scale, top)
+        del got, want
+    return out
+
+
+def tp_decode_err(torch, cut, models, fns, prompt):
+    """A greedy prefill and N_TOKENS decode steps of the sliced model, and
+    the whole model's fed the same tokens → (the worst step's max |err| over
+    its largest |logit|, prefill ms and ms a decode token, sliced then
+    whole)."""
+    toks, steps, pre_tp, dec_tp, _ = mesh_generate(torch, cut, models[1], *fns[1], prompt)
+    _, want, pre_w, dec_w, _ = mesh_generate(torch, cut, models[0], *fns[0], prompt, feed=toks)
+    errs = [logits_err(torch, a[:, None], b[:, None]) for a, b in zip(steps, want)]
+    return max(e / s for e, s in errs), (pre_tp, dec_tp, pre_w, dec_w)
+
+
+def tp_serving(torch, name, devices):
+    """Phase 4l for one model: ``name`` at full width and tp_depth's depth,
+    whole on the first device and in slices over ``make_mesh(1, 4,
+    devices=devices)``; → the forward kernel's launches (all, tensor-core).
+    The logits and the decode steps are held on the models cut to
+    TP_HOLD_DEPTH layers: through the full depth of a random-weight model
+    the two paths' roundings grow apart (the distances are printed at
+    TP_DEPTHS and the full depth); layer 0 is held against float64."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, init_model
+    from repro_torch.models import tp as TP
+    from repro_torch.models.base import tree_flatten
+    from repro_torch.models.lm import forward
+    from repro_torch.serve import make_serve_fns
+
+    cfg = get_config(name)
+    r = tp_depth(cfg)
+    cut = dataclasses.replace(cfg, n_layers=r["layers"])
+    held = dataclasses.replace(cfg, n_layers=TP_HOLD_DEPTH)
+    ctx = ShardCtx(tp=TP_SHARDS)
+    mesh = make_mesh(1, TP_SHARDS, devices=devices)
+    first = mesh.first
+    t0 = time.perf_counter()
+    whole = init_model(cut, ctx, seed=SERVE_SEED, device=first)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model = init_model(cut, ctx, seed=SERVE_SEED, mesh=mesh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    got, want = TP.shard_bytes(model.tree(), TP_SHARDS), tp_reckoning(cut, ctx)
+    check(got == want, f"{name}: the shards hold {got} bytes, the placements reckon {want}")
+    wleaves = dict(tree_flatten(whole.tree()))
+    n_split = 0
+    for path, leaf in tree_flatten(model.tree()):
+        w = wleaves[path]
+        if not isinstance(leaf, TP.Shards):
+            check(torch.equal(leaf, w), f"{name} {path}: a whole leaf differs from the whole draw")
+            continue
+        n_split += 1
+        n = leaf.shape[leaf.dim] // TP_SHARDS
+        check(all(p.shape[leaf.dim] == n and p.numel() * TP_SHARDS == w.numel()
+                  and torch.equal(p, w.narrow(leaf.dim, s * n, n))
+                  for s, p in enumerate(leaf.parts)),
+              f"{name} {path}: the slices are not the whole draw's quarters")
+    print(f"[tp] {cut.name} at {cut.n_layers} of {cfg.n_layers} layers (whole + slices "
+          f"{r['bytes']:.0f} bytes reckoned, limit {TP_BUDGET:.0f}), ShardCtx(tp={TP_SHARDS}) "
+          f"over {[str(d) for d in mesh.devices]}: whole made in {t1 - t0} s, sliced in "
+          f"{t2 - t1} s; {n_split} leaves in quarters equal to the whole draw's, each shard's "
+          f"bytes {got} the placements' reckoning", flush=True)
+
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    tokens = torch.as_tensor(rng.integers(0, cut.vocab, (1, REG_SEQ)), device=first)
+    vis = vis_embeds(torch, cut, 1, first, seed=SERVE_SEED) if cut.n_vis_tokens else None
+    S = tokens.shape[-1] + (cut.n_vis_tokens if vis is not None else 0)
+    before = (fa.launches.value, fa.launches_wgmma.value)
+    with torch.no_grad(), first_block(torch) as seen_whole:
+        want_l = forward(whole, cut, tokens, ctx, vis_embeds=vis)[0]
+    got_l, seen = tp_forward(torch, cut, model, tokens, ctx, mesh, vis)
+    torch.cuda.synchronize()
+    check(fa.launches.value - before[0] == fa.launches_wgmma.value - before[1]
+          == cut.n_layers * (1 + TP_SHARDS), f"{name}: the two forwards' launches "
+          f"{fa.launches.value - before[0]} ({fa.launches_wgmma.value - before[1]} on "
+          f"attn_fwd_wgmma), not {cut.n_layers} + {cut.n_layers * TP_SHARDS}")
+    check(bool(torch.isfinite(got_l).all()) and got_l.shape == want_l.shape,
+          f"{name}: TP logits not finite or of shape {tuple(got_l.shape)}")
+    err, scale = logits_err(torch, got_l, want_l)
+    top = float((got_l.argmax(-1) == want_l.argmax(-1)).float().mean())
+    del want_l
+    l0 = tp_layer0(torch, cut, model, seen["x"], {"tp": seen["out"], "whole": seen_whole["out"]})
+    del seen, seen_whole
+    check(l0["tp"] <= TP_TOL, f"{name}: layer 0 over the shards max |err| {l0['tp']} of the "
+          f"largest |float64| value, over {TP_TOL}")
+    mesh2 = make_mesh(1, TP_SHARDS, devices=devices)
+    again = tp_forward(torch, cut, model, tokens, ctx, mesh2, vis)[0]
+    check(torch.equal(again, got_l), f"{name}: a repeat in a fresh mesh gave other logits")
+    del again, got_l
+    print(f"[tp] {cut.name}: cache-free forward over {S} positions, attention once a layer a "
+          f"shard ({cut.n_layers * TP_SHARDS} attn_fwd_wgmma launches at 1 x "
+          f"{cut.n_q_heads // TP_SHARDS} ({cut.n_kv_heads // TP_SHARDS}) x {S} x "
+          f"{cut.head_dim}); layer 0 against float64 over {TP_F64_POSITIONS} positions (max "
+          f"|err| over the largest |value|): over the shards {l0['tp']}, whole {l0['whole']} "
+          f"(limit {TP_TOL}); a repeat in a fresh mesh bit for bit; at {cut.n_layers} layers "
+          f"the logits against the no-mesh forward's {err / scale} of the largest |logit| "
+          f"{scale}, top token equal at {top} of the positions", flush=True)
+
+    dist = tp_depths(torch, cut, (whole, model), tokens, ctx, mesh, vis, TP_DEPTHS)
+    fn = TP.reduce_sum
+    TP.reduce_sum = lambda parts, device: fn(parts[:-1], device)  # the control drops a shard
+    try:
+        bad = tp_depths(torch, cut, (whole, model), tokens, ctx, mesh, vis,
+                        (TP_HOLD_DEPTH,))[TP_HOLD_DEPTH][0]
+    finally:
+        TP.reduce_sum = fn
+    held_err = dist[TP_HOLD_DEPTH][0]
+    check(held_err <= TP_TOL, f"{name} at {TP_HOLD_DEPTH} layers: TP logits max |err| "
+          f"{held_err} of the largest |logit|, over {TP_TOL}")
+    check(bad > TP_TOL, f"{name} at {TP_HOLD_DEPTH} layers: a TP sum that drops shard 3's "
+          f"parts kept the logits within the limit ({bad})")
+    print(f"[tp] {cut.name}: logits against the no-mesh forward, max |err| over the largest "
+          f"|logit| (top token equal) by depth: " + json.dumps(dist) + f"; held at "
+          f"{TP_HOLD_DEPTH} layers (limit {TP_TOL}), where a TP sum that drops shard 3's parts "
+          f"reads {bad}", flush=True)
+
+    def traced():
+        with torch.no_grad():
+            forward(model, cut, tokens, ctx, mesh=mesh2, vis_embeds=vis)
+
+    wall, kern_ms, copy_ms, kern, spans = profiled(torch, traced, TP_RANGES)
+    torch.cuda.synchronize()
+    n_all, n_wgmma = fa.launches.value - before[0], fa.launches_wgmma.value - before[1]
+    print(f"[tp] {cut.name}: a traced forward over the shards {wall} ms wall, {kern_ms} ms of "
+          f"kernels, {copy_ms} ms of copies; the moves' ranges (host ms, device ms): "
+          + json.dumps(spans) + "; top kernels: "
+          + json.dumps([(round(t, 3), k[:60]) for t, k in kern[:6]]), flush=True)
+
+    prompt = torch.as_tensor(rng.integers(0, cut.vocab, (1, TP_PROMPT)), device=first)
+    worst = {}
+    for c in (held, cut):
+        fns = (make_serve_fns(c, ctx, capacity=2048)[:2],
+               make_serve_fns(c, ctx, mesh=mesh, capacity=2048)[:2])
+        worst[c.n_layers], walls = tp_decode_err(torch, c, (whole, model), fns, prompt)
+    check(worst[TP_HOLD_DEPTH] <= TP_TOL, f"{name} at {TP_HOLD_DEPTH} layers: a decode step over "
+          f"the shards moved {worst[TP_HOLD_DEPTH]} of the largest |logit| from the no-mesh "
+          f"decode's, over {TP_TOL}")
+    print(f"[tp] {cut.name}: make_serve_fns over the mesh, a {TP_PROMPT}-token prefill and "
+          f"{N_TOKENS} greedy decode steps against the no-mesh decode fed the same tokens, worst "
+          f"step's max |err| over its largest |logit|: {json.dumps(worst)} by depth (held at "
+          f"{TP_HOLD_DEPTH}, limit {TP_TOL}); at {cut.n_layers} layers prefill TP {walls[0]} ms, "
+          f"no mesh {walls[2]} ms; decode TP {walls[1]} ms a token, no mesh {walls[3]} ms",
+          flush=True)
+    del whole, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": n_all, "flash_attention_wgmma": n_wgmma}
+
+
+def tp_phase(torch, ops, dev):
+    """Phase 4l: TP_MODELS served over four model shards emulated on the
+    card; → the forward kernel's launches."""
+    t0 = time.perf_counter()
+    total = {"flash_attention": 0, "flash_attention_wgmma": 0}
+    for name in TP_MODELS:
+        for k, n in tp_serving(torch, name, [dev] * TP_SHARDS).items():
+            total[k] += n
+    print(f"[tp] phase 4l: {json.dumps(total)} forward launches; took "
+          f"{time.perf_counter() - t0} s", flush=True)
+    return total
+
+
 def card_setup(torch, sources=None):
     """How every run of these phases starts, the whole script's and a
     tool's: IEEE float32 products for the plain versions (no TF32), the
@@ -6179,6 +6615,11 @@ def main() -> int:
     for kernel, n in registry_phase(torch, ops, dev).items():
         launches[kernel] += n
 
+    # -- phase 4l: tensor parallelism over four model shards emulated on the
+    # card; its cache-free forwards' launches join the JSON line's
+    for kernel, n in tp_phase(torch, ops, dev).items():
+        launches[kernel] += n
+
     # -- phase 5: kernel vs plain, then timing, at the main path's shapes
     t0 = time.perf_counter()
     mp = main_path_parity(torch, K, shapes, rng, dev)
@@ -6190,7 +6631,7 @@ def main() -> int:
     train_shapes = (TRAIN_ATTN, (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0), RG_ATTN,
                     (2, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0), MOE_ATTN,
                     (2, 24, 8, 1024, 1024, 64, "bfloat16", True, None, 0), WIDE_ATTN,
-                    *REG_ATTN.values())
+                    *REG_ATTN.values(), *TP_ATTN.values())
     for name, e in attention_parity(torch, rng, dev, train_shapes, "training").items():
         errs[name] = max(errs[name], e)
     print(f"[shapes] kernel vs plain passed at every main-path shape in "
@@ -6201,6 +6642,9 @@ def main() -> int:
           flush=True)
     tm = timings(torch, K, shapes, rng, dev)
     tm.update(attention_timings(torch, rng, dev))
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    tm.update({f"flash_attention {name}": forward_timing(torch, rng, dev, shape, flush)
+               for name, shape in TP_ATTN.items()})
     tm.update(ssd_bwd_timing(torch, rng, dev))
     for name, t in tm.items():
         print(f"[time] {name} shape {t['shape']}: kernel {t['ms']} ms, "

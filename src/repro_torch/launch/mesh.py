@@ -11,8 +11,10 @@ one device.
 
 A data row is one position of the data axes (``pod`` × ``data``, flattened
 in order); its shards are the positions of the ``model`` axis.  Row ``r``'s
-first device holds what the row keeps replicated; shard ``s`` of the row
-holds its slice of the experts and of the KV cache.
+first device holds what the row keeps whole; shard ``s`` of the row holds
+its slice of the experts and of the KV cache and, for a model made in
+slices (``models/tp.py``), its slice of every leaf whose placement names
+the model axis.
 
 A function, not a module-level constant: importing this module touches no
 device.

@@ -26,6 +26,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
+from . import tp as TP
 from .base import ParamSpec, ShardCtx, matrix_spec, replicated_spec
 from .layers import apply_rope, compute_dtype, rms_head_norm, rope_freqs
 
@@ -123,18 +124,58 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, window: Optional[
                    pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def _heads(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, norm=None) -> torch.Tensor:
+    """x (B, S, d) @ w (d, H·D) → (B, H, S, D), qk-normed by ``norm``."""
     B, S, _ = x.shape
-    dt = x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(B, S, cfg.n_q_heads, cfg.head_dim)
-    k = (x @ params["wk"].to(dt)).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ params["wv"].to(dt)).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        q = rms_head_norm(params["q_norm"], q)
-        k = rms_head_norm(params["k_norm"], k)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
+    t = (x @ w.to(x.dtype)).reshape(B, S, -1, cfg.head_dim)
+    if norm is not None:
+        t = rms_head_norm(norm.to(t.device), t)
+    return t.transpose(1, 2)
+
+
+def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    q = _heads(cfg, x, params["wq"], params.get("q_norm"))
+    k = _heads(cfg, x, params["wk"], params.get("k_norm"))
+    v = _heads(cfg, x, params["wv"])
     cos, sin = rope_freqs(cfg, positions)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v.contiguous()
+
+
+def _project_tp(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """The q, k and v heads of a block whose ``wq`` (and ``wo``) are held
+    in head slices over the shards → ([(q_s, k_s, v_s) on shard s's
+    device], the whole (k, v) on x's device or None).  Each shard projects
+    its own q heads and, where ``wk`` / ``wv`` are sliced too, its own kv
+    heads; else k and v are projected once with the whole weights on x's
+    device, and each shard takes the kv heads its q heads read (a group's
+    head, its run of heads, or one kv head a q head where the groups cut
+    across the shards)."""
+    wq = params["wq"]
+    devs = [w.device for w in wq]
+    n = len(devs)
+    kv_split = isinstance(params["wk"], tuple)
+    whole = None
+    if not kv_split:
+        cos, sin = rope_freqs(cfg, positions)
+        whole = (apply_rope(_heads(cfg, x, params["wk"], params.get("k_norm")), cos, sin),
+                 _heads(cfg, x, params["wv"]).contiguous())
+    hq = cfg.n_q_heads // n
+    group = cfg.n_q_heads // cfg.n_kv_heads
+    out = []
+    for s, (xs, ps) in enumerate(zip(TP.broadcast(x, devs), TP.broadcast(positions, devs))):
+        shard = {"wq": wq[s], "q_norm": params.get("q_norm")}
+        if kv_split:
+            shard.update(wk=params["wk"][s], wv=params["wv"][s], k_norm=params.get("k_norm"))
+            out.append(_project_qkv(shard, cfg, xs, ps))
+            continue
+        cos, sin = rope_freqs(cfg, ps)
+        q = apply_rope(_heads(cfg, xs, wq[s], params.get("q_norm")), cos, sin)
+        heads = torch.arange(s * hq, (s + 1) * hq, device=x.device) // group
+        if group % hq == 0:  # the shard's q heads share one kv head
+            heads = heads[:1]
+        k, v = TP.scatter([t[:, heads] for t in whole], [xs.device] * 2)
+        out.append((q, k, v))
+    return out, whole
 
 
 def _write(buf: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -160,63 +201,91 @@ def attention_block(
 ):
     """Full-sequence (train / prefill) or cached (decode) attention.
     ``mesh``: the data row's model mesh (one data row; ``lm.forward``
-    splits a batch over the rows)."""
+    splits a batch over the rows).
+
+    Weights in head slices over the row's model shards (``params["wq"]``
+    a tuple, ``models/tp.py``): without a cache each shard attends over its
+    own heads on its own device (the flash_attention kernel at the shard's
+    shape); with one, the shards' q, k and v heads join on x's device, where
+    the cache (or, split-S, its slots' shards) lies, and the output goes
+    back to each shard's heads.  Each shard multiplies its heads by its rows
+    of ``wo``, and the parts add on x's device in shard order."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x, positions)
     if mesh is not None and mesh.dp_total != 1:
         raise ValueError(f"attention_block runs one data row; the mesh has {mesh.dp_total}")
+    if isinstance(params["wq"], tuple):
+        wo = params["wo"]
+        devs = [w.device for w in wo]
+        heads, whole = _project_tp(params, cfg, x, positions)
+        if cache is None:
+            outs = [kops.attention(q, k, v, causal=True, window=window) for q, k, v in heads]
+            new_cache = None
+        else:
+            q = TP.join([h[0] for h in heads], 1, x.device)
+            k, v = whole or (TP.join([h[i] for h in heads], 1, x.device) for i in (1, 2))
+            out, new_cache = _attend_cached(cfg, q, k, v, cache, window, mesh, ctx)
+            outs = TP.scatter(out.chunk(len(devs), dim=1), devs)
+        parts = [o.transpose(1, 2).reshape(B, S, -1) @ w.to(x.dtype) for o, w in zip(outs, wo)]
+        return TP.reduce_sum(parts, x.device), new_cache
 
-    use_split_s = (cache is not None and S == 1 and mesh is not None and ctx is not None
-                   and ctx.tp > 1 and split_s_eligible(cache.capacity, window, ctx.tp))
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    if cache is None:
+        out, new_cache = kops.attention(q, k, v, causal=True, window=window), None
+    else:
+        out, new_cache = _attend_cached(cfg, q, k, v, cache, window, mesh, ctx)
+    out = out.transpose(1, 2).reshape(B, S, cfg.n_q_heads * cfg.head_dim)
+    return out @ params["wo"].to(x.dtype), new_cache
+
+
+def _attend_cached(cfg: ModelConfig, q, k, v, cache, window, mesh, ctx):
+    """q (B, Hq, S, D), k / v (B, Hkv, S, D) roped, on the cache's (first)
+    device, appended to the cache and attended → (out (B, Hq, S, D) in q's
+    type, the written cache).  One token over a mesh under the reference's
+    condition decodes split-S."""
+    S = q.shape[2]
+    use_split_s = (S == 1 and mesh is not None and ctx is not None and ctx.tp > 1
+                   and split_s_eligible(cache.capacity, window, ctx.tp))
     if use_split_s:
         if isinstance(cache, KVCache):
             cache = ShardedKVCache.split(cache, mesh.row_devices(0))
         out, new_cache = _split_s_decode(q * (cfg.head_dim ** -0.5), k, v, cache)
-        out = out.to(x.dtype)[:, :, None, :]  # (B, Hq, 1, D)
-        out = out.transpose(1, 2).reshape(B, S, cfg.n_q_heads * cfg.head_dim)
-        return out @ params["wo"].to(x.dtype), new_cache
+        return out.to(q.dtype)[:, :, None, :], new_cache  # (B, Hq, 1, D)
 
     sharded = cache if isinstance(cache, ShardedKVCache) else None
     if sharded is not None:
         cache = sharded.gathered()
-    if cache is None:
-        out = kops.attention(q, k, v, causal=True, window=window)
-        new_cache = None
+    # append to the cache (a ring buffer for windowed attention)
+    cap = cache.capacity
+    ring = window is not None and cap == window
+    slot = cache.pos % cap if ring else cache.pos
+    k_new, v_new = _write(cache.k, k, slot), _write(cache.v, v, slot)
+    new_cache = KVCache(k=k_new, v=v_new, pos=cache.pos + S)
+    # causal within the block just written, and only written slots.  For
+    # the contiguous cache a slot is an absolute position; in the ring
+    # every resident entry is within the window, so "written" and the
+    # block's own causality are the only constraints.
+    dev = q.device
+    kpos = torch.arange(cap, device=dev)[None, :]  # (1, cap) slot ids
+    rows = torch.arange(S, device=dev)[:, None]  # (S, 1)
+    if ring:
+        kslot_new = (cache.pos + torch.arange(S, device=dev)) % cap
+        written = kpos < torch.clamp(cache.pos + S, max=cap)
+        new_order = torch.where(kpos == kslot_new[:, None], rows, -1)
+        causal_new = (new_order <= rows) | (new_order < 0)
+        valid = written & causal_new
     else:
-        # append to the cache (a ring buffer for windowed attention)
-        cap = cache.capacity
-        ring = window is not None and cap == window
-        slot = cache.pos % cap if ring else cache.pos
-        k_new, v_new = _write(cache.k, k, slot), _write(cache.v, v, slot)
-        new_cache = KVCache(k=k_new, v=v_new, pos=cache.pos + S)
-        # causal within the block just written, and only written slots.  For
-        # the contiguous cache a slot is an absolute position; in the ring
-        # every resident entry is within the window, so "written" and the
-        # block's own causality are the only constraints.
-        dev = x.device
-        kpos = torch.arange(cap, device=dev)[None, :]  # (1, cap) slot ids
-        rows = torch.arange(S, device=dev)[:, None]  # (S, 1)
-        if ring:
-            kslot_new = (cache.pos + torch.arange(S, device=dev)) % cap
-            written = kpos < torch.clamp(cache.pos + S, max=cap)
-            new_order = torch.where(kpos == kslot_new[:, None], rows, -1)
-            causal_new = (new_order <= rows) | (new_order < 0)
-            valid = written & causal_new
-        else:
-            valid = (kpos <= cache.pos + rows) & (kpos < cache.pos + S)
-        group = cfg.n_q_heads // cfg.n_kv_heads
-        qf = q.float() * (cfg.head_dim ** -0.5)
-        kf = k_new.float().repeat_interleave(group, dim=1)
-        vf = v_new.float().repeat_interleave(group, dim=1)
-        logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
-        logits = logits.masked_fill(~valid[None, None], float("-inf"))
-        probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(x.dtype)
-        if sharded is not None:  # the written cache back on its shards
-            new_cache = ShardedKVCache.split(new_cache, [t.device for t in sharded.k])
-
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_q_heads * cfg.head_dim)
-    return out @ params["wo"].to(x.dtype), new_cache
+        valid = (kpos <= cache.pos + rows) & (kpos < cache.pos + S)
+    group = cfg.n_q_heads // cfg.n_kv_heads
+    qf = q.float() * (cfg.head_dim ** -0.5)
+    kf = k_new.float().repeat_interleave(group, dim=1)
+    vf = v_new.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    logits = logits.masked_fill(~valid[None, None], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
+    if sharded is not None:  # the written cache back on its shards
+        new_cache = ShardedKVCache.split(new_cache, [t.device for t in sharded.k])
+    return out, new_cache
 
 
 def _split_s_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -12,9 +12,13 @@ Each spec carries the reference's placement: one entry per dimension,
 ``None``, the model axis, or the data axes (``"data"``, or ``("pod",
 "data")``), equal to ``tuple(pspec)`` of the reference's ``PartitionSpec``
 (Megatron TP over ``model``, ZeRO/FSDP over the data axes where the
-dimension divides).  The single-controller mesh (``launch/mesh.py``) keeps
-the experts' slices on their model shards and replicates the rest on each
-data row; the placements are what the reference's dry-run shards.
+dimension divides).  Over the single-controller mesh (``launch/mesh.py``) a
+model made for serving at ``tp > 1`` keeps, on each data row, slice ``s``
+of every leaf whose placement names the model axis on the row's shard
+``s`` (``models/tp.py``; the SSD and RG-LRU blocks' leaves excepted) and the
+rest whole on the row's first device; a train state keeps its data-axis
+slices on the rows (``models/fsdp.py``).  The placements are what the
+reference's dry run shards.
 """
 from __future__ import annotations
 
@@ -67,6 +71,23 @@ class ParamSpec:
     def dtype(self, compute: torch.dtype, master: bool = False) -> torch.dtype:
         return compute if self.at_use and not master else torch.float32
 
+    @property
+    def drawn_whole(self) -> bool:
+        """Whether :meth:`materialise` makes the leaf in one draw; else it
+        draws one slice of the first dimension at a time
+        (:meth:`draw_slice`), so that the float32 draw beside the leaf is
+        one slice's (ROADMAP C16)."""
+        return self.init in ("zeros", "ones") or math.prod(self.shape) <= WHOLE_DRAW_MAX
+
+    def draw_slice(self, gen: torch.Generator, device) -> torch.Tensor:
+        """The next first-dimension slice of a leaf not drawn whole: float32,
+        scaled; stored, it rounds to the leaf's type."""
+        return torch.randn(self.shape[1:], generator=gen, dtype=torch.float32,
+                           device=device).mul_(self._scale())
+
+    def _scale(self) -> float:
+        return float(self.init.split(":", 1)[1]) if ":" in self.init else 0.02
+
     def materialise(self, gen: torch.Generator, compute: torch.dtype,
                     device, master: bool = False) -> torch.Tensor:
         dt = self.dtype(compute, master)
@@ -74,16 +95,12 @@ class ParamSpec:
             return torch.zeros(self.shape, dtype=dt, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dt, device=device)
-        scale = float(self.init.split(":", 1)[1]) if ":" in self.init else 0.02
-        if math.prod(self.shape) <= WHOLE_DRAW_MAX:
+        if self.drawn_whole:
             out = torch.randn(self.shape, generator=gen, dtype=torch.float32, device=device)
-            return (out * scale).to(dt)
-        # drawn a slice of the first dimension at a time, so that the
-        # float32 draw beside the leaf is one slice's (ROADMAP C16)
+            return (out * self._scale()).to(dt)
         out = torch.empty(self.shape, dtype=dt, device=device)
         for i in range(self.shape[0]):
-            out[i] = torch.randn(self.shape[1:], generator=gen, dtype=torch.float32,
-                                 device=device).mul_(scale)
+            out[i] = self.draw_slice(gen, device)
         return out
 
 

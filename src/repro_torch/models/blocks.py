@@ -1,6 +1,13 @@
 """Per-layer blocks with per-type caches: (pre-norm residual) attention and
 local-attention blocks with their MLP or MoE feed-forward, the SSD block,
-and the RG-LRU block with its MLP."""
+and the RG-LRU block with its MLP.
+
+A block's leaves held in slices over a data row's model shards
+(``models/tp.py``) reach the layers as tuples of the shards' slices; the
+norms and the residual adds stay on the row's first device.  An MoE block
+keeps its feed-forward as it is: expert-parallel under ``use_ep`` (its
+experts' slices are the shards' experts), else the global path on the
+experts joined on the first device."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -9,6 +16,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from . import tp as TP
 from .base import ShardCtx
 from .attention import attention_block, attn_spec, init_kv_cache
 from .fsdp import Sliced, gather, use_tree
@@ -95,16 +103,16 @@ class ParamTree(nn.Module):
     """A nested dict of tensors held as a module: its parameter names are
     the tree's paths joined by dots, so the reference's parameter tree maps
     onto the port's one to one.  ``trainable`` parameters require grad.  A
-    leaf stored in slices over a mesh (``fsdp.Sliced``) is held as it is,
-    outside the module's parameters."""
+    leaf stored in slices over a mesh (``fsdp.Sliced``, ``tp.Shards``) is
+    held as it is, outside the module's parameters."""
 
     def __init__(self, tree: Dict[str, Any], trainable: bool = False):
         super().__init__()
-        self._sliced: Dict[str, Sliced] = {}
+        self._sliced: Dict[str, Any] = {}
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v, trainable))
-            elif isinstance(v, Sliced):
+            elif isinstance(v, (Sliced, TP.Shards)):
                 self._sliced[k] = v
                 setattr(self, k, v)
             else:
@@ -172,5 +180,9 @@ class Block(ParamTree):
                     moe[name] = tuple(b.expert_slice(name, layer, s, len(shards), devices[s])
                                       for s, b in enumerate(shards))
             params = dict(params, moe=moe)
+        elif "moe" in params and not (use_ep and mesh is not None):
+            # experts in slices over the shards, run by the global path
+            params = dict(params, moe={k: TP.join(w, 0, x.device) if isinstance(w, tuple) else w
+                                       for k, w in params["moe"].items()})
         return block_fwd(self.btype, params, cfg or self.cfg, x, positions, ctx, cache=cache,
                          use_ep=use_ep, mesh=mesh)

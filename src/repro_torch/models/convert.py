@@ -8,7 +8,10 @@ attention and MLP weights, embeddings and head) is stored in that type; one
 it computes with in float32 (``a_log``, ``dt_bias``, ``d_skip``, the conv
 weights, the norm and qk-norm scales) stays float32.  For training
 (``trainable=True``) every leaf is float32 and requires grad, as the
-reference keeps its master weights.
+reference keeps its master weights.  Over a ``mesh`` of ``tp > 1`` model
+shards (serving) each leaf is placed as a tensor-parallel model holds it
+(``models/tp.py``): sliced over the first data row's shards where its
+placement names the model axis, else whole on the row's first device.
 """
 from __future__ import annotations
 
@@ -18,34 +21,43 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from . import tp as TP
 from .base import SINGLE, ShardCtx, resolve_device
 from .layers import compute_dtype
 from .lm import LM, model_spec
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None,
-                      trainable: bool = False, ctx: ShardCtx = SINGLE) -> LM:
+                      trainable: bool = False, ctx: ShardCtx = SINGLE, mesh=None) -> LM:
     """``tree``: the reference's parameter tree with numpy leaves
     (``jax.tree.map(np.asarray, params)``), made at ``ctx`` (whose ``tp``
     pads the vocab and the experts) → the port's model on ``device`` (the
     card unless asked), in the serving storage or, ``trainable``, the
-    training storage."""
-    dev = resolve_device(device)
+    training storage; over ``mesh`` (``tp > 1``), tensor parallel."""
+    sliced = mesh is not None and mesh.tp > 1
+    if sliced and (trainable or mesh.tp != ctx.tp):
+        raise ValueError(f"a tensor-parallel model serves only, at its mesh's ShardCtx(tp="
+                         f"{mesh.tp}); asked trainable={trainable} at tp={ctx.tp}")
+    devices = mesh.row_devices(0) if sliced else None
+    dev = resolve_device(device if devices is None else devices[0])
     compute = compute_dtype(cfg)
 
     def walk(spec, arrays, path):
         if set(spec) != set(arrays):
-            raise ValueError(f"{path or 'params'}: keys {sorted(arrays)} != {sorted(spec)}")
+            where = "/".join(path)
+            raise ValueError(f"{where and '/' + where or 'params'}: keys {sorted(arrays)} != "
+                             f"{sorted(spec)}")
         out = {}
         for key, s in spec.items():
-            where = f"{path}/{key}"
             if isinstance(s, dict):
-                out[key] = walk(s, arrays[key], where)
+                out[key] = walk(s, arrays[key], path + (key,))
                 continue
             a = np.array(arrays[key], dtype=np.float32)  # a writable copy
             if a.shape != s.shape:
-                raise ValueError(f"{where}: shape {a.shape} != {s.shape}")
-            out[key] = torch.from_numpy(a).to(device=dev, dtype=s.dtype(compute, trainable))
+                raise ValueError(f"/{'/'.join(path + (key,))}: shape {a.shape} != {s.shape}")
+            t = torch.from_numpy(a).to(dtype=s.dtype(compute, trainable))
+            out[key] = (TP.place(t, s.placement, path + (key,), devices) if sliced
+                        else t.to(dev))
         return out
 
-    return LM(cfg, walk(model_spec(cfg, ctx), tree, ""), ctx, trainable=trainable)
+    return LM(cfg, walk(model_spec(cfg, ctx), tree, ()), ctx, trainable=trainable)

@@ -34,6 +34,7 @@ import torch
 from torch.profiler import record_function
 
 from .moe import EXPERT_LEAVES
+from .tp import Shards, model_dim
 
 
 class Sliced:
@@ -196,11 +197,14 @@ def gather(leaf: Sliced, device, layer: Optional[int] = None,
 def use_tree(tree, device, layer: Optional[int] = None, skip: Tuple[str, ...] = ()):
     """A parameter tree as the computation on ``device`` uses it: each
     :class:`Sliced` leaf gathered (layer ``layer`` of a stacked tree), each
+    ``tp.Shards`` leaf the tuple of its shards' slices where they lie, each
     tensor indexed at ``layer``; keys in ``skip`` are left out."""
     if isinstance(tree, dict):
         return {k: use_tree(v, device, layer, skip) for k, v in tree.items() if k not in skip}
     if isinstance(tree, Sliced):
         return gather(tree, device, layer)
+    if isinstance(tree, Shards):
+        return tree.at(layer)
     return tree if layer is None else tree[layer]
 
 
@@ -214,7 +218,7 @@ def _split_dims(placement: Tuple[Any, ...], data_spec, path: Tuple[str, ...]
     dim = next((i for i, a in enumerate(placement) if a == data_spec and a is not None), None)
     tp_dim = None
     if len(path) >= 2 and path[-2] == "moe" and path[-1] in EXPERT_LEAVES:
-        tp_dim = next((i for i, a in enumerate(placement) if a == "model"), None)
+        tp_dim = model_dim(placement)
     return dim, tp_dim
 
 

@@ -1,5 +1,8 @@
 """Shared model layers: norms, qk-norm, RoPE, MLPs, embeddings and the LM
-head."""
+head.  A weight given as a tuple of tensors is held in slices over a data
+row's model shards (``models/tp.py``): the MLP runs column-parallel gate and
+up and a row-parallel down, the embedding vocab-parallel, the head by column
+slices."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -8,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from . import tp as TP
 from .base import ShardCtx, matrix_spec, replicated_spec
 
 
@@ -90,6 +94,13 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(params["w_up"], tuple):
+        # each shard's gate and up columns and its rows of down, on its
+        # device; the parts add on x's device
+        devs = [w.device for w in params["w_up"]]
+        parts = [apply_mlp({k: w[s] for k, w in params.items()}, cfg, xs)
+                 for s, xs in enumerate(TP.broadcast(x, devs))]
+        return TP.reduce_sum(parts, x.device)
     dt = x.dtype
     if cfg.mlp_type in ("swiglu", "geglu"):
         act = F.silu if cfg.mlp_type == "swiglu" else _gelu
@@ -118,23 +129,59 @@ def embed_spec(cfg: ModelConfig, ctx: ShardCtx):
 
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S), or (B, K, S) for multi-codebook audio → (B, S, d)."""
-    tok = params["tok"].to(compute_dtype(cfg))
+    if isinstance(params["tok"], tuple):
+        rows = _embed_vocab_parallel(params["tok"], cfg, tokens)
+    else:
+        tok = params["tok"].to(compute_dtype(cfg))
+        rows = [tok[kb][tokens[:, kb] if cfg.n_codebooks > 1 else tokens]
+                for kb in range(cfg.n_codebooks)]
     if cfg.n_codebooks > 1:
         out = 0.0
-        for kb in range(cfg.n_codebooks):
-            out = out + tok[kb][tokens[:, kb]]
+        for r in rows:
+            out = out + r
         return out
-    return tok[0][tokens]
+    return rows[0]
+
+
+def _embed_vocab_parallel(tok, cfg: ModelConfig, tokens: torch.Tensor):
+    """Each codebook's rows looked up in a table held in vocabulary slices
+    over the shards: shard ``s`` looks up the ids in its range, zeros
+    elsewhere, and the parts add on the tokens' device in shard order.  One
+    part is non-zero at each position, so each codebook's rows equal the
+    whole lookup's bit for bit."""
+    dt = compute_dtype(cfg)
+    n = tok[0].shape[1]
+    parts = []
+    for s, ids in enumerate(TP.broadcast(tokens, [t.device for t in tok])):
+        local = ids - s * n
+        hit = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        table = tok[s].to(dt)
+        parts.append(torch.stack([
+            torch.where(hit[:, kb, :, None] if cfg.n_codebooks > 1 else hit[..., None],
+                        table[kb][local[:, kb] if cfg.n_codebooks > 1 else local], 0)
+            for kb in range(cfg.n_codebooks)]))
+    return list(TP.reduce_sum(parts, tokens.device))
 
 
 def lm_logits(params, cfg: ModelConfig, x: torch.Tensor, tp: int) -> torch.Tensor:
     """x (B, S, d) → logits (B, S, V_padded), or (B, S, K, V) for multi-codebook."""
     v = cfg.padded_vocab(tp)
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["tok"][0].to(x.dtype))
+    w = params["tok"] if cfg.tie_embeddings else params["head"]
+    if isinstance(w, tuple):
+        # each shard's columns of the logits, joined on x's device
+        parts = [_logits(cfg, xs, w_s) for xs, w_s in zip(TP.broadcast(x, [t.device for t in w]),
+                                                           w)]
+        logits = TP.join(parts, -1, x.device)
     else:
-        logits = x @ params["head"].to(x.dtype)
+        logits = _logits(cfg, x, w)
     if cfg.n_codebooks > 1:
         B, S, _ = logits.shape
         return logits.reshape(B, S, cfg.n_codebooks, v)
     return logits
+
+
+def _logits(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, w[0].to(x.dtype))
+    return x @ w.to(x.dtype)

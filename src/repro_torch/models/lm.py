@@ -13,6 +13,11 @@ the model's :func:`replica` there (the model itself where it lies there),
 and the logits gather onto the mesh's first device in row order.  Within a
 row, ``use_ep`` runs each MoE layer expert-parallel over the row's model
 shards, and attention decodes split-S against a cache sharded over them.
+A model made over a mesh of ``tp > 1`` shards (``init_model(...,
+mesh=)``, ``params_from_numpy(..., mesh=)``; for serving) is tensor
+parallel: each row keeps slice ``s`` of every leaf whose placement names
+the model axis on its shard ``s`` and the rest whole on its first device
+(``models/tp.py``), and the blocks compute on the slices where they lie.
 A model whose state is stored in slices over the rows (``models/fsdp.py``)
 has no replicas: each row gathers a layer's weights onto its device inside
 the layer's remat region and frees them after.  The reference's
@@ -33,6 +38,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from ..launch.mesh import indexed_device
 from .attention import KVCache, ShardedKVCache
+from . import tp as TP
 from .base import SINGLE, ShardCtx, init_params, resolve_device, stack_tree, tree_map
 from .blocks import Block, ParamTree, block_spec, init_block_cache
 from .fsdp import Sliced, gather, use_tree
@@ -106,6 +112,12 @@ class LM(nn.Module):
                 block.place_(fn, (name, key))
 
     @property
+    def tensor_parallel(self) -> bool:
+        """Whether the parameters are held in slices over a data row's
+        model shards (``models/tp.py``)."""
+        return isinstance(self.embed.tok, TP.Shards)
+
+    @property
     def placed(self) -> bool:
         """Whether the parameters are stored in slices over a mesh's data
         rows (``train.trainstep.place_train_state``)."""
@@ -121,16 +133,24 @@ def replica(model: LM, device) -> LM:
     """The model's parameters on ``device``: the model itself where it lies
     there (no copy), else a copy made the first time and kept on the model
     (trainable if the model is), which :func:`sync_replicas` refreshes
-    after an update.  A replica's replica is the model's."""
+    after an update.  A replica's replica is the model's.  A tensor-parallel
+    model is placed by a data row's devices (``device``: a sequence of
+    them): its slices on the row's shards, its whole leaves on the first."""
     model = model.__dict__.get("_master", model)
-    dev = indexed_device(device)
-    if model.device == dev or model.placed:
-        return model  # a placed model gathers onto the device that computes
+    if model.tensor_parallel:
+        dev = tuple(indexed_device(d) for d in device)
+        if model.embed.tok.devices == dev:
+            return model
+    else:
+        dev = indexed_device(device)
+        if model.device == dev or model.placed:
+            return model  # a placed model gathers onto the device that computes
     reps = model.__dict__.setdefault("_replicas", {})
     if dev not in reps:
         trainable = next(model.parameters()).requires_grad
         with torch.no_grad():
-            tree = tree_map(lambda t: t.detach().to(dev, copy=True), model.tree())
+            tree = tree_map(lambda t: t.to(dev) if isinstance(t, TP.Shards) else t.detach().to(
+                dev[0] if isinstance(dev, tuple) else dev, copy=True), model.tree())
         rep = LM(model.cfg, tree, model.ctx, trainable=trainable)
         rep.__dict__["_master"] = model
         reps[dev] = rep
@@ -156,12 +176,26 @@ def data_rows(mesh, cfg: ModelConfig, batch: int, use_ep: bool = False) -> int:
 
 
 def init_model(cfg: ModelConfig, ctx: ShardCtx = SINGLE, seed: int = 0, device=None,
-               trainable: bool = False) -> LM:
+               trainable: bool = False, mesh=None) -> LM:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, made
     on ``device`` (the card unless asked).  Serving: each in the type it is
     used in.  ``trainable``: every leaf float32 and requiring grad, cast to
-    the compute type at use (the reference's master weights)."""
-    dev = resolve_device(device)
+    the compute type at use (the reference's master weights).  ``mesh``
+    with ``tp > 1`` model shards: made straight into the slices of a
+    tensor-parallel model over its first data row (``tp.init_params_sliced``,
+    the generator on the mesh's first device; the values are those made
+    whole there), for serving."""
+    if mesh is not None and mesh.tp > 1:
+        if mesh.tp != ctx.tp:
+            raise ValueError(f"a mesh of {mesh.tp} model shards under ShardCtx(tp={ctx.tp})")
+        if trainable:
+            raise ValueError("a tensor-parallel model serves only: training over the model "
+                             "shards is not ported")
+        devices = mesh.row_devices(0)
+        resolve_device(devices[0])
+        return LM(cfg, TP.init_params_sliced(model_spec(cfg, ctx), seed, compute_dtype(cfg),
+                                             devices), ctx)
+    dev = resolve_device(device if mesh is None else mesh.first)
     tree = init_params(model_spec(cfg, ctx), seed, compute_dtype(cfg), dev, master=trainable)
     return LM(cfg, tree, ctx, trainable=trainable)
 
@@ -272,9 +306,10 @@ def forward(
             return _forward_rows(params, cfg, tokens, ctx, mesh, rows, cache, start_pos, remat,
                                  vis_embeds, use_ep)
         mesh = mesh.row(0)
-        params = replica(params, mesh.first)
+        tensor_parallel = params.tensor_parallel
+        params = replica(params, mesh.row_devices(0) if tensor_parallel else mesh.first)
         tokens = tokens.to(mesh.first)
-        if use_ep and cfg.moe is not None:
+        if use_ep and cfg.moe is not None and not tensor_parallel:
             shard_models = [replica(params, d) for d in mesh.row_devices(0)]
     dt = compute_dtype(cfg)
     dev = tokens.device

@@ -1,0 +1,186 @@
+"""Tensor parallelism of the dense weights over a data row's model shards,
+for serving (single-controller, as the rest of the model mesh).
+
+The reference shards every dense matrix Megatron-style over its ``model``
+axis (``ParamSpec.placement``): ``wq`` / ``wk`` / ``wv``, ``w_gate`` /
+``w_up`` and the head by columns, ``wo`` and ``w_down`` by rows, the
+embedding table by vocabulary rows, the experts by expert.  Here a leaf
+whose placement names the model axis is a :class:`Shards`: shard ``s`` of a
+data row holds slice ``s`` of that dimension on the row's ``s``-th device.
+Every other leaf (the norms, the router, a dimension ``tp`` does not divide)
+stays whole on the row's first device, and so do the SSD and RG-LRU blocks'
+leaves: their projections' model dimension cuts across the segments the
+blocks split them into (:data:`TP_BLOCKS`).
+
+A block computes on the slices where they lie: a row's activation is copied
+to its shards (:func:`broadcast`, :func:`scatter`), each shard computes its
+column slices' outputs or its part of a row-parallel product, and the parts
+come back to the row's first device, added in shard order (:func:`reduce_sum`,
+in float32, rounded once to the parts' type) or, column slices, joined in
+order (:func:`join`).  No float atomics, so a repeat is bit for bit.  Each
+move runs inside a ``record_function`` range (``tp_broadcast``, ``tp_sum``,
+``tp_gather``), so that a torch.profiler trace reads its device time.
+
+The cache-free forward, the KV caches and the blocks' use of the slices are
+in ``models/{lm,attention,layers,blocks}.py``; training under tensor
+parallelism is not ported: a model made in slices serves only.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from .base import ParamSpec
+
+# the block types whose leaves are split over the model shards
+TP_BLOCKS = ("attn", "local_attn")
+
+
+class Shards:
+    """One leaf held as ``len(parts)`` slices of dimension ``dim`` over a
+    data row's model shards: ``parts[s]`` (slice ``s``, contiguous) on
+    shard ``s``'s device, ``devices[s]`` (as the mesh names it: a CPU
+    tensor's own device has no index).  ``shape``: the whole leaf's."""
+
+    def __init__(self, shape: Sequence[int], dim: int, parts: Sequence[torch.Tensor],
+                 devices: Sequence[torch.device]):
+        self.shape = tuple(shape)
+        self.dim = dim
+        self.parts = tuple(parts)
+        self.devices = tuple(torch.device(d) for d in devices)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def at(self, layer: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+        """Each shard's slice (of layer ``layer`` of a stacked leaf): views."""
+        return self.parts if layer is None else tuple(p[layer] for p in self.parts)
+
+    def to(self, devices: Sequence[torch.device]) -> "Shards":
+        """A copy with slice ``s`` on ``devices[s]``."""
+        return Shards(self.shape, self.dim,
+                      [p.detach().to(d, copy=True) for p, d in zip(self.parts, devices)], devices)
+
+
+def model_dim(placement: Tuple[Any, ...], path: Tuple[str, ...] = ()) -> Optional[int]:
+    """The dimension tensor parallelism splits a leaf at ``path`` along:
+    the one its placement names the model axis in, or None (whole) where it
+    names none or the leaf belongs to a block not in :data:`TP_BLOCKS`."""
+    if len(path) >= 2 and path[0] in ("groups", "extra") \
+            and path[1].split("_", 1)[1] not in TP_BLOCKS:
+        return None
+    return next((i for i, a in enumerate(placement) if a == "model"), None)
+
+
+def _region(shape: Sequence[int], dim: int, s: int, n: int):
+    m = shape[dim] // n
+    return (slice(None),) * dim + (slice(s * m, (s + 1) * m),)
+
+
+def split(t: torch.Tensor, dim: int, devices: Sequence[torch.device]) -> Shards:
+    """``t`` cut into ``len(devices)`` slices of ``dim``, slice ``s`` copied
+    onto ``devices[s]``: a new tensor each, on the same device too."""
+    n = len(devices)
+    if t.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not split {n} ways")
+    src = t.detach()
+    return Shards(t.shape, dim, [src[_region(t.shape, dim, s, n)].to(d, copy=True).contiguous()
+                                 for s, d in enumerate(devices)], devices)
+
+
+def place(t: torch.Tensor, placement, path: Tuple[str, ...],
+          devices: Sequence[torch.device]):
+    """A whole leaf as a data row over ``devices`` holds it: :class:`Shards`
+    where :func:`model_dim` names a dimension, else the tensor on the row's
+    first device."""
+    dim = model_dim(placement, path)
+    if dim is None:
+        return t.detach().to(devices[0])
+    return split(t, dim, devices)
+
+
+def map_paths(fn, tree, prefix: Tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over a nested dict, in its insertion order."""
+    if isinstance(tree, dict):
+        return {k: map_paths(fn, v, prefix + (k,)) for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+def init_params_sliced(tree: Dict[str, Any], seed: int, compute: torch.dtype,
+                       devices: Sequence[torch.device]) -> Dict[str, Any]:
+    """``base.init_params`` of a ParamSpec tree on ``devices[0]``, each leaf
+    placed over ``devices`` (:func:`place`) as it is drawn: the same
+    generator, the same draws in the same order, so the values are those of
+    the whole draw.  A leaf drawn whole (up to ``base.WHOLE_DRAW_MAX``
+    elements) is split at once and freed; a larger one, drawn a layer slice
+    at a time, is split slice by slice, so that no device holds it whole."""
+    first = devices[0]
+    gen = torch.Generator(device=first)
+    gen.manual_seed(seed)
+
+    def make(path, spec: ParamSpec):
+        dim = model_dim(spec.placement, path)
+        if dim is None or spec.drawn_whole or dim == 0:
+            return place(spec.materialise(gen, compute, first), spec.placement, path, devices)
+        n = len(devices)
+        part = list(spec.shape)
+        part[dim] //= n
+        dt = spec.dtype(compute)
+        parts = [torch.empty(part, dtype=dt, device=d) for d in devices]
+        for i in range(spec.shape[0]):
+            rows = spec.draw_slice(gen, first)
+            for s, p in enumerate(parts):
+                p[i].copy_(rows[_region(rows.shape, dim - 1, s, n)])
+        return Shards(spec.shape, dim, parts, devices)
+
+    return map_paths(make, tree)
+
+
+def shard_bytes(tree, shards: int) -> list:
+    """The bytes each model shard of a data row holds of a parameter tree
+    (whole leaves on shard 0)."""
+    out = [0] * shards
+
+    def count(_, leaf):
+        if isinstance(leaf, Shards):
+            for s, p in enumerate(leaf.parts):
+                out[s] += p.numel() * p.element_size()
+        else:
+            out[0] += leaf.numel() * leaf.element_size()
+
+    map_paths(count, tree)
+    return out
+
+
+# ------------------------------------------------------------------ moves --
+
+
+def scatter(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]):
+    """Part ``s`` copied onto ``devices[s]`` (no copy where it lies there)."""
+    with record_function("tp_broadcast"):
+        return tuple(p.to(d) for p, d in zip(parts, devices))
+
+
+def broadcast(x: torch.Tensor, devices: Sequence[torch.device]):
+    """A row's activation on each of its shards' devices."""
+    return scatter([x] * len(devices), devices)
+
+
+def reduce_sum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """The shards' partial results added on ``device`` in shard order, in
+    float32, rounded once to the parts' type (the reference's ``psum`` over
+    the model axis)."""
+    with record_function("tp_sum"):
+        total = parts[0].to(device).float()
+        for p in parts[1:]:
+            total = total + p.to(device).float()
+        return total.to(parts[0].dtype)
+
+
+def join(parts: Sequence[torch.Tensor], dim: int, device) -> torch.Tensor:
+    """The shards' column slices joined on ``device`` in shard order."""
+    with record_function("tp_gather"):
+        return torch.cat([p.to(device) for p in parts], dim)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: ``repro_torch``, ``chip_smoke.py``,
 ``tools/ssd_scan_variants.py``, ``tools/ssd_train_phases.py``,
-``tools/ssd_bwd_variants.py``, ``tools/registry_phases.py`` and
-``examples/torch_*.py`` import neither
+``tools/ssd_bwd_variants.py``, ``tools/registry_phases.py``,
+``tools/tp_cards.py`` and ``examples/torch_*.py`` import neither
 JAX nor the JAX package,
 ``repro_torch`` keeps the reference's module layout, and the smoke script
 refuses to run without the package or a CUDA card."""
@@ -37,7 +37,7 @@ def _forbidden(name: str) -> bool:
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
     + ["chip_smoke.py", "tools/ssd_scan_variants.py", "tools/ssd_train_phases.py",
-       "tools/ssd_bwd_variants.py", "tools/registry_phases.py"]
+       "tools/ssd_bwd_variants.py", "tools/registry_phases.py", "tools/tp_cards.py"]
     + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("torch_*.py")),
 )
 def test_no_jax_or_reference_import(path):
@@ -52,7 +52,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "import repro_torch.frame.dist\n"
         "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
         "import repro_torch.serve.multitenant\n"
-        "import repro_torch.models.convert\n"
+        "import repro_torch.models.convert, repro_torch.models.tp\n"
         "import repro_torch.train, repro_torch.ckpt, repro_torch.data\n"
         "import repro_torch.launch.train, repro_torch.launch.serve\n"
         "import repro_torch.launch.specs, repro_torch.launch.roofline\n"
@@ -79,8 +79,8 @@ def test_layout_mirrors_reference():
     for sub in ("core", "frame", "kernels", "models", "serve", "configs", "train", "ckpt",
                 "data", "launch"):
         for p in (PORT / sub).glob("*.py"):
-            if p.name in ("convert.py", "_build.py", "_launch.py", "fsdp.py"):
-                continue  # port-only modules (fsdp.py: GSPMD's part in the reference)
+            if p.name in ("convert.py", "_build.py", "_launch.py", "fsdp.py", "tp.py"):
+                continue  # port-only modules (fsdp.py, tp.py: GSPMD's part in the reference)
             if sub == "launch" and p.name == "__init__.py":
                 continue  # the reference's launch/ is a namespace package
             assert (REF / sub / p.name).exists(), f"{sub}/{p.name} has no counterpart"
