@@ -189,12 +189,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    state equal bit for bit (the first state kept on the host), one step
    profiled; one microbatch's loss, gradient norm and gradients against the
    plain attention's (and the faulty plain attention over the limit);
-4f. MoE training — ``granite_moe_3b_a800m`` at full width cut to 16 of its
-   32 layers (1.76e9 parameters, float32 master weights) trained through
+4f. MoE training — ``granite_moe_3b_a800m`` at full width cut to 8 of its
+   32 layers (0.96e9 parameters, float32 master weights) trained through
    ``train_loop`` as the train launcher drives it (``train_cut``) for 4
    steps of 8 x 4,096 tokens (microbatch 4, remat full, seed 12): finite losses, step
-   times, tokens/s and the peak device memory beside its prediction; 64
-   forward and 32 + 32 backward attention launches a step, every one on the tensor-core
+   times, tokens/s and the peak device memory beside its prediction; 32
+   forward and 16 + 16 backward attention launches a step, every one on the tensor-core
    kernels; the assignments dropped at capacity counted; a run killed at
    step 2 resumed from its step-2 checkpoint with the uninterrupted run's
    losses and end-state fingerprint (every leaf's two 64-bit checksums);
@@ -205,12 +205,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the kernel run's experts (the tokens whose router would take others
    counted), every leaf held, and the faulty plain attention over the limit;
 4g. the model mesh — four shards emulated on the card, as phase 3c
-   emulates the data mesh.  (a) ``granite_moe_3b_a800m`` at full width and
-   depth at ``ShardCtx(tp=4)`` (40 experts, ten a shard; vocab padded to
+   emulates the data mesh.  (a) ``granite_moe_3b_a800m`` at full width cut
+   to 16 of its 32 layers at ``ShardCtx(tp=4)`` (40 experts, ten a shard; vocab padded to
    49,184) served through ``make_serve_fns`` over ``make_mesh(1, 4,
    devices=[cuda:0] * 4)`` expert-parallel: a 1,024-token prefill and 16
    greedy decode steps, beside the same context with no mesh; every
-   decode step split-S in all 32 attention layers and four shard calls a
+   decode step split-S in all 16 attention layers and four shard calls a
    layer, each with its ten experts on its shard's device, the cache's
    slots sharded four ways; a fresh mesh repeats tokens and last logits bit
    for bit; layer 0's ``moe_ffn_sharded`` on the model's own inputs under
@@ -316,6 +316,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``tp_gather`` ranges' device ms); ``make_serve_fns(mesh)``'s 1,024-token
    prefill and 16 greedy decode steps, each step's logits against the
    no-mesh decode fed the same tokens, walls beside the no-mesh run's;
+4m. training over the model shards — four shards emulated on the card:
+   ``qwen3_moe_30b_a3b`` at full width and 2 layers, one step of 1 x 4,096
+   tokens over ``make_mesh(1, 4)`` (each model-axis leaf in slices, the MoE
+   expert-parallel) against the no-mesh step on the same weights (its
+   experts replayed from the TP step's routing): the loss, and every
+   gradient leaf within 2^-4 of its largest |g| (``TPT_GRAD_TOL``), a TP
+   sum that drops shard 3's parts over that limit; an AdamW step of 2 x 4,096 tokens over ``(2,
+   2)`` (TP × FSDP) bit for bit the step over ``(1, 2)`` in microbatches of
+   one sequence, and again from a fresh state (traced: the ``tp_*`` and
+   ``fsdp_*`` ranges' device ms), each card's bytes the placements'
+   reckoning; ``mamba2_2p7b`` at 2 layers and ``recurrentgemma_9b``'s
+   first pattern group served over the shards (the SSD / RG-LRU ``in_proj``
+   by columns, ``out_proj`` by rows; a 1,024-token prefill and 16 decode
+   steps within 2^-5 of the no-mesh model's) and trained (the gradient check
+   above, with Mamba-2's decays); mamba2 through ``train_loop`` over ``(2,
+   2)`` for 3 steps, and killed at step 2 and resumed: the final
+   checkpoint's files byte for byte; every attention and SSD launch of the
+   steps on the tensor-core kernels;
 5. main-path shapes — each kernel against its plain version, by the rules
    of phase 2 (segment_reduce with all its contracts), at every shape the
    main path (or the serving phase, or phase 3c's sharded run) gave it;
@@ -331,9 +349,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    with the window as a mask), at phase 4f's, 4 x 24 (8) x 4,096 x 64, at
    phase 4h's heads over four sequences, 4 x 32 (8) x 4,096 x 128, and at
    phase 4k's five training shapes, each also held against the plain
-   attention (output and the three gradients), and the forward at phase
+   attention (output and the three gradients), the forward at phase
    4l's two shard shapes, 1 x 16 (2) x 4,352 x 128 and 1 x 9 (1) x 4,096 x
-   128;
+   128, and the forward, dQ and dK/dV at TP training's four shard shapes
+   (``TPT_ATTN``: 1 x 16 (4), 1 x 16 (2) and 1 x 8 (1) x 4,096 x 128; 1 x 4
+   (1) x 4,096 x 256, window 2,048);
    segment_reduce also at B = 100,000 and at B = 1,000 with one sum row;
    join_probe's wrapper beside its bare C entry point, against
    ``torch.searchsorted``; masked_stats, topk and filter_compact each
@@ -3131,19 +3151,19 @@ def attention_timings(torch, rng, dev):
     return out
 
 
-def reg_attention_timings(torch, rng, dev, flush):
-    """Phase 4k's training shapes (REG_ATTN): the forward, dQ and dK/dV
-    beside their bounds, SDPA (unmasked: danube's window of 4,096 cuts no
-    key at S 4,096, ``sdpa_call``) and the plain version, by row name
-    ("flash_attention <model>", ...)."""
+def reg_attention_timings(torch, rng, dev, flush, shapes=REG_ATTN, phase="4k"):
+    """Phase 4k's training shapes (REG_ATTN; or ``phase``'s ``shapes``): the
+    forward, dQ and dK/dV beside their bounds, SDPA (unmasked: danube's
+    window of 4,096 cuts no key at S 4,096, ``sdpa_call``) and the plain
+    version, by row name ("flash_attention <model>", ...)."""
     out = {}
-    for model, shape in REG_ATTN.items():
+    for model, shape in shapes.items():
         fwd_k = forward_timing(torch, rng, dev, shape, flush)
         rows, k_ms = backward_timing(torch, rng, dev, shape, flush)
         out[f"flash_attention {model}"] = fwd_k
         for name in rows:
             out[f"{name} {model}"] = rows[name]
-        print(f"[time] attention at phase 4k's {model} shape " + json.dumps(shape) + ", ms: "
+        print(f"[time] attention at phase {phase}'s {model} shape " + json.dumps(shape) + ", ms: "
               + json.dumps(dict(k_ms, **{
                   "kernel fwd": fwd_k["ms"], "plain fwd": fwd_k["plain_ms"],
                   "sdpa fwd": fwd_k["library_ms"], "bound fwd": fwd_k["bound"][0],
@@ -4366,17 +4386,20 @@ def training_rg(torch, ops, dev):
 # tokens, microbatch 4, remat full): 16 layers x 2 microbatches x 2 forward
 # launches a step, 32 of each backward kernel.
 MOE_SEQ = 4096
-MOE_LAYERS = 16
-MOE_PER_STEP = {"flash_attention": 64, "flash_attention_wgmma": 64,
-                "flash_attention_bwd_dq": 32, "flash_attention_bwd_dkdv": 32,
-                "flash_attention_bwd_dq_wgmma": 32, "flash_attention_bwd_dkdv_wgmma": 32}
+# cut to 8 of 32 layers so that the whole script, phase 4m included, keeps to its time
+MOE_LAYERS = 8
+# each of 2 microbatches runs each layer's forward twice (remat) and its backward once
+MOE_PER_STEP = {"flash_attention": 4 * MOE_LAYERS, "flash_attention_wgmma": 4 * MOE_LAYERS,
+                "flash_attention_bwd_dq": 2 * MOE_LAYERS, "flash_attention_bwd_dkdv": 2 * MOE_LAYERS,
+                "flash_attention_bwd_dq_wgmma": 2 * MOE_LAYERS,
+                "flash_attention_bwd_dkdv_wgmma": 2 * MOE_LAYERS}
 MOE_CUT = 2  # the interrupted run fails at step 2 and resumes from its step-2 checkpoint
-# The peak, predicted before the first run at 16 layers: weights, both
-# moments and the accumulated gradients (4 x 7.0 GB), a second gradient
+# The peak, predicted before the first run at 8 layers: weights, both
+# moments and the accumulated gradients (4 x 3.8 GB), a second gradient
 # tree while the second microbatch's backward fills it, the loss head's
-# float32 logits of 4 x 4,096 tokens and their gradient (the whole model
-# peaked at 73,952,462,848 bytes, 20 GB over its state).
-MOE_PEAK_PREDICTED = (38e9, 48e9)
+# float32 logits of 4 x 4,096 tokens and their gradient (16 layers peaked at
+# 45,587,954,688 bytes, 17.4 GB over their state).
+MOE_PEAK_PREDICTED = (26e9, 34e9)
 MASK64 = (1 << 64) - 1
 
 
@@ -4723,10 +4746,13 @@ def mesh_generate(torch, cfg, model, pre, dec, prompt, feed=None):
     return (torch.stack(outs, -1), steps, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / N_TOKENS, cache)
 
 
+MESH_SERVE_LAYERS = 16  # of granite's 32, so that the whole script keeps to its time
+
+
 def mesh_serving(torch, devices):
-    """Phase 4g (a): granite-MoE at full width and depth served over
-    ``make_mesh(1, 4, devices=devices)`` (``[cuda:0] * 4`` in the smoke),
-    expert-parallel, split-S."""
+    """Phase 4g (a): granite-MoE at full width cut to MESH_SERVE_LAYERS
+    layers served over ``make_mesh(1, 4, devices=devices)`` (``[cuda:0] *
+    4`` in the smoke), expert-parallel, split-S."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -4734,7 +4760,7 @@ def mesh_serving(torch, devices):
     from repro_torch.models import ShardCtx, attention, blocks, init_model, moe
     from repro_torch.serve import make_serve_fns
 
-    cfg = get_config("granite_moe_3b_a800m")
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"), n_layers=MESH_SERVE_LAYERS)
     ctx = ShardCtx(tp=MESH_TP)
     e_pad, vocab = cfg.moe.padded_experts(MESH_TP), cfg.padded_vocab(MESH_TP)
     e_loc = e_pad // MESH_TP
@@ -5319,7 +5345,7 @@ SSD_GRAD_TOL = 2.0 ** -6
 
 def mamba2_decays(torch, model, seed):
     """dt_bias and a_log of every layer as Mamba-2 initialises them, in
-    place, from a numpy seed."""
+    place (a placed leaf in its slices), from a numpy seed."""
     import numpy as np
 
     from repro_torch.models.base import tree_flatten
@@ -5327,12 +5353,13 @@ def mamba2_decays(torch, model, seed):
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for path, t in tree_flatten(model.tree()):
+            put = t.copy_from if hasattr(t, "copy_from") else t.copy_  # a placed leaf: its slices
             if path[-1] == "dt_bias":
                 dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), tuple(t.shape)))
-                t.copy_(torch.as_tensor(dt + np.log(-np.expm1(-dt)), dtype=t.dtype))
+                put(torch.as_tensor(dt + np.log(-np.expm1(-dt)), dtype=t.dtype))
             elif path[-1] == "a_log":
-                t.copy_(torch.as_tensor(np.log(rng.uniform(1.0, 16.0, tuple(t.shape))),
-                                        dtype=t.dtype))
+                put(torch.as_tensor(np.log(rng.uniform(1.0, 16.0, tuple(t.shape))),
+                                    dtype=t.dtype))
 
 
 def ssd_step_vs_plain(torch, ops, cfg, dev):
@@ -6123,6 +6150,75 @@ def tp_depth(cfg):
     return {"layers": layers, "of": cfg.n_layers, "bytes": b}
 
 
+def tp_train_reckoning(cfg, dp, tp, arrays=TRAIN_STATE_BYTES // 4):
+    """The bytes each card of a ``(dp, tp)`` mesh holds of ``cfg``'s float32
+    train state under TP × FSDP, row-major over (row, shard), reckoned from
+    the placements at ``ShardCtx(tp, dp)``: ``arrays`` float32 copies of a
+    leaf (weights, both moments and, at 4, the gradient's accumulators),
+    ``1/dp`` of it where the placement names the data axis, ``1/tp`` on
+    every shard where it names the model axis (``tp.model_dim``), else on
+    the row's first card."""
+    from repro_torch.models import ShardCtx
+    from repro_torch.models import tp as TP
+    from repro_torch.models.base import tree_flatten
+    from repro_torch.models.lm import model_spec
+
+    ctx = ShardCtx(tp=tp, dp=dp)
+    out = [0] * (dp * tp)
+    for path, s in tree_flatten(model_spec(cfg, ctx)):
+        n = math.prod(s.shape)
+        if dp > 1 and ctx.data_spec() in s.placement:
+            n //= dp
+        split = TP.model_dim(s.placement, path) is not None
+        for r in range(dp):
+            for shard in range(tp if split else 1):
+                out[r * tp + shard] += 4 * arrays * (n // tp if split else n)
+    return out
+
+
+def tp_train_extra(cfg, layers, dp, tp, batch, seq=REG_SEQ):
+    """The bytes a TP × FSDP step holds on a row's first card beside its
+    state: the row's float32 logits and their gradient, the bf16 layer
+    inputs remat keeps, one layer's shard slices gathered in float32 and
+    their gradient, the global norm's largest gather (a stacked leaf past
+    ``NORM_WHOLE_MAX`` a layer at a time) and TRAIN_SLACK."""
+    from repro_torch.models import ShardCtx
+    from repro_torch.models.base import tree_flatten
+    from repro_torch.models.lm import model_spec
+    from repro_torch.train.optimizer import NORM_WHOLE_MAX
+
+    cut = dataclasses.replace(cfg, n_layers=layers)
+    per, _ = layer_params(cut)
+    tokens = batch // dp * (seq + cut.n_vis_tokens)
+    logits = 8 * tokens * cut.n_codebooks * cut.padded_vocab(tp)
+    bounds = 2 * layers * tokens * cut.d_model
+    norm = 0
+    for _, s in tree_flatten(model_spec(cut, ShardCtx(tp=tp, dp=dp))):
+        n = math.prod(s.shape)
+        norm = max(norm, n if n <= NORM_WHOLE_MAX else n // s.shape[0])
+    return logits + bounds + 2 * 4 * per // tp + 4 * norm + TRAIN_SLACK
+
+
+def tp_train_depth(cfg, dp, tp, batch):
+    """The deepest cut of ``cfg`` whose fullest card (its state,
+    :func:`tp_train_reckoning`, and a row's first card's step bytes,
+    :func:`tp_train_extra`) stays within REG_BUDGET over a ``(dp, tp)`` mesh
+    → {layers, of, cards (each card's state bytes), bytes (the fullest
+    card's with the step's)}."""
+    def need(layers):
+        cut = dataclasses.replace(cfg, n_layers=layers)
+        cards = tp_train_reckoning(cut, dp, tp)
+        return cards, max(cards) + tp_train_extra(cfg, layers, dp, tp, batch)
+
+    layers = cfg.n_layers
+    while layers > 1 and need(layers)[1] > REG_BUDGET:
+        layers -= 1
+    cards, b = need(layers)
+    check(b <= REG_BUDGET, f"{cfg.name}: one layer takes {b} bytes a card over ({dp}, {tp}), "
+          f"over {REG_BUDGET}")
+    return {"layers": layers, "of": cfg.n_layers, "cards": cards, "bytes": b}
+
+
 def logits_err(torch, got, want, rows=512):
     """(max |got - want|, max |want|) over the positions of (B, S, ...)
     tensors, compared ``rows`` positions at a time in float32."""
@@ -6186,10 +6282,13 @@ def layer0_whole(torch, model):
                     if isinstance(t, TP.Shards) else t[0], block.tree())
 
 
-def layer0_f64(torch, cfg, w, x):
+def layer0_f64(torch, cfg, w, x, top_e=None, ctx=None):
     """Block 0 (pre-norm attention and MLP, each with its residual add) in
     float64 on ``x`` (B, P, d) at positions 0..P-1, causal, with the whole
-    weights ``w`` (each cast to float64 where it is used) → (B, P, d)."""
+    weights ``w`` (each cast to float64 where it is used) → (B, P, d).  An
+    MoE block (its experts padded at ``ctx``) takes ``top_e`` (the routing
+    of the run it is held against: a near tie may route otherwise in
+    float64), each token's weights from the float64 router."""
     import torch.nn.functional as F
 
     check(cfg.window is None, "layer0_f64 takes no window")
@@ -6229,8 +6328,15 @@ def layer0_f64(torch, cfg, w, x):
     o = torch.softmax(s.masked_fill(~causal, float("-inf")), -1) @ v
     x1 = xd + o.transpose(1, 2).reshape(B, P, -1) @ a["wo"].double()
     del q, k, v, s, o
-    m = w["mlp"]
     h2 = norm(w["norm2"], x1)
+    if "moe" in w:
+        from repro_torch.models import moe
+
+        p64 = {k: t.double() for k, t in w["moe"].items()}
+        with routes_taken(torch, [top_e]):
+            y, _ = moe.moe_ffn(p64, dataclasses.replace(cfg, dtype="float32"), h2, ctx)
+        return x1 + y
+    m = w["mlp"]
     if cfg.mlp_type in ("swiglu", "geglu"):
         g = h2 @ m["w_gate"].double()
         g = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(g, approximate="tanh")
@@ -6456,6 +6562,362 @@ def tp_phase(torch, ops, dev):
     return total
 
 
+# ---------------------------------------------------------------- phase 4m --
+
+TPT_SHARDS = 4
+TPT_SEQ = 4096
+# qwen3_moe_30b_a3b and mamba2_2p7b at their first TPT_DEPTH layers, and
+# recurrentgemma_9b's first pattern group, at full width: through more
+# random-weight layers the TP and no-mesh paths' roundings grow apart (4l).
+TPT_DEPTH = TP_HOLD_DEPTH
+# each gradient leaf of a step over the model shards within TPT_GRAD_TOL of
+# its largest |g| from the no-mesh step's: two bf16 paths that round
+# differently, held as 4c's check 2 holds the kernels against the plain
+# attention.  On an H100 (seed 12) qwen3_moe_30b_a3b's leaves read
+# 0.0018-0.0173 (2-4 bf16 ulps of the largest |g|; w_up the worst), over the
+# 2^-6 the SSD's C14 check takes; a TP sum that drops a shard reads 2.63.
+TPT_GRAD_TOL = STEP_GRAD_TOL
+TPT_RANGES = TP_RANGES + ("fsdp_gather", "fsdp_grad_add")
+TPT_STEPS, TPT_CUT = 3, 2  # the run killed at step 2, resumed, against three steps
+TPT_KERNELS = TRAINING + SERVING + SSD_BWD_ROWS
+# the attention kernels at the shards' shapes of TP training (phase 4m and
+# tools/tp_train_cards.py): qwen3_8b at tp 2, qwen3_moe_30b_a3b at tp 2 and
+# 4, recurrentgemma_9b's local attention at tp 4
+TPT_ATTN = {
+    "qwen3_8b tp2": (1, 16, 4, 4096, 4096, 128, "bfloat16", True, None, 0),
+    "qwen3_moe_30b_a3b tp2": (1, 16, 2, 4096, 4096, 128, "bfloat16", True, None, 0),
+    "qwen3_moe_30b_a3b tp4": (1, 8, 1, 4096, 4096, 128, "bfloat16", True, None, 0),
+    "recurrentgemma_9b tp4": (1, 4, 1, 4096, 4096, 256, "bfloat16", True, 2048, 0),
+}
+
+
+def tpt_cut(name):
+    """Phase 4m's cut of ``name``: TPT_DEPTH layers, or one pattern group."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, n_layers=max(TPT_DEPTH, len(cfg.block_pattern)))
+
+
+def tpt_batch(cfg, rows, dev, step=0):
+    """``rows`` x TPT_SEQ tokens of the synthetic stream (seed TRAIN_SEED)."""
+    from repro_torch.data import SynthSpec, batch_at
+    from repro_torch.data.loader import to_device
+
+    return to_device(batch_at(SynthSpec(vocab=cfg.vocab, seq_len=TPT_SEQ, batch=rows,
+                                        seed=TRAIN_SEED), step), dev)
+
+
+def counted(torch, ops, fn):
+    """``fn()`` and the launches it made → (its result, {kernel: n})."""
+    before = ops.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def whole_fingerprint(torch, tree, dev):
+    """``fingerprint`` of each leaf whole, a placed one gathered onto
+    ``dev`` a leaf at a time: the same whatever the layout."""
+    from repro_torch.models.base import keystr, tree_flatten
+
+    out = {}
+    for path, leaf in tree_flatten(tree):
+        t = leaf.whole(dev) if hasattr(leaf, "whole") else leaf
+        out.update(fingerprint(torch, {keystr(path): t}))
+        del t
+    return out
+
+
+def tpt_grads(torch, ops, cut, dev, decays=False):
+    """One step's loss and gradient over ``make_mesh(1, TPT_SHARDS)`` on
+    ``[dev] * 4`` against the no-mesh step's on the same weights (drawn from
+    one seed; an MoE's no-mesh step takes the TP step's experts, as 4k's
+    check 2 does), then a control whose TP sum drops the last shard's part
+    → (launches of the TP step, its ms, the worst leaf ratio, the
+    control's)."""
+    from contextlib import nullcontext
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, init_model
+    from repro_torch.models import tp as TP
+    from repro_torch.models.base import keystr, tree_flatten
+    from repro_torch.train.trainstep import value_and_grad
+
+    ctx = ShardCtx(tp=TPT_SHARDS)
+    mesh = make_mesh(1, TPT_SHARDS, devices=[dev] * TPT_SHARDS)
+    batch = tpt_batch(cut, 1, dev)
+    model = init_model(cut, ctx, seed=TRAIN_SEED, trainable=True, mesh=mesh)
+    if decays:
+        mamba2_decays(torch, model, TRAIN_SEED)
+    moe = cut.moe is not None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with routes_taken(torch) if moe else nullcontext([]) as calls:
+        (tl, _, tg), launches = counted(torch, ops, lambda: value_and_grad(
+            model, cut, batch, ctx, False, mesh))
+    ms = (time.perf_counter() - t0) * 1e3
+    replay = None
+    if moe:  # each layer routed once a shard, the shards alike
+        groups = [calls[i:i + TPT_SHARDS] for i in range(0, len(calls), TPT_SHARDS)]
+        check(len(groups) == cut.n_layers and all(
+            all(torch.equal(c[0], g[0][0]) for c in g) for g in groups),
+              f"{cut.name}: the shards routed a layer's tokens differently")
+        replay = [g[0][0] for g in groups]
+    whole = init_model(cut, ctx, seed=TRAIN_SEED, device=dev, trainable=True)
+    if decays:
+        mamba2_decays(torch, whole, TRAIN_SEED)
+    wleaves = dict(tree_flatten(whole.tree()))
+    check(all(torch.equal(leaf.whole(dev), wleaves[p].detach())
+              for p, leaf in tree_flatten(model.tree())),
+          f"{cut.name}: the slices drawn over the shards are not the whole draw's")
+    with routes_taken(torch, replay) if moe else nullcontext([]) as wcalls:
+        wl, _, wg = value_and_grad(whole, cut, batch, ctx, False)
+    moved = moved_tokens(torch, wcalls) if moe else []
+
+    def ratios(grads):
+        out = {}
+        for (path, g), (_, w) in zip(tree_flatten(grads), tree_flatten(wg)):
+            gw = g.whole(dev)
+            out[keystr(path)] = float((gw - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            del gw
+        return out
+
+    r = ratios(tg)
+    worst = max(r.values())
+    del tg
+    fn = TP.reduce_sum
+    TP.reduce_sum = lambda parts, device: fn(parts[:-1], device)  # the control drops a shard
+    try:
+        _, _, cg = value_and_grad(model, cut, batch, ctx, False, mesh)
+    finally:
+        TP.reduce_sum = fn
+    bad = max(ratios(cg).values())
+    del cg, wg, whole, model, wleaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tp-train] {cut.name} at {cut.n_layers} layers, full width, 1 x {TPT_SEQ} tokens "
+          f"over {TPT_SHARDS} shards on the card: the TP step {ms} ms, loss {float(tl)} vs the "
+          f"no-mesh step's {float(wl)}; worst gradient leaf |err| / max |g| {worst} (limit "
+          f"{TPT_GRAD_TOL}), a TP sum that drops shard 3's parts {bad}"
+          + (f"; tokens whose no-mesh router would choose otherwise, by layer {moved}"
+             if moe else "") + "; the TP step's launches "
+          + json.dumps({k: n for k, n in launches.items() if n}) + "; by leaf "
+          + json.dumps(r), flush=True)
+    check(math.isfinite(float(tl)) and abs(float(tl) - float(wl)) <= STEP_LOSS_TOL * abs(
+        float(wl)), f"{cut.name}: TP loss {float(tl)} vs the no-mesh step's {float(wl)}")
+    check(worst <= TPT_GRAD_TOL, f"{cut.name}: a TP gradient leaf {worst} of its largest |g| "
+          f"from the no-mesh step's, over {TPT_GRAD_TOL}")
+    check(bad > TPT_GRAD_TOL, f"{cut.name}: a TP sum that drops shard 3's parts kept the "
+          f"gradients within the limit ({bad})")
+    return launches, ms, worst, bad
+
+
+def tpt_layouts(torch, ops, cut, dev):
+    """AdamW steps of 2 x TPT_SEQ tokens (remat full) with the state over
+    ``(2, 2)`` (TP × FSDP) against the same steps over ``(1, 2)`` with
+    microbatches of one sequence, then over ``(2, 2)`` again from a fresh
+    state: after the first step, params and moments bit for bit
+    (fingerprints of the whole leaves) and each card's bytes the
+    placements' reckoning; a second, warm step timed (the repeat's traced)
+    → the launches of the six steps."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.trainstep import (card_state_bytes, init_placed_state,
+                                             make_train_step)
+
+    total = {}
+    out = []
+    for dp, micro, trace in ((2, None, False), (1, 1, False), (2, None, True)):
+        run = RunConfig(model=cut, shape=ShapeConfig("tp", "train", TPT_SEQ, 2), dp=dp, tp=2,
+                        remat="full", microbatch=micro)
+        mesh = make_mesh(dp, 2, devices=[dev] * (2 * dp))
+        step, ctx = make_train_step(cut, run, mesh=mesh, opt=launcher_opt(TPT_STEPS))
+        model, state = init_placed_state(cut, run, ctx, mesh, seed=TRAIN_SEED)
+        held = card_state_bytes(model, state)
+        want = tp_train_reckoning(cut, dp, 2, arrays=3)
+        check(held == want, f"{cut.name} over ({dp}, 2): each card holds {held} bytes of the "
+              f"state, the placements reckon {want}")
+        torch.cuda.reset_peak_memory_stats()
+        res, ms = [], []
+        for i in range(2):
+            batch = tpt_batch(cut, 2, dev, step=i)
+
+            def run_step():
+                res.append(step(model, state, batch))
+
+            t0 = time.perf_counter()
+            if trace and i == 1:
+                traced, launches = counted(torch, ops, lambda: profiled(torch, run_step,
+                                                                        TPT_RANGES))
+                wall, kern_ms, copy_ms, kern, spans = traced
+            else:
+                _, launches = counted(torch, ops, run_step)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            model, state, m = res.pop()
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            if i == 0:
+                fp = whole_fingerprint(torch, {"params": model.tree(), "mu": state["mu"],
+                                               "nu": state["nu"]}, dev)
+                out.append((fp, float(m["loss"]), float(m["grad_norm"])))
+        print(f"[tp-train] {cut.name} over ({dp}, 2)" + (f", microbatch {micro}" if micro else
+                                                          "") + f": step 1 {ms[0]} ms, loss "
+              f"{out[-1][1]}, grad norm {out[-1][2]}; step 2 " + (
+                  f"traced, {wall} ms wall, {kern_ms} ms of kernels, {copy_ms} ms of copies, "
+                  "the moves' ranges (host ms, device ms): " + json.dumps(spans) if trace
+                  else f"{ms[1]} ms, {2 * TPT_SEQ / ms[1] * 1e3} tokens/s") + f"; each card's "
+              f"state {held} bytes (the reckoning), peak {torch.cuda.max_memory_allocated()} "
+              "bytes", flush=True)
+        del model, state, step, batch, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(out[0][0] == out[1][0] and out[0][2] == out[1][2],
+          f"{cut.name}: the TP × FSDP step over (2, 2) differs from the TP step over (1, 2)")
+    check(out[0] == out[2], f"{cut.name}: the (2, 2) step repeated gave other bits")
+    print(f"[tp-train] {cut.name}: the six steps' launches "
+          + json.dumps({k: n for k, n in total.items() if n}), flush=True)
+    return total
+
+
+def tpt_serve(torch, ops, cut, dev):
+    """``cut`` served whole and over ``make_mesh(1, TPT_SHARDS)`` on
+    ``[dev] * 4`` from one seed (the SSD / RG-LRU projections in slices, the
+    conv, the scan and the caches whole on the first shard's device): a
+    TP_PROMPT-token prefill and N_TOKENS greedy decode steps, the whole
+    model's fed the same tokens, every step's logits within TP_TOL of the
+    largest |logit| → the TP run's launches."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, init_model
+    from repro_torch.models import tp as TP
+    from repro_torch.models.base import tree_flatten
+    from repro_torch.serve import make_serve_fns
+
+    ctx = ShardCtx(tp=TPT_SHARDS)
+    mesh = make_mesh(1, TPT_SHARDS, devices=[dev] * TPT_SHARDS)
+    whole = init_model(cut, ctx, seed=SERVE_SEED, device=dev)
+    model = init_model(cut, ctx, seed=SERVE_SEED, mesh=mesh)
+    kind = cut.block_pattern[0]
+    sliced = sorted({p[-1] for p, leaf in tree_flatten(model.tree())
+                     if len(p) > 2 and p[2] == kind and isinstance(leaf, TP.Shards)})
+    check(sliced == ["in_proj", "out_proj"], f"{cut.name}: the {kind} leaves in slices are "
+          f"{sliced}, not in_proj and out_proj")
+    prompt = torch.as_tensor(np.random.default_rng(SERVE_SEED + 3).integers(
+        0, cut.vocab, (1, TP_PROMPT)), device=dev)
+    fns = [make_serve_fns(cut, ctx, capacity=2048)[:2],
+           make_serve_fns(cut, ctx, mesh=mesh, capacity=2048)[:2]]
+    (toks, steps, pre_tp, dec_tp, _), launches = counted(
+        torch, ops, lambda: mesh_generate(torch, cut, model, *fns[1], prompt))
+    _, want, pre_w, dec_w, _ = mesh_generate(torch, cut, whole, *fns[0], prompt, feed=toks)
+    errs = [logits_err(torch, a[:, None], b[:, None]) for a, b in zip(steps, want)]
+    worst = max(e / sc for e, sc in errs)
+    print(f"[tp-train] {cut.name} at {cut.n_layers} layers served over {TPT_SHARDS} shards on "
+          f"the card ({kind} in_proj by columns, out_proj by rows): a {TP_PROMPT}-token prefill "
+          f"and {N_TOKENS} decode steps against the no-mesh model's fed the same tokens, worst "
+          f"step's max |err| over its largest |logit| {worst} (limit {TP_TOL}); prefill TP "
+          f"{pre_tp} ms, no mesh {pre_w} ms; decode TP {dec_tp} ms a token, no mesh {dec_w}; "
+          "launches " + json.dumps({k: n for k, n in launches.items() if n}), flush=True)
+    check(worst <= TP_TOL, f"{cut.name}: the served logits over the shards {worst} of the "
+          f"largest |logit| from the no-mesh model's, over {TP_TOL}")
+    del whole, model, steps, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tpt_resume(torch, ops, cut, dev, root):
+    """``train_loop`` over ``(2, 2)`` on ``[dev] * 4`` with the state in
+    slices (``fsdp``), TPT_STEPS steps of 2 x TPT_SEQ tokens; the same run
+    killed at step TPT_CUT and resumed from its exit checkpoint into its
+    slices in place: the losses, gradient norms and final checkpoint files
+    byte for byte → the uninterrupted run's launches."""
+    import filecmp
+    import os
+    import shutil
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SynthSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import loop
+
+    run = RunConfig(model=cut, shape=ShapeConfig("tp", "train", TPT_SEQ, 2), dp=2, tp=2,
+                    remat="full")
+    data = SynthSpec(vocab=cut.vocab, seq_len=TPT_SEQ, batch=2, seed=TRAIN_SEED)
+
+    def train(name, fail_at_step=None):
+        return loop.train_loop(cut, run, data, total_steps=TPT_STEPS, ckpt_dir=str(root / name),
+                               ckpt_every=50, opt=launcher_opt(TPT_STEPS), seed=TRAIN_SEED,
+                               fail_at_step=fail_at_step, log_fn=lambda line: None, device=dev,
+                               mesh=make_mesh(2, 2, devices=[dev] * 4), fsdp=True)
+
+    whole, launches = counted(torch, ops, lambda: train("whole"))
+    try:
+        train("cut", TPT_CUT)
+        check(False, f"{cut.name}: the run to be killed at step {TPT_CUT} was not")
+    except RuntimeError as exc:
+        check(str(exc) == f"injected node failure at step {TPT_CUT}", f"{cut.name}: {exc}")
+    resumed = train("cut")
+    name = f"step_{TPT_STEPS:08d}"
+    files = sorted(os.listdir(root / "whole" / name))
+    same = files == sorted(os.listdir(root / "cut" / name)) and all(
+        filecmp.cmp(root / "whole" / name / f, root / "cut" / name / f, shallow=False)
+        for f in files)
+    print(f"[tp-train] {cut.name} through train_loop over (2, 2), TP × FSDP, {TPT_STEPS} steps "
+          f"of 2 x {TPT_SEQ} tokens: step ms {json.dumps([t * 1e3 for t in whole.step_times])},"
+          f" losses {json.dumps(whole.losses)}; killed at step {TPT_CUT} and resumed from step "
+          f"{resumed.resumed_from}: losses {json.dumps(resumed.losses)}, the final checkpoint's "
+          f"{len(files)} files byte for byte the uninterrupted run's: {same}", flush=True)
+    check(resumed.resumed_from == TPT_CUT and resumed.losses == whole.losses[TPT_CUT:]
+          and resumed.grad_norms == whole.grad_norms[TPT_CUT:] and same,
+          f"{cut.name}: the run resumed at step {TPT_CUT} differs from the uninterrupted one")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def tp_train_phase(torch, ops, dev):
+    """Phase 4m: training (and the SSD / RG-LRU blocks' serving) over
+    TPT_SHARDS model shards emulated on the card → the kernel launches of
+    the steps over the shards."""
+    t0 = time.perf_counter()
+    total = {k: 0 for k in TPT_KERNELS}
+    every = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            every[k] = every.get(k, 0) + n
+            if k in total:
+                total[k] += n
+
+    moe = tpt_cut("qwen3_moe_30b_a3b")
+    add(tpt_grads(torch, ops, moe, dev)[0])
+    add(tpt_layouts(torch, ops, moe, dev))
+    ssd = tpt_cut("mamba2_2p7b")
+    add(tpt_serve(torch, ops, ssd, dev))
+    add(tpt_grads(torch, ops, ssd, dev, decays=True)[0])
+    add(tpt_resume(torch, ops, ssd, dev, CKPT_ROOT / "tp"))
+    rg = tpt_cut("recurrentgemma_9b")
+    add(tpt_serve(torch, ops, rg, dev))
+    add(tpt_grads(torch, ops, rg, dev)[0])
+    fwd, bwd = every["flash_attention"], every["flash_attention_bwd_dq"]
+    print(f"[tp-train] phase 4m: launches " + json.dumps({k: n for k, n in every.items() if n})
+          + f"; took {time.perf_counter() - t0} s", flush=True)
+    check(fwd > 0 and fwd == every["flash_attention_wgmma"] and bwd > 0
+          and bwd == every["flash_attention_bwd_dq_wgmma"] == every["flash_attention_bwd_dkdv"]
+          == every["flash_attention_bwd_dkdv_wgmma"], "phase 4m: the attention launches are "
+          "not all on the tensor-core kernels, or none was made")
+    check(every["ssd_chunk_scan_wgmma"] > 0 and every["ssd_chunk_scan_bwd_chunk_wgmma"] > 0
+          and every["ssd_chunk_scan_bwd_state_wgmma"] > 0
+          and every["ssd_chunk_scan_bwd_chunk"] == every["ssd_chunk_scan_bwd_state"] == 0
+          and every["ssd_chunk_scan_cells"] == every["ssd_chunk_scan_short"] == 0,
+          "phase 4m: the SSD launches are not all on the tensor-core kernels, or none was made")
+    return total
+
+
 def card_setup(torch, sources=None):
     """How every run of these phases starts, the whole script's and a
     tool's: IEEE float32 products for the plain versions (no TF32), the
@@ -6620,6 +7082,12 @@ def main() -> int:
     for kernel, n in tp_phase(torch, ops, dev).items():
         launches[kernel] += n
 
+    # -- phase 4m: training over four model shards emulated on the card (TP,
+    # TP × FSDP; the SSD and RG-LRU projections in slices); its steps'
+    # launches join the JSON line's
+    for kernel, n in tp_train_phase(torch, ops, dev).items():
+        launches[kernel] += n
+
     # -- phase 5: kernel vs plain, then timing, at the main path's shapes
     t0 = time.perf_counter()
     mp = main_path_parity(torch, K, shapes, rng, dev)
@@ -6631,7 +7099,7 @@ def main() -> int:
     train_shapes = (TRAIN_ATTN, (2, 15, 5, 1024, 1024, 64, "bfloat16", True, None, 0), RG_ATTN,
                     (2, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0), MOE_ATTN,
                     (2, 24, 8, 1024, 1024, 64, "bfloat16", True, None, 0), WIDE_ATTN,
-                    *REG_ATTN.values(), *TP_ATTN.values())
+                    *REG_ATTN.values(), *TP_ATTN.values(), *TPT_ATTN.values())
     for name, e in attention_parity(torch, rng, dev, train_shapes, "training").items():
         errs[name] = max(errs[name], e)
     print(f"[shapes] kernel vs plain passed at every main-path shape in "
@@ -6645,6 +7113,7 @@ def main() -> int:
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
     tm.update({f"flash_attention {name}": forward_timing(torch, rng, dev, shape, flush)
                for name, shape in TP_ATTN.items()})
+    tm.update(reg_attention_timings(torch, rng, dev, flush, TPT_ATTN, "4m"))
     tm.update(ssd_bwd_timing(torch, rng, dev))
     for name, t in tm.items():
         print(f"[time] {name} shape {t['shape']}: kernel {t['ms']} ms, "

@@ -22,12 +22,12 @@ every level), each keyed as ``jax.tree_util.keystr`` writes its path
   (default: the device of each template leaf); ``restore_into`` copies
   them into the template's own tensors, one leaf at a time.
 * **sliced state** (``models/fsdp.Sliced``, a train state stored over a
-  mesh's data rows): ``save`` gathers each leaf whole to the host, one leaf
-  at a time, so the files are those of a whole state; a sliced template
-  takes each leaf slice by slice, on each slice's device, whatever layout
-  the state was saved from (the reference restores with a ``sharding_fn``
-  the same way).  So a checkpoint of four rows resumes over two, one, or a
-  whole state.
+  mesh's data rows and model shards): ``save`` gathers each leaf whole to
+  the host, one leaf at a time, so the files are those of a whole state; a
+  sliced template takes each leaf slice by slice, on each slice's device,
+  in place, whatever layout the state was saved from (the reference
+  restores with a ``sharding_fn`` the same way).  So a checkpoint of four
+  rows resumes over two, one, a whole state, or rows × shards.
 """
 from __future__ import annotations
 

@@ -9,12 +9,18 @@ resume).  ``--dp × --tp × --pods > 1`` trains over a model mesh
 ``--device cpu``, over that many emulated shards on the CPU; a host with
 too few cards is refused, naming both counts.
 
-``--fsdp`` (with ``--dp × --pods > 1``) stores the train state in slices
-over the mesh's data rows, as the reference's placements say: the port's
-counterpart of the input shardings the reference's dry run compiles the
-train step with (``launch/dryrun.py``).  Each row then holds its slice of
-the float32 weights and AdamW moments and gathers a layer's weights as it
-runs it; the run's numbers are those of the replicated run bit for bit.
+``--tp n > 1`` trains tensor parallel (Megatron's placements, as the
+reference's): each row's shard ``s`` holds slice ``s`` of every leaf whose
+placement names the model axis, the blocks compute on the slices where they
+lie, and an MoE runs expert-parallel over the same shards.  A q-head count
+``n`` does not divide is refused, naming it; the vocabulary and the experts
+are padded (``tp_fit``).  ``--fsdp`` (with ``--dp × --pods > 1``) stores
+the train state in slices over the mesh's data rows too, as the reference's
+placements say: the port's counterpart of the input shardings the
+reference's dry run compiles the train step with (``launch/dryrun.py``), and
+with ``--tp`` its TP × FSDP.  Each row then holds its slice of the float32
+weights and AdamW moments and gathers a layer's weights as it runs it; the
+run's numbers are those of the run held whole on each row bit for bit.
 Without it the state is replicated on each row.
 
 ``main(argv)`` returns the loop's ``LoopStats``, so a caller can drive it
@@ -63,6 +69,26 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def tp_fit(cfg, tp: int):
+    """(why ``tp`` model shards cannot train ``cfg`` tensor parallel, or
+    None; what they pad).  Refused: a q-head count ``tp`` does not divide,
+    whose attention could not be sliced (``attn_tp_eligible``).  Padded, as
+    the reference pads them: a vocabulary to a multiple of ``8·tp``
+    (``padded_vocab``), an expert count to a multiple of ``tp``."""
+    refused = None
+    if any(b in ("attn", "local_attn") for b in cfg.block_pattern) \
+            and not cfg.attn_tp_eligible(tp):
+        refused = (f"{tp} does not divide the {cfg.n_q_heads} q heads of {cfg.name}: its "
+                   f"attention cannot be sliced over the model shards")
+    padded = []
+    if cfg.padded_vocab(tp) != cfg.vocab:
+        padded.append(f"the vocabulary of {cfg.vocab} padded to {cfg.padded_vocab(tp)}")
+    if cfg.moe is not None and cfg.moe.padded_experts(tp) != cfg.moe.n_experts:
+        padded.append(f"the {cfg.moe.n_experts} experts padded to "
+                      f"{cfg.moe.padded_experts(tp)}")
+    return refused, padded
+
+
 def main(argv: Optional[Sequence[str]] = None) -> LoopStats:
     ap = parser()
     args = ap.parse_args(argv)
@@ -80,6 +106,12 @@ def main(argv: Optional[Sequence[str]] = None) -> LoopStats:
             ap.error(f"--dp {args.dp} --tp {args.tp} --pods {args.pods}: {exc}")
 
     cfg = get_config(args.arch) if args.full_config else get_smoke_config(args.arch)
+    if args.tp > 1:
+        refused, padded = tp_fit(cfg, args.tp)
+        if refused:
+            ap.error(f"--tp {args.tp}: {refused}")
+        for note in padded:
+            print(f"--tp {args.tp}: {note}")
     shape = ShapeConfig("cli", "train", seq_len=args.seq, global_batch=args.batch)
     run = RunConfig(
         model=cfg, shape=shape, dp=args.dp, tp=args.tp, pods=args.pods,

@@ -149,7 +149,9 @@ def _project_tp(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     heads; else k and v are projected once with the whole weights on x's
     device, and each shard takes the kv heads its q heads read (a group's
     head, its run of heads, or one kv head a q head where the groups cut
-    across the shards)."""
+    across the shards).  What every shard reads (x, the qk-norm scales, the
+    whole k and v) goes out by :func:`tp.broadcast`, so that its gradient
+    comes back added in shard order."""
     wq = params["wq"]
     devs = [w.device for w in wq]
     n = len(devs)
@@ -159,22 +161,24 @@ def _project_tp(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
         cos, sin = rope_freqs(cfg, positions)
         whole = (apply_rope(_heads(cfg, x, params["wk"], params.get("k_norm")), cos, sin),
                  _heads(cfg, x, params["wv"]).contiguous())
+        kv = [TP.broadcast(t, devs) for t in whole]
+    norms = {k: TP.broadcast(params[k], devs) for k in ("q_norm", "k_norm")
+             if params.get(k) is not None}
     hq = cfg.n_q_heads // n
     group = cfg.n_q_heads // cfg.n_kv_heads
     out = []
     for s, (xs, ps) in enumerate(zip(TP.broadcast(x, devs), TP.broadcast(positions, devs))):
-        shard = {"wq": wq[s], "q_norm": params.get("q_norm")}
+        shard = {"wq": wq[s], **{k: v[s] for k, v in norms.items()}}
         if kv_split:
-            shard.update(wk=params["wk"][s], wv=params["wv"][s], k_norm=params.get("k_norm"))
+            shard.update(wk=params["wk"][s], wv=params["wv"][s])
             out.append(_project_qkv(shard, cfg, xs, ps))
             continue
         cos, sin = rope_freqs(cfg, ps)
-        q = apply_rope(_heads(cfg, xs, wq[s], params.get("q_norm")), cos, sin)
-        heads = torch.arange(s * hq, (s + 1) * hq, device=x.device) // group
+        q = apply_rope(_heads(cfg, xs, wq[s], shard.get("q_norm")), cos, sin)
+        heads = torch.arange(s * hq, (s + 1) * hq, device=xs.device) // group
         if group % hq == 0:  # the shard's q heads share one kv head
             heads = heads[:1]
-        k, v = TP.scatter([t[:, heads] for t in whole], [xs.device] * 2)
-        out.append((q, k, v))
+        out.append((q, kv[0][s][:, heads], kv[1][s][:, heads]))
     return out, whole
 
 

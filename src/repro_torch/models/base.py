@@ -13,12 +13,11 @@ Each spec carries the reference's placement: one entry per dimension,
 "data")``), equal to ``tuple(pspec)`` of the reference's ``PartitionSpec``
 (Megatron TP over ``model``, ZeRO/FSDP over the data axes where the
 dimension divides).  Over the single-controller mesh (``launch/mesh.py``) a
-model made for serving at ``tp > 1`` keeps, on each data row, slice ``s``
-of every leaf whose placement names the model axis on the row's shard
-``s`` (``models/tp.py``; the SSD and RG-LRU blocks' leaves excepted) and the
-rest whole on the row's first device; a train state keeps its data-axis
-slices on the rows (``models/fsdp.py``).  The placements are what the
-reference's dry run shards.
+model at ``tp > 1`` keeps, on each data row, slice ``s`` of every leaf whose
+placement names the model axis on the row's shard ``s`` (``models/tp.py``)
+and the rest whole on the row's first device; a train state keeps its
+data-axis slices on the rows too (``models/fsdp.py``).  The placements are
+what the reference's dry run shards.
 """
 from __future__ import annotations
 

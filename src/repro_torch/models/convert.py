@@ -9,9 +9,11 @@ it computes with in float32 (``a_log``, ``dt_bias``, ``d_skip``, the conv
 weights, the norm and qk-norm scales) stays float32.  For training
 (``trainable=True``) every leaf is float32 and requires grad, as the
 reference keeps its master weights.  Over a ``mesh`` of ``tp > 1`` model
-shards (serving) each leaf is placed as a tensor-parallel model holds it
-(``models/tp.py``): sliced over the first data row's shards where its
-placement names the model axis, else whole on the row's first device.
+shards each leaf is placed as a tensor-parallel model holds it: serving
+(``models/tp.py``), sliced over the first data row's shards where its
+placement names the model axis, else whole on the row's first device;
+training, in the train storage over the mesh's data rows and model shards
+(``lm.placer``, ``models/fsdp.py``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from ..configs.base import ModelConfig
 from . import tp as TP
 from .base import SINGLE, ShardCtx, resolve_device
 from .layers import compute_dtype
-from .lm import LM, model_spec
+from .lm import LM, model_spec, placer
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None,
@@ -35,12 +37,14 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None,
     card unless asked), in the serving storage or, ``trainable``, the
     training storage; over ``mesh`` (``tp > 1``), tensor parallel."""
     sliced = mesh is not None and mesh.tp > 1
-    if sliced and (trainable or mesh.tp != ctx.tp):
-        raise ValueError(f"a tensor-parallel model serves only, at its mesh's ShardCtx(tp="
-                         f"{mesh.tp}); asked trainable={trainable} at tp={ctx.tp}")
+    if sliced and mesh.tp != ctx.tp:
+        raise ValueError(f"a tensor-parallel model is made at its mesh's ShardCtx(tp="
+                         f"{mesh.tp}), not at tp={ctx.tp}")
     devices = mesh.row_devices(0) if sliced else None
     dev = resolve_device(device if devices is None else devices[0])
     compute = compute_dtype(cfg)
+    if sliced and trainable:
+        place = placer(cfg, ctx, mesh)
 
     def walk(spec, arrays, path):
         if set(spec) != set(arrays):
@@ -56,8 +60,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None,
             if a.shape != s.shape:
                 raise ValueError(f"/{'/'.join(path + (key,))}: shape {a.shape} != {s.shape}")
             t = torch.from_numpy(a).to(dtype=s.dtype(compute, trainable))
-            out[key] = (TP.place(t, s.placement, path + (key,), devices) if sliced
-                        else t.to(dev))
+            if sliced and trainable:
+                out[key] = place(path + (key,), t, True)
+            else:
+                out[key] = (TP.place(t, s.placement, path + (key,), devices) if sliced
+                            else t.to(dev))
         return out
 
     return LM(cfg, walk(model_spec(cfg, ctx), tree, ()), ctx, trainable=trainable)

@@ -1,18 +1,23 @@
-"""The train state stored in slices over a model mesh's data rows (FSDP).
+"""The train state stored in slices over a model mesh's data rows (FSDP) and
+model shards (TP, and TP × FSDP).
 
 The reference places every weight with a ``PartitionSpec`` whose data axes
-slice one dimension (``fsdp_axis``), and its dry run compiles the train step
-with those placements as the input shardings: each data row keeps its slice
-of the float32 weights and of the AdamW moments, GSPMD gathers a layer's
-weights before the layer runs and reduce-scatters its gradient after.
+slice one dimension (``fsdp_axis``) and whose model axis slices another
+(``tp_axis``: Megatron's column and row slices, the experts by expert), and
+its dry run compiles the train step with those placements as the input
+shardings: each card keeps its slice of the float32 weights and of the
+AdamW moments, GSPMD gathers a layer's weights over the data axes before
+the layer runs and reduce-scatters its gradient after.
 
 Here a placed leaf is a :class:`Sliced`: data row ``r`` keeps slice ``r`` of
-the dimension the placement names on ``mesh.device(r, 0)``; an expert leaf
-over ``tp > 1`` model shards keeps shard ``s``'s experts on ``mesh.device(r,
-s)``, sliced over the rows the same way.  A leaf whose placement names no
-data axis (the norms, a dimension the rows do not divide) is held whole on
-every row.  The placements are read from ``ParamSpec.placement``, so they
-read the same whether the state is whole or sliced.
+the dimension the placement names the data axes in, and, where it names the
+model axis (``tp.model_dim``), shard ``s`` of the row keeps slice ``s`` of
+that dimension on ``mesh.device(r, s)``; a leaf without it lies on the
+row's first device.  A leaf whose placement names no data axis (the norms,
+a dimension the rows do not divide, or every leaf of a state held whole on
+each row) is held whole over the data axes on every row.  The placements
+are read from ``ParamSpec.placement``, so they read the same whether the
+state is whole or sliced.
 
 :func:`gather` is the use of a leaf: a ``torch.autograd.Function`` that
 copies the slices of one layer onto the device that computes with it, and
@@ -33,7 +38,6 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 from torch.profiler import record_function
 
-from .moe import EXPERT_LEAVES
 from .tp import Shards, model_dim
 
 
@@ -42,10 +46,11 @@ class Sliced:
 
     ``dim``: the dimension split over the data rows (row ``r`` holds
     ``[r·n, (r+1)·n)``), or None: every row holds the leaf whole.
-    ``tp_dim``: the dimension split over the model shards (an expert leaf's
-    experts), or None: one part a row.  ``grad``: the float32 accumulators
-    of a step's gradient (a ``Sliced`` of the same layout, with one row only
-    where the leaf is whole on every row), or None."""
+    ``tp_dim``: the dimension split over the model shards (the one its
+    placement names the model axis in), or None: one part a row.
+    ``grad``: the float32 accumulators of a step's gradient (a ``Sliced``
+    of the same layout, with one row only where the leaf is whole on every
+    row), or None."""
 
     def __init__(self, shape: Sequence[int], dim: Optional[int], tp_dim: Optional[int],
                  parts: List[List[torch.Tensor]], devices: List[List[torch.device]]):
@@ -196,13 +201,18 @@ def gather(leaf: Sliced, device, layer: Optional[int] = None,
 
 def use_tree(tree, device, layer: Optional[int] = None, skip: Tuple[str, ...] = ()):
     """A parameter tree as the computation on ``device`` uses it: each
-    :class:`Sliced` leaf gathered (layer ``layer`` of a stacked tree), each
-    ``tp.Shards`` leaf the tuple of its shards' slices where they lie, each
-    tensor indexed at ``layer``; keys in ``skip`` are left out."""
+    :class:`Sliced` leaf gathered (layer ``layer`` of a stacked tree), a
+    leaf sliced over the model shards as the tuple of its shards' slices,
+    each gathered over the rows onto its shard's device of ``device``'s
+    row; each ``tp.Shards`` leaf the tuple of its shards' slices where they
+    lie, each tensor indexed at ``layer``; keys in ``skip`` are left out."""
     if isinstance(tree, dict):
         return {k: use_tree(v, device, layer, skip) for k, v in tree.items() if k not in skip}
     if isinstance(tree, Sliced):
-        return gather(tree, device, layer)
+        if tree.tp_dim is None:
+            return gather(tree, device, layer)
+        devices = tree.devices[_row_of(tree, device)]
+        return tuple(gather(tree, d, layer, s) for s, d in enumerate(devices))
     if isinstance(tree, Shards):
         return tree.at(layer)
     return tree if layer is None else tree[layer]
@@ -213,29 +223,60 @@ def use_tree(tree, device, layer: Optional[int] = None, skip: Tuple[str, ...] = 
 
 def _split_dims(placement: Tuple[Any, ...], data_spec, path: Tuple[str, ...]
                ) -> Tuple[Optional[int], Optional[int]]:
-    """(the dimension the data axes slice, the model-axis dimension kept
-    on the model shards: an expert leaf's) of a placement."""
+    """(the dimension the data axes slice, the dimension the model shards
+    slice: the one ``tp.model_dim`` names) of a placement."""
     dim = next((i for i, a in enumerate(placement) if a == data_spec and a is not None), None)
-    tp_dim = None
-    if len(path) >= 2 and path[-2] == "moe" and path[-1] in EXPERT_LEAVES:
-        tp_dim = model_dim(placement)
-    return dim, tp_dim
+    return dim, model_dim(placement, path)
+
+
+def _layout(shape, placement, data_spec, path, mesh) -> Sliced:
+    """An empty leaf of ``shape`` laid out over ``mesh`` as ``placement``
+    says: the devices of its parts, no part yet."""
+    dim, tp_dim = _split_dims(placement, data_spec, path)
+    shards = mesh.tp if tp_dim is not None else 1
+    devices = [[mesh.device(r, s) for s in range(shards)] for r in range(mesh.dp_total)]
+    return Sliced(shape, dim, tp_dim, [], devices)
 
 
 def place_leaf(t: torch.Tensor, placement, data_spec, path, mesh,
                requires_grad: bool = False) -> Sliced:
     """``t`` (whole, any device) sliced over ``mesh`` as ``placement``
     says: each part a new tensor on its device."""
-    dim, tp_dim = _split_dims(placement, data_spec, path)
-    shards = mesh.tp if tp_dim is not None else 1
-    devices = [[mesh.device(r, s) for s in range(shards)] for r in range(mesh.dp_total)]
-    leaf = Sliced(t.shape, dim, tp_dim, [], devices)
-    for r in range(mesh.dp_total):
+    leaf = _layout(t.shape, placement, data_spec, path, mesh)
+    for r in range(leaf.rows):
         row = []
-        for s in range(shards):
-            src = t.detach()[leaf.region(r if dim is not None else None, s)]
-            part = torch.empty(src.shape, dtype=t.dtype, device=devices[r][s])
+        for s in range(leaf.shards):
+            src = t.detach()[leaf.region(r if leaf.dim is not None else None, s)]
+            part = torch.empty(src.shape, dtype=t.dtype, device=leaf.devices[r][s])
             part.copy_(src)
             row.append(part.requires_grad_(requires_grad))
         leaf.parts.append(row)
+    return leaf
+
+
+def draw_leaf(spec, gen: torch.Generator, compute: torch.dtype, data_spec, path, mesh) -> Sliced:
+    """A float32 master leaf drawn from ``gen`` (on the mesh's first device)
+    as ``spec.materialise(..., master=True)`` draws it there, placed over
+    ``mesh`` and requiring grad.  A leaf drawn whole is sliced at once and
+    freed; a larger one (over ``base.WHOLE_DRAW_MAX`` elements) is drawn a
+    layer slice at a time and each slice's regions copied into the parts,
+    so that no device holds it whole (ROADMAP C16)."""
+    first = mesh.first
+    leaf = _layout(spec.shape, spec.placement, data_spec, path, mesh)
+    if spec.drawn_whole or 0 in (leaf.dim, leaf.tp_dim):
+        return place_leaf(spec.materialise(gen, compute, first, master=True), spec.placement,
+                          data_spec, path, mesh, requires_grad=True)
+    whole = torch.empty(spec.shape, device="meta")  # the parts' shapes, nothing allocated
+    leaf.parts = [[torch.empty(whole[leaf.region(r if leaf.dim is not None else None, s)].shape,
+                               dtype=torch.float32, device=leaf.devices[r][s])
+                   for s in range(leaf.shards)] for r in range(leaf.rows)]
+    with torch.no_grad():
+        for i in range(spec.shape[0]):
+            rows = spec.draw_slice(gen, first)
+            for r in range(leaf.rows):
+                for s in range(leaf.shards):
+                    at = leaf.region(r if leaf.dim is not None else None, s, rows.shape, lead=1)
+                    leaf.parts[r][s][i].copy_(rows[at])
+    for p in leaf.all_parts():
+        p.requires_grad_(True)
     return leaf

@@ -2,7 +2,8 @@
 head.  A weight given as a tuple of tensors is held in slices over a data
 row's model shards (``models/tp.py``): the MLP runs column-parallel gate and
 up and a row-parallel down, the embedding vocab-parallel, the head by column
-slices."""
+slices; :func:`column_product` and :func:`row_product` are the SSD and
+RG-LRU projections' two halves."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -74,6 +75,28 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     if 2 * half == d:
         return torch.cat([r1, r2], -1).to(x.dtype)
     return torch.cat([r1, r2, x[..., 2 * half:].float()], -1).to(x.dtype)
+
+
+# ------------------------------------------------------ sliced products ----
+
+
+def column_product(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` in x's type; ``w`` held in column slices over the shards
+    (a tuple): each shard's columns on its device, joined on x's device."""
+    if not isinstance(w, tuple):
+        return x @ w.to(x.dtype)
+    xs = TP.broadcast(x, [t.device for t in w])
+    return TP.join([a @ t.to(x.dtype) for a, t in zip(xs, w)], -1, x.device)
+
+
+def row_product(y: torch.Tensor, w) -> torch.Tensor:
+    """``y @ w`` in y's type; ``w`` held in row slices over the shards (a
+    tuple): y's matching columns scattered to the shards, the partial
+    products added on y's device in shard order (:func:`tp.reduce_sum`)."""
+    if not isinstance(w, tuple):
+        return y @ w.to(y.dtype)
+    ys = TP.scatter(y.chunk(len(w), dim=-1), [t.device for t in w])
+    return TP.reduce_sum([a @ t.to(y.dtype) for a, t in zip(ys, w)], y.device)
 
 
 # ------------------------------------------------------------------- MLP ----

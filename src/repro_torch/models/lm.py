@@ -14,13 +14,15 @@ and the logits gather onto the mesh's first device in row order.  Within a
 row, ``use_ep`` runs each MoE layer expert-parallel over the row's model
 shards, and attention decodes split-S against a cache sharded over them.
 A model made over a mesh of ``tp > 1`` shards (``init_model(...,
-mesh=)``, ``params_from_numpy(..., mesh=)``; for serving) is tensor
-parallel: each row keeps slice ``s`` of every leaf whose placement names
-the model axis on its shard ``s`` and the rest whole on its first device
-(``models/tp.py``), and the blocks compute on the slices where they lie.
-A model whose state is stored in slices over the rows (``models/fsdp.py``)
-has no replicas: each row gathers a layer's weights onto its device inside
-the layer's remat region and frees them after.  The reference's
+mesh=)``, ``params_from_numpy(..., mesh=)``) is tensor parallel: each row
+keeps slice ``s`` of every leaf whose placement names the model axis on its
+shard ``s`` and the rest whole on its first device (``models/tp.py``), and
+the blocks compute on the slices where they lie.  A model whose state is
+stored in slices over the rows or the shards (the train storage,
+``models/fsdp.py``: :func:`init_placed`) has no replicas: each row gathers
+a layer's weights onto its devices (each shard's slices onto the shard's)
+inside the layer's remat region and frees them after; under tensor
+parallelism an MoE runs expert-parallel over the same shards.  The reference's
 ``_constrain`` (a sharding hint with no effect on the answer) has no
 counterpart.
 """
@@ -31,6 +33,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -39,9 +42,10 @@ from ..kernels import ops as kops
 from ..launch.mesh import indexed_device
 from .attention import KVCache, ShardedKVCache
 from . import tp as TP
-from .base import SINGLE, ShardCtx, init_params, resolve_device, stack_tree, tree_map
+from .base import (SINGLE, ShardCtx, init_params, resolve_device, stack_tree, tree_flatten,
+                   tree_map)
 from .blocks import Block, ParamTree, block_spec, init_block_cache
-from .fsdp import Sliced, gather, use_tree
+from .fsdp import Sliced, draw_leaf, place_leaf, use_tree
 from .layers import apply_norm, compute_dtype, embed_spec, embed_tokens, lm_logits, norm_spec
 from .rglru import RGLRUCache
 from .ssd import SSDCache
@@ -120,8 +124,14 @@ class LM(nn.Module):
     @property
     def placed(self) -> bool:
         """Whether the parameters are stored in slices over a mesh's data
-        rows (``train.trainstep.place_train_state``)."""
+        rows or model shards (the train storage, ``models/fsdp.py``)."""
         return isinstance(self.embed.tok, Sliced)
+
+    @property
+    def placed_tp(self) -> bool:
+        """Whether the train storage slices the model-axis leaves over the
+        model shards (tensor parallelism in training)."""
+        return self.placed and self.embed.tok.tp_dim is not None
 
     def forward(self, tokens, cache=None, start_pos=None, remat: bool = False,
                 vis_embeds=None, mesh=None, use_ep: bool = False):
@@ -182,15 +192,15 @@ def init_model(cfg: ModelConfig, ctx: ShardCtx = SINGLE, seed: int = 0, device=N
     used in.  ``trainable``: every leaf float32 and requiring grad, cast to
     the compute type at use (the reference's master weights).  ``mesh``
     with ``tp > 1`` model shards: made straight into the slices of a
-    tensor-parallel model over its first data row (``tp.init_params_sliced``,
-    the generator on the mesh's first device; the values are those made
-    whole there), for serving."""
+    tensor-parallel model (the generator on the mesh's first device; the
+    values are those made whole there): for serving, over its first data
+    row (``tp.init_params_sliced``); ``trainable``, the train storage over
+    its data rows and model shards (:func:`init_placed`)."""
     if mesh is not None and mesh.tp > 1:
         if mesh.tp != ctx.tp:
             raise ValueError(f"a mesh of {mesh.tp} model shards under ShardCtx(tp={ctx.tp})")
         if trainable:
-            raise ValueError("a tensor-parallel model serves only: training over the model "
-                             "shards is not ported")
+            return init_placed(cfg, ctx, mesh, seed)
         devices = mesh.row_devices(0)
         resolve_device(devices[0])
         return LM(cfg, TP.init_params_sliced(model_spec(cfg, ctx), seed, compute_dtype(cfg),
@@ -198,6 +208,60 @@ def init_model(cfg: ModelConfig, ctx: ShardCtx = SINGLE, seed: int = 0, device=N
     dev = resolve_device(device if mesh is None else mesh.first)
     tree = init_params(model_spec(cfg, ctx), seed, compute_dtype(cfg), dev, master=trainable)
     return LM(cfg, tree, ctx, trainable=trainable)
+
+
+def mesh_ctx(mesh, tp: int, fsdp: bool = True) -> ShardCtx:
+    """The context whose placements a train state over ``mesh`` stores:
+    ``tp`` model shards and, with ``fsdp``, the mesh's data rows (without,
+    no data axis: each row holds the state whole over the data axes)."""
+    if not fsdp:
+        return ShardCtx(tp=tp)
+    if mesh.axis_names[0] == "pod":
+        return ShardCtx(tp=tp, dp=mesh.shape[1], pods=mesh.shape[0], data_axes=("pod", "data"))
+    return ShardCtx(tp=tp, dp=mesh.shape[0])
+
+
+def placer(cfg: ModelConfig, ctx: ShardCtx, mesh, fsdp: bool = True):
+    """(path, whole leaf, requires grad) → the leaf placed over ``mesh``
+    (``fsdp.place_leaf``), from the placements at :func:`mesh_ctx`."""
+    mctx = mesh_ctx(mesh, ctx.tp, fsdp)
+    specs = dict(tree_flatten(model_spec(cfg, mctx)))
+
+    def place(path, t, requires_grad):
+        spec = specs[path]
+        if tuple(t.shape) != spec.shape:
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != {spec.shape}")
+        return place_leaf(t, spec.placement, mctx.data_spec(), path, mesh, requires_grad)
+
+    return place
+
+
+def init_placed(cfg: ModelConfig, ctx: ShardCtx, mesh, seed: int = 0, fsdp: bool = True) -> LM:
+    """``init_model(..., trainable=True)``'s float32 weights, each leaf
+    drawn on the mesh's first device from the generator that would make the
+    whole model there and placed over ``mesh`` as it is drawn
+    (``fsdp.draw_leaf``: a leaf over ``base.WHOLE_DRAW_MAX`` elements a
+    layer slice at a time), so the whole model never lies on one device:
+    sliced over the model shards where a leaf's placement names the model
+    axis and, with ``fsdp``, over the data rows where it names the data
+    axes (without, held whole on every row)."""
+    if mesh.tp != ctx.tp:
+        raise ValueError(f"a mesh of {mesh.tp} model shards under ShardCtx(tp={ctx.tp})")
+    first = resolve_device(mesh.first)
+    gen = torch.Generator(device=first)
+    gen.manual_seed(seed)
+    mctx = mesh_ctx(mesh, ctx.tp, fsdp)
+    compute = compute_dtype(cfg)
+    tree = TP.map_paths(lambda path, spec: draw_leaf(spec, gen, compute, mctx.data_spec(), path,
+                                                     mesh), model_spec(cfg, mctx))
+    return LM(cfg, tree, ctx, trainable=True)
+
+
+def expert_parallel(model: LM, cfg: ModelConfig, use_ep: bool) -> bool:
+    """Whether an MoE runs expert-parallel: as asked, and always where the
+    train storage slices the experts over the model shards (each shard
+    computes with its own experts, as the reference's dry run steps)."""
+    return use_ep or (cfg.moe is not None and isinstance(model, LM) and model.placed_tp)
 
 
 # ------------------------------------------------------------------- cache --
@@ -298,6 +362,7 @@ def forward(
     (``launch.mesh.make_mesh``) to run over, the logits and aux losses on
     its first device; ``use_ep`` runs the MoE layers expert-parallel."""
     shard_models = None
+    use_ep = expert_parallel(params, cfg, use_ep)
     if mesh is not None:
         if mesh.tp != ctx.tp:
             raise ValueError(f"a mesh of {mesh.tp} model shards under ShardCtx(tp={ctx.tp})")
@@ -326,17 +391,20 @@ def forward(
         ``remat``: a group's always (the reference's jax.checkpoint around
         the group body), the embedding's, an extra block's and the head's
         where the weights are sliced, so that their gathers run again in
-        the backward instead of being kept."""
-        if remat and (always or placed):
-            return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
-        return fn(*args)
+        the backward instead of being kept.  A region over the model
+        shards recomputes inside one backward node (:class:`_Recompute`)."""
+        if not (remat and (always or placed)):
+            return fn(*args)
+        if params.placed_tp:
+            return _Recompute.run(fn, backend, *args)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
 
     emb = params.embed.tree()
     tied = None
     if placed and cfg.tie_embeddings:
         # the table serves both ends: gathered once a row, so that the
         # gradients of its two uses add as on a whole leaf
-        tied = {"tok": gather(emb["tok"], dev)}
+        tied = use_tree({"tok": emb["tok"]}, dev)
 
     def embed_params(keys):
         return tied or use_tree({k: emb[k] for k in keys}, dev)
@@ -430,6 +498,50 @@ def _forward_rows(params: LM, cfg: ModelConfig, tokens, ctx: ShardCtx, mesh, row
         aux[k] = total / rows
     new_cache = None if cache is None else RowCaches([o[1] for o in outs])
     return logits, new_cache, aux
+
+
+class _Recompute(torch.autograd.Function):
+    """A region run without keeping its activations, then run again inside
+    this node's backward, where its own backward runs too (a reentrant
+    recompute).  A region over the model shards saves tensors on several
+    devices, whose backward nodes the autograd engine runs on several
+    device threads at once: ``torch.utils.checkpoint``'s non-reentrant
+    recompute starts from whichever thread first unpacks a saved tensor,
+    and two threads may start it at once.  Here one node owns the
+    recompute.  The outputs are the region's tensors, flattened (a group's
+    aux losses beside its activation); an input that requires grad takes
+    its gradient back, and an anchor that requires grad makes the outputs
+    of a region without one (the embedding's: token ids in) differentiable,
+    so that its gathers' backward still adds into the weights'
+    accumulators."""
+
+    @staticmethod
+    def run(fn, backend, *args):
+        box = []
+        anchor = torch.empty(0, requires_grad=True)
+        flat = _Recompute.apply(fn, backend, box, anchor, *args)
+        return pytree.tree_unflatten(list(flat), box[0])
+
+    @staticmethod
+    def forward(ctx, fn, backend, box, anchor, *args):
+        ctx.fn, ctx.backend, ctx.args = fn, backend, args
+        with torch.no_grad(), kops.local_backend(backend):
+            flat, spec = pytree.tree_flatten(fn(*args))
+        box.append(spec)
+        return tuple(flat)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        args = tuple(a.detach().requires_grad_(a.requires_grad) if torch.is_tensor(a) else a
+                     for a in ctx.args)
+        with torch.enable_grad(), kops.local_backend(ctx.backend):
+            flat, _ = pytree.tree_flatten(ctx.fn(*args))
+        pairs = [(o, g) for o, g in zip(flat, grads)
+                 if g is not None and torch.is_tensor(o) and o.requires_grad]
+        if pairs:
+            torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
+        return (None, None, None, None,
+                *(a.grad if torch.is_tensor(a) and a.requires_grad else None for a in args))
 
 
 # -------------------------------------------------------------------- loss --

@@ -34,7 +34,9 @@ on its own device, routes the row's tokens itself (the router is
 replicated) at the row's capacity, and computes its experts' part of the
 combine; the parts go to the row's first device and are added there in
 shard order (the reference's ``psum`` over the model axis), and the aux
-losses are averaged over the data rows in row order (its ``pmean``).
+losses are averaged over the data rows in row order (its ``pmean``).  The
+row's tokens and the router go out by ``tp.broadcast``, whose backward adds
+the shards' gradients in shard order.
 ``moe_ffn`` at the same context, with no mesh, is the global semantics,
 padded experts included.
 """
@@ -47,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from . import tp as TP
 from .base import ParamSpec, ShardCtx, matrix_spec
 from .layers import _gelu
 
@@ -242,8 +245,9 @@ def expert_slices(params, ctx: ShardCtx, devices: Sequence[torch.device]) -> Lis
     the shard's device is the leaf's) or already a tuple of the shards'
     slices, each on its shard's device."""
     out = []
+    routers = TP.broadcast(params["router"], devices)
     for s, dev in enumerate(devices):
-        local = {"router": params["router"].to(dev)}
+        local = {"router": routers[s]}
         for name in EXPERT_LEAVES:
             if name not in params:
                 continue
@@ -278,9 +282,10 @@ def moe_ffn_sharded(params, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx, me
         devs = mesh.row_devices(r)
         xr = x[r * b:(r + 1) * b] if split else x
         local = expert_slices(params, ctx, devs)
+        xs = TP.broadcast(xr, devs)
         y = aux = None
         for s, dev in enumerate(devs):
-            y_s, aux_s = moe_ffn_ep(local[s], cfg, xr.to(dev), ctx, s)
+            y_s, aux_s = moe_ffn_ep(local[s], cfg, xs[s], ctx, s)
             y_s = y_s.to(devs[0])
             if s == 0:  # the aux losses are replicated over the model axis
                 y, aux = y_s, aux_s

@@ -13,6 +13,12 @@ position with the one ``off`` before it, from the previous step's tensors;
 autograd differentiates it as it is.  Decode (S == 1) is the one-step
 update.  The gates' float32 products must be IEEE float32 on the card,
 never TF32.
+
+Under tensor parallelism (``models/tp.py``) ``in_proj`` is held in column
+slices and ``out_proj`` in row slices over the shards, as the reference
+places them; the projected columns join on the row's first device, where
+the conv, both gates (``w_rec_gate`` and ``w_in_gate`` stay whole, as the
+reference keeps them), the scan and the gating run whole.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .base import ParamSpec, ShardCtx, matrix_spec, replicated_spec
-from .layers import _gelu
+from .layers import _gelu, column_product, row_product
 
 
 def rglru_spec(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, ParamSpec]:
@@ -94,7 +100,7 @@ def rglru_block(
     r = cfg.rglru
     B, S, d = x.shape
     dt = x.dtype
-    proj = x @ params["in_proj"].to(dt)  # (B, S, 2W)
+    proj = column_product(x, params["in_proj"])  # (B, S, 2W)
     u, gate = torch.chunk(proj, 2, dim=-1)
 
     # causal depthwise conv1d on the recurrent branch; the float32 weights
@@ -132,4 +138,4 @@ def rglru_block(
         new_cache = RGLRUCache(h=h_last, conv=new_conv, pos=cache.pos + S)
 
     out = h.to(dt) * _gelu(gate.float()).to(dt)
-    return out @ params["out_proj"].to(dt), new_cache
+    return row_product(out, params["out_proj"]), new_cache

@@ -8,6 +8,15 @@ reference.
 
 Block structure (Mamba-2): in_proj → (z gate, x, B, C, dt) → causal conv1d on
 (x, B, C) → SSD → gated RMSNorm → out_proj.
+
+Under tensor parallelism (``models/tp.py``) ``in_proj`` is held as the
+reference places it, a plain 1/tp of its columns a shard (the slices cut
+across the z / x / B / C / dt segments), and ``out_proj`` by rows: each
+shard projects its columns, which join on the row's first device; the conv,
+the scan and the gated RMSNorm (over the whole ``d_inner``, so it needs
+every head's y) run there whole, on the cache's layout; y's columns then go
+out to the shards for their rows of ``out_proj``, and the parts add in shard
+order.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from .base import ParamSpec, ShardCtx, matrix_spec, replicated_spec
+from .layers import column_product, row_product
 
 
 def ssd_dims(cfg: ModelConfig):
@@ -88,7 +98,7 @@ def ssd_block(
     B, S, d = x.shape
     di, nh, ns = ssd_dims(cfg)
     dt_ = x.dtype
-    proj = x @ params["in_proj"].to(dt_)
+    proj = column_product(x, params["in_proj"])
     z, xs, bmat, cmat, dt_raw = torch.split(proj, [di, di, ns, ns, nh], dim=-1)
 
     conv_in = torch.cat([xs, bmat, cmat], dim=-1)  # (B, S, di + 2ns)
@@ -132,4 +142,4 @@ def ssd_block(
     gated = y * F.silu(z.float())
     ms = (gated * gated).mean(-1, keepdim=True)
     y = gated * torch.rsqrt(ms + 1e-6) * params["norm_scale"]
-    return y.to(dt_) @ params["out_proj"].to(dt_), new_cache
+    return row_product(y.to(dt_), params["out_proj"]), new_cache

@@ -1,29 +1,36 @@
-"""Tensor parallelism of the dense weights over a data row's model shards,
-for serving (single-controller, as the rest of the model mesh).
+"""Tensor parallelism of the dense weights over a data row's model shards
+(single-controller, as the rest of the model mesh), for serving and for
+training.
 
 The reference shards every dense matrix Megatron-style over its ``model``
 axis (``ParamSpec.placement``): ``wq`` / ``wk`` / ``wv``, ``w_gate`` /
-``w_up`` and the head by columns, ``wo`` and ``w_down`` by rows, the
-embedding table by vocabulary rows, the experts by expert.  Here a leaf
-whose placement names the model axis is a :class:`Shards`: shard ``s`` of a
-data row holds slice ``s`` of that dimension on the row's ``s``-th device.
-Every other leaf (the norms, the router, a dimension ``tp`` does not divide)
-stays whole on the row's first device, and so do the SSD and RG-LRU blocks'
-leaves: their projections' model dimension cuts across the segments the
-blocks split them into (:data:`TP_BLOCKS`).
+``w_up``, the SSD and RG-LRU ``in_proj`` and the head by columns, ``wo``,
+``w_down`` and ``out_proj`` by rows, the embedding table by vocabulary rows,
+the experts by expert.  A served model keeps such a leaf as a
+:class:`Shards`: shard ``s`` of a data row holds slice ``s`` of that
+dimension on the row's ``s``-th device; the train storage keeps it as an
+``fsdp.Sliced`` leaf with the same slices (over the data rows too, under
+TP × FSDP).  Every other leaf (the norms, the router, the SSD's conv and
+decays, RG-LRU's gates, a dimension ``tp`` does not divide) stays whole on
+the row's first device.  :data:`TP_BLOCKS` names the block types whose
+leaves are split: all of them.
 
 A block computes on the slices where they lie: a row's activation is copied
 to its shards (:func:`broadcast`, :func:`scatter`), each shard computes its
 column slices' outputs or its part of a row-parallel product, and the parts
 come back to the row's first device, added in shard order (:func:`reduce_sum`,
 in float32, rounded once to the parts' type) or, column slices, joined in
-order (:func:`join`).  No float atomics, so a repeat is bit for bit.  Each
-move runs inside a ``record_function`` range (``tp_broadcast``, ``tp_sum``,
-``tp_gather``), so that a torch.profiler trace reads its device time.
+order (:func:`join`).  The SSD and RG-LRU blocks join their projected
+columns and run the rest whole on the first device.  Each move is an
+autograd function whose backward is its Megatron conjugate, in a fixed
+order, with no float atomics, so a repeated forward or training step is bit
+for bit.  Each direction runs inside a ``record_function`` range
+(``tp_broadcast``, ``tp_sum``, ``tp_gather``, named for what it does), so
+that a torch.profiler trace reads its device time.
 
 The cache-free forward, the KV caches and the blocks' use of the slices are
-in ``models/{lm,attention,layers,blocks}.py``; training under tensor
-parallelism is not ported: a model made in slices serves only.
+in ``models/{lm,attention,layers,blocks,ssd,rglru}.py``; the train storage
+in slices and its gradient in ``models/fsdp.py``.
 """
 from __future__ import annotations
 
@@ -34,8 +41,8 @@ from torch.profiler import record_function
 
 from .base import ParamSpec
 
-# the block types whose leaves are split over the model shards
-TP_BLOCKS = ("attn", "local_attn")
+# the block types whose leaves are split over the model shards: all of them
+TP_BLOCKS = ("attn", "local_attn", "ssd", "rglru")
 
 
 class Shards:
@@ -156,31 +163,111 @@ def shard_bytes(tree, shards: int) -> list:
 
 
 # ------------------------------------------------------------------ moves --
+#
+# Megatron's conjugate pairs, each a ``torch.autograd.Function`` whose
+# backward is fixed: autograd would add the gradients that several devices
+# send back to one tensor in the order their threads deliver them, so a
+# repeated step would not be bit for bit.  Each direction runs inside the
+# range of what it does: a broadcast's backward is a sum (``tp_sum``), a
+# sum's backward a broadcast (``tp_broadcast``), a join's backward sends each
+# shard its part (``tp_broadcast``), a scatter's brings each part back
+# (``tp_gather``).
+
+
+def _sum_on(parts, device, dtype) -> torch.Tensor:
+    """``parts`` (None skipped) added on ``device`` in order, in float32,
+    rounded once to ``dtype``."""
+    total = None
+    for p in parts:
+        if p is None:
+            continue
+        p = p.to(device).float()
+        total = p if total is None else total + p
+    return total.to(dtype)
+
+
+def _moved(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``: a copy, or a view of ``t`` where it lies there."""
+    return t.view_as(t) if t.device == torch.device(device) else t.to(device)
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, *parts):
+        ctx.homes = [p.device for p in parts]
+        with record_function("tp_broadcast"):
+            return tuple(_moved(p, d) for p, d in zip(parts, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with record_function("tp_gather"):
+            return (None, *(None if g is None else g.to(h) for g, h in zip(grads, ctx.homes)))
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, devices):
+        ctx.home, ctx.dtype = x.device, x.dtype
+        with record_function("tp_broadcast"):
+            return tuple(_moved(x, d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with record_function("tp_sum"):
+            return _sum_on(grads, ctx.home, ctx.dtype), None
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, device, *parts):
+        ctx.homes = [(p.device, p.dtype) for p in parts]
+        with record_function("tp_sum"):
+            out = _sum_on(parts, device, parts[0].dtype)
+            return out.view_as(out) if any(out is p for p in parts) else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        with record_function("tp_broadcast"):
+            return (None, *(grad.to(device=d, dtype=dt) for d, dt in ctx.homes))
+
+
+class _Join(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, device, *parts):
+        ctx.dim = dim
+        ctx.homes = [p.device for p in parts]
+        ctx.sizes = [p.shape[dim] for p in parts]
+        with record_function("tp_gather"):
+            return torch.cat([p.to(device) for p in parts], dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with record_function("tp_broadcast"):
+            pieces = grad.split(ctx.sizes, ctx.dim)
+            return (None, None, *(g.to(h) for g, h in zip(pieces, ctx.homes)))
 
 
 def scatter(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]):
-    """Part ``s`` copied onto ``devices[s]`` (no copy where it lies there)."""
-    with record_function("tp_broadcast"):
-        return tuple(p.to(d) for p, d in zip(parts, devices))
+    """Part ``s`` on ``devices[s]`` (no copy where it lies there); the
+    backward brings each part's gradient back to it."""
+    return _Scatter.apply(tuple(devices), *parts)
 
 
 def broadcast(x: torch.Tensor, devices: Sequence[torch.device]):
-    """A row's activation on each of its shards' devices."""
-    return scatter([x] * len(devices), devices)
+    """A row's activation (or a whole weight) on each of its shards'
+    devices; the backward adds the shards' gradients on x's device in shard
+    order, in float32, rounded once to x's type."""
+    return _Broadcast.apply(x, tuple(devices))
 
 
 def reduce_sum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
     """The shards' partial results added on ``device`` in shard order, in
     float32, rounded once to the parts' type (the reference's ``psum`` over
-    the model axis)."""
-    with record_function("tp_sum"):
-        total = parts[0].to(device).float()
-        for p in parts[1:]:
-            total = total + p.to(device).float()
-        return total.to(parts[0].dtype)
+    the model axis); the backward sends the gradient to every shard."""
+    return _ReduceSum.apply(device, *parts)
 
 
 def join(parts: Sequence[torch.Tensor], dim: int, device) -> torch.Tensor:
-    """The shards' column slices joined on ``device`` in shard order."""
-    with record_function("tp_gather"):
-        return torch.cat([p.to(device) for p in parts], dim)
+    """The shards' column slices joined on ``device`` in shard order; the
+    backward splits the gradient and sends each shard its part."""
+    return _Join.apply(dim, device, *parts)

@@ -58,8 +58,10 @@ def train_loop(
 ) -> LoopStats:
     """Train ``cfg`` on ``device`` (the card unless asked), or over
     ``mesh`` (a ``launch.mesh.ModelMesh``: the state on its first device;
-    with ``fsdp``, stored in slices over its data rows as the placements
-    say, ``trainstep.place_train_state``), for ``total_steps`` steps,
+    over ``tp > 1`` model shards, tensor parallel: each model-axis leaf in
+    slices over the shards; with ``fsdp``, stored in slices over its data
+    rows as the placements say, ``trainstep.init_placed_state``), for
+    ``total_steps`` steps,
     resuming from ``ckpt_dir`` if it holds a checkpoint; the final state is
     saved there on the way out."""
     dev = resolve_device(device) if mesh is None else mesh.first
@@ -68,8 +70,8 @@ def train_loop(
     stats = LoopStats()
     manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
 
-    if fsdp:
-        model, opt_state = init_placed_state(cfg, run, ctx, mesh, seed=seed)
+    if fsdp or (mesh is not None and mesh.tp > 1):
+        model, opt_state = init_placed_state(cfg, run, ctx, mesh, seed=seed, fsdp=fsdp)
     else:
         model, opt_state = init_train_state(cfg, run, ctx, seed=seed, device=dev)
     start_step = 0

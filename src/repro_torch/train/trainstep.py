@@ -21,7 +21,11 @@ weights and moments: row ``r`` gathers each layer's weights as it runs it,
 and the gather's backward adds the row's gradient into each slice's float32
 accumulator on the slice's device, rows in order, so the accumulated slices
 equal the replicated step's gradient bit for bit; AdamW then updates each
-slice where it lies.
+slice where it lies.  Over ``tp > 1`` model shards the placed state is
+tensor parallel (TP, or TP × FSDP): each shard computes with its slices on
+its own device, its gradient lands in its slices' accumulators, and an MoE
+runs expert-parallel over the shards; a whole model over such a mesh still
+computes on whole replicas, one a shard device.
 """
 from __future__ import annotations
 
@@ -30,12 +34,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, RunConfig
-from ..models.base import (SINGLE, ShardCtx, resolve_device, tree_flatten, tree_map,
+from ..models.base import (SINGLE, ShardCtx, tree_flatten, tree_map,
                            tree_specs_to_shapes, tree_unflatten)
-from ..models.fsdp import Sliced, place_leaf
-from ..models.layers import compute_dtype
-from ..models.lm import LM, data_rows, forward, init_model, lm_loss, model_spec, replica, \
-    sync_replicas
+from ..models.fsdp import Sliced
+from ..models.lm import (LM, data_rows, expert_parallel, forward, init_model, init_placed,
+                         lm_loss, model_spec, placer, replica, sync_replicas)
 from .optimizer import (
     AdamWConfig,
     adamw_update,
@@ -79,6 +82,7 @@ def value_and_grad(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: boo
     are added on the mesh's first device in row order and divided by the
     number of rows.  A placed model's gradients are fresh accumulators, a
     ``Sliced`` leaf for each of its leaves, into which the rows add."""
+    use_ep = expert_parallel(model, cfg, use_ep)
     rows = 1 if mesh is None else data_rows(mesh, cfg, batch["tokens"].shape[0], use_ep)
     b = batch["tokens"].shape[0] // rows
     grads = _zero_grads(model) if model.placed else None
@@ -230,41 +234,36 @@ def init_train_state(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx = SINGLE, s
     return model, opt_state
 
 
-def init_placed_state(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx, mesh, seed: int = 0):
-    """:func:`init_train_state`'s state placed over ``mesh``'s data rows as
-    it is made (:func:`place_train_state`): each leaf is drawn on the
-    mesh's first device from the generator that would make the whole model
-    there, sliced at once and freed, so the whole state never lies on one
-    device."""
-    first = resolve_device(mesh.first)
-    gen = torch.Generator(device=first)
-    gen.manual_seed(seed)
-    place = _placer(cfg, ctx, mesh)
-    compute = compute_dtype(cfg)
-
-    def make(path, spec):
-        return place(path, spec.materialise(gen, compute, first, master=True), True)
-
-    model = LM(cfg, _map_paths(make, model_spec(cfg, ctx)), ctx, trainable=True)
+def init_placed_state(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx, mesh, seed: int = 0,
+                      fsdp: bool = True):
+    """:func:`init_train_state`'s state placed over ``mesh`` as it is made
+    (``lm.init_placed``: each leaf drawn on the mesh's first device from
+    the generator that would make the whole model there, placed at once and
+    freed, a leaf over ``base.WHOLE_DRAW_MAX`` elements a layer slice at a
+    time), so the whole state never lies on one device: sliced over the
+    model shards where a placement names the model axis and, with ``fsdp``,
+    over the data rows where it names the data axes."""
+    model = init_placed(cfg, ctx, mesh, seed, fsdp)
     opt_state = init_opt_state(model.tree())
     if run.grad_compression:
         opt_state["err"] = init_error_state(model.tree())
     return model, opt_state
 
 
-def place_train_state(model: LM, opt_state, mesh):
-    """Store a whole train state in slices over ``mesh``'s data rows, as
-    the reference's placements say (``ParamSpec.placement``; the dry run's
+def place_train_state(model: LM, opt_state, mesh, fsdp: bool = True):
+    """Store a whole train state in slices over ``mesh``, as the
+    reference's placements say (``ParamSpec.placement``; the dry run's
     input shardings): row ``r`` keeps slice ``r`` of each leaf's data-axis
-    dimension on ``mesh.device(r, 0)`` (an expert leaf's shard ``s`` on
-    ``mesh.device(r, s)``); a leaf with no data axis is held whole on every
-    row.  The moments and the error tree are sliced like their parameters.
-    The given state is consumed, as the dry run donates it: each whole leaf
-    is dropped as soon as it is sliced.  → (the model, now placed, and the
-    placed optimizer state)."""
+    dimension (with ``fsdp``; without, each row keeps the leaf whole over
+    the data axes), and shard ``s`` of the row slice ``s`` of its model-axis
+    dimension, on ``mesh.device(r, s)``; a leaf with neither axis is held
+    whole on every row's first device.  The moments and the error tree are
+    sliced like their parameters.  The given state is consumed, as the dry
+    run donates it: each whole leaf is dropped as soon as it is sliced.  →
+    (the model, now placed, and the placed optimizer state)."""
     if mesh.tp != model.ctx.tp:
         raise ValueError(f"a mesh of {mesh.tp} model shards under ShardCtx(tp={model.ctx.tp})")
-    place = _placer(model.cfg, model.ctx, mesh)
+    place = placer(model.cfg, model.ctx, mesh, fsdp)
     model.place_(lambda path, t: place(path, t, True))
 
     def place_tree(tree, prefix=()):
@@ -283,36 +282,6 @@ def place_train_state(model: LM, opt_state, mesh):
     return model, opt_state
 
 
-def _mesh_ctx(mesh, tp: int) -> ShardCtx:
-    """The context whose placements ``mesh`` stores: its data rows, and
-    ``tp`` model shards."""
-    if mesh.axis_names[0] == "pod":
-        return ShardCtx(tp=tp, dp=mesh.shape[1], pods=mesh.shape[0], data_axes=("pod", "data"))
-    return ShardCtx(tp=tp, dp=mesh.shape[0])
-
-
-def _placer(cfg: ModelConfig, ctx: ShardCtx, mesh):
-    """(path, whole leaf, requires grad) → the leaf placed over ``mesh``,
-    from the placements computed at the mesh's context."""
-    mctx = _mesh_ctx(mesh, ctx.tp)
-    specs = dict(tree_flatten(model_spec(cfg, mctx)))
-
-    def place(path, t, requires_grad):
-        spec = specs[path]
-        if tuple(t.shape) != spec.shape:
-            raise ValueError(f"{path}: shape {tuple(t.shape)} != {spec.shape}")
-        return place_leaf(t, spec.placement, mctx.data_spec(), path, mesh, requires_grad)
-
-    return place
-
-
-def _map_paths(fn, tree, prefix=()):
-    """``fn(path, leaf)`` over a nested dict, in its insertion order."""
-    if isinstance(tree, dict):
-        return {k: _map_paths(fn, v, prefix + (k,)) for k, v in tree.items()}
-    return fn(prefix, tree)
-
-
 def row_state_bytes(model: LM, opt_state) -> List[int]:
     """The bytes of the train state (weights, moments, error tree) that
     each data row of a placed model holds, counted on its tensors."""
@@ -323,6 +292,23 @@ def row_state_bytes(model: LM, opt_state) -> List[int]:
                 while len(out) <= r:
                     out.append(0)
                 out[r] += sum(p.numel() * p.element_size() for p in row)
+    return out
+
+
+def card_state_bytes(model: LM, opt_state) -> List[int]:
+    """The bytes of the train state (weights, moments, error tree) that
+    each card of a placed model's mesh holds, row-major over (data row,
+    model shard), counted on its tensors: a leaf not sliced over the shards
+    lies on its row's first card."""
+    tp = model.ctx.tp
+    out: List[int] = []
+    for tree in (model.tree(), opt_state["mu"], opt_state["nu"], opt_state.get("err", {})):
+        for _, leaf in tree_flatten(tree):
+            for r, row in enumerate(leaf.parts):
+                for s, p in enumerate(row):
+                    while len(out) <= r * tp + s:
+                        out.append(0)
+                    out[r * tp + s] += p.numel() * p.element_size()
     return out
 
 

@@ -110,8 +110,10 @@ def test_expert_slices_stay_on_their_model_shards(arch):
     """Over ``make_mesh(2, 2)`` at ``ShardCtx(tp=2)``: an expert leaf's
     shard ``s`` of row ``r`` holds experts ``[s·e/2, (s+1)·e/2)`` and row
     ``r``'s slice of its fsdp dimension (1 or 2 of the unstacked leaf), on
-    ``mesh.device(r, s)``; a dense leaf's row keeps its slice on the row's
-    first device, whole over the model axis."""
+    ``mesh.device(r, s)``; a dense leaf whose placement names the model
+    axis is sliced over the shards the same way (``wq`` by columns), one
+    without it (the router) keeps its row's slice on the row's first
+    device."""
     cfg = get_config(arch)
     mesh = make_mesh(2, 2, devices=["meta"] * 4)
     model, _ = place_train_state(*_meta_state(cfg, ShardCtx(tp=2)), mesh)
@@ -127,8 +129,11 @@ def test_expert_slices_stay_on_their_model_shards(arch):
                 assert list(leaf.parts[r][s].shape) == want
                 assert leaf.devices[r][s] == mesh.device(r, s)
     wq = model.tree()["groups"]["p0_attn"]["attn"]["wq"]
-    assert wq.tp_dim is None and wq.shards == 1 and wq.dim == 1
-    assert list(wq.parts[1][0].shape) == [wq.shape[0], wq.shape[1] // 2, wq.shape[2]]
+    assert wq.tp_dim == 2 and wq.shards == 2 and wq.dim == 1
+    assert list(wq.parts[1][1].shape) == [wq.shape[0], wq.shape[1] // 2, wq.shape[2] // 2]
+    assert wq.devices[1] == [mesh.device(1, 0), mesh.device(1, 1)]
+    router = model.tree()["groups"]["p0_attn"]["moe"]["router"]
+    assert router.tp_dim is None and router.shards == 1 and router.dim == 1
 
 
 def test_row_bytes_of_the_full_qwen3_8b_from_meta_tensors():
@@ -153,10 +158,11 @@ def test_row_bytes_of_the_full_qwen3_8b_from_meta_tensors():
 # ------------------------------------------------------------- bit for bit --
 
 
-def _train(arch, devices, placed, tp=1, use_ep=False, steps=2, init="port", **run_kw):
+def _train(arch, devices, placed, tp=1, use_ep=False, steps=2, init="port", fsdp=True,
+           **run_kw):
     """``steps`` steps over ``make_mesh(len(devices) // tp, tp)`` from one
     seed → (params, {mu, nu, err}, the last metrics), each leaf whole on the
-    host."""
+    host; ``placed`` with ``fsdp=False``: held whole over the data rows."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     dp = len(devices) // tp
     run = RunConfig(model=cfg, shape=ShapeConfig(**SHAPE), dp=dp, tp=tp, **run_kw)
@@ -168,7 +174,7 @@ def _train(arch, devices, placed, tp=1, use_ep=False, steps=2, init="port", **ru
     else:
         model, state = init_train_state(cfg, run, ctx, seed=0, device="cpu")
         if placed:
-            model, state = place_train_state(model, state, mesh)
+            model, state = place_train_state(model, state, mesh, fsdp=fsdp)
     for i in range(steps):
         batch = batch_at(SynthSpec(vocab=cfg.vocab, seq_len=32, batch=4, seed=1), i)
         model, state, metrics = step(model, state, {k: torch.from_numpy(v)
@@ -232,10 +238,12 @@ def test_state_placed_as_it_is_made_equals_the_placed_whole_state(devices):
 @pytest.mark.parametrize("devices", [["cpu"] * 4, CARDS], ids=["emulated", "cards"])
 def test_sliced_expert_parallel_step_equals_the_replicated_one(devices):
     """granite-MoE expert-parallel over ``make_mesh(2, 2)`` with its expert
-    slices on their model shards, sliced over the rows within each shard:
-    two steps bit for bit the replicated expert-parallel steps."""
+    slices (and, tensor parallel, its attention's slices) on their model
+    shards, sliced over the rows within each shard: two steps bit for bit
+    the steps of the same slices held whole on each row (replicated over
+    the data rows)."""
     p1, s1, m1 = _train("granite_moe_3b_a800m", devices, True, tp=2, use_ep=True)
-    p2, s2, m2 = _train("granite_moe_3b_a800m", devices, False, tp=2, use_ep=True)
+    p2, s2, m2 = _train("granite_moe_3b_a800m", devices, True, tp=2, use_ep=True, fsdp=False)
     assert _same(p1, p2) and _same(s1["mu"], s2["mu"]) and _same(s1["nu"], s2["nu"])
     assert torch.equal(m1["loss"], m2["loss"]) and torch.equal(m1["grad_norm"], m2["grad_norm"])
 

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: ``repro_torch``, ``chip_smoke.py``,
 ``tools/ssd_scan_variants.py``, ``tools/ssd_train_phases.py``,
 ``tools/ssd_bwd_variants.py``, ``tools/registry_phases.py``,
-``tools/tp_cards.py`` and ``examples/torch_*.py`` import neither
+``tools/tp_cards.py``, ``tools/tp_train_cards.py``,
+``tools/tp_train_phases.py`` and ``examples/torch_*.py`` import neither
 JAX nor the JAX package,
 ``repro_torch`` keeps the reference's module layout, and the smoke script
 refuses to run without the package or a CUDA card."""
@@ -37,7 +38,8 @@ def _forbidden(name: str) -> bool:
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
     + ["chip_smoke.py", "tools/ssd_scan_variants.py", "tools/ssd_train_phases.py",
-       "tools/ssd_bwd_variants.py", "tools/registry_phases.py", "tools/tp_cards.py"]
+       "tools/ssd_bwd_variants.py", "tools/registry_phases.py", "tools/tp_cards.py",
+       "tools/tp_train_cards.py", "tools/tp_train_phases.py"]
     + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("torch_*.py")),
 )
 def test_no_jax_or_reference_import(path):

@@ -12,7 +12,7 @@ the padded experts) is what the port's tensor-parallel forward computes.
 Held here:
 - every registered config's placements at tp 2 and 4 (full size, on
   ``meta``): each leaf whose reference ``PartitionSpec`` names the model
-  axis, outside the SSD and RG-LRU blocks, is held as slices of that
+  axis, the SSD and RG-LRU blocks' too, is held as slices of that
   dimension, one a shard; every other leaf whole on shard 0; each shard's
   bytes the placements' reckoning (``chip_smoke.tp_reckoning``), and phase
   4l's depths;
@@ -23,11 +23,11 @@ Held here:
   configs: ``qwen3_8b`` (qk-norm), ``h2o_danube_3_4b`` (a window),
   ``starcoder2_7b`` with as many kv heads as shards, ``musicgen_large``
   (codebooks: the head's columns straddle them), ``internvl2_76b`` (patch
-  embeddings), ``recurrentgemma_9b`` (one kv head: q-only TP; RG-LRU blocks
-  whole), ``granite_moe_3b_a800m`` (TP attention with EP, and with the
+  embeddings), ``recurrentgemma_9b`` (one kv head: q-only TP; the RG-LRU
+  projections sliced), ``granite_moe_3b_a800m`` (TP attention with EP, and with the
   global MoE on the joined experts), ``smollm_360m`` with 3 q heads (no
   divisor of 2 or 4, as 15 is none of 4: attention whole, the MLP sliced),
-  ``mamba2_2p7b`` (SSD blocks whole);
+  ``mamba2_2p7b`` (the SSD projections sliced);
 - the flash_attention entry point called once a layer a shard at the
   shard's heads, on the shard's device, and the moves' profiler ranges;
 - ``make_serve_fns`` over a TP mesh: prefill + 4 greedy decode steps
@@ -36,7 +36,8 @@ Held here:
 - a ``(2, 2)`` mesh (one set of slices a data row), a repeat bit for bit,
   ``params_from_numpy`` onto a TP mesh, the seeded draw into slices equal
   to the whole draw (also with leaves drawn a layer slice at a time), the
-  SSD and RG-LRU blocks bit for bit unchanged, and the refusals.
+  SSD and RG-LRU blocks' projections in slices and their first block
+  within the float32 limit, and the refusals.
 
 Tolerances, taken from ``test_torch_mesh.py``: model logits in float32
 within 1e-5 of the largest |logit|; in bfloat16 within 2^-5 of it, or the
@@ -137,15 +138,11 @@ def _bits_equal(a, b) -> bool:
 # ------------------------------------------------------------- placements ----
 
 
-def _ssm_leaf(path):
-    return path[0] in ("groups", "extra") and path[1].split("_", 1)[1] in ("ssd", "rglru")
-
-
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_placements_slice_each_model_axis_leaf_one_slice_a_shard(arch, tp):
     """Full size, on meta: each leaf the reference's ``PartitionSpec``
-    places on the model axis (outside the SSD and RG-LRU blocks) is held as
+    places on the model axis (the SSD and RG-LRU blocks' too) is held as
     ``tp`` slices of that dimension, slice ``s`` on shard ``s``; the rest
     whole on shard 0; each shard's bytes the reckoning of phase 4l."""
     cfg = get_config(arch)
@@ -161,8 +158,7 @@ def test_placements_slice_each_model_axis_leaf_one_slice_a_shard(arch, tp):
     for path, leaf in tree_flatten(placed):
         s = dict(tree_flatten(spec))[path]
         pspec = tuple(want[path].pspec)
-        dim = None if _ssm_leaf(path) else next(
-            (i for i, a in enumerate(pspec) if a == "model"), None)
+        dim = next((i for i, a in enumerate(pspec) if a == "model"), None)
         if dim is None:
             assert isinstance(leaf, torch.Tensor) and tuple(leaf.shape) == s.shape, keystr(path)
             continue
@@ -418,18 +414,31 @@ def test_seeded_draw_into_slices_equals_the_whole_draw(arch, slice_at_a_time, mo
 @pytest.mark.parametrize("arch,block", [("mamba2_2p7b", "ssd_block"),
                                         ("recurrentgemma_9b", "rglru_block")])
 def test_ssd_and_rglru_blocks_keep_whole_weights_and_answers(arch, block, monkeypatch):
-    """Under a TP mesh the SSD and RG-LRU blocks hold every leaf whole on
-    the row's first device, and the first such block's output (its input
+    """Under a TP mesh the SSD and RG-LRU blocks hold ``in_proj`` in column
+    slices and ``out_proj`` in row slices over the shards, as the
+    reference's placements say (a plain 1/tp of ``in_proj``'s columns: the
+    SSD's cut across its z / x / B / C / dt segments), and keep every other
+    leaf whole on the row's first device (the conv, the decays, the skip,
+    the norm, RG-LRU's two gates); the first such block's output (its input
     is the embedding, bit for bit the whole lookup's) equals the no-mesh
-    forward's bit for bit."""
+    forward's within the float32 limit, and a repeat bit for bit."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     ctx = ShardCtx(tp=4)
     whole = init_model(cfg, ctx, seed=0, device="cpu")
     mesh = make_mesh(1, 4, devices=CARDS)
     sliced = init_model(cfg, ctx, seed=0, mesh=mesh)
+    kind = block.split("_")[0]
+    n = 0
     for path, leaf in tree_flatten(sliced.tree()):
-        if _ssm_leaf(path):
-            assert isinstance(leaf, torch.Tensor) and leaf.device == CPU
+        if len(path) < 3 or path[2] != kind:
+            continue
+        n += 1
+        if path[-1] in ("in_proj", "out_proj"):
+            assert isinstance(leaf, TP.Shards) and leaf.dim == (2 if path[-1] == "in_proj" else 1)
+            assert leaf.devices == tuple(torch.device(d) for d in CARDS)
+        else:
+            assert isinstance(leaf, torch.Tensor) and leaf.device == CPU, keystr(path)
+    assert n > 2
     seen = []
     fn = getattr(blocks, block)
 
@@ -444,19 +453,28 @@ def test_ssd_and_rglru_blocks_keep_whole_weights_and_answers(arch, block, monkey
     first = seen[0]
     seen.clear()
     t_forward(sliced, cfg, tokens, ctx, mesh=mesh)
-    assert _bits_equal(seen[0], first)
+    t_forward(sliced, cfg, tokens, ctx, mesh=mesh)
+    np.testing.assert_allclose(seen[0].numpy(), first.numpy(), rtol=0,
+                               atol=F32_TOL * float(first.abs().max()))
+    assert _bits_equal(seen[0], seen[len(seen) // 2])
 
 
 def test_tensor_parallel_models_serve_only_at_their_mesh_context():
+    """A model over a mesh of ``tp > 1`` shards is made at the mesh's
+    ``ShardCtx(tp)``, or refused; made trainable (the train storage, each
+    model-axis leaf in slices over the shards), it is placed as training
+    places it, from ``init_model`` and from ``params_from_numpy`` alike."""
     cfg = get_smoke_config("qwen3_8b")
     mesh = make_mesh(1, 2, devices=["cpu"] * 2)
-    with pytest.raises(ValueError, match="serves only"):
-        init_model(cfg, ShardCtx(tp=2), trainable=True, mesh=mesh)
+    trained = init_model(cfg, ShardCtx(tp=2), trainable=True, mesh=mesh)
+    assert trained.placed_tp and not trained.tensor_parallel
     with pytest.raises(ValueError, match="a mesh of 2 model shards under ShardCtx\\(tp=4\\)"):
         init_model(cfg, ShardCtx(tp=4), mesh=mesh)
     tree = jax.tree.map(np.asarray, j_init_model(j_smoke("qwen3_8b"), JShardCtx(tp=2)))
-    with pytest.raises(ValueError, match="serves only"):
-        params_from_numpy(tree, cfg, ctx=ShardCtx(tp=2), trainable=True, mesh=mesh)
+    with pytest.raises(ValueError, match="at its mesh's ShardCtx\\(tp=2\\), not at tp=1"):
+        params_from_numpy(tree, cfg, ctx=ShardCtx(), mesh=mesh)
+    converted = params_from_numpy(tree, cfg, ctx=ShardCtx(tp=2), trainable=True, mesh=mesh)
+    assert converted.placed_tp
     # a mesh of one shard makes the whole model on its first device
     one = init_model(cfg, ShardCtx(), seed=0, mesh=make_mesh(1, 1, devices=["cpu"]))
     assert not one.tensor_parallel and one.device == torch.device("cpu")
