@@ -278,7 +278,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    bytes (``reckon_depth``: the deepest within 76 GB, serving at 2 bytes a
    parameter plus 4 GB, training at 16 plus the step's logits, remat inputs,
    a stacked leaf's gradient and 4 GB): served at 48, 24, 32, 48 and 39 of
-   80 layers, trained at 48, 24, 16 of 32, 5 of 48 and 2 of 80.  Served
+   80 layers, trained at 48, 24, 16 of 32, 5 of 48 and 2 of 80; run at
+   most 24 deep (``REG_MAX_LAYERS``, so that the script keeps its time):
+   served at 24, 24, 24, 24, 24, trained at 24, 24, 16, 5, 2.  Served
    behind an OpportunisticServer as in 4d (musicgen's prompts (4, 1,024),
    internvl2 text-only): warm faster in simulated latency, the resubmission
    a cache hit, warm tokens equal to a cold recompute, a fresh server equal
@@ -312,8 +314,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    largest |logit| of the no-mesh forward's, and a TP sum that drops shard
    3's parts over that limit (the control); layer 0 against float64 with
    the whole weights on its first 1,024 positions; a repeat in a fresh mesh
-   bit for bit; one forward traced (the ``tp_broadcast``, ``tp_sum`` and
-   ``tp_gather`` ranges' device ms); ``make_serve_fns(mesh)``'s 1,024-token
+   bit for bit; one forward traced (the ``tp_*`` ranges' device ms: the
+   cache-free forward runs its residual stream in sequence slices, so its
+   moves are ``tp_seq_gather`` and ``tp_seq_scatter``; the control's sum
+   takes the last shard's part as zeros); ``make_serve_fns(mesh)``'s 1,024-token
    prefill and 16 greedy decode steps, each step's logits against the
    no-mesh decode fed the same tokens, walls beside the no-mesh run's;
 4m. training over the model shards — four shards emulated on the card:
@@ -322,10 +326,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    expert-parallel) against the no-mesh step on the same weights (its
    experts replayed from the TP step's routing): the loss, and every
    gradient leaf within 2^-4 of its largest |g| (``TPT_GRAD_TOL``), a TP
-   sum that drops shard 3's parts over that limit; an AdamW step of 2 x 4,096 tokens over ``(2,
-   2)`` (TP × FSDP) bit for bit the step over ``(1, 2)`` in microbatches of
-   one sequence, and again from a fresh state (traced: the ``tp_*`` and
-   ``fsdp_*`` ranges' device ms), each card's bytes the placements'
+   sum that drops shard 3's parts over that limit; every step here runs the
+   reference's sequence parallelism (the residual stream in sequence
+   slices, counted by the ``tp.all_gather_seq`` calls) and its loss on the
+   head's vocabulary slices; for each of the three cuts, the cache-free
+   forward's logits under SP against the whole-row path's (bit for bit,
+   or within 2^-4 of the largest |logit|, printed), and ``lm_loss_sliced``
+   on the logits' four column slices against ``lm_loss`` on them joined
+   (``SEQ_LOSS_TOL``), with a control whose sum drops the last shard's
+   exponentials (over ``SEQ_LOSS_CONTROL``); an AdamW step of 2 x 4,096
+   tokens over ``(2, 2)`` (TP × FSDP) bit for bit the step over ``(1, 2)``
+   in microbatches of one sequence, and again from a fresh state (traced:
+   the ``tp_*`` ranges' device ms, ``tp_seq_gather`` and ``tp_seq_scatter``
+   among them, and ``fsdp_*``'s), each card's bytes the placements'
    reckoning; ``mamba2_2p7b`` at 2 layers and ``recurrentgemma_9b``'s
    first pattern group served over the shards (the SSD / RG-LRU ``in_proj``
    by columns, ``out_proj`` by rows; a 1,024-token prefill and 16 decode
@@ -5769,6 +5782,16 @@ SERVE_SLACK = 4e9
 TRAIN_STATE_BYTES = 16
 TRAIN_SLACK = 4e9
 REG_CHECK_LAYERS = 2  # decode and kernels-vs-plain checks: the first 2 layers at full width
+# 4k serves and trains each model at most this deep (the reckoned depth where
+# it is shallower), so that the whole script keeps to its time: with the
+# reckoned depths (serve 48, 24, 32, 48, 39; train 48, 24, 16, 5, 2) it took
+# 1,090.2 s of command time on an H100 80GB HBM3 at 700 W
+REG_MAX_LAYERS = 24
+
+
+def reg_cut(cfg):
+    """``cfg`` at most REG_MAX_LAYERS deep: the config phase 4k reckons."""
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, REG_MAX_LAYERS))
 
 
 def layer_params(cfg):
@@ -5869,7 +5892,7 @@ def registry_serving(torch, ops, cfg, dev):
 
     from repro_torch.models import init_model
 
-    r = reckon_depth(cfg, "serve")
+    r = reckon_depth(reg_cut(cfg), "serve")
     cut = cfg if r["layers"] == cfg.n_layers else dc.replace(cfg, n_layers=r["layers"])
     t0 = time.perf_counter()
     model = init_model(cut, seed=SERVE_SEED, device=dev)
@@ -5919,7 +5942,7 @@ def registry_training(torch, ops, name, dev):
     from repro_torch.train.trainstep import init_train_state, make_train_step
 
     cfg = get_config(name)
-    r = reckon_depth(cfg, "train")
+    r = reckon_depth(reg_cut(cfg), "train")
     layers = r["layers"]
     cut = cfg if layers == cfg.n_layers else dc.replace(cfg, n_layers=layers)
     shape = ShapeConfig("cli", "train", seq_len=REG_SEQ, global_batch=1)
@@ -6058,8 +6081,8 @@ def registry_phase(torch, ops, dev):
     for name in REGISTRY:
         cfg = get_config(name)
         for kind in ("serve", "train"):
-            print(f"[reg] {cfg.name} " + reckoning_line(cfg, kind, reckon_depth(cfg, kind)),
-                  flush=True)
+            print(f"[reg] {cfg.name} " + reckoning_line(cfg, kind, reckon_depth(cfg, kind))
+                  + f"; run at most {REG_MAX_LAYERS} deep", flush=True)
     total = {k: 0 for k in TRAINING}
     for name in REGISTRY:
         cfg = get_config(name)
@@ -6097,7 +6120,9 @@ TP_TOL = DECODE_TOL  # of the largest |value|: logits, layer 0's output, decode 
 # printed at TP_DEPTHS and the full depth.
 TP_HOLD_DEPTH = 2
 TP_DEPTHS = (1, 2, 4, 8)
-TP_RANGES = ("tp_broadcast", "tp_sum", "tp_gather")
+TP_RANGES = ("tp_broadcast", "tp_sum", "tp_gather", "tp_seq_gather", "tp_seq_scatter")
+# the cache-free forward under sequence parallelism sums only into its slices
+TP_SP_FORWARD_RANGES = tuple(r for r in TP_RANGES if r != "tp_sum")
 # layer 0 against float64 on its first positions (causal: they see only
 # each other), so that the float64 products stay small
 TP_F64_POSITIONS = 1024
@@ -6178,10 +6203,14 @@ def tp_train_reckoning(cfg, dp, tp, arrays=TRAIN_STATE_BYTES // 4):
 
 def tp_train_extra(cfg, layers, dp, tp, batch, seq=REG_SEQ):
     """The bytes a TP × FSDP step holds on a row's first card beside its
-    state: the row's float32 logits and their gradient, the bf16 layer
-    inputs remat keeps, one layer's shard slices gathered in float32 and
+    state: its vocabulary slice of the row's float32 logits and their
+    gradient (the loss is taken on the slices), its sequence slice of the
+    bf16 layer inputs remat keeps (the residual stream between blocks in
+    sequence slices), one layer's shard slices gathered in float32 and
     their gradient, the global norm's largest gather (a stacked leaf past
-    ``NORM_WHOLE_MAX`` a layer at a time) and TRAIN_SLACK."""
+    ``NORM_WHOLE_MAX`` a layer at a time) and TRAIN_SLACK.  Without
+    sequence parallelism (``lm.seq_parallel``: a sequence tp does not
+    divide) the layer inputs lie whole on the first card."""
     from repro_torch.models import ShardCtx
     from repro_torch.models.base import tree_flatten
     from repro_torch.models.lm import model_spec
@@ -6189,9 +6218,13 @@ def tp_train_extra(cfg, layers, dp, tp, batch, seq=REG_SEQ):
 
     cut = dataclasses.replace(cfg, n_layers=layers)
     per, _ = layer_params(cut)
+    from repro_torch.models.lm import seq_parallel
+
     tokens = batch // dp * (seq + cut.n_vis_tokens)
-    logits = 8 * tokens * cut.n_codebooks * cut.padded_vocab(tp)
+    logits = 8 * tokens * cut.n_codebooks * cut.padded_vocab(tp) // tp
     bounds = 2 * layers * tokens * cut.d_model
+    if seq_parallel(True, seq + cut.n_vis_tokens, tp, None):
+        bounds //= tp
     norm = 0
     for _, s in tree_flatten(model_spec(cut, ShardCtx(tp=tp, dp=dp))):
         n = math.prod(s.shape)
@@ -6233,15 +6266,17 @@ def logits_err(torch, got, want, rows=512):
 @contextlib.contextmanager
 def first_block(torch):
     """Records the first block a forward runs (layer 0): its input and
-    output (``blocks.block_fwd``)."""
+    output (``blocks.block_fwd``), whole on the row's first device (a
+    residual stream in sequence slices joined there)."""
     from repro_torch.models import blocks
+    from repro_torch.models import tp as TP
 
     fn, seen = blocks.block_fwd, {}
 
     def recording(btype, params, cfg, x, positions, ctx, **kw):
         out = fn(btype, params, cfg, x, positions, ctx, **kw)
         if not seen:
-            seen.update(x=x, out=out[0])
+            seen.update(x=TP.join_seq(x), out=TP.join_seq(out[0]))
         return out
 
     blocks.block_fwd = recording
@@ -6409,6 +6444,113 @@ def tp_decode_err(torch, cut, models, fns, prompt):
     return max(e / s for e, s in errs), (pre_tp, dec_tp, pre_w, dec_w)
 
 
+@contextlib.contextmanager
+def last_shard_dropped(torch):
+    """The controls of phases 4l and 4m: every row-parallel sum over the
+    model shards leaves out the last shard's part (``tp.reduce_sum`` drops
+    it; ``tp.reduce_scatter_seq`` takes it as zeros, so that each shard
+    still gets its slice)."""
+    from repro_torch.models import tp as TP
+
+    total, scatter = TP.reduce_sum, TP.reduce_scatter_seq
+    TP.reduce_sum = lambda parts, device: total(parts[:-1], device)
+    TP.reduce_scatter_seq = lambda parts, dim=1: scatter(
+        [*parts[:-1], torch.zeros_like(parts[-1])], dim)
+    try:
+        yield
+    finally:
+        TP.reduce_sum, TP.reduce_scatter_seq = total, scatter
+
+
+@contextlib.contextmanager
+def seq_gathers():
+    """Counts the calls of ``tp.all_gather_seq`` (sequence parallelism
+    taken) into the list yielded."""
+    from repro_torch.models import tp as TP
+
+    calls, fn = [], TP.all_gather_seq
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return fn(*args, **kwargs)
+
+    TP.all_gather_seq = counting
+    try:
+        yield calls
+    finally:
+        TP.all_gather_seq = fn
+
+
+# the sliced loss against lm_loss on the same joined logits (float32, both
+# on the card): its sums of exponentials run in another order
+SEQ_LOSS_TOL = 1e-5
+SEQ_LOSS_CONTROL = 1e-2  # a sum that drops the last shard's exponentials must read over it
+
+
+def sp_forward_and_loss(torch, cut, model, ctx, mesh, batch):
+    """Sequence parallelism on the card, at a model over ``mesh``'s shards:
+    the cache-free forward's logits under SP against the whole-row path's
+    (``lm.seq_parallel`` patched to False) on the same weights and tokens,
+    bit for bit or within STEP_GRAD_TOL of the largest |logit| (printed
+    either way); then ``lm_loss_sliced`` on the logits' TPT_SHARDS column
+    slices against ``lm_loss`` on them joined, within SEQ_LOSS_TOL
+    relative, and a control whose sum drops the last shard's exponentials,
+    over SEQ_LOSS_CONTROL → (the logits' distance, the loss's, the
+    control's)."""
+    from repro_torch.models import lm
+    from repro_torch.models import tp as TP
+
+    t0 = time.perf_counter()
+    tokens = batch["tokens"]
+    with torch.no_grad():
+        with seq_gathers() as calls:
+            sp = lm.forward(model, cut, tokens, ctx, mesh=mesh)[0]
+        check(len(calls) > 0, f"{cut.name}: the forward over {TPT_SHARDS} shards of "
+              f"{tokens.shape[-1]} tokens did not take sequence parallelism")
+        predicate = lm.seq_parallel
+        lm.seq_parallel = lambda *a: False
+        try:
+            whole = lm.forward(model, cut, tokens, ctx, mesh=mesh)[0]
+        finally:
+            lm.seq_parallel = predicate
+        same = torch.equal(sp, whole)
+        err, scale = logits_err(torch, sp, whole)
+        del whole
+        labels = batch["labels"]
+        want = float(lm.lm_loss(sp, labels, cut.vocab))
+        parts = list(sp.reshape(*sp.shape[:2], -1).chunk(TPT_SHARDS, -1))
+        got = float(lm.lm_loss_sliced(parts, labels, cut.vocab, cut.n_codebooks))
+        total, seen = TP.reduce_sum, []
+
+        def drop_exps(parts_, device):  # the first sum: the exponentials'
+            seen.append(1)
+            return total(parts_[:-1] if len(seen) == 1 else parts_, device)
+
+        TP.reduce_sum = drop_exps
+        try:
+            bad = float(lm.lm_loss_sliced(parts, labels, cut.vocab, cut.n_codebooks))
+        finally:
+            TP.reduce_sum = total
+        del sp, parts
+    rel, bad_rel = abs(got - want) / abs(want), abs(bad - want) / abs(want)
+    print(f"[tp-train] {cut.name}: the forward over {TPT_SHARDS} shards with the sequence in "
+          f"slices ({len(calls)} sequence gathers) against the whole-row path: "
+          + ("bit for bit" if same else f"max |err| {err} of the largest |logit| {scale}")
+          + f"; the loss on the logits' {TPT_SHARDS} vocabulary slices {got} vs lm_loss on them "
+          f"joined {want} ({rel} relative, limit {SEQ_LOSS_TOL}); a sum that drops the last "
+          f"shard's exponentials {bad} ({bad_rel}, must be over {SEQ_LOSS_CONTROL}); took "
+          f"{time.perf_counter() - t0} s", flush=True)
+    check(same or err <= STEP_GRAD_TOL * scale, f"{cut.name}: the SP logits {err} from the "
+          f"whole-row path's, over {STEP_GRAD_TOL} of the largest |logit| {scale}")
+    check(math.isfinite(got) and rel <= SEQ_LOSS_TOL, f"{cut.name}: the sliced loss {got} vs "
+          f"lm_loss {want}")
+    check(bad_rel > SEQ_LOSS_CONTROL, f"{cut.name}: the loss without the last shard's "
+          f"exponentials {bad} stayed within {SEQ_LOSS_CONTROL} of {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (0.0 if same else err / scale), rel, bad_rel
+
+
 def tp_serving(torch, name, devices):
     """Phase 4l for one model: ``name`` at full width and tp_depth's depth,
     whole on the first device and in slices over ``make_mesh(1, 4,
@@ -6499,13 +6641,9 @@ def tp_serving(torch, name, devices):
           f"{scale}, top token equal at {top} of the positions", flush=True)
 
     dist = tp_depths(torch, cut, (whole, model), tokens, ctx, mesh, vis, TP_DEPTHS)
-    fn = TP.reduce_sum
-    TP.reduce_sum = lambda parts, device: fn(parts[:-1], device)  # the control drops a shard
-    try:
+    with last_shard_dropped(torch):  # the control
         bad = tp_depths(torch, cut, (whole, model), tokens, ctx, mesh, vis,
                         (TP_HOLD_DEPTH,))[TP_HOLD_DEPTH][0]
-    finally:
-        TP.reduce_sum = fn
     held_err = dist[TP_HOLD_DEPTH][0]
     check(held_err <= TP_TOL, f"{name} at {TP_HOLD_DEPTH} layers: TP logits max |err| "
           f"{held_err} of the largest |logit|, over {TP_TOL}")
@@ -6520,7 +6658,7 @@ def tp_serving(torch, name, devices):
         with torch.no_grad():
             forward(model, cut, tokens, ctx, mesh=mesh2, vis_embeds=vis)
 
-    wall, kern_ms, copy_ms, kern, spans = profiled(torch, traced, TP_RANGES)
+    wall, kern_ms, copy_ms, kern, spans = profiled(torch, traced, TP_SP_FORWARD_RANGES)
     torch.cuda.synchronize()
     n_all, n_wgmma = fa.launches.value - before[0], fa.launches_wgmma.value - before[1]
     print(f"[tp] {cut.name}: a traced forward over the shards {wall} ms wall, {kern_ms} ms of "
@@ -6654,10 +6792,11 @@ def tpt_grads(torch, ops, cut, dev, decays=False):
     moe = cut.moe is not None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with routes_taken(torch) if moe else nullcontext([]) as calls:
+    with routes_taken(torch) if moe else nullcontext([]) as calls, seq_gathers() as gathers:
         (tl, _, tg), launches = counted(torch, ops, lambda: value_and_grad(
             model, cut, batch, ctx, False, mesh))
     ms = (time.perf_counter() - t0) * 1e3
+    check(len(gathers) > 0, f"{cut.name}: the TP step did not take sequence parallelism")
     replay = None
     if moe:  # each layer routed once a shard, the shards alike
         groups = [calls[i:i + TPT_SHARDS] for i in range(0, len(calls), TPT_SHARDS)]
@@ -6687,20 +6826,21 @@ def tpt_grads(torch, ops, cut, dev, decays=False):
     r = ratios(tg)
     worst = max(r.values())
     del tg
-    fn = TP.reduce_sum
-    TP.reduce_sum = lambda parts, device: fn(parts[:-1], device)  # the control drops a shard
-    try:
+    with last_shard_dropped(torch):  # the control
         _, _, cg = value_and_grad(model, cut, batch, ctx, False, mesh)
-    finally:
-        TP.reduce_sum = fn
     bad = max(ratios(cg).values())
-    del cg, wg, whole, model, wleaves
+    del cg, wg, whole, wleaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq = sp_forward_and_loss(torch, cut, model, ctx, mesh, batch)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[tp-train] {cut.name} at {cut.n_layers} layers, full width, 1 x {TPT_SEQ} tokens "
           f"over {TPT_SHARDS} shards on the card: the TP step {ms} ms, loss {float(tl)} vs the "
           f"no-mesh step's {float(wl)}; worst gradient leaf |err| / max |g| {worst} (limit "
-          f"{TPT_GRAD_TOL}), a TP sum that drops shard 3's parts {bad}"
+          f"{TPT_GRAD_TOL}), a TP sum that drops shard 3's parts {bad}; {len(gathers)} sequence "
+          f"gathers (SP)"
           + (f"; tokens whose no-mesh router would choose otherwise, by layer {moved}"
              if moe else "") + "; the TP step's launches "
           + json.dumps({k: n for k, n in launches.items() if n}) + "; by leaf "
@@ -6711,7 +6851,7 @@ def tpt_grads(torch, ops, cut, dev, decays=False):
           f"from the no-mesh step's, over {TPT_GRAD_TOL}")
     check(bad > TPT_GRAD_TOL, f"{cut.name}: a TP sum that drops shard 3's parts kept the "
           f"gradients within the limit ({bad})")
-    return launches, ms, worst, bad
+    return launches, ms, worst, bad, seq
 
 
 def tpt_layouts(torch, ops, cut, dev):
@@ -6749,12 +6889,15 @@ def tpt_layouts(torch, ops, cut, dev):
                 res.append(step(model, state, batch))
 
             t0 = time.perf_counter()
-            if trace and i == 1:
-                traced, launches = counted(torch, ops, lambda: profiled(torch, run_step,
-                                                                        TPT_RANGES))
-                wall, kern_ms, copy_ms, kern, spans = traced
-            else:
-                _, launches = counted(torch, ops, run_step)
+            with seq_gathers() as gathers:
+                if trace and i == 1:
+                    traced, launches = counted(torch, ops, lambda: profiled(torch, run_step,
+                                                                            TPT_RANGES))
+                    wall, kern_ms, copy_ms, kern, spans = traced
+                else:
+                    _, launches = counted(torch, ops, run_step)
+            check(len(gathers) > 0, f"{cut.name} over ({dp}, 2): the step did not take "
+                  "sequence parallelism")
             ms.append((time.perf_counter() - t0) * 1e3)
             model, state, m = res.pop()
             for k, n in launches.items():

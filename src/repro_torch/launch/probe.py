@@ -37,6 +37,7 @@ from ..configs.base import ModelConfig, RunConfig
 from ..kernels import ops as kops
 from ..models.base import ShardCtx, stack_tree, tree_flatten, tree_specs_to_shapes
 from ..models.blocks import Block, block_spec, init_block_cache
+from ..models import lm as LMmod
 from ..models.layers import compute_dtype
 from ..models.lm import LM, forward, init_cache, lm_loss, model_spec
 from ..train.optimizer import AdamWConfig, adamw_update
@@ -328,7 +329,13 @@ def collective_costs(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx, kind: str,
       the new token's q, k and v to each other shard and its partial (o, m,
       l, float32) back;
     * ``logits-gather`` (serving, R > 1): each row's logits onto the first
-      card.
+      card;
+    * tensor parallelism within a row (T > 1, ``models/tp.py``;
+      :func:`tp_moves`): ``tp-broadcast``, ``tp-sum``, ``tp-join``,
+      ``tp-scatter``, and under sequence parallelism (``lm.seq_parallel``)
+      ``sp-gather`` and ``sp-scatter``, each with its backward (train).
+      A training step moves no logits: its loss's per-token statistics
+      move (``tp-*``).
 
     Serving keeps a replica of the weights on each row (made once, not a
     step's traffic).  Inputs placed by the caller and scalars (the loss,
@@ -381,4 +388,133 @@ def collective_costs(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx, kind: str,
     if not train and rows > 1:
         width = cfg.padded_vocab(T) * max(cfg.n_codebooks, 1)
         out["logits-gather"] += (rows - 1) * b * S * width * e
+    if T > 1:
+        fwd, bwd = tp_moves(cfg, kind, b, shape.seq_len, T)
+        for k, v in fwd.items():
+            out[k] += n_micro * rows * v
+        for k, v in bwd.items():
+            out[k] += n_micro * rows * v
+        if train and passes == 2:  # the recompute runs every region's forward again
+            for k, v in tp_moves(cfg, kind, b, shape.seq_len, T, recomputed=True)[0].items():
+                out[k] += n_micro * rows * v
     return {k: int(v) for k, v in out.items() if v}
+
+
+def tp_moves(cfg: ModelConfig, kind: str, b: int, S: int, T: int, recomputed: bool = False
+             ) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """The bytes one data row's pass moves between its T model shards'
+    distinct cards by the tensor-parallel moves (``models/tp.py``), b
+    sequences of S tokens (one new token at decode) → (the forward's, the
+    backward's; train only), by move; ``recomputed``: the forward moves a
+    remat recompute runs again (all but a VLM's cut of its sequence).
+    Each kind counts its move and that move's backward: ``tp-broadcast``
+    (T − 1 copies from the first card; the gradients back), ``tp-sum`` (T − 1
+    partials onto the first card; the gradient out), ``tp-join`` /
+    ``tp-scatter`` ((T − 1) / T of a tensor onto / from the first card),
+    ``sp-gather`` / ``sp-scatter`` (each shard's (T − 1) / T of the whole
+    tensor).  Norm scales and gradients are float32, token ids int32,
+    positions and labels int64.  An MoE over the shards runs expert-parallel
+    (``ep-*`` of :func:`collective_costs`), as the train step always runs it
+    and the dry run's cells serve it: the global path's join of the experts
+    onto the first card is no cell's move."""
+    train = kind == "train"
+    decode = kind == "decode"
+    e = 2 if cfg.dtype == "bfloat16" else 4
+    d, D = cfg.d_model, cfg.head_dim
+    K = max(cfg.n_codebooks, 1)
+    S_in = 1 if decode else S  # the tokens' positions
+    St = S_in + (0 if decode else cfg.n_vis_tokens)  # the layers'
+    sp = LMmod.seq_parallel(True, St, T, {} if decode else None)
+    A = b * St * d * e
+    fwd: Dict[str, float] = Counter()
+    bwd: Dict[str, float] = Counter()
+
+    def move(kind_, nbytes, share, grad=train):
+        fwd[kind_] += share * nbytes
+        if grad:
+            bwd[kind_] += share * nbytes
+
+    def bcast(nbytes, grad=train):
+        move("tp-broadcast", nbytes, T - 1, grad)
+
+    def spread(nbytes):
+        move("sp-gather" if sp else "tp-broadcast", nbytes, T - 1)
+
+    def collect(nbytes):
+        move("sp-scatter" if sp else "tp-sum", nbytes, T - 1)
+
+    def whole_layer():  # sequence slices joined on the first card and cut back
+        if sp:
+            move("tp-join", A, (T - 1) / T)
+            move("tp-scatter", A, (T - 1) / T)
+
+    norm = 4 * d * (2 if cfg.norm_type == "layernorm" else 1)
+
+    def norms(n):
+        if sp:
+            for _ in range(n):
+                bcast(norm)
+
+    def mlp():
+        spread(A)
+        collect(A)
+
+    def columns(width, rows_width):  # the SSD / RG-LRU projections
+        spread(A)
+        move("tp-join", b * St * width * e, (T - 1) / T)
+        move("tp-scatter", b * St * rows_width * e, (T - 1) / T)
+        collect(A)
+
+    Hq, Hkv = cfg.n_q_heads, cfg.n_kv_heads
+    for btype, n in block_counts(cfg).items():
+        for _ in range(n):
+            if btype in ("attn", "local_attn"):
+                norms(2)
+                if cfg.attn_tp_eligible(T):
+                    spread(A)
+                    kv_split = cfg.kv_sharded(T)
+                    if not kv_split:
+                        bcast(2 * b * Hkv * St * D * e)
+                    if cfg.qk_norm:
+                        bcast(4 * D)
+                        bcast(4 * D, grad=train and kv_split)
+                    bcast(8 * b * St, grad=False)  # positions
+                    if decode:  # the cached path's q (k, v) joined, its output cut
+                        move("tp-join", b * (Hq + (2 * Hkv if kv_split else 0)) * St * D * e,
+                             (T - 1) / T)
+                        move("tp-scatter", b * Hq * St * D * e, (T - 1) / T)
+                    collect(A)
+                else:
+                    whole_layer()
+                if cfg.moe is not None:
+                    whole_layer()
+                else:
+                    mlp()
+            elif btype == "ssd":
+                norms(1)
+                s_ = cfg.ssd
+                di = s_.expand * d
+                columns(2 * di + 2 * s_.d_state + di // s_.head_dim, di)
+            elif btype == "rglru":
+                norms(2)
+                columns(2 * cfg.rglru.lru_width, cfg.rglru.lru_width)
+                mlp()
+    text = b * S_in * K
+    bcast(4 * text, grad=False)  # the token ids to the vocabulary slices
+    move("sp-scatter" if sp and not cfg.n_vis_tokens else "tp-sum", text * d * e, T - 1)
+    if sp and cfg.n_vis_tokens and not recomputed:  # the patch embeddings' and text's cut
+        move("tp-scatter", A, (T - 1) / T)
+    norms(1)
+    spread(A)  # the final norm's output to the head's slices
+    if train:  # the loss's per-token statistics (B, S, K): max, sum of exps, gold
+        stats = 4 * text
+        bcast(2 * text * 4, grad=False)  # the labels (int64)
+        move("tp-join", T * stats, (T - 1) / T, grad=False)  # the shards' maxima
+        bcast(stats, grad=False)  # the maximum back
+        move("tp-sum", 2 * stats, T - 1)  # the sums of exponentials, the gold logits
+    else:
+        move("tp-join", text * cfg.padded_vocab(T) * e, (T - 1) / T, grad=False)
+    as_int = lambda c: {k: int(round(v)) for k, v in c.items() if v}  # noqa: E731
+    if recomputed:
+        return as_int(fwd), {}
+    return as_int(fwd), as_int(bwd)

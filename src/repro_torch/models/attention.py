@@ -141,7 +141,7 @@ def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Ten
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v.contiguous()
 
 
-def _project_tp(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def _project_tp(params, cfg: ModelConfig, x, positions: torch.Tensor):
     """The q, k and v heads of a block whose ``wq`` (and ``wo``) are held
     in head slices over the shards → ([(q_s, k_s, v_s) on shard s's
     device], the whole (k, v) on x's device or None).  Each shard projects
@@ -149,25 +149,28 @@ def _project_tp(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     heads; else k and v are projected once with the whole weights on x's
     device, and each shard takes the kv heads its q heads read (a group's
     head, its run of heads, or one kv head a q head where the groups cut
-    across the shards).  What every shard reads (x, the qk-norm scales, the
+    across the shards).  What every shard reads (the qk-norm scales, the
     whole k and v) goes out by :func:`tp.broadcast`, so that its gradient
-    comes back added in shard order."""
+    comes back added in shard order; x goes out whole by ``tp.spread`` (a
+    broadcast, or the gather of its sequence slices)."""
     wq = params["wq"]
     devs = [w.device for w in wq]
     n = len(devs)
     kv_split = isinstance(params["wk"], tuple)
+    xs_all = TP.spread(x, devs)
     whole = None
     if not kv_split:
         cos, sin = rope_freqs(cfg, positions)
-        whole = (apply_rope(_heads(cfg, x, params["wk"], params.get("k_norm")), cos, sin),
-                 _heads(cfg, x, params["wv"]).contiguous())
+        xw = x if isinstance(x, torch.Tensor) else xs_all[0]  # shard 0's: x's device
+        whole = (apply_rope(_heads(cfg, xw, params["wk"], params.get("k_norm")), cos, sin),
+                 _heads(cfg, xw, params["wv"]).contiguous())
         kv = [TP.broadcast(t, devs) for t in whole]
     norms = {k: TP.broadcast(params[k], devs) for k in ("q_norm", "k_norm")
              if params.get(k) is not None}
     hq = cfg.n_q_heads // n
     group = cfg.n_q_heads // cfg.n_kv_heads
     out = []
-    for s, (xs, ps) in enumerate(zip(TP.broadcast(x, devs), TP.broadcast(positions, devs))):
+    for s, (xs, ps) in enumerate(zip(xs_all, TP.broadcast(positions, devs))):
         shard = {"wq": wq[s], **{k: v[s] for k, v in norms.items()}}
         if kv_split:
             shard.update(wk=params["wk"][s], wv=params["wv"][s])
@@ -213,10 +216,18 @@ def attention_block(
     shape); with one, the shards' q, k and v heads join on x's device, where
     the cache (or, split-S, its slots' shards) lies, and the output goes
     back to each shard's heads.  Each shard multiplies its heads by its rows
-    of ``wo``, and the parts add on x's device in shard order."""
+    of ``wo``, and the parts add on x's device in shard order.
+
+    x in sequence slices (``tp.SeqSlices``, no cache): the slices are
+    gathered whole onto each shard for the projections, and the parts of
+    ``wo`` reduce-scattered back into slices; with whole weights, the
+    slices join on the first device and the output is cut back."""
     B, S, _ = x.shape
     if mesh is not None and mesh.dp_total != 1:
         raise ValueError(f"attention_block runs one data row; the mesh has {mesh.dp_total}")
+    if isinstance(x, TP.SeqSlices) and not isinstance(params["wq"], tuple):
+        return TP.on_whole(lambda t: attention_block(params, cfg, t, positions, window, cache,
+                                                     mesh, ctx), x)
     if isinstance(params["wq"], tuple):
         wo = params["wo"]
         devs = [w.device for w in wo]
@@ -230,7 +241,7 @@ def attention_block(
             out, new_cache = _attend_cached(cfg, q, k, v, cache, window, mesh, ctx)
             outs = TP.scatter(out.chunk(len(devs), dim=1), devs)
         parts = [o.transpose(1, 2).reshape(B, S, -1) @ w.to(x.dtype) for o, w in zip(outs, wo)]
-        return TP.reduce_sum(parts, x.device), new_cache
+        return TP.collect(parts, x), new_cache
 
     q, k, v = _project_qkv(params, cfg, x, positions)
     if cache is None:

@@ -4,10 +4,13 @@ and the RG-LRU block with its MLP.
 
 A block's leaves held in slices over a data row's model shards
 (``models/tp.py``) reach the layers as tuples of the shards' slices; the
-norms and the residual adds stay on the row's first device.  An MoE block
-keeps its feed-forward as it is: expert-parallel under ``use_ep`` (its
-experts' slices are the shards' experts), else the global path on the
-experts joined on the first device."""
+norms and the residual adds stay on the row's first device, or, where the
+row's activation is in sequence slices over the shards (``tp.SeqSlices``),
+run on each slice where it lies.  An MoE block keeps its feed-forward as it
+is: expert-parallel under ``use_ep`` (its experts' slices are the shards'
+experts), else the global path on the experts joined on the first device;
+over sequence slices the slices join on the first device for it and its
+output is cut back."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -81,9 +84,10 @@ def block_fwd(
         h2_in = apply_norm(params["norm2"], cfg, x)
         if cfg.moe is not None:
             if use_ep and mesh is not None:
-                h2, aux = moe_ffn_sharded(params["moe"], cfg, h2_in, ctx, mesh)
+                h2, aux = TP.on_whole(lambda t: moe_ffn_sharded(params["moe"], cfg, t, ctx, mesh),
+                                      h2_in)
             else:
-                h2, aux = moe_ffn(params["moe"], cfg, h2_in, ctx)
+                h2, aux = TP.on_whole(lambda t: moe_ffn(params["moe"], cfg, t, ctx), h2_in)
         else:
             h2 = apply_mlp(params["mlp"], cfg, h2_in)
         return x + h2, new_cache, aux

@@ -22,9 +22,15 @@ stored in slices over the rows or the shards (the train storage,
 ``models/fsdp.py``: :func:`init_placed`) has no replicas: each row gathers
 a layer's weights onto its devices (each shard's slices onto the shard's)
 inside the layer's remat region and frees them after; under tensor
-parallelism an MoE runs expert-parallel over the same shards.  The reference's
-``_constrain`` (a sharding hint with no effect on the answer) has no
-counterpart.
+parallelism an MoE runs expert-parallel over the same shards.
+
+Sequence parallelism: under the reference's condition (:func:`seq_parallel`)
+a tensor-parallel model keeps the residual stream between blocks in
+sequence slices over the row's shards (``tp.SeqSlices``), as the reference's
+``_constrain`` lays it out; every value is the whole-row path's.  A training
+step over the shards takes the loss where the head's vocabulary slices lie
+(:func:`forward_loss`, :func:`lm_loss_sliced`): no card holds a row's whole
+logits.  The reference's other ``_constrain`` hints have no counterpart.
 """
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ from .base import (SINGLE, ShardCtx, init_params, resolve_device, stack_tree, tr
                    tree_map)
 from .blocks import Block, ParamTree, block_spec, init_block_cache
 from .fsdp import Sliced, draw_leaf, place_leaf, use_tree
-from .layers import apply_norm, compute_dtype, embed_spec, embed_tokens, lm_logits, norm_spec
+from .layers import (apply_norm, compute_dtype, embed_spec, embed_tokens, lm_logits, logit_slices,
+                     norm_spec)
 from .rglru import RGLRUCache
 from .ssd import SSDCache
 
@@ -132,6 +139,13 @@ class LM(nn.Module):
         """Whether the train storage slices the model-axis leaves over the
         model shards (tensor parallelism in training)."""
         return self.placed and self.embed.tok.tp_dim is not None
+
+    @property
+    def over_shards(self) -> bool:
+        """Whether the model-axis leaves lie in slices over the model
+        shards, to serve (:attr:`tensor_parallel`) or to train
+        (:attr:`placed_tp`)."""
+        return self.tensor_parallel or self.placed_tp
 
     def forward(self, tokens, cache=None, start_pos=None, remat: bool = False,
                 vis_embeds=None, mesh=None, use_ep: bool = False):
@@ -341,6 +355,14 @@ def cache_tensors(cache):
 # ----------------------------------------------------------------- forward --
 
 
+def seq_parallel(mesh, S: int, tp: int, cache) -> bool:
+    """The reference's condition for sequence parallelism between blocks
+    (its ``seq_sp``), with ``tp > 1``: a model mesh, more than one
+    position, a sequence (a VLM's patch embeddings included) that ``tp``
+    divides, and no cache."""
+    return mesh is not None and tp > 1 and S > 1 and S % tp == 0 and cache is None
+
+
 def forward(
     params: LM,
     cfg: ModelConfig,
@@ -360,7 +382,37 @@ def forward(
     embeddings; positions run over the whole sequence and the logits cover
     the text positions only, as in the reference.  ``mesh``: a model mesh
     (``launch.mesh.make_mesh``) to run over, the logits and aux losses on
-    its first device; ``use_ep`` runs the MoE layers expert-parallel."""
+    its first device; ``use_ep`` runs the MoE layers expert-parallel.  A
+    tensor-parallel model under :func:`seq_parallel` runs with its residual
+    stream in sequence slices; the logits come back joined."""
+    return _forward(params, cfg, tokens, ctx, mesh, cache, start_pos, remat, vis_embeds,
+                    use_ep, None)
+
+
+def forward_loss(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                 ctx: ShardCtx = SINGLE, mesh=None, remat: bool = False, use_ep: bool = False
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(the training loss of ``batch``, the aux losses).  A tensor-parallel
+    model over a mesh of model shards takes the loss where the head's
+    vocabulary slices lie (:func:`lm_loss_sliced`): each shard computes and
+    keeps its columns of the logits, only per-token statistics move, and a
+    data row's nll sum and label count go to the mesh's first device, the
+    rows' added there in row order.  Any other model: :func:`lm_loss` on
+    :func:`forward`'s logits."""
+    if mesh is not None and mesh.tp > 1 and params.over_shards:
+        (nll, count), _, aux = _forward(params, cfg, batch["tokens"], ctx, mesh, None, None,
+                                        remat, batch.get("vis_embeds"), use_ep, batch["labels"])
+        return nll / count.clamp(min=1), aux
+    logits, _, aux = forward(params, cfg, batch["tokens"], ctx, mesh=mesh, remat=remat,
+                             vis_embeds=batch.get("vis_embeds"), use_ep=use_ep)
+    return lm_loss(logits, batch["labels"], cfg.vocab), aux
+
+
+def _forward(params: LM, cfg: ModelConfig, tokens, ctx: ShardCtx, mesh, cache, start_pos,
+             remat: bool, vis_embeds, use_ep: bool, labels):
+    """:func:`forward`; given ``labels``, the head computes the loss on its
+    vocabulary slices instead of the logits → ((the nll sum, the label
+    count) on the mesh's first device, None, aux losses)."""
     shard_models = None
     use_ep = expert_parallel(params, cfg, use_ep)
     if mesh is not None:
@@ -369,7 +421,7 @@ def forward(
         rows = data_rows(mesh, cfg, tokens.shape[0], use_ep)
         if rows > 1:
             return _forward_rows(params, cfg, tokens, ctx, mesh, rows, cache, start_pos, remat,
-                                 vis_embeds, use_ep)
+                                 vis_embeds, use_ep, labels)
         mesh = mesh.row(0)
         tensor_parallel = params.tensor_parallel
         params = replica(params, mesh.row_devices(0) if tensor_parallel else mesh.first)
@@ -409,10 +461,16 @@ def forward(
     def embed_params(keys):
         return tied or use_tree({k: emb[k] for k in keys}, dev)
 
-    x = region(lambda t: embed_tokens(embed_params(("tok",)), cfg, t).to(dt), tokens)
     vis = cfg.n_vis_tokens and vis_embeds is not None
+    n_vis = vis_embeds.shape[1] if vis else 0
+    sp = params.over_shards and seq_parallel(mesh, tokens.shape[-1] + n_vis, ctx.tp, cache)
+    # a VLM's patch embeddings join the text's before the sequence is cut
+    x = region(lambda t: embed_tokens(embed_params(("tok",)), cfg, t, seq=sp and not vis).to(dt),
+               tokens)
     if vis:
         x = torch.cat([vis_embeds.to(device=x.device, dtype=dt), x], dim=1)
+        if sp:
+            x = TP.cut_seq(x, mesh.row_devices(0))
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     if start_pos is not None:
@@ -463,33 +521,45 @@ def forward(
         if new_cache is not None:
             new_cache["extra"] = extra
 
-    def head(x):
+    def head(x, labels=None):
         x = apply_norm(use_tree(params.final_norm.tree(), dev), cfg, x)
-        if vis:
-            x = x[:, vis_embeds.shape[1]:]  # logits over text positions only
-        return lm_logits(embed_params(("tok",) if cfg.tie_embeddings else ("head",)), cfg, x,
-                         ctx.tp)
+        w = embed_params(("tok",) if cfg.tie_embeddings else ("head",))
+        if labels is None:
+            return lm_logits(w, cfg, x, ctx.tp, skip=n_vis)  # text positions only
+        return lm_loss_sliced(logit_slices(w, cfg, x, skip=n_vis), labels, cfg.vocab,
+                              cfg.n_codebooks, sum_only=True)
 
-    return region(head, x), new_cache, aux_total
+    if labels is None:
+        return region(head, x), new_cache, aux_total
+    labels = labels.to(dev)
+    return (region(head, x, labels), (labels != -100).sum()), None, aux_total
 
 
 def _forward_rows(params: LM, cfg: ModelConfig, tokens, ctx: ShardCtx, mesh, rows: int, cache,
-                  start_pos, remat: bool, vis_embeds, use_ep: bool):
+                  start_pos, remat: bool, vis_embeds, use_ep: bool, labels=None):
     """:func:`forward` over ``rows`` data rows, each on its slice of the
     batch; the logits gather onto the mesh's first device in row order, and
-    each aux loss is the mean over the rows (added in row order)."""
+    each aux loss is the mean over the rows (added in row order).  Given
+    ``labels``, no logits move: each row's nll sum and label count (scalars)
+    are added on the mesh's first device in row order."""
     b = tokens.shape[0] // rows
     outs = []
     for r in range(rows):
         dev = mesh.device(r, 0)
         part = slice(r * b, (r + 1) * b)
-        outs.append(forward(
-            params, cfg, tokens[part], ctx, mesh=mesh.row(r),
-            cache=None if cache is None else cache.rows[r],
-            start_pos=None if start_pos is None else start_pos.to(dev), remat=remat,
-            vis_embeds=None if vis_embeds is None else vis_embeds[part], use_ep=use_ep))
+        outs.append(_forward(
+            params, cfg, tokens[part], ctx, mesh.row(r),
+            None if cache is None else cache.rows[r],
+            None if start_pos is None else start_pos.to(dev), remat,
+            None if vis_embeds is None else vis_embeds[part], use_ep,
+            None if labels is None else labels[part]))
     first = mesh.first
-    logits = torch.cat([o[0].to(first) for o in outs])
+    if labels is None:
+        out = torch.cat([o[0].to(first) for o in outs])
+    else:  # the rows' nll sums and label counts, added in row order
+        out = outs[0][0]
+        for o in outs[1:]:
+            out = tuple(a + b.to(first) for a, b in zip(out, o[0]))
     aux: Dict[str, torch.Tensor] = {}
     for k in outs[0][2]:
         total = outs[0][2][k].to(first)
@@ -497,7 +567,7 @@ def _forward_rows(params: LM, cfg: ModelConfig, tokens, ctx: ShardCtx, mesh, row
             total = total + o[2][k].to(first)
         aux[k] = total / rows
     new_cache = None if cache is None else RowCaches([o[1] for o in outs])
-    return logits, new_cache, aux
+    return out, new_cache, aux
 
 
 class _Recompute(torch.autograd.Function):
@@ -513,13 +583,16 @@ class _Recompute(torch.autograd.Function):
     its gradient back, and an anchor that requires grad makes the outputs
     of a region without one (the embedding's: token ids in) differentiable,
     so that its gathers' backward still adds into the weights'
-    accumulators."""
+    accumulators.  The inputs are flattened too (a ``tp.SeqSlices`` into
+    its slices)."""
 
     @staticmethod
     def run(fn, backend, *args):
         box = []
         anchor = torch.empty(0, requires_grad=True)
-        flat = _Recompute.apply(fn, backend, box, anchor, *args)
+        leaves, spec = pytree.tree_flatten(args)
+        flat = _Recompute.apply(lambda *ls: fn(*pytree.tree_unflatten(list(ls), spec)), backend,
+                                box, anchor, *leaves)
         return pytree.tree_unflatten(list(flat), box[0])
 
     @staticmethod
@@ -564,3 +637,70 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Ten
     gold = lf.gather(-1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / mask.sum().clamp(min=1)
+
+
+def lm_loss_sliced(parts: List[torch.Tensor], labels: torch.Tensor, vocab: int,
+                   codebooks: int = 1, sum_only: bool = False) -> torch.Tensor:
+    """:func:`lm_loss` of logits held as the shards' column slices: ``parts``
+    (B, S, c_s), each on its shard's device, in shard order, which joined
+    along the last dimension are the logits (B, S, K·V), V the padded
+    vocabulary (codebook k's columns ``[k·V, (k+1)·V)``, against labels
+    (B, K, S)).  The softmax runs where the columns lie: each shard takes
+    its maximum over the columns of each codebook it holds (the padded tail
+    masked where it lies; -1e30 for a codebook it holds none of), the
+    global maximum is the exact maximum of the shards' maxima, the shards'
+    sums of exponentials are added in shard order in float32
+    (``tp.reduce_sum``), and the gold logit is the label's column on the
+    shard that holds it, 0 on the others, added the same way.  Only these
+    per-token values (B, S, K) and the labels move, every shard taking part
+    in each move, and each shard's gradient of its columns forms on its
+    device.  → on the labels' device, the mean nll over labels != -100
+    (``sum_only``: their sum)."""
+    dev = labels.device
+    devs = [p.device for p in parts]
+    V = sum(p.shape[-1] for p in parts) // codebooks
+    mask = labels != -100
+    safe = torch.where(mask, labels, 0).long()
+    ids_at = TP.broadcast(safe[:, None] if codebooks == 1 else safe, devs)  # (B, K, S) a shard
+    segs, at = [], 0
+    for p in parts:  # each shard's (first vocab id, float32 logits) of each codebook, or None
+        row = []
+        for k in range(codebooks):
+            lo, hi = max(k * V, at), min((k + 1) * V, at + p.shape[-1])
+            if lo >= hi:
+                row.append(None)
+                continue
+            seg = p[..., lo - at:hi - at].float()
+            if hi - k * V > vocab:  # the padded tail
+                seg = seg.masked_fill(torch.arange(lo - k * V, hi - k * V, device=p.device)
+                                      >= vocab, -1e30)
+            row.append((lo - k * V, seg))
+        segs.append(row)
+        at += p.shape[-1]
+    shape = parts[0].shape[:-1]
+    with torch.no_grad():
+        maxima = [torch.stack([torch.full(shape, -1e30, device=d) if c is None else c[1].amax(-1)
+                               for c in row], -1) for row, d in zip(segs, devs)]
+        top = TP.join([m[None] for m in maxima], 0, dev).amax(0)  # (B, S, K)
+        tops = TP.broadcast(top, devs)
+    sums, golds = [], []
+    for row, d, t, ids in zip(segs, devs, tops, ids_at):
+        zero = torch.zeros(shape, device=d)
+        e, g = [], []
+        for k, c in enumerate(row):
+            if c is None:
+                e.append(zero)
+                g.append(zero)
+                continue
+            first, seg = c
+            e.append(torch.exp(seg - t[..., k:k + 1]).sum(-1))
+            local = ids[:, k] - first
+            hit = (local >= 0) & (local < seg.shape[-1])
+            picked = seg.gather(-1, local.clamp(0, seg.shape[-1] - 1)[..., None])[..., 0]
+            g.append(torch.where(hit, picked, 0.0))
+        sums.append(torch.stack(e, -1))
+        golds.append(torch.stack(g, -1))
+    nll = (top + torch.log(TP.reduce_sum(sums, dev)) - TP.reduce_sum(golds, dev)).permute(0, 2, 1)
+    nll = (nll[:, 0] if codebooks == 1 else nll) * mask
+    total = nll.sum()
+    return total if sum_only else total / mask.sum().clamp(min=1)

@@ -18,7 +18,10 @@ Under tensor parallelism (``models/tp.py``) ``in_proj`` is held in column
 slices and ``out_proj`` in row slices over the shards, as the reference
 places them; the projected columns join on the row's first device, where
 the conv, both gates (``w_rec_gate`` and ``w_in_gate`` stay whole, as the
-reference keeps them), the scan and the gating run whole.
+reference keeps them), the scan and the gating run whole.  With x in
+sequence slices (``tp.SeqSlices``) ``in_proj`` takes the sequence gathered
+whole onto each shard and ``out_proj``'s parts are reduce-scattered back
+into slices.
 """
 from __future__ import annotations
 
@@ -138,4 +141,4 @@ def rglru_block(
         new_cache = RGLRUCache(h=h_last, conv=new_conv, pos=cache.pos + S)
 
     out = h.to(dt) * _gelu(gate.float()).to(dt)
-    return row_product(out, params["out_proj"]), new_cache
+    return row_product(out, params["out_proj"], like=x), new_cache

@@ -16,7 +16,10 @@ shard projects its columns, which join on the row's first device; the conv,
 the scan and the gated RMSNorm (over the whole ``d_inner``, so it needs
 every head's y) run there whole, on the cache's layout; y's columns then go
 out to the shards for their rows of ``out_proj``, and the parts add in shard
-order.
+order.  With x in sequence slices (``tp.SeqSlices``, the reference's
+sequence parallelism) the slices are gathered whole onto each shard for
+``in_proj`` and the parts of ``out_proj`` reduce-scattered back into
+slices.
 """
 from __future__ import annotations
 
@@ -142,4 +145,4 @@ def ssd_block(
     gated = y * F.silu(z.float())
     ms = (gated * gated).mean(-1, keepdim=True)
     y = gated * torch.rsqrt(ms + 1e-6) * params["norm_scale"]
-    return row_product(y.to(dt_), params["out_proj"]), new_cache
+    return row_product(y.to(dt_), params["out_proj"], like=x), new_cache

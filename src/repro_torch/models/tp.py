@@ -25,8 +25,21 @@ columns and run the rest whole on the first device.  Each move is an
 autograd function whose backward is its Megatron conjugate, in a fixed
 order, with no float atomics, so a repeated forward or training step is bit
 for bit.  Each direction runs inside a ``record_function`` range
-(``tp_broadcast``, ``tp_sum``, ``tp_gather``, named for what it does), so
-that a torch.profiler trace reads its device time.
+(``tp_broadcast``, ``tp_sum``, ``tp_gather``, ``tp_seq_gather``,
+``tp_seq_scatter``, named for what it does), so that a torch.profiler trace
+reads its device time.
+
+Sequence parallelism between blocks (the reference's layout of the residual
+stream, ``lm.seq_parallel``): a row's activation between two blocks is a
+:class:`SeqSlices`, shard ``s`` holding tokens ``[s·S/tp, (s+1)·S/tp)`` on
+its own device.  The norms and the residual adds run on the slices where
+they lie; a column-parallel product gathers the whole sequence onto every
+shard (:func:`all_gather_seq`, where the whole-row path broadcasts) and a
+row-parallel product hands each shard the sum of the partials for its own
+tokens (:func:`reduce_scatter_seq`, where the whole-row path sums onto the
+first device).  Both add the same partials in the same order as
+:func:`reduce_sum`, so every value is the whole-row path's bit for bit.
+:func:`spread` and :func:`collect` take either layout.
 
 The cache-free forward, the KV caches and the blocks' use of the slices are
 in ``models/{lm,attention,layers,blocks,ssd,rglru}.py``; the train storage
@@ -37,6 +50,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 from torch.profiler import record_function
 
 from .base import ParamSpec
@@ -271,3 +285,158 @@ def join(parts: Sequence[torch.Tensor], dim: int, device) -> torch.Tensor:
     """The shards' column slices joined on ``device`` in shard order; the
     backward splits the gradient and sends each shard its part."""
     return _Join.apply(dim, device, *parts)
+
+
+# ------------------------------------------------- the sequence in slices --
+
+
+class SeqSlices:
+    """A row's activation (B, S, ...) held as ``len(parts)`` slices of its
+    sequence (dimension 1) over the row's model shards: ``parts[s]``, tokens
+    ``[s·S/n, (s+1)·S/n)``, on shard ``s``'s device.  ``+`` adds two such
+    activations slice by slice; ``shape``, ``dtype`` and ``device`` (the
+    first shard's, the row's first device) read as the whole
+    activation's."""
+
+    def __init__(self, parts: Sequence[torch.Tensor]):
+        self.parts = tuple(parts)
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return tuple(p.device for p in self.parts)
+
+    @property
+    def device(self) -> torch.device:
+        return self.parts[0].device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.parts[0].shape)
+        s[1] = sum(p.shape[1] for p in self.parts)
+        return torch.Size(s)
+
+    def to(self, dtype: torch.dtype) -> "SeqSlices":
+        return SeqSlices([p.to(dtype) for p in self.parts])
+
+    def __add__(self, other: "SeqSlices") -> "SeqSlices":
+        return SeqSlices([a + b for a, b in zip(self.parts, other.parts)])
+
+
+pytree.register_pytree_node(SeqSlices, lambda x: (list(x.parts), None),
+                            lambda parts, _: SeqSlices(parts))
+
+
+def _cuts(sizes: Sequence[int]):
+    out, at = [], 0
+    for n in sizes:
+        out.append(slice(at, at + n))
+        at += n
+    return out
+
+
+def _at(dim: int, cut: slice):
+    return (slice(None),) * dim + (cut,)
+
+
+class _AllGatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, devices, *parts):
+        ctx.dim, ctx.dtype = dim, parts[0].dtype
+        ctx.homes = [p.device for p in parts]
+        ctx.sizes = [p.shape[dim] for p in parts]
+        with record_function("tp_seq_gather"):
+            return tuple(torch.cat([p.to(d) for p in parts], dim) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with record_function("tp_seq_scatter"):
+            out = tuple(_sum_on([g[_at(ctx.dim, c)] for g in grads], home, ctx.dtype)
+                        for c, home in zip(_cuts(ctx.sizes), ctx.homes))
+        return (None, None, *out)
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *parts):
+        ctx.dim = dim
+        ctx.homes = [(p.device, p.dtype) for p in parts]
+        n = len(parts)
+        size = parts[0].shape[dim]
+        if size % n:
+            raise ValueError(f"a sequence of {size} does not split {n} ways")
+        cuts = _cuts([size // n] * n)
+        with record_function("tp_seq_scatter"):
+            return tuple(_sum_on([p[_at(dim, c)] for p in parts], home, parts[0].dtype)
+                         for c, (home, _) in zip(cuts, ctx.homes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with record_function("tp_seq_gather"):
+            return (None, *(torch.cat([g.to(d) for g in grads], ctx.dim).to(dt)
+                            for d, dt in ctx.homes))
+
+
+def all_gather_seq(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The shards' sequence slices (dimension 1) joined in shard order on
+    each of ``devices``; the backward is a reduce-scatter: slice ``s`` takes
+    the sum of every shard's gradient for its tokens, added in shard order
+    in float32 and rounded once."""
+    return _AllGatherSeq.apply(1, tuple(devices), *parts)
+
+
+def reduce_scatter_seq(parts: Sequence[torch.Tensor], dim: int = 1) -> Tuple[torch.Tensor, ...]:
+    """Shard ``s`` gets the shards' partial results for its tokens (its
+    ``1/n`` of dimension ``dim``), added on its device in shard order in
+    float32 and rounded once to the parts' type: what :func:`reduce_sum`
+    gives those tokens; the backward is an all-gather of the slices'
+    gradients onto every shard."""
+    return _ReduceScatterSeq.apply(dim, *parts)
+
+
+def spread(x, devices: Sequence[torch.device]) -> Tuple[torch.Tensor, ...]:
+    """The whole activation on each of ``devices``, for a column-parallel
+    product: a :class:`SeqSlices` gathered (:func:`all_gather_seq`), a
+    whole tensor broadcast (:func:`broadcast`)."""
+    if isinstance(x, SeqSlices):
+        return all_gather_seq(x.parts, devices)
+    return broadcast(x, devices)
+
+
+def collect(parts: Sequence[torch.Tensor], like):
+    """The shards' partial outputs of a row-parallel product added, in the
+    layout of ``like`` (the product's input): reduce-scattered into
+    :class:`SeqSlices`, else summed on ``like``'s device."""
+    if isinstance(like, SeqSlices):
+        return SeqSlices(reduce_scatter_seq(parts))
+    return reduce_sum(parts, like.device)
+
+
+def join_seq(x):
+    """A :class:`SeqSlices` joined on the row's first device (a layer that
+    needs the whole sequence there); a whole tensor as it is."""
+    if isinstance(x, SeqSlices):
+        return join(x.parts, 1, x.device)
+    return x
+
+
+def cut_seq(x: torch.Tensor, devices: Sequence[torch.device]) -> SeqSlices:
+    """A whole activation cut into sequence slices, slice ``s`` sent to
+    ``devices[s]``; the backward brings each slice's gradient back."""
+    return SeqSlices(scatter(x.chunk(len(devices), dim=1), devices))
+
+
+def on_whole(fn, x):
+    """``fn(x)`` for a layer that needs the whole sequence on the row's
+    first device: :class:`SeqSlices` joined there and the output (the
+    first of a tuple) cut back into slices; a whole tensor as it is."""
+    if not isinstance(x, SeqSlices):
+        return fn(x)
+    out = fn(join_seq(x))
+    if isinstance(out, tuple):
+        return (cut_seq(out[0], x.devices), *out[1:])
+    return cut_seq(out, x.devices)

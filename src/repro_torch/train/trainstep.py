@@ -25,7 +25,11 @@ slice where it lies.  Over ``tp > 1`` model shards the placed state is
 tensor parallel (TP, or TP × FSDP): each shard computes with its slices on
 its own device, its gradient lands in its slices' accumulators, and an MoE
 runs expert-parallel over the shards; a whole model over such a mesh still
-computes on whole replicas, one a shard device.
+computes on whole replicas, one a shard device.  A tensor-parallel step
+runs the reference's sequence parallelism between blocks where its
+condition holds (``lm.seq_parallel``) and takes its loss on the head's
+vocabulary slices (``lm.forward_loss``), so no card holds a row's whole
+logits.
 """
 from __future__ import annotations
 
@@ -37,8 +41,8 @@ from ..configs.base import ModelConfig, RunConfig
 from ..models.base import (SINGLE, ShardCtx, tree_flatten, tree_map,
                            tree_specs_to_shapes, tree_unflatten)
 from ..models.fsdp import Sliced
-from ..models.lm import (LM, data_rows, expert_parallel, forward, init_model, init_placed,
-                         lm_loss, model_spec, placer, replica, sync_replicas)
+from ..models.lm import (LM, data_rows, expert_parallel, forward_loss, init_model, init_placed,
+                         model_spec, placer, replica, sync_replicas)
 from .optimizer import (
     AdamWConfig,
     adamw_update,
@@ -66,9 +70,7 @@ def batch_spec(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, tuple]:
 
 def loss_fn(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: bool, mesh=None,
             use_ep: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, _, aux = forward(model, cfg, batch["tokens"], ctx, mesh=mesh, remat=remat,
-                             vis_embeds=batch.get("vis_embeds"), use_ep=use_ep)
-    loss = lm_loss(logits, batch["labels"], cfg.vocab)
+    loss, aux = forward_loss(model, cfg, batch, ctx, mesh=mesh, remat=remat, use_ep=use_ep)
     total = loss + sum(aux.values(), 0.0)
     return total, {"loss": loss, **aux}
 

@@ -370,8 +370,11 @@ def test_fsdp_collectives_equal_what_the_step_moves(monkeypatch):
 
 def test_collective_kinds_by_cell():
     """Which transfers a cell makes: none on one card; the slices' in
-    training over data rows; EP and split-S at decode over model shards
-    (none for the SSD, whose caches split nothing); the logits gathered
+    training over data rows, and over the model shards the tensor-parallel
+    moves (smollm's 15 q heads keep its attention whole: the sequence
+    slices join for it and are cut back), under sequence parallelism; EP
+    and split-S at decode over model shards (none for the SSD, whose caches
+    split nothing; its projections' moves instead); the logits gathered
     from each serving row."""
     prod = ShardCtx(tp=16, dp=16)
     dec = ShardCtx(tp=16, dp=1)
@@ -379,15 +382,17 @@ def test_collective_kinds_by_cell():
     assert probe.collective_costs(cfg, _run(cfg, "train", 4096, 8, 4), SINGLE, "train") == {}
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], dp=16, tp=16)
     assert set(probe.collective_costs(cfg, run, prod, "train")) == {
-        "fsdp-gather", "fsdp-grad-add", "grad-norm", "whole-leaf-update"}
+        "fsdp-gather", "fsdp-grad-add", "grad-norm", "whole-leaf-update", "tp-broadcast",
+        "tp-sum", "tp-join", "tp-scatter", "sp-gather", "sp-scatter"}
     granite = get_config("granite_moe_3b_a800m")
     run = RunConfig(model=granite, shape=SHAPES["decode_32k"], dp=16, tp=16)
     got = probe.collective_costs(granite, run, prod, "decode", ctx_params=dec)
     assert {"ep-dispatch", "ep-combine", "split-s", "logits-gather"} <= set(got)
+    assert not {"sp-gather", "sp-scatter"} & set(got)  # a cache: no sequence slices
     mamba = get_config("mamba2_2p7b")
     run = RunConfig(model=mamba, shape=SHAPES["decode_32k"], dp=16, tp=16)
     assert set(probe.collective_costs(mamba, run, prod, "decode", ctx_params=dec)) == {
-        "logits-gather"}
+        "logits-gather", "tp-broadcast", "tp-sum", "tp-join", "tp-scatter"}
 
 
 # ---------------------------------------------------------------- dry run --

@@ -262,7 +262,8 @@ def test_attention_runs_on_each_shards_heads_on_its_device(tp, monkeypatch):
     """The flash_attention entry point is called once a layer a shard, at
     the shard's q and kv heads (a CPU tensor's device has no index, so the
     shards' devices are the slices' own: ``Shards.devices``); a trace holds
-    the three moves' ranges."""
+    the moves' ranges (the forward of 8 positions runs its residual stream
+    in sequence slices: its sums are the sequence's reduce-scatters)."""
     calls = []
     attention = kops.attention
 
@@ -288,7 +289,7 @@ def test_attention_runs_on_each_shards_heads_on_its_device(tp, monkeypatch):
     wq = model.groups["p0_attn"].tree()["attn"]["wq"]
     assert wq.devices == tuple(torch.device(d) for d in CARDS[:tp])
     names = {e.key for e in prof.key_averages()}
-    assert {"tp_broadcast", "tp_sum", "tp_gather"} <= names
+    assert {"tp_broadcast", "tp_seq_gather", "tp_seq_scatter", "tp_gather"} <= names
 
 
 # ----------------------------------------------------------------- serving ----
@@ -444,7 +445,7 @@ def test_ssd_and_rglru_blocks_keep_whole_weights_and_answers(arch, block, monkey
 
     def recording(*args, **kwargs):
         out = fn(*args, **kwargs)
-        seen.append(out[0])
+        seen.append(TP.join_seq(out[0]))  # over the shards, in sequence slices
         return out
 
     monkeypatch.setattr(blocks, block, recording)

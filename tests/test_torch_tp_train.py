@@ -1,5 +1,9 @@
 """Training under tensor parallelism (TP, and TP × FSDP) on the CPU, against
-the JAX package.
+the JAX package: ``qwen3_8b`` and ``mamba2_2p7b`` here, with the cases of no
+one architecture; ``granite_moe_3b_a800m`` and ``recurrentgemma_9b`` in
+``test_torch_tp_train_moe_rglru.py``, which shares this file's helpers (the
+file split in two along its parametrisation, so that each runs in about half
+the time on one worker).
 
 The mesh is emulated as in ``test_torch_tensor_parallel.py``: ``make_mesh(...,
 devices=["cpu"] * n)`` runs every shard on the CPU one after the other, and
@@ -9,7 +13,9 @@ answer: its ``loss_fn`` at ``ShardCtx(tp)`` with no mesh (the padded vocab,
 the padded experts) is what the port's step over the model shards computes.
 Inputs (parameters, token batches) come from seeds through numpy.
 
-Held here, at the smoke configs (2 layers, widths that tp 2 and 4 divide):
+Held over both files, at the smoke configs (2 layers, widths that tp 2 and 4
+divide, 32 tokens: every step runs the reference's sequence parallelism and
+takes its loss on the head's vocabulary slices):
 - the TP step's loss and every leaf's gradient against ``jax.value_and_grad``
   of the reference's ``loss_fn`` for a dense model, an MoE (expert-parallel
   over the same shards), ``mamba2_2p7b`` and ``recurrentgemma_9b`` at tp 2
@@ -40,7 +46,6 @@ Held here, at the smoke configs (2 layers, widths that tp 2 and 4 divide):
 import dataclasses
 import io
 import math
-import os
 import zlib
 from contextlib import redirect_stdout
 
@@ -55,7 +60,6 @@ from repro.configs import get_smoke_config as j_smoke
 from repro.kernels import ops as jops
 from repro.models import init_model as j_init_model
 from repro.models.base import ShardCtx as JShardCtx
-from repro.serve.engine import make_serve_fns as j_serve_fns
 from repro.train import optimizer as jopt
 from repro.train.trainstep import loss_fn as j_loss_fn
 from repro_torch.ckpt import CheckpointManager
@@ -67,9 +71,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import LM, fsdp, model_spec, params_from_numpy
 from repro_torch.models import tp as TP
 from repro_torch.models.base import ShardCtx, keystr, tree_flatten, tree_specs_to_shapes
-from repro_torch.serve import make_serve_fns
 from repro_torch.train import optimizer as topt
-from repro_torch.train import train_loop
 from repro_torch.train import trainstep
 from repro_torch.train.trainstep import (card_state_bytes, init_placed_state, init_train_state,
                                          make_train_step, place_train_state, value_and_grad)
@@ -82,6 +84,19 @@ GRAD_TOL = 1e-4
 ADAM_REL = 1e-6
 F32_TOL = 1e-5
 ARCHS = ["qwen3_8b", "granite_moe_3b_a800m", "mamba2_2p7b", "recurrentgemma_9b"]
+HERE = ["qwen3_8b", "mamba2_2p7b"]  # the rest of ARCHS: test_torch_tp_train_moe_rglru.py
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs (restored after): its
+    steps are many small ops, and under parallel test workers more threads
+    only oversubscribe the cores.  Every comparison here is within one
+    process or within a tolerance."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rng(*key):
@@ -136,13 +151,18 @@ def _close(got, want_tree, rel, what):
 
 @pytest.mark.parametrize("remat", ["none", "full"])
 @pytest.mark.parametrize("tp", [2, 4])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", HERE)
 def test_tp_step_loss_and_every_gradient_vs_reference(arch, tp, remat):
     """The loss and every leaf's gradient of a step over ``make_mesh(1,
     tp)`` (tp 2 over distinct devices, tp 4 over one device repeated), each
     model-axis leaf's gradient accumulated in its shards' slices, against
     ``jax.value_and_grad`` of the reference's ``loss_fn`` at
     ``ShardCtx(tp)``."""
+    step_vs_reference(arch, tp, remat)
+
+
+def step_vs_reference(arch, tp, remat):
+    """:func:`test_tp_step_loss_and_every_gradient_vs_reference`'s body."""
     cfg, tcfg = _cfgs(arch)
     jparams = _reference(cfg, tp)
     data = _data(cfg)
@@ -197,7 +217,7 @@ def _assert_steps_equal(a, b, loss=True):
         assert torch.equal(ma["grad_norm"], mb["grad_norm"])
 
 
-@pytest.mark.parametrize("arch,devices", [(a, d) for a in ARCHS for d in ("emulated", "distinct")]
+@pytest.mark.parametrize("arch,devices", [(a, d) for a in HERE for d in ("emulated", "distinct")]
                          + [("qwen3_8b", "norm by layer")])
 def test_tp_fsdp_step_equals_the_tp_step_bit_for_bit(arch, devices, monkeypatch):
     """Two steps over ``make_mesh(2, 2)`` with the state in slices over the
@@ -207,6 +227,11 @@ def test_tp_fsdp_step_equals_the_tp_step_bit_for_bit(arch, devices, monkeypatch)
     MoE's aside: the microbatched step's counts the aux losses in) and
     gradient norms bit for bit; also with the global norm taken a layer at
     a time (``NORM_WHOLE_MAX`` lowered under the stacked leaves)."""
+    fsdp_vs_tp(arch, devices, monkeypatch)
+
+
+def fsdp_vs_tp(arch, devices, monkeypatch):
+    """:func:`test_tp_fsdp_step_equals_the_tp_step_bit_for_bit`'s body."""
     if devices == "norm by layer":
         monkeypatch.setattr(topt, "NORM_WHOLE_MAX", 100)
     four = ["cpu"] * 4 if devices == "emulated" else CARDS
@@ -342,69 +367,6 @@ def test_tp_fsdp_checkpoint_round_trip_into_its_slices(tmp_path):
     assert _same(_whole({"params": whole.tree(), "opt": wstate}), want)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_8b", "granite_moe_3b_a800m"])
-def test_tp_fsdp_run_resumed_at_step_2_equals_three_steps(tmp_path, arch):
-    """``train_loop`` over ``make_mesh(2, 2)`` with ``fsdp``, killed at step
-    2, resumes from its exit checkpoint into the placed state in place and
-    ends on the uninterrupted three steps' losses and files byte for byte."""
-    _, tcfg = _cfgs(arch)
-    run = RunConfig(model=tcfg, shape=ShapeConfig(**SHAPE), dp=2, tp=2, remat="full")
-    data = SynthSpec(vocab=tcfg.vocab, seq_len=32, batch=4, seed=0)
-    kw = dict(total_steps=3, ckpt_every=1, opt=topt.AdamWConfig(**OPT), log_fn=lambda s: None,
-              device="cpu", mesh=make_mesh(2, 2, devices=CARDS), fsdp=True)
-    whole = train_loop(tcfg, run, data, ckpt_dir=str(tmp_path / "whole"), **kw)
-    with pytest.raises(RuntimeError, match="^injected node failure at step 2$"):
-        train_loop(tcfg, run, data, ckpt_dir=str(tmp_path / "cut"), fail_at_step=2, **kw)
-    resumed = train_loop(tcfg, run, data, ckpt_dir=str(tmp_path / "cut"), **kw)
-    assert resumed.resumed_from == 2 and resumed.steps == 1
-    assert resumed.losses == whole.losses[2:] and resumed.grad_norms == whole.grad_norms[2:]
-    for name in ("whole", "cut"):
-        assert CheckpointManager(str(tmp_path / name)).latest_step() == 3
-    d1, d2 = (tmp_path / n / "step_00000003" for n in ("whole", "cut"))
-    files = sorted(f for f in os.listdir(d1) if f.endswith(".npy"))
-    assert files and all((d1 / f).read_bytes() == (d2 / f).read_bytes() for f in files)
-
-
-# --------------------------------------------------------------- serving --
-
-
-@pytest.mark.parametrize("arch", ["mamba2_2p7b", "recurrentgemma_9b"])
-def test_ssd_and_rglru_served_under_tp4_vs_reference(arch):
-    """Prefill of 12 tokens and 4 greedy decode steps through
-    ``make_serve_fns`` over ``make_mesh(1, 4)`` (the SSD / RG-LRU
-    projections in slices, the conv, scan and caches whole on the first
-    device) against the reference's serve fns with no mesh: the same tokens,
-    every step's logits within 1e-5 of the largest |logit|."""
-    cfg, tcfg = _cfgs(arch)
-    jparams = _reference(cfg, 4)
-    mesh = make_mesh(1, 4, devices=CARDS)
-    model = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, ctx=ShardCtx(tp=4),
-                              mesh=mesh)
-    block = "ssd" if arch == "mamba2_2p7b" else "rglru"
-    assert isinstance(next(iter(model.groups.values())).tree()[block]["in_proj"], TP.Shards)
-    prompt = _rng("serve", arch).integers(0, cfg.vocab, (2, 12)).astype(np.int32)
-    jpre, jdec, _ = j_serve_fns(cfg, JShardCtx(tp=4), capacity=32)
-    tpre, tdec, _ = make_serve_fns(tcfg, ShardCtx(tp=4), mesh=mesh, capacity=32)
-    with jops.local_backend("xla"):
-        jl, jc = jpre(jparams, jnp.asarray(prompt))
-    with torch.no_grad():
-        tl, tc = tpre(model, torch.from_numpy(prompt))
-    for i in range(5):
-        jl32 = np.asarray(jl.astype(jnp.float32))
-        np.testing.assert_allclose(tl.numpy(), jl32, rtol=0, atol=F32_TOL * np.abs(jl32).max(),
-                                   err_msg=f"step {i}")
-        jn = np.asarray(jnp.argmax(jl[..., :cfg.vocab], -1)).astype(np.int32)
-        assert np.array_equal(tl[..., :cfg.vocab].argmax(-1).numpy(), jn), f"step {i}"
-        if i == 4:
-            break
-        pos = prompt.shape[-1] + i
-        with jops.local_backend("xla"):
-            jl, jc = jdec(jparams, jc, jnp.asarray(jn[:, None]), jnp.asarray(pos, jnp.int32))
-        with torch.no_grad():
-            tl, tc = tdec(model, tc, torch.from_numpy(jn[:, None]),
-                          torch.tensor(pos, dtype=torch.int32))
-
-
 # ------------------------------------------------------- bytes and norms --
 
 
@@ -432,7 +394,7 @@ def test_each_cards_bytes_are_the_placements_reckoning(arch):
     assert split > 0
 
 
-@pytest.mark.parametrize("arch,dp,tp,layers", [("qwen3_moe_30b_a3b", 2, 2, 24),
+@pytest.mark.parametrize("arch,dp,tp,layers", [("qwen3_moe_30b_a3b", 2, 2, 25),
                                                ("qwen3_8b", 2, 2, 36)])
 def test_four_card_depths(arch, dp, tp, layers):
     """``tools/tp_train_cards.py``'s depths: the deepest cut whose fullest

@@ -16,9 +16,10 @@ Builds the attention kernels, then:
 - each model's layer 0 over the cards (1 x 1,024 tokens) against float64
   with the whole weights (the MoE's experts on the cards' routing).
 
-Prints each run's warm step ms, tokens/s, each card's state bytes beside the
-reckoning and each card's peak, with the cards' ``nvidia-smi`` names and
-power limits.  Exits 2 on a host with fewer than four cards.
+Prints each run's warm step ms, tokens/s, its kernel launches, each card's
+state bytes beside the reckoning and each card's peak, with the cards'
+``nvidia-smi`` names and power limits.  Exits 2 on a host with fewer than
+four cards.
 
     python3 tools/tp_train_cards.py
 """
@@ -59,7 +60,8 @@ def recorded_states(loop_module):
 def run(torch, smoke, name, devices, train, dp, tp, batch):
     """``train()`` (a launcher or ``train_loop`` run) with each card's peak
     reset first → (its LoopStats, each card's state bytes, each card's
-    peak); prints the run's line."""
+    peak); prints the run's line, its kernel launches among it."""
+    from repro_torch.kernels import ops
     from repro_torch.train import loop
     from repro_torch.train.trainstep import card_state_bytes
 
@@ -67,12 +69,14 @@ def run(torch, smoke, name, devices, train, dp, tp, batch):
         torch.empty(1, device=d)  # each card's allocator made before its peak is reset
         torch.cuda.reset_peak_memory_stats(d)
     made, restore = recorded_states(loop)
+    before = ops.launch_counts()
     try:
         t0 = time.perf_counter()
         stats = train()
         wall = time.perf_counter() - t0
     finally:
         restore()
+    launches = {k: n - before[k] for k, n in ops.launch_counts().items() if n > before[k]}
     held = card_state_bytes(*made[0])
     del made
     gc.collect()
@@ -83,7 +87,8 @@ def run(torch, smoke, name, devices, train, dp, tp, batch):
           f"tokens in {wall} s; step ms {json.dumps([t * 1e3 for t in stats.step_times])}, warm "
           f"tokens/s {json.dumps([batch * SEQ / t for t in warm])}; losses "
           f"{json.dumps(stats.losses)}, grad norms {json.dumps(stats.grad_norms)}; each card's "
-          f"weights and moments {held} bytes; each card's peak {peaks} bytes", flush=True)
+          f"weights and moments {held} bytes; each card's peak {peaks} bytes; launches "
+          f"{json.dumps(launches)}", flush=True)
     smoke.check(all(math.isfinite(x) for x in stats.losses + stats.grad_norms),
                 f"{name}: a loss or gradient norm is not finite")
     smoke.check(max(peaks) < 80e9, f"{name}: a card's peak {max(peaks)} bytes")
