@@ -210,15 +210,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    49,184) served through ``make_serve_fns`` over ``make_mesh(1, 4,
    devices=[cuda:0] * 4)`` expert-parallel: a 1,024-token prefill and 16
    greedy decode steps, beside the same context with no mesh; every
-   decode step split-S in all 16 attention layers and four shard calls a
-   layer, each with its ten experts on its shard's device, the cache's
-   slots sharded four ways; a fresh mesh repeats tokens and last logits bit
+   decode step split-S on each shard's kv heads in all 16 attention layers
+   and four shard calls a layer, each with its ten experts on its shard's
+   device, the caches by kv heads; a fresh mesh repeats tokens and last logits bit
    for bit; layer 0's ``moe_ffn_sharded`` on the model's own inputs under
    ``set_sync_debug_mode("error")``, against ``moe_ffn`` within 2^-5 of the
    largest |y| with the same kept and dropped assignments; one split-S
    decode step of layer 0 within 2e-2 of the dense cached path's largest
-   |out| with the same written cache; the tokens that agree with the
-   no-mesh run and the walls printed, not held.  (b) ``smollm_360m`` at full
+   |out| with the same written cache, and bit for bit the same step on the
+   cache split by slots; the tokens that agree with the no-mesh run and the
+   walls printed, not held.  (c) ``smollm_360m`` at full width and depth
+   served over the same mesh with whole weights: its five kv heads do not
+   divide 4, so its caches lie by slots; a 1,024-token prefill writing each
+   layer's tokens where their slots lie and 16 split-S decode steps within
+   2^-5 of the no-mesh decode, the calls counted, each shard's cache bytes
+   the reckoning, the walls beside the caches whole in the same process.
+   (b) ``smollm_360m`` at full
    width, one step of 8 x 4,096 tokens (remat full) over ``make_mesh(4, 1,
    devices=[cuda:0] * 4)`` and one with microbatch 2 and no mesh from the
    same state, in turns (mesh, microbatch, microbatch, mesh): params,
@@ -2541,51 +2548,78 @@ def timings(torch, K, shapes, rng, dev):
 def scan_timing(torch, mod, shapes, rng, dev, flush):
     """The inter-chunk scan at the serving path's two prompt shapes (the
     1,024-token prompt's chunks of 128, and the one-token-chunk prompt's,
-    which ssd_recur now takes): the wrapper (the decays' torch ops, then one
-    ssd_scan launch), its bare C entry on precomputed decays, the plain
-    version (a loop over the chunks) and the bound.  → the row of the
+    which ssd_recur now takes) (:func:`scan_row`).  → the row of the
     chunks of 128, with the other under ``L1``."""
     rows = {}
     for key, want_l in (("L1", 1), ("chunk128", 128)):
         mine = [sh for sh in shapes if sh[5] == want_l]
         check(mine, f"no ssd_chunk_scan launch at chunk {want_l} on the serving path")
-        bt, S, H, Pd, N, L, dtype = max(mine, key=lambda sh: sh[0] * sh[1])
-        x, la, b, c = ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, getattr(torch, dtype))
-        y_intra, state = mod.ssd_chunk_intra(x, la, b, c, L)
-        ecum = mod.chunk_decays(la, S // L)
-        y = torch.empty_like(y_intra)
-        hf = torch.empty((bt, H, N, Pd), device=dev)
-        tin = mod.DTYPES[x.dtype]
-        stream = torch.cuda.current_stream().cuda_stream
-
-        cpb = mod.scan_chunks(bt, S // L, H, Pd, L, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
-
-        def c_entry():
-            check(mod._fns()["scan"](y_intra.data_ptr(), state.data_ptr(), ecum.data_ptr(),
-                                     c.data_ptr(), bt, S, H, Pd, N, L, cpb, tin, y.data_ptr(),
-                                     hf.data_ptr(), stream) == 0,
-                  "ssd_scan C entry point")
-
-        c_entry()
-        want = mod.ssd_chunk_inter_plain(y_intra, state, la, c)
-        check(torch.equal(hf, want[1]), f"ssd_scan C entry at {[bt, S, H, Pd, N, L]}: h_final "
-              "differs from the plain version's")
-        check_ssd(torch, (y, hf), want, "ssd_scan C entry at the timing shape")
-        rows[key] = dict(
-            shape=[bt, S, H, Pd, N, L, dtype],
-            ms=timed(torch, lambda: mod.ssd_chunk_inter(y_intra, state, la, c), 10, flush),
-            c_entry_ms=timed(torch, c_entry, 10, flush),
-            plain_ms=timed(torch, lambda: mod.ssd_chunk_inter_plain(y_intra, state, la, c), 2,
-                           flush),
-            library_ms=None,
-            bound=bound(*scan_work(bt, S, H, Pd, N, L, x.element_size())),
-        )
-        r = rows[key]
-        print(f"[time] inter-chunk scan at {r['shape']}: wrapper {r['ms']} ms, C entry alone "
-              f"{r['c_entry_ms']} ms, plain {r['plain_ms']} ms, bound {r['bound'][0]} ms "
-              f"({r['bound'][1]})", flush=True)
+        rows[key] = scan_row(torch, mod, max(mine, key=lambda sh: sh[0] * sh[1]), rng, dev,
+                             flush)
     return dict(rows["chunk128"], L1=rows["L1"])
+
+
+def scan_row(torch, mod, shape, rng, dev, flush):
+    """The inter-chunk scan at ``shape`` (bt, S, H, P, N, L, dtype): the
+    wrapper (the decays' torch ops, then one ssd_scan launch), its bare C
+    entry on precomputed decays (h_final bit for bit the plain version's, y
+    by check_ssd), the plain version (a loop over the chunks) and the
+    bound → its timing row."""
+    bt, S, H, Pd, N, L, dtype = shape
+    x, la, b, c = ssd_inputs(torch, rng, dev, bt, S, H, Pd, N, getattr(torch, dtype))
+    y_intra, state = mod.ssd_chunk_intra(x, la, b, c, L)
+    ecum = mod.chunk_decays(la, S // L)
+    y = torch.empty_like(y_intra)
+    hf = torch.empty((bt, H, N, Pd), device=dev)
+    tin = mod.DTYPES[x.dtype]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    cpb = mod.scan_chunks(bt, S // L, H, Pd, L, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+
+    def c_entry():
+        check(mod._fns()["scan"](y_intra.data_ptr(), state.data_ptr(), ecum.data_ptr(),
+                                 c.data_ptr(), bt, S, H, Pd, N, L, cpb, tin, y.data_ptr(),
+                                 hf.data_ptr(), stream) == 0,
+              "ssd_scan C entry point")
+
+    c_entry()
+    want = mod.ssd_chunk_inter_plain(y_intra, state, la, c)
+    check(torch.equal(hf, want[1]), f"ssd_scan C entry at {[bt, S, H, Pd, N, L]}: h_final "
+          "differs from the plain version's")
+    check_ssd(torch, (y, hf), want, "ssd_scan C entry at the timing shape")
+    r = dict(
+        shape=[bt, S, H, Pd, N, L, dtype],
+        ms=timed(torch, lambda: mod.ssd_chunk_inter(y_intra, state, la, c), 10, flush),
+        c_entry_ms=timed(torch, c_entry, 10, flush),
+        plain_ms=timed(torch, lambda: mod.ssd_chunk_inter_plain(y_intra, state, la, c), 2,
+                       flush),
+        library_ms=None,
+        bound=bound(*scan_work(bt, S, H, Pd, N, L, x.element_size())),
+    )
+    print(f"[time] inter-chunk scan at {r['shape']}: wrapper {r['ms']} ms, C entry alone "
+          f"{r['c_entry_ms']} ms, plain {r['plain_ms']} ms, bound {r['bound'][0]} ms "
+          f"({r['bound'][1]})", flush=True)
+    return r
+
+
+def ssd_shard_rows(torch, K, rng, dev, flush, errs):
+    """The SSD kernels at one shard's heads of mamba2_2p7b's served prefill
+    (TPT_SSD_SHARD, phase 4m's state placed by heads): ``ssd_chunk_scan``
+    against its plain version there (``ssd_parity``: ssd_wgmma and
+    ssd_scan launched once each; the errors noted into ``errs`` under the
+    kernels' rows), then ssd_wgmma (beside ssd_cells on the same inputs)
+    and ssd_scan timed beside their bounds → {label: timing row}."""
+    sc = K["ssd_chunk_scan"]
+
+    def note(name, e):
+        errs[name] = max(errs[name], e)
+
+    ssd_parity(torch, K, rng, dev, note, (TPT_SSD_SHARD,))
+    args = main_path_inputs(torch, "ssd_chunk_scan", TPT_SSD_SHARD, rng, dev)
+    return {"ssd_chunk_scan_wgmma tp4 shard": ssd_timing(torch, sc, TPT_SSD_SHARD, args, flush),
+            "ssd_chunk_scan_inter tp4 shard": scan_row(torch, sc, TPT_SSD_SHARD, rng, dev,
+                                                       flush)}
 
 
 def recur_timing(torch, mod, shapes, rng, dev, flush):
@@ -3186,8 +3220,9 @@ def reg_attention_timings(torch, rng, dev, flush, shapes=REG_ATTN, phase="4k"):
 
 
 def recorder(K):
-    """Context manager that records the shapes each kernel wrapper is given
-    (calls pass straight through, so launch counts are the wrappers' own)."""
+    """Context manager that records the shapes each kernel wrapper of ``K``
+    is given (calls pass straight through, so launch counts are the
+    wrappers' own)."""
     from contextlib import contextmanager
 
     shapes = {name: [] for name in K}
@@ -3221,8 +3256,9 @@ def recorder(K):
             (*x.shape, b.shape[-1], int(chunk), str(x.dtype).split(".")[1]))
         return originals["ssd_chunk_scan"](x, log_a, b, c, chunk)
 
-    wrapped = {"masked_stats": ms, "segment_reduce": sr, "topk": tk, "filter_compact": fc,
-               "join_probe": jp, "ssd_chunk_scan": sc}
+    wrapped = {name: fn for name, fn in (
+        ("masked_stats", ms), ("segment_reduce", sr), ("topk", tk), ("filter_compact", fc),
+        ("join_probe", jp), ("ssd_chunk_scan", sc)) if name in K}
 
     @contextmanager
     def record():
@@ -4765,7 +4801,9 @@ MESH_SERVE_LAYERS = 16  # of granite's 32, so that the whole script keeps to its
 def mesh_serving(torch, devices):
     """Phase 4g (a): granite-MoE at full width cut to MESH_SERVE_LAYERS
     layers served over ``make_mesh(1, 4, devices=devices)`` (``[cuda:0] *
-    4`` in the smoke), expert-parallel, split-S."""
+    4`` in the smoke), expert-parallel, its caches by kv heads (8 over 4
+    shards, as the reference places them), each decode step the split-S
+    arithmetic on each shard's heads."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -4794,9 +4832,10 @@ def mesh_serving(torch, devices):
     plain = make_serve_fns(cfg, ctx, capacity=2048)[:2]
     meshed = make_serve_fns(cfg, ctx, mesh=mesh, capacity=2048, use_ep=True)[:2]
     toks0, _, pre0, dec0, _ = mesh_generate(torch, cfg, model, *plain, prompt)
-    # one decode step counted: the split-S calls and each shard's experts
+    # one decode step counted: the split-S calls on each shard's heads and
+    # each shard's experts
     calls = {"split": 0, "ep": []}
-    split_fn, ep_fn = attention._split_s_decode, moe.moe_ffn_ep
+    split_fn, ep_fn = attention._blocks_decode, moe.moe_ffn_ep
 
     def count_split(*args):
         calls["split"] += 1
@@ -4810,30 +4849,31 @@ def mesh_serving(torch, devices):
     toks1, steps1, pre1, dec1, cache = mesh_generate(torch, cfg, model, *meshed, prompt)
     last1 = steps1[-1]
     kv = cache["groups"]["p0_attn"]
-    check(isinstance(kv, attention.ShardedKVCache) and len(kv.k) == MESH_TP
-          and all(kv.k[s].device == mesh.device(0, s) and kv.k[s].shape[-2] == 2048 // MESH_TP
-                  for s in range(MESH_TP)),
-          "the mesh cache is not sharded over the four model shards by slot")
-    attention._split_s_decode, moe.moe_ffn_ep = count_split, record_ep
+    h_loc = cfg.n_kv_heads // MESH_TP
+    check(isinstance(kv, attention.ShardedKVCache) and kv.dim == 1 and len(kv.k) == MESH_TP
+          and all(kv.k[s].device == mesh.device(0, s) and kv.k[s].shape[-3] == h_loc
+                  and kv.k[s].shape[-2] == 2048 for s in range(MESH_TP)),
+          "the mesh cache is not placed over the four model shards by kv heads")
+    attention._blocks_decode, moe.moe_ffn_ep = count_split, record_ep
     try:
         step_tok = toks1[:, -1:]
         with torch.no_grad():
             meshed[1](model, cache, step_tok, torch.tensor(1024 + N_TOKENS, dtype=torch.int32,
                                                            device=dev))
     finally:
-        attention._split_s_decode, moe.moe_ffn_ep = split_fn, ep_fn
+        attention._blocks_decode, moe.moe_ffn_ep = split_fn, ep_fn
     layers = cfg.n_layers
-    check(calls["split"] == layers, f"a decode step ran split-S in {calls['split']} of "
-          f"{layers} attention layers")
+    check(calls["split"] == layers * MESH_TP, f"a decode step ran split-S on a shard's heads "
+          f"{calls['split']} times, not {MESH_TP} in each of {layers} attention layers")
     check(len(calls["ep"]) == layers * MESH_TP and all(
         dev_w == mesh.device(0, s) and n == e_loc and dev_x == mesh.device(0, s)
         for s, dev_w, n, dev_x in calls["ep"]) and [c[0] for c in calls["ep"]]
         == list(range(MESH_TP)) * layers,
         "a decode step's expert-parallel calls: not four shards a layer, each on its own "
         "device with its ten experts")
-    print(f"[mesh-serve] one decode step: split-S in {calls['split']} layers, "
-          f"{len(calls['ep'])} expert-parallel shard calls ({MESH_TP} a layer, each with "
-          f"{e_loc} experts on its shard's device); the cache's slots {2048 // MESH_TP} a shard",
+    print(f"[mesh-serve] one decode step: split-S on each shard's {h_loc} kv heads "
+          f"{calls['split']} times ({MESH_TP} a layer), {len(calls['ep'])} expert-parallel "
+          f"shard calls ({MESH_TP} a layer, each with {e_loc} experts on its shard's device)",
           flush=True)
 
     # a whole repeat in a fresh mesh: tokens and last logits bit for bit
@@ -4929,10 +4969,99 @@ def mesh_serving(torch, devices):
     scale = float(out_d.float().abs().max())
     check(err <= SPLIT_TOL * scale, f"layer 0: split-S decode vs the dense cached path max "
           f"|err| {err} over {SPLIT_TOL} of the largest |out| {scale}")
-    print(f"[mesh-serve] layer 0, one decode step at position 1,024: split-S over {MESH_TP} "
-          f"shards against the dense cached path, max |err| {err} (limit {SPLIT_TOL * scale}); "
-          "the written cache equal bit for bit", flush=True)
+    with torch.no_grad():  # the same cache split by slots: the same values, bit for bit
+        out_b, cache_b = attention.attention_block(
+            a_params, cfg, a_x, a_pos, **dict(a_kw, cache=attention.ShardedKVCache.split(
+                sharded.gathered(), [mesh.device(0, s) for s in range(MESH_TP)])))
+    check(torch.equal(out_b, out_s) and torch.equal(cache_b.gathered().k, gathered.k),
+          "layer 0: split-S on each shard's heads differs from split-S over the slots")
+    print(f"[mesh-serve] layer 0, one decode step at position 1,024: split-S on each of "
+          f"{MESH_TP} shards' kv heads against the dense cached path, max |err| {err} (limit "
+          f"{SPLIT_TOL * scale}), and bit for bit split-S over the cache's slots; the written "
+          "cache equal bit for bit", flush=True)
     del model, cache, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+SLOT_SERVE_MODEL = "smollm_360m"  # 5 kv heads: over four shards its caches lie by slots
+
+
+def slot_serving(torch, devices):
+    """Phase 4g (c): SLOT_SERVE_MODEL at full width and depth served over
+    ``make_mesh(1, 4, devices=devices)`` with whole weights: its kv heads
+    do not divide 4, so ``lm.init_cache`` places each KV cache by slots
+    (split-S, 512 of the 2,048 a shard).  A 1,024-token prefill, whose new
+    k and v each layer writes where their slots lie (``_write_slots``, once
+    a layer), and N_TOKENS greedy decode steps (``_split_s_decode``, once a
+    layer a step) against the no-mesh decode fed the same tokens: each
+    step's logits within TP_TOL of the largest |logit|, each shard's cache
+    bytes the reckoning after the prefill and after the last step; the walls
+    beside the no-mesh run's and the same mesh's with the caches whole on
+    the first device."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, attention, init_model
+    from repro_torch.serve import make_serve_fns
+
+    cfg = get_config(SLOT_SERVE_MODEL)
+    ctx = ShardCtx(tp=MESH_TP)
+    mesh = make_mesh(1, MESH_TP, devices=devices)
+    dev = mesh.first
+    model = init_model(cfg, ctx, seed=SERVE_SEED, device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(SERVE_SEED + 5).integers(
+        0, cfg.vocab, (1, 1024)), device=dev)
+    pre, dec = make_serve_fns(cfg, ctx, mesh=mesh, capacity=TP_CAPACITY)[:2]
+    seen, calls = [], {"_write_slots": 0, "_split_s_decode": 0}
+    fns = {name: getattr(attention, name) for name in calls}
+
+    def counting(name):
+        def fn(*args):
+            calls[name] += 1
+            return fns[name](*args)
+        return fn
+
+    for name in calls:
+        setattr(attention, name, counting(name))
+    try:
+        toks, steps, pre_m, dec_m, cache = mesh_generate(
+            torch, cfg, model, checked_prefill(torch, cfg, pre, mesh, TP_CAPACITY, seen), dec,
+            prompt)
+    finally:
+        for name, fn in fns.items():
+            setattr(attention, name, fn)
+    layers = cfg.n_layers
+    kv = cache["groups"]["p0_attn"]
+    check(isinstance(kv, attention.ShardedKVCache) and kv.dim == 2 and all(
+        t.shape[-2] == TP_CAPACITY // MESH_TP for t in kv.k),
+        f"{cfg.name}: the caches are not placed over the shards by slots")
+    check(calls == {"_write_slots": layers, "_split_s_decode": layers * N_TOKENS},
+          f"{cfg.name}: the prefill and the decode steps made {calls}, not {layers} slot writes "
+          f"and {layers * N_TOKENS} split-S decodes")
+    last = cache_cards(torch, cfg, cache, mesh, 1, TP_CAPACITY, "after the last decode step")
+    del cache
+    _, want, pre0, dec0, _ = mesh_generate(
+        torch, cfg, model, *make_serve_fns(cfg, ctx, capacity=TP_CAPACITY)[:2], prompt, feed=toks)
+    errs = [logits_err(torch, a[:, None], b[:, None]) for a, b in zip(steps, want)]
+    worst = max(e / sc for e, sc in errs)
+    pre_wc, dec_wc, wc_err = whole_cache_decode(
+        torch, cfg, model, whole_cache_prefill(torch, cfg, ctx, mesh, TP_CAPACITY), dec, prompt,
+        toks, steps)
+    check(worst <= TP_TOL and wc_err <= TP_TOL, f"{cfg.name}: the decode over the slots moved "
+          f"{worst} of the largest |logit| from the no-mesh decode's and {wc_err} from the caches "
+          f"whole on the first device, over {TP_TOL}")
+    print(f"[mesh-serve] {cfg.name} at full width and depth over {MESH_TP} shards, its caches by "
+          f"slots ({cfg.n_kv_heads} kv heads; {TP_CAPACITY // MESH_TP} slots a shard): a 1,024-token "
+          f"prefill ({calls['_write_slots']} slot writes) and {N_TOKENS} greedy decode steps "
+          f"({calls['_split_s_decode']} split-S decodes) against the no-mesh decode fed the same "
+          f"tokens, worst step's max |err| over its largest |logit| {worst} (limit {TP_TOL}); each "
+          f"shard's cache bytes the reckoning after the prefill {seen[-1]} and after the last "
+          f"step {last}; prefill {pre_m} ms, no mesh {pre0} ms, the caches whole {pre_wc} ms; "
+          f"decode {dec_m} ms a token, no mesh {dec0} ms, the caches whole {dec_wc} ms (their "
+          f"logits {wc_err} of the largest from the slots')", flush=True)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5013,6 +5142,7 @@ def mesh_phase(torch, ops, devices):
     t0 = time.perf_counter()
     ops.reset_launch_counts()  # counts start at 0 just before the phase's paths
     mesh_serving(torch, devices)
+    slot_serving(torch, devices)
     served = ops.launch_counts()
     attn = {k: v for k, v in served.items() if k.startswith("flash_attention")}
     check(not any(attn.values()), f"the mesh serving path launched attention kernels {attn}; "
@@ -6112,6 +6242,7 @@ TP_BUDGET = REG_BUDGET
 TP_SLACK = 10e9
 TP_PROMPT = 1024
 TP_TOL = DECODE_TOL  # of the largest |value|: logits, layer 0's output, decode steps
+TP_CAPACITY = 2048  # the serving caches' slots
 # The logits and the decode steps are held on the models cut to their first
 # TP_HOLD_DEPTH layers (as phase 4k holds its decode check): through 16
 # random-weight layers of internvl2_76b the whole and the sliced paths'
@@ -6210,7 +6341,10 @@ def tp_train_extra(cfg, layers, dp, tp, batch, seq=REG_SEQ):
     their gradient, the global norm's largest gather (a stacked leaf past
     ``NORM_WHOLE_MAX`` a layer at a time) and TRAIN_SLACK.  Without
     sequence parallelism (``lm.seq_parallel``: a sequence tp does not
-    divide) the layer inputs lie whole on the first card."""
+    divide) the layer inputs lie whole on the first card.  An MoE takes the
+    whole batch on the first row (``lm.data_rows``: routed at one capacity,
+    as the reference's ``moe_ffn``), so its first row's cards hold the
+    whole batch's logits and layer inputs."""
     from repro_torch.models import ShardCtx
     from repro_torch.models.base import tree_flatten
     from repro_torch.models.lm import model_spec
@@ -6220,7 +6354,7 @@ def tp_train_extra(cfg, layers, dp, tp, batch, seq=REG_SEQ):
     per, _ = layer_params(cut)
     from repro_torch.models.lm import seq_parallel
 
-    tokens = batch // dp * (seq + cut.n_vis_tokens)
+    tokens = batch // (1 if cut.moe is not None else dp) * (seq + cut.n_vis_tokens)
     logits = 8 * tokens * cut.n_codebooks * cut.padded_vocab(tp) // tp
     bounds = 2 * layers * tokens * cut.d_model
     if seq_parallel(True, seq + cut.n_vis_tokens, tp, None):
@@ -6250,6 +6384,78 @@ def tp_train_depth(cfg, dp, tp, batch):
     check(b <= REG_BUDGET, f"{cfg.name}: one layer takes {b} bytes a card over ({dp}, {tp}), "
           f"over {REG_BUDGET}")
     return {"layers": layers, "of": cfg.n_layers, "cards": cards, "bytes": b}
+
+
+def cache_cards(torch, cfg, cache, mesh, batch, capacity, label):
+    """A served cache tree over ``mesh``'s first row where the reference
+    places it: each shard's bytes (``lm.cache_shard_bytes``: slice s of a
+    field held in slices on shard s, a whole tensor on shard 0) against the
+    reckoning from ``make_cache_specs`` (``launch.specs.cache_shard_bytes``,
+    with its one exception: a window ring whose kv heads do not divide tp
+    stays whole), every slice on its shard's device and every whole tensor
+    on the row's first → each shard's bytes."""
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import indexed_device
+    from repro_torch.models import lm
+    from repro_torch.models.base import tree_leaves
+
+    tp = mesh.tp
+    got = lm.cache_shard_bytes(cache, tp)
+    want = specs.cache_shard_bytes(cfg, tp, batch, capacity)
+    check(got == want, f"{cfg.name} {label}: the shards hold {got} bytes of the caches, the "
+          f"placements reckon {want}")
+    homes = [indexed_device(mesh.device(0, s)) for s in range(tp)]
+    for c in tree_leaves(cache):
+        for f in dataclasses.fields(c):
+            v = getattr(c, f.name)
+            if isinstance(v, tuple):
+                check([indexed_device(t.device) for t in v] == homes,
+                      f"{cfg.name} {label}: a {type(c).__name__}.{f.name} slice off its shard")
+            elif torch.is_tensor(v):
+                check(indexed_device(v.device) == homes[0],
+                      f"{cfg.name} {label}: a whole {type(c).__name__}.{f.name} off the first "
+                      "device")
+    return got
+
+
+def checked_prefill(torch, cfg, pre, mesh, capacity, seen):
+    """``pre`` (a serve fn's prefill over ``mesh``) that also holds the
+    cache it makes where the reference places it (:func:`cache_cards`),
+    each shard's bytes appended to ``seen``."""
+    def prefill(model, prompt):
+        logits, cache = pre(model, prompt)
+        seen.append(cache_cards(torch, cfg, cache, mesh, prompt.shape[0], capacity,
+                                "after the prefill"))
+        return logits, cache
+
+    return prefill
+
+
+def decode_moves(torch, fn):
+    """One decode step ``fn()`` traced → (the ``tp_gather`` ranges it ran:
+    each ``tp.join``, the head's logits among them; the ``tp.scatter``
+    calls, whose range is ``tp_broadcast``, counted on the function)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import tp as TP
+
+    scatter, calls = TP.scatter, []
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return scatter(*args, **kwargs)
+
+    TP.scatter = counting
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        TP.scatter = scatter
+    gathers = sum(e.count for e in prof.key_averages()
+                  if e.key == "tp_gather" and e.device_type == DeviceType.CPU)
+    return gathers, len(calls)
 
 
 def logits_err(torch, got, want, rows=512):
@@ -6433,15 +6639,50 @@ def tp_depths(torch, cut, models, tokens, ctx, mesh, vis, depths):
     return out
 
 
-def tp_decode_err(torch, cut, models, fns, prompt):
+def tp_decode_err(torch, cut, models, fns, prompt, whole_caches=None):
     """A greedy prefill and N_TOKENS decode steps of the sliced model, and
     the whole model's fed the same tokens → (the worst step's max |err| over
     its largest |logit|, prefill ms and ms a decode token, sliced then
-    whole)."""
-    toks, steps, pre_tp, dec_tp, _ = mesh_generate(torch, cut, models[1], *fns[1], prompt)
+    whole, the sliced model's cache after its last step).  ``whole_caches``
+    (:func:`whole_cache_prefill`): the sliced model also decodes the same
+    tokens from caches whole on the first device, and the walls end with
+    its prefill ms and ms a decode token and the worst step's distance from
+    the placed caches' logits over their largest |logit|."""
+    toks, steps, pre_tp, dec_tp, cache = mesh_generate(torch, cut, models[1], *fns[1], prompt)
     _, want, pre_w, dec_w, _ = mesh_generate(torch, cut, models[0], *fns[0], prompt, feed=toks)
     errs = [logits_err(torch, a[:, None], b[:, None]) for a, b in zip(steps, want)]
-    return max(e / s for e, s in errs), (pre_tp, dec_tp, pre_w, dec_w)
+    walls = (pre_tp, dec_tp, pre_w, dec_w)
+    if whole_caches is not None:
+        walls += whole_cache_decode(torch, cut, models[1], whole_caches, fns[1][1], prompt, toks,
+                                    steps)
+    return max(e / s for e, s in errs), walls, cache
+
+
+def whole_cache_prefill(torch, cfg, ctx, mesh, capacity):
+    """A prefill over ``mesh`` into caches whole on its first device
+    (``lm.init_cache(..., device=mesh.first)``, the layout before the caches
+    were placed; the mesh's decode fn reads them there)."""
+    from repro_torch.models.lm import forward, init_cache
+
+    def prefill(model, prompt):
+        cache = init_cache(cfg, prompt.shape[0], capacity, device=mesh.first)
+        start = torch.zeros((), dtype=torch.int32, device=mesh.first)
+        with torch.no_grad():
+            logits, cache, _ = forward(model, cfg, prompt, ctx, mesh=mesh, cache=cache,
+                                       start_pos=start)
+        return logits[:, -1], cache
+
+    return prefill
+
+
+def whole_cache_decode(torch, cfg, model, prefill, dec, prompt, toks, steps):
+    """The placed caches' run (``toks``, each step's ``steps``) again from
+    caches whole on the first device (:func:`whole_cache_prefill`), in the
+    same process → (prefill ms, ms a decode token, the worst step's max
+    |err| from the placed run's over its largest |logit|)."""
+    _, got, pre, dec_ms, _ = mesh_generate(torch, cfg, model, prefill, dec, prompt, feed=toks)
+    errs = [logits_err(torch, a[:, None], b[:, None]) for a, b in zip(got, steps)]
+    return pre, dec_ms, max(e / s for e, s in errs)
 
 
 @contextlib.contextmanager
@@ -6558,7 +6799,11 @@ def tp_serving(torch, name, devices):
     The logits and the decode steps are held on the models cut to
     TP_HOLD_DEPTH layers: through the full depth of a random-weight model
     the two paths' roundings grow apart (the distances are printed at
-    TP_DEPTHS and the full depth); layer 0 is held against float64."""
+    TP_DEPTHS and the full depth); layer 0 is held against float64.  The
+    served caches lie by kv heads (each shard's bytes the reckoning from
+    ``make_cache_specs`` after the prefill and after the last decode step),
+    and a traced decode step joins only the head's logits and scatters
+    nothing."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -6667,20 +6912,40 @@ def tp_serving(torch, name, devices):
           + json.dumps([(round(t, 3), k[:60]) for t, k in kern[:6]]), flush=True)
 
     prompt = torch.as_tensor(rng.integers(0, cut.vocab, (1, TP_PROMPT)), device=first)
-    worst = {}
+    worst, seen = {}, []
+    pos = torch.tensor(TP_PROMPT + N_TOKENS, dtype=torch.int32, device=first)
+    nxt = torch.zeros((1, 1), dtype=torch.int32, device=first)
     for c in (held, cut):
-        fns = (make_serve_fns(c, ctx, capacity=2048)[:2],
-               make_serve_fns(c, ctx, mesh=mesh, capacity=2048)[:2])
-        worst[c.n_layers], walls = tp_decode_err(torch, c, (whole, model), fns, prompt)
+        pre, dec = make_serve_fns(c, ctx, mesh=mesh, capacity=TP_CAPACITY)[:2]
+        fns = (make_serve_fns(c, ctx, capacity=TP_CAPACITY)[:2],
+               (checked_prefill(torch, c, pre, mesh, TP_CAPACITY, seen), dec))
+        worst[c.n_layers], walls, cache = tp_decode_err(
+            torch, c, (whole, model), fns, prompt,
+            whole_caches=whole_cache_prefill(torch, c, ctx, mesh, TP_CAPACITY) if c is cut
+            else None)
+        if c is held:  # a decode step traced at the held depth (each layer's moves alike)
+            gathers, scatters = decode_moves(torch, lambda: dec(model, cache, nxt, pos))
+    last = cache_cards(torch, cut, cache, mesh, 1, TP_CAPACITY, "after the last decode step")
+    del cache
     check(worst[TP_HOLD_DEPTH] <= TP_TOL, f"{name} at {TP_HOLD_DEPTH} layers: a decode step over "
           f"the shards moved {worst[TP_HOLD_DEPTH]} of the largest |logit| from the no-mesh "
           f"decode's, over {TP_TOL}")
+    check(walls[6] <= TP_TOL, f"{name}: the decode from caches whole on the first device moved "
+          f"{walls[6]} of the largest |logit| from the placed caches', over {TP_TOL}")
+    check(gathers == 1 and scatters == 0, f"{name}: a decode step ran {gathers} tp_gather "
+          f"ranges (only the head's logits may join) and {scatters} scatters: the attention "
+          "joined its q, k, v or scattered its output")
     print(f"[tp] {cut.name}: make_serve_fns over the mesh, a {TP_PROMPT}-token prefill and "
           f"{N_TOKENS} greedy decode steps against the no-mesh decode fed the same tokens, worst "
           f"step's max |err| over its largest |logit|: {json.dumps(worst)} by depth (held at "
           f"{TP_HOLD_DEPTH}, limit {TP_TOL}); at {cut.n_layers} layers prefill TP {walls[0]} ms, "
-          f"no mesh {walls[2]} ms; decode TP {walls[1]} ms a token, no mesh {walls[3]} ms",
-          flush=True)
+          f"no mesh {walls[2]} ms; decode TP {walls[1]} ms a token, no mesh {walls[3]} ms; in the "
+          f"same process over the mesh with the caches whole on the first device: prefill "
+          f"{walls[4]} ms, decode {walls[5]} ms a token, its logits {walls[6]} of the largest "
+          f"from the placed caches'; the caches by kv heads, each "
+          f"shard's bytes the reckoning from make_cache_specs after the prefill {seen[-1]} and "
+          f"after the last step {last}; a traced decode step at {TP_HOLD_DEPTH} layers: {gathers} "
+          f"tp_gather range (the head's logits), {scatters} scatters", flush=True)
     del whole, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6718,6 +6983,9 @@ TPT_GRAD_TOL = STEP_GRAD_TOL
 TPT_RANGES = TP_RANGES + ("fsdp_gather", "fsdp_grad_add")
 TPT_STEPS, TPT_CUT = 3, 2  # the run killed at step 2, resumed, against three steps
 TPT_KERNELS = TRAINING + SERVING + SSD_BWD_ROWS
+# mamba2_2p7b's 1,024-token prefill on one shard's heads (80 / 4): the SSD
+# kernels' shape with the state placed by heads (phase 4m, held in phase 5)
+TPT_SSD_SHARD = (1, TP_PROMPT, 20, 64, 128, 128, "bfloat16")
 # the attention kernels at the shards' shapes of TP training (phase 4m and
 # tools/tp_train_cards.py): qwen3_8b at tp 2, qwen3_moe_30b_a3b at tp 2 and
 # 4, recurrentgemma_9b's local attention at tp 4
@@ -6857,7 +7125,9 @@ def tpt_grads(torch, ops, cut, dev, decays=False):
 def tpt_layouts(torch, ops, cut, dev):
     """AdamW steps of 2 x TPT_SEQ tokens (remat full) with the state over
     ``(2, 2)`` (TP × FSDP) against the same steps over ``(1, 2)`` with
-    microbatches of one sequence, then over ``(2, 2)`` again from a fresh
+    microbatches of one sequence (an MoE: on the whole batch, which its
+    ``(2, 2)`` step routes on the first row at one capacity, as the
+    reference's ``moe_ffn``), then over ``(2, 2)`` again from a fresh
     state: after the first step, params and moments bit for bit
     (fingerprints of the whole leaves) and each card's bytes the
     placements' reckoning; a second, warm step timed (the repeat's traced)
@@ -6870,7 +7140,9 @@ def tpt_layouts(torch, ops, cut, dev):
 
     total = {}
     out = []
-    for dp, micro, trace in ((2, None, False), (1, 1, False), (2, None, True)):
+    whole_batch = cut.moe is not None
+    for dp, micro, trace in ((2, None, False), (1, None if whole_batch else 1, False),
+                             (2, None, True)):
         run = RunConfig(model=cut, shape=ShapeConfig("tp", "train", TPT_SEQ, 2), dp=dp, tp=2,
                         remat="full", microbatch=micro)
         mesh = make_mesh(dp, 2, devices=[dev] * (2 * dp))
@@ -6928,10 +7200,14 @@ def tpt_layouts(torch, ops, cut, dev):
 def tpt_serve(torch, ops, cut, dev):
     """``cut`` served whole and over ``make_mesh(1, TPT_SHARDS)`` on
     ``[dev] * 4`` from one seed (the SSD / RG-LRU projections in slices, the
-    conv, the scan and the caches whole on the first shard's device): a
-    TP_PROMPT-token prefill and N_TOKENS greedy decode steps, the whole
-    model's fed the same tokens, every step's logits within TP_TOL of the
-    largest |logit| → the TP run's launches."""
+    caches where the reference places them: the SSD state by heads, RG-LRU's
+    by width, each conv tail by channels, the conv and the scan run on each
+    shard's part; RecurrentGemma's one-kv-head ring whole on the first
+    device): a TP_PROMPT-token prefill and N_TOKENS greedy decode steps, the
+    whole model's fed the same tokens, every step's logits within TP_TOL of
+    the largest |logit|, each shard's cache bytes the reckoning after the
+    prefill and after the last step; the SSD prefill's launches at the
+    shard's heads (TPT_SSD_SHARD) → the TP run's launches."""
     import numpy as np
 
     from repro_torch.launch.mesh import make_mesh
@@ -6951,21 +7227,45 @@ def tpt_serve(torch, ops, cut, dev):
           f"{sliced}, not in_proj and out_proj")
     prompt = torch.as_tensor(np.random.default_rng(SERVE_SEED + 3).integers(
         0, cut.vocab, (1, TP_PROMPT)), device=dev)
-    fns = [make_serve_fns(cut, ctx, capacity=2048)[:2],
-           make_serve_fns(cut, ctx, mesh=mesh, capacity=2048)[:2]]
-    (toks, steps, pre_tp, dec_tp, _), launches = counted(
-        torch, ops, lambda: mesh_generate(torch, cut, model, *fns[1], prompt))
+    pre, dec = make_serve_fns(cut, ctx, mesh=mesh, capacity=TP_CAPACITY)[:2]
+    seen = []
+    fns = [make_serve_fns(cut, ctx, capacity=TP_CAPACITY)[:2],
+           (checked_prefill(torch, cut, pre, mesh, TP_CAPACITY, seen), dec)]
+    shapes, record = recorder({"ssd_chunk_scan": ops.KERNELS["ssd_chunk_scan"]})
+    with record():
+        (toks, steps, pre_tp, dec_tp, cache), launches = counted(
+            torch, ops, lambda: mesh_generate(torch, cut, model, *fns[1], prompt))
+    last = cache_cards(torch, cut, cache, mesh, 1, TP_CAPACITY, "after the last decode step")
+    del cache
+    pre_wc, dec_wc, wc_err = whole_cache_decode(
+        torch, cut, model, whole_cache_prefill(torch, cut, ctx, mesh, TP_CAPACITY), dec, prompt,
+        toks, steps)
     _, want, pre_w, dec_w, _ = mesh_generate(torch, cut, whole, *fns[0], prompt, feed=toks)
     errs = [logits_err(torch, a[:, None], b[:, None]) for a, b in zip(steps, want)]
     worst = max(e / sc for e, sc in errs)
+    ssd = shapes["ssd_chunk_scan"]
+    if kind == "ssd":
+        heads = cut.ssd.expand * cut.d_model // cut.ssd.head_dim // TPT_SHARDS
+        check(ssd == [TPT_SSD_SHARD] * (cut.n_layers * TPT_SHARDS)
+              and launches["ssd_chunk_scan_wgmma"] == launches["ssd_chunk_scan_inter"]
+              == cut.n_layers * TPT_SHARDS and TPT_SSD_SHARD[2] == heads,
+              f"{cut.name}: the prefill's SSD calls {ssd} and launches {launches}, not one a "
+              f"shard a layer at {TPT_SSD_SHARD} on ssd_wgmma and ssd_scan")
     print(f"[tp-train] {cut.name} at {cut.n_layers} layers served over {TPT_SHARDS} shards on "
-          f"the card ({kind} in_proj by columns, out_proj by rows): a {TP_PROMPT}-token prefill "
-          f"and {N_TOKENS} decode steps against the no-mesh model's fed the same tokens, worst "
-          f"step's max |err| over its largest |logit| {worst} (limit {TP_TOL}); prefill TP "
-          f"{pre_tp} ms, no mesh {pre_w} ms; decode TP {dec_tp} ms a token, no mesh {dec_w}; "
-          "launches " + json.dumps({k: n for k, n in launches.items() if n}), flush=True)
-    check(worst <= TP_TOL, f"{cut.name}: the served logits over the shards {worst} of the "
-          f"largest |logit| from the no-mesh model's, over {TP_TOL}")
+          f"the card ({kind} in_proj by columns, out_proj by rows, the state and conv tails over "
+          f"the shards): a {TP_PROMPT}-token prefill and {N_TOKENS} decode steps against the "
+          f"no-mesh model's fed the same tokens, worst step's max |err| over its largest |logit| "
+          f"{worst} (limit {TP_TOL}); prefill TP {pre_tp} ms, no mesh {pre_w} ms; decode TP "
+          f"{dec_tp} ms a token, no mesh {dec_w}; in the same process over the mesh with the "
+          f"caches whole on the first device: prefill {pre_wc} ms, decode {dec_wc} ms a token, "
+          f"its logits {wc_err} of the largest from the placed caches'; "
+          f"each shard's cache bytes the reckoning from make_cache_specs after the prefill "
+          f"{seen[-1]} and after the last step {last}; the SSD calls at "
+          f"{sorted(set(ssd))}; launches " + json.dumps({k: n for k, n in launches.items() if n}),
+          flush=True)
+    check(worst <= TP_TOL and wc_err <= TP_TOL, f"{cut.name}: the served logits over the "
+          f"shards {worst} of the largest |logit| from the no-mesh model's, and {wc_err} from "
+          f"the caches whole on the first device, over {TP_TOL}")
     del whole, model, steps, want
     gc.collect()
     torch.cuda.empty_cache()
@@ -7258,6 +7558,7 @@ def main() -> int:
                for name, shape in TP_ATTN.items()})
     tm.update(reg_attention_timings(torch, rng, dev, flush, TPT_ATTN, "4m"))
     tm.update(ssd_bwd_timing(torch, rng, dev))
+    tm.update(ssd_shard_rows(torch, K, rng, dev, flush, errs))
     for name, t in tm.items():
         print(f"[time] {name} shape {t['shape']}: kernel {t['ms']} ms, "
               f"plain {t['plain_ms']} ms, library {t['library_ms']} ms, "

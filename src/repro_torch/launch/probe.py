@@ -42,7 +42,7 @@ from ..models.layers import compute_dtype
 from ..models.lm import LM, forward, init_cache, lm_loss, model_spec
 from ..train.optimizer import AdamWConfig, adamw_update
 from .roofline import Cost, count
-from .specs import decode_input_specs, train_input_specs
+from .specs import block_split_dims, decode_input_specs, train_input_specs
 
 __all__ = ["Cost", "block_counts", "probe_block", "probe_group", "probe_outer", "probe_optimizer",
            "probe_accumulation", "probe_cache_restack", "corrected_costs", "collective_costs"]
@@ -325,9 +325,9 @@ def collective_costs(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx, kind: str,
       tokens and the router sent from its first card to each other shard
       and the shard's output back, again in the recompute, and their
       gradients the other way in the backward;
-    * ``split-s`` (decode, T > 1, a contiguous cache the shards divide):
-      the new token's q, k and v to each other shard and its partial (o, m,
-      l, float32) back;
+    * ``split-s`` (decode, T > 1, a contiguous cache placed by slots: its
+      kv heads do not divide T, its capacity does): the new token's q, k
+      and v to each other shard and its partial (o, m, l, float32) back;
     * ``logits-gather`` (serving, R > 1): each row's logits onto the first
       card;
     * tensor parallelism within a row (T > 1, ``models/tp.py``;
@@ -374,16 +374,11 @@ def collective_costs(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx, kind: str,
         out["ep-dispatch"] += each * (router + x)
         out["ep-combine"] += each * x
     if kind == "decode" and T > 1:
-        from ..models.attention import split_s_eligible
-
         D, Hq, Hkv = cfg.head_dim, cfg.n_q_heads, cfg.n_kv_heads
         one = e * b * (Hq + 2 * Hkv) * D + 4 * b * Hq * (D + 2)
+        dims = block_split_dims(cfg, T, b, shape.seq_len)
         for btype, n in block_counts(cfg).items():
-            window = {"attn": cfg.window, "local_attn": cfg.local_window}.get(btype, 0)
-            if window == 0:
-                continue
-            cap = min(shape.seq_len, window) if window else shape.seq_len
-            if split_s_eligible(cap, window, T):
+            if btype in ("attn", "local_attn") and dims[btype].k == 2:  # by slots
                 out["split-s"] += rows * n * (T - 1) * one
     if not train and rows > 1:
         width = cfg.padded_vocab(T) * max(cfg.n_codebooks, 1)
@@ -400,13 +395,29 @@ def collective_costs(cfg: ModelConfig, run: RunConfig, ctx: ShardCtx, kind: str,
     return {k: int(v) for k, v in out.items() if v}
 
 
-def tp_moves(cfg: ModelConfig, kind: str, b: int, S: int, T: int, recomputed: bool = False
-             ) -> Tuple[Dict[str, int], Dict[str, int]]:
+def _window(cfg: ModelConfig, btype: str) -> Optional[int]:
+    return cfg.window if btype == "attn" else cfg.local_window
+
+
+def tp_moves(cfg: ModelConfig, kind: str, b: int, S: int, T: int, recomputed: bool = False,
+             capacity: Optional[int] = None) -> Tuple[Dict[str, int], Dict[str, int]]:
     """The bytes one data row's pass moves between its T model shards'
     distinct cards by the tensor-parallel moves (``models/tp.py``), b
-    sequences of S tokens (one new token at decode) → (the forward's, the
-    backward's; train only), by move; ``recomputed``: the forward moves a
-    remat recompute runs again (all but a VLM's cut of its sequence).
+    sequences of S tokens (one new token at decode, into a cache of S
+    slots) → (the forward's, the backward's; train only), by move;
+    ``recomputed``: the forward moves a remat recompute runs again (all but
+    a VLM's cut of its sequence); ``capacity``: a prefill that writes a
+    cache of that many slots (serving; without, a cache-free forward).
+    A cached pass reads each block's cache where ``lm.init_cache(mesh=...)``
+    places it: a KV cache by kv heads moves no q, k or v, only the cache's
+    ``pos`` to each shard; by slots or whole, q joins on the first card and
+    the output goes back (a prefill into slots also sends each shard the
+    new k and v its slots take, and gathers the written slots); the SSD's
+    and RG-LRU's conv channels go out with their weights (one ``tp.send``,
+    a ``tp-scatter``) and their output joins, and the scan's inputs go out
+    by heads or width (the SSD's B and C to every shard, in the same move)
+    and the SSD's y joins, while RG-LRU's gated output meets ``out_proj``'s
+    rows where it lies.
     Each kind counts its move and that move's backward: ``tp-broadcast``
     (T − 1 copies from the first card; the gradients back), ``tp-sum`` (T − 1
     partials onto the first card; the gradient out), ``tp-join`` /
@@ -419,12 +430,14 @@ def tp_moves(cfg: ModelConfig, kind: str, b: int, S: int, T: int, recomputed: bo
     onto the first card is no cell's move."""
     train = kind == "train"
     decode = kind == "decode"
+    cached = decode or capacity is not None
+    slots = S if decode else capacity  # the cache's
     e = 2 if cfg.dtype == "bfloat16" else 4
     d, D = cfg.d_model, cfg.head_dim
     K = max(cfg.n_codebooks, 1)
     S_in = 1 if decode else S  # the tokens' positions
     St = S_in + (0 if decode else cfg.n_vis_tokens)  # the layers'
-    sp = LMmod.seq_parallel(True, St, T, {} if decode else None)
+    sp = LMmod.seq_parallel(True, St, T, {} if cached else None)
     A = b * St * d * e
     fwd: Dict[str, float] = Counter()
     bwd: Dict[str, float] = Counter()
@@ -465,10 +478,24 @@ def tp_moves(cfg: ModelConfig, kind: str, b: int, S: int, T: int, recomputed: bo
         move("tp-scatter", b * St * rows_width * e, (T - 1) / T)
         collect(A)
 
+    def cut(nbytes):  # a whole tensor cut into the shards' slices
+        move("tp-scatter", nbytes, (T - 1) / T)
+
+    def joined(nbytes):  # the shards' slices joined on the first card
+        move("tp-join", nbytes, (T - 1) / T)
+
+    def conv(channels, width, out_e):  # each shard's channels against its tail
+        cut(b * St * channels * e + 4 * (width + 1) * channels)  # input, weights, bias
+        joined(b * St * channels * out_e)
+
+    dims = block_split_dims(cfg, T, b, slots) if cached else {}
     Hq, Hkv = cfg.n_q_heads, cfg.n_kv_heads
     for btype, n in block_counts(cfg).items():
+        attention = btype in ("attn", "local_attn")
+        placed = dims.get(btype)
+        layout = placed and {1: "heads", 2: "slots"}.get(placed.k) if attention else None
         for _ in range(n):
-            if btype in ("attn", "local_attn"):
+            if attention:
                 norms(2)
                 if cfg.attn_tp_eligible(T):
                     spread(A)
@@ -479,13 +506,19 @@ def tp_moves(cfg: ModelConfig, kind: str, b: int, S: int, T: int, recomputed: bo
                         bcast(4 * D)
                         bcast(4 * D, grad=train and kv_split)
                     bcast(8 * b * St, grad=False)  # positions
-                    if decode:  # the cached path's q (k, v) joined, its output cut
-                        move("tp-join", b * (Hq + (2 * Hkv if kv_split else 0)) * St * D * e,
-                             (T - 1) / T)
-                        move("tp-scatter", b * Hq * St * D * e, (T - 1) / T)
+                    if layout == "heads":  # each shard its heads: only pos goes out
+                        bcast(4, grad=False)
+                    elif cached:  # q joined where the cache (or its first slots) lies
+                        joined(b * Hq * St * D * e)
+                        cut(b * Hq * St * D * e)
                     collect(A)
                 else:
                     whole_layer()
+                if layout == "slots" and not decode:  # the tokens out, the slots gathered
+                    cap = min(slots, _window(cfg, btype) or slots)
+                    w = min(St, cap // T)  # the most tokens a shard's slots take
+                    move("tp-scatter", 2 * b * Hkv * w * D * e + 16, T - 1, grad=False)
+                    joined(2 * b * Hkv * cap * D * e)
                 if cfg.moe is not None:
                     whole_layer()
                 else:
@@ -493,11 +526,35 @@ def tp_moves(cfg: ModelConfig, kind: str, b: int, S: int, T: int, recomputed: bo
             elif btype == "ssd":
                 norms(1)
                 s_ = cfg.ssd
-                di = s_.expand * d
-                columns(2 * di + 2 * s_.d_state + di // s_.head_dim, di)
+                di, N = s_.expand * d, s_.d_state
+                H = di // s_.head_dim
+                if not cached:
+                    columns(2 * di + 2 * N + H, di)
+                    continue
+                spread(A)
+                joined(b * St * (2 * di + 2 * N + H) * e)
+                if placed.conv is not None:
+                    conv(di + 2 * N, s_.conv_width, e)
+                if placed.h is not None:  # the scan by heads: x (float32 at decode), log a, B, C
+                    xe = 4 if decode else e
+                    cut(b * St * (di * xe + 4 * H))
+                    move("tp-scatter", 2 * b * St * N * e, T - 1, grad=False)
+                    joined(b * St * di * xe)  # y back
+                cut(b * St * di * e)
+                collect(A)
             elif btype == "rglru":
                 norms(2)
-                columns(2 * cfg.rglru.lru_width, cfg.rglru.lru_width)
+                W = cfg.rglru.lru_width
+                if not (cached and placed.h is not None):
+                    columns(2 * W, W)
+                    mlp()
+                    continue
+                spread(A)
+                joined(b * St * 2 * W * e)
+                if placed.conv is not None:
+                    conv(W, cfg.rglru.conv_width, 4)
+                cut(b * St * W * (8 + e))  # log a and the scaled input, the gate
+                collect(A)  # each shard's rows of out_proj
                 mlp()
     text = b * S_in * K
     bcast(4 * text, grad=False)  # the token ids to the vocabulary slices

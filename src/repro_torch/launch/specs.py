@@ -116,3 +116,74 @@ def make_cache_specs(cfg: ModelConfig, ctx: ShardCtx, cache, batch_shardable: bo
             for f in dataclasses.fields(node)})
 
     return walk(cache, False)
+
+
+def live_cache_specs(cfg: ModelConfig, ctx: ShardCtx, cache):
+    """:func:`make_cache_specs` as the live serving path places a cache over
+    a data row's ``ctx.tp`` model shards (``lm.init_cache(mesh=...)`` places
+    each leaf from these): the same placements but for the one exception, a
+    window ring split by its slots (kv heads that do not divide ``tp``),
+    which stays whole on the row's first device: the reference attends a
+    ring densely, so a ring split by slots would be gathered every step.
+    → (the specs, the paths of the leaves the exception keeps whole)."""
+    specs = make_cache_specs(cfg, ctx, cache)
+    whole = []
+    for part in ("groups", "extra"):
+        for key, node in specs.get(part, {}).items():
+            btype = key.split("_", 1)[1]
+            if btype not in ("attn", "local_attn"):
+                continue
+            window = cfg.window if btype == "attn" else cfg.local_window
+            ring = bool(window) and cache[part][key].k.shape[-2] == window
+            if not (ring and node.k[-2] == ctx.model_axis):
+                continue
+            whole += [(part, key, name) for name in ("k", "v")]
+            specs[part][key] = dataclasses.replace(node, **{
+                name: tuple(None if a == ctx.model_axis else a for a in getattr(node, name))
+                for name in ("k", "v")})
+    return specs, whole
+
+
+def split_dims(cfg: ModelConfig, tp: int, cache):
+    """The cache tree with each leaf replaced by the dimension of it (the
+    stack dimension of a group's leaves not counted) that lies over a data
+    row's ``tp`` model shards in the live path (:func:`live_cache_specs`),
+    or None where the leaf lies whole on the row's first device (every leaf
+    at one shard)."""
+    specs, _ = live_cache_specs(cfg, ShardCtx(tp=tp), cache)
+    axis = ShardCtx(tp=tp).model_axis
+
+    def walk(node, stacked: bool):
+        if isinstance(node, dict):
+            return {k: walk(v, stacked or k == "groups") for k, v in node.items()}
+        return dataclasses.replace(node, **{
+            f.name: (getattr(node, f.name).index(axis) - stacked
+                     if tp > 1 and axis in getattr(node, f.name) else None)
+            for f in dataclasses.fields(node)})
+
+    return walk(specs, False)
+
+
+def block_split_dims(cfg: ModelConfig, tp: int, batch: int, capacity: int):
+    """{block type: :func:`split_dims` of its cache} for ``batch`` sequences
+    and ``capacity`` slots."""
+    dims = split_dims(cfg, tp, init_cache(cfg, batch, capacity, device="meta"))
+    return {key.split("_", 1)[1]: node for part in dims.values() for key, node in part.items()}
+
+
+def cache_shard_bytes(cfg: ModelConfig, tp: int, batch: int, capacity: int):
+    """The bytes each of ``tp`` model shards of a data row holds of the
+    serving caches of ``batch`` sequences and ``capacity`` slots, reckoned
+    from :func:`live_cache_specs`: a leaf whose placement names the model
+    axis a ``tp``-th on every shard, any other on shard 0."""
+    ctx = ShardCtx(tp=tp)
+    cache = init_cache(cfg, batch, capacity, device="meta")
+    specs, _ = live_cache_specs(cfg, ctx, cache)
+    out = [0] * tp
+    for (path, leaf), (_, spec) in zip(cache_leaves(cache), cache_leaves(specs)):
+        nbytes = leaf.numel() * leaf.element_size()
+        if ctx.model_axis in spec:
+            out = [b + nbytes // tp for b in out]
+        else:
+            out[0] += nbytes
+    return out

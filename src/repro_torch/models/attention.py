@@ -6,16 +6,36 @@ Without a cache (training, a cache-free forward) the block runs
 the card.  With a cache (prefill and decode) it appends to the cache and
 attends densely in float32, as the reference does.
 
-Split-S decode (FlashDecoding-style), under the reference's condition: one
-token, a model mesh with ``tp > 1``, a contiguous cache (not the window
-ring) whose capacity divides by ``tp``.  The cache is then a
-:class:`ShardedKVCache`: model shard ``s`` holds slots ``[s·c_loc,
-(s+1)·c_loc)`` on its own device, writes the new token there if the slot is
-its own, and computes a partial attention over its slice
-(:func:`partial_decode_attention`); only the partials ``(o, m, l)`` go to
-the row's first device, where :func:`combine_partial_attention` adds them
-in shard order.  A prefill into a sharded cache runs the dense cached path
-on the gathered cache and puts the written cache back on its shards.
+Over a data row's model shards a cache lies where the reference's
+``make_cache_specs`` places it (``launch/specs.py``), as a
+:class:`ShardedKVCache` split along one dimension of (B, Hkv, C, D):
+
+* by kv heads (``dim`` 1) where they divide ``tp`` (``cfg.kv_sharded``), the
+  contiguous cache and the window ring alike: shard ``s`` holds heads
+  ``[s·Hkv/tp, (s+1)·Hkv/tp)`` on its own device.  Each shard writes and
+  attends its own q heads there (with the weights in head slices, the q,
+  k and v it projects itself; with whole weights, its heads of them sent
+  out), and only its output leaves: no q, k or v is joined.  A decode step
+  under the reference's split-S condition keeps the reference's split-S
+  arithmetic on the shard's heads: the partials of the ``tp`` slot blocks
+  in one batched product (:func:`partial_decode_attention`), combined in
+  block order (:func:`combine_partial_attention`), so every head's value is
+  the slot-split decode's bit for bit;
+* by slots (``dim`` 2, split-S decode, FlashDecoding-style) where the kv
+  heads do not divide and the reference's condition holds: ``tp > 1`` and
+  a contiguous cache (not the window ring) whose capacity divides by
+  ``tp``.  Shard ``s`` holds slots ``[s·c_loc, (s+1)·c_loc)``; a decode step
+  writes the new token there if the slot is its own and computes a partial
+  attention over its slice; only the partials ``(o, m, l)`` go to the row's
+  first device, where :func:`combine_partial_attention` adds them in shard
+  order.  A multi-token write sends each shard only the new tokens its
+  slots can take, which it writes there, and the dense cached path reads a
+  copy of the written slots gathered on the first device.
+
+The window ring whose kv heads do not divide ``tp`` stays whole on the row's
+first device, the one exception to ``make_cache_specs``: the reference
+attends a ring densely, so a ring split by slots would be gathered every
+step.
 """
 from __future__ import annotations
 
@@ -66,36 +86,42 @@ class KVCache:
 
 @dataclass
 class ShardedKVCache:
-    """A contiguous cache split along its slots over a data row's model
-    shards: ``k[s]`` and ``v[s]`` (B, Hkv, C / tp, D) hold slots
-    ``[s·C/tp, (s+1)·C/tp)`` on shard ``s``'s device; ``pos`` lies on the
-    row's first device."""
+    """A cache split along dimension ``dim`` of (B, Hkv, C, D) over a data
+    row's model shards, ``k[s]`` and ``v[s]`` on shard ``s``'s device: its
+    slots (``dim`` 2, split-S: slots ``[s·C/tp, (s+1)·C/tp)``) or its kv heads
+    (``dim`` 1: heads ``[s·Hkv/tp, (s+1)·Hkv/tp)``); ``pos`` lies on the row's
+    first device."""
 
     k: Tuple[torch.Tensor, ...]
     v: Tuple[torch.Tensor, ...]
     pos: torch.Tensor
+    dim: int = 2
 
     @property
     def capacity(self) -> int:
-        return sum(t.shape[2] for t in self.k)
+        c = self.k[0].shape[2]
+        return c * len(self.k) if self.dim == 2 else c
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return tuple(t.device for t in self.k)
 
     def tensors(self):
         return (*self.k, *self.v, self.pos)
 
     @classmethod
-    def split(cls, cache: KVCache, devices: Sequence[torch.device]) -> "ShardedKVCache":
-        c = cache.capacity // len(devices)
-
+    def split(cls, cache: KVCache, devices: Sequence[torch.device],
+              dim: int = 2) -> "ShardedKVCache":
         def parts(buf):
-            return tuple(buf[:, :, s * c:(s + 1) * c].to(dev).contiguous()
-                         for s, dev in enumerate(devices))
+            return tuple(t.to(dev).contiguous()
+                         for t, dev in zip(buf.chunk(len(devices), dim), devices))
 
-        return cls(parts(cache.k), parts(cache.v), cache.pos)
+        return cls(parts(cache.k), parts(cache.v), cache.pos, dim)
 
     def gathered(self) -> KVCache:
         dev = self.pos.device
-        return KVCache(k=torch.cat([t.to(dev) for t in self.k], dim=2),
-                       v=torch.cat([t.to(dev) for t in self.v], dim=2), pos=self.pos)
+        return KVCache(k=torch.cat([t.to(dev) for t in self.k], dim=self.dim),
+                       v=torch.cat([t.to(dev) for t in self.v], dim=self.dim), pos=self.pos)
 
 
 def split_s_eligible(capacity: int, window: Optional[int], tp: int) -> bool:
@@ -106,18 +132,11 @@ def split_s_eligible(capacity: int, window: Optional[int], tp: int) -> bool:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, window: Optional[int] = None,
-                  device=None, shards: Optional[Sequence[torch.device]] = None):
-    """A zero cache on ``device``; given a data row's model ``shards`` where
-    split-S decode applies, a :class:`ShardedKVCache` over them (``pos`` on
-    the first)."""
+                  device=None):
+    """A zero cache on ``device`` (``lm.init_cache(mesh=...)`` places one
+    over a data row's model shards)."""
     cap = min(capacity, window) if window else capacity
     dt = compute_dtype(cfg)
-    if shards is not None and split_s_eligible(cap, window, len(shards)):
-        shape = (batch, cfg.n_kv_heads, cap // len(shards), cfg.head_dim)
-        return ShardedKVCache(
-            k=tuple(torch.zeros(shape, dtype=dt, device=d) for d in shards),
-            v=tuple(torch.zeros(shape, dtype=dt, device=d) for d in shards),
-            pos=torch.zeros((), dtype=torch.int32, device=shards[0]))
     shape = (batch, cfg.n_kv_heads, cap, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                    v=torch.zeros(shape, dtype=dt, device=device),
@@ -211,12 +230,15 @@ def attention_block(
     splits a batch over the rows).
 
     Weights in head slices over the row's model shards (``params["wq"]``
-    a tuple, ``models/tp.py``): without a cache each shard attends over its
-    own heads on its own device (the flash_attention kernel at the shard's
-    shape); with one, the shards' q, k and v heads join on x's device, where
-    the cache (or, split-S, its slots' shards) lies, and the output goes
-    back to each shard's heads.  Each shard multiplies its heads by its rows
-    of ``wo``, and the parts add on x's device in shard order.
+    a tuple, ``models/tp.py``): without a cache, or with one by kv heads,
+    each shard attends over its own heads on its own device (without a
+    cache the flash_attention kernel at the shard's shape); with a cache
+    by slots or whole, the shards' q, k and v heads join on x's device,
+    where the cache (or, split-S, its first slots) lies, and the output
+    goes back to each shard's heads.  Each shard multiplies its heads by
+    its rows of ``wo``, and the parts add on x's device in shard order.
+    Whole weights with a cache by kv heads: each shard's heads of q, k and
+    v go out to it, and the outputs join on x's device.
 
     x in sequence slices (``tp.SeqSlices``, no cache): the slices are
     gathered whole onto each shard for the projections, and the parts of
@@ -228,6 +250,7 @@ def attention_block(
     if isinstance(x, TP.SeqSlices) and not isinstance(params["wq"], tuple):
         return TP.on_whole(lambda t: attention_block(params, cfg, t, positions, window, cache,
                                                      mesh, ctx), x)
+    by_heads = isinstance(cache, ShardedKVCache) and cache.dim == 1
     if isinstance(params["wq"], tuple):
         wo = params["wo"]
         devs = [w.device for w in wo]
@@ -235,28 +258,131 @@ def attention_block(
         if cache is None:
             outs = [kops.attention(q, k, v, causal=True, window=window) for q, k, v in heads]
             new_cache = None
+        elif by_heads:
+            if cache.devices != tuple(devs) or whole is not None:
+                raise ValueError("a cache by kv heads over other shards than the weights' heads")
+            outs, new_cache = _attend_by_heads(cfg, heads, cache, window)
         else:
             q = TP.join([h[0] for h in heads], 1, x.device)
             k, v = whole or (TP.join([h[i] for h in heads], 1, x.device) for i in (1, 2))
             out, new_cache = _attend_cached(cfg, q, k, v, cache, window, mesh, ctx)
-            outs = TP.scatter(out.chunk(len(devs), dim=1), devs)
+            outs = TP.scatter([o.contiguous() for o in out.chunk(len(devs), dim=1)], devs)
         parts = [o.transpose(1, 2).reshape(B, S, -1) @ w.to(x.dtype) for o, w in zip(outs, wo)]
         return TP.collect(parts, x), new_cache
 
     q, k, v = _project_qkv(params, cfg, x, positions)
     if cache is None:
         out, new_cache = kops.attention(q, k, v, causal=True, window=window), None
+    elif by_heads:
+        devs = cache.devices
+        heads = TP.send(list(zip(*(t.chunk(len(devs), dim=1) for t in (q, k, v)))), devs)
+        outs, new_cache = _attend_by_heads(cfg, heads, cache, window)
+        out = TP.join(outs, 1, x.device)
     else:
         out, new_cache = _attend_cached(cfg, q, k, v, cache, window, mesh, ctx)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_q_heads * cfg.head_dim)
     return out @ params["wo"].to(x.dtype), new_cache
 
 
+def _attend_by_heads(cfg: ModelConfig, heads, cache: ShardedKVCache, window):
+    """Each shard's (q, k, v) heads (q (B, Hq/tp, S, D) roped, k / v (B,
+    Hkv/tp, S, D), on the shard's device) written into and attended against
+    its slice of a cache by kv heads, where they lie → ([each shard's out
+    (B, Hq/tp, S, D) in q's type, on its device], the written cache).  One
+    token under the reference's split-S condition: the split-S arithmetic
+    on the shard's heads (:func:`_blocks_decode`); else the dense cached
+    arithmetic (:func:`_dense_cached`)."""
+    devs = cache.devices
+    cap = cache.capacity
+    S = heads[0][0].shape[2]
+    ring = window is not None and cap == window
+    split_s = S == 1 and split_s_eligible(cap, window, len(devs))
+    scale = cfg.head_dim ** -0.5
+    outs, ks, vs = [], [], []
+    for (q, k, v), k_c, v_c, pos in zip(heads, cache.k, cache.v,
+                                        TP.broadcast(cache.pos, devs)):
+        if split_s:
+            out, k_c, v_c = _blocks_decode(q * scale, k, v, k_c, v_c, pos, len(devs))
+            out = out.to(q.dtype)[:, :, None, :]
+        else:
+            slot = pos % cap if ring else pos
+            k_c, v_c = _write(k_c, k, slot), _write(v_c, v, slot)
+            out = _dense_cached(q, k_c, v_c, pos, ring, scale)
+        outs.append(out)
+        ks.append(k_c)
+        vs.append(v_c)
+    return outs, ShardedKVCache(tuple(ks), tuple(vs), cache.pos + S, dim=1)
+
+
+def _blocks_decode(q, k, v, k_c, v_c, pos, blocks: int):
+    """One token against one shard's kv heads of a contiguous cache, with
+    the reference's split-S arithmetic: q (B, H, 1, D) scaled and roped, k
+    / v (B, Hkv, 1, D) the token's, k_c / v_c (B, Hkv, C, D) → ((B, H, D)
+    float32, the written k_c, v_c).  The token is written at ``pos``
+    (clamped into the cache as XLA clamps an update); the C slots are taken
+    as ``blocks`` blocks of C / blocks (the slot-split shards' slices),
+    whose partials form in one batched product and combine in block order:
+    for each head the values of :func:`_split_s_decode`."""
+    B, Hkv, C, D = k_c.shape
+    c = C // blocks
+    k_c, v_c = _write(k_c, k, pos), _write(v_c, v, pos)
+    valid = (torch.arange(C, device=pos.device) <= pos).reshape(blocks, c)[None].expand(
+        B, blocks, c)
+    o, m, l = partial_decode_attention(q, k_c.view(B, Hkv, blocks, c, D),
+                                       v_c.view(B, Hkv, blocks, c, D), valid)
+    return _combine_blocks(o, m, l), k_c, v_c
+
+
+def _combine_blocks(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """:func:`combine_partial_attention` of blocks held in one tensor (o (B, T,
+    H, D), m and l (B, T, H)): the maximum (exact in any order), each
+    block's scale and scaled terms at once, and the sums in block order."""
+    m_glob = m.amax(1, keepdim=True)
+    scale = torch.exp(m - m_glob)
+    o_s, l_s = o * scale[..., None], l * scale
+    o_sum, l_sum = o_s[:, 0], l_s[:, 0]
+    for t in range(1, o.shape[1]):
+        o_sum, l_sum = o_sum + o_s[:, t], l_sum + l_s[:, t]
+    return o_sum / torch.clamp(l_sum, min=1e-30)[..., None]
+
+
+def _dense_cached(q, k_c, v_c, pos, ring: bool, scale: float):
+    """The dense cached arithmetic (the reference's): q (B, Hq, S, D) roped,
+    the written k_c / v_c (B, Hkv, C, D), ``pos`` the tokens seen before
+    these S → out (B, Hq, S, D) in q's type.  Causal within the block just
+    written, and only written slots: for the contiguous cache a slot is an
+    absolute position; in the ring every resident entry is within the
+    window, so "written" and the block's own causality are the only
+    constraints."""
+    S, cap = q.shape[2], k_c.shape[2]
+    dev = q.device
+    kpos = torch.arange(cap, device=dev)[None, :]  # (1, cap) slot ids
+    rows = torch.arange(S, device=dev)[:, None]  # (S, 1)
+    if ring:
+        kslot_new = (pos + torch.arange(S, device=dev)) % cap
+        written = kpos < torch.clamp(pos + S, max=cap)
+        new_order = torch.where(kpos == kslot_new[:, None], rows, -1)
+        causal_new = (new_order <= rows) | (new_order < 0)
+        valid = written & causal_new
+    else:
+        valid = (kpos <= pos + rows) & (kpos < pos + S)
+    group = q.shape[1] // k_c.shape[1]
+    qf = q.float() * scale
+    kf = k_c.float().repeat_interleave(group, dim=1)
+    vf = v_c.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    logits = logits.masked_fill(~valid[None, None], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
+
+
 def _attend_cached(cfg: ModelConfig, q, k, v, cache, window, mesh, ctx):
     """q (B, Hq, S, D), k / v (B, Hkv, S, D) roped, on the cache's (first)
-    device, appended to the cache and attended → (out (B, Hq, S, D) in q's
-    type, the written cache).  One token over a mesh under the reference's
-    condition decodes split-S."""
+    device, appended to a whole cache or one by slots and attended → (out
+    (B, Hq, S, D) in q's type, the written cache).  One token over a mesh
+    under the reference's condition decodes split-S; more into a cache by
+    slots are written where their slots lie (:func:`_write_slots`), and
+    the dense path reads the written slots gathered on the first device."""
     S = q.shape[2]
     use_split_s = (S == 1 and mesh is not None and ctx is not None and ctx.tp > 1
                    and split_s_eligible(cache.capacity, window, ctx.tp))
@@ -266,41 +392,46 @@ def _attend_cached(cfg: ModelConfig, q, k, v, cache, window, mesh, ctx):
         out, new_cache = _split_s_decode(q * (cfg.head_dim ** -0.5), k, v, cache)
         return out.to(q.dtype)[:, :, None, :], new_cache  # (B, Hq, 1, D)
 
-    sharded = cache if isinstance(cache, ShardedKVCache) else None
-    if sharded is not None:
-        cache = sharded.gathered()
-    # append to the cache (a ring buffer for windowed attention)
     cap = cache.capacity
     ring = window is not None and cap == window
-    slot = cache.pos % cap if ring else cache.pos
-    k_new, v_new = _write(cache.k, k, slot), _write(cache.v, v, slot)
-    new_cache = KVCache(k=k_new, v=v_new, pos=cache.pos + S)
-    # causal within the block just written, and only written slots.  For
-    # the contiguous cache a slot is an absolute position; in the ring
-    # every resident entry is within the window, so "written" and the
-    # block's own causality are the only constraints.
-    dev = q.device
-    kpos = torch.arange(cap, device=dev)[None, :]  # (1, cap) slot ids
-    rows = torch.arange(S, device=dev)[:, None]  # (S, 1)
-    if ring:
-        kslot_new = (cache.pos + torch.arange(S, device=dev)) % cap
-        written = kpos < torch.clamp(cache.pos + S, max=cap)
-        new_order = torch.where(kpos == kslot_new[:, None], rows, -1)
-        causal_new = (new_order <= rows) | (new_order < 0)
-        valid = written & causal_new
+    if isinstance(cache, ShardedKVCache):
+        new_cache = _write_slots(cache, k, v)
+        k_new, v_new = (TP.join(t, 2, q.device) for t in (new_cache.k, new_cache.v))
     else:
-        valid = (kpos <= cache.pos + rows) & (kpos < cache.pos + S)
-    group = cfg.n_q_heads // cfg.n_kv_heads
-    qf = q.float() * (cfg.head_dim ** -0.5)
-    kf = k_new.float().repeat_interleave(group, dim=1)
-    vf = v_new.float().repeat_interleave(group, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
-    logits = logits.masked_fill(~valid[None, None], float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
-    if sharded is not None:  # the written cache back on its shards
-        new_cache = ShardedKVCache.split(new_cache, [t.device for t in sharded.k])
-    return out, new_cache
+        slot = cache.pos % cap if ring else cache.pos
+        k_new, v_new = _write(cache.k, k, slot), _write(cache.v, v, slot)
+        new_cache = KVCache(k=k_new, v=v_new, pos=cache.pos + S)
+    return _dense_cached(q, k_new, v_new, cache.pos, ring, cfg.head_dim ** -0.5), new_cache
+
+
+def _write_slots(cache: ShardedKVCache, k: torch.Tensor, v: torch.Tensor) -> ShardedKVCache:
+    """S new tokens (k / v (B, Hkv, S, D) on the first device) written into a
+    cache by slots where ``_write`` would put them (from ``pos``, clamped so
+    that they fit), each shard writing on its device the ones its slots
+    own.  Sync-free: shard ``s`` (slots ``[s·c, (s+1)·c)``) takes at most w =
+    min(S, c) of them, so it is sent the w tokens from a_s = clamp(s·c −
+    start, 0, S − w), cut on the first device by a device-side index, with
+    (s·c − start, a_s), in one move."""
+    devs = cache.devices
+    n, c, S = len(devs), cache.k[0].shape[2], k.shape[2]
+    if S > cache.capacity:
+        raise ValueError(f"cache write of {S} tokens into a capacity of {cache.capacity}")
+    w = min(S, c)
+    dev = k.device
+    start = torch.clamp(cache.pos.to(device=dev, dtype=torch.int64), 0, cache.capacity - S)
+    first = torch.arange(n, device=dev) * c - start  # the token each shard's first slot takes
+    offs = torch.stack([first, first.clamp(0, S - w)], 1)  # (n, 2)
+    idx = (offs[:, 1:] + torch.arange(w, device=dev)).reshape(-1)
+    k_w, v_w = (t.index_select(2, idx).chunk(n, 2) for t in (k, v))
+    ks, vs = [], []
+    for k_c, v_c, (o, k_s, v_s) in zip(cache.k, cache.v, TP.send(
+            list(zip(offs.unbind(0), k_w, v_w)), devs)):
+        token = o[0] + torch.arange(c, device=k_c.device)  # the token each slot takes
+        hit = ((token >= 0) & (token < S))[None, None, :, None]
+        j = (token - o[1]).clamp(0, w - 1)
+        ks.append(torch.where(hit, k_s.index_select(2, j).to(k_c.dtype), k_c))
+        vs.append(torch.where(hit, v_s.index_select(2, j).to(v_c.dtype), v_c))
+    return ShardedKVCache(tuple(ks), tuple(vs), cache.pos + S)
 
 
 def _split_s_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -342,19 +473,30 @@ def partial_decode_attention(q: torch.Tensor, k_shard: torch.Tensor, v_shard: to
     across shards.  GQA groups the q heads over the cache's heads; the
     logits and the PV product sum in float32 over the cache's values, and
     p is cast to the cache's type before the PV product, as in the
-    reference.  A shard with no valid slot gives m = -1e30, l = 0, o = 0."""
+    reference.  A shard with no valid slot gives m = -1e30, l = 0, o = 0.
+    T blocks of slots at once: k / v (B, Hkv, T, C_shard, D), valid (B, T,
+    C_shard) → o (B, T, Hq, D), m and l (B, T, Hq), each block's the value
+    it has alone (one product of (G, D) by (D, C_shard) a batch entry)."""
+    blocks = k_shard.dim() == 5
+    if not blocks:
+        k_shard, v_shard, valid = k_shard[:, :, None], v_shard[:, :, None], valid[:, None]
     B, Hq, _, D = q.shape
-    Hkv = k_shard.shape[1]
-    qg = q[:, :, 0, :].reshape(B, Hkv, Hq // Hkv, D)
-    logits = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_shard.float())
-    mask = valid[:, None, None]
+    Hkv, T = k_shard.shape[1], k_shard.shape[2]
+    qg = q[:, :, 0, :].reshape(B, Hkv, 1, Hq // Hkv, D).expand(B, Hkv, T, Hq // Hkv, D)
+    logits = torch.einsum("bhtgd,bhtkd->bhtgk", qg.float(), k_shard.float())
+    mask = valid[:, None, :, None]
     logits = logits.masked_fill(~mask, float("-inf"))
-    m = logits.amax(-1)  # (B, Hkv, G)
+    m = logits.amax(-1)  # (B, Hkv, T, G)
     p = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
     l = p.sum(-1)
-    o = torch.einsum("bhgk,bhkd->bhgd", p.to(k_shard.dtype).float(), v_shard.float())
+    o = torch.einsum("bhtgk,bhtkd->bhtgd", p.to(k_shard.dtype).float(), v_shard.float())
     safe_m = torch.where(torch.isfinite(m), m, -1e30)
-    return o.reshape(B, Hq, D), safe_m.reshape(B, Hq), l.reshape(B, Hq)
+    o = o.permute(0, 2, 1, 3, 4).reshape(B, T, Hq, D)
+    safe_m = safe_m.permute(0, 2, 1, 3).reshape(B, T, Hq)
+    l = l.permute(0, 2, 1, 3).reshape(B, T, Hq)
+    if blocks:
+        return o, safe_m, l
+    return o[:, 0], safe_m[:, 0], l[:, 0]
 
 
 def combine_partial_attention(os: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
@@ -363,13 +505,5 @@ def combine_partial_attention(os: Sequence[torch.Tensor], ms: Sequence[torch.Ten
     the global running max: Σ o_i·exp(m_i − m) / max(Σ l_i·exp(m_i − m),
     1e-30), the sums added in shard order (the reference's ``pmax`` and
     ``psum`` over the model axis)."""
-    m_glob = ms[0]
-    for m in ms[1:]:
-        m_glob = torch.maximum(m_glob, m)
-    o_sum = l_sum = None
-    for o, m, l in zip(os, ms, ls):
-        scale = torch.exp(m - m_glob)
-        o_s, l_s = o * scale[..., None], l * scale
-        o_sum = o_s if o_sum is None else o_sum + o_s
-        l_sum = l_s if l_sum is None else l_sum + l_s
-    return o_sum / torch.clamp(l_sum, min=1e-30)[..., None]
+    return _combine_blocks(torch.stack(list(os), 1), torch.stack(list(ms), 1),
+                           torch.stack(list(ls), 1))

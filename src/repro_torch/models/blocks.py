@@ -47,13 +47,10 @@ def block_spec(btype: str, cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, Any]:
     raise ValueError(f"unknown block type {btype!r}")
 
 
-def init_block_cache(btype: str, cfg: ModelConfig, batch: int, capacity: int, device,
-                     shards: Optional[Sequence[torch.device]] = None):
-    """``shards``: a data row's model shards, over which an attention cache
-    that split-S decode reads is split."""
+def init_block_cache(btype: str, cfg: ModelConfig, batch: int, capacity: int, device):
     if btype in ATTENTION:
         window = cfg.window if btype == "attn" else cfg.local_window
-        return init_kv_cache(cfg, batch, capacity, window=window, device=device, shards=shards)
+        return init_kv_cache(cfg, batch, capacity, window=window, device=device)
     if btype == "ssd":
         return init_ssd_cache(cfg, batch, device)
     if btype == "rglru":

@@ -12,7 +12,8 @@ runs the model on its own slice of the batch on its own first device, with
 the model's :func:`replica` there (the model itself where it lies there),
 and the logits gather onto the mesh's first device in row order.  Within a
 row, ``use_ep`` runs each MoE layer expert-parallel over the row's model
-shards, and attention decodes split-S against a cache sharded over them.
+shards, and the caches lie over those shards as the reference places them
+(:func:`init_cache`): each block reads and writes its part where it lies.
 A model made over a mesh of ``tp > 1`` shards (``init_model(...,
 mesh=)``, ``params_from_numpy(..., mesh=)``) is tensor parallel: each row
 keeps slice ``s`` of every leaf whose placement names the model axis on its
@@ -34,6 +35,7 @@ logits.  The reference's other ``_constrain`` hints have no counterpart.
 """
 from __future__ import annotations
 
+import dataclasses
 from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -57,7 +59,7 @@ from .layers import (apply_norm, compute_dtype, embed_spec, embed_tokens, lm_log
 from .rglru import RGLRUCache
 from .ssd import SSDCache
 
-_CACHES = (SSDCache, KVCache, RGLRUCache)
+_CACHES = (SSDCache, KVCache, ShardedKVCache, RGLRUCache)
 
 # ------------------------------------------------------------------ params --
 
@@ -272,9 +274,13 @@ def init_placed(cfg: ModelConfig, ctx: ShardCtx, mesh, seed: int = 0, fsdp: bool
 
 
 def expert_parallel(model: LM, cfg: ModelConfig, use_ep: bool) -> bool:
-    """Whether an MoE runs expert-parallel: as asked, and always where the
-    train storage slices the experts over the model shards (each shard
-    computes with its own experts, as the reference's dry run steps)."""
+    """Whether an MoE layer runs expert-parallel over a data row's shards:
+    as asked, and always where the train storage slices the experts over
+    the model shards (each shard computes with its own experts).  Which
+    rows take the batch is :func:`data_rows`' to say, from the caller's
+    ``use_ep``: without it the batch stays whole on the first row and is
+    routed at one capacity, with one pair of aux losses, as the
+    reference's global ``moe_ffn``."""
     return use_ep or (cfg.moe is not None and isinstance(model, LM) and model.placed_tp)
 
 
@@ -288,67 +294,120 @@ class RowCaches:
     rows: List[Any]
 
 
-def _stack(caches):
+def _over_fields(fn, caches):
+    """A cache made field by field from ``caches`` (alike): ``fn`` over the
+    fields' tensors, slice by slice where a field is held in slices over
+    the shards (a tuple); any other field (a split dimension) as the first
+    cache's."""
     first = caches[0]
-    if isinstance(first, ShardedKVCache):
-        return ShardedKVCache(tuple(torch.stack(ts) for ts in zip(*(c.k for c in caches))),
-                              tuple(torch.stack(ts) for ts in zip(*(c.v for c in caches))),
-                              torch.stack([c.pos for c in caches]))
-    if isinstance(first, _CACHES):
-        return type(first)(*(torch.stack(ts) for ts in zip(*(c.tensors() for c in caches))))
-    raise TypeError(f"no stacking rule for {type(first).__name__}")
+    if not isinstance(first, _CACHES):
+        raise TypeError(f"no rule for {type(first).__name__}")
+
+    def field(vals):
+        if isinstance(vals[0], tuple):
+            return tuple(fn(list(ts)) for ts in zip(*vals))
+        return fn(vals) if isinstance(vals[0], torch.Tensor) else vals[0]
+
+    return dataclasses.replace(first, **{f.name: field([getattr(c, f.name) for c in caches])
+                                         for f in dataclasses.fields(first)})
+
+
+def _stack(caches):
+    return _over_fields(torch.stack, caches)
 
 
 def _index(cache, i: int):
-    if isinstance(cache, ShardedKVCache):
-        return ShardedKVCache(tuple(t[i] for t in cache.k), tuple(t[i] for t in cache.v),
-                              cache.pos[i])
-    if isinstance(cache, _CACHES):
-        return type(cache)(*(t[i] for t in cache.tensors()))
-    raise TypeError(f"no indexing rule for {type(cache).__name__}")
+    return _over_fields(lambda ts: ts[0][i], [cache])
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None, mesh=None,
                use_ep: bool = False):
     """Per-layer caches, stacked like the parameters, on ``device`` (the
     card unless asked).  Over a ``mesh``: one cache tree a data row where
-    :func:`data_rows` splits the batch (:class:`RowCaches`), each on its
-    row's first device, with the caches that split-S decode reads sharded
-    over the row's model shards."""
-    shards = None
+    :func:`data_rows` splits the batch (:class:`RowCaches`), each placed
+    over its row's model shards leaf by leaf as ``launch.specs.split_dims``
+    says (the reference's ``make_cache_specs`` but for its one exception):
+    a KV cache by kv heads, else by slots (split-S decode), the SSD state by
+    heads, the RG-LRU state and every conv tail by width, each where ``tp``
+    divides it; the rest (``pos``, a ring whose kv heads do not divide) on
+    the row's first device."""
     if mesh is not None:
         rows = data_rows(mesh, cfg, batch, use_ep)
         if rows > 1:
             return RowCaches([init_cache(cfg, batch // rows, capacity, mesh=mesh.row(r))
                               for r in range(rows)])
+        from ..launch.specs import split_dims
+
         shards = mesh.row_devices(0)
-        dev = shards[0]
-    else:
-        dev = resolve_device(device)
+        meta = init_cache(cfg, batch, capacity, device="meta")
+        dims = split_dims(cfg, len(shards), meta)
+        return {part: {key: _placed(node, dims[part][key], shards, part == "groups")
+                       for key, node in caches.items()} for part, caches in meta.items()}
+    dev = resolve_device(device)
     n_groups, n_extra = cfg.pattern_groups
     pattern = cfg.block_pattern
     cache: Dict[str, Any] = {}
     if n_groups > 0:
         cache["groups"] = {
             f"p{i}_{btype}": _stack(
-                [init_block_cache(btype, cfg, batch, capacity, dev, shards)] * n_groups)
+                [init_block_cache(btype, cfg, batch, capacity, dev)] * n_groups)
             for i, btype in enumerate(pattern)
         }
     if n_extra:
         cache["extra"] = {
             f"x{i}_{pattern[i % len(pattern)]}": init_block_cache(
-                pattern[i % len(pattern)], cfg, batch, capacity, dev, shards)
+                pattern[i % len(pattern)], cfg, batch, capacity, dev)
             for i in range(n_extra)
         }
     return cache
 
 
+def _placed(meta, dims, shards, stacked: bool):
+    """The zero cache of ``meta``'s shapes placed over a data row's model
+    ``shards``: a field that ``dims`` splits as a tuple of its slices, slice
+    ``s`` on ``shards[s]``; any other whole on the first.  A KV cache split
+    so is a :class:`ShardedKVCache` along that dimension."""
+    def make(t, dim):
+        if dim is None:
+            return torch.zeros(t.shape, dtype=t.dtype, device=shards[0])
+        shape = list(t.shape)
+        shape[dim + stacked] //= len(shards)
+        return tuple(torch.zeros(shape, dtype=t.dtype, device=d) for d in shards)
+
+    fields = {f.name: make(getattr(meta, f.name), getattr(dims, f.name))
+              for f in dataclasses.fields(meta)}
+    if isinstance(meta, KVCache) and dims.k is not None:
+        return ShardedKVCache(dim=dims.k, **fields)
+    return dataclasses.replace(meta, **fields)
+
+
 def cache_tensors(cache):
-    """Every tensor of a stacked cache tree."""
+    """Every tensor of a stacked cache tree, each shard's slice once."""
     if isinstance(cache, RowCaches):
         return [t for row in cache.rows for t in cache_tensors(row)]
     out = []
     tree_map(lambda c: out.extend(c.tensors()), cache)
+    return out
+
+
+def cache_shard_bytes(cache, tp: int) -> List[int]:
+    """The bytes each of a data row's ``tp`` model shards holds of its cache
+    tree, by its layout: a field held in slices, slice ``s`` on shard ``s``;
+    a whole tensor on shard 0 (the row's first device)."""
+    if isinstance(cache, RowCaches):
+        raise TypeError("cache_shard_bytes takes one data row's cache tree")
+    out = [0] * tp
+
+    def count(c):
+        for f in dataclasses.fields(c):
+            v = getattr(c, f.name)
+            if isinstance(v, torch.Tensor):
+                out[0] += v.numel() * v.element_size()
+            elif isinstance(v, tuple):
+                for s, t in enumerate(v):
+                    out[s] += t.numel() * t.element_size()
+
+    tree_map(count, cache)
     return out
 
 
@@ -414,7 +473,6 @@ def _forward(params: LM, cfg: ModelConfig, tokens, ctx: ShardCtx, mesh, cache, s
     vocabulary slices instead of the logits → ((the nll sum, the label
     count) on the mesh's first device, None, aux losses)."""
     shard_models = None
-    use_ep = expert_parallel(params, cfg, use_ep)
     if mesh is not None:
         if mesh.tp != ctx.tp:
             raise ValueError(f"a mesh of {mesh.tp} model shards under ShardCtx(tp={ctx.tp})")
@@ -423,6 +481,8 @@ def _forward(params: LM, cfg: ModelConfig, tokens, ctx: ShardCtx, mesh, cache, s
             return _forward_rows(params, cfg, tokens, ctx, mesh, rows, cache, start_pos, remat,
                                  vis_embeds, use_ep, labels)
         mesh = mesh.row(0)
+    use_ep = expert_parallel(params, cfg, use_ep)
+    if mesh is not None:
         tensor_parallel = params.tensor_parallel
         params = replica(params, mesh.row_devices(0) if tensor_parallel else mesh.first)
         tokens = tokens.to(mesh.first)

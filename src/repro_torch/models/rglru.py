@@ -22,6 +22,17 @@ reference keeps them), the scan and the gating run whole.  With x in
 sequence slices (``tp.SeqSlices``) ``in_proj`` takes the sequence gathered
 whole onto each shard and ``out_proj``'s parts are reduce-scattered back
 into slices.
+
+A cache over a data row's model shards lies as the reference's
+``make_cache_specs`` places it: the state and the conv tail by width.  The
+block then computes where it lies: each shard runs the depthwise conv on
+its channels against its tail (its channels of the input, weights and bias
+in one move, ``tp.send``), the conv's output joins on the first device for
+the two gates (whole matrices over the whole width), and each shard runs
+the recurrence on its width with its state and gates it (its width of log
+a, the scaled input and the gate in one move); with
+``out_proj`` in row slices (its rows are the width) each shard multiplies
+its own part, so no state is gathered.  Every op there acts per channel.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from . import tp as TP
 from .base import ParamSpec, ShardCtx, matrix_spec, replicated_spec
 from .layers import _gelu, column_product, row_product
 
@@ -56,12 +68,16 @@ def rglru_spec(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, ParamSpec]:
 
 @dataclass
 class RGLRUCache:
+    """Over a data row's model shards (``lm.init_cache(mesh=...)``) ``h`` and
+    ``conv`` are tuples of width slices, slice ``s`` on shard ``s``'s
+    device, each where ``tp`` divides the width."""
+
     h: torch.Tensor  # (B, W) recurrent state, float32
     conv: torch.Tensor  # (B, cw-1, W) conv tail, float32
     pos: torch.Tensor  # scalar int32
 
     def tensors(self):
-        return (self.h, self.conv, self.pos)
+        return (*TP.parts_of(self.h), *TP.parts_of(self.conv), self.pos)
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, device) -> RGLRUCache:
@@ -72,6 +88,12 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, device) -> RGLRUCache:
                          device=device),
         pos=torch.zeros((), dtype=torch.int32, device=device),
     )
+
+
+def _conv(padded: torch.Tensor, w: torch.Tensor, b: torch.Tensor, S: int) -> torch.Tensor:
+    """The causal depthwise conv over ``padded`` (B, W-1+S, C); the float32
+    weights promote the product to float32, as in the reference."""
+    return sum(padded[:, i:i + S, :] * w[i][None, None, :] for i in range(w.shape[0])) + b
 
 
 def _lru_scan(log_a: torch.Tensor, u: torch.Tensor, h0: Optional[torch.Tensor]
@@ -106,17 +128,23 @@ def rglru_block(
     proj = column_product(x, params["in_proj"])  # (B, S, 2W)
     u, gate = torch.chunk(proj, 2, dim=-1)
 
-    # causal depthwise conv1d on the recurrent branch; the float32 weights
-    # promote the product to float32, as in the reference
+    # causal depthwise conv1d on the recurrent branch
     W = r.conv_width
     if cache is None:
-        padded = F.pad(u, (0, 0, W - 1, 0))
-        new_conv = None
+        u, new_conv = _conv(F.pad(u, (0, 0, W - 1, 0)), params["conv_w"], params["conv_b"], S), None
+    elif isinstance(cache.conv, tuple):  # each shard its channels, against its tail
+        devs = [t.device for t in cache.conv]
+        outs, new_conv = [], []
+        for tail, (u_s, w, b) in zip(cache.conv, TP.send(list(zip(*(
+                t.chunk(len(devs), -1) for t in (u, params["conv_w"], params["conv_b"])))), devs)):
+            padded = torch.cat([tail.to(dt), u_s], dim=1)
+            new_conv.append(padded[:, -(W - 1):, :].float())
+            outs.append(_conv(padded, w, b, S))
+        u, new_conv = TP.join(outs, -1, x.device), tuple(new_conv)
     else:
         padded = torch.cat([cache.conv.to(dt), u], dim=1)
         new_conv = padded[:, -(W - 1):, :].float()
-    u = sum(padded[:, i:i + S, :] * params["conv_w"][i][None, None, :]
-            for i in range(W)) + params["conv_b"]
+        u = _conv(padded, params["conv_w"], params["conv_b"], S)
 
     uf = u.float()
     if uf.is_cuda and torch.backends.cuda.matmul.allow_tf32:
@@ -132,13 +160,33 @@ def rglru_block(
     if cache is None:
         h, _ = _lru_scan(log_a, scaled_in, None)
         new_cache = None
-    elif S == 1:
-        h_new = torch.exp(log_a[:, 0]) * cache.h + scaled_in[:, 0]
-        h = h_new[:, None, :]
-        new_cache = RGLRUCache(h=h_new, conv=new_conv, pos=cache.pos + S)
+    elif isinstance(cache.h, tuple):  # each shard its width, with its state
+        devs = [t.device for t in cache.h]
+        n = len(devs)
+        outs, h_new = [], []
+        for h_s, (la_s, in_s, g_s) in zip(cache.h, TP.send(list(zip(*(t.chunk(n, -1) for t in (
+                log_a, scaled_in, _gelu(gate.float()).to(dt))))), devs)):
+            h, h_s = _recur(la_s, in_s, h_s)
+            outs.append(h.to(dt) * g_s)
+            h_new.append(h_s)
+        new_cache = RGLRUCache(h=tuple(h_new), conv=new_conv, pos=cache.pos + S)
+        w = params["out_proj"]
+        if isinstance(w, tuple):  # its rows of out_proj are the shard's width
+            return TP.collect([o @ t.to(dt) for o, t in zip(outs, w)], x), new_cache
+        return TP.join(outs, -1, x.device) @ w.to(dt), new_cache
     else:
-        h, h_last = _lru_scan(log_a, scaled_in, cache.h)
+        h, h_last = _recur(log_a, scaled_in, cache.h)
         new_cache = RGLRUCache(h=h_last, conv=new_conv, pos=cache.pos + S)
 
     out = h.to(dt) * _gelu(gate.float()).to(dt)
     return row_product(out, params["out_proj"], like=x), new_cache
+
+
+def _recur(log_a: torch.Tensor, u: torch.Tensor, h0: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence from the cached state ``h0`` (B, W): one step where S
+    is 1, else the log-step scan → (h (B, S, W), h_last (B, W))."""
+    if u.shape[1] == 1:
+        h_new = torch.exp(log_a[:, 0]) * h0 + u[:, 0]
+        return h_new[:, None, :], h_new
+    return _lru_scan(log_a, u, h0)

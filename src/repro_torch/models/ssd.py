@@ -12,14 +12,25 @@ Block structure (Mamba-2): in_proj → (z gate, x, B, C, dt) → causal conv1d o
 Under tensor parallelism (``models/tp.py``) ``in_proj`` is held as the
 reference places it, a plain 1/tp of its columns a shard (the slices cut
 across the z / x / B / C / dt segments), and ``out_proj`` by rows: each
-shard projects its columns, which join on the row's first device; the conv,
-the scan and the gated RMSNorm (over the whole ``d_inner``, so it needs
-every head's y) run there whole, on the cache's layout; y's columns then go
-out to the shards for their rows of ``out_proj``, and the parts add in shard
-order.  With x in sequence slices (``tp.SeqSlices``, the reference's
-sequence parallelism) the slices are gathered whole onto each shard for
-``in_proj`` and the parts of ``out_proj`` reduce-scattered back into
-slices.
+shard projects its columns, which join on the row's first device; without a
+cache the conv, the scan and the gated RMSNorm run there whole.  With x in
+sequence slices (``tp.SeqSlices``, the reference's sequence parallelism) the
+slices are gathered whole onto each shard for ``in_proj`` and the parts of
+``out_proj`` reduce-scattered back into slices.
+
+A cache over a data row's model shards lies as the reference's
+``make_cache_specs`` places it: the state by heads, the conv tail by an
+even split of its channels (``di + 2·ns``, which does not line up with the
+heads).  The block then computes where the cache lies: each shard runs the
+depthwise conv on its channels against its tail (its channels of the
+conv's input, weights and bias go out in one move, ``tp.send``; the
+output joins on the first device), and the scan (prefill:
+``kops.ssd_scan`` at the shard's heads; decode: the one-step recurrence) on
+its heads with its state (its heads' x and log a, and the whole B and C,
+in one move); the heads' y join
+on the first device before the gated RMSNorm, whose mean runs over the
+whole ``d_inner`` in today's order.  Every op there acts per head or per
+channel.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
+from . import tp as TP
 from .base import ParamSpec, ShardCtx, matrix_spec, replicated_spec
 from .layers import column_product, row_product
 
@@ -61,12 +73,16 @@ def ssd_spec(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, ParamSpec]:
 
 @dataclass
 class SSDCache:
+    """Over a data row's model shards (``lm.init_cache(mesh=...)``) ``h`` is
+    a tuple of head slices and ``conv`` a tuple of channel slices, slice
+    ``s`` on shard ``s``'s device, each where ``tp`` divides it."""
+
     h: torch.Tensor  # (B, H, N, P) recurrent state, float32
     conv: torch.Tensor  # (B, W-1, conv_dim) conv tail, float32
     pos: torch.Tensor  # scalar int32
 
     def tensors(self):
-        return (self.h, self.conv, self.pos)
+        return (*TP.parts_of(self.h), *TP.parts_of(self.conv), self.pos)
 
 
 def init_ssd_cache(cfg: ModelConfig, batch: int, device) -> SSDCache:
@@ -91,6 +107,16 @@ def _conv_taps(full: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, S: int,
     return F.silu(out + bias).to(dt)
 
 
+def _ssd_step(h, xh_dt, log_a, bmat, cmat):
+    """The single-step recurrence h ← a·h + B xᵀ, y = C h: h (B, H, N, P)
+    float32, xh_dt (B, 1, H, P) float32, log_a (B, 1, H), B / C (B, 1, N)
+    → (y (B, 1, H, P) float32, the new h)."""
+    a_step = torch.exp(log_a[:, 0])  # (B, H)
+    outer = torch.einsum("bn,bhp->bhnp", bmat[:, 0].float(), xh_dt[:, 0])
+    h_new = a_step[..., None, None] * h + outer
+    return torch.einsum("bn,bhnp->bhp", cmat[:, 0].float(), h_new)[:, None], h_new
+
+
 def ssd_block(
     params,
     cfg: ModelConfig,
@@ -109,10 +135,21 @@ def ssd_block(
     if cache is None:
         full = F.pad(conv_in, (0, 0, W - 1, 0))
         new_conv = None
+        conv_out = _conv_taps(full, params["conv_w"], params["conv_b"], S, dt_)
+    elif isinstance(cache.conv, tuple):  # each shard its channels, against its tail
+        devs = [t.device for t in cache.conv]
+        n = len(devs)
+        outs, new_conv = [], []
+        for tail, (c_in, w, b) in zip(cache.conv, TP.send(list(zip(*(t.chunk(n, -1) for t in (
+                conv_in, params["conv_w"], params["conv_b"])))), devs)):
+            full = torch.cat([tail.to(dt_), c_in], dim=1)
+            new_conv.append(full[:, -(W - 1):, :].float())
+            outs.append(_conv_taps(full, w, b, S, dt_))
+        conv_out, new_conv = TP.join(outs, -1, x.device), tuple(new_conv)
     else:
         full = torch.cat([cache.conv.to(dt_), conv_in], dim=1)
         new_conv = full[:, -(W - 1):, :].float()
-    conv_out = _conv_taps(full, params["conv_w"], params["conv_b"], S, dt_)
+        conv_out = _conv_taps(full, params["conv_w"], params["conv_b"], S, dt_)
 
     xs, bmat, cmat = torch.split(conv_out, [di, ns, ns], dim=-1)
     dt_act = F.softplus(dt_raw.float() + params["dt_bias"])  # (B, S, H)
@@ -121,22 +158,30 @@ def ssd_block(
     xh = xs.reshape(B, S, nh, s.head_dim)
     xh_dt = xh.float() * dt_act[..., None]  # dt-scaled input
 
-    if cache is None or S > 1:
+    # the reference's chunk rule: a length that is not a multiple of the
+    # chunk runs as one-token chunks
+    chunk = min(s.chunk if S % min(s.chunk, S) == 0 else 1, S)
+    if cache is not None and isinstance(cache.h, tuple):  # each shard its heads
+        devs = [t.device for t in cache.h]
+        n = len(devs)
+        ys, h_new = [], []
+        for h_s, (x_s, la_s, b_s, c_s) in zip(cache.h, TP.send(
+                [(x_s, la_s, bmat, cmat) for x_s, la_s in zip(
+                    (xh_dt.to(dt_) if S > 1 else xh_dt).chunk(n, 2), log_a.chunk(n, 2))], devs)):
+            y_s, h_s = (kops.ssd_scan(x_s, la_s, b_s, c_s, chunk=chunk) if S > 1
+                        else _ssd_step(h_s, x_s, la_s, b_s, c_s))
+            ys.append(y_s)
+            h_new.append(h_s)
+        y = TP.join(ys, 2, x.device)
+        new_cache = SSDCache(h=tuple(h_new), conv=new_conv, pos=cache.pos + S)
+    elif cache is None or S > 1:
         # chunked SSD over the sequence; with a cache this is prefill, which
-        # starts from the empty state and records the final state.  The
-        # reference's chunk rule: a length that is not a multiple of the
-        # chunk runs as one-token chunks.
-        chunk = s.chunk if S % min(s.chunk, S) == 0 else 1
-        y, h_fin = kops.ssd_scan(xh_dt.to(dt_), log_a, bmat, cmat, chunk=min(chunk, S))
+        # starts from the empty state and records the final state
+        y, h_fin = kops.ssd_scan(xh_dt.to(dt_), log_a, bmat, cmat, chunk=chunk)
         new_cache = None if cache is None else SSDCache(h=h_fin, conv=new_conv,
                                                         pos=cache.pos + S)
     else:
-        # single-step recurrence
-        a_step = torch.exp(log_a[:, 0])  # (B, H)
-        outer = torch.einsum("bn,bhp->bhnp", bmat[:, 0].float(), xh_dt[:, 0])
-        h_new = a_step[..., None, None] * cache.h + outer
-        y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].float(), h_new)
-        y = y[:, None].reshape(B, 1, nh, s.head_dim)
+        y, h_new = _ssd_step(cache.h, xh_dt, log_a, bmat, cmat)
         new_cache = SSDCache(h=h_new, conv=new_conv, pos=cache.pos + S)
 
     y = y.float() + params["d_skip"][None, None, :, None] * xh.float()

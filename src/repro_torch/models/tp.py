@@ -47,7 +47,7 @@ in slices and its gradient in ``models/fsdp.py``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -176,6 +176,11 @@ def shard_bytes(tree, shards: int) -> list:
     return out
 
 
+def parts_of(t) -> Tuple[torch.Tensor, ...]:
+    """A cache field's tensors: its slices, or the tensor itself."""
+    return t if isinstance(t, tuple) else (t,)
+
+
 # ------------------------------------------------------------------ moves --
 #
 # Megatron's conjugate pairs, each a ``torch.autograd.Function`` whose
@@ -265,6 +270,51 @@ def scatter(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]):
     """Part ``s`` on ``devices[s]`` (no copy where it lies there); the
     backward brings each part's gradient back to it."""
     return _Scatter.apply(tuple(devices), *parts)
+
+
+def _packed(parts: Sequence[torch.Tensor], device) -> Tuple[torch.Tensor, ...]:
+    """``parts`` on ``device`` in one copy: packed into one byte buffer (the
+    widest elements first, so that each lies aligned) and read back there
+    as views of it."""
+    order = sorted(range(len(parts)), key=lambda i: -parts[i].element_size())
+    buf = torch.cat([parts[i].contiguous().reshape(-1).view(torch.uint8) for i in order])
+    buf = buf.to(device)
+    got, at = [None] * len(parts), 0
+    for i in order:
+        n = parts[i].numel() * parts[i].element_size()
+        got[i] = buf[at:at + n].view(parts[i].dtype).view(parts[i].shape)
+        at += n
+    return tuple(got)
+
+
+class _Send(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, k, *flat):
+        with record_function("tp_broadcast"):
+            out = []
+            for s, d in enumerate(devices):
+                parts = flat[s * k:(s + 1) * k]
+                out += ([p.view_as(p) for p in parts] if parts[0].device == torch.device(d)
+                        else _packed(parts, d))
+            return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("tp.send carries no gradient")
+
+
+def send(parts: Sequence[Sequence[torch.Tensor]], devices: Sequence[torch.device]
+         ) -> List[Tuple[torch.Tensor, ...]]:
+    """Shard ``s``'s tensors ``parts[s]`` (alike in number from shard to
+    shard, on one device) to ``devices[s]`` in one move: a shard that lies
+    elsewhere gets them in one copy (:func:`_packed`), one that lies where
+    they are gets them as they are.  A cached pass's inputs only: no
+    gradient flows back."""
+    k = len(parts[0])
+    if torch.is_grad_enabled() and any(t.requires_grad for p in parts for t in p):
+        raise ValueError("tp.send carries no gradient")
+    flat = _Send.apply(tuple(devices), k, *(t for p in parts for t in p))
+    return [tuple(flat[s * k:(s + 1) * k]) for s in range(len(parts))]
 
 
 def broadcast(x: torch.Tensor, devices: Sequence[torch.device]):

@@ -24,7 +24,10 @@ equal the replicated step's gradient bit for bit; AdamW then updates each
 slice where it lies.  Over ``tp > 1`` model shards the placed state is
 tensor parallel (TP, or TP × FSDP): each shard computes with its slices on
 its own device, its gradient lands in its slices' accumulators, and an MoE
-runs expert-parallel over the shards; a whole model over such a mesh still
+runs expert-parallel over the shards (without ``use_ep`` on the whole batch,
+on the first row's cards, at one capacity as the reference's global
+``moe_ffn``; the other rows' slices are gathered there and take their
+gradient back); a whole model over such a mesh still
 computes on whole replicas, one a shard device.  A tensor-parallel step
 runs the reference's sequence parallelism between blocks where its
 condition holds (``lm.seq_parallel``) and takes its loss on the head's
@@ -41,7 +44,7 @@ from ..configs.base import ModelConfig, RunConfig
 from ..models.base import (SINGLE, ShardCtx, tree_flatten, tree_map,
                            tree_specs_to_shapes, tree_unflatten)
 from ..models.fsdp import Sliced
-from ..models.lm import (LM, data_rows, expert_parallel, forward_loss, init_model, init_placed,
+from ..models.lm import (LM, data_rows, forward_loss, init_model, init_placed,
                          model_spec, placer, replica, sync_replicas)
 from .optimizer import (
     AdamWConfig,
@@ -84,7 +87,6 @@ def value_and_grad(model: LM, cfg: ModelConfig, batch, ctx: ShardCtx, remat: boo
     are added on the mesh's first device in row order and divided by the
     number of rows.  A placed model's gradients are fresh accumulators, a
     ``Sliced`` leaf for each of its leaves, into which the rows add."""
-    use_ep = expert_parallel(model, cfg, use_ep)
     rows = 1 if mesh is None else data_rows(mesh, cfg, batch["tokens"].shape[0], use_ep)
     b = batch["tokens"].shape[0] // rows
     grads = _zero_grads(model) if model.placed else None

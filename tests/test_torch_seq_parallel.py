@@ -288,7 +288,7 @@ def test_no_op_of_a_tp_step_makes_the_whole_vocabulary(tp):
 # ------------------------------------------------------------ collectives --
 
 MOVES = {TP._Broadcast: "tp-broadcast", TP._ReduceSum: "tp-sum", TP._Join: "tp-join",
-         TP._Scatter: "tp-scatter", TP._AllGatherSeq: "sp-gather",
+         TP._Scatter: "tp-scatter", TP._Send: "tp-scatter", TP._AllGatherSeq: "sp-gather",
          TP._ReduceScatterSeq: "sp-scatter"}
 
 
@@ -316,6 +316,9 @@ def _spy_moves(monkeypatch):
                 moved[kind] += sum(map(_nbytes, tensors)) * (len(devices) - 1)
             elif cls is TP._ReduceScatterSeq:
                 moved[kind] += _nbytes(tensors[0]) * (len(tensors) - 1)
+            elif cls is TP._Send:  # every tensor but shard 0's (k of them)
+                k = next(a for a in args if isinstance(a, int))
+                moved[kind] += sum(map(_nbytes, tensors[k:]))
             else:  # sum, join, scatter: every part but shard 0's
                 moved[kind] += sum(map(_nbytes, tensors[1:]))
             return fwd(ctx, *args)
@@ -370,19 +373,36 @@ def test_tp_collectives_equal_what_the_step_moves(arch, tp, sp, monkeypatch):
     assert (moved["sp-gather"] > 0) == sp
 
 
-@pytest.mark.parametrize("kind", ["prefill", "decode"])
-def test_tp_collectives_equal_what_serving_moves(kind, monkeypatch):
-    """qwen3_8b served over ``make_mesh(1, 4)``: a cache-free forward of
-    32 tokens (SP; the logits joined) and a decode step into a cache of 32
-    (the cached path's q, k, v joined and its output cut)."""
-    cfg = get_smoke_config("qwen3_8b")
+SERVED = {"qwen3_8b": {}, "qwen3_8b kv4": {"n_kv_heads": 4}, "h2o_danube_3_4b kv4":
+          {"n_kv_heads": 4}, "mamba2_2p7b": {}, "recurrentgemma_9b": {}}
+
+
+@pytest.mark.parametrize("kind", ["prefill", "cached prefill", "decode"])
+@pytest.mark.parametrize("arch", list(SERVED))
+def test_tp_collectives_equal_what_serving_moves(arch, kind, monkeypatch):
+    """A model served over ``make_mesh(1, 4)``: a cache-free forward of 32
+    tokens (SP; the logits joined), a prefill of 12 tokens into a cache of
+    32 slots and a decode step into it, each cache placed as
+    ``lm.init_cache(mesh=...)`` places it: the bytes each kind of move
+    carries equal ``probe.tp_moves``' (through ``collective_costs`` where
+    a dry-run cell has the pass).  The configs take every placement: KV by
+    slots (``qwen3_8b``'s one kv head), by kv heads (four kv heads: the
+    contiguous cache and ``h2o_danube_3_4b``'s ring), the SSD state by heads,
+    RG-LRU's by width beside a ring kept whole."""
+    cfg = dataclasses.replace(get_smoke_config(arch.split()[0]), **SERVED[arch])
     mesh = make_mesh(1, 4, devices=CARDS)
     model = init_model(cfg, ShardCtx(tp=4), seed=0, mesh=mesh)
-    run = RunConfig(model=cfg, shape=ShapeConfig("tiny", kind, 32, 2), tp=4)
-    cache = init_cache(cfg, 2, 32, mesh=mesh) if kind == "decode" else None
-    tokens = torch.zeros(2, 1 if kind == "decode" else 32, dtype=torch.int32)
+    S = {"prefill": 32, "cached prefill": 12, "decode": 1}[kind]
+    cache = None if kind == "prefill" else init_cache(cfg, 2, 32, mesh=mesh)
+    tokens = torch.zeros(2, S, dtype=torch.int32)
     moved = _spy_moves(monkeypatch)
     with torch.no_grad():
         lm.forward(model, cfg, tokens, ShardCtx(tp=4), mesh=mesh, cache=cache,
-                   start_pos=None if cache is None else torch.tensor(5))
-    assert moved == _want(cfg, run, 4, kind)
+                   start_pos=None if kind != "decode" else torch.tensor(5))
+    if kind == "cached prefill":
+        want = {k: 0 for k in MOVES.values()}
+        want.update(probe.tp_moves(cfg, "prefill", 2, S, 4, capacity=32)[0])
+    else:
+        run = RunConfig(model=cfg, shape=ShapeConfig("tiny", kind, 32, 2), tp=4)
+        want = _want(cfg, run, 4, kind)
+    assert moved == want

@@ -46,8 +46,9 @@ def test_tp_step_loss_and_every_gradient_vs_reference(arch, tp, remat):
 @pytest.mark.parametrize("arch,devices", [(a, d) for a in HERE for d in ("emulated", "distinct")])
 def test_tp_fsdp_step_equals_the_tp_step_bit_for_bit(arch, devices, monkeypatch):
     """Two steps over ``make_mesh(2, 2)`` (TP × FSDP) equal two steps over
-    ``make_mesh(1, 2)`` with microbatches of half the batch, bit for bit
-    (``test_torch_tp_train.fsdp_vs_tp``)."""
+    ``make_mesh(1, 2)`` with microbatches of half the batch (an MoE: on the
+    whole batch, which its ``(2, 2)`` step routes at one capacity), bit for
+    bit (``test_torch_tp_train.fsdp_vs_tp``)."""
     fsdp_vs_tp(arch, devices, monkeypatch)
 
 
@@ -78,9 +79,10 @@ def test_tp_fsdp_run_resumed_at_step_2_equals_three_steps(tmp_path, arch):
 def test_ssd_and_rglru_served_under_tp4_vs_reference(arch):
     """Prefill of 12 tokens and 4 greedy decode steps through
     ``make_serve_fns`` over ``make_mesh(1, 4)`` (the SSD / RG-LRU
-    projections in slices, the conv, scan and caches whole on the first
-    device) against the reference's serve fns with no mesh: the same tokens,
-    every step's logits within 1e-5 of the largest |logit|."""
+    projections in slices, the caches over the shards: the SSD state by
+    heads, RG-LRU's by width, the conv tails by channels) against the
+    reference's serve fns with no mesh: the same tokens, every step's logits
+    within 1e-5 of the largest |logit|."""
     cfg, tcfg = _cfgs(arch)
     jparams = _reference(cfg, 4)
     mesh = make_mesh(1, 4, devices=CARDS)

@@ -10,9 +10,11 @@ Builds the attention kernels, then:
   then the same run again, bit for bit; beside it, on the same cards,
   FSDP over four data rows, ``--dp 4 --fsdp`` (3 steps of 4 x 4,096 tokens);
 - ``qwen3_moe_30b_a3b`` at the deepest depth whose reckoned bytes a card
-  stay within 76 GB (``chip_smoke.tp_train_depth``), the same 2 x 2 mesh,
-  through ``train_loop`` with the launcher's optimizer, seed and log rate
-  (the launcher takes no depth cut), twice, bit for bit;
+  stay within 76 GB (``chip_smoke.tp_train_depth``: the first row's cards
+  hold the whole batch's activations, which the MoE routes there at one
+  capacity, as the reference's ``moe_ffn``), the same 2 x 2 mesh, through
+  ``train_loop`` with the launcher's optimizer, seed and log rate (the
+  launcher takes no depth cut), twice, bit for bit;
 - each model's layer 0 over the cards (1 x 1,024 tokens) against float64
   with the whole weights (the MoE's experts on the cards' routing).
 

@@ -2,10 +2,14 @@
 shards emulated on it (``chip_smoke.tp_train_phase``: qwen3_moe_30b_a3b's TP
 step against the no-mesh step, TP × FSDP against TP bit for bit, the SSD and
 RG-LRU blocks served and trained with their projections in slices, a resume
-bit for bit), then the attention kernels at TP training's four shard shapes
-(``chip_smoke.TPT_ATTN``) against the plain attention and timed beside
-their bounds and SDPA.  Starts as the script does (``chip_smoke.card_setup``:
-TF32 off, the attention and SSD kernels built, the card's line).
+bit for bit; the SSD and RG-LRU caches placed over the shards), then the
+attention kernels at TP training's four shard shapes (``chip_smoke.TPT_ATTN``)
+against the plain attention and timed beside their bounds and SDPA, and the
+SSD kernels at one shard's heads of the served prefill
+(``chip_smoke.TPT_SSD_SHARD``, ``ssd_shard_rows``) against the plain SSD and
+timed beside their bounds.  Starts as the script does
+(``chip_smoke.card_setup``: TF32 off, the attention and SSD kernels built,
+the card's line).
 
     python3 tools/tp_train_phases.py
 """
@@ -44,6 +48,14 @@ def main() -> int:
           f"{json.dumps(errs)}", flush=True)
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
     smoke.reg_attention_timings(torch, rng, dev, flush, smoke.TPT_ATTN, "4m")
+    K = {name: mod for name, mod in ops.KERNELS.items() if name not in smoke.TRAINING}
+    ssd_errs = {name: 0.0 for name in smoke.SERVING}
+    for name, t in smoke.ssd_shard_rows(torch, K, rng, dev, flush, ssd_errs).items():
+        print(f"[time] {name} shape {t['shape']}: kernel {t['ms']} ms, plain {t['plain_ms']} "
+              f"ms, library {t['library_ms']} ms, bound {t['bound'][0]} ms ({t['bound'][1]})",
+              flush=True)
+    print(f"[shapes] the SSD kernels vs plain at {smoke.TPT_SSD_SHARD}, max |err|: "
+          f"{json.dumps(ssd_errs)}", flush=True)
     return 0
 
 
